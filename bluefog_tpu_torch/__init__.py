@@ -7,7 +7,11 @@ never ``jax`` or anything of ``bluefog_tpu``.
 
 Ported so far: dense serving on one card (``serve``), with decode
 attention through the hand-written paged flash-decode kernel
-(``ops.flash_decode``, CUDA C++ under ``csrc/``).
+(``ops.flash_decode``); and decentralized LM training by gossip over
+data-parallel ranks stacked on one card (``parallel.compose``,
+``optimizers``, ``topology``, ``schedule``), with attention through the
+hand-written flash forward and backward kernels
+(``ops.flash_attention``).  The kernels are CUDA C++ under ``csrc/``.
 """
 from .device import resolve_device
 

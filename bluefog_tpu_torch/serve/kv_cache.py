@@ -30,6 +30,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..device import resolve_device
 from ..ops.collectives import _amax_scale
 
 __all__ = ["KVCacheConfig", "init_cache", "append_rows", "attend_rows",
@@ -122,9 +123,11 @@ class KVCacheConfig:
 
 
 def init_cache(cfg: KVCacheConfig,
-               device: Union[str, torch.device] = "cpu") -> Cache:
+               device: Optional[Union[str, torch.device]] = None) -> Cache:
     """Zeroed cache: ``k``/``v`` payload pages, plus ``k_scale`` /
-    ``v_scale`` when quantized."""
+    ``v_scale`` when quantized.  On CUDA unless ``device`` says otherwise
+    (:func:`~bluefog_tpu_torch.device.resolve_device`)."""
+    device = resolve_device(device)
     shape = (cfg.layers, cfg.rows, cfg.kv_heads, cfg.max_len, cfg.head_dim)
     dt = store_dtype(cfg.store, cfg.dtype)
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),

@@ -2,13 +2,15 @@
 """Smoke of the PyTorch/CUDA port (``bluefog_tpu_torch``) on one card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (add
-``--profile`` for a ``torch.profiler`` breakdown of one decode call).
+``--profile`` for a ``torch.profiler`` breakdown of one decode call and
+of one training step).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. environment: the card's name and power limit, torch and CUDA
-   versions, and the flash-decode kernel's build from ``csrc/`` by nvcc;
-2. the kernel against its plain PyTorch version on the card at
+   versions, and the builds of ``csrc/flash_decode.cu`` and
+   ``csrc/flash_attention.cu`` by nvcc (one process each, in parallel);
+2. flash decode (K3) against its plain PyTorch version on the card at
    full-width shapes (S in {1, 8}, 16 q heads over 16 or 4 kv heads,
    head_dim 64, max_len 1024, block_k 128, T in {1, 4}; f32, bf16, int8
    and e4m3 pages, with and without a prefix row, plus padded lanes on
@@ -24,7 +26,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    over the drain must equal layers x decode steps, and the first four
    requests replayed with decode attention forced to the plain version
    must give the same tokens (or diverge only at a near tie of the
-   reference logits, top-2 gap < 1e-3).
+   reference logits, top-2 gap < 1e-3);
+4. flash attention K1 (``flash_fwd``) and K2 (``flash_bwd_dkdv`` +
+   ``flash_bwd_dq``) against their plain versions: B in {1, 4}, T 2048,
+   16 q heads over 16 or 4 kv heads, head_dim 64 and 128, causal and not,
+   f32 and bf16 inputs, plus global offsets (one case with every row
+   masked) and a 512-token window.  Both sides accumulate in f32 from the
+   same values and only the order differs: the normalized output o/l
+   atol 1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the plain
+   version has it, dq/dk/dv atol 1e-4 x max|plain| per tensor (dk/dv sum
+   over up to 2048 G rows);
+5. ring attention over 4 stacked ranks (B 1, 4096 tokens per rank, 16 q
+   heads over 16 or 4 kv heads, causal, and a 2048-token window), forward
+   and backward through the kernels against the same ring over the plain
+   block functions (and the forward against the plain online-softmax
+   ring), at the tolerances of phase 4;
+6. the decentralized trainer at full width (tools/lm_bench.py's
+   non-smoke shape: vocab 32768, d_model 1024, 16 heads, seq 2048, batch
+   4, micro 4, 2 layers, dp 4 ranks stacked on the card, Exp2 gossip,
+   delayed AWC, Adam 5e-3, random weights from seed 0): 1 warm-up and 4
+   timed steps.  K1 and K2 must each launch dp x micro x layers x steps
+   times, the mean loss must fall, and the gossip combine must equal
+   ``W (x) I`` on one leaf.  A replay of 2 steps from the same init and
+   batch with attention forced to the plain version must agree: step-1
+   losses rtol 1e-5, step-1 gradients atol 1e-4 x max|g|, step-2 losses
+   rtol 1e-3 (Adam's first updates are +-lr wherever |g| >> eps, so
+   rounding noise in g can flip a sign only where g ~ 0).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +71,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 
 H, DH, L, BK = 16, 64, 1024, 128
 DEV = "cuda"
@@ -314,10 +342,383 @@ def profile_phase(engine):
         "device": torch.cuda.get_device_name(0)}))
 
 
+# -- phases 4-6: flash attention, ring attention, the trainer ------------
+
+def _visible_pairs(Tq, Tk, q_offset, k_offset, causal, window):
+    """(query, key) pairs the masks keep: the work K1/K2 must do."""
+    if not causal:
+        return Tq * Tk
+    d0 = q_offset + np.arange(Tq) - k_offset        # key j visible iff
+    hi = np.minimum(d0, Tk - 1)                      # 0 <= d0 - j < window
+    lo = np.maximum(d0 - window + 1, 0) if window else np.zeros_like(d0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attn_bound(B, Tq, Tk, H, Hkv, D, item, pairs, backward):
+    """Least time: inputs read once and outputs written once against the
+    operations (2 FLOP per multiply-add; K1 has 2 products per visible
+    pair, K2 5) at the f32 rate, or the bf16 tensor-core rate for bf16
+    inputs (the same exact products)."""
+    q_b, kv_b, rows = B * Tq * H * D, B * Tk * Hkv * D, B * Tq * H
+    if backward:       # q, k, v, do (f32), lse, delta -> dq, dk, dv (f32)
+        nbytes = (q_b + 2 * kv_b) * item + q_b * 4 + 2 * rows * 4 \
+            + (q_b + 2 * kv_b) * 4
+        flops = 10.0 * B * H * pairs * D
+    else:              # q, k, v -> o, l, m (f32)
+        nbytes = (q_b + 2 * kv_b) * item + q_b * 4 + 2 * rows * 4
+        flops = 4.0 * B * H * pairs * D
+    rate = BF16_FLOPS if item == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def _grad_err(got, want):
+    """max |got - want| and whether it is within 1e-4 x max|want|."""
+    err = float((got - want).abs().max())
+    return err, err <= 1e-4 * float(want.abs().max()) + 1e-6
+
+
+def _check_partial(got, want):
+    """Phase-4 forward tolerances; returns the max abs error of o/l."""
+    (o, l, m), (wo, wl, wm) = got, want
+    if not torch.equal(torch.isneginf(m), torch.isneginf(wm)):
+        raise AssertionError("flash_fwd: m is -inf on other rows than the "
+                             "plain version's")
+    fin = ~torch.isneginf(wm)
+    zero = torch.zeros_like(m)
+    m_err = float((torch.where(fin, m, zero) - torch.where(fin, wm, zero))
+                  .abs().max())
+    l_ok = bool(((l - wl).abs() <= 1e-4 * wl.abs()).all())
+    den = torch.where(wl == 0, torch.ones_like(wl), wl)[..., None]
+    o_err = float((o / den - wo / den).abs().max())
+    if not (o_err <= 1e-4 and l_ok and m_err <= 1e-5
+            and bool(torch.isfinite(o).all())):
+        raise AssertionError(f"flash_fwd disagrees with its plain version: "
+                             f"o/l err {o_err} (atol 1e-4), l within rtol "
+                             f"1e-4: {l_ok}, m err {m_err} (atol 1e-5)")
+    return o_err
+
+
+def attention_phase(fa):
+    """Phase 4: K1 and K2 against their plain versions; returns the rows
+    of the trainer's shape (B 4, T 2048, 16 heads, head_dim 64, causal,
+    f32)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(2)
+    T = 2048
+    cases = [(B, Hkv, D, causal, dt, 0, 0, 0)
+             for B in (1, 4) for Hkv in (16, 4) for D in (64, 128)
+             for causal in (True, False)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(4, 16, 64, True, torch.float32, 2048, 0, 0),
+              (4, 16, 64, True, torch.float32, 2048, 4096, 0),
+              (4, 16, 64, True, torch.float32, 0, 0, 512)]
+    main = None
+    for B, Hkv, D, causal, dt, qoff, koff, window in cases:
+        def t(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(DEV)
+        q, k, v = (t(B, T, H, D).to(dt), t(B, T, Hkv, D).to(dt),
+                   t(B, T, Hkv, D).to(dt))
+        do = t(B, T, H, D)
+        kw = dict(causal=causal, scale=D ** -0.5, window=window)
+        want = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
+        fwd_err = _check_partial(
+            fa.attention_block_partial(q, k, v, qoff, koff, **kw), want)
+        wo, wl, wm = want
+        den = torch.where(wl == 0, torch.ones_like(wl), wl)
+        out = wo / den[..., None]
+        lse = torch.where(wl == 0, torch.full_like(wl, float("-inf")),
+                          wm + torch.log(den))
+        delta = (do * out).sum(-1)
+        del want, wo, out
+        got = fa.attention_block_backward(q, k, v, do, lse, delta, qoff,
+                                          koff, **kw)
+        wgrads = fa.attention_block_backward_plain(q, k, v, do, lse, delta,
+                                                   qoff, koff, **kw)
+        bwd_err = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, wgrads):
+            err, ok = _grad_err(a, b)
+            bwd_err = max(bwd_err, err)
+            if not ok:
+                raise AssertionError(
+                    f"flash_bwd {name} disagrees with its plain version: "
+                    f"max abs err {err} > 1e-4 x max|plain| "
+                    f"{float(b.abs().max())}")
+        del got, wgrads
+        torch.cuda.synchronize()
+        fwd_ms = _cuda_ms(lambda: fa.attention_block_partial(
+            q, k, v, qoff, koff, **kw), iters=10, warmup=2)
+        fwd_plain = _cuda_ms(lambda: fa.attention_block_partial_plain(
+            q, k, v, qoff, koff, **kw), iters=3, warmup=1)
+        bwd_ms = _cuda_ms(lambda: fa.attention_block_backward(
+            q, k, v, do, lse, delta, qoff, koff, **kw), iters=5, warmup=1)
+        bwd_plain = _cuda_ms(lambda: fa.attention_block_backward_plain(
+            q, k, v, do, lse, delta, qoff, koff, **kw), iters=3, warmup=1)
+        # the library yardstick: SDPA on [B, H, T, D] with the same mask
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa = dict(scale=D ** -0.5, enable_gqa=Hkv != H)
+        if causal and (qoff, koff, window) == (0, 0, 0):
+            sdpa["is_causal"] = True
+        elif causal:
+            sdpa["attn_mask"] = fa._keep(T, T, qoff, koff, window, DEV)
+        doh = do.to(dt).transpose(1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
+
+        def lib_fwd_bwd():
+            F.scaled_dot_product_attention(qh, kh, vh, **sdpa).backward(doh)
+
+        lib_fwd_ms = _cuda_ms(lib_fwd, iters=5, warmup=1)
+        lib_bwd_ms = _cuda_ms(lib_fwd_bwd, iters=5, warmup=1)
+        del qh, kh, vh
+        pairs = _visible_pairs(T, T, qoff, koff, causal, window)
+        item = q.element_size()
+        fb, fby = _attn_bound(B, T, T, H, Hkv, D, item, pairs, False)
+        bb, bby = _attn_bound(B, T, T, H, Hkv, D, item, pairs, True)
+        row = dict(B=B, T=T, Hkv=Hkv, D=D, causal=causal,
+                   dtype=str(dt)[6:], q_offset=qoff, k_offset=koff,
+                   window=window, fwd=dict(
+                       max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
+                       bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms),
+                   bwd=dict(max_abs_err=bwd_err, ms=bwd_ms,
+                            plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+                            library_ms=lib_bwd_ms))
+        print("kernel_case " + json.dumps(row), flush=True)
+        if (B, Hkv, D, causal, dt, qoff, koff, window) == \
+                (4, 16, 64, True, torch.float32, 0, 0, 0):
+            main = row
+    return main
+
+
+def ring_phase(fa, ring):
+    """Phase 5: the stacked ring through the kernels against the ring
+    over the plain block functions."""
+    rng = np.random.default_rng(3)
+    n, B, Tl, D = 4, 1, 4096, 64
+    for Hkv, window in ((16, None), (4, None), (16, 2048)):
+        def t(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(DEV)
+        q, k, v = t(n, B, Tl, H, D), t(n, B, Tl, Hkv, D), t(n, B, Tl, Hkv, D)
+        g = t(n, B, Tl, H, D)
+
+        def run():
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = ring.ring_attention(*xs, causal=True, window=window)
+            return (out.detach(),) + torch.autograd.grad(out, xs, g)
+
+        before = (fa.fwd_launches, fa.bwd_launches)
+        t0 = time.monotonic()
+        got = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0)
+        launches = (fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+        with mock.patch.object(fa, "attention_block_partial",
+                               fa.attention_block_partial_plain), \
+                mock.patch.object(fa, "attention_block_backward",
+                                  fa.attention_block_backward_plain):
+            want = run()
+        if (fa.fwd_launches, fa.bwd_launches) != \
+                (before[0] + launches[0], before[1] + launches[1]):
+            raise AssertionError("the plain ring launched a kernel")
+        with torch.no_grad():
+            dense = ring._plain_ring_attention(q, k, v, True, D ** -0.5,
+                                               window or 0)
+        out_err = float((got[0] - want[0]).abs().max())
+        dense_err = float((got[0] - dense).abs().max())
+        errs = [_grad_err(a, b) for a, b in zip(got[1:], want[1:])]
+        if out_err > 1e-4 or dense_err > 1e-4 or not all(
+                ok for _, ok in errs) or launches[0] == 0:
+            raise AssertionError(
+                f"ring attention (Hkv={Hkv}, window={window}) disagrees: "
+                f"out err {out_err} / {dense_err}, grad errs {errs}, "
+                f"launches {launches}")
+        print("ring_case " + json.dumps({
+            "n": n, "B": B, "block_len": Tl, "Hkv": Hkv, "window": window,
+            "out_err": out_err, "out_err_vs_online_softmax": dense_err,
+            "grad_errs": [e for e, _ in errs], "fwd_launches": launches[0],
+            "bwd_launches": launches[1], "fwd_bwd_wall_ms": ms}),
+            flush=True)
+
+
+def _spread(params):
+    """Largest |x_r - mean_r x| over the leaves: how far the ranks sit
+    from their consensus."""
+    from bluefog_tpu_torch.fusion import tree_flatten
+    return max(float((x - x.mean(0, keepdim=True)).abs().max())
+               for x in tree_flatten(params)[0])
+
+
+def train_phase(fa, smi):
+    """Phase 6: the full-width trainer, its launch counts, the combine
+    check and the plain-attention replay."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.ops import collectives as coll
+    from bluefog_tpu_torch.parallel import compose
+    cfg = compose.LMConfig(vocab=32768, d_model=1024, heads=16, layers=2,
+                           seq_len=2048, micro=4, batch=4)
+    m = compose.compose_parallelism(4, device=DEV)
+    grad_fn = compose.make_lm_grad_fn(cfg, m, use_pallas=True)
+    recorded = []
+
+    def recording(params, toks):
+        loss, grads = grad_fn(params, toks)
+        if record[0]:
+            recorded.append(grads)
+        return loss, grads
+
+    record = [True]
+    step, strategy = compose.make_train_step(m, recording, bfopt.adam(5e-3),
+                                             delayed=True)
+    init = compose.init_lm_train_params(cfg, m, seed=0)
+    toks = compose.make_lm_batch(cfg, m, seed=0)
+    params = {g: {k: v.clone() for k, v in d.items()}
+              for g, d in init.items()}
+    state = bfopt.init_distributed(strategy, params)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts at 0, 1 warm-up + 4 timed steps, counts read
+    fa.fwd_launches = fa.bwd_launches = 0
+    losses = []
+    params, state, loss = step(params, state, toks)
+    losses.append(loss.tolist())
+    record[0] = False
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(4):
+        params, state, loss = step(params, state, toks)
+        losses.append(loss.tolist())
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / 4
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    want = m.dp * cfg.micro * cfg.layers * 5
+    if launches != (want, want):
+        raise AssertionError(f"trainer launched flash_fwd/flash_bwd "
+                             f"{launches} times, want dp x micro x layers x "
+                             f"steps = {want} each")
+    mean = [float(np.mean(x)) for x in losses]
+    if not (np.isfinite(mean).all() and mean[-1] < mean[0]):
+        raise AssertionError(f"trainer loss did not fall: {mean}")
+    leaf = params["blocks"]["wo"]
+    mixed = coll.neighbor_allreduce(leaf, m.schedule)
+    W = torch.as_tensor(m.effective_mixing(), dtype=torch.float64,
+                        device=DEV)
+    ref = torch.einsum("sd,s...->d...", W, leaf.double()).float()
+    mix_err = float((mixed - ref).abs().max())
+    if mix_err > 1e-5 * float(leaf.abs().max()):
+        raise AssertionError(f"gossip combine != (W (x) I) x: err {mix_err}")
+    spread = _spread(params)
+    del params, state, mixed, ref
+
+    # -- replay: 2 steps from the same init and batch, plain attention
+    kernel_grads = recorded[:]
+    recorded.clear()
+    record[0] = True
+    params = init
+    state = bfopt.init_distributed(strategy, params)
+    replay = []
+    with mock.patch.object(fa, "attention_block_partial",
+                           fa.attention_block_partial_plain), \
+            mock.patch.object(fa, "attention_block_backward",
+                              fa.attention_block_backward_plain):
+        for _ in range(2):
+            params, state, loss = step(params, state, toks)
+            replay.append(loss.tolist())
+            record[0] = False
+    if (fa.fwd_launches, fa.bwd_launches) != launches:
+        raise AssertionError("the plain replay launched a kernel")
+    l1, r1 = np.array(losses[0]), np.array(replay[0])
+    l2, r2 = np.array(losses[1]), np.array(replay[1])
+    if not (np.allclose(r1, l1, rtol=1e-5, atol=0)
+            and np.allclose(r2, l2, rtol=1e-3, atol=0)):
+        raise AssertionError(f"plain replay losses {replay} != kernel "
+                             f"losses {losses[:2]}")
+    from bluefog_tpu_torch.fusion import tree_flatten
+    grad_err = 0.0
+    for gk, gp in zip(kernel_grads, recorded):
+        for a, b in zip(tree_flatten(gk)[0], tree_flatten(gp)[0]):
+            err, ok = _grad_err(a, b)
+            grad_err = max(grad_err, err / float(b.abs().max()))
+            if not ok:
+                raise AssertionError(f"step-1 gradient of the plain replay "
+                                     f"differs: {err} > 1e-4 max|g|")
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    summary = {
+        "dp": m.dp, "n_params_per_rank": cfg.n_params,
+        "per_step_s": per_step, "tokens_per_s": tokens / per_step,
+        "model_flops_per_s": tokens / per_step * cfg.flops_per_token(),
+        "losses_mean": mean, "loss_rank_spread": [max(x) - min(x)
+                                                   for x in losses],
+        "param_rank_spread": spread, "combine_err": mix_err,
+        "replay_losses": replay, "step1_grad_rel_err": grad_err,
+        "flash_fwd_launches": launches[0],
+        "flash_bwd_launches": launches[1],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("train " + json.dumps(summary), flush=True)
+    return launches, step, strategy, init, toks
+
+
+def profile_train(step, strategy, init, toks):
+    """One full-width train step under torch.profiler: device time by
+    kernel and the device's busy share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bluefog_tpu_torch import optimizers as bfopt
+    params = init
+    state = bfopt.init_distributed(strategy, params)
+    params, state, _ = step(params, state, toks)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, toks)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.monotonic() - t0)
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    total_us = sum(r[0] for r in rows)
+    for dt, key, count in sorted(rows, reverse=True)[:15]:
+        print("profile_train " + json.dumps({
+            "kernel": key[:90], "calls": count, "device_us": dt,
+            "share": dt / total_us}))
+    print("profile_train " + json.dumps({
+        "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
+        "busy_share": total_us / 1e3 / wall_ms,
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def _build_all(builders):
+    """Build every kernel library at once: one nvcc process each, all
+    started together; returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        for f in [pool.submit(b) for b in builders]:
+            f.result()
+    return time.monotonic() - t0
+
+
+def _kernel_row(name, source, replaces, launches, case):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-batch decode call")
+                    help="also profile one full-batch decode call and one "
+                         "training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -325,7 +726,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from bluefog_tpu_torch.ops import _build
+        from bluefog_tpu_torch.ops import flash_attention as fa
         from bluefog_tpu_torch.ops import flash_decode as fd
+        from bluefog_tpu_torch.ops import ring
         from bluefog_tpu_torch.parallel.compose import LMConfig, \
             init_lm_params
         from bluefog_tpu_torch.serve import kv_cache as kv
@@ -341,22 +744,26 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.monotonic()
-    fd.build()
-    build_s = time.monotonic() - t0
-    for line in _build.build_log("flash_decode").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("ptxas " + line.strip())
+    t_start = time.monotonic()
+    build_s = _build_all([fd.build, fa.build])
+    for lib in ("flash_decode", "flash_attention"):
+        for line in _build.build_log(lib).splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"ptxas {lib} " + line.strip())
     print("env " + json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "kernel_build_s": build_s}),
         flush=True)
+    phase_s = {"build": build_s}
 
-    # -- phase 2: the kernel against its plain version ------------------
+    # -- phase 2: flash decode against its plain version ----------------
+    t0 = time.monotonic()
     main_case = kernel_phase(fd, kv)
+    phase_s["flash_decode_cases"] = time.monotonic() - t0
 
     # -- phase 3: the serving path at full width ------------------------
+    t0 = time.monotonic()
     cfg = LMConfig(vocab=32768, d_model=1024, heads=16, layers=8,
                    ffn_mult=4)
     model = init_lm_params(cfg, seed=0, device=DEV)
@@ -365,19 +772,45 @@ def main(argv=None) -> int:
                                    32)
     if args.profile:
         profile_phase(engine)
+    del engine, model
+    torch.cuda.empty_cache()
+    phase_s["serve"] = time.monotonic() - t0
+
+    # -- phase 4: flash attention K1/K2 against their plain versions ----
+    t0 = time.monotonic()
+    attn = attention_phase(fa)
+    phase_s["flash_attention_cases"] = time.monotonic() - t0
+
+    # -- phase 5: ring attention over stacked ranks ---------------------
+    t0 = time.monotonic()
+    ring_phase(fa, ring)
+    phase_s["ring"] = time.monotonic() - t0
+
+    # -- phase 6: the decentralized trainer at full width ---------------
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    (fwd_n, bwd_n), step, strategy, init, toks = train_phase(fa, smi)
+    if args.profile:
+        profile_train(step, strategy, init, toks)
+    phase_s["train"] = time.monotonic() - t0
+    phase_s["total"] = time.monotonic() - t_start
+    print("phases " + json.dumps(phase_s), flush=True)
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode", "route": "cuda",
-        "source": "bluefog_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "bluefog_tpu/ops/pallas_decode.py:136",
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "launches_int8_run": launches_int8}]}))
+    decode = _kernel_row("flash_decode",
+                         "bluefog_tpu_torch/csrc/flash_decode.cu",
+                         "bluefog_tpu/ops/pallas_decode.py:136", launches,
+                         main_case)
+    decode["launches_int8_run"] = launches_int8
+    src = "bluefog_tpu_torch/csrc/flash_attention.cu"
+    print(json.dumps({"kernels": [
+        decode,
+        _kernel_row("flash_fwd", src,
+                    "bluefog_tpu/ops/pallas_attention.py:134", fwd_n,
+                    attn["fwd"]),
+        _kernel_row("flash_bwd", src,
+                    "bluefog_tpu/ops/pallas_attention.py:275", bwd_n,
+                    attn["bwd"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

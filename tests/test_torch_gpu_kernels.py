@@ -9,12 +9,20 @@ only PyTorch:
 Flash decode: max abs error 1e-4 with f32 q (same stored values, f32
 accumulation, only the summation order differs); with bf16 q one bf16
 ulp of each output (rtol 8e-3) plus 1e-5 of f32 noise before rounding.
+
+Flash attention K1/K2 (and the ring and the trainer built on them): both
+sides accumulate in f32 from the same values and only the order differs,
+so o/l atol 1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the
+plain version has it, and dq/dk/dv atol 1e-4 x max|plain| per tensor
+(dk/dv sum over up to Tq * G rows).
 """
 import numpy as np
 import pytest
 import torch
 
+from bluefog_tpu_torch.ops import flash_attention as fa
 from bluefog_tpu_torch.ops import flash_decode as fd
+from bluefog_tpu_torch.ops import ring
 from bluefog_tpu_torch.serve import kv_cache as kv
 
 
@@ -95,3 +103,94 @@ def test_flash_decode_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="page dtypes"):
         fd.flash_attend_rows(torch.zeros(1, 1, 64, device=cuda), cl64["k"],
                              cl64["v"], idx, idx, block_k=8)
+
+
+def _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, device):
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device, dtype)
+    return t(B, Tq, H, D), t(B, Tk, Hkv, D), t(B, Tk, Hkv, D)
+
+
+def _close_grad(got, want):
+    lim = 1e-4 * float(want.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tq,Tk,H,Hkv,D,causal,qoff,koff,window", [
+    (2, 100, 77, 4, 4, 64, False, 0, 0, 0),
+    (1, 130, 130, 8, 2, 128, True, 0, 0, 0),
+    (2, 64, 192, 4, 1, 64, True, 192, 64, 0),
+    (1, 96, 96, 4, 4, 64, True, 0, 96, 0),          # every row masked
+    (1, 200, 200, 4, 2, 64, True, 0, 0, 50)])
+def test_flash_attention_kernels_match_plain(cuda, dtype, B, Tq, Tk, H, Hkv,
+                                             D, causal, qoff, koff, window):
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, cuda)
+    kw = dict(causal=causal, scale=D ** -0.5, window=window)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    o, l, m = fa.attention_block_partial(q, k, v, qoff, koff, **kw)
+    wo, wl, wm = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+    fin = ~torch.isneginf(wm)
+    zero = torch.zeros_like(m)
+    assert float((torch.where(fin, m, zero) - torch.where(fin, wm, zero))
+                 .abs().max()) <= 1e-5
+    assert bool(((l - wl).abs() <= 1e-4 * wl.abs()).all())
+    den = torch.where(wl == 0, torch.ones_like(wl), wl)[..., None]
+    assert float((o / den - wo / den).abs().max()) <= 1e-4
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    lse = torch.where(wl == 0, torch.full_like(wl, float("-inf")),
+                      wm + torch.log(den[..., 0]))
+    delta = torch.from_numpy(rng.normal(size=q.shape[:3]).astype(
+        np.float32)).to(cuda)
+    got = fa.attention_block_backward(q, k, v, do, lse, delta, qoff, koff,
+                                      **kw)
+    want = fa.attention_block_backward_plain(q, k, v, do, lse, delta, qoff,
+                                             koff, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close_grad(g, w)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.attention_block_partial(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.half)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.attention_block_partial(q, q, q)
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple of kv heads"):
+        fa.attention_block_partial(q, q[:, :, :3], q[:, :, :3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv,window", [(4, None), (2, None), (4, 96)])
+def test_ring_attention_kernels_match_plain_ring(cuda, Hkv, window):
+    rng = np.random.default_rng(3)
+    n, B, Tl, H, D = 4, 1, 64, 4, 64
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda).requires_grad_()
+
+    q, k, v = t(n, B, Tl, H, D), t(n, B, Tl, Hkv, D), t(n, B, Tl, Hkv, D)
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    out = ring.ring_attention(q, k, v, causal=True, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    want = ring._plain_ring_attention(q, k, v, True, D ** -0.5, window or 0)
+    wgrads = torch.autograd.grad(want, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert float((out - want).detach().abs().max()) <= 1e-4
+    for a, b in zip(grads, wgrads):
+        _close_grad(a, b)

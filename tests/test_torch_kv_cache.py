@@ -79,7 +79,7 @@ def test_cache_config_and_init_match_jax():
         tc = tkv.KVCacheConfig(**kw)
         assert (tc.rows, tc.trash_slot, tc.quantized) == \
             (jc.rows, jc.trash_slot, jc.quantized)
-        jcache, tcache = jkv.init_cache(jc), tkv.init_cache(tc)
+        jcache, tcache = jkv.init_cache(jc), tkv.init_cache(tc, device="cpu")
         assert set(jcache) == set(tcache)
         for name in jcache:
             assert tuple(tcache[name].shape) == jcache[name].shape

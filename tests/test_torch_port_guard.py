@@ -6,7 +6,7 @@
   paths the subprocess does not reach);
 * entry points run on CUDA unless told otherwise: without a card and
   without ``device="cpu"`` they raise instead of dropping to the CPU;
-* the CUDA kernel wrapper refuses CPU tensors, and a missing ``nvcc``
+* the CUDA kernel wrappers refuse CPU tensors, and a missing ``nvcc``
   raises rather than falling back to the plain version.
 """
 import os
@@ -35,7 +35,10 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "bluefog_tpu_torch.ops.flash_decode" in mods
+    for m in ("ops.flash_decode", "ops.flash_attention", "ops.ring",
+              "optimizers", "topology", "schedule", "fusion",
+              "tools.lm_bench"):
+        assert "bluefog_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -67,7 +70,10 @@ def test_source_scan_finds_no_jax_import():
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     from bluefog_tpu_torch import resolve_device
     from bluefog_tpu_torch.parallel.compose import LMConfig, init_lm_params
+    from bluefog_tpu_torch.parallel.compose import compose_parallelism
     from bluefog_tpu_torch.serve import ServeConfig, ServeEngine
+    from bluefog_tpu_torch.serve.kv_cache import KVCacheConfig, init_cache
+    from bluefog_tpu_torch.tools import lm_bench
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LMConfig(layers=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -79,11 +85,22 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         ServeEngine(cfg, model, ServeConfig())
     assert ServeEngine(cfg, model, ServeConfig(),
                        device="cpu").device.type == "cpu"
+    kcfg = KVCacheConfig(layers=1, slots=1, max_len=8, kv_heads=1,
+                         head_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(kcfg)
+    assert init_cache(kcfg, device="cpu")["k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compose_parallelism(4)
+    assert compose_parallelism(4, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_bench.main([])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
         monkeypatch, tmp_path):
     from bluefog_tpu_torch.ops import _build
+    from bluefog_tpu_torch.ops import flash_attention as fa
     from bluefog_tpu_torch.ops import flash_decode as fd
     cl = {"k": torch.zeros(2, 1, 8, 64), "v": torch.zeros(2, 1, 8, 64)}
     idx = torch.zeros(1, dtype=torch.int32)
@@ -106,3 +123,11 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
                         lambda p: str(p).startswith(str(tmp_path)))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fd.build()
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa.build()
+    before = (fa.fwd_launches, fa.bwd_launches)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        fa.flash_bwd_cuda(q, q, q, q, q[..., 0], q[..., 0], 0, 0,
+                          causal=True, scale=0.1)
+    assert (fa.fwd_launches, fa.bwd_launches) == before

@@ -1,5 +1,7 @@
 """The composed decoder LM (counterpart of ``bluefog_tpu/parallel/compose.py``)
-at pp = tp = sp = 1: serving and gossip data-parallel training.
+at pp = tp = sp = 1: serving and gossip data-parallel training.  The
+MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the attention half,
+:class:`AttnBlock`, and brings its own FFN.
 
 Weights keep the JAX orientation (``x @ W`` with ``wqkv: [D, 3D]``,
 ``wo: [D, D]``, ``w1: [D, F]``, ``w2: [F, D]``, ``embed: [V, D]``,
@@ -35,10 +37,10 @@ from ..models.rope import apply_rope
 from ..ops.ulysses import dense_attention, ulysses_attention
 from ..schedule import CommSchedule, compile_topology
 
-__all__ = ["LMConfig", "ComposeLM", "DecoderBlock", "init_lm_params",
-           "params_from_jax", "_ln", "Mesh3D", "compose_parallelism",
-           "make_train_step", "init_lm_train_params", "make_lm_batch",
-           "make_lm_grad_fn"]
+__all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
+           "init_lm_params", "params_from_jax", "_ln", "Mesh3D",
+           "compose_parallelism", "make_train_step", "init_lm_train_params",
+           "make_lm_batch", "make_lm_grad_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,29 +232,43 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-class DecoderBlock(nn.Module):
-    """One pre-LN decoder block: attention sublayer, then the gelu FFN.
+class AttnBlock(nn.Module):
+    """The attention half of a pre-LN decoder block; subclasses add the
+    FFN sublayer as ``ffn(x, tile) -> (x, routing)``.
 
     The attention itself is the caller's (dense for prefill, the paged
     cache for decode), so the block exposes the two halves around it."""
 
-    def __init__(self, d_model: int, ffn_mult: int):
+    def __init__(self, d_model: int):
         super().__init__()
-        D, F_ = d_model, ffn_mult * d_model
-        self.wqkv = nn.Parameter(torch.empty(D, 3 * D))
-        self.wo = nn.Parameter(torch.empty(D, D))
-        self.w1 = nn.Parameter(torch.empty(D, F_))
-        self.w2 = nn.Parameter(torch.empty(F_, D))
+        self.wqkv = nn.Parameter(torch.empty(d_model, 3 * d_model))
+        self.wo = nn.Parameter(torch.empty(d_model, d_model))
 
     def qkv(self, x: torch.Tensor):
         """``x: [..., D]`` -> ``(q, k, v)`` each ``[..., D]``."""
         return (_ln(x) @ self.wqkv).chunk(3, dim=-1)
 
-    def finish(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    def finish(self, x: torch.Tensor, att: torch.Tensor,
+               tile: Optional[int] = None):
         """Residual attention output projection, then the FFN sublayer;
-        ``att`` is ``[..., D]`` (heads flattened)."""
-        x = x + att @ self.wo
-        return x + _gelu(_ln(x) @ self.w1) @ self.w2
+        ``att`` is ``[..., D]`` (heads flattened).  Returns ``(x,
+        routing)`` as :meth:`ffn` does."""
+        return self.ffn(x + att @ self.wo, tile)
+
+
+class DecoderBlock(AttnBlock):
+    """One pre-LN decoder block: attention sublayer, then the gelu FFN."""
+
+    def __init__(self, d_model: int, ffn_mult: int):
+        super().__init__(d_model)
+        D, F_ = d_model, ffn_mult * d_model
+        self.w1 = nn.Parameter(torch.empty(D, F_))
+        self.w2 = nn.Parameter(torch.empty(F_, D))
+
+    def ffn(self, x: torch.Tensor, tile: Optional[int] = None):
+        """The residual gelu FFN; ``tile`` (the MoE block's grouped tile)
+        is unused and the routing is ``None``."""
+        return x + _gelu(_ln(x) @ self.w1) @ self.w2, None
 
 
 class ComposeLM(nn.Module):
@@ -264,9 +280,11 @@ class ComposeLM(nn.Module):
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model))
         self.head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab))
-        self.blocks = nn.ModuleList(
-            DecoderBlock(cfg.d_model, cfg.ffn_mult)
-            for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(self._block(cfg)
+                                    for _ in range(cfg.layers))
+
+    def _block(self, cfg: LMConfig) -> AttnBlock:
+        return DecoderBlock(cfg.d_model, cfg.ffn_mult)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return _ln(x) @ self.head
@@ -283,7 +301,7 @@ class ComposeLM(nn.Module):
             q = apply_rope(q.reshape(B, T, H, Dh), pos)
             k = apply_rope(k.reshape(B, T, H, Dh), pos)
             att = dense_attention(q, k, v.reshape(B, T, H, Dh), causal=True)
-            x = blk.finish(x, att.reshape(B, T, H * Dh))
+            x, _ = blk.finish(x, att.reshape(B, T, H * Dh))
         return self.logits(x)
 
 

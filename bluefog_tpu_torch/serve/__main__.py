@@ -4,7 +4,9 @@ Builds an engine and a scheduler over a composed LM with random weights
 from ``--seed``, answers a burst of random prompts, and prints one JSON
 summary line.  Runs on the CUDA card unless ``--device cpu`` is given.
 The bucket and KV-store knobs follow ``ServeConfig.from_env``
-(``BLUEFOG_SERVE_BUCKETS``, ``BLUEFOG_KV_DTYPE``, ...).
+(``BLUEFOG_SERVE_BUCKETS``, ``BLUEFOG_KV_DTYPE``, ...); with
+``BLUEFOG_SERVE_MOE`` set (e.g. ``8x2``) the model is a dropless top-k
+MoE LM with that many experts, as in the JAX demo.
 """
 from __future__ import annotations
 
@@ -27,14 +29,20 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from ..moe.model import MoELMConfig, init_moe_params
     from ..parallel.compose import LMConfig, init_lm_params
     from .engine import ServeConfig, ServeEngine
     from .scheduler import Scheduler
 
-    cfg = LMConfig(layers=args.layers)
-    engine = ServeEngine(cfg, init_lm_params(cfg, args.seed,
-                                             device=args.device),
-                         ServeConfig.from_env(), device=args.device)
+    scfg = ServeConfig.from_env()
+    if scfg.moe_experts:
+        cfg = MoELMConfig(layers=args.layers, num_experts=scfg.moe_experts,
+                          top_k=scfg.moe_top_k, dispatch="dropless")
+        model = init_moe_params(cfg, args.seed, device=args.device)
+    else:
+        cfg = LMConfig(layers=args.layers)
+        model = init_lm_params(cfg, args.seed, device=args.device)
+    engine = ServeEngine(cfg, model, scfg, device=args.device)
     engine.warmup()
     sched = Scheduler(engine)
     rng = np.random.default_rng(args.seed)
@@ -51,6 +59,7 @@ def main(argv=None) -> int:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
         "kv_dtype": engine.scfg.kv_dtype,
+        "moe_experts": scfg.moe_experts,
         "completed": len(sched.completed),
         "tokens": sum(len(r.generated) for r in sched.completed),
         "decode_calls": sched.decode_calls,

@@ -16,8 +16,17 @@ cache that is always the hand-written kernel (``decode_kernel`` is kept
 as a token for parity with the JAX env surface and selects nothing).
 Prefill attention over the prompt itself is dense and full precision.
 
+An :class:`~bluefog_tpu_torch.moe.model.MoELMConfig` model is served as
+the JAX engine serves it at ep = 1: each block's FFN is the top-k router,
+the dropless sort-based dispatch and the grouped expert FFN (the
+hand-written kernel K4 on CUDA), with the small decode tile on the
+decode path and ``group_tile`` for prefill.  Decode folds each layer's
+routing of the live lanes into the ``[E + 2]`` hot-expert carrier that
+:meth:`ServeEngine.moe_load` reads.
+
 Not ported yet (each raises ``ValueError`` naming the feature):
-speculative decoding, shared prefix pages and MoE serving.
+speculative decoding, shared prefix pages and expert-parallel (ep > 1)
+MoE serving.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.rope import apply_rope, apply_rope_rows
+from ..moe.dropless import decode_tile
+from ..moe.model import MoELMConfig
 from ..ops import flash_decode as _fd
 from ..ops.ulysses import dense_attention
 from ..parallel.compose import ComposeLM, LMConfig
@@ -84,6 +95,40 @@ def _env_int(name: str, tok: str, grammar: str) -> int:
     return v
 
 
+_MOE_GRAMMAR = ("'<experts>[x<top_k>][@<ep>][:<tile>]' with positive ints "
+                "(e.g. '8', '8x2', '8x2@2:4'; tile in 1..8, omitted = "
+                "auto decode tile)")
+
+
+def _parse_serve_moe(spec: str) -> Tuple[int, int, int, int]:
+    """``"8x2@2:4"`` -> ``(experts=8, top_k=2, ep=2, tile=4)``; ``top_k``
+    / ``ep`` / ``tile`` default to 1 / 1 / 0 (0: the engine picks the
+    decode tile).  A malformed spec names the offending token and the
+    grammar."""
+    body, _, tile_s = spec.partition(":")
+    body, _, ep_s = body.partition("@")
+    e_s, _, k_s = body.partition("x")
+
+    def intval(tok: str, what: str, lo: int) -> int:
+        tok = tok.strip()
+        try:
+            v = int(tok)
+        except ValueError:
+            raise ValueError(
+                f"BLUEFOG_SERVE_MOE={spec!r}: bad {what} token {tok!r} — "
+                f"expected " + _MOE_GRAMMAR) from None
+        if v < lo:
+            raise ValueError(
+                f"BLUEFOG_SERVE_MOE={spec!r}: {what} {tok!r} must be >= "
+                f"{lo} — expected " + _MOE_GRAMMAR)
+        return v
+
+    return (intval(e_s, "experts", 1),
+            intval(k_s, "top_k", 1) if k_s else 1,
+            intval(ep_s, "ep", 1) if ep_s else 1,
+            intval(tile_s, "tile", 1) if tile_s else 0)
+
+
 def _not_ported(feature: str, knob: str) -> ValueError:
     return ValueError(f"{feature} ({knob}) is not yet ported to "
                       "bluefog_tpu_torch; serve with the JAX package or "
@@ -94,12 +139,14 @@ def _not_ported(feature: str, knob: str) -> ValueError:
 class ServeConfig:
     """Static serving shapes: the JAX ``ServeConfig``'s fields and rules.
 
-    ``spec_decode``, ``prefix_pages`` and ``moe_experts`` must stay 0
-    until their slices are ported; ``spec_stages``,
-    ``prefix_page_tokens`` and ``moe_top_k``/``moe_ep``/``moe_tile`` are
-    kept for parity and unused.  ``decode_block_k`` is the kernel's KV
-    block (clamped to ``max_len``), validated here because the port's
-    decode attention always uses it."""
+    ``spec_decode`` and ``prefix_pages`` must stay 0, and ``moe_ep`` 1,
+    until their slices are ported; ``spec_stages`` and
+    ``prefix_page_tokens`` are kept for parity and unused.
+    ``moe_experts``/``moe_top_k`` declare an MoE model (checked against
+    it by the engine) and ``moe_tile`` its decode tile (0: auto).
+    ``decode_block_k`` is the kernel's KV block (clamped to
+    ``max_len``), validated here because the port's decode attention
+    always uses it."""
     batch_buckets: Tuple[int, ...] = (1, 2, 4)
     prefill_buckets: Tuple[int, ...] = (8, 16)
     slots: int = 8
@@ -153,12 +200,33 @@ class ServeConfig:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError("top_p must be in (0, 1]")
+        if self.moe_experts < 0:
+            raise ValueError("moe_experts must be >= 0 (0 = dense model)")
+        if self.moe_experts:
+            if self.moe_top_k not in (1, 2):
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) must be 1 or 2: serving "
+                    "routes top-k only")
+            if self.moe_ep < 1:
+                raise ValueError(f"moe_ep ({self.moe_ep}) must be >= 1")
+            if self.moe_experts % self.moe_ep:
+                raise ValueError(
+                    f"moe_serving_ep_mismatch: moe_experts "
+                    f"({self.moe_experts}) % moe_ep ({self.moe_ep}) != 0 — "
+                    "each expert-parallel peer owns a contiguous block of "
+                    f"experts; offender: moe_ep={self.moe_ep}")
+            if not 0 <= self.moe_tile <= 8:
+                raise ValueError(
+                    f"moe_tile ({self.moe_tile}) must be in [0, 8] (0 = "
+                    "auto): decode batches are tiny, so grouped tiles "
+                    "above 8 rows pad every expert group with mostly-zero "
+                    "tiles")
         if self.spec_decode:
             raise _not_ported("speculative decoding", "spec_decode")
         if self.prefix_pages:
             raise _not_ported("shared prefix pages", "prefix_pages")
-        if self.moe_experts:
-            raise _not_ported("MoE serving", "moe_experts")
+        if self.moe_experts and self.moe_ep > 1:
+            raise _not_ported("expert-parallel MoE serving", "moe_ep")
 
     @property
     def decode_window(self) -> int:
@@ -170,8 +238,9 @@ class ServeConfig:
         """The JAX env surface: ``BLUEFOG_SERVE_BUCKETS``,
         ``BLUEFOG_KV_DTYPE``, ``BLUEFOG_DECODE_KERNEL`` (``'xla'``,
         ``'pallas'`` or ``'pallas@<block_k>'``), ``BLUEFOG_SPEC_DECODE``
-        and ``BLUEFOG_PREFIX_PAGES`` (refused above 0);
-        ``BLUEFOG_SERVE_MOE`` is refused when set."""
+        and ``BLUEFOG_PREFIX_PAGES`` (refused above 0), and
+        ``BLUEFOG_SERVE_MOE='<experts>[x<top_k>][@<ep>][:<tile>]'`` (ep
+        above 1 refused)."""
         spec = os.environ.get("BLUEFOG_SERVE_BUCKETS", "")
         if spec:
             batch, prefill = _parse_buckets(spec)
@@ -221,8 +290,13 @@ class ServeConfig:
                 overrides.setdefault(
                     "prefix_page_tokens",
                     _env_int("BLUEFOG_PREFIX_PAGES", ptok_s, grammar))
-        if os.environ.get("BLUEFOG_SERVE_MOE", ""):
-            raise _not_ported("MoE serving", "BLUEFOG_SERVE_MOE")
+        sm = os.environ.get("BLUEFOG_SERVE_MOE", "")
+        if sm:
+            experts, top_k, ep, tile = _parse_serve_moe(sm)
+            overrides.setdefault("moe_experts", experts)
+            overrides.setdefault("moe_top_k", top_k)
+            overrides.setdefault("moe_ep", ep)
+            overrides.setdefault("moe_tile", tile)
         return cls(**overrides)
 
     def batch_bucket_for(self, lanes: int) -> int:
@@ -244,14 +318,15 @@ class ServeConfig:
 
 
 class ServeEngine:
-    """Prefill and fused decode of one :class:`ComposeLM` replica over a
-    slotted paged KV cache on one device.
+    """Prefill and fused decode of one :class:`ComposeLM` (or MoE LM)
+    replica over a slotted paged KV cache on one device.
 
     ``model`` comes from :func:`~bluefog_tpu_torch.parallel.compose.
-    init_lm_params` or :func:`~bluefog_tpu_torch.parallel.compose.
-    params_from_jax`; the engine moves it to ``device`` (CUDA unless the
-    caller passes ``device="cpu"``) and never changes its weights.  The
-    cache is updated in place.
+    init_lm_params` / :func:`~bluefog_tpu_torch.parallel.compose.
+    params_from_jax`, or their MoE counterparts in
+    :mod:`bluefog_tpu_torch.moe.model`; the engine moves it to ``device``
+    (CUDA unless the caller passes ``device="cpu"``) and never changes its
+    weights.  The cache is updated in place.
     """
 
     replicas = 1
@@ -260,6 +335,15 @@ class ServeEngine:
                  scfg: Optional[ServeConfig] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
+        self._moe = isinstance(cfg, MoELMConfig)
+        if self._moe and cfg.router_mode == "expert_choice":
+            raise ValueError(
+                "moe_serving_requires_topk_router: expert-choice routing "
+                "selects each expert's top-C tokens over the WHOLE "
+                "sequence, but autoregressive decode sees one token at a "
+                "time — an EC router at serve time would condition routing "
+                "on future tokens (the causality caveat that keeps it "
+                "training-only).  Serve with router_mode='topk'.")
         cfg.validate()
         if model.cfg != cfg:
             raise ValueError(f"model was built for {model.cfg}, not {cfg}")
@@ -267,6 +351,29 @@ class ServeEngine:
         if scfg.max_len < scfg.prefill_buckets[-1] + scfg.decode_window:
             raise ValueError("max_len leaves no room to decode past the "
                              "longest prompt bucket")
+        if scfg.moe_experts and not self._moe:
+            raise ValueError(
+                f"ServeConfig declares an MoE (moe_experts="
+                f"{scfg.moe_experts}, via BLUEFOG_SERVE_MOE or --serve-moe) "
+                "but the model config is dense — build an MoELMConfig or "
+                "drop the knob")
+        if self._moe and scfg.moe_experts:
+            # (moe_ep > 1 never gets here: ServeConfig refuses it)
+            for knob, mine in (("moe_experts", cfg.num_experts),
+                               ("moe_top_k", cfg.top_k)):
+                declared = getattr(scfg, knob)
+                if declared != mine:
+                    raise ValueError(
+                        f"ServeConfig.{knob}={declared} does not match the "
+                        f"model/carving value {mine} — the serve-MoE knob "
+                        "must agree with the MoELMConfig and the ep carve")
+        if self._moe:
+            # decode tile: S * k rows over the E expert groups; prefill
+            # (chunk) shapes keep the training tile
+            self._moe_tile = scfg.moe_tile or decode_tile(
+                scfg.batch_buckets[-1] * cfg.top_k, cfg.num_experts)
+            self._moe_chunk_tile = cfg.group_tile
+        self._route_stats: Optional[torch.Tensor] = None
         self.cfg, self.scfg = cfg, scfg
         self.model = model.to(self.device).requires_grad_(False)
         self.cache_cfg = _kv.KVCacheConfig(
@@ -319,9 +426,21 @@ class ServeEngine:
             [self.scfg.seed, row, self._seed_count]).generate_state(1)[0]))
         self._gens[row] = g
 
+    def _route_vec(self, routing, live: torch.Tensor) -> torch.Tensor:
+        """One layer's routing folded into the ``[E + 2]`` carrier:
+        per-expert top-1 counts over live lanes, summed live-token router
+        entropy, live-token count."""
+        probs, idx = routing
+        w = live.to(torch.float32)
+        cnt = torch.zeros(self.cfg.num_experts, dtype=torch.float32,
+                          device=w.device).index_add_(0, idx[:, 0], w)
+        ent = (-(probs * torch.log(probs + 1e-20)).sum(-1) * w).sum()
+        return torch.cat([cnt, ent[None], w.sum()[None]])
+
     def _layer_step(self, blk, x: torch.Tensor, cl, slot_ids: torch.Tensor,
-                    lens: torch.Tensor) -> torch.Tensor:
-        """One decoder block on one new token per lane: ``x [S, D]``."""
+                    lens: torch.Tensor):
+        """One decoder block on one new token per lane: ``x [S, D]``;
+        returns ``(x, routing)`` (``routing`` is ``None`` when dense)."""
         H, Dh = self.cfg.heads, self.cfg.head_dim
         S = x.shape[0]
         q, k, v = blk.qkv(x)
@@ -333,20 +452,31 @@ class ServeEngine:
             q, cl["k"], cl["v"], slot_ids, lens,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
             block_k=self.scfg.decode_block_k)
-        return blk.finish(x, att.reshape(S, H * Dh))
+        return blk.finish(x, att.reshape(S, H * Dh),
+                          self._moe_tile if self._moe else None)
 
     @torch.inference_mode()
     def _decode_steps(self, toks: torch.Tensor, slot_ids: torch.Tensor,
                       lens: torch.Tensor) -> torch.Tensor:
-        """``decode_steps_per_call`` fused tokens: ``[steps, S]``."""
+        """``decode_steps_per_call`` fused tokens: ``[steps, S]``.  On the
+        MoE path the call's routing of live lanes (every step, every
+        layer) becomes the hot-expert snapshot."""
         model, gen = self.model, []
+        live = slot_ids < self.scfg.slots                     # [S] real lanes
+        st = torch.zeros((self.cfg.num_experts + 2,), device=self.device) \
+            if self._moe else None
         for _ in range(self.scfg.decode_steps_per_call):
             x = model.embed[toks]                                  # [S, D]
             for i, blk in enumerate(model.blocks):
-                x = self._layer_step(blk, x, self._layer(i), slot_ids, lens)
+                x, routing = self._layer_step(blk, x, self._layer(i),
+                                              slot_ids, lens)
+                if routing is not None:
+                    st = st + self._route_vec(routing, live)
             toks = self._next_token(model.logits(x), slot_ids)
             gen.append(toks)
             lens = lens + 1
+        if self._moe:
+            self._route_stats = st
         return torch.stack(gen)
 
     @torch.inference_mode()
@@ -369,7 +499,8 @@ class ServeEngine:
             _kv.layer_prefill(self._layer(i), row, k[0], v[0],
                               store=self.scfg.kv_dtype)
             att = dense_attention(q, k, v, causal=True)
-            x = blk.finish(x, att.reshape(1, Tpad, H * Dh))
+            x, _ = blk.finish(x, att.reshape(1, Tpad, H * Dh),
+                              self._moe_chunk_tile if self._moe else None)
         return self.model.logits(x[0, true_len - 1])
 
     # ------------------------------------------------------------------
@@ -426,6 +557,27 @@ class ServeEngine:
     def idle_lane(self) -> Tuple[int, int, int]:
         """(token, slot, len) triple a padding lane carries."""
         return 0, self.cache_cfg.trash_slot, 0
+
+    def moe_load(self) -> Optional[list]:
+        """Routing load from the most recent MoE decode call, in the JAX
+        layout: one dict per replica with ``counts`` (``[E]`` live
+        token-layer top-1 counts), ``fractions``, ``entropy`` (mean
+        live-token router entropy, nats) and ``tokens`` (live
+        token-layer count).  ``None`` for dense engines or before the
+        first decode call."""
+        if not self._moe or self._route_stats is None:
+            return None
+        st = self._route_stats.cpu().numpy().astype(np.float64)
+        E = self.cfg.num_experts
+        cnt = st[:E]
+        tot = float(cnt.sum())
+        n = float(st[E + 1])
+        return [{
+            "counts": cnt.copy(),
+            "fractions": cnt / tot if tot else np.zeros(E),
+            "entropy": float(st[E]) / n if n else 0.0,
+            "tokens": n,
+        }]
 
     def warmup(self) -> None:
         """Run every declared prefill and decode bucket once (on CUDA this

@@ -2,14 +2,15 @@
 """Smoke of the PyTorch/CUDA port (``bluefog_tpu_torch``) on one card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (add
-``--profile`` for a ``torch.profiler`` breakdown of one decode call and
-of one training step).
+``--profile`` for a ``torch.profiler`` breakdown of one decode call, of
+one training step and of one MoE decode call).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. environment: the card's name and power limit, torch and CUDA
-   versions, and the builds of ``csrc/flash_decode.cu`` and
-   ``csrc/flash_attention.cu`` by nvcc (one process each, in parallel);
+   versions, and the builds of ``csrc/flash_decode.cu``,
+   ``csrc/flash_attention.cu`` and ``csrc/grouped_ffn.cu`` by nvcc (one
+   process each, in parallel);
 2. flash decode (K3) against its plain PyTorch version on the card at
    full-width shapes (S in {1, 8}, 16 q heads over 16 or 4 kv heads,
    head_dim 64, max_len 1024, block_k 128, T in {1, 4}; f32, bf16, int8
@@ -51,7 +52,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batch with attention forced to the plain version must agree: step-1
    losses rtol 1e-5, step-1 gradients atol 1e-4 x max|g|, step-2 losses
    rtol 1e-3 (Adam's first updates are +-lr wherever |g| >> eps, so
-   rounding noise in g can flip a sign only where g ~ 0).
+   rounding noise in g can flip a sign only where g ~ 0);
+7. the grouped expert FFN K4 (``grouped_ffn``) against its plain version
+   (gather + einsum) on inputs laid out by the dropless dispatch itself:
+   D 1024, F 4096, 8 experts unless noted; the decode shapes (16 rows at
+   tile 2: 12 tiles; 1 lane: 5 tiles), the prefill shape (1024 rows at
+   tile 8: 135 tiles), tiles 1, 4 and 16, every row on one expert, bf16
+   operands, and D 96 / F 200.  Tolerance: f32 max abs error 1e-4 x
+   max|plain| (both accumulate in f32, only the order differs); bf16 one
+   bf16 ulp of each output (rtol 8e-3) on top of that.  The library
+   yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over weights
+   gathered beforehand (the port never calls it);
+8. MoE serving at full width (tools/serve_bench.py's non-smoke widths
+   with ``--serve-moe 8x2``: vocab 32768, d_model 1024, 16 heads, 8
+   layers, 8 experts of F 4096, top-2, dropless, group tile 8; 637 M
+   parameters from seed 0) through ``ServeEngine`` and
+   ``Scheduler.drain()`` with phase 3's buckets: 16 greedy requests of
+   32-512 prompt tokens and 64 new tokens, raw pages, auto decode tile
+   (2).  Every request must complete; K4 must launch layers x (prefills +
+   decode steps) times and K3 layers x decode steps; the first four
+   requests replayed with K4 forced to its plain version must give the
+   same tokens, or diverge only at a near tie: a top-2 logit gap below
+   1e-3 at the first divergent token, or a router whose k-th and
+   (k+1)-th probabilities lie within 1e-5 at some layer and position up
+   to it.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -306,11 +330,13 @@ def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
     return engine, launches
 
 
-def profile_phase(engine):
+def profile_phase(engine, tag="profile", shares=()):
     """One fused decode call at the full batch bucket: its wall time
     unprofiled (mean of 3), then its device time by kernel under
     torch.profiler (kernel events only: the CPU ops that launch them carry
-    the same device time), and the device's busy share of the call."""
+    the same device time), the device's busy share of the call, and the
+    share of device time of each kernel whose name holds one of
+    ``shares``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     S = engine.scfg.batch_buckets[-1]
@@ -332,14 +358,16 @@ def profile_phase(engine):
             and ev.self_device_time_total > 0]
     total_us = sum(r[0] for r in rows)
     for dt, key, count in sorted(rows, reverse=True)[:12]:
-        print("profile " + json.dumps({"kernel": key[:90], "calls": count,
-                                       "device_us": dt,
-                                       "share": dt / total_us}))
-    print("profile " + json.dumps({
+        print(f"{tag} " + json.dumps({"kernel": key[:90], "calls": count,
+                                      "device_us": dt,
+                                      "share": dt / total_us}))
+    print(f"{tag} " + json.dumps({
         "steps": engine.scfg.decode_steps_per_call, "lanes": S,
         "decode_call_wall_ms": wall_ms, "device_busy_ms": total_us / 1e3,
         "busy_share": total_us / 1e3 / wall_ms,
-        "device": torch.cuda.get_device_name(0)}))
+        "kernel_shares": {name: sum(r[0] for r in rows if name in r[1])
+                          / total_us for name in shares},
+        "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 # -- phases 4-6: flash attention, ring attention, the trainer ------------
@@ -695,6 +723,232 @@ def profile_train(step, strategy, init, toks):
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
+# -- phases 7-8: the grouped expert FFN and MoE serving -------------------
+
+def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile):
+    """K4's operands as the dropless dispatch lays them out: ``rows``
+    random rows routed at random (or all to the last expert), sorted and
+    padded into tiles, plus expert weights at the model's init scale."""
+    from bluefog_tpu_torch.parallel.expert import dropless_dispatch
+    x = torch.from_numpy(rng.normal(size=(rows, D)).astype(np.float32))
+    ids = np.full(rows, E - 1) if hostile else rng.integers(0, E, rows)
+    seen = {}
+
+    def capture(_, xt, tile_eid):
+        seen["xt"], seen["eid"] = xt, tile_eid
+        return xt
+
+    dropless_dispatch(x.to(DEV), torch.tensor(ids, device=DEV), capture,
+                      None, E, tile)
+
+    def w(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.1).astype(
+            np.float32)).to(DEV, dtype)
+
+    return (seen["xt"].to(dtype).contiguous(), seen["eid"], w(E, D, F),
+            w(E, F, D))
+
+
+def _k4_bound(xt, eid, w1):
+    """Least time: the weights of every distinct expert the tiles name
+    read once, xt read and the output written once, against 4 G tile D F
+    operations at the f32 rate, or the bf16 tensor-core rate for bf16."""
+    G, tile, D = xt.shape
+    Fd, item = w1.shape[2], xt.element_size()
+    experts = int(torch.unique(eid).numel())
+    nbytes = experts * 2 * D * Fd * item + 2 * G * tile * D * item + 4 * G
+    flops = 4.0 * G * tile * D * Fd
+    rate = BF16_FLOPS if item == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def grouped_ffn_phase(gf):
+    """Phase 7: K4 against its plain version; returns the rows of the
+    decode shape (8 lanes, f32) and the prefill shape (f32)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("decode_8_lanes", 16, 1024, 4096, 2, f32, False),
+             ("decode_1_lane", 2, 1024, 4096, 2, f32, False),
+             ("prefill_512", 1024, 1024, 4096, 8, f32, False),
+             ("tile_1", 16, 1024, 4096, 1, f32, False),
+             ("tile_4", 16, 1024, 4096, 4, f32, False),
+             ("tile_16", 64, 1024, 4096, 16, f32, False),
+             ("hostile", 16, 1024, 4096, 2, f32, True),
+             ("decode_8_lanes_bf16", 16, 1024, 4096, 2, bf16, False),
+             ("prefill_512_bf16", 1024, 1024, 4096, 8, bf16, False),
+             ("ragged_D96_F200", 16, 96, 200, 2, f32, False)]
+    rows_out = {}
+    for name, rows, D, Fd, tile, dt, hostile in cases:
+        xt, eid, w1, w2 = _k4_inputs(rng, rows, 8, D, Fd, tile, dt, hostile)
+        before = gf.grouped_ffn_cuda.launches
+        got = gf.grouped_ffn(xt, eid, w1, w2)
+        want = gf.grouped_ffn_plain(xt, eid, w1, w2)
+        torch.cuda.synchronize()
+        if gf.grouped_ffn_cuda.launches != before + 1:
+            raise AssertionError(f"grouped_ffn {name}: the kernel did not "
+                                 "launch")
+        diff = (got.float() - want.float()).abs()
+        err, top = float(diff.max()), float(want.float().abs().max())
+        lim = 1e-4 * top
+        if dt == bf16:
+            lim = lim + 8e-3 * want.float().abs()
+        if not (bool((diff <= lim).all())
+                and bool(torch.isfinite(got.float()).all())
+                and got.dtype == dt and got.shape == xt.shape):
+            raise AssertionError(
+                f"grouped_ffn disagrees with its plain version: {name} "
+                f"G={xt.shape[0]} tile={tile}: max abs err {err} "
+                f"(1e-4 x max|plain| = {1e-4 * top}"
+                f"{' + rtol 8e-3' if dt == bf16 else ''})")
+        idx = eid.long()
+        w1g, w2g = w1[idx], w2[idx]                       # cuBLAS yardstick
+        G = xt.shape[0]
+
+        def lib():
+            u = F.gelu(torch.bmm(xt, w1g), approximate="tanh")
+            return torch.bmm(u, w2g)
+
+        ms = _cuda_ms(lambda: gf.grouped_ffn(xt, eid, w1, w2))
+        plain_ms = _cuda_ms(lambda: gf.grouped_ffn_plain(xt, eid, w1, w2),
+                            iters=5, warmup=1)
+        lib_ms = _cuda_ms(lib)
+        del w1g, w2g
+        bound, bound_by = _k4_bound(xt, eid, w1)
+        row = dict(case=name, G=G, tile=tile, D=D, F=Fd, dtype=str(dt)[6:],
+                   experts_named=int(torch.unique(eid).numel()),
+                   max_abs_err=err, max_abs_plain=top, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   library_ms=lib_ms,
+                   library="cuBLAS torch.bmm + gelu + torch.bmm over "
+                           "pre-gathered weights")
+        print("kernel_case " + json.dumps(row), flush=True)
+        rows_out[name] = row
+        del xt, w1, w2, got, want
+    torch.cuda.empty_cache()
+    return rows_out["decode_8_lanes"], rows_out["prefill_512"]
+
+
+def _router_tie(model, layers_mod, tokens, k):
+    """Smallest gap between the k-th and (k+1)-th router probability over
+    every layer and position of the cache-free forward over ``tokens``."""
+    gaps = []
+    orig = layers_mod.router_topk
+
+    def recording(x, wr, *, top_k):
+        out = orig(x, wr, top_k=top_k)
+        srt = torch.sort(out[1], dim=-1, descending=True).values
+        gaps.append(float((srt[:, k - 1] - srt[:, k]).min()))
+        return out
+
+    with mock.patch.object(layers_mod, "router_topk", recording), \
+            torch.inference_mode():
+        model(torch.tensor([tokens], device=DEV))
+    return min(gaps)
+
+
+def moe_serve_phase(fd, gf, layers_mod, smi):
+    """Phase 8: the MoE drain at full width, its launch counts, and the
+    replay with K4 forced to its plain version."""
+    from bluefog_tpu_torch.moe.model import MoELMConfig, init_moe_params
+    from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    cfg = MoELMConfig(vocab=32768, d_model=1024, heads=16, layers=8,
+                      ffn_mult=4, num_experts=8, top_k=2,
+                      dispatch="dropless", group_tile=8)
+    t0 = time.monotonic()
+    model = init_moe_params(cfg, seed=0, device=DEV)
+    init_s = time.monotonic() - t0
+    scfg = ServeConfig(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
+                       prefill_buckets=(64, 256, 512),
+                       decode_steps_per_call=4, decode_block_k=BK,
+                       moe_experts=8, moe_top_k=2)
+    engine = ServeEngine(cfg, model, scfg, device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    n_req, max_new = 16, 64
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(32, 513, n_req)]
+    sched = Scheduler(engine)
+    fd.flash_decode_cuda.launches = gf.grouped_ffn_cuda.launches = 0
+    t0 = time.monotonic()
+    for p in prompts:
+        sched.submit(p, max_new_tokens=max_new)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    k3, k4 = fd.flash_decode_cuda.launches, gf.grouped_ffn_cuda.launches
+    reqs = sorted(sched.completed, key=lambda r: r.id)
+    if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
+        raise AssertionError(f"moe: {len(reqs)}/{n_req} requests done")
+    if k4 != cfg.layers * (n_req + sched.decode_steps) or k4 == 0:
+        raise AssertionError(
+            f"moe: grouped_ffn launched {k4} times, want layers "
+            f"{cfg.layers} x (prefills {n_req} + decode steps "
+            f"{sched.decode_steps})")
+    if k3 != cfg.layers * sched.decode_steps:
+        raise AssertionError(f"moe: flash decode launched {k3} times, want "
+                             f"layers x decode steps")
+    load = engine.moe_load()[0]
+    # the engine's first token of request 0 against the cache-free forward
+    gap0 = _top2_gap(model, prompts[0])
+    with torch.inference_mode():
+        ref0 = int(torch.argmax(model(torch.tensor(
+            [prompts[0]], device=DEV))[0, -1]))
+    if reqs[0].generated[0] != ref0 and gap0 >= 1e-3:
+        raise AssertionError(f"moe: first token {reqs[0].generated[0]} != "
+                             f"the forward's {ref0}")
+    # replay the first 4 with K4 forced to its plain version
+    with mock.patch.object(gf, "grouped_ffn", gf.grouped_ffn_plain):
+        replay = Scheduler(engine)
+        for p in prompts[:4]:
+            replay.submit(p, max_new_tokens=max_new)
+        before = gf.grouped_ffn_cuda.launches
+        replay.drain()
+        if gf.grouped_ffn_cuda.launches != before:
+            raise AssertionError("the plain-K4 replay launched the kernel")
+    diverged = []
+    for r_k, r_p in zip(reqs[:4], sorted(replay.completed,
+                                         key=lambda r: r.id)):
+        if r_k.generated == r_p.generated:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r_k.generated,
+                                                  r_p.generated)) if a != b)
+        seq = r_k.prompt + r_k.generated[:i]
+        gap = _top2_gap(model, seq)
+        tie = _router_tie(model, layers_mod, seq, cfg.top_k)
+        diverged.append({"request": r_k.id, "position": i, "top2_gap": gap,
+                         "router_gap": tie})
+        if gap >= 1e-3 and tie >= 1e-5:
+            raise AssertionError(
+                f"moe: kernel and plain-K4 streams diverge at request "
+                f"{r_k.id} token {i} with a top-2 gap of {gap} and a "
+                f"router gap of {tie}")
+    tokens = sum(len(r.generated) for r in reqs)
+    print("serve " + json.dumps({
+        "run": "moe", "kv_dtype": "raw", "requests": n_req,
+        "max_new_tokens": max_new, "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "mean_ttft_s": float(np.mean([r.ttft for r in reqs])),
+        "decode_calls": sched.decode_calls,
+        "decode_steps": sched.decode_steps,
+        "decode_ms_per_step": 1e3 * sched.decode_seconds
+        / sched.decode_steps,
+        "decode_ms_per_token": 1e3 * sched.decode_seconds
+        / (tokens - n_req),
+        "decode_tile": engine._moe_tile, "n_params": cfg.n_params,
+        "n_active_params": cfg.n_active_params, "init_s": init_s,
+        "grouped_ffn_launches": k4, "flash_decode_launches": k3,
+        "last_call_expert_fractions": load["fractions"].tolist(),
+        "last_call_router_entropy": load["entropy"],
+        "replay_diverged": diverged,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+        flush=True)
+    return engine, k4
+
+
 def _build_all(builders):
     """Build every kernel library at once: one nvcc process each, all
     started together; returns the wall seconds."""
@@ -728,7 +982,9 @@ def main(argv=None) -> int:
         from bluefog_tpu_torch.ops import _build
         from bluefog_tpu_torch.ops import flash_attention as fa
         from bluefog_tpu_torch.ops import flash_decode as fd
+        from bluefog_tpu_torch.ops import grouped_ffn as gf
         from bluefog_tpu_torch.ops import ring
+        from bluefog_tpu_torch.moe import layers as moe_layers
         from bluefog_tpu_torch.parallel.compose import LMConfig, \
             init_lm_params
         from bluefog_tpu_torch.serve import kv_cache as kv
@@ -745,8 +1001,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
-    build_s = _build_all([fd.build, fa.build])
-    for lib in ("flash_decode", "flash_attention"):
+    build_s = _build_all([fd.build, fa.build, gf.build])
+    for lib in ("flash_decode", "flash_attention", "grouped_ffn"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas {lib} " + line.strip())
@@ -792,7 +1048,23 @@ def main(argv=None) -> int:
     (fwd_n, bwd_n), step, strategy, init, toks = train_phase(fa, smi)
     if args.profile:
         profile_train(step, strategy, init, toks)
+    del step, strategy, init, toks
+    torch.cuda.empty_cache()
     phase_s["train"] = time.monotonic() - t0
+
+    # -- phase 7: the grouped expert FFN K4 against its plain version ---
+    t0 = time.monotonic()
+    k4_decode, k4_prefill = grouped_ffn_phase(gf)
+    phase_s["grouped_ffn_cases"] = time.monotonic() - t0
+
+    # -- phase 8: MoE serving at full width -----------------------------
+    t0 = time.monotonic()
+    engine, k4_launches = moe_serve_phase(fd, gf, moe_layers, smi)
+    if args.profile:
+        profile_phase(engine, "profile_moe",
+                      shares=("grouped_rows", "flash_decode_kernel"))
+    del engine
+    phase_s["moe_serve"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -810,7 +1082,14 @@ def main(argv=None) -> int:
                     attn["fwd"]),
         _kernel_row("flash_bwd", src,
                     "bluefog_tpu/ops/pallas_attention.py:275", bwd_n,
-                    attn["bwd"])]}))
+                    attn["bwd"]),
+        dict(_kernel_row("grouped_ffn",
+                         "bluefog_tpu_torch/csrc/grouped_ffn.cu",
+                         "bluefog_tpu/ops/pallas_moe.py:61", k4_launches,
+                         k4_decode),
+             prefill={key: k4_prefill[key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

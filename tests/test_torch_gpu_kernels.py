@@ -15,6 +15,10 @@ sides accumulate in f32 from the same values and only the order differs,
 so o/l atol 1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the
 plain version has it, and dq/dk/dv atol 1e-4 x max|plain| per tensor
 (dk/dv sum over up to Tq * G rows).
+
+Grouped expert FFN K4: both sides accumulate in f32 from the same values
+and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
+bf16 operands one bf16 ulp of each output (rtol 8e-3) on top of that.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import torch
 
 from bluefog_tpu_torch.ops import flash_attention as fa
 from bluefog_tpu_torch.ops import flash_decode as fd
+from bluefog_tpu_torch.ops import grouped_ffn as gf
 from bluefog_tpu_torch.ops import ring
 from bluefog_tpu_torch.serve import kv_cache as kv
 
@@ -194,3 +199,54 @@ def test_ring_attention_kernels_match_plain_ring(cuda, Hkv, window):
     assert float((out - want).detach().abs().max()) <= 1e-4
     for a, b in zip(grads, wgrads):
         _close_grad(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,tile,D,F,routing", [
+    (12, 2, 256, 512, "sorted"), (5, 1, 256, 512, "sorted"),
+    (9, 8, 128, 384, "sorted"), (4, 16, 128, 256, "sorted"),
+    (12, 2, 256, 512, "hostile"), (7, 3, 96, 200, "sorted")])
+def test_grouped_ffn_kernel_matches_plain(cuda, dtype, G, tile, D, F,
+                                          routing):
+    rng = np.random.default_rng(G * tile)
+    E = 8
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda, dtype)
+
+    xt = t(G, tile, D)
+    xt[-1] = 0                            # a clamped tail tile: zero rows
+    w1, w2 = t(E, D, F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+    eid = (np.sort(rng.integers(0, E, size=G)) if routing == "sorted"
+           else np.full(G, 3))
+    eid = torch.tensor(eid, dtype=torch.int32, device=cuda)
+    before = gf.grouped_ffn_cuda.launches
+    got = gf.grouped_ffn(xt, eid, w1, w2)
+    want = gf.grouped_ffn_plain(xt, eid, w1, w2)
+    torch.cuda.synchronize()
+    assert gf.grouped_ffn_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == xt.shape
+    assert bool((got[-1] == 0).all())
+    diff = (got.float() - want.float()).abs()
+    lim = 1e-4 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        lim = lim + 8e-3 * want.float().abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_refuses_what_it_does_not_take(cuda):
+    xt = torch.zeros(2, 2, 8, device=cuda)
+    eid = torch.zeros(2, dtype=torch.int32, device=cuda)
+    w1, w2 = torch.zeros(2, 8, 16, device=cuda), torch.zeros(2, 16, 8,
+                                                           device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        gf.grouped_ffn(xt, eid.long(), w1, w2)
+    with pytest.raises(TypeError, match="dtypes"):
+        gf.grouped_ffn(xt.half(), eid, w1.half(), w2.half())
+    with pytest.raises(ValueError, match="w1"):
+        gf.grouped_ffn(xt, eid, w2, w1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gf.grouped_ffn(xt.transpose(0, 1), eid, w1, w2)

@@ -2,7 +2,8 @@
 
 * ``bluefog_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   anything of ``bluefog_tpu`` (a fresh interpreter imports every port
-  module and inspects ``sys.modules``; a source scan catches imports on
+  module, each one first into a package state with none of the port
+  loaded, and inspects ``sys.modules``; a source scan catches imports on
   paths the subprocess does not reach);
 * entry points run on CUDA unless told otherwise: without a card and
   without ``device="cpu"`` they raise instead of dropping to the CPU;
@@ -37,17 +38,23 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("ops.flash_decode", "ops.flash_attention", "ops.ring",
               "optimizers", "topology", "schedule", "fusion",
-              "tools.lm_bench"):
+              "tools.lm_bench", "ops.grouped_ffn", "moe.dropless",
+              "moe.layers", "moe.model", "parallel.expert"):
         assert "bluefog_tpu_torch." + m in mods
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    # each module is imported first, into a package state with none of
+    # the port loaded, so no module needs another imported before it
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
+            "    for k in [k for k in sys.modules\n"
+            "              if k.split('.')[0] == 'bluefog_tpu_torch']:\n"
+            "        del sys.modules[k]\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'bluefog_tpu.')) or "
             "m == 'bluefog_tpu')\n"
             "print(bad)\n"
             "assert not bad, bad\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=180)
     assert p.returncode == 0, p.stdout + p.stderr[-3000:]
@@ -95,6 +102,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     assert compose_parallelism(4, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_bench.main([])
+    from bluefog_tpu_torch.moe.model import MoELMConfig, init_moe_params
+    mcfg = MoELMConfig(layers=1, num_experts=2, dispatch="dropless")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_moe_params(mcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(mcfg, init_moe_params(mcfg, device="cpu"),
+                    ServeConfig())
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
@@ -102,6 +116,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
     from bluefog_tpu_torch.ops import _build
     from bluefog_tpu_torch.ops import flash_attention as fa
     from bluefog_tpu_torch.ops import flash_decode as fd
+    from bluefog_tpu_torch.ops import grouped_ffn as gf
     cl = {"k": torch.zeros(2, 1, 8, 64), "v": torch.zeros(2, 1, 8, 64)}
     idx = torch.zeros(1, dtype=torch.int32)
     before = fd.flash_decode_cuda.launches
@@ -113,6 +128,14 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
                              cl["k"].to("meta"), cl["v"].to("meta"),
                              idx.to("meta"), idx.to("meta"))
     assert fd.flash_decode_cuda.launches == before
+    xt, eid = torch.zeros(3, 2, 8), torch.zeros(3, dtype=torch.int32)
+    w1, w2 = torch.zeros(2, 8, 16), torch.zeros(2, 16, 8)
+    k4_before = gf.grouped_ffn_cuda.launches
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        gf.grouped_ffn_cuda(xt, eid, w1, w2)
+    with pytest.raises(RuntimeError, match="CUDA or the CPU"):
+        gf.grouped_ffn(*(t.to("meta") for t in (xt, eid, w1, w2)))
+    assert gf.grouped_ffn_cuda.launches == k4_before
     # no nvcc, no prebuilt library: building raises, nothing falls back
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_LIBS", {})
@@ -126,6 +149,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
     q = torch.zeros(1, 8, 2, 64)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gf.build()
+    assert gf.grouped_ffn_cuda.launches == k4_before
     before = (fa.fwd_launches, fa.bwd_launches)
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         fa.flash_bwd_cuda(q, q, q, q, q[..., 0], q[..., 0], 0, 0,

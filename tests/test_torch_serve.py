@@ -12,7 +12,7 @@ A JAX ``ServeEngine`` on one CPU device (dp = pp = tp = 1) and the port's
   decode attention on the CPU is the plain version of the flash-decode
   kernel, the JAX engine's is its ``"xla"`` gather-then-attend path;
 * the config surface keeps the JAX rules and refuses the features later
-  slices port.
+  slices port (MoE serving itself is ported; expert parallelism is not).
 """
 import json
 import os
@@ -196,7 +196,8 @@ def test_serve_config_rules_match_jax(monkeypatch):
      "speculative decoding"),
     (dict(prefix_pages=2), ("BLUEFOG_PREFIX_PAGES", "2x8"),
      "shared prefix pages"),
-    (dict(moe_experts=4), ("BLUEFOG_SERVE_MOE", "4"), "MoE serving"),
+    (dict(moe_experts=4, moe_ep=2), ("BLUEFOG_SERVE_MOE", "4@2"),
+     "MoE serving"),
 ])
 def test_later_slices_refused_by_name(monkeypatch, kw, env, match):
     with pytest.raises(ValueError, match=match + ".*not yet ported"):

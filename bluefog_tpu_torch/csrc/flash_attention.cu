@@ -1,4 +1,5 @@
-// Flash attention forward (K1) and backward (K2) for Hopper (sm_90a).
+// Flash attention forward (K1) and backward (K2) for Hopper (sm_90a), on
+// the tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernels of bluefog_tpu/ops/pallas_attention.py:
 //
@@ -6,48 +7,105 @@
 //   flash_bwd_dkdv  \  attention_block_backward (kernel _backward_kernel)
 //   flash_bwd_dq    /
 //
-// Same functions, rethought for the GPU.  Shapes: q [B, Tq, H, D], k/v
-// [B, Tk, Hkv, D] (f32 or bf16, widened to f32 in shared memory), grouped
+// Shapes: q [B, Tq, H, D], k/v [B, Tk, Hkv, D] (f32 or bf16), grouped
 // query attention by index: q head h reads kv head h / (H / Hkv).  Masks
 // come from the global offsets: with `causal`, key position koff + j is
 // visible to query position qoff + i iff koff + j <= qoff + i and, with a
-// window w > 0, qoff + i - (koff + j) < w.
+// window w > 0, qoff + i - (koff + j) < w.  Any Tq, Tk; D is 64 or 128.
 //
-// flash_fwd: one CTA per (b, h, tile of 64 q rows).  The TPU kernel holds
-//   a whole [block_q, Tk] score tile in VMEM; here the CTA loops over K/V
-//   tiles of 64 keys staged in shared memory with an f32 online softmax,
-//   so the running max ends as the row max over all of Tk and o, l come
-//   out relative to it, exactly as the TPU partial's do.  q is scaled
-//   before the dot (as _partial_kernel does).  Rows with no visible key
-//   write m = -inf, l = 0, o = 0.  Tiles wholly masked by the causal or
-//   window mask are skipped: their terms are exact zeros.
+// What the kernels compute (unchanged from the SIMT kernels they replace):
+//   flash_fwd: one CTA per (b, h, tile of q rows) streams 64-key K/V
+//     tiles with an f32 online softmax, so the running max ends as the row
+//     max over all of Tk and (o, l, m) are relative to it, as the TPU
+//     partial's are.  Rows with no visible key write m = -inf, l = 0,
+//     o = 0.  With f32 inputs q is scaled before the dot, as
+//     _partial_kernel does; with bf16 inputs the exact dot is scaled
+//     (q * scale would leave TF32; the two differ by one f32 rounding).
+//   flash_bwd_dkdv / flash_bwd_dq: the FlashAttention-2 backward given the
+//     global lse and delta = rowsum(do * out): p = exp(s * scale - lse)
+//     (0 where masked or lse = -inf), ds = p * (do v^T - delta),
+//     dv = p^T do, dk = scale * ds^T q (summed over the GQA group),
+//     dq = scale * ds k.
 //
-// K2 (FlashAttention-2 backward, given the global lse and delta = rowsum
-//   (do * out)).  The TPU accumulates dk/dv over a sequential grid axis;
-//   a GPU grid runs in no order, so the backward is split in two kernels
-//   and needs no atomics (runs are deterministic):
-//   flash_bwd_dkdv: one CTA per (b, kv head, tile of 64 keys).  It loops
-//     over the G q heads of its group and every q tile that sees the key
-//     tile, recomputes s and p = exp(s * scale - lse) (0 where masked or
-//     where lse = -inf), and accumulates dv += p^T do and
-//     dk += scale * ds^T q with ds = p * (do v^T - delta) in registers.
-//   flash_bwd_dq: one CTA per (b, h, tile of 64 q rows); loops over the
-//     visible key tiles and accumulates dq += scale * ds k.
-//   As on the TPU (_backward_kernel), the scale multiplies after the q.k
-//   dot, then the mask, then the exponent.
+// What bounds them on this card: at the trainer's shape (q/k/v [4, 2048,
+// 16, 64] f32, causal) the forward needs 4 * B * H * T (T + 1) / 2 * D =
+// 3.4e10 FLOP against 0.04 ms of bytes, so products bound it; the
+// backward's five products are 2.5 times that.  The tolerances the port
+// holds (m to 1e-5, o/l and gradients to 1e-4, the trainer's step-1 loss
+// to rtol 1e-5, with torch's TF32 switched off as the JAX reference
+// trains) rule out a single TF32 pass (10-bit mantissa, ~5e-4 relative).
+// So every product is 3xTF32, as CUTLASS's OpMultiplyAddFastF32: each f32
+// operand x splits into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x -
+// big), and mma.sync.m16n8k8.tf32 accumulates small*big + big*small before
+// big*big in f32 (495 / 3 = 165 TFLOP/s of f32-accurate products, against
+// 67 TFLOP/s on the CUDA cores).  A bf16 value is exact in TF32 (small =
+// 0), so its small terms are dropped at compile time: q.k^T at bf16
+// inputs takes one MMA, p.v two; every product touching dO, P or dS
+// (f32) keeps its small term.  The tensor cores add into their
+// accumulator by truncation, which drifts one way by about an ulp of |c|
+// per MMA; so each tile's products go to a zeroed fragment that is added
+// to the running f32 sums (o, dq, dk, dv) with round-to-nearest once per
+// tile, and K1's scores, whose max m is held to 1e-5, add each k-step so.
 //
-// What bounds them: at the trainer's shape (q/k/v [4, 2048, 16, 64] f32,
-// causal) the forward needs 4 * B * H * T (T + 1) / 2 * D = 3.4e10 FLOP,
-// 0.51 ms at the card's 67 TFLOP/s f32 rate, against 0.04 ms of bytes, so
-// it is bound by operations; the backward's five products are 2.5 times
-// that.  With bf16 inputs the same products could run on the tensor cores
-// (989 TFLOP/s).  These first kernels are SIMT: 256 threads, each owning a
-// 4 x 4 block of the 64 x 64 score tile and 4 x D/16 of the output, with
-// f32 FMAs from shared memory (padded rows, no bank conflicts), so they
-// run well below either bound.  The backward also recomputes s and do.v^T
-// in both kernels (7 products, not 5) to avoid atomics.  A later PR moves
-// the products to mma.sync / wgmma (bf16 or TF32 where the caller allows
-// it) and stages the tiles with cp.async / TMA so loads overlap math.
+// Layout.  A CTA is W warps; each warp owns 16 rows (q rows in flash_fwd
+// and flash_bwd_dq, keys in flash_bwd_dkdv), FA-2 style, so the products
+// and the softmax stay in the warp's registers; the streamed tiles are 64
+// rows.  m16n8k8 fragments, with lane = 4 g + t:
+//   A (16 x 8, row major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//     a3 (g + 8, t + 4);
+//   B (8 x 8, k x n):      b0 (k = t, n = g), b1 (k = t + 4, n = g);
+//   C (16 x 8):            c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+//     c3 (g + 8, 2t + 1).
+// An accumulator (P, dS) feeds the next product as its A operand without
+// any move: the k index of a product may be permuted as long as A and B
+// agree, so A slot t stands for column 2t and slot t + 4 for 2t + 1
+// (a = {c0, c2, c1, c3}), and B is read at rows k0 + 2t and k0 + 2t + 1.
+// The row-wise max and sum of the online softmax are quad shuffles.
+// Every shared tile is row major with a row stride of 4 (mod 32) 32-bit
+// words (D + 4 floats, D + 8 bf16): B read as (k = d, n = row) touches
+// word 4 g + t, B read as (k = row, n = d) through the permutation touches
+// word 8 t + g, A touches 4 g + t: no bank conflicts, and every row stays
+// 16-byte aligned for cp.async.
+//
+// Staging.  The tiles a CTA streams (K/V in flash_fwd and flash_bwd_dq;
+// Q, dO, lse and delta in flash_bwd_dkdv) go through two stages filled by
+// cp.async (16-byte cg copies, zero-filled past the ragged edge; 4-byte
+// copies for the strided lse/delta), so tile i + 1 loads while tile i
+// computes (one stage in the backward at D = 128, below).  At D = 64 each
+// streamed f32 tile is split once after it lands, by the whole CTA: the
+// big parts over the values, the small ones into a tile beside them, so
+// the 8 warps that read it load both parts instead of each splitting
+// every value again (three ALU operations a value).  bf16 tiles stay
+// bf16 in shared memory and widen at the fragment load.  Only tiles the
+// mask cuts (the diagonal, a window edge, a ragged edge) test each
+// element; wholly masked tiles are skipped.  Q tiles with the most
+// visible keys (the last ones when causal) launch first, and key tiles
+// with the most visible queries (the first ones), so causal work leaves
+// no tail wave.
+//
+// Why no atomics: the TPU accumulates dk/dv over a sequential grid axis;
+// a GPU grid runs in no order, so the backward is split: flash_bwd_dkdv
+// (one CTA per (b, kv head, 16 W keys), looping over the GQA group's heads
+// and the visible q tiles) and flash_bwd_dq (one CTA per (b, h, 16 W q
+// rows)).  Both recompute s and do.v^T (7 products instead of 5), and two
+// runs on the same inputs give bit-identical results.
+//
+// CTA shapes (Shape<T, D>).  W = 8 warps (128 rows): one CTA fills an
+// SM's shared memory (about 175 KB at D = 64 with the split tiles, 203 KB
+// at D = 128 without them) and 8 warps share each staged tile.  At D =
+// 128 the backward's streamed tiles are single-staged to fit.  The bf16
+// forward at D = 64 has nothing to split and keeps 4 warps (two CTAs an
+// SM).  The dK and dV accumulators of 16 keys x 128 would take 128
+// registers a thread beside s and dP, so dkdv runs two sweeps at D = 128,
+// dV first and then dK (s recomputed: 960 products per tile pair instead
+// of 768); at D = 64 one sweep does both.  At D = 64 flash_fwd splits each
+// warp's f32 q rows once (big in place, small beside); the other A
+// operands are read from shared memory and split per k-step (one fragment
+// serves 8 MMAs).
+//
+// Every kernel is declared __launch_bounds__(threads, 1): without the
+// minimum ptxas capped an f32 forward of 4 warps at 168 registers (three
+// CTAs an SM, which shared memory never allows) and spilled.
 //
 // The C interface takes every pointer as void* (ctypes passes them as
 // c_void_p) and returns cudaGetLastError() after the launches.
@@ -59,13 +117,27 @@
 
 namespace {
 
-constexpr int kTile = 64;           // q rows and keys per tile
-constexpr int kThreads = 256;       // 16 x 16 threads
-constexpr int kPP = kTile + 1;      // padded row stride of a 64 x 64 tile
+constexpr int kTile = 64;           // rows of a streamed tile
+
+// CTA shape: W warps of 16 rows (FWD_W in flash_fwd) and the number of
+// stages of the backward's streamed tiles (the forward always has 2); see
+// the header
+template <typename T, int D> struct Shape {
+  static constexpr int W = 8;
+  static constexpr int FWD_W = sizeof(T) == 2 && D == 64 ? 4 : 8;
+  static constexpr int BWD_NS = D == 64 ? 2 : 1;
+};
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// row stride (elements) of a shared tile of D columns of T: 4 (mod 32)
+// words, rows 16-byte aligned
+template <typename T, int D>
+__host__ __device__ constexpr int stride_of() {
+  return D + 16 / (int)sizeof(T);
 }
 
 struct Mask {
@@ -87,200 +159,456 @@ struct Mask {
     const int lo = (qoff + q0) - (koff + k0 + nk - 1);
     return hi >= 0 && (window <= 0 || lo < window);
   }
+
+  // true iff every pair of the full tile [q0, q0 + nq) x [k0, k0 + nk)
+  // is kept
+  __device__ __forceinline__ bool all_kept(int q0, int nq, int k0,
+                                           int nk) const {
+    if (!causal) return true;
+    const int lo = (qoff + q0) - (koff + k0 + nk - 1);
+    const int hi = (qoff + q0 + nq - 1) - (koff + k0);
+    return lo >= 0 && (window <= 0 || hi < window);
+  }
 };
 
-// sum / max over the 16 lanes of a half warp (one tile row's threads)
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// -- cp.async ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 16 bytes; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [0, nvalid) of a [64, D] slice with the given row stride (elements)
-// into a padded [64][D + 1] f32 tile; rows past nvalid are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          size_t stride, int nvalid,
-                                          float mul) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] =
-        r < nvalid ? widen(src[(size_t)r * stride + d]) * mul : 0.f;
+// rows [0, nvalid) of a [ROWS, D] slice with the given row stride
+// (elements) into a shared tile of stride_of<T, D>(), by NT threads; rows
+// past nvalid are zero
+template <typename T, int D, int ROWS, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           size_t stride, int nvalid) {
+  constexpr int E = 16 / (int)sizeof(T);     // elements per 16-byte chunk
+  constexpr int CH = D / E, SD = stride_of<T, D>();
+  for (int c = threadIdx.x; c < ROWS * CH; c += NT) {
+    const int r = c / CH, e = (c % CH) * E;
+    const bool ok = r < nvalid;
+    cp16(dst + r * SD + e, src + (size_t)(ok ? r : 0) * stride + e, ok);
   }
 }
 
-// acc[r][c] += A[ty + 16 r][:] . B[tx + 16 c][:] over D, both tiles padded
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
-                                         const float* Bt, int ty, int tx) {
-  constexpr int DP = D + 1;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = A[(ty + 16 * r) * DP + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = Bt[(tx + 16 * c) * DP + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+// 64 values with the given stride into dst; rows past nvalid read 0
+template <int NT>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          size_t stride, int nvalid) {
+  for (int i = threadIdx.x; i < kTile; i += NT)
+    cp4(dst + i, src + (size_t)(i < nvalid ? i : 0) * stride, i < nvalid);
+}
+
+// -- 3xTF32 fragments and products ---------------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as big + small TF32 parts; EXACT (a widened bf16) has small = 0
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  if (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    big = tf32(x);
+    small = tf32(x - __uint_as_float(big));
   }
 }
 
+struct FragA { uint32_t b[4], s[4]; };
+struct FragB { uint32_t b[2], s[2]; };
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b at f32 accuracy: the small terms first, then big . big
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  if (!A_EXACT) mma(c, a.s, b.b[0], b.b[1]);
+  if (!B_EXACT) mma(c, a.b, b.s[0], b.s[1]);
+  mma(c, a.b, b.b[0], b.b[1]);
+}
+
+// the same into a zeroed fragment that is then added to c with
+// round-to-nearest (the tensor cores add by truncation; see the header)
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3_rn(float (&c)[4], const FragA& a,
+                                        const FragB& b) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3<A_EXACT, B_EXACT>(d, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// c += d, element by element (round-to-nearest)
+template <int N>
+__device__ __forceinline__ void add(float (&c)[N][4], const float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] += d[n][e];
+}
+
+// A = X[r0 .. r0 + 16) x [c0 .. c0 + 8) of a row-major shared tile, times mul
+template <typename T, int SD, bool EXACT>
+__device__ __forceinline__ FragA load_a(const T* X, int r0, int c0,
+                                        float mul = 1.f) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const T* p = X + (r0 + g) * SD + c0 + t;
+  const float v[4] = {widen(p[0]), widen(p[8 * SD]), widen(p[4]),
+                      widen(p[8 * SD + 4])};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split<EXACT>(v[i] * mul, f.b[i], f.s[i]);
+  return f;
+}
+
+// A from parts split beforehand (big, small) in two row-major tiles
+template <int SD>
+__device__ __forceinline__ FragA load_a_split(const uint32_t* B,
+                                              const uint32_t* S, int r0,
+                                              int c0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int i = (r0 + g) * SD + c0 + t;
+  const int off[4] = {0, 8 * SD, 4, 8 * SD + 4};
+  FragA f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f.b[j] = B[i + off[j]];
+    f.s[j] = S[i + off[j]];
+  }
+  return f;
+}
+
+// the B fragment of elements i and i + step of a shared tile
+template <typename T, bool EXACT, bool PRE>
+__device__ __forceinline__ FragB load_b_at(const T* X, const uint32_t* S,
+                                           int i, int step) {
+  FragB f;
+  if constexpr (PRE) {
+    const uint32_t* B = reinterpret_cast<const uint32_t*>(X);
+    f.b[0] = B[i];
+    f.b[1] = B[i + step];
+    f.s[0] = S[i];
+    f.s[1] = S[i + step];
+  } else {
+    split<EXACT>(widen(X[i]), f.b[0], f.s[0]);
+    split<EXACT>(widen(X[i + step]), f.b[1], f.s[1]);
+  }
+  return f;
+}
+
+// Splits a landed f32 tile of ROWS rows in place, by NT threads: the big
+// parts over the values, the small ones into S (the same layout)
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void presplit(float* X, uint32_t* S) {
+  constexpr int SF = stride_of<float, D>(), C4 = D / 4;
+  for (int e = threadIdx.x; e < ROWS * C4; e += NT) {
+    const int i = (e / C4) * SF + (e % C4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(X + i);
+    uint4 b, sm;
+    split<false>(x.x, b.x, sm.x);
+    split<false>(x.y, b.y, sm.y);
+    split<false>(x.z, b.z, sm.z);
+    split<false>(x.w, b.w, sm.w);
+    *reinterpret_cast<uint4*>(X + i) = b;
+    *reinterpret_cast<uint4*>(S + i) = sm;
+  }
+}
+
+// B(k = d, n = row) from a row-major [row][d] shared tile: rows n0 + g,
+// columns k0 + t and k0 + t + 4
+// (PRE: X holds the big parts and S the small ones, split beforehand)
+template <typename T, int SD, bool EXACT, bool PRE = false>
+__device__ __forceinline__ FragB load_b_rows(const T* X, int n0, int k0,
+                                             const uint32_t* S = nullptr) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  return load_b_at<T, EXACT, PRE>(X, S, (n0 + g) * SD + k0 + t, 4);
+}
+
+// B(k = row, n = d) from a row-major [row][d] shared tile, k permuted to
+// match a_from_acc: rows k0 + 2t and k0 + 2t + 1, column n0 + g
+template <typename T, int SD, bool EXACT, bool PRE = false>
+__device__ __forceinline__ FragB load_b_cols(const T* X, int k0, int n0,
+                                             const uint32_t* S = nullptr) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  return load_b_at<T, EXACT, PRE>(X, S, (k0 + 2 * t) * SD + n0 + g, SD);
+}
+
+// an accumulator tile (16 x 8) as the A operand of the next product, with
+// slot t standing for column 2t and slot t + 4 for column 2t + 1
+__device__ __forceinline__ FragA a_from_acc(const float (&c)[4]) {
+  FragA f;
+  split<false>(c[0], f.b[0], f.s[0]);
+  split<false>(c[2], f.b[1], f.s[1]);
+  split<false>(c[1], f.b[2], f.s[2]);
+  split<false>(c[3], f.b[3], f.s[3]);
+  return f;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// first and last tile of [0, n) (tiles of 64 along the streamed axis)
+// that the mask leaves visible against the fixed tile; lo > hi if none.
+// Visibility is an interval of position differences, so the visible
+// tiles are contiguous.
+template <bool STREAM_KEYS>
+__device__ __forceinline__ void visible_range(const Mask& mask, int fixed0,
+                                              int nfixed, int n, int& lo,
+                                              int& hi) {
+  lo = 0;
+  hi = -1;
+  const int nt = (n + kTile - 1) / kTile;
+  for (int i = 0; i < nt; ++i) {
+    const int s0 = i * kTile, ns = min(kTile, n - s0);
+    const bool vis = STREAM_KEYS ? mask.visible(fixed0, nfixed, s0, ns)
+                                 : mask.visible(s0, ns, fixed0, nfixed);
+    if (vis) {
+      if (hi < 0) lo = i;
+      hi = i;
+    }
+  }
+}
+
+// -- K1: flash_fwd -------------------------------------------------------
+
+// One CTA per (b, h, 16 W q rows); warp w owns rows 16 w .. 16 w + 15.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<T, D>::FWD_W * 32, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ l, float* __restrict__ m, int Tq, int Tk,
                  int H, int Hkv, float scale, Mask mask) {
-  constexpr int DP = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * DP;
-  float* Vs = Ks + kTile * DP;
-  float* Ps = Vs + kTile * DP;
+  constexpr int SD = stride_of<T, D>(), KS = D / 8, NO = D / 8;
+  constexpr int W = Shape<T, D>::FWD_W, NT = W * 32, ROWS = W * 16;
+  constexpr bool EX = sizeof(T) == 2;          // bf16: exact in TF32
+  // f32 at D = 64: q split once, K/V split once a tile (see the header)
+  constexpr bool PRE = !EX && D == 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + ROWS * SD;                      // 2 stages
+  T* Vs = Ks + 2 * kTile * SD;                 // 2 stages
+  // PRE: the small parts of q * scale, K and V (big ones in place)
+  uint32_t* Qsm = reinterpret_cast<uint32_t*>(Vs + 2 * kTile * SD);
+  uint32_t* Ksm = Qsm + ROWS * SD;
+  uint32_t* Vsm = Ksm + kTile * SD;
 
-  const int nqt = (Tq + kTile - 1) / kTile;
-  const int qt = blockIdx.x % nqt, bh = blockIdx.x / nqt;
+  // the last q tiles (most visible keys when causal) launch first
+  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / nqt;
+  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;
   const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = qt * kTile, nq = min(kTile, Tq - q0);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * ROWS, nq = min(ROWS, Tq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
   const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const T* kbase = k + ((size_t)b * Tk * Hkv + hk) * D;
   const T* vbase = v + ((size_t)b * Tk * Hkv + hk) * D;
+  // f32: q scaled before the dot; bf16: the exact dot is scaled
+  const float qmul = EX ? 1.f : scale, smul = EX ? scale : 1.f;
 
-  load_tile<T, D>(Qs, q + ((size_t)b * Tq * H + h) * D + q0 * qs, qs, nq,
-                  scale);
-  float acc[4][NC], mrow[4], lrow[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  int lo, hi;
+  visible_range<true>(mask, q0, nq, Tk, lo, hi);
+  stage_rows<T, D, ROWS, NT>(Qs, q + ((size_t)b * Tq * H + h) * D + q0 * qs,
+                             qs, nq);
+  if (lo <= hi) {
+    const int n0 = min(kTile, Tk - lo * kTile);
+    stage_rows<T, D, kTile, NT>(Ks, kbase + lo * kTile * ks, ks, n0);
+    stage_rows<T, D, kTile, NT>(Vs, vbase + lo * kTile * ks, ks, n0);
   }
+  cp_commit();
 
-  for (int k0 = 0; k0 < Tk; k0 += kTile) {
-    const int nk = min(kTile, Tk - k0);
-    if (!mask.visible(q0, nq, k0, nk)) continue;      // uniform in the CTA
-    __syncthreads();                                   // last tile consumed
-    load_tile<T, D>(Ks, kbase + k0 * ks, ks, nk, 1.f);
-    load_tile<T, D>(Vs, vbase + k0 * ks, ks, nk, 1.f);
+  float acc[NO][4], mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  zero(acc);
+
+  for (int kt = lo, it = 0; kt <= hi; ++kt, ++it) {
+    const int st = it & 1, k0 = kt * kTile;
+    if (kt < hi) {                       // prefetch the next tile
+      const int k1 = k0 + kTile, n1 = min(kTile, Tk - k1);
+      stage_rows<T, D, kTile, NT>(Ks + (st ^ 1) * kTile * SD,
+                                  kbase + k1 * ks, ks, n1);
+      stage_rows<T, D, kTile, NT>(Vs + (st ^ 1) * kTile * SD,
+                                  vbase + k1 * ks, ks, n1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
+    const T* Kt = Ks + st * kTile * SD;
+    const T* Vt = Vs + st * kTile * SD;
+    if constexpr (PRE) {
+      if (it == 0) {                     // this warp's q rows, split once
+        uint32_t* Qb = reinterpret_cast<uint32_t*>(Qs);
+        for (int e = lane; e < 16 * D; e += 32) {
+          const int i = (r0 + e / D) * SD + e % D;
+          split<false>(Qs[i] * scale, Qb[i], Qsm[i]);
+        }
+      }
+      presplit<D, kTile, NT>(Ks + st * kTile * SD, Ksm);
+      presplit<D, kTile, NT>(Vs + st * kTile * SD, Vsm);
+      __syncthreads();
+    }
 
-    float s[4][4] = {};
-    dot_tile<D>(s, Qs, Ks, ty, tx);
+    // s = q k^T: 16 rows x 64 keys in 8 accumulator tiles, each k-step
+    // added with round-to-nearest (m is held to 1e-5)
+    float s[8][4];
+    zero(s);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty + 16 * r;
-      float mx = -INFINITY;
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA a =
+          PRE ? load_a_split<SD>(reinterpret_cast<const uint32_t*>(Qs), Qsm,
+                                 r0, kk * 8)
+              : load_a<T, SD, EX>(Qs, r0, kk * 8, qmul);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c;
-        if (j >= nk || !mask.keep(i, k0 + j)) s[r][c] = -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
+      for (int n = 0; n < 8; ++n)
+        mma3_rn<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE>(Kt, n * 8,
+                                                             kk * 8, Ksm));
+    }
+
+    // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    const bool cut =
+        !mask.all_kept(q0, ROWS, k0, kTile) || k0 + kTile > Tk;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * smul;
+        if (cut) {
+          const int i = q0 + r0 + g + (e >> 1) * 8;
+          const int j = k0 + n * 8 + 2 * t + (e & 1);
+          if (j >= Tk || !mask.keep(i, j)) x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      mx = row_max(mx);
-      const float m_new = fmaxf(mrow[r], mx);
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
+    float safe[2], corr[2];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = s[r][c] == -INFINITY ? 0.f : expf(s[r][c] - safe);
-        s[r][c] = p;
-        sum += p;
-        Ps[(ty + 16 * r) * kPP + tx + 16 * c] = p;
-      }
-      sum = row_sum(sum);
-      const float corr = mrow[r] == -INFINITY ? 0.f : expf(mrow[r] - safe);
-      lrow[r] = lrow[r] * corr + sum;
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(mrow[r], quad_max(mx[r]));
+      safe[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = mrow[r] == -INFINITY ? 0.f : expf(mrow[r] - safe[r]);
       mrow[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
+      lrow[r] *= corr[r];
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = Vs[j * DP + tx + 16 * c];
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = Ps[(ty + 16 * r) * kPP + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[n][e];
+        const float p = x == -INFINITY ? 0.f : expf(x - safe[e >> 1]);
+        s[n][e] = p;
+        lrow[e >> 1] += p;
       }
+
+    // o = o corr + p v: the accumulators of p are the A operand, 8 keys a
+    // k-step; the tile's p v goes to a zeroed fragment
+    float pv[NO][4];
+    zero(pv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const FragA a = a_from_acc(s[j]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        mma3<false, EX>(pv[n], a, load_b_cols<T, SD, EX, PRE>(Vt, j * 8,
+                                                              n * 8, Vsm));
     }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);
+    __syncthreads();                     // this stage is refilled next
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(lrow[r]);
+    const int i = q0 + r0 + g + 8 * r;
     if (i >= Tq) continue;
     const size_t row = ((size_t)b * Tq + i) * H + h;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[row * D + tx + 16 * c] = acc[r][c];
-    if (tx == 0) {
-      l[row] = lrow[r];
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(o + row * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    if (t == 0) {
+      l[row] = lsum;
       m[row] = mrow[r];
     }
   }
 }
 
-// Loads the q-side operands of one (b, h, q tile): q, do, lse, delta.
-// Rows past Tq get lse = -inf, so their p (and ds) are exact zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_q_side(
-    float* Qs, float* dOs, float* Ls, float* Dl, const T* q,
-    const float* dout, const float* lse, const float* delta, int b, int h,
-    int q0, int nq, int Tq, int H) {
-  const size_t qs = (size_t)H * D;
-  const size_t base = ((size_t)b * Tq * H + h) * D + q0 * qs;
-  load_tile<T, D>(Qs, q + base, qs, nq, 1.f);
-  load_tile<float, D>(dOs, dout + base, qs, nq, 1.f);
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const size_t row = ((size_t)b * Tq + q0 + i) * H + h;
-    Ls[i] = i < nq ? lse[row] : -INFINITY;
-    Dl[i] = i < nq ? delta[row] : 0.f;
+// Waits for the streamed tile of iteration `it` to land in its stage and
+// makes it visible to the CTA.  With NS = 2 the next tile is staged first
+// (`stage_next`, which commits), so it loads while this one computes;
+// with NS = 1 the tile is staged here (`stage_this`) after the previous
+// iteration's closing barrier.
+template <int NS, typename Next, typename This>
+__device__ __forceinline__ void await_tile(int it, bool has_next,
+                                           Next stage_next,
+                                           This stage_this) {
+  if (NS == 2 && has_next) {
+    stage_next();
+    cp_wait<1>();
+  } else {
+    if (NS == 1 && it > 0) stage_this();
+    cp_wait<0>();
   }
+  __syncthreads();
 }
 
-// p and ds of one (q tile, key tile) pair: rows ty + 16 r (queries),
-// columns tx + 16 c (keys), written to the padded P / dS tiles
-template <int D>
-__device__ __forceinline__ void p_and_ds(float* Ps, float* dSs,
-                                         const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs,
-                                         const float* Ls, const float* Dl,
-                                         int q0, int k0, int nk, float scale,
-                                         const Mask& mask, int ty, int tx) {
-  float s[4][4] = {}, dp[4][4] = {};
-  dot_tile<D>(s, Qs, Ks, ty, tx);
-  dot_tile<D>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = ty + 16 * r;
-    const float L = Ls[i], dl = Dl[i];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = tx + 16 * c;
-      const bool ok =
-          j < nk && L != -INFINITY && mask.keep(q0 + i, k0 + j);
-      const float p = ok ? expf(s[r][c] * scale - L) : 0.f;
-      if (Ps) Ps[i * kPP + j] = p;
-      dSs[i * kPP + j] = p * (dp[r][c] - dl);
-    }
-  }
-}
+// -- K2: flash_bwd_dkdv --------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// One CTA per (b, kv head, 16 W keys); warp w owns keys 16 w .. 16 w + 15.
+// DV / DK select what this sweep accumulates (both at D = 64; at D = 128
+// one launch each, see the header).
+template <typename T, int D, bool DV, bool DK>
+__global__ void __launch_bounds__(Shape<T, D>::W * 32, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const float* __restrict__ dout,
@@ -288,149 +616,332 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int Tq,
                       int Tk, int H, int Hkv, float scale, Mask mask) {
-  constexpr int DP = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * DP;
-  float* Qs = Vs + kTile * DP;
-  float* dOs = Qs + kTile * DP;
-  float* Ps = dOs + kTile * DP;
-  float* dSs = Ps + kTile * kPP;
-  float* Ls = dSs + kTile * kPP;
-  float* Dl = Ls + kTile;
+  constexpr int SD = stride_of<T, D>(), SF = stride_of<float, D>();
+  constexpr int KS = D / 8, NO = D / 8, NS = Shape<T, D>::BWD_NS;
+  constexpr int NT = Shape<T, D>::W * 32, ROWS = Shape<T, D>::W * 16;
+  constexpr bool EX = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + ROWS * SD;
+  T* Qs = Vs + ROWS * SD;                        // NS stages
+  float* dOs = reinterpret_cast<float*>(Qs + NS * kTile * SD);  // NS stages
+  float* Ls = dOs + NS * kTile * SF;             // NS stages
+  float* Dl = Ls + NS * kTile;                   // NS stages
+  // at D = 64 dO (and an f32 Q) are split once a tile: small parts here
+  constexpr bool PRE_O = D == 64, PRE_Q = PRE_O && !EX;
+  uint32_t* dOsm = reinterpret_cast<uint32_t*>(Dl + NS * kTile);
+  uint32_t* Qsm = dOsm + kTile * SF;
 
-  const int nkt = (Tk + kTile - 1) / kTile;
-  const int kt = blockIdx.x % nkt, bhk = blockIdx.x / nkt;
+  // the first key tiles (most visible queries when causal) launch first
+  const int nkt = (Tk + ROWS - 1) / ROWS, BHk = gridDim.x / nkt;
+  const int kt = (int)blockIdx.x / BHk, bhk = blockIdx.x % BHk;
   const int b = bhk / Hkv, hk = bhk % Hkv, G = H / Hkv;
-  const int k0 = kt * kTile, nk = min(kTile, Tk - k0);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t ks = (size_t)Hkv * D;
+  const int k0 = kt * ROWS, nk = min(ROWS, Tk - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const size_t kbase = ((size_t)b * Tk * Hkv + hk) * D + k0 * ks;
-  load_tile<T, D>(Ks, k + kbase, ks, nk, 1.f);
-  load_tile<T, D>(Vs, v + kbase, ks, nk, 1.f);
 
-  float dka[4][NC] = {}, dva[4][NC] = {};     // key rows ty + 16 r
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int q0 = 0; q0 < Tq; q0 += kTile) {
-      const int nq = min(kTile, Tq - q0);
-      if (!mask.visible(q0, nq, k0, nk)) continue;
+  int lo, hi;
+  visible_range<false>(mask, k0, nk, Tq, lo, hi);
+  const int nqt = hi - lo + 1, items = nqt > 0 ? G * nqt : 0;
+  // item i: q head hk * G + i / nqt, q tile lo + i % nqt
+  auto stage_item = [&](int i, int st) {
+    const int h = hk * G + i / nqt, q0 = (lo + i % nqt) * kTile;
+    const int nq = min(kTile, Tq - q0);
+    const size_t base = ((size_t)b * Tq * H + h) * D + q0 * qs;
+    const size_t rbase = ((size_t)b * Tq + q0) * H + h;
+    stage_rows<T, D, kTile, NT>(Qs + st * kTile * SD, q + base, qs, nq);
+    stage_rows<float, D, kTile, NT>(dOs + st * kTile * SF, dout + base, qs,
+                                    nq);
+    stage_vec<NT>(Ls + st * kTile, lse + rbase, H, nq);
+    if (DK) stage_vec<NT>(Dl + st * kTile, delta + rbase, H, nq);
+    cp_commit();
+  };
+  stage_rows<T, D, ROWS, NT>(Ks, k + kbase, ks, nk);
+  if (DK) stage_rows<T, D, ROWS, NT>(Vs, v + kbase, ks, nk);
+  if (items > 0) stage_item(0, 0);      // commits K, V and item 0
+  else cp_commit();
+
+  float dva[DV ? NO : 1][4], dka[DK ? NO : 1][4];
+  zero(dva);
+  zero(dka);
+
+  for (int it = 0; it < items; ++it) {
+    const int st = NS == 2 ? it & 1 : 0, q0 = (lo + it % nqt) * kTile;
+    await_tile<NS>(it, it + 1 < items, [&] { stage_item(it + 1, st ^ 1); },
+                   [&] { stage_item(it, 0); });
+    const T* Qt = Qs + st * kTile * SD;
+    const float* dOt = dOs + st * kTile * SF;
+    const float* Lt = Ls + st * kTile;
+    const float* Dt = Dl + st * kTile;
+    if constexpr (PRE_O) {
+      if constexpr (PRE_Q)
+        presplit<D, kTile, NT>(reinterpret_cast<float*>(Qs) + st * kTile * SD,
+                               Qsm);
+      presplit<D, kTile, NT>(dOs + st * kTile * SF, dOsm);
       __syncthreads();
-      load_q_side<T, D>(Qs, dOs, Ls, Dl, q, dout, lse, delta, b, h, q0, nq,
-                        Tq, H);
-      __syncthreads();
-      p_and_ds<D>(Ps, dSs, Qs, dOs, Ks, Vs, Ls, Dl, q0, k0, nk, scale, mask,
-                  ty, tx);
-      __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < kTile; ++i) {
-        float dov[NC], qv[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = dOs[i * DP + tx + 16 * c];
-          qv[c] = Qs[i * DP + tx + 16 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float p = Ps[i * kPP + ty + 16 * r];
-          const float ds = dSs[i * kPP + ty + 16 * r];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dva[r][c] = fmaf(p, dov[c], dva[r][c]);
-            dka[r][c] = fmaf(ds, qv[c], dka[r][c]);
-          }
-        }
-      }
     }
+
+    // s^T = k q^T: 16 keys x 64 queries
+    float s[8][4];
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA a = load_a<T, SD, EX>(Ks, r0, kk * 8);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mma3<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE_Q>(Qt, n * 8,
+                                                            kk * 8, Qsm));
+    }
+    // p^T = exp(s^T scale - lse), 0 where masked, past Tq or lse = -inf
+    const bool cut =
+        !mask.all_kept(q0, kTile, k0, ROWS) || q0 + kTile > Tq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        const float L = Lt[c];
+        bool ok = L != -INFINITY;
+        if (cut) {
+          const int j = k0 + r0 + g + (e >> 1) * 8;
+          ok = ok && q0 + c < Tq && mask.keep(q0 + c, j);
+        }
+        s[n][e] = ok ? expf(s[n][e] * scale - L) : 0.f;
+      }
+
+    if (DK) {
+      // dp^T = v do^T, then ds^T = p^T (dp^T - delta)
+      float dp[8][4];
+      zero(dp);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const FragA a = load_a<T, SD, EX>(Vs, r0, kk * 8);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mma3<EX, false>(dp[n], a, load_b_rows<float, SF, false, PRE_O>(
+                                        dOt, n * 8, kk * 8, dOsm));
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] = s[n][e] * (dp[n][e] - Dt[n * 8 + 2 * t + (e & 1)]);
+      // dk += ds^T q, the tile's part in a zeroed fragment
+      float part[DK ? NO : 1][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const FragA a = a_from_acc(dp[j]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma3<false, EX>(part[DK ? n : 0], a,
+                          load_b_cols<T, SD, EX, PRE_Q>(Qt, j * 8, n * 8,
+                                                        Qsm));
+      }
+      add(dka, part);
+    }
+    if (DV) {
+      // dv += p^T do, the tile's part in a zeroed fragment
+      float part[DV ? NO : 1][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const FragA a = a_from_acc(s[j]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma3<false, false>(part[DV ? n : 0], a,
+                             load_b_cols<float, SF, false, PRE_O>(
+                                 dOt, j * 8, n * 8, dOsm));
+      }
+      add(dva, part);
+    }
+    __syncthreads();                     // this stage is refilled next
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + ty + 16 * r;
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + r0 + g + 8 * r;
     if (j >= Tk) continue;
     const size_t row = (((size_t)b * Tk + j) * Hkv + hk) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[row + tx + 16 * c] = dka[r][c] * scale;
-      dv[row + tx + 16 * c] = dva[r][c];
+    for (int n = 0; n < NO; ++n) {
+      if (DK)
+        *reinterpret_cast<float2*>(dk + row + n * 8 + 2 * t) = make_float2(
+            dka[DK ? n : 0][2 * r] * scale, dka[DK ? n : 0][2 * r + 1] * scale);
+      if (DV)
+        *reinterpret_cast<float2*>(dv + row + n * 8 + 2 * t) = make_float2(
+            dva[DV ? n : 0][2 * r], dva[DV ? n : 0][2 * r + 1]);
     }
   }
 }
 
+// -- K2: flash_bwd_dq ----------------------------------------------------
+
+// One CTA per (b, h, 16 W q rows); warp w owns rows 16 w .. 16 w + 15.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<T, D>::W * 32, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Tq, int Tk, int H, int Hkv, float scale, Mask mask) {
-  constexpr int DP = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * DP;
-  float* Ks = dOs + kTile * DP;
-  float* Vs = Ks + kTile * DP;
-  float* dSs = Vs + kTile * DP;
-  float* Ls = dSs + kTile * kPP;
-  float* Dl = Ls + kTile;
+  constexpr int SD = stride_of<T, D>(), SF = stride_of<float, D>();
+  constexpr int KS = D / 8, NO = D / 8, NS = Shape<T, D>::BWD_NS;
+  constexpr int NT = Shape<T, D>::W * 32, ROWS = Shape<T, D>::W * 16;
+  constexpr bool EX = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + ROWS * SD;                        // NS stages
+  T* Vs = Ks + NS * kTile * SD;                  // NS stages
+  float* dOs = reinterpret_cast<float*>(Vs + NS * kTile * SD);
+  // f32 at D = 64: K/V split once a tile, small parts here
+  constexpr bool PRE = !EX && D == 64;
+  uint32_t* Ksm = reinterpret_cast<uint32_t*>(dOs + ROWS * SF);
+  uint32_t* Vsm = Ksm + kTile * SD;
 
-  const int nqt = (Tq + kTile - 1) / kTile;
-  const int qt = blockIdx.x % nqt, bh = blockIdx.x / nqt;
+  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / nqt;
+  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;
   const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = qt * kTile, nq = min(kTile, Tq - q0);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t ks = (size_t)Hkv * D;
+  const int q0 = qt * ROWS, nq = min(ROWS, Tq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
   const T* kbase = k + ((size_t)b * Tk * Hkv + hk) * D;
   const T* vbase = v + ((size_t)b * Tk * Hkv + hk) * D;
-  load_q_side<T, D>(Qs, dOs, Ls, Dl, q, dout, lse, delta, b, h, q0, nq, Tq,
-                    H);
 
-  float dqa[4][NC] = {};                       // q rows ty + 16 r
-  for (int k0 = 0; k0 < Tk; k0 += kTile) {
-    const int nk = min(kTile, Tk - k0);
-    if (!mask.visible(q0, nq, k0, nk)) continue;
-    __syncthreads();
-    load_tile<T, D>(Ks, kbase + k0 * ks, ks, nk, 1.f);
-    load_tile<T, D>(Vs, vbase + k0 * ks, ks, nk, 1.f);
-    __syncthreads();
-    p_and_ds<D>(nullptr, dSs, Qs, dOs, Ks, Vs, Ls, Dl, q0, k0, nk, scale,
-                mask, ty, tx);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float kv[NC];
+  int lo, hi;
+  visible_range<true>(mask, q0, nq, Tk, lo, hi);
+  auto stage_kv = [&](int kt, int st) {
+    const int k1 = kt * kTile, n1 = min(kTile, Tk - k1);
+    stage_rows<T, D, kTile, NT>(Ks + st * kTile * SD, kbase + k1 * ks, ks,
+                                n1);
+    stage_rows<T, D, kTile, NT>(Vs + st * kTile * SD, vbase + k1 * ks, ks,
+                                n1);
+    cp_commit();
+  };
+  const size_t base = ((size_t)b * Tq * H + h) * D + q0 * qs;
+  stage_rows<T, D, ROWS, NT>(Qs, q + base, qs, nq);
+  stage_rows<float, D, ROWS, NT>(dOs, dout + base, qs, nq);
+  if (lo <= hi) stage_kv(lo, 0);        // commits Q, dO and tile lo
+  else cp_commit();
+  // lse and delta of this thread's rows g and g + 8 (rows past Tq: p = 0)
+  float Lr[2], Dr[2];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = Ks[j * DP + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float ds = dSs[(ty + 16 * r) * kPP + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dqa[r][c] = fmaf(ds, kv[c], dqa[r][c]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + r0 + g + 8 * r;
+    const size_t row = ((size_t)b * Tq + i) * H + h;
+    Lr[r] = i < Tq ? lse[row] : -INFINITY;
+    Dr[r] = i < Tq ? delta[row] : 0.f;
   }
 
+  float dqa[NO][4];
+  zero(dqa);
+
+  for (int kt = lo, it = 0; kt <= hi; ++kt, ++it) {
+    const int st = NS == 2 ? it & 1 : 0, k0 = kt * kTile;
+    await_tile<NS>(it, kt < hi, [&] { stage_kv(kt + 1, st ^ 1); },
+                   [&] { stage_kv(kt, 0); });
+    const T* Kt = Ks + st * kTile * SD;
+    const T* Vt = Vs + st * kTile * SD;
+    if constexpr (PRE) {
+      presplit<D, kTile, NT>(Ks + st * kTile * SD, Ksm);
+      presplit<D, kTile, NT>(Vs + st * kTile * SD, Vsm);
+      __syncthreads();
+    }
+
+    // s = q k^T and dp = do v^T: 16 rows x 64 keys each
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA a = load_a<T, SD, EX>(Qs, r0, kk * 8);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mma3<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE>(Kt, n * 8, kk * 8,
+                                                          Ksm));
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA a = load_a<float, SF, false>(dOs, r0, kk * 8);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mma3<false, EX>(dp[n], a, load_b_rows<T, SD, EX, PRE>(
+                                      Vt, n * 8, kk * 8, Vsm));
+    }
+    // ds = p (dp - delta), p = exp(s scale - lse) or 0
+    const bool cut =
+        !mask.all_kept(q0, ROWS, k0, kTile) || k0 + kTile > Tk;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float L = Lr[e >> 1];
+        bool ok = L != -INFINITY;
+        if (cut) {
+          const int i = q0 + r0 + g + (e >> 1) * 8;
+          const int j = k0 + n * 8 + 2 * t + (e & 1);
+          ok = ok && j < Tk && mask.keep(i, j);
+        }
+        const float p = ok ? expf(s[n][e] * scale - L) : 0.f;
+        dp[n][e] = p * (dp[n][e] - Dr[e >> 1]);
+      }
+    // dq += ds k, the tile's part in a zeroed fragment (s is dead)
+    float part[NO][4];
+    zero(part);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const FragA a = a_from_acc(dp[j]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        mma3<false, EX>(part[n], a, load_b_cols<T, SD, EX, PRE>(
+                                        Kt, j * 8, n * 8, Ksm));
+    }
+    add(dqa, part);
+    __syncthreads();                     // this stage is refilled next
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + r0 + g + 8 * r;
     if (i >= Tq) continue;
     const size_t row = (((size_t)b * Tq + i) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[row + tx + 16 * c] = dqa[r][c] * scale;
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(dq + row + n * 8 + 2 * t) =
+          make_float2(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
   }
 }
 
 // shared memory of each kernel, in bytes
-template <int D> constexpr size_t fwd_smem() {
-  return (3 * (size_t)kTile * (D + 1) + (size_t)kTile * kPP) * sizeof(float);
+template <typename T, int D> constexpr size_t tile_bytes(int rows) {
+  return (size_t)rows * stride_of<T, D>() * sizeof(T);
 }
-template <int D> constexpr size_t dkdv_smem() {
-  return (4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kPP + 2 * kTile) *
-         sizeof(float);
+template <typename T, int D> constexpr size_t fwd_smem() {
+  // Q, 2 x K, 2 x V, and at D = 64 in f32 the small parts of Q, K, V
+  constexpr int R = Shape<T, D>::FWD_W * 16;
+  return tile_bytes<T, D>(R + 4 * kTile) +
+         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(R + 2 * kTile)
+                                    : 0);
 }
-template <int D> constexpr size_t dq_smem() {
-  return (4 * (size_t)kTile * (D + 1) + (size_t)kTile * kPP + 2 * kTile) *
-         sizeof(float);
+template <typename T, int D> constexpr size_t dkdv_smem() {
+  // K, V, NS x (Q, dO, lse, delta), and at D = 64 the small parts of dO
+  // (and of an f32 Q)
+  constexpr int R = Shape<T, D>::W * 16, NS = Shape<T, D>::BWD_NS;
+  constexpr int SMALL = D == 64 ? (sizeof(T) == 4 ? 2 : 1) * kTile : 0;
+  return tile_bytes<T, D>(2 * R + NS * kTile) +
+         tile_bytes<float, D>(NS * kTile + SMALL) +
+         2 * NS * kTile * sizeof(float);
+}
+template <typename T, int D> constexpr size_t dq_smem() {
+  // Q, NS x (K, V), dO, and at D = 64 in f32 the small parts of K, V
+  constexpr int R = Shape<T, D>::W * 16, NS = Shape<T, D>::BWD_NS;
+  return tile_bytes<T, D>(R + 2 * NS * kTile) + tile_bytes<float, D>(R) +
+         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(2 * kTile) : 0);
 }
 
 template <typename K>
@@ -447,10 +958,11 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* l,
         void* m, int B, int Tq, int Tk, int H, int Hkv, float scale,
         Mask mask, cudaStream_t st) {
+  constexpr int W = Shape<T, D>::FWD_W;
   auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, fwd_smem<D>());
+  cudaError_t e = allow_smem(kern, fwd_smem<T, D>());
   if (e != cudaSuccess) return (int)e;
-  kern<<<B * H * ceil_div(Tq, kTile), kThreads, fwd_smem<D>(), st>>>(
+  kern<<<B * H * ceil_div(Tq, 16 * W), 32 * W, fwd_smem<T, D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(o),
       static_cast<float*>(l), static_cast<float*>(m), Tq, Tk, H, Hkv, scale,
@@ -458,25 +970,46 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* l,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dq, void* dk, void* dv,
-        int B, int Tq, int Tk, int H, int Hkv, float scale, Mask mask,
-        cudaStream_t st) {
-  auto kv_kern = flash_bwd_dkdv_kernel<T, D>;
-  auto q_kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = allow_smem(kv_kern, dkdv_smem<D>());
-  if (e == cudaSuccess) e = allow_smem(q_kern, dq_smem<D>());
-  if (e != cudaSuccess) return (int)e;
-  kv_kern<<<B * Hkv * ceil_div(Tk, kTile), kThreads, dkdv_smem<D>(), st>>>(
+template <typename T, int D, bool DV, bool DK>
+cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int B, int Tq, int Tk, int H,
+                        int Hkv, float scale, Mask mask, cudaStream_t st) {
+  constexpr int W = Shape<T, D>::W;
+  auto kern = flash_bwd_dkdv_kernel<T, D, DV, DK>;
+  cudaError_t e = allow_smem(kern, dkdv_smem<T, D>());
+  if (e != cudaSuccess) return e;
+  kern<<<B * Hkv * ceil_div(Tk, 16 * W), 32 * W, dkdv_smem<T, D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, H, Hkv,
       scale, mask);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int bwd(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dq, void* dk, void* dv,
+        int B, int Tq, int Tk, int H, int Hkv, float scale, Mask mask,
+        cudaStream_t st) {
+  constexpr int W = Shape<T, D>::W;
+  cudaError_t e;
+  if constexpr (D == 64) {
+    e = launch_dkdv<T, D, true, true>(q, k, v, dout, lse, delta, dk, dv, B,
+                                      Tq, Tk, H, Hkv, scale, mask, st);
+  } else {                               // two sweeps: dv, then dk
+    e = launch_dkdv<T, D, true, false>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       Tq, Tk, H, Hkv, scale, mask, st);
+    if (e == cudaSuccess)
+      e = launch_dkdv<T, D, false, true>(q, k, v, dout, lse, delta, dk, dv,
+                                         B, Tq, Tk, H, Hkv, scale, mask, st);
+  }
   if (e != cudaSuccess) return (int)e;
-  q_kern<<<B * H * ceil_div(Tq, kTile), kThreads, dq_smem<D>(), st>>>(
+  auto q_kern = flash_bwd_dq_kernel<T, D>;
+  e = allow_smem(q_kern, dq_smem<T, D>());
+  if (e != cudaSuccess) return (int)e;
+  q_kern<<<B * H * ceil_div(Tq, 16 * W), 32 * W, dq_smem<T, D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -489,7 +1022,8 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // dtype: 0 f32, 1 bf16 (q, k and v share it).  D is 64 or 128.  Outputs
-// are f32: o [B, Tq, H, D], l and m [B, Tq, H].
+// are f32: o [B, Tq, H, D], l and m [B, Tq, H].  Every pointer 16-byte
+// aligned.
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* l, void* m, int B, int Tq, int Tk, int H, int Hkv,
                  int D, float scale, int causal, int window, int q_offset,
@@ -512,7 +1046,8 @@ int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // dout, lse and delta are f32; dq [B, Tq, H, D] and dk/dv [B, Tk, Hkv, D]
-// are written in f32.  Launches flash_bwd_dkdv, then flash_bwd_dq.
+// are written in f32.  Launches flash_bwd_dkdv (twice at D = 128: dv,
+// then dk), then flash_bwd_dq.
 int bf_flash_bwd(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, int B, int Tq, int Tk, int H,

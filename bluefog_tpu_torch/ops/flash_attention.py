@@ -5,8 +5,10 @@
 (K2) take the JAX entry points' arguments and return the same tensors.
 On CUDA tensors they launch the hand-written Hopper kernels in
 ``csrc/flash_attention.cu`` (``flash_fwd``; ``flash_bwd_dkdv`` then
-``flash_bwd_dq``; see the source's header for the design and what bounds
-it).  On CPU tensors they run the plain versions,
+``flash_bwd_dq``): 3xTF32 ``mma.sync`` products on the tensor cores at
+f32 accuracy, ``cp.async`` double-buffered tiles (see the source's header
+for the design and what bounds it).  On CPU tensors they run the plain
+versions,
 :func:`attention_block_partial_plain` / :func:`attention_block_backward_plain`
 (dense einsums over the whole ``Tk``).  A CUDA tensor never takes the
 plain version: the kernel launches or the call raises.
@@ -53,6 +55,12 @@ def build() -> ctypes.CDLL:
                                  + [i32] * 5 + [ptr])
     lib.bf_flash_bwd.restype = i32
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data is 16-byte aligned (the kernels stage
+    rows with 16-byte ``cp.async`` copies), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_heads(H: int, Hkv: int) -> None:
@@ -187,6 +195,7 @@ def flash_fwd_cuda(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
         raise TypeError(f"flash_fwd needs one dtype for q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     dev = _check_cuda("flash_fwd", D, q.dtype, q, k, v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     lib = build()
     o = torch.empty(B, Tq, H, D, dtype=torch.float32, device=dev)
     l = torch.empty(B, Tq, H, dtype=torch.float32, device=dev)
@@ -222,6 +231,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, q_offset: int, k_offset: int,
                          f"delta {tuple(delta.shape)} do not match q "
                          f"{tuple(q.shape)}")
     dev = _check_cuda("flash_bwd", D, q.dtype, q, k, v, do, lse, delta)
+    q, k, v, do, lse, delta = map(_aligned, (q, k, v, do, lse, delta))
     lib = build()
     dq = torch.empty(B, Tq, H, D, dtype=torch.float32, device=dev)
     dk = torch.empty(B, Tk, Hkv, D, dtype=torch.float32, device=dev)

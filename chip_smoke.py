@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (add
 ``--profile`` for a ``torch.profiler`` breakdown of one decode call, of
-one training step and of one MoE decode call).
+one training step, with K1's and K2's device time and share, and of one
+MoE decode call).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -33,10 +34,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    16 q heads over 16 or 4 kv heads, head_dim 64 and 128, causal and not,
    f32 and bf16 inputs, plus global offsets (one case with every row
    masked) and a 512-token window.  Both sides accumulate in f32 from the
-   same values and only the order differs: the normalized output o/l
-   atol 1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the plain
+   same values (the kernels' products are 3xTF32 on the tensor cores, f32
+   accurate) and only the order differs: the normalized output o/l atol
+   1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the plain
    version has it, dq/dk/dv atol 1e-4 x max|plain| per tensor (dk/dv sum
-   over up to 2048 G rows);
+   over up to 2048 G rows).  Yardsticks: SDPA forward for K1, SDPA's
+   backward alone on a kept graph for K2 (forward + backward beside it);
+   the bound at the 3xTF32 rate (f32) or the bf16 rate, with the f32
+   CUDA-core bound of earlier versions beside it;
 5. ring attention over 4 stacked ranks (B 1, 4096 tokens per rank, 16 q
    heads over 16 or 4 kv heads, causal, and a 2048-token window), forward
    and backward through the kernels against the same ring over the plain
@@ -96,6 +101,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
+# f32-accurate products on the tensor cores: 3xTF32 (big/small split,
+# three TF32 MMAs per product) at a third of the dense TF32 rate
+TF32_FLOPS = 495e12           # H100 SXM dense TF32 tensor-core rate
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 H, DH, L, BK = 16, 64, 1024, 128
 DEV = "cuda"
@@ -382,11 +391,12 @@ def _visible_pairs(Tq, Tk, q_offset, k_offset, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _attn_bound(B, Tq, Tk, H, Hkv, D, item, pairs, backward):
+def _attn_bound(B, Tq, Tk, H, Hkv, D, item, pairs, backward, rate=None):
     """Least time: inputs read once and outputs written once against the
     operations (2 FLOP per multiply-add; K1 has 2 products per visible
-    pair, K2 5) at the f32 rate, or the bf16 tensor-core rate for bf16
-    inputs (the same exact products)."""
+    pair, K2 5) at the rate of f32-accurate products on the tensor cores
+    (3xTF32), or the bf16 tensor-core rate for bf16 inputs (the same exact
+    products); ``rate`` overrides it."""
     q_b, kv_b, rows = B * Tq * H * D, B * Tk * Hkv * D, B * Tq * H
     if backward:       # q, k, v, do (f32), lse, delta -> dq, dk, dv (f32)
         nbytes = (q_b + 2 * kv_b) * item + q_b * 4 + 2 * rows * 4 \
@@ -395,7 +405,7 @@ def _attn_bound(B, Tq, Tk, H, Hkv, D, item, pairs, backward):
     else:              # q, k, v -> o, l, m (f32)
         nbytes = (q_b + 2 * kv_b) * item + q_b * 4 + 2 * rows * 4
         flops = 4.0 * B * H * pairs * D
-    rate = BF16_FLOPS if item == 2 else F32_FLOPS
+    rate = rate or (BF16_FLOPS if item == 2 else TF32X3_FLOPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -501,9 +511,15 @@ def attention_phase(fa):
         def lib_fwd_bwd():
             F.scaled_dot_product_attention(qh, kh, vh, **sdpa).backward(doh)
 
+        kept = F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
+
+        def lib_bwd():                     # the backward alone, graph kept
+            torch.autograd.grad(kept, (qh, kh, vh), doh, retain_graph=True)
+
         lib_fwd_ms = _cuda_ms(lib_fwd, iters=5, warmup=1)
-        lib_bwd_ms = _cuda_ms(lib_fwd_bwd, iters=5, warmup=1)
-        del qh, kh, vh
+        lib_bwd_ms = _cuda_ms(lib_bwd, iters=5, warmup=1)
+        lib_fwd_bwd_ms = _cuda_ms(lib_fwd_bwd, iters=5, warmup=1)
+        del qh, kh, vh, kept
         pairs = _visible_pairs(T, T, qoff, koff, causal, window)
         item = q.element_size()
         fb, fby = _attn_bound(B, T, T, H, Hkv, D, item, pairs, False)
@@ -512,10 +528,18 @@ def attention_phase(fa):
                    dtype=str(dt)[6:], q_offset=qoff, k_offset=koff,
                    window=window, fwd=dict(
                        max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
-                       bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms),
+                       bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
+                       library="SDPA forward"),
                    bwd=dict(max_abs_err=bwd_err, ms=bwd_ms,
                             plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
-                            library_ms=lib_bwd_ms))
+                            library_ms=lib_bwd_ms,
+                            library="SDPA backward on a kept graph",
+                            library_fwd_bwd_ms=lib_fwd_bwd_ms))
+        if item == 4:       # the yardstick of PR 2-3: f32 on the CUDA cores
+            row["fwd"]["bound_ms_simt"] = _attn_bound(
+                B, T, T, H, Hkv, D, item, pairs, False, F32_FLOPS)[0]
+            row["bwd"]["bound_ms_simt"] = _attn_bound(
+                B, T, T, H, Hkv, D, item, pairs, True, F32_FLOPS)[0]
         print("kernel_case " + json.dumps(row), flush=True)
         if (B, Hkv, D, causal, dt, qoff, koff, window) == \
                 (4, 16, 64, True, torch.float32, 0, 0, 0):
@@ -717,9 +741,15 @@ def profile_train(step, strategy, init, toks):
         print("profile_train " + json.dumps({
             "kernel": key[:90], "calls": count, "device_us": dt,
             "share": dt / total_us}))
+    names = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+             "flash_bwd_dq_kernel")
     print("profile_train " + json.dumps({
         "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
         "busy_share": total_us / 1e3 / wall_ms,
+        "kernel_device_ms": {n: sum(r[0] for r in rows if n in r[1]) / 1e3
+                             for n in names},
+        "kernel_shares": {n: sum(r[0] for r in rows if n in r[1]) / total_us
+                          for n in names},
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
@@ -1080,9 +1110,10 @@ def main(argv=None) -> int:
         _kernel_row("flash_fwd", src,
                     "bluefog_tpu/ops/pallas_attention.py:134", fwd_n,
                     attn["fwd"]),
-        _kernel_row("flash_bwd", src,
-                    "bluefog_tpu/ops/pallas_attention.py:275", bwd_n,
-                    attn["bwd"]),
+        dict(_kernel_row("flash_bwd", src,
+                         "bluefog_tpu/ops/pallas_attention.py:275", bwd_n,
+                         attn["bwd"]),
+             library_fwd_bwd_ms=attn["bwd"]["library_fwd_bwd_ms"]),
         dict(_kernel_row("grouped_ffn",
                          "bluefog_tpu_torch/csrc/grouped_ffn.cu",
                          "bluefog_tpu/ops/pallas_moe.py:61", k4_launches,

@@ -224,3 +224,38 @@ def test_ring_contracts():
         jv = jring._block_visible(*args)
         assert tring._block_visible(*args) == (None if jv is None
                                                else bool(jv))
+
+
+def test_kernel_operands_are_16_byte_aligned():
+    """The kernels stage rows with 16-byte cp.async copies: the wrapper
+    passes an aligned tensor through and copies a misaligned view."""
+    base = torch.arange(20, dtype=torch.float32)
+    assert tfa._aligned(base) is base
+    view = base[1:17]                       # contiguous, 4 bytes off
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = tfa._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+
+
+def test_attention_bound_is_taken_at_the_3xtf32_rate():
+    """chip_smoke's least time for K1/K2: f32 products at a third of the
+    TF32 tensor-core rate (3xTF32), bf16 at the bf16 rate; the CUDA-core
+    f32 rate only when asked for."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bound", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    B, T, H, D = 4, 2048, 16, 64
+    pairs = cs._visible_pairs(T, T, 0, 0, True, 0)
+    assert pairs == T * (T + 1) // 2
+    fwd, by = cs._attn_bound(B, T, T, H, H, D, 4, pairs, False)
+    assert by == "operations"
+    assert fwd == pytest.approx(1e3 * 4 * B * H * pairs * D / (495e12 / 3))
+    bwd, _ = cs._attn_bound(B, T, T, H, H, D, 4, pairs, True)
+    assert bwd == pytest.approx(2.5 * fwd)
+    simt, _ = cs._attn_bound(B, T, T, H, H, D, 4, pairs, False, cs.F32_FLOPS)
+    assert simt == pytest.approx(fwd * (495e12 / 3) / 67e12)
+    bf16, _ = cs._attn_bound(B, T, T, H, H, D, 2, pairs, False)
+    assert bf16 == pytest.approx(1e3 * 4 * B * H * pairs * D / 989e12)

@@ -14,7 +14,10 @@ Flash attention K1/K2 (and the ring and the trainer built on them): both
 sides accumulate in f32 from the same values and only the order differs,
 so o/l atol 1e-4, l rtol 1e-4, m atol 1e-5 with -inf exactly where the
 plain version has it, and dq/dk/dv atol 1e-4 x max|plain| per tensor
-(dk/dv sum over up to Tq * G rows).
+(dk/dv sum over up to Tq * G rows).  The kernels' products are 3xTF32 on
+the tensor cores; ``test_flash_attention_is_f32_accurate`` holds them to
+these tolerances on inputs where one TF32 pass would fail them, and the
+backward must give bit-identical results on two runs (no atomics).
 
 Grouped expert FFN K4: both sides accumulate in f32 from the same values
 and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
@@ -122,6 +125,32 @@ def _close_grad(got, want):
     assert float((got - want).abs().max()) <= lim
 
 
+def _m_err(m, wm):
+    """max |m - wm| over the rows where the plain m is finite, after
+    checking that both are -inf on the same rows."""
+    assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+    fin = ~torch.isneginf(wm)
+    zero = torch.zeros_like(m)
+    return float((torch.where(fin, m, zero) - torch.where(fin, wm, zero))
+                 .abs().max())
+
+
+def _close_partial(got, want):
+    """K1's tolerances: m atol 1e-5, l rtol 1e-4, o/l atol 1e-4."""
+    (o, l, m), (wo, wl, wm) = got, want
+    assert _m_err(m, wm) <= 1e-5
+    assert bool(((l - wl).abs() <= 1e-4 * wl.abs()).all())
+    den = torch.where(wl == 0, torch.ones_like(wl), wl)[..., None]
+    assert float((o / den - wo / den).abs().max()) <= 1e-4
+
+
+def _lse(want):
+    _, wl, wm = want
+    den = torch.where(wl == 0, torch.ones_like(wl), wl)
+    return torch.where(wl == 0, torch.full_like(wl, float("-inf")),
+                       wm + torch.log(den))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Tq,Tk,H,Hkv,D,causal,qoff,koff,window", [
@@ -129,28 +158,29 @@ def _close_grad(got, want):
     (1, 130, 130, 8, 2, 128, True, 0, 0, 0),
     (2, 64, 192, 4, 1, 64, True, 192, 64, 0),
     (1, 96, 96, 4, 4, 64, True, 0, 96, 0),          # every row masked
-    (1, 200, 200, 4, 2, 64, True, 0, 0, 50)])
+    (1, 200, 200, 4, 2, 64, True, 0, 0, 50),
+    (2, 1, 1, 4, 4, 64, False, 0, 0, 0),            # one row, one key
+    (1, 7, 7, 4, 2, 64, True, 0, 0, 0),
+    (1, 7, 100, 4, 1, 64, True, 93, 0, 0),
+    (1, 100, 7, 4, 4, 128, False, 0, 0, 0),
+    (1, 100, 100, 4, 4, 128, True, 0, 0, 0),
+    (1, 130, 130, 16, 2, 128, True, 0, 0, 0),       # D 128, G 8
+    (1, 200, 200, 4, 2, 64, True, 0, 0, 5),         # window < one tile
+    (1, 150, 150, 4, 4, 64, True, 3, 0, 0),         # diagonal mid-fragment
+    (1, 150, 160, 4, 2, 128, True, 0, 5, 0)])
 def test_flash_attention_kernels_match_plain(cuda, dtype, B, Tq, Tk, H, Hkv,
                                              D, causal, qoff, koff, window):
     rng = np.random.default_rng(7)
     q, k, v = _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, cuda)
     kw = dict(causal=causal, scale=D ** -0.5, window=window)
     before = (fa.fwd_launches, fa.bwd_launches)
-    o, l, m = fa.attention_block_partial(q, k, v, qoff, koff, **kw)
-    wo, wl, wm = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
+    got = fa.attention_block_partial(q, k, v, qoff, koff, **kw)
+    want = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
-    fin = ~torch.isneginf(wm)
-    zero = torch.zeros_like(m)
-    assert float((torch.where(fin, m, zero) - torch.where(fin, wm, zero))
-                 .abs().max()) <= 1e-5
-    assert bool(((l - wl).abs() <= 1e-4 * wl.abs()).all())
-    den = torch.where(wl == 0, torch.ones_like(wl), wl)[..., None]
-    assert float((o / den - wo / den).abs().max()) <= 1e-4
+    _close_partial(got, want)
     do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
         cuda)
-    lse = torch.where(wl == 0, torch.full_like(wl, float("-inf")),
-                      wm + torch.log(den[..., 0]))
+    lse = _lse(want)
     delta = torch.from_numpy(rng.normal(size=q.shape[:3]).astype(
         np.float32)).to(cuda)
     got = fa.attention_block_backward(q, k, v, do, lse, delta, qoff, koff,
@@ -162,6 +192,65 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, B, Tq, Tk, H, Hkv,
                                                   before[1] + 1)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
+        _close_grad(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 128)])
+def test_flash_attention_backward_is_deterministic(cuda, dtype, D):
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 2, 200, 200, 8, 2, D, dtype, cuda)
+    kw = dict(causal=True, scale=D ** -0.5)
+    lse = _lse(fa.attention_block_partial_plain(q, k, v, **kw))
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    delta = torch.from_numpy(rng.normal(size=q.shape[:3]).astype(
+        np.float32)).to(cuda)
+    first = fa.attention_block_backward(q, k, v, do, lse, delta, **kw)
+    second = fa.attention_block_backward(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10-bit mantissa, to nearest, ties away), as one
+    tensor-core pass would see it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.gpu
+def test_flash_attention_is_f32_accurate(cuda):
+    """N(0, 4) entries over 2048 keys: one TF32 pass moves m by more than
+    its 1e-5 tolerance, so passing here needs f32-accurate products."""
+    rng = np.random.default_rng(5)
+    B, Tq, Tk, H, D = 1, 256, 2048, 4, 64
+
+    def t(*shape):
+        return torch.from_numpy((2.0 * rng.normal(size=shape)).astype(
+            np.float32)).to(cuda)
+
+    q, k, v = t(B, Tq, H, D), t(B, Tk, H, D), t(B, Tk, H, D)
+    kw = dict(causal=True, scale=D ** -0.5, window=0)
+    want = fa.attention_block_partial_plain(q, k, v, Tk - Tq, 0, **kw)
+    one_pass = fa.attention_block_partial_plain(
+        _tf32(q * D ** -0.5), _tf32(k), v, Tk - Tq, 0, causal=True)
+    assert _m_err(one_pass[2], want[2]) > 1e-5      # the test has teeth
+    got = fa.attention_block_partial(q, k, v, Tk - Tq, 0, **kw)
+    torch.cuda.synchronize()
+    _close_partial(got, want)
+    do = t(B, Tq, H, D)
+    lse = _lse(want)
+    delta = (do * want[0] / want[1][..., None]).sum(-1)
+    got = fa.attention_block_backward(q, k, v, do, lse, delta, Tk - Tq, 0,
+                                      **kw)
+    wgrads = fa.attention_block_backward_plain(q, k, v, do, lse, delta,
+                                               Tk - Tq, 0, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, wgrads):
         _close_grad(g, w)
 
 

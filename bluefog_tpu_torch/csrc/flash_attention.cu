@@ -115,6 +115,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kTile = 64;           // rows of a streamed tile
@@ -173,27 +175,6 @@ struct Mask {
 
 // -- cp.async ------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes; zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // rows [0, nvalid) of a [ROWS, D] slice with the given row stride
 // (elements) into a shared tile of stride_of<T, D>(), by NT threads; rows
 // past nvalid are zero
@@ -218,56 +199,6 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 }
 
 // -- 3xTF32 fragments and products ---------------------------------------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as big + small TF32 parts; EXACT (a widened bf16) has small = 0
-template <bool EXACT>
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  if (EXACT) {
-    big = __float_as_uint(x);
-    small = 0u;
-  } else {
-    big = tf32(x);
-    small = tf32(x - __uint_as_float(big));
-  }
-}
-
-struct FragA { uint32_t b[4], s[4]; };
-struct FragB { uint32_t b[2], s[2]; };
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b at f32 accuracy: the small terms first, then big . big
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
-                                     const FragB& b) {
-  if (!A_EXACT) mma(c, a.s, b.b[0], b.b[1]);
-  if (!B_EXACT) mma(c, a.b, b.s[0], b.s[1]);
-  mma(c, a.b, b.b[0], b.b[1]);
-}
-
-// the same into a zeroed fragment that is then added to c with
-// round-to-nearest (the tensor cores add by truncation; see the header)
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void mma3_rn(float (&c)[4], const FragA& a,
-                                        const FragB& b) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3<A_EXACT, B_EXACT>(d, a, b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += d[i];
-}
 
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {

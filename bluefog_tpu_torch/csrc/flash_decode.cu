@@ -1,37 +1,55 @@
-// Paged flash-decode attention for Hopper (sm_90a).
+// Paged flash-decode attention for Hopper (sm_90a), split across the key
+// axis (flash-decoding).
 //
 // Replaces the TPU kernel bluefog_tpu/ops/pallas_decode.py::_flash_attend
-// (kernel _flash_kernel).  Same function, rethought for the GPU:
+// (kernel _flash_kernel): lane s's query t (T per lane, t at position
+// lengths[s] + t) of q head h attends keys 0 .. lengths[s] + t of its
+// slot's pages [rows, Hkv, L, Dh] through kv head h / G, G = H / Hkv.
+// Blocks of bk keys whose end lies within prefix_lens[s] (a multiple of
+// bk by contract) are read from the prefix row prefix_slots[s], the rest
+// from slots[s].  int8 / e4m3 pages carry f32 scales per (position,
+// head): the k scale multiplies score columns, the v scale probability
+// columns.  q is f32 or bf16, the output is in q's type, all math is f32.
 //
-//   * One CTA per (lane s, kv head h).  The TPU walks the KV blocks on a
-//     sequential grid axis with a clamped block table; here the CTA loops
-//     over blocks b = 0 .. (lengths[s] + T - 1) / bk itself, so cost
-//     follows the lane's context, not the cache capacity.
-//   * Each block loads its own indices: its page row is prefix_slots[s]
-//     when (b + 1) * bk <= prefix_lens[s] (prefix lengths are block
-//     aligned by contract), else slots[s].  No host-side tables.
-//   * The CTA's q tile is [T*G, Dh] in shared memory, query t of group
-//     lane g at row t*G + g, so each K/V block is read once for its whole
-//     GQA group and all T chunk queries.
-//   * Pages are widened to f32 in shared memory (bf16 by intrinsic, int8
-//     by cast, e4m3 through cuda_fp8.h).  With a quantized store the k
-//     scale multiplies score columns and the v scale probability columns.
-//   * Scores are f32 FMAs of the pre-scaled q against K; the mask is
-//     kpos <= lengths[s] + row / G; an f32 online softmax keeps running m,
-//     l and acc; the output is acc / l cast to q's type.
+// What bounds it: the bytes.  One row of q against each key (T * G rows
+// in all) is a few FLOP per byte of page, far below what the tensor cores
+// could use; the least time is sum_s (lengths[s] + T) * Hkv * Dh * 2 *
+// itemsize (plus the scales) over the memory rate.  So the design only
+// tries to move the pages at full bandwidth:
 //
-// What bounds it: it is memory bound.  The bytes it must move are
-// sum_s (lengths[s] + T) * Hkv * Dh * 2 * itemsize, plus 2 * 4 bytes of
-// scales per (position, head) for a quantized store, plus q and the
-// output.  This first version leaves bandwidth on the table: S * Hkv CTAs
-// (8 * 16 = 128 at the engine's shape) is under one wave on 132 SMs, and
-// each CTA loads a block, waits for it, then computes.  A later version
-// splits each lane's blocks across CTAs (flash-decoding, merging the
-// partials) so small batches fill the card, and stages blocks with
-// cp.async / TMA so loads overlap the math.
+//   * Split-KV grid (S, Hkv, splits).  The wrapper picks `splits` and the
+//     keys per split (`chunk`, a multiple of 32) from S * Hkv and L alone,
+//     never from lengths, so that small batches still put several CTAs on
+//     each of the 132 SMs.  A CTA walks keys [sp * chunk, (sp + 1) *
+//     chunk) of its lane, cut at the last key any of its rows sees; a CTA
+//     whose chunk lies wholly past it writes m = -inf, l = 0, o = 0 and
+//     exits (K1's rule for rows with no visible key).  The prefix row is
+//     picked per key by the key's bk-block, so a split may end inside a
+//     block.
+//   * Staging.  Each 32-key f32 tile (64 keys bf16, 128 int8 / e4m3: 8 KB
+//     of K at Dh 64) is copied by cp.async, 16 bytes a thread with
+//     neighbouring threads on neighbouring addresses, K and V into their
+//     own buffers as separate commit groups, two tiles deep: V's copy
+//     overlaps the scores and the next tile's copies overlap both.  Keys
+//     past the CTA's last visible key are zero-filled, not read.  Quantized
+//     pages stay 8-bit in shared memory and widen in registers.
+//   * Math at the warp level.  The CTA's 128 threads are 16 groups of 8
+//     lanes; the lanes of a group split Dh (Dh / 8 values each) and reduce
+//     a dot product with 3 shuffles.  Groups split the T * G rows (up to
+//     16 row groups, 1 or 4 rows each) and the tile's keys (16 / row
+//     groups ways), so at T * G = 1 every group works on its own keys and
+//     no thread idles.  q lives in registers, pre-scaled.  Each group
+//     keeps its own f32 online softmax (m, l and its Dh / 8 outputs per
+//     row in registers) over its keys; at the end the groups' partials
+//     meet in shared memory and are merged in group order.
+//   * Merge.  With one split the CTA normalizes and writes the output.
+//     Otherwise it writes its partial (o, l, m) to an f32 scratch
+//     [S, Hkv, splits, T * G, Dh] (+ m, l) that the wrapper allocates, and
+//     a second, small launch merges the splits in split order and writes
+//     o / l in q's type.  No atomics: reruns are bit-identical.
 //
 // The C interface takes every pointer as void* (ctypes passes them as
-// c_void_p) and returns cudaGetLastError() after the launch.
+// c_void_p) and returns cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -39,10 +57,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = kThreads / 8;   // groups of 8 lanes
+constexpr int kMaxRows = 64;            // T * G: 16 row groups x 4 rows
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -58,26 +79,69 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// keys per staged tile: 8 KB of K at Dh 64 for every page type
+template <typename PT>
+__host__ __device__ constexpr int keys_per_tile() {
+  return 32 * 4 / (int)sizeof(PT);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Shared memory: K and V tiles [2][KT][Dh] each (page type), their
+// scales [2][KT] each, the scores [TG][KT], and the groups' partials
+// [groups][TG][Dh + 2] (f32).
+__host__ __device__ inline size_t smem_bytes(int TG, int DH, int item,
+                                             int KT, int kg) {
+  return (size_t)4 * KT * DH * item + (size_t)4 * KT * 4 +
+         (size_t)TG * KT * 4 + (size_t)kg * TG * (DH + 2) * 4;
 }
 
-// Shared memory, in floats: q and acc [TG][DH] each, one K-or-V block
-// [bk][DH + 1] (padded so neighbouring keys fall in different banks),
-// scores / probabilities [TG][bk], the block's scales [bk], m, l, corr [TG].
-__host__ __device__ inline size_t smem_floats(int TG, int DH, int bk) {
-  return (size_t)2 * TG * DH + (size_t)bk * (DH + 1) + (size_t)TG * bk +
-         bk + 3 * (size_t)TG;
+// row groups: the least power of two >= TG, at most 16
+__host__ __device__ inline int row_groups(int TG) {
+  int n = 1;
+  while (n < TG && n < kGroups) n <<= 1;
+  return n;
 }
 
-template <typename QT, typename PT, int DH>
+// VEC values of a lane's piece of a shared row, widened
+template <typename PT, int VEC>
+__device__ __forceinline__ void widen_piece(const PT* src, float* dst) {
+  constexpr int B = VEC * (int)sizeof(PT);
+  if constexpr (B == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const PT* e = reinterpret_cast<const PT*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = widen(e[i]);
+  } else if constexpr (B == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const PT* e = reinterpret_cast<const PT*>(&u);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = widen(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = widen(src[i]);
+  }
+}
+
+// Lane li of a group owns the values d = (p * 8 + li) * VEC + e of a row
+// (piece p < NP, e < VEC): 8 lanes read 8 neighbouring pieces.
+template <typename PT, int DH> struct Slice {
+  static constexpr int DPL = DH / 8;
+  static constexpr int VEC = DPL < 16 / (int)sizeof(PT)
+                                 ? DPL : 16 / (int)sizeof(PT);
+  static constexpr int NP = DPL / VEC;
+  __device__ static __forceinline__ int d(int li, int j) {
+    return ((j / VEC) * 8 + li) * VEC + j % VEC;
+  }
+  __device__ static __forceinline__ void load(const PT* row, int li,
+                                              float (&x)[DPL]) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      widen_piece<PT, VEC>(row + (p * 8 + li) * VEC, x + p * VEC);
+  }
+};
+
+// One CTA: lane s = blockIdx.x, kv head h = blockIdx.y, split blockIdx.z.
+// RPG: rows a group holds in registers (1, or 4 when T * G > 16).
+template <typename QT, typename PT, int DH, int RPG>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
                     const PT* __restrict__ vp,
@@ -87,157 +151,289 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
                     const int* __restrict__ lengths,
                     const int* __restrict__ prefix_slots,
                     const int* __restrict__ prefix_lens,
-                    QT* __restrict__ out, int T, int H, int Hkv, int L,
-                    int bk, int G, float scale) {
-  extern __shared__ float smem[];
-  const int s = blockIdx.x, h = blockIdx.y;
+                    QT* __restrict__ out, float* __restrict__ part, int T,
+                    int H, int Hkv, int L, int bk, int G, float scale,
+                    int chunk) {
+  using SL = Slice<PT, DH>;
+  constexpr int KT = keys_per_tile<PT>(), DPL = SL::DPL;
+  constexpr int EPC = 16 / (int)sizeof(PT);      // values per 16 bytes
+  constexpr int CH = DH / EPC;                   // 16-byte chunks a key
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = gridDim.x, nsplit = gridDim.z;
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
   const int TG = T * G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* q_sh = smem;
-  float* acc_sh = q_sh + TG * DH;
-  float* kv_sh = acc_sh + TG * DH;
-  float* p_sh = kv_sh + bk * (DH + 1);
-  float* sc_sh = p_sh + TG * bk;
-  float* m_sh = sc_sh + bk;
-  float* l_sh = m_sh + TG;
-  float* corr_sh = l_sh + TG;
+  const int tid = threadIdx.x, li = tid & 7, gi = tid >> 3;
+  const int nrg = row_groups(TG), nkg = kGroups / nrg;
+  const int rg = gi % nrg, kg = gi / nrg;
 
-  const int len = lengths[s];
-  const int slot = slots[s];
+  PT* kbuf = reinterpret_cast<PT*>(smem);
+  PT* vbuf = kbuf + 2 * KT * DH;
+  float* ksh = reinterpret_cast<float*>(vbuf + 2 * KT * DH);
+  float* vsh = ksh + 2 * KT;
+  float* s_sh = vsh + 2 * KT;          // [TG][KT]
+  float* red = s_sh + TG * KT;         // [nkg][TG][DH + 2]
+
+  const int len = lengths[s], slot = slots[s];
   const int prow = prefix_slots ? prefix_slots[s] : slot;
   const int plen = prefix_slots ? prefix_lens[s] : 0;
-  const bool quantized = ksc != nullptr;
+  const bool quant = ksc != nullptr;
+  const int last = min(len + T - 1, L - 1);      // last key a row sees
+  const int c0 = sp * chunk;
+  const int c1 = min(min(c0 + chunk, L), last + 1);
+  // this split's partial rows in the scratch: o, then m, then l
+  const size_t prow0 = (((size_t)s * Hkv + h) * nsplit + sp) * TG;
+  const size_t nrows_all = (size_t)S * Hkv * nsplit * TG;
+  float* po = part;
+  float* pm = part + nrows_all * DH;
+  float* pl = pm + nrows_all;
 
-  for (int e = tid; e < TG * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    const int t = r / G, g = r % G;
-    const size_t qi = (((size_t)s * T + t) * H + (size_t)h * G + g) * DH + d;
-    q_sh[e] = widen(q[qi]) * scale;
-    acc_sh[e] = 0.f;
+  if (c0 >= c1) {                      // nothing visible in this split
+    for (int e = tid; e < TG * DH; e += kThreads) po[prow0 * DH + e] = 0.f;
+    for (int r = tid; r < TG; r += kThreads) {
+      pm[prow0 + r] = -INFINITY;
+      pl[prow0 + r] = 0.f;
+    }
+    return;
   }
-  for (int r = tid; r < TG; r += kThreads) {
-    m_sh[r] = -INFINITY;
-    l_sh[r] = 0.f;
+
+  float qr[RPG][DPL], acc[RPG][DPL], m[RPG], l[RPG];
+#pragma unroll
+  for (int i = 0; i < RPG; ++i) {
+    const int r = rg + nrg * i;
+    const int t = r / G, g = r % G;
+    const size_t qi = (((size_t)s * T + t) * H + (size_t)h * G + g) * DH;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      qr[i][j] = r < TG ? widen(q[qi + SL::d(li, j)]) * scale : 0.f;
+      acc[i][j] = 0.f;
+    }
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+
+  // K then V of the tile starting at key kb0, each its own commit group
+  auto stage = [&](int kb0, int buf) {
+    const PT* src[2] = {kp, vp};
+    PT* dst[2] = {kbuf + buf * KT * DH, vbuf + buf * KT * DH};
+    const float* ssrc[2] = {ksc, vsc};
+    float* sdst[2] = {ksh + buf * KT, vsh + buf * KT};
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      for (int c = tid; c < KT * CH; c += kThreads) {
+        const int j = c / CH, x = c % CH, kpos = kb0 + j;
+        const bool ok = kpos < c1;
+        const int kk = ok ? kpos : 0;
+        const int row = ((kk / bk + 1) * bk <= plen) ? prow : slot;
+        const size_t off = (((size_t)row * Hkv + h) * L + kk) * DH + x * EPC;
+        cp16(dst[w] + j * DH + x * EPC, src[w] + off, ok);
+      }
+      if (quant)
+        for (int j = tid; j < KT; j += kThreads) {
+          const int kpos = kb0 + j;
+          const bool ok = kpos < c1;
+          const int kk = ok ? kpos : 0;
+          const int row = ((kk / bk + 1) * bk <= plen) ? prow : slot;
+          cp4(sdst[w] + j, ssrc[w] + ((size_t)row * Hkv + h) * L + kk, ok);
+        }
+      cp_commit();
+    }
+  };
+
+  const int nt = (c1 - c0 + KT - 1) / KT;
+  stage(c0, 0);
+  for (int it = 0; it < nt; ++it) {
+    const int buf = it & 1, kb0 = c0 + it * KT;
+    if (it + 1 < nt) {
+      stage(kb0 + KT, buf ^ 1);
+    } else {
+      cp_commit();
+      cp_commit();
+    }
+    cp_wait<3>();                      // this tile's K has landed
+    __syncthreads();
+
+    // scores of the group's keys j = kg, kg + nkg, ...
+    const PT* kt = kbuf + buf * KT * DH;
+    float tmax[RPG];
+#pragma unroll
+    for (int i = 0; i < RPG; ++i) tmax[i] = -INFINITY;
+    for (int j = kg; j < KT; j += nkg) {
+      float kv[DPL];
+      SL::load(kt + j * DH, li, kv);
+      const int kpos = kb0 + j;
+      const float ks = quant ? ksh[buf * KT + j] : 1.f;
+#pragma unroll
+      for (int i = 0; i < RPG; ++i) {
+        const int r = rg + nrg * i;
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) a = fmaf(qr[i][e], kv[e], a);
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        a += __shfl_xor_sync(0xffffffffu, a, 4);
+        const bool vis = r < TG && kpos < c1 && kpos <= len + r / G;
+        a = vis ? a * ks : -INFINITY;
+        if (li == 0 && r < TG) s_sh[r * KT + j] = a;
+        tmax[i] = fmaxf(tmax[i], a);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPG; ++i) {
+      const float mn = fmaxf(m[i], tmax[i]);
+      if (mn != -INFINITY) {
+        const float c = expf(m[i] - mn);
+        l[i] *= c;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[i][e] *= c;
+        m[i] = mn;
+      }
+    }
+    cp_wait<2>();                      // this tile's V has landed
+    __syncthreads();
+
+    const PT* vt = vbuf + buf * KT * DH;
+    for (int j = kg; j < KT; j += nkg) {
+      float vv[DPL];
+      SL::load(vt + j * DH, li, vv);
+      const float vs = quant ? vsh[buf * KT + j] : 1.f;
+#pragma unroll
+      for (int i = 0; i < RPG; ++i) {
+        const int r = rg + nrg * i;
+        const float sc = r < TG ? s_sh[r * KT + j] : -INFINITY;
+        const float p = sc == -INFINITY ? 0.f : expf(sc - m[i]);
+        l[i] += p;
+        const float pv = p * vs;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[i][e] = fmaf(pv, vv[e], acc[i][e]);
+      }
+    }
+    __syncthreads();                   // buffers and scores free again
+  }
+
+  // the groups' partials meet in shared memory, merged in group order
+#pragma unroll
+  for (int i = 0; i < RPG; ++i) {
+    const int r = rg + nrg * i;
+    if (r < TG) {
+      float* rr = red + ((size_t)kg * TG + r) * (DH + 2);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) rr[SL::d(li, j)] = acc[i][j];
+      if (li == 0) {
+        rr[DH] = m[i];
+        rr[DH + 1] = l[i];
+      }
+    }
   }
   __syncthreads();
-
-  const int nb = L / bk;
-  int last = (len + T - 1) / bk;
-  if (last > nb - 1) last = nb - 1;
-  for (int b = 0; b <= last; ++b) {
-    const int row = ((b + 1) * bk <= plen) ? prow : slot;
-    // flat index of the block's first (position) in [rows, Hkv, L]
-    const size_t page = ((size_t)row * Hkv + h) * L + (size_t)b * bk;
-
-    const PT* kb = kp + page * DH;
-    for (int e = tid; e < bk * DH; e += kThreads)
-      kv_sh[(e / DH) * (DH + 1) + e % DH] = widen(kb[e]);
-    if (quantized)
-      for (int j = tid; j < bk; j += kThreads) sc_sh[j] = ksc[page + j];
-    __syncthreads();
-
-    for (int e = tid; e < TG * bk; e += kThreads) {
-      const int r = e / bk, j = e % bk;
-      const float* qr = q_sh + r * DH;
-      const float* kr = kv_sh + j * (DH + 1);
-      float a = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) a = fmaf(qr[d], kr[d], a);
-      if (quantized) a *= sc_sh[j];
-      const int kpos = b * bk + j;
-      p_sh[e] = (kpos <= len + r / G) ? a : -INFINITY;
-    }
-    __syncthreads();
-
-    // K is consumed: the same buffer takes the V block
-    const PT* vb = vp + page * DH;
-    for (int e = tid; e < bk * DH; e += kThreads)
-      kv_sh[(e / DH) * (DH + 1) + e % DH] = widen(vb[e]);
-    if (quantized)
-      for (int j = tid; j < bk; j += kThreads) sc_sh[j] = vsc[page + j];
-    __syncthreads();
-
-    // online softmax, one warp per q row.  Block 0 always holds key 0,
-    // which every row may see, so m is finite from then on and no
-    // exp(-inf - -inf) arises.
-    for (int r = warp; r < TG; r += kWarps) {
-      float* pr = p_sh + r * bk;
-      float mx = -INFINITY;
-      for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_sh[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < bk; j += 32) {
-        const float p = expf(pr[j] - m_new);
-        sum += p;
-        pr[j] = quantized ? p * sc_sh[j] : p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_prev - m_new);
-        corr_sh[r] = c;
-        l_sh[r] = l_sh[r] * c + sum;
-        m_sh[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int e = tid; e < TG * DH; e += kThreads) {
-      const int r = e / DH, d = e % DH;
-      const float* pr = p_sh + r * bk;
-      float a = 0.f;
-      for (int j = 0; j < bk; ++j) a = fmaf(pr[j], kv_sh[j * (DH + 1) + d], a);
-      acc_sh[e] = acc_sh[e] * corr_sh[r] + a;
-    }
-    __syncthreads();
-  }
-
   for (int e = tid; e < TG * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
+    float M = -INFINITY;
+    for (int k = 0; k < nkg; ++k)
+      M = fmaxf(M, red[((size_t)k * TG + r) * (DH + 2) + DH]);
+    float O = 0.f, Ls = 0.f;
+    if (M != -INFINITY)
+      for (int k = 0; k < nkg; ++k) {
+        const float* rr = red + ((size_t)k * TG + r) * (DH + 2);
+        const float w = expf(rr[DH] - M);
+        Ls += rr[DH + 1] * w;
+        O += rr[d] * w;
+      }
+    if (nsplit == 1) {
+      const int t = r / G, g = r % G;
+      const size_t oi =
+          (((size_t)s * T + t) * H + (size_t)h * G + g) * DH + d;
+      narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
+    } else {
+      po[(prow0 + r) * DH + d] = O;
+      if (d == 0) {
+        pm[prow0 + r] = M;
+        pl[prow0 + r] = Ls;
+      }
+    }
+  }
+}
+
+// Merges the splits' partials of lane blockIdx.x, kv head blockIdx.y in
+// split order and writes o / l in q's type.
+template <typename QT, int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_merge(const float* __restrict__ part, QT* __restrict__ out,
+                   int T, int H, int Hkv, int G, int nsplit) {
+  const int S = gridDim.x, s = blockIdx.x, h = blockIdx.y, TG = T * G;
+  const size_t nrows_all = (size_t)S * Hkv * nsplit * TG;
+  const float* pm = part + nrows_all * DH;
+  const float* pl = pm + nrows_all;
+  const size_t base = ((size_t)s * Hkv + h) * nsplit * TG;
+  for (int e = threadIdx.x; e < TG * DH; e += kThreads) {
+    const int r = e / DH, d = e % DH;
+    float M = -INFINITY;
+    for (int k = 0; k < nsplit; ++k) M = fmaxf(M, pm[base + k * TG + r]);
+    float O = 0.f, Ls = 0.f;
+    if (M != -INFINITY)
+      for (int k = 0; k < nsplit; ++k) {
+        const size_t i = base + k * TG + r;
+        const float w = expf(pm[i] - M);
+        Ls += pl[i] * w;
+        O += part[i * DH + d] * w;
+      }
     const int t = r / G, g = r % G;
     const size_t oi = (((size_t)s * T + t) * H + (size_t)h * G + g) * DH + d;
-    narrow(out + oi, acc_sh[e] / l_sh[r]);
+    narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
   }
+}
+
+template <typename PT>
+size_t smem_for(int TG, int DH) {
+  return smem_bytes(TG, DH, (int)sizeof(PT), keys_per_tile<PT>(),
+                    kGroups / row_groups(TG));
 }
 
 template <typename QT, typename PT, int DH>
 int launch(const void* q, const void* k, const void* v, const void* ksc,
            const void* vsc, const void* slots, const void* lengths,
            const void* prefix_slots, const void* prefix_lens, void* out,
-           int S, int T, int H, int Hkv, int L, int bk, float scale,
-           cudaStream_t stream) {
-  const int G = H / Hkv;
-  const size_t smem = smem_floats(T * G, DH, bk) * sizeof(float);
-  auto kern = flash_decode_kernel<QT, PT, DH>;
+           void* part, int S, int T, int H, int Hkv, int L, int bk,
+           int chunk, int nsplit, float scale, cudaStream_t stream) {
+  const int G = H / Hkv, TG = T * G;
+  if (TG > kMaxRows || (nsplit > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_for<PT>(TG, DH);
+  const bool wide = (TG + row_groups(TG) - 1) / row_groups(TG) > 1;
+  auto kern = wide ? flash_decode_kernel<QT, PT, DH, 4>
+                   : flash_decode_kernel<QT, PT, DH, 1>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(S, Hkv), kThreads, smem, stream>>>(
+  kern<<<dim3(S, Hkv, nsplit), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const PT*>(k),
       static_cast<const PT*>(v), static_cast<const float*>(ksc),
       static_cast<const float*>(vsc), static_cast<const int*>(slots),
       static_cast<const int*>(lengths),
       static_cast<const int*>(prefix_slots),
-      static_cast<const int*>(prefix_lens), static_cast<QT*>(out), T, H,
-      Hkv, L, bk, G, scale);
+      static_cast<const int*>(prefix_lens), static_cast<QT*>(out),
+      static_cast<float*>(part), T, H, Hkv, L, bk, G, scale, chunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  flash_decode_merge<QT, DH><<<dim3(S, Hkv), kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<QT*>(out), T, H, Hkv, G,
+      nsplit);
   return (int)cudaGetLastError();
 }
+
+#define BF_DECODE_ARGS                                                    \
+  q, k, v, ksc, vsc, slots, lengths, ps, pl, out, part, S, T, H, Hkv, L, \
+      bk, chunk, nsplit, scale, st
 
 template <typename QT, typename PT>
 int by_dh(int Dh, const void* q, const void* k, const void* v,
           const void* ksc, const void* vsc, const void* slots,
           const void* lengths, const void* ps, const void* pl, void* out,
-          int S, int T, int H, int Hkv, int L, int bk, float scale,
-          cudaStream_t st) {
-  if (Dh == 64)
-    return launch<QT, PT, 64>(q, k, v, ksc, vsc, slots, lengths, ps, pl, out,
-                              S, T, H, Hkv, L, bk, scale, st);
-  if (Dh == 128)
-    return launch<QT, PT, 128>(q, k, v, ksc, vsc, slots, lengths, ps, pl,
-                               out, S, T, H, Hkv, L, bk, scale, st);
+          void* part, int S, int T, int H, int Hkv, int L, int bk,
+          int chunk, int nsplit, float scale, cudaStream_t st) {
+  if (Dh == 64) return launch<QT, PT, 64>(BF_DECODE_ARGS);
+  if (Dh == 128) return launch<QT, PT, 128>(BF_DECODE_ARGS);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -245,23 +441,14 @@ template <typename QT>
 int by_page(int page_dtype, int Dh, const void* q, const void* k,
             const void* v, const void* ksc, const void* vsc,
             const void* slots, const void* lengths, const void* ps,
-            const void* pl, void* out, int S, int T, int H, int Hkv, int L,
-            int bk, float scale, cudaStream_t st) {
+            const void* pl, void* out, void* part, int S, int T, int H,
+            int Hkv, int L, int bk, int chunk, int nsplit, float scale,
+            cudaStream_t st) {
   switch (page_dtype) {
-    case 0:
-      return by_dh<QT, float>(Dh, q, k, v, ksc, vsc, slots, lengths, ps, pl,
-                              out, S, T, H, Hkv, L, bk, scale, st);
-    case 1:
-      return by_dh<QT, __nv_bfloat16>(Dh, q, k, v, ksc, vsc, slots, lengths,
-                                      ps, pl, out, S, T, H, Hkv, L, bk,
-                                      scale, st);
-    case 2:
-      return by_dh<QT, int8_t>(Dh, q, k, v, ksc, vsc, slots, lengths, ps, pl,
-                               out, S, T, H, Hkv, L, bk, scale, st);
-    case 3:
-      return by_dh<QT, __nv_fp8_e4m3>(Dh, q, k, v, ksc, vsc, slots, lengths,
-                                      ps, pl, out, S, T, H, Hkv, L, bk,
-                                      scale, st);
+    case 0: return by_dh<QT, float>(Dh, BF_DECODE_ARGS);
+    case 1: return by_dh<QT, __nv_bfloat16>(Dh, BF_DECODE_ARGS);
+    case 2: return by_dh<QT, int8_t>(Dh, BF_DECODE_ARGS);
+    case 3: return by_dh<QT, __nv_fp8_e4m3>(Dh, BF_DECODE_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -270,30 +457,34 @@ int by_page(int page_dtype, int Dh, const void* q, const void* k,
 
 extern "C" {
 
-// Shared memory bytes one CTA needs (the wrapper checks it against the
-// card's 227 KB before launching).
-size_t bf_flash_decode_smem_bytes(int TG, int Dh, int bk) {
-  return smem_floats(TG, Dh, bk) * sizeof(float);
+// Shared memory bytes one CTA needs at T * G = TG rows (the wrapper
+// checks it against the card's 227 KB before launching).
+size_t bf_flash_decode_smem_bytes(int TG, int Dh, int page_dtype) {
+  switch (page_dtype) {
+    case 0: return smem_for<float>(TG, Dh);
+    case 1: return smem_for<__nv_bfloat16>(TG, Dh);
+    default: return smem_for<int8_t>(TG, Dh);
+  }
 }
 
 // q_dtype: 0 f32, 1 bf16.  page_dtype: 0 f32, 1 bf16, 2 int8, 3 e4m3.
 // ksc/vsc are null for a raw store; prefix_slots/prefix_lens are null
-// when no lane reads through a prefix page.
+// when no lane reads through a prefix page.  part: f32 scratch of
+// S * Hkv * nsplit * T * G * (Dh + 2) values (null when nsplit is 1);
+// split sp covers keys [sp * chunk, (sp + 1) * chunk).
 int bf_flash_decode(const void* q, const void* k, const void* v,
                     const void* ksc, const void* vsc, const void* slots,
-                    const void* lengths, const void* prefix_slots,
-                    const void* prefix_lens, void* out, int S, int T, int H,
-                    int Hkv, int L, int Dh, int bk, float scale, int q_dtype,
-                    int page_dtype, void* stream) {
+                    const void* lengths, const void* ps, const void* pl,
+                    void* out, void* part, int S, int T, int H, int Hkv,
+                    int L, int Dh, int bk, int chunk, int nsplit,
+                    float scale, int q_dtype, int page_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunk < 1 || nsplit < 1 || (long long)chunk * nsplit < L)
+    return (int)cudaErrorInvalidValue;
   if (q_dtype == 0)
-    return by_page<float>(page_dtype, Dh, q, k, v, ksc, vsc, slots, lengths,
-                          prefix_slots, prefix_lens, out, S, T, H, Hkv, L,
-                          bk, scale, st);
+    return by_page<float>(page_dtype, Dh, BF_DECODE_ARGS);
   if (q_dtype == 1)
-    return by_page<__nv_bfloat16>(page_dtype, Dh, q, k, v, ksc, vsc, slots,
-                                  lengths, prefix_slots, prefix_lens, out, S,
-                                  T, H, Hkv, L, bk, scale, st);
+    return by_page<__nv_bfloat16>(page_dtype, Dh, BF_DECODE_ARGS);
   return (int)cudaErrorInvalidValue;
 }
 

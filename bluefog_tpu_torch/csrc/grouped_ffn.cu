@@ -1,4 +1,5 @@
-// Grouped expert FFN for dropless MoE on Hopper (sm_90a).
+// Grouped expert FFN for dropless MoE on Hopper (sm_90a), expert-major
+// on the tensor cores.
 //
 // Replaces the TPU kernel bluefog_tpu/ops/pallas_moe.py::_forward (kernel
 // _grouped_kernel): for every row tile g of the expert-sorted buffer,
@@ -7,43 +8,50 @@
 //
 // with xt [G, tile, D], tile_eid [G] int32, w1 [E, D, F], w2 [E, F, D],
 // f32 or bf16 operands (all alike), f32 accumulation, the output in xt's
-// type.  Same function, rethought for the GPU:
+// type.  Any tile size and any tile order.
 //
-//   * Two launches, no atomics, deterministic.  (a) the up-projection and
-//     gelu: one block per (tile g, slice of F columns) writes the f32
-//     scratch u [G, tile, F]; (b) the down-projection: one block per
-//     (tile g, slice of D columns) reads u.  The TPU runs its grid (G,)
-//     in order on one core; a GPU grid of G blocks would leave most of the
-//     132 SMs idle at decode (G = 12 tiles for 8 lanes x top-2 over 8
-//     experts), so each pass also splits the output columns: the block
-//     width (128, 64 or 32 columns) is the widest that still gives at
-//     least four blocks per SM.  A block is always 128 threads: with
-//     fewer columns its warps split the reduction (2 or 4 ways, strided),
-//     and the partial sums meet in shared memory in a fixed order.
-//   * Each block reads its tile's expert id itself (the TPU's scalar
-//     prefetch becomes one load).  Threads own neighbouring output
-//     columns, so every row of w1[e] / w2[e] is read coalesced.  The
-//     block stages R rows of its input (x or u) in shared memory, 256
-//     reduction entries at a time, and each thread keeps R f32 sums in
-//     registers: every weight it loads feeds R FMAs.  R is the tile rounded
-//     up to a power of two, at most 8; longer tiles loop over R-row chunks.
-//   * No padding to 8 rows (a TPU sublane rule): ``tile`` is a loop bound
-//     and any positive tile works.  Every tile is computed, including the
-//     tail tiles the layout clamps to the last expert: their rows are
-//     zeros, so their outputs are zeros.
+// What bounds it: at decode the bytes (each named expert's w1 + w2,
+// 2 * D * F * itemsize, 33.5 MB at D 1024, F 4096, f32), at a 512-token
+// prefill the operations (4 * G * tile * D * F, at 495 / 3 = 165 TFLOP/s
+// for f32-accurate 3xTF32 products).  The design:
 //
-// What bounds it: at serving shapes it is memory bound.  One expert's
-// w1 + w2 is 2 * D * F * itemsize (33.5 MB at D 1024, F 4096, f32), and
-// the least the function must read is that for each distinct expert the
-// tiles name; the FLOPs are 4 * G * tile * D * F.  At decode (G 12,
-// tile 2) that is 268 MB against 0.40 GFLOP, so bytes bound it (80 us at
-// 3.35 TB/s).  This first version has one block per tile and column
-// slice, so every tile re-reads its expert's weights: 12 tiles read 403
-// MB at decode, and the 135 tiles of a 512-token prefill read 4.5 GB
-// unless L2 (50 MB, about one expert's pair) catches the repeats.  The
-// products run on the CUDA cores in f32.  A later version walks all tiles
-// of one expert in one block so its weights are read once, stages them
-// with cp.async / TMA, and runs bf16 products on the tensor cores.
+//   * Two launches, no atomics, deterministic: (a) u = gelu(x @ w1) into
+//     an f32 scratch u [G * tile, F], (b) out = u @ w2.  Both run the same
+//     kernel, expert_rows.
+//   * Expert-major blocks.  A block owns one expert e (blockIdx.y) and NC
+//     output columns (blockIdx.x).  Its first warp scans tile_eid (the
+//     TPU's scalar prefetch becomes these loads) and gathers e's rows, tile
+//     after tile in tile_eid's order, into chunks of MR rows; the block
+//     multiplies a chunk at a time, so the weight slice is read once per
+//     chunk of rows, not once per tile.  When an expert holds more rows
+//     than one chunk, `slots` blocks (blockIdx.z) share its chunks
+//     round-robin, so a long reduction is not walked chunk after chunk by
+//     one block.  A block without a chunk exits after the scan.  Any tile
+//     order works; the dropless layout's sorted order only makes the
+//     scan's hits contiguous.
+//   * Filling the card.  The wrapper's plan picks MR from the rows an
+//     expert holds on average (16, 32 or 64), slots = ceil(rows / MR) and,
+//     per launch, the widest NC of 64, 32, 16 that still gives two blocks
+//     per SM: at decode (D 1024, F 4096, 8 experts) the up-projection runs
+//     512 blocks of 64 columns, the down-projection 512 of 16.  The block's
+//     4 warps split the chunk's rows MR / 16 ways and the reduction the
+//     rest (4, 2 or 1 ways): at MR 16 every warp takes a quarter of each
+//     staged slab of the reduction, and the quarters' sums meet in shared
+//     memory in warp order.
+//   * Tensor cores.  f32 products are 3xTF32 mma.sync.m16n8k8 (see
+//     hopper_common.cuh: f32 accurate; a stage's products go to a zeroed
+//     fragment added to the running sum with round-to-nearest).  bf16
+//     products (the up-projection of bf16 operands) are
+//     mma.sync.m16n8k16.bf16 with f32 accumulation: exact products.  The
+//     down-projection of bf16 weights reads the f32 u, so it is TF32 with
+//     the weight exact (two MMAs a product).  Rows past the chunk's end
+//     (a 2-row decode tile fills 2 of the 16 rows of a fragment) are
+//     zero-filled in shared memory, never in device memory, and a warp
+//     whose 16 rows all lie past it skips its products.
+//   * Staging.  A stage is the chunk's rows x KB reduction entries and KB x
+//     NC weights, copied by cp.async 16 bytes a thread, two or four stages
+//     deep (see Geo).  D and F must be multiples of 8 (the wrapper pads
+//     other widths).
 //
 // The C interface takes every pointer as void* (ctypes passes them as
 // c_void_p) and returns cudaGetLastError() after the launches.
@@ -51,13 +59,14 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 256;       // reduction entries staged per pass
-constexpr int kMaxRows = 8;       // rows of one register block
-constexpr int kFillBlocks = 4 * 132;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -75,129 +84,295 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(inner));
 }
 
-// out[g, r, n] = act(sum_k in[g, r, k] * w[eid[g], k, n]) for the block's
-// tile g = blockIdx.y and columns blockIdx.x * cols .. + cols - 1, with
-// cols = kThreads / KS; thread t owns column t % cols and the reduction
-// entries k = t / cols (mod KS).  KS is a template parameter so the
-// strided loop keeps a constant stride the compiler can pipeline.
-template <typename Tin, typename Tw, typename Tout, int R, int KS,
+// c += a . b, bf16 operands, f32 accumulation; fragments of m16n8k16 with
+// lane = 4 g + t: a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
+// a3 (g + 8, 2t + 8..); b0 (k = 2t.., n = g), b1 (k = 2t + 8.., n = g);
+// each register holds two neighbouring k, the lower k in the low half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* lo,
+                                              const __nv_bfloat16* hi) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
+// The block's geometry: MR rows, NC columns, WM warps over the rows and
+// WK over the reduction; each warp takes 32 reduction entries of a stage
+// of KB, and NS stages are in flight: two at MR 16 (128 entries a stage,
+// up to five blocks an SM), four at MR 32 and 64 (64 and 32 entries a
+// stage, whose compute is short: with one stage ahead, each waited out a
+// whole memory latency).  Shared row strides (elements) keep every
+// fragment read free of bank conflicts (A: 4 mod 32 words; B: 8 mod 32
+// words f32, 4 mod 16 words bf16) and rows 16-byte aligned.
+template <typename Tin, typename Tw, int MR, int NC> struct Geo {
+  static constexpr int WM = MR / 16, WK = kWarps / WM;
+  static constexpr int KW = 32, KB = KW * WK, NS = MR == 16 ? 2 : 4;
+  static constexpr int SA = KB + 16 / (int)sizeof(Tin);
+  static constexpr int SB = NC + 8;
+  static constexpr int SR = NC + 4;                 // partial sums
+  static constexpr size_t A_BYTES = (size_t)MR * SA * sizeof(Tin);
+  static constexpr size_t B_BYTES = (size_t)KB * SB * sizeof(Tw);
+  static constexpr size_t STAGE = A_BYTES + B_BYTES;
+  static constexpr size_t RED = (size_t)WK * MR * SR * 4;
+  static constexpr size_t SMEM = NS * STAGE > RED ? NS * STAGE : RED;
+};
+
+// out[row, n] = act(sum_k in[row, k] * w[e, k, n]) for the rows of
+// expert e = blockIdx.y and the columns n0 .. n0 + NC - 1, n0 = blockIdx.x
+// * NC: e's rows, taken tile after tile in tile_eid's order, form chunks
+// of MR; the block takes chunks blockIdx.z, blockIdx.z + gridDim.z, ...
+// in [G * tile, K], w [E, K, N], out [G * tile, N].
+template <typename Tin, typename Tw, typename Tout, int MR, int NC,
           bool kGelu>
 __global__ void __launch_bounds__(kThreads)
-grouped_rows(const Tin* __restrict__ in, const int* __restrict__ eid,
-             const Tw* __restrict__ w, Tout* __restrict__ out, int tile,
-             int K, int N) {
-  constexpr int cols = kThreads / KS;
-  __shared__ float xs[R * kChunk];
-  __shared__ float part[KS > 1 ? kThreads * R : 1];  // [KS][R][cols]
-  // without a split the loop starts at a constant 0: from a start it
-  // cannot see, the compiler does not pipeline the loads as well
-  const int c = threadIdx.x % cols, ks = KS == 1 ? 0 : threadIdx.x / cols;
-  const int g = blockIdx.y;
-  const int n = blockIdx.x * cols + c;
-  const bool live = n < N;
-  const Tin* xg = in + (size_t)g * tile * K;
-  const Tw* wg = w + (size_t)eid[g] * K * N;
-  for (int r0 = 0; r0 < tile; r0 += R) {
-    const int nr = min(R, tile - r0);
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kChunk) {
-      const int nk = min(kChunk, K - k0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
-        const int r = i / kChunk, k = i - r * kChunk;
-        xs[i] = (r < nr && k < nk)
-                    ? widen(xg[(size_t)(r0 + r) * K + k0 + k]) : 0.f;
+expert_rows(const Tin* __restrict__ in, const int* __restrict__ eid,
+            const Tw* __restrict__ w, Tout* __restrict__ out, int G,
+            int tile, int K, int N) {
+  using Gm = Geo<Tin, Tw, MR, NC>;
+  constexpr int WM = Gm::WM, WK = Gm::WK, KB = Gm::KB, SA = Gm::SA,
+                SB = Gm::SB, SR = Gm::SR, NS = Gm::NS, KW = Gm::KW,
+                NT = NC / 8;
+  constexpr bool kBf16 = sizeof(Tin) == 2;          // bf16 x bf16 products
+  constexpr bool kWExact = sizeof(Tw) == 2;         // bf16 weights in TF32
+  constexpr int EA = 16 / (int)sizeof(Tin), CA = KB / EA;
+  constexpr int EB = 16 / (int)sizeof(Tw), CB = NC / EB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int rows_sh[MR];
+  __shared__ int nrows_sh;
+
+  const int e = blockIdx.y, n0 = blockIdx.x * NC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wk = warp / WM;
+  const Tw* we = w + (size_t)e * K * N;
+  float* red = reinterpret_cast<float*>(smem);
+
+  // warp 0's cursor over e's rows: the tile it is in, rows of it passed
+  int cg = 0, cr = 0;
+  // warp 0 passes up to `want` more of e's rows, recording them in
+  // rows_sh when `keep`; returns how many it passed
+  auto walk = [&](int want, bool keep) {
+    int n = 0;
+    while (n < want && cg < G) {
+      if (cr == 0) {                   // the next tile of e at or after cg
+        const int i = cg + lane;
+        const unsigned hit = __ballot_sync(0xffffffffu,
+                                           i < G && eid[i] == e);
+        if (!hit) {
+          cg += 32;
+          continue;
+        }
+        cg += __ffs(hit) - 1;
       }
-      __syncthreads();
-      if (live) {
-        const Tw* wk = wg + (size_t)k0 * N + n;
-#pragma unroll 8
-        for (int k = ks; k < nk; k += KS) {
-          const float wv = widen(wk[(size_t)k * N]);
+      const int take = min(tile - cr, want - n);
+      if (keep)
+        for (int i = lane; i < take; i += 32)
+          rows_sh[n + i] = cg * tile + cr + i;
+      n += take;
+      cr += take;
+      if (cr == tile) {
+        cr = 0;
+        ++cg;
+      }
+    }
+    return n;
+  };
+
+  if (warp == 0) walk(blockIdx.z * MR, false);
+  for (;;) {
+    // -- gather the block's next chunk of expert e's rows ----------------
+    if (warp == 0) {
+      const int n = walk(MR, true);
+      if (lane == 0) nrows_sh = n;
+      walk((gridDim.z - 1) * MR, false);
+    }
+    __syncthreads();
+    const int nrows = nrows_sh;
+    if (nrows == 0) return;
+
+    // -- stage ks: the rows' entries [k0, k0 + KB) and the weights --------
+    auto stage = [&](int ks) {
+      const int k0 = ks * KB;
+      Tin* abuf = reinterpret_cast<Tin*>(smem + (ks % NS) * Gm::STAGE);
+      Tw* bbuf = reinterpret_cast<Tw*>(smem + (ks % NS) * Gm::STAGE +
+                                       Gm::A_BYTES);
+      for (int c = tid; c < MR * CA; c += kThreads) {
+        const int r = c / CA, kk = k0 + (c % CA) * EA;
+        const bool ok = r < nrows && kk < K;
+        const Tin* src =
+            in + (size_t)rows_sh[ok ? r : 0] * K + (ok ? kk : 0);
+        cp16(abuf + r * SA + (c % CA) * EA, src, ok);
+      }
+      for (int c = tid; c < KB * CB; c += kThreads) {
+        const int kr = c / CB, nn = n0 + (c % CB) * EB;
+        const bool ok = k0 + kr < K && nn < N;
+        const Tw* src = we + (ok ? (size_t)(k0 + kr) * N + nn : 0);
+        cp16(bbuf + kr * SB + (c % CB) * EB, src, ok);
+      }
+    };
+
+    float acc[NT][4];
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-            acc[r] = fmaf(xs[r * kChunk + k], wv, acc[r]);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+    const int nk = (K + KB - 1) / KB;
+    const int r0 = wm * 16, kw0 = wk * KW;
+    // NS - 1 stages ahead; a commit group for every stage, empty past nk
+    for (int ks = 0; ks < NS - 1; ++ks) {
+      if (ks < nk) stage(ks);
+      cp_commit();
+    }
+    for (int ks = 0; ks < nk; ++ks) {
+      if (ks + NS - 1 < nk) stage(ks + NS - 1);
+      cp_commit();
+      cp_wait<NS - 1>();               // stage ks has landed
+      __syncthreads();
+      const Tin* A =
+          reinterpret_cast<const Tin*>(smem + (ks % NS) * Gm::STAGE);
+      const Tw* B = reinterpret_cast<const Tw*>(smem + (ks % NS) * Gm::STAGE +
+                                                Gm::A_BYTES);
+      float d[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[n][i] = 0.f;
+      if (r0 >= nrows) {
+        // this warp's 16 rows are all past the chunk's end: nothing to do
+      } else if constexpr (kBf16) {
+#pragma unroll
+        for (int kk = 0; kk < KW; kk += 16) {
+          const int c0 = kw0 + kk;
+          const Tin* ap = A + (r0 + g) * SA + c0 + 2 * t;
+          uint32_t a[4];
+          a[0] = *reinterpret_cast<const uint32_t*>(ap);
+          a[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * SA);
+          a[2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+          a[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * SA + 8);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const Tw* bp = B + (c0 + 2 * t) * SB + n * 8 + g;
+            mma_bf16(d[n], a, pack_bf16(bp, bp + SB),
+                     pack_bf16(bp + 8 * SB, bp + 9 * SB));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KW; kk += 8) {
+          const int c0 = kw0 + kk;
+          const Tin* ap = A + (r0 + g) * SA + c0 + t;
+          const float av[4] = {widen(ap[0]), widen(ap[8 * SA]),
+                               widen(ap[4]), widen(ap[8 * SA + 4])};
+          FragA a;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split<false>(av[i], a.b[i], a.s[i]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const Tw* bp = B + (c0 + t) * SB + n * 8 + g;
+            FragB b;
+            split<kWExact>(widen(bp[0]), b.b[0], b.s[0]);
+            split<kWExact>(widen(bp[4 * SB]), b.b[1], b.s[1]);
+            mma3<false, kWExact>(d[n], a, b);
+          }
         }
       }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
+      __syncthreads();                 // the stage is free again
     }
-    if (KS > 1) {
+
+    // -- the warps' partial sums meet in shared memory, in warp order -----
 #pragma unroll
-      for (int r = 0; r < R; ++r) part[(ks * R + r) * cols + c] = acc[r];
-      __syncthreads();
-      if (ks == 0) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r] = 0.f;
-#pragma unroll
-          for (int j = 0; j < KS; ++j) acc[r] += part[(j * R + r) * cols + c];
-        }
-      }
+    for (int n = 0; n < NT; ++n) {
+      float* p = red + (wk * MR + r0 + g) * SR + n * 8 + 2 * t;
+      p[0] = acc[n][0];
+      p[1] = acc[n][1];
+      p[8 * SR] = acc[n][2];
+      p[8 * SR + 1] = acc[n][3];
     }
-    if (ks == 0 && live) {
-      Tout* og = out + ((size_t)g * tile + r0) * N + n;
+    __syncthreads();
+    for (int i = tid; i < MR * NC; i += kThreads) {
+      const int r = i / NC, c = i % NC;
+      if (r >= nrows || n0 + c >= N) continue;
+      float v = 0.f;
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (r < nr) narrow(og + (size_t)r * N, kGelu ? gelu_tanh(acc[r])
-                                                     : acc[r]);
+      for (int k = 0; k < WK; ++k) v += red[(k * MR + r) * SR + c];
+      narrow(out + (size_t)rows_sh[r] * N + n0 + c, kGelu ? gelu_tanh(v) : v);
     }
+    __syncthreads();                   // rows_sh and red free again
   }
 }
 
-// Reduction split of a pass over N output columns: the fewest ways (1, 2
-// or 4, giving 128-, 64- or 32-column blocks) that still make at least
-// four blocks per SM.
-int split_for(int N, int G) {
-  for (int ks = 1; ks < 4; ks *= 2) {
-    const int cols = kThreads / ks;
-    if ((long long)((N + cols - 1) / cols) * G >= kFillBlocks) return ks;
+template <typename Tin, typename Tw, typename Tout, int MR, int NC,
+          bool kGelu>
+int launch(const Tin* in, const int* eid, const Tw* w, Tout* out, int G,
+           int tile, int E, int Z, int K, int N, cudaStream_t stream) {
+  constexpr size_t smem = Geo<Tin, Tw, MR, NC>::SMEM;
+  auto kern = expert_rows<Tin, Tw, Tout, MR, NC, kGelu>;
+  static bool sized = false;    // dynamic + static shared memory may pass
+  if (!sized) {                 // 48 KB: raise the limit once per kernel
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
   }
-  return 4;
-}
-
-template <typename Tin, typename Tw, typename Tout, int R, bool kGelu>
-int pass(const Tin* in, const int* eid, const Tw* w, Tout* out, int G,
-         int tile, int K, int N, cudaStream_t stream) {
-  const int ks = split_for(N, G), cols = kThreads / ks;
-  const dim3 grid((N + cols - 1) / cols, G);
-  if (ks == 1)
-    grouped_rows<Tin, Tw, Tout, R, 1, kGelu>
-        <<<grid, kThreads, 0, stream>>>(in, eid, w, out, tile, K, N);
-  else if (ks == 2)
-    grouped_rows<Tin, Tw, Tout, R, 2, kGelu>
-        <<<grid, kThreads, 0, stream>>>(in, eid, w, out, tile, K, N);
-  else
-    grouped_rows<Tin, Tw, Tout, R, 4, kGelu>
-        <<<grid, kThreads, 0, stream>>>(in, eid, w, out, tile, K, N);
+  kern<<<dim3((N + NC - 1) / NC, E, Z), kThreads, smem, stream>>>(
+      in, eid, w, out, G, tile, K, N);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R>
-int run(const void* xt, const int* eid, const void* w1, const void* w2,
-        float* u, void* out, int G, int tile, int D, int F,
-        cudaStream_t stream) {
-  const int e = pass<T, T, float, R, true>(
-      static_cast<const T*>(xt), eid, static_cast<const T*>(w1), u, G, tile,
-      D, F, stream);
-  if (e != 0) return e;
-  return pass<float, T, T, R, false>(u, eid, static_cast<const T*>(w2),
-                                     static_cast<T*>(out), G, tile, F, D,
-                                     stream);
+template <typename Tin, typename Tw, typename Tout, int MR, bool kGelu>
+int by_cols(int NC, const Tin* in, const int* eid, const Tw* w, Tout* out,
+            int G, int tile, int E, int Z, int K, int N, cudaStream_t st) {
+  if (NC == 64)
+    return launch<Tin, Tw, Tout, MR, 64, kGelu>(in, eid, w, out, G, tile,
+                                                E, Z, K, N, st);
+  if (NC == 32)
+    return launch<Tin, Tw, Tout, MR, 32, kGelu>(in, eid, w, out, G, tile,
+                                                E, Z, K, N, st);
+  if (NC == 16)
+    return launch<Tin, Tw, Tout, MR, 16, kGelu>(in, eid, w, out, G, tile,
+                                                E, Z, K, N, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Tin, typename Tw, typename Tout, bool kGelu>
+int by_rows(int MR, int NC, const Tin* in, const int* eid, const Tw* w,
+            Tout* out, int G, int tile, int E, int Z, int K, int N,
+            cudaStream_t st) {
+  if (MR == 16)
+    return by_cols<Tin, Tw, Tout, 16, kGelu>(NC, in, eid, w, out, G, tile,
+                                             E, Z, K, N, st);
+  if (MR == 32)
+    return by_cols<Tin, Tw, Tout, 32, kGelu>(NC, in, eid, w, out, G, tile,
+                                             E, Z, K, N, st);
+  if (MR == 64)
+    return by_cols<Tin, Tw, Tout, 64, kGelu>(NC, in, eid, w, out, G, tile,
+                                             E, Z, K, N, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int dispatch_rows(const void* xt, const int* eid, const void* w1,
-                  const void* w2, float* u, void* out, int G, int tile,
-                  int D, int F, cudaStream_t stream) {
-  const int rows = tile < kMaxRows ? tile : kMaxRows;
-  if (rows <= 1) return run<T, 1>(xt, eid, w1, w2, u, out, G, tile, D, F,
-                                   stream);
-  if (rows <= 2) return run<T, 2>(xt, eid, w1, w2, u, out, G, tile, D, F,
-                                   stream);
-  if (rows <= 4) return run<T, 4>(xt, eid, w1, w2, u, out, G, tile, D, F,
-                                   stream);
-  return run<T, 8>(xt, eid, w1, w2, u, out, G, tile, D, F, stream);
+int run(const void* xt, const int* eid, const void* w1, const void* w2,
+        float* u, void* out, int G, int tile, int E, int D, int F, int MR,
+        int Z, int up_cols, int down_cols, cudaStream_t st) {
+  const int e = by_rows<T, T, float, true>(
+      MR, up_cols, static_cast<const T*>(xt), eid,
+      static_cast<const T*>(w1), u, G, tile, E, Z, D, F, st);
+  if (e != 0) return e;
+  return by_rows<float, T, T, false>(MR, down_cols, u, eid,
+                                     static_cast<const T*>(w2),
+                                     static_cast<T*>(out), G, tile, E, Z, F,
+                                     D, st);
 }
 
 }  // namespace
@@ -205,21 +380,28 @@ int dispatch_rows(const void* xt, const int* eid, const void* w1,
 extern "C" {
 
 // xt [G, tile, D], tile_eid [G] int32 (every id in [0, E)), w1 [E, D, F],
-// w2 [E, F, D], u [G, tile, F] f32 scratch, out [G, tile, D];
-// dtype 0 = f32, 1 = bf16 (xt, w1, w2 and out alike).
+// w2 [E, F, D], u [G, tile, F] f32 scratch, out [G, tile, D]; D and F
+// multiples of 8; dtype 0 = f32, 1 = bf16 (xt, w1, w2 and out alike).
+// rows: the chunk of an expert's rows a block multiplies at once (16, 32
+// or 64); slots: the blocks that share an expert's chunks for each column
+// slice; up_cols / down_cols: the columns of a block in the up- and
+// down-projection (16, 32 or 64).
 int bf_grouped_ffn(const void* xt, const void* tile_eid, const void* w1,
                    const void* w2, void* u, void* out, int G, int tile,
-                   int D, int F, int dtype, void* stream) {
-  if (G < 1 || tile < 1 || D < 1 || F < 1 || G > 65535) return -1;
+                   int E, int D, int F, int rows, int slots, int up_cols,
+                   int down_cols, int dtype, void* stream) {
+  if (G < 1 || tile < 1 || E < 1 || E > 65535 || D < 8 || F < 8 ||
+      D % 8 || F % 8 || slots < 1 || slots > 65535)
+    return -1;
   const int* eid = static_cast<const int*>(tile_eid);
   float* uf = static_cast<float*>(u);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_rows<float>(xt, eid, w1, w2, uf, out, G, tile, D, F,
-                                st);
+    return run<float>(xt, eid, w1, w2, uf, out, G, tile, E, D, F, rows,
+                      slots, up_cols, down_cols, st);
   if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16>(xt, eid, w1, w2, uf, out, G, tile,
-                                        D, F, st);
+    return run<__nv_bfloat16>(xt, eid, w1, w2, uf, out, G, tile, E, D, F,
+                              rows, slots, up_cols, down_cols, st);
   return -2;
 }
 

@@ -3,8 +3,10 @@
 Each library is compiled by ``nvcc`` for ``sm_90a`` from a plain-C
 interface (no PyTorch headers, so a build takes seconds) into
 ``bluefog_tpu_torch/_build/``, keyed by a hash of its sources and flags,
-and loaded with ``ctypes``.  Nothing is compiled at import: the first call
-that needs a library builds it.
+and loaded with ``ctypes``.  Every ``csrc/*.cuh`` header is on the include
+path (``-I csrc``) and in the hash, so an edit to a shared header rebuilds
+each library that may include it.  Nothing is compiled at import: the first
+call that needs a library builds it.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load_library", "build_log"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "headers", "load_library",
+           "build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -38,6 +41,11 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+def headers() -> List[Path]:
+    """The shared headers under ``csrc/``, in name order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """The loaded library ``name`` built from ``sources`` (paths relative
     to ``csrc/``), compiling it first if this source hash has no build."""
@@ -45,13 +53,15 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         return _LIBS[name]
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers():
+        h.update(p.name.encode())
         h.update(p.read_bytes())
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               *map(str, paths)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name} "

@@ -9,13 +9,20 @@ version, :func:`~bluefog_tpu_torch.serve.kv_cache.attend_rows` /
 ``attend_chunk`` (gather the pages, then attend).  A CUDA tensor never
 takes the plain version: the kernel launches or the call raises.
 
-``flash_decode_cuda.launches`` counts kernel launches, so a run can show
+The kernel splits each lane's keys across CTAs (flash-decoding): the
+host-side plan :func:`split_plan` picks the number of splits from the
+batch, the kv heads and the page length alone, and a second small launch
+merges the splits' partials.  Nothing on this path reads a device value
+back to the host.
+
+``flash_decode_cuda.launches`` counts calls that launched the kernel (one
+per call, whether or not it needed the merge launch), so a run can show
 that its decode attention went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,7 +30,7 @@ from ..serve import kv_cache as _kv
 from . import _build
 
 __all__ = ["flash_attend_rows", "flash_attend_chunk", "flash_decode_cuda",
-           "build"]
+           "split_plan", "build"]
 
 _LIB = "flash_decode"
 _SOURCES = ("flash_decode.cu",)
@@ -32,19 +39,37 @@ _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _HEAD_DIMS = (64, 128)
 _MAX_SMEM = 232448          # bytes of shared memory one H100 CTA may use
+_MAX_ROWS = 64              # T * G rows of one CTA (16 row groups x 4)
+SMS = 132                   # streaming multiprocessors of an H100
+CTAS_PER_SM = 4             # the split plan's target
+MIN_CHUNK = 32              # keys: the finest split
 
 
 def build() -> ctypes.CDLL:
     """Compile (at the first call in a checkout) and load the kernel."""
     lib = _build.load_library(_LIB, _SOURCES)
     fn = lib.bf_flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.bf_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.bf_flash_decode_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def split_plan(S: int, Hkv: int, L: int) -> Tuple[int, int]:
+    """``(splits, chunk)``: how many CTAs share each (lane, kv head) and
+    the keys each covers (a multiple of ``MIN_CHUNK``; ``splits * chunk >=
+    L``).  Enough splits for ``CTAS_PER_SM`` CTAs on each SM, but no more
+    than ``L`` has ``MIN_CHUNK``-key chunks.  Host integers only: the plan
+    never looks at ``lengths`` (a CTA whose keys lie past its lane's
+    length exits at once)."""
+    want = -(-CTAS_PER_SM * SMS // (S * Hkv))
+    splits = max(1, min(want, -(-L // MIN_CHUNK)))
+    chunk = -(-L // splits)
+    chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
+    return -(-L // chunk), chunk
 
 
 def _block_k_for(L: int, block_k: int) -> int:
@@ -140,26 +165,39 @@ def flash_decode_cuda(q4: torch.Tensor, cl: Dict[str, torch.Tensor],
         raise ValueError(f"scales must be f32 {tuple(k.shape[:3])}, got "
                          f"{tuple(ksc.shape)} {ksc.dtype} / "
                          f"{tuple(vsc.shape)} {vsc.dtype}")
-    lib = build()
     TG = T * (H // Hkv)
-    smem = lib.bf_flash_decode_smem_bytes(TG, Dh, bk)
+    if TG > _MAX_ROWS:
+        raise ValueError(f"flash decode takes T*G <= {_MAX_ROWS} query "
+                         f"rows per kv head, got T={T} x G={H // Hkv}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash decode pages must be 16-byte aligned (they "
+                         "are copied 16 bytes at a time)")
+    lib = build()
+    smem = lib.bf_flash_decode_smem_bytes(TG, Dh, _PAGE_DTYPES[k.dtype])
     if smem > _MAX_SMEM:
-        raise ValueError(f"flash decode tile T*G={TG} x block_k={bk} needs "
-                         f"{smem} bytes of shared memory (> {_MAX_SMEM})")
+        raise ValueError(f"flash decode tile of T*G={TG} rows at head_dim "
+                         f"{Dh} needs {smem} bytes of shared memory "
+                         f"(> {_MAX_SMEM})")
     slots = _index(slots, S, dev, "slots")
     lengths = _index(lengths, S, dev, "lengths")
     prefix_slots = _index(prefix_slots, S, dev, "prefix_slots")
     prefix_lens = _index(prefix_lens, S, dev, "prefix_lens")
+    splits, chunk = split_plan(S, Hkv, L)
     out = torch.empty_like(q4)
+    # the splits' partials: o [S, Hkv, splits, T*G, Dh], then m and l
+    part = (torch.empty(S * Hkv * splits * TG * (Dh + 2),
+                        dtype=torch.float32, device=dev)
+            if splits > 1 else None)
     err = lib.bf_flash_decode(
         _ptr(q4), _ptr(k), _ptr(v), _ptr(ksc), _ptr(vsc), _ptr(slots),
         _ptr(lengths), _ptr(prefix_slots), _ptr(prefix_lens), _ptr(out),
-        S, T, H, Hkv, L, Dh, bk, float(scale), _Q_DTYPES[q4.dtype],
-        _PAGE_DTYPES[k.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(part), S, T, H, Hkv, L, Dh, bk, chunk, splits, float(scale),
+        _Q_DTYPES[q4.dtype], _PAGE_DTYPES[k.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash decode kernel launch failed: CUDA error "
                            f"{err} (S={S} T={T} H={H} Hkv={Hkv} L={L} "
-                           f"Dh={Dh} bk={bk})")
+                           f"Dh={Dh} bk={bk} splits={splits})")
     flash_decode_cuda.launches += 1
     return out
 

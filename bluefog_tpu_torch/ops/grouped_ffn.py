@@ -11,6 +11,11 @@ the design and what bounds it); on CPU tensors it runs
 :func:`grouped_ffn_plain`.  A CUDA tensor never takes the plain version:
 the kernel launches or the call raises.
 
+The kernel runs expert-major blocks: the host-side plan :func:`ffn_plan`
+picks, from the shapes alone, how many of an expert's rows a block
+multiplies at once and how many output columns it owns.  Nothing on this
+path reads ``tile_eid`` or any other device value back to the host.
+
 ``grouped_ffn_cuda.launches`` counts calls that launched the kernel (one
 per call; each call is two CUDA launches, up- and down-projection), so a
 run can show that its expert FFNs went through it.
@@ -18,28 +23,71 @@ run can show that its expert FFNs went through it.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .flash_attention import _aligned
 
-__all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda", "build"]
+__all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda",
+           "ffn_plan", "build"]
 
 _LIB = "grouped_ffn"
 _SOURCES = ("grouped_ffn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_TILES = 65535          # the kernel's grid y
+_MAX_EXPERTS = 65535        # the kernel's grid y
+SMS = 132                   # streaming multiprocessors of an H100
+BLOCKS_PER_SM = 2           # the plan's target for each launch
+_WIDTH = 8                  # D and F are copied 16 bytes at a time
 
 
 def build() -> ctypes.CDLL:
     """Compile (at the first call in a checkout) and load the kernel."""
     lib = _build.load_library(_LIB, _SOURCES)
     fn = lib.bf_grouped_ffn
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def ffn_plan(G: int, tile: int, E: int, D: int, F: int
+             ) -> Tuple[int, int, int, int]:
+    """``(rows, slots, up_cols, down_cols)`` for ``G`` tiles of ``tile``
+    rows over ``E`` experts: the chunk of an expert's rows a block
+    multiplies at once (16, 32 or 64: the least that holds an even share
+    ``G * tile / E``), the blocks that share an expert's chunks (enough
+    for an even share), and each launch's output columns per block, the
+    widest of 64, 32 and 16 that still gives ``BLOCKS_PER_SM`` blocks on
+    each SM (16 when none does).  Host integers only: the plan never
+    reads ``tile_eid``."""
+    share = -(-G * tile // E)
+    rows = 16 if share <= 16 else 32 if share <= 32 else 64
+    slots = -(-share // rows)
+
+    def cols(n: int) -> int:
+        for c in (64, 32):
+            if E * slots * -(-n // c) >= BLOCKS_PER_SM * SMS:
+                return c
+        return 16
+
+    return rows, slots, cols(F), cols(D)
+
+
+def _pad_widths(xt: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The operands with D and F zero-padded up to multiples of 8 (the
+    kernel copies 16 bytes at a time); unchanged when they already are.
+    Exact: a zero column of x or w1 adds nothing, gelu(0) = 0, and the
+    caller cuts the padded output columns."""
+    D, Fd = xt.shape[2], w1.shape[2]
+    Dp, Fp = -(-D // _WIDTH) * _WIDTH, -(-Fd // _WIDTH) * _WIDTH
+    if (Dp, Fp) == (D, Fd):
+        return xt, w1, w2
+    return (F.pad(xt, (0, Dp - D)), F.pad(w1, (0, Fp - Fd, 0, Dp - D)),
+            F.pad(w2, (0, Dp - D, 0, Fp - Fd)))
 
 
 def grouped_ffn_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
@@ -94,23 +142,28 @@ def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
                              f"{dev}; got one on {t.device} "
                              f"(contiguous={t.is_contiguous()})")
     G, tile, D = xt.shape
-    Fd = w1.shape[2]
-    if G > _MAX_TILES or 0 in (G, tile, D, Fd):
-        raise ValueError(f"grouped_ffn takes 1 .. {_MAX_TILES} tiles and "
-                         f"non-empty tiles/widths, got G={G} tile={tile} "
-                         f"D={D} F={Fd}")
+    E, Fd = w1.shape[0], w1.shape[2]
+    if E > _MAX_EXPERTS or 0 in (G, tile, D, Fd, E):
+        raise ValueError(f"grouped_ffn takes 1 .. {_MAX_EXPERTS} experts "
+                         f"and non-empty tiles/widths, got G={G} "
+                         f"tile={tile} D={D} F={Fd} E={E}")
+    xt, w1, w2 = _pad_widths(xt, w1, w2)
+    Dp, Fp = xt.shape[2], w1.shape[2]
+    xt, w1, w2 = _aligned(xt), _aligned(w1), _aligned(w2)
+    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, Dp, Fp)
     lib = build()
-    u = torch.empty((G, tile, Fd), dtype=torch.float32, device=dev)
+    u = torch.empty((G, tile, Fp), dtype=torch.float32, device=dev)
     out = torch.empty_like(xt)
     err = lib.bf_grouped_ffn(
         xt.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        u.data_ptr(), out.data_ptr(), G, tile, D, Fd, _DTYPES[xt.dtype],
+        u.data_ptr(), out.data_ptr(), G, tile, E, Dp, Fp, rows, slots,
+        up_cols, down_cols, _DTYPES[xt.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn kernel launch failed: CUDA error "
-                           f"{err} (G={G} tile={tile} D={D} F={Fd})")
+                           f"{err} (G={G} tile={tile} E={E} D={D} F={Fd})")
     grouped_ffn_cuda.launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 grouped_ffn_cuda.launches = 0

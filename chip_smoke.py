@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the trash row).  Tolerance: max abs error 1e-4 with f32 q (same
    stored values, f32 accumulation, only the summation order differs);
    with bf16 q one bf16 ulp of each output (rtol 8e-3) plus 1e-5 of f32
-   noise before the rounding;
+   noise before the rounding.  The kernel, its plain version and SDPA
+   are timed cold (``_device_ms``: L2 flushed before each call, as each
+   layer's call finds its pages in the engine), the kernel and SDPA also
+   warm (``warm_ms``); the kernels line carries the f32 and the int8
+   main-path cases (8 lanes, 16 kv heads);
 3. the serving path at full width (the non-smoke shape of
    tools/serve_bench.py: vocab 32768, d_model 1024, 16 heads, 8 layers,
    random weights from seed 0) through ``ServeEngine`` and
@@ -67,7 +71,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    max|plain| (both accumulate in f32, only the order differs); bf16 one
    bf16 ulp of each output (rtol 8e-3) on top of that.  The library
    yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over weights
-   gathered beforehand (the port never calls it);
+   gathered beforehand (the port never calls it).  Timed cold and warm as
+   in phase 2; the f32 bound is at the 3xTF32 rate (the CUDA-core f32
+   bound of earlier versions beside it as ``bound_ms_simt``);
 8. MoE serving at full width (tools/serve_bench.py's non-smoke widths
    with ``--serve-moe 8x2``: vocab 32768, d_model 1024, 16 heads, 8
    layers, 8 experts of F 4096, top-2, dropless, group tile 8; 637 M
@@ -111,6 +117,8 @@ DEV = "cuda"
 
 
 def _cuda_ms(fn, iters=20, warmup=3):
+    """Warm time of K1/K2: ``iters`` calls back to back between two events
+    (their milliseconds hide the host's launches)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -121,6 +129,38 @@ def _cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_FLUSH = {}
+FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2
+HOLD_CYCLES = 1 << 21         # ~1 ms of device spin while the host enqueues
+
+
+def _device_ms(fn, cold, iters=20, warmup=3):
+    """Device time of one call, mean over ``iters``: before each call,
+    outside the timed interval, the device spins while the host enqueues
+    the call, so the two events around it see no host time.  ``cold``
+    also writes a 256 MB buffer first (L2 holds 50 MB), as each layer's
+    call finds its pages and weights in the engine; warm calls find in L2
+    what the previous call left there."""
+    if cold and "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                                    device=DEV)
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _FLUSH["buf"].fill_(1)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def _pages(rng, rows, Hkv, store, kv):
@@ -156,7 +196,8 @@ def _bound_ms(lens, T, Hkv, G, page_item, q_item, quantized, S):
 
 
 def kernel_phase(fd, kv):
-    """Phase 2: every case once; returns the main-path case's row."""
+    """Phase 2: every case once; returns the rows of the main-path cases
+    (8 lanes, 16 kv heads, f32 q; f32 and int8 pages)."""
     import torch.nn.functional as F
     rng = np.random.default_rng(1)
     cases = []
@@ -171,7 +212,7 @@ def kernel_phase(fd, kv):
                     for prefix in (False, True):
                         cases.append((S, Hkv, T, store, qdt, prefix, False))
     cases.append((8, 16, 1, "f32", torch.float32, False, True))
-    main = None
+    main = {}
     for S, Hkv, T, store, qdt, prefix, trash in cases:
         G = H // Hkv
         rows = S + 2                          # S slots, a prefix row, trash
@@ -229,21 +270,29 @@ def kernel_phase(fd, kv):
         lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
         lib_err = float((lib.transpose(1, 2).float() - want.float()).abs()
                         .max())
-        ms, plain_ms = _cuda_ms(kern), _cuda_ms(plain)
-        lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask))
+        def lib_call():
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask)
+
+        ms, warm_ms = _device_ms(kern, True), _device_ms(kern, False)
+        plain_ms = _device_ms(plain, True)
+        lib_ms = _device_ms(lib_call, True)
+        lib_warm_ms = _device_ms(lib_call, False)
         bound, bound_by = _bound_ms(
             lens, T, Hkv, G, cl["k"].element_size(), q.element_size(),
             "k_scale" in cl, S)
         row = dict(S=S, Hkv=Hkv, T=T, store=store, q=str(qdt)[6:],
-                   prefix=prefix, trash=trash, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                   library_ms=lib_ms, library_err=lib_err)
+                   prefix=prefix, trash=trash,
+                   splits=fd.split_plan(S, Hkv, L)[0], max_abs_err=err,
+                   ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                   library_warm_ms=lib_warm_ms, library_err=lib_err)
         print("kernel_case " + json.dumps(row), flush=True)
-        if (S, Hkv, T, store, qdt, prefix, trash) == \
-                (8, 16, 1, "f32", torch.float32, False, False):
-            main = row
-    return main
+        if (S, Hkv, T, qdt, prefix, trash) == \
+                (8, 16, 1, torch.float32, False, False) \
+                and store in ("f32", "int8"):
+            main[store] = row
+    return main["f32"], main["int8"]
 
 
 def _top2_gap(model, tokens):
@@ -779,16 +828,18 @@ def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile):
             w(E, F, D))
 
 
-def _k4_bound(xt, eid, w1):
+def _k4_bound(xt, eid, w1, rate=None):
     """Least time: the weights of every distinct expert the tiles name
     read once, xt read and the output written once, against 4 G tile D F
-    operations at the f32 rate, or the bf16 tensor-core rate for bf16."""
+    operations at the rate of f32-accurate products on the tensor cores
+    (3xTF32), or the bf16 tensor-core rate for bf16; ``rate`` overrides
+    it (the CUDA-core f32 bound of earlier versions)."""
     G, tile, D = xt.shape
     Fd, item = w1.shape[2], xt.element_size()
     experts = int(torch.unique(eid).numel())
     nbytes = experts * 2 * D * Fd * item + 2 * G * tile * D * item + 4 * G
     flops = 4.0 * G * tile * D * Fd
-    rate = BF16_FLOPS if item == 2 else F32_FLOPS
+    rate = rate or (BF16_FLOPS if item == 2 else TF32X3_FLOPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -841,17 +892,24 @@ def grouped_ffn_phase(gf):
             u = F.gelu(torch.bmm(xt, w1g), approximate="tanh")
             return torch.bmm(u, w2g)
 
-        ms = _cuda_ms(lambda: gf.grouped_ffn(xt, eid, w1, w2))
-        plain_ms = _cuda_ms(lambda: gf.grouped_ffn_plain(xt, eid, w1, w2),
-                            iters=5, warmup=1)
-        lib_ms = _cuda_ms(lib)
+        def kern():
+            return gf.grouped_ffn(xt, eid, w1, w2)
+
+        ms, warm_ms = _device_ms(kern, True), _device_ms(kern, False)
+        plain_ms = _device_ms(lambda: gf.grouped_ffn_plain(xt, eid, w1, w2),
+                              True, iters=5, warmup=1)
+        lib_ms, lib_warm_ms = _device_ms(lib, True), _device_ms(lib, False)
         del w1g, w2g
         bound, bound_by = _k4_bound(xt, eid, w1)
+        simt = _k4_bound(xt, eid, w1, rate=F32_FLOPS)[0] \
+            if dt == f32 else None
         row = dict(case=name, G=G, tile=tile, D=D, F=Fd, dtype=str(dt)[6:],
+                   plan=list(gf.ffn_plan(G, tile, 8, D, Fd)),
                    experts_named=int(torch.unique(eid).numel()),
                    max_abs_err=err, max_abs_plain=top, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                   library_ms=lib_ms,
+                   warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, bound_ms_simt=simt, library_ms=lib_ms,
+                   library_warm_ms=lib_warm_ms,
                    library="cuBLAS torch.bmm + gelu + torch.bmm over "
                            "pre-gathered weights")
         print("kernel_case " + json.dumps(row), flush=True)
@@ -990,12 +1048,17 @@ def _build_all(builders):
     return time.monotonic() - t0
 
 
+_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+
+
 def _kernel_row(name, source, replaces, launches, case):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
-            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches}
+    row.update({key: case[key] for key in _ROW_KEYS})
+    if "warm_ms" in case:                  # K3/K4: ms is timed cold
+        row["warm_ms"] = case["warm_ms"]
+    return row
 
 
 def main(argv=None) -> int:
@@ -1045,7 +1108,7 @@ def main(argv=None) -> int:
 
     # -- phase 2: flash decode against its plain version ----------------
     t0 = time.monotonic()
-    main_case = kernel_phase(fd, kv)
+    main_case, int8_case = kernel_phase(fd, kv)
     phase_s["flash_decode_cases"] = time.monotonic() - t0
 
     # -- phase 3: the serving path at full width ------------------------
@@ -1057,7 +1120,7 @@ def main(argv=None) -> int:
     _, launches_int8 = serve_phase(fd, kv, "int8", model, cfg, "int8", 8,
                                    32)
     if args.profile:
-        profile_phase(engine)
+        profile_phase(engine, shares=("flash_decode",))
     del engine, model
     torch.cuda.empty_cache()
     phase_s["serve"] = time.monotonic() - t0
@@ -1092,7 +1155,7 @@ def main(argv=None) -> int:
     engine, k4_launches = moe_serve_phase(fd, gf, moe_layers, smi)
     if args.profile:
         profile_phase(engine, "profile_moe",
-                      shares=("grouped_rows", "flash_decode_kernel"))
+                      shares=("expert_rows", "flash_decode"))
     del engine
     phase_s["moe_serve"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
@@ -1104,6 +1167,8 @@ def main(argv=None) -> int:
                          "bluefog_tpu/ops/pallas_decode.py:136", launches,
                          main_case)
     decode["launches_int8_run"] = launches_int8
+    decode["int8"] = {key: int8_case[key]
+                      for key in _ROW_KEYS + ("warm_ms",)}
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
     print(json.dumps({"kernels": [
         decode,
@@ -1118,9 +1183,9 @@ def main(argv=None) -> int:
                          "bluefog_tpu_torch/csrc/grouped_ffn.cu",
                          "bluefog_tpu/ops/pallas_moe.py:61", k4_launches,
                          k4_decode),
-             prefill={key: k4_prefill[key] for key in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")})]}))
+             bound_ms_simt=k4_decode["bound_ms_simt"],
+             prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
+                 "warm_ms", "bound_ms_simt")})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,9 @@ only PyTorch:
 Flash decode: max abs error 1e-4 with f32 q (same stored values, f32
 accumulation, only the summation order differs); with bf16 q one bf16
 ulp of each output (rtol 8e-3) plus 1e-5 of f32 noise before rounding.
+The kernel splits each lane's keys across CTAs, so the cases put the last
+visible key on, before and after split and block boundaries, end prefix
+pages inside a split, pad lanes to length 0, and rerun bit-identically.
 
 Flash attention K1/K2 (and the ring and the trainer built on them): both
 sides accumulate in f32 from the same values and only the order differs,
@@ -22,6 +25,9 @@ backward must give bit-identical results on two runs (no atomics).
 Grouped expert FFN K4: both sides accumulate in f32 from the same values
 and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
 bf16 operands one bf16 ulp of each output (rtol 8e-3) on top of that.
+Its blocks are expert-major, so the cases route tiles out of order, leave
+experts without tiles, put every tile on one expert or more rows on one
+expert than a chunk holds, and rerun bit-identically.
 """
 import numpy as np
 import pytest
@@ -112,6 +118,105 @@ def test_flash_decode_refuses_what_it_does_not_take(cuda):
         fd.flash_attend_rows(torch.zeros(1, 1, 64, device=cuda), cl64["k"],
                              cl64["v"], idx, idx, block_k=8)
 
+
+
+def _decode_case(cuda, lens, Hkv=4, T=1, Dh=64, L=1024, block_k=128,
+                 store="f32", qdt=torch.float32, plens=None, seed=0):
+    """One flash_attend_chunk call against its plain version: lane i on
+    slot i (lanes with length 0 on the last, trash row), 16 q heads."""
+    rng = np.random.default_rng(seed)
+    S, H = len(lens), 16
+    rows = S + 2
+    cl = {}
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.normal(size=(rows, Hkv, L, Dh)).astype(
+            np.float32)).to(cuda)
+        if store == "f32":
+            cl[name] = x
+        elif store == "bf16":
+            cl[name] = x.bfloat16()
+        else:
+            cl[name], sc = kv.quantize_rows(x, store)
+            cl[name + "_scale"] = sc.contiguous()
+    slots = torch.tensor([i if n else rows - 1 for i, n in enumerate(lens)],
+                         dtype=torch.int32, device=cuda)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    pre = {}
+    if plens is not None:
+        pre = dict(prefix_slots=torch.full((S,), S, dtype=torch.int32,
+                                           device=cuda),
+                   prefix_lens=torch.tensor(plens, dtype=torch.int32,
+                                            device=cuda))
+    q = torch.from_numpy(rng.normal(size=(S, T, H, Dh)).astype(
+        np.float32)).to(cuda, qdt)
+    got = fd.flash_attend_chunk(q, cl, slots, lens_t, block_k=block_k,
+                                **pre)
+    want = kv.attend_chunk(q, cl, slots, lens_t, **pre)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and got.shape == q.shape
+    diff = (got.float() - want.float()).abs()
+    if qdt == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert bool((diff <= 8e-3 * want.float().abs() + 1e-5).all())
+    return got, (q, cl, slots, lens_t, block_k, pre)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store,qdt", [("f32", torch.float32),
+                                       ("int8", torch.float32),
+                                       ("bf16", torch.bfloat16)])
+def test_flash_decode_split_boundaries(cuda, store, qdt):
+    """8 lanes x 4 kv heads split every 64 keys: the last visible key
+    ends a split (63, 127, 255), starts one (64, 128, 256: 128 and 256
+    also start 128-key blocks), sits mid-split (31, 32, 50, 95) or is the
+    page's last (1023)."""
+    assert fd.split_plan(8, 4, 1024) == (16, 64)
+    for lens in ([31, 32, 95, 50, 127, 128, 1023, 0],
+                 [0, 63, 64, 1000, 255, 256, 3, 1]):
+        _decode_case(cuda, lens, store=store, qdt=qdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_k", [16, 128])
+def test_flash_decode_prefix_inside_a_split(cuda, block_k):
+    """Prefix pages end inside a split: 16 and 128 keys into splits of 64
+    (8 lanes x 4 kv heads) and of 224 keys (8 x 16)."""
+    lens = [40, 300, 1023, 200, 700, 16, 0, 129]
+    plens = [16, 128, 256, 128, 512, 0, 0, 128]
+    plens = [p // block_k * block_k for p in plens]
+    for Hkv in (4, 16):
+        _decode_case(cuda, lens, Hkv=Hkv, block_k=block_k, plens=plens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_lane_4_heads", "trash_lanes",
+                                  "T4_gqa4", "dh128", "dh128_T3_gqa8_fp8"])
+def test_flash_decode_shapes(cuda, case):
+    if case == "one_lane_4_heads":      # 1 lane over 4 kv heads fills
+        assert fd.split_plan(1, 4, 1024) == (32, 32)
+        _decode_case(cuda, [700], Hkv=4)
+    elif case == "trash_lanes":         # padded bucket lanes, length 0
+        _decode_case(cuda, [500, 0, 0, 0, 900, 0, 0, 0], Hkv=16)
+    elif case == "T4_gqa4":
+        _decode_case(cuda, [0, 300, 1020, 64], Hkv=4, T=4)
+    elif case == "dh128":
+        _decode_case(cuda, [5, 512, 1023, 0], Hkv=16, Dh=128,
+                     store="bf16")
+    else:
+        _decode_case(cuda, [77, 600, 0], Hkv=2, T=3, Dh=128, store="fp8",
+                     L=512, block_k=64)
+
+
+@pytest.mark.gpu
+def test_flash_decode_reruns_are_bit_identical(cuda):
+    lens = [1023, 700, 0, 31, 64, 900, 5, 512]
+    got, (q, cl, slots, lens_t, block_k, pre) = _decode_case(
+        cuda, lens, Hkv=16, T=2)
+    for _ in range(3):
+        again = fd.flash_attend_chunk(q, cl, slots, lens_t,
+                                      block_k=block_k, **pre)
+        assert torch.equal(again, got)
 
 def _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, device):
     def t(*shape):
@@ -339,3 +444,74 @@ def test_grouped_ffn_refuses_what_it_does_not_take(cuda):
         gf.grouped_ffn(xt, eid, w2, w1)
     with pytest.raises(ValueError, match="contiguous"):
         gf.grouped_ffn(xt.transpose(0, 1), eid, w1, w2)
+
+
+def _k4_case(cuda, eid, tile, D=256, F=512, E=8, dtype=torch.float32,
+             seed=0):
+    """K4 on tiles routed by ``eid`` (any order) against its plain
+    version; returns the kernel's output and its inputs."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda, dtype)
+
+    G = len(eid)
+    xt = t(G, tile, D)
+    w1, w2 = t(E, D, F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+    eid = torch.tensor(eid, dtype=torch.int32, device=cuda)
+    got = gf.grouped_ffn(xt, eid, w1, w2)
+    want = gf.grouped_ffn_plain(xt, eid, w1, w2)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == xt.shape
+    diff = (got.float() - want.float()).abs()
+    lim = 1e-4 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        lim = lim + 8e-3 * want.float().abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+    return got, (xt, eid, w1, w2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "unsorted", "interleaved", "expert_without_tiles", "one_expert",
+    "G1", "tile1", "tile16", "rows_past_a_chunk_16",
+    "rows_past_a_chunk_64", "cols_32", "cols_64"])
+def test_grouped_ffn_expert_major_cases(cuda, dtype, case):
+    rng = np.random.default_rng(5)
+    tile, eid, F = 2, None, 512
+    if case == "unsorted":
+        eid = rng.permutation(np.arange(12) % 8)
+    elif case == "interleaved":
+        eid = np.array([3, 1, 3, 0, 1, 3, 7, 0, 3, 1, 7, 3])
+    elif case == "expert_without_tiles":     # experts 2 and 5 have none
+        eid = np.array([0, 0, 1, 3, 4, 4, 6, 7, 7, 7])
+    elif case == "one_expert":
+        eid = np.full(12, 6)
+    elif case == "G1":
+        eid = np.array([4])
+    elif case == "tile1":
+        tile, eid = 1, rng.integers(0, 8, 16)
+    elif case == "tile16":
+        tile, eid = 16, np.sort(rng.integers(0, 8, 6))
+    elif case == "rows_past_a_chunk_16":     # 60 rows of expert 2, MR 16
+        eid = np.array([2] * 30 + [0, 1, 3, 4, 5, 6, 7] * 2)
+        assert gf.ffn_plan(len(eid), tile, 8, 256, 512)[:2] == (16, 1)
+    elif case == "rows_past_a_chunk_64":     # 400 rows of expert 5, MR 64
+        tile, eid = 8, np.array([5] * 50 + list(range(8)) * 2)
+        assert gf.ffn_plan(len(eid), tile, 8, 256, 512)[:2] == (64, 2)
+    else:                                    # wider up-projection blocks
+        F = 2048 if case == "cols_32" else 4096
+        eid = np.sort(rng.integers(0, 8, 12))
+        assert gf.ffn_plan(12, tile, 8, 256, F)[2] == int(case[-2:])
+    _k4_case(cuda, [int(e) for e in eid], tile, F=F, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_reruns_are_bit_identical(cuda, dtype):
+    eid = [0, 0, 1, 2, 2, 2, 3, 5, 6, 6, 7, 7] * 3
+    got, args = _k4_case(cuda, eid, 4, D=512, F=1024, dtype=dtype)
+    for _ in range(3):
+        assert torch.equal(gf.grouped_ffn(*args), got)

@@ -48,6 +48,16 @@
 //     a second, small launch merges the splits in split order and writes
 //     o / l in q's type.  No atomics: reruns are bit-identical.
 //
+//   * Head dims.  The kernel is built for head-dim buckets DH = 32, 64
+//     and 128 and takes the actual head dim dr (any even dr <= 128) at
+//     run time: rows of q, pages and the output are dr values apart, and
+//     the staged tiles are DH wide with the columns past dr zero-filled,
+//     so they add nothing to q.k and give output columns that are not
+//     written.  A tile row arrives by 16-byte cp.async when dr fills whole
+//     16-byte chunks (dr % 4 == 0 for f32 pages, % 8 for bf16, % 16 for
+//     int8 / e4m3); otherwise each value is copied by a plain load and
+//     store, since a row then does not start on a 16-byte boundary.
+//
 // The C interface takes every pointer as void* (ctypes passes them as
 // c_void_p) and returns cudaGetLastError() after the launches.
 
@@ -77,6 +87,18 @@ __device__ __forceinline__ float widen(__nv_fp8_e4m3 x) {
 __device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
 __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// the unsigned type of a page value's bits (the scalar staging path)
+template <int N> struct RawOf;
+template <> struct RawOf<1> { using T = uint8_t; };
+template <> struct RawOf<2> { using T = uint16_t; };
+template <> struct RawOf<4> { using T = uint32_t; };
+
+// the built head dim a run-time head dim dr runs at (0: none)
+__host__ __device__ inline int dh_bucket(int dr) {
+  if (dr < 2 || dr % 2 || dr > 128) return 0;
+  return dr <= 32 ? 32 : dr <= 64 ? 64 : 128;
 }
 
 // keys per staged tile: 8 KB of K at Dh 64 for every page type
@@ -140,7 +162,8 @@ template <typename PT, int DH> struct Slice {
 };
 
 // One CTA: lane s = blockIdx.x, kv head h = blockIdx.y, split blockIdx.z.
-// RPG: rows a group holds in registers (1, or 4 when T * G > 16).
+// RPG: rows a group holds in registers (1, or 4 when T * G > 16).  DH is
+// the head-dim bucket, dr <= DH the head dim of q, pages and output.
 template <typename QT, typename PT, int DH, int RPG>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
@@ -153,7 +176,7 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
                     const int* __restrict__ prefix_lens,
                     QT* __restrict__ out, float* __restrict__ part, int T,
                     int H, int Hkv, int L, int bk, int G, float scale,
-                    int chunk) {
+                    int chunk, int dr) {
   using SL = Slice<PT, DH>;
   constexpr int KT = keys_per_tile<PT>(), DPL = SL::DPL;
   constexpr int EPC = 16 / (int)sizeof(PT);      // values per 16 bytes
@@ -201,15 +224,20 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   for (int i = 0; i < RPG; ++i) {
     const int r = rg + nrg * i;
     const int t = r / G, g = r % G;
-    const size_t qi = (((size_t)s * T + t) * H + (size_t)h * G + g) * DH;
+    const size_t qi = (((size_t)s * T + t) * H + (size_t)h * G + g) * dr;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
-      qr[i][j] = r < TG ? widen(q[qi + SL::d(li, j)]) * scale : 0.f;
+      const int d = SL::d(li, j);
+      qr[i][j] = r < TG && d < dr ? widen(q[qi + d]) * scale : 0.f;
       acc[i][j] = 0.f;
     }
     m[i] = -INFINITY;
     l[i] = 0.f;
   }
+
+  // 16-byte copies need rows made of whole 16-byte chunks
+  const bool vec = dr % EPC == 0;
+  using Raw = typename RawOf<(int)sizeof(PT)>::T;
 
   // K then V of the tile starting at key kb0, each its own commit group
   auto stage = [&](int kb0, int buf) {
@@ -219,13 +247,28 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     float* sdst[2] = {ksh + buf * KT, vsh + buf * KT};
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
-      for (int c = tid; c < KT * CH; c += kThreads) {
-        const int j = c / CH, x = c % CH, kpos = kb0 + j;
-        const bool ok = kpos < c1;
-        const int kk = ok ? kpos : 0;
-        const int row = ((kk / bk + 1) * bk <= plen) ? prow : slot;
-        const size_t off = (((size_t)row * Hkv + h) * L + kk) * DH + x * EPC;
-        cp16(dst[w] + j * DH + x * EPC, src[w] + off, ok);
+      if (vec) {
+        for (int c = tid; c < KT * CH; c += kThreads) {
+          const int j = c / CH, x = c % CH, kpos = kb0 + j;
+          const bool ok = kpos < c1 && x * EPC < dr;
+          const int kk = kpos < c1 ? kpos : 0;
+          const int row = ((kk / bk + 1) * bk <= plen) ? prow : slot;
+          const size_t off = (((size_t)row * Hkv + h) * L + kk) * dr +
+                             (ok ? x * EPC : 0);
+          cp16(dst[w] + j * DH + x * EPC, src[w] + off, ok);
+        }
+      } else {
+        const Raw* rs = reinterpret_cast<const Raw*>(src[w]);
+        Raw* rd = reinterpret_cast<Raw*>(dst[w]);
+        for (int c = tid; c < KT * DH; c += kThreads) {
+          const int j = c / DH, d = c % DH, kpos = kb0 + j;
+          Raw val = 0;
+          if (kpos < c1 && d < dr) {
+            const int row = ((kpos / bk + 1) * bk <= plen) ? prow : slot;
+            val = rs[(((size_t)row * Hkv + h) * L + kpos) * dr + d];
+          }
+          rd[j * DH + d] = val;
+        }
       }
       if (quant)
         for (int j = tid; j < KT; j += kThreads) {
@@ -327,6 +370,7 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   __syncthreads();
   for (int e = tid; e < TG * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
+    if (nsplit == 1 && d >= dr) continue;    // a column not written
     float M = -INFINITY;
     for (int k = 0; k < nkg; ++k)
       M = fmaxf(M, red[((size_t)k * TG + r) * (DH + 2) + DH]);
@@ -341,7 +385,7 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     if (nsplit == 1) {
       const int t = r / G, g = r % G;
       const size_t oi =
-          (((size_t)s * T + t) * H + (size_t)h * G + g) * DH + d;
+          (((size_t)s * T + t) * H + (size_t)h * G + g) * dr + d;
       narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
     } else {
       po[(prow0 + r) * DH + d] = O;
@@ -354,18 +398,18 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 }
 
 // Merges the splits' partials of lane blockIdx.x, kv head blockIdx.y in
-// split order and writes o / l in q's type.
+// split order and writes o / l in q's type (the first dr columns).
 template <typename QT, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_merge(const float* __restrict__ part, QT* __restrict__ out,
-                   int T, int H, int Hkv, int G, int nsplit) {
+                   int T, int H, int Hkv, int G, int nsplit, int dr) {
   const int S = gridDim.x, s = blockIdx.x, h = blockIdx.y, TG = T * G;
   const size_t nrows_all = (size_t)S * Hkv * nsplit * TG;
   const float* pm = part + nrows_all * DH;
   const float* pl = pm + nrows_all;
   const size_t base = ((size_t)s * Hkv + h) * nsplit * TG;
-  for (int e = threadIdx.x; e < TG * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
+  for (int e = threadIdx.x; e < TG * dr; e += kThreads) {
+    const int r = e / dr, d = e % dr;
     float M = -INFINITY;
     for (int k = 0; k < nsplit; ++k) M = fmaxf(M, pm[base + k * TG + r]);
     float O = 0.f, Ls = 0.f;
@@ -377,7 +421,7 @@ flash_decode_merge(const float* __restrict__ part, QT* __restrict__ out,
         O += part[i * DH + d] * w;
       }
     const int t = r / G, g = r % G;
-    const size_t oi = (((size_t)s * T + t) * H + (size_t)h * G + g) * DH + d;
+    const size_t oi = (((size_t)s * T + t) * H + (size_t)h * G + g) * dr + d;
     narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
   }
 }
@@ -393,7 +437,7 @@ int launch(const void* q, const void* k, const void* v, const void* ksc,
            const void* vsc, const void* slots, const void* lengths,
            const void* prefix_slots, const void* prefix_lens, void* out,
            void* part, int S, int T, int H, int Hkv, int L, int bk,
-           int chunk, int nsplit, float scale, cudaStream_t stream) {
+           int chunk, int nsplit, float scale, int dr, cudaStream_t stream) {
   const int G = H / Hkv, TG = T * G;
   if (TG > kMaxRows || (nsplit > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -413,18 +457,21 @@ int launch(const void* q, const void* k, const void* v, const void* ksc,
       static_cast<const int*>(lengths),
       static_cast<const int*>(prefix_slots),
       static_cast<const int*>(prefix_lens), static_cast<QT*>(out),
-      static_cast<float*>(part), T, H, Hkv, L, bk, G, scale, chunk);
+      static_cast<float*>(part), T, H, Hkv, L, bk, G, scale, chunk, dr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
   flash_decode_merge<QT, DH><<<dim3(S, Hkv), kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<QT*>(out), T, H, Hkv, G,
-      nsplit);
+      nsplit, dr);
   return (int)cudaGetLastError();
 }
 
 #define BF_DECODE_ARGS                                                    \
   q, k, v, ksc, vsc, slots, lengths, ps, pl, out, part, S, T, H, Hkv, L, \
       bk, chunk, nsplit, scale, st
+#define BF_LAUNCH_ARGS                                                    \
+  q, k, v, ksc, vsc, slots, lengths, ps, pl, out, part, S, T, H, Hkv, L, \
+      bk, chunk, nsplit, scale, Dh, st
 
 template <typename QT, typename PT>
 int by_dh(int Dh, const void* q, const void* k, const void* v,
@@ -432,8 +479,11 @@ int by_dh(int Dh, const void* q, const void* k, const void* v,
           const void* lengths, const void* ps, const void* pl, void* out,
           void* part, int S, int T, int H, int Hkv, int L, int bk,
           int chunk, int nsplit, float scale, cudaStream_t st) {
-  if (Dh == 64) return launch<QT, PT, 64>(BF_DECODE_ARGS);
-  if (Dh == 128) return launch<QT, PT, 128>(BF_DECODE_ARGS);
+  switch (dh_bucket(Dh)) {
+    case 32: return launch<QT, PT, 32>(BF_LAUNCH_ARGS);
+    case 64: return launch<QT, PT, 64>(BF_LAUNCH_ARGS);
+    case 128: return launch<QT, PT, 128>(BF_LAUNCH_ARGS);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -457,21 +507,23 @@ int by_page(int page_dtype, int Dh, const void* q, const void* k,
 
 extern "C" {
 
-// Shared memory bytes one CTA needs at T * G = TG rows (the wrapper
-// checks it against the card's 227 KB before launching).
+// Shared memory bytes one CTA needs at T * G = TG rows and head dim Dh
+// (the wrapper checks it against the card's 227 KB before launching).
 size_t bf_flash_decode_smem_bytes(int TG, int Dh, int page_dtype) {
+  const int DH = dh_bucket(Dh);
   switch (page_dtype) {
-    case 0: return smem_for<float>(TG, Dh);
-    case 1: return smem_for<__nv_bfloat16>(TG, Dh);
-    default: return smem_for<int8_t>(TG, Dh);
+    case 0: return smem_for<float>(TG, DH);
+    case 1: return smem_for<__nv_bfloat16>(TG, DH);
+    default: return smem_for<int8_t>(TG, DH);
   }
 }
 
 // q_dtype: 0 f32, 1 bf16.  page_dtype: 0 f32, 1 bf16, 2 int8, 3 e4m3.
 // ksc/vsc are null for a raw store; prefix_slots/prefix_lens are null
 // when no lane reads through a prefix page.  part: f32 scratch of
-// S * Hkv * nsplit * T * G * (Dh + 2) values (null when nsplit is 1);
-// split sp covers keys [sp * chunk, (sp + 1) * chunk).
+// S * Hkv * nsplit * T * G * (DH + 2) values, DH the head-dim bucket of
+// Dh (null when nsplit is 1); split sp covers keys [sp * chunk, (sp + 1)
+// * chunk).  Dh: any even head dim up to 128.
 int bf_flash_decode(const void* q, const void* k, const void* v,
                     const void* ksc, const void* vsc, const void* slots,
                     const void* lengths, const void* ps, const void* pl,

@@ -9,10 +9,19 @@ a round's ``(src, dst)`` pairs is a gather along dim 0 by the round's
 ``lax.ppermute`` does.  The weighted combine is plain torch; the wire
 codecs are not ported yet (only the amax scaling the quantized KV store
 shares with them).
+
+The composed carving's intra-replica collectives act on one named axis
+of a ``[dp, pp, tp, sp, ...]`` view, which is a dim of a stacked tensor
+here: :func:`psum` / :func:`pmean` over a dim, :func:`ppermute` along
+it, and the tiled :func:`all_to_all`.  Each is plain tensor ops, so
+autograd gives its transpose: ``psum``'s is the same sum of the
+cotangents (the JAX transpose under ``check_vma=False``), ``ppermute``'s
+the permutation back, ``all_to_all``'s the all-to-all with split and
+concat swapped.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +29,7 @@ import torch
 from ..schedule import CommSchedule
 
 __all__ = ["neighbor_allreduce", "allreduce", "allgather", "broadcast",
-           "_amax_scale"]
+           "psum", "pmean", "ppermute", "all_to_all", "_amax_scale"]
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -109,3 +118,68 @@ def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
         raise ValueError(f"root_rank {root_rank} out of range for "
                          f"{x.shape[0]} ranks")
     return x[root_rank:root_rank + 1].expand_as(x).clone()
+
+
+# ---------------------------------------------------------------------------
+# Collectives over one named axis of the stacked carving (a dim)
+# ---------------------------------------------------------------------------
+
+def psum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``lax.psum`` over the peers stacked along dim ``axis``: every peer
+    gets the sum (a broadcast view of it)."""
+    return x.sum(dim=axis, keepdim=True).expand_as(x)
+
+
+def pmean(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``lax.pmean`` over the peers stacked along dim ``axis``."""
+    return psum(x, axis) / x.shape[axis]
+
+
+def ppermute(x: torch.Tensor, axis: int,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute`` along dim ``axis``: peer ``dst`` gets peer
+    ``src``'s block for each ``(src, dst)`` pair, and a peer that is no
+    pair's destination gets zeros."""
+    n = x.shape[axis]
+    src = np.full(n, -1)
+    for s, d in perm:
+        if not (0 <= s < n and 0 <= d < n) or src[d] >= 0:
+            raise ValueError(f"ppermute pairs {list(perm)} are not a "
+                             f"partial permutation of {n} peers")
+        src[d] = s
+    return _permute(x.movedim(axis, 0), src).movedim(0, axis)
+
+
+def all_to_all(x: torch.Tensor, axis: int, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Tiled ``lax.all_to_all`` over the ``n`` peers stacked along dim
+    ``axis``: each peer's block is cut into ``n`` chunks along
+    ``split_axis``, chunk ``u`` goes to peer ``u``, and each peer lays the
+    chunks it gets along ``concat_axis`` in peer order.  ``split_axis``
+    and ``concat_axis`` are dims of ``x`` other than ``axis``."""
+    nd = x.ndim
+    a, s, c = (int(d) % nd for d in (axis, split_axis, concat_axis))
+    if a in (s, c):
+        raise ValueError("split_axis and concat_axis must differ from the "
+                         "peer axis")
+    n = x.shape[a]
+    if x.shape[s] % n:
+        raise ValueError(f"all_to_all splits dim {s} of {x.shape[s]} into "
+                         f"{n} chunks")
+    # dim s becomes (chunk u at s, its rows at s + 1)
+    y = x.unflatten(s, (n, x.shape[s] // n))
+
+    def at(d):                     # a dim of x in y
+        return d + 1 if d >= s and d != s else d
+
+    order = []
+    for d in range(nd):
+        if d == a:
+            order.append(s)                   # the chunk index: new peer
+            continue
+        if d == c:
+            order.append(at(a))               # the sending peer, outer
+        order.append(s + 1 if d == s else at(d))
+    z = y.permute(order)
+    p = order.index(at(a))
+    return z.flatten(p, p + 1)

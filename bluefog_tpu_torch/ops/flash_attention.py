@@ -13,6 +13,13 @@ versions,
 (dense einsums over the whole ``Tk``).  A CUDA tensor never takes the
 plain version: the kernel launches or the call raises.
 
+The kernels are built for head_dim 64 and 128.  Every other even head
+dim up to 128 (the JAX models take any even one) runs at the next of the
+two: the wrappers zero-pad q/k/v (and ``do``) along the head dim and
+slice the results back.  That is exact: the zero columns add nothing to
+q.k, and the padded columns of o, dq, dk and dv are dropped; the caller's
+``scale`` (``1/sqrt(D)`` of the unpadded D) is used as given.
+
 ``fwd_launches`` and ``bwd_launches`` count kernel launches (one per
 forward call; one per backward call, which runs the dkdv and dq kernels),
 so a run can show that its attention went through the kernels.
@@ -20,10 +27,11 @@ so a run can show that its attention went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -36,7 +44,8 @@ NEG_INF = -1e30  # large-negative stand-in: keeps exp() exact zeros without nan
 _LIB = "flash_attention"
 _SOURCES = ("flash_attention.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)       # built instances; other even D pad up
+MAX_HEAD_DIM = 128
 
 fwd_launches = 0
 bwd_launches = 0
@@ -154,6 +163,47 @@ def attention_block_backward_plain(q, k, v, do, lse, delta, q_offset=0,
     return dq, dk, dv
 
 
+def kernel_head_dim(D: int, name: str = "flash attention") -> int:
+    """The built head dim that ``D`` runs at: 64 for every even D up to
+    64, 128 for every even D up to 128.  Anything else raises."""
+    if D % 2 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name} head_dim {D}: the kernels take even head dims up to "
+            f"{MAX_HEAD_DIM} (built for {_HEAD_DIMS}; the others are "
+            "zero-padded to the next)")
+    return _HEAD_DIMS[0] if D <= _HEAD_DIMS[0] else _HEAD_DIMS[1]
+
+
+def _pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _padded_fwd(launch: Callable[..., Tensors3], q, k, v, *args,
+                **kw) -> Tensors3:
+    """``launch(q, k, v, *args, **kw)`` at the built head dim: q/k/v
+    zero-padded along D, ``o`` sliced back (``l`` and ``m`` do not depend
+    on D)."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D, "flash_fwd")
+    if Dp == D:
+        return launch(q, k, v, *args, **kw)
+    o, l, m = launch(*(_pad_head(t, Dp) for t in (q, k, v)), *args, **kw)
+    return o[..., :D].contiguous(), l, m
+
+
+def _padded_bwd(launch: Callable[..., Tensors3], q, k, v, do, lse, delta,
+                *args, **kw) -> Tensors3:
+    """``launch(q, k, v, do, lse, delta, *args, **kw)`` at the built head
+    dim: q/k/v/do zero-padded along D, dq/dk/dv sliced back."""
+    D = q.shape[-1]
+    Dp = kernel_head_dim(D, "flash_bwd")
+    if Dp == D:
+        return launch(q, k, v, do, lse, delta, *args, **kw)
+    grads = launch(*(_pad_head(t, Dp) for t in (q, k, v, do)), lse, delta,
+                   *args, **kw)
+    return tuple(g[..., :D].contiguous() for g in grads)
+
+
 def _check_cuda(name: str, D: int, dtype: torch.dtype,
                 *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
@@ -188,7 +238,14 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
 
 def flash_fwd_cuda(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
                    scale: float, window: int = 0) -> Tensors3:
-    """Launch ``flash_fwd`` on CUDA tensors: ``(o, l, m)`` in f32."""
+    """Launch ``flash_fwd`` on CUDA tensors: ``(o, l, m)`` in f32; any
+    even head dim up to 128 (padded to the built one)."""
+    return _padded_fwd(_launch_fwd, q, k, v, q_offset, k_offset,
+                       causal=causal, scale=scale, window=window)
+
+
+def _launch_fwd(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
+                scale: float, window: int = 0) -> Tensors3:
     global fwd_launches
     B, Tq, Tk, H, Hkv, D = _shapes(q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -216,7 +273,15 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, q_offset: int, k_offset: int,
                    *, causal: bool, scale: float, window: int = 0
                    ) -> Tensors3:
     """Launch ``flash_bwd_dkdv`` and ``flash_bwd_dq`` on CUDA tensors:
-    ``(dq, dk, dv)`` in f32."""
+    ``(dq, dk, dv)`` in f32; any even head dim up to 128 (padded to the
+    built one)."""
+    return _padded_bwd(_launch_bwd, q, k, v, do, lse, delta, q_offset,
+                       k_offset, causal=causal, scale=scale, window=window)
+
+
+def _launch_bwd(q, k, v, do, lse, delta, q_offset: int, k_offset: int,
+                *, causal: bool, scale: float, window: int = 0
+                ) -> Tensors3:
     global bwd_launches
     B, Tq, Tk, H, Hkv, D = _shapes(q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:

@@ -15,6 +15,13 @@ batch, the kv heads and the page length alone, and a second small launch
 merges the splits' partials.  Nothing on this path reads a device value
 back to the host.
 
+The kernel takes every even head dim up to 128 at run time, inside a
+built bucket of 32, 64 or 128 (:func:`head_dim_bucket`): the pages keep
+their own width, nothing is padded or copied.  Tile rows arrive by
+16-byte ``cp.async`` when a row is whole 16-byte chunks (head_dim % 4
+for f32 pages, % 8 for bf16, % 16 for int8 / e4m3), else value by value
+with plain loads.
+
 ``flash_decode_cuda.launches`` counts calls that launched the kernel (one
 per call, whether or not it needed the merge launch), so a run can show
 that its decode attention went through the kernel.
@@ -30,14 +37,15 @@ from ..serve import kv_cache as _kv
 from . import _build
 
 __all__ = ["flash_attend_rows", "flash_attend_chunk", "flash_decode_cuda",
-           "split_plan", "build"]
+           "split_plan", "head_dim_bucket", "build"]
 
 _LIB = "flash_decode"
 _SOURCES = ("flash_decode.cu",)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
-_HEAD_DIMS = (64, 128)
+_BUCKETS = (32, 64, 128)    # built head dims; dr <= bucket runs inside
+MAX_HEAD_DIM = 128
 _MAX_SMEM = 232448          # bytes of shared memory one H100 CTA may use
 _MAX_ROWS = 64              # T * G rows of one CTA (16 row groups x 4)
 SMS = 132                   # streaming multiprocessors of an H100
@@ -70,6 +78,16 @@ def split_plan(S: int, Hkv: int, L: int) -> Tuple[int, int]:
     chunk = -(-L // splits)
     chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
     return -(-L // chunk), chunk
+
+
+def head_dim_bucket(Dh: int) -> int:
+    """The built head dim a head dim ``Dh`` runs inside (every even ``Dh``
+    up to 128; anything else raises)."""
+    if Dh % 2 or not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash decode head_dim {Dh}: the kernel takes even head dims "
+            f"up to {MAX_HEAD_DIM} (built in buckets {_BUCKETS})")
+    return next(b for b in _BUCKETS if Dh <= b)
 
 
 def _block_k_for(L: int, block_k: int) -> int:
@@ -146,9 +164,7 @@ def flash_decode_cuda(q4: torch.Tensor, cl: Dict[str, torch.Tensor],
     if k.dtype not in _PAGE_DTYPES or v.dtype != k.dtype:
         raise TypeError(f"flash decode page dtypes {k.dtype}/{v.dtype}: "
                         f"expected one of {list(_PAGE_DTYPES)}")
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"flash decode head_dim {Dh}: the kernel is "
-                         f"built for {_HEAD_DIMS}")
+    DH = head_dim_bucket(Dh)
     ksc, vsc = cl.get("k_scale"), cl.get("v_scale")
     quantized = k.dtype in (torch.int8, torch.float8_e4m3fn)
     if quantized != (ksc is not None):
@@ -184,8 +200,8 @@ def flash_decode_cuda(q4: torch.Tensor, cl: Dict[str, torch.Tensor],
     prefix_lens = _index(prefix_lens, S, dev, "prefix_lens")
     splits, chunk = split_plan(S, Hkv, L)
     out = torch.empty_like(q4)
-    # the splits' partials: o [S, Hkv, splits, T*G, Dh], then m and l
-    part = (torch.empty(S * Hkv * splits * TG * (Dh + 2),
+    # the splits' partials: o [S, Hkv, splits, T*G, DH], then m and l
+    part = (torch.empty(S * Hkv * splits * TG * (DH + 2),
                         dtype=torch.float32, device=dev)
             if splits > 1 else None)
     err = lib.bf_flash_decode(

@@ -4,9 +4,11 @@
 * :func:`local_flash_attention`: non-collective flash attention, a
   ``torch.autograd.Function`` whose forward is K1 and whose backward is K2
   (:mod:`bluefog_tpu_torch.ops.flash_attention`);
-* :func:`ulysses_attention` at a sequence axis of size 1, the attention of
-  the composed LM's decoder blocks.  The Ulysses all-to-all at ``sp > 1``
-  is not ported yet (``compose_parallelism`` refuses the carving).
+* :func:`ulysses_attention`, the attention of the composed LM's decoder
+  blocks: exact attention over a sequence sharded across the sp peers
+  stacked along one dim, by two all-to-alls
+  (:func:`~bluefog_tpu_torch.ops.collectives.all_to_all`) around K1, and
+  around K2 in its backward.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from . import flash_attention as _fa
+from .collectives import all_to_all
 from .ring import online_softmax_merge
 
 __all__ = ["dense_attention", "local_flash_attention", "ulysses_attention"]
@@ -50,26 +53,58 @@ def _local_fwd_impl(q, k, v, causal: bool, scale: float, block_q: int):
     return out, lse
 
 
-class _LocalFlash(torch.autograd.Function):
+def _scatter_heads(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+    """``[..., B, T/sp, H, D] -> [..., B, T, H/sp, D]`` over the sp peers
+    stacked along dim ``axis``: heads scatter, the sequence gathers (the
+    identity without an axis or with one peer)."""
+    if axis is None or x.shape[axis] == 1:
+        return x
+    return all_to_all(x, axis, -2, -3)
+
+
+def _gather_heads(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+    """Inverse of :func:`_scatter_heads`."""
+    if axis is None or x.shape[axis] == 1:
+        return x
+    return all_to_all(x, axis, -3, -2)
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """Every leading dim (peers and batch) into one contiguous batch dim:
+    ``[..., T, H, D] -> [N, T, H, D]``, as the kernels take it."""
+    return x.reshape((-1,) + tuple(x.shape[-3:])).contiguous()
+
+
+class _UlyssesFlash(torch.autograd.Function):
+    """Scatter heads -> K1 -> gather heads; the backward runs its own
+    all-to-alls around K2 (the JAX ``_ulysses_fwd``/``_ulysses_bwd``).
+    All peers' scattered heads go through one launch, the peers folded
+    into the batch."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, block_q):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _local_fwd_impl(q, k, v, causal, scale, block_q)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, scale, block_q)
-        return out
+    def forward(ctx, q, k, v, axis, causal, scale, block_q):
+        scattered = [_scatter_heads(t, axis) for t in (q, k, v)]
+        qg, kg, vg = (_fold(t) for t in scattered)
+        out_g, lse = _local_fwd_impl(qg, kg, vg, causal, scale, block_q)
+        ctx.save_for_backward(qg, kg, vg, out_g, lse)
+        ctx.args = (axis, causal, scale, block_q,
+                    [t.shape for t in scattered])
+        return _gather_heads(out_g.view(scattered[0].shape), axis)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, scale, block_q = ctx.args
-        do = g.float().contiguous()
-        delta = (do * out.float()).sum(dim=-1)
-        dq, dk, dv = _fa.attention_block_backward(
-            q, k, v, do, lse, delta, 0, 0, causal=causal, scale=scale,
+        qg, kg, vg, out_g, lse = ctx.saved_tensors
+        axis, causal, scale, block_q, shapes = ctx.args
+        # the cotangent is sequence-sharded like the output; move it to
+        # the head-sharded layout the residuals live in
+        do = _fold(_scatter_heads(g, axis)).float()
+        delta = (do * out_g.float()).sum(dim=-1)
+        grads = _fa.attention_block_backward(
+            qg, kg, vg, do, lse, delta, 0, 0, causal=causal, scale=scale,
             block_q=block_q)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, \
-            None
+        return tuple(_gather_heads(d.view(shape).to(t.dtype), axis)
+                     for d, t, shape in zip(grads, (qg, kg, vg), shapes)
+                     ) + (None,) * 4
 
 
 def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -80,8 +115,8 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     backward takes ``delta = sum(do * out)`` and runs K2.  On CUDA tensors
     both are the hand-written kernels; on CPU tensors their plain
     versions."""
-    return _LocalFlash.apply(q, k, v, bool(causal), float(scale),
-                             int(block_q))
+    return _UlyssesFlash.apply(q, k, v, None, bool(causal), float(scale),
+                               int(block_q))
 
 
 def _chunk_len(Tk: int, max_chunk: int) -> int:
@@ -120,26 +155,50 @@ def _plain_local_attention(q, k, v, causal: bool, scale: float,
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = False, scale: Optional[float] = None,
+                      axis: Optional[int] = None, causal: bool = False,
+                      scale: Optional[float] = None,
                       use_pallas: bool = False, pallas_block_q: int = 512
                       ) -> torch.Tensor:
-    """The JAX ``ulysses_attention`` at a sequence axis of size 1 (the only
-    carving ported; ``compose_parallelism`` refuses sp > 1): the
-    ``[batch, block_len, heads, head_dim]`` block holds the whole sequence
-    and every head, so no all-to-all runs.  On CUDA tensors it always goes
-    through :func:`local_flash_attention` (the K1/K2 kernels;
-    ``use_pallas`` selects nothing there); on the CPU ``use_pallas``
-    selects it, else the plain online-softmax path."""
-    if q.ndim != 4:
+    """Exact attention over a sequence sharded across the sp peers stacked
+    along dim ``axis`` (the JAX ``ulysses_attention`` over a mesh axis):
+    each peer's block is the trailing ``[batch, block_len, heads,
+    head_dim]``, and dims before it other than ``axis`` are further peers
+    (stage, tp), each attending on its own.  One all-to-all scatters heads
+    and gathers the sequence, every peer attends over the whole sequence
+    for its ``heads / sp`` heads, and a second restores the sequence
+    sharding.  ``axis=None``: q/k/v are one ``[B, T, H, D]`` block holding
+    the whole sequence, and no all-to-all runs.
+
+    On CUDA tensors the local attention is always K1, the backward K2
+    with its own all-to-alls (``use_pallas`` selects nothing there); on
+    the CPU ``use_pallas`` selects the kernels' plain versions, else the
+    plain online-softmax path (the JAX ``_jnp_local_attention``) with
+    gradients by autograd."""
+    if q.ndim < 4 or (axis is None and q.ndim != 4):
         raise ValueError("expected [batch, block_len, heads, head_dim]")
-    if k.shape[2] != q.shape[2] or v.shape[2] != q.shape[2]:
+    if k.shape[-2] != q.shape[-2] or v.shape[-2] != q.shape[-2]:
         raise ValueError(
             "ulysses scatters heads across the axis and needs equal q/kv "
             "head counts; grouped-query (GQA) kv is a ring_attention "
             "feature")
+    n = 1
+    if axis is not None:
+        axis = int(axis) % q.ndim
+        if axis >= q.ndim - 4:
+            raise ValueError(f"axis {axis} must be a peer dim before the "
+                             "[batch, block_len, heads, head_dim] block")
+        n = q.shape[axis]
+    H = q.shape[-2]
+    if H % n:
+        raise ValueError(
+            f"ulysses SP needs heads ({H}) divisible by axis size ({n}); "
+            "use ring_attention for uneven head counts")
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])
     if q.device.type == "cuda" or use_pallas:
-        return local_flash_attention(q, k, v, causal, float(scale),
-                                     pallas_block_q)
-    return _plain_local_attention(q, k, v, causal, float(scale))
+        return _UlyssesFlash.apply(q, k, v, axis, bool(causal),
+                                   float(scale), int(pallas_block_q))
+    scattered = [_scatter_heads(t, axis) for t in (q, k, v)]
+    out = _plain_local_attention(*(_fold(t) for t in scattered), causal,
+                                 float(scale))
+    return _gather_heads(out.view(scattered[0].shape), axis)

@@ -8,6 +8,12 @@ updates every rank exactly as a per-rank optimizer would.  The
 communicators apply the stacked collectives of
 :mod:`bluefog_tpu_torch.ops.collectives`.
 
+Under a composed carving (:mod:`bluefog_tpu_torch.parallel.compose`) the
+``n`` rows are ``dp`` replicas of ``slice_size`` peers each, replica-major:
+the gradient function runs once per replica on its ``[slice_size, ...]``
+rows (:func:`stacked_grads`), and the gossip mixes the ``dp`` replicas
+for each peer coordinate through a ``[dp, slice_size * ...]`` view.
+
 =======================  ==============================================
 strategy                 update
 =======================  ==============================================
@@ -74,11 +80,14 @@ def neighbor_communicator(
     fuse: bool = True,
     wire: Optional[str] = None,
     concurrent: Optional[bool] = None,
+    slice_size: int = 1,
 ) -> Communicator:
     """Neighbor averaging of a stacked params tree under ``schedule``.
     ``fuse`` gossips one ``[n, total]`` buffer per dtype instead of one
-    gather chain per leaf.  Dynamic ``schedules`` and wire codecs are not
-    ported yet and raise."""
+    gather chain per leaf.  With ``slice_size`` peers per replica the
+    ``n = schedule.size * slice_size`` rows gossip over the replicas only,
+    each peer coordinate with its own counterparts (``W (x) I_slice``).
+    Dynamic ``schedules`` and wire codecs are not ported yet and raise."""
     if (schedule is None) == (schedules is None):
         raise ValueError("pass exactly one of schedule / schedules")
     if schedules is not None:
@@ -91,7 +100,10 @@ def neighbor_communicator(
         fuse = False     # degenerate topology: the op is elementwise
 
     def leaf(x):
-        return _coll.neighbor_allreduce(x, schedule, concurrent=concurrent)
+        # replica r's peers are rows r * slice_size ...: one row a replica
+        return _coll.neighbor_allreduce(
+            x.reshape(schedule.size, -1), schedule,
+            concurrent=concurrent).reshape(x.shape)
 
     def comm(params, step):
         if fuse:
@@ -254,34 +266,55 @@ def init_distributed(strategy: DecentralizedOptimizer, dist_params
 
 
 def stacked_grads(grad_fn: Callable[[Any, Any], Tuple[Any, Any]], params,
-                  batch) -> Tuple[torch.Tensor, Any]:
-    """Run the per-rank ``grad_fn(params_r, batch_r) -> (loss, grads)`` for
-    every rank of the stack; returns ``(losses [n], grads)`` with the grads
-    stacked ``[n, ...]`` like ``params``."""
+                  batch, slice_size: int = 1) -> Tuple[torch.Tensor, Any]:
+    """Run ``grad_fn(params_r, batch_r) -> (loss, grads)`` once per DP
+    replica, one replica after the other; returns ``(losses [n], grads)``
+    with the grads stacked ``[n, ...]`` like ``params``.
+
+    Replica ``r`` is rows ``r * slice_size ... (r + 1) * slice_size - 1``
+    of every leaf; ``grad_fn`` gets them as ``[slice_size, ...]`` leaves
+    and returns its peers' losses ``[slice_size]`` and grads stacked the
+    same way.  At ``slice_size == 1`` it gets the rank's own leaves (no
+    slice axis) and returns a scalar loss."""
     leaves, treedef = tree_flatten(params)
     bleaves, bdef = tree_flatten(batch)
     n = leaves[0].shape[0]
+    if slice_size < 1 or n % slice_size:
+        raise ValueError(f"{n} stacked rows are not replicas of "
+                         f"slice_size={slice_size} peers")
+
+    def rows(x, r):
+        return x[r] if slice_size == 1 else \
+            x[r * slice_size:(r + 1) * slice_size]
+
     bufs: Optional[List[torch.Tensor]] = None
     losses = []
-    for r in range(n):
-        loss, grads = grad_fn(tree_unflatten(treedef, [x[r] for x in leaves]),
-                              tree_unflatten(bdef, [b[r] for b in bleaves]))
+    for r in range(n // slice_size):
+        loss, grads = grad_fn(
+            tree_unflatten(treedef, [rows(x, r) for x in leaves]),
+            tree_unflatten(bdef, [rows(b, r) for b in bleaves]))
         gl = tree_flatten(grads)[0]
         if bufs is None:
-            bufs = [torch.empty((n,) + tuple(g.shape), dtype=g.dtype,
+            shape = (n,) if slice_size == 1 else (n // slice_size,)
+            bufs = [torch.empty(shape + tuple(g.shape), dtype=g.dtype,
                                 device=g.device) for g in gl]
         for buf, g in zip(bufs, gl):
             buf[r].copy_(g)
-        losses.append(torch.as_tensor(loss).detach().reshape(()))
-    return torch.stack(losses), tree_unflatten(treedef, bufs)
+        losses.append(torch.as_tensor(loss).detach().reshape(
+            (slice_size,)))
+    if slice_size > 1:
+        bufs = [b.flatten(0, 1) for b in bufs]
+    return torch.cat(losses), tree_unflatten(treedef, bufs)
 
 
 def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     strategy: DecentralizedOptimizer, *,
-                    steps_per_call: int = 1, reuse_batch: bool = False):
+                    steps_per_call: int = 1, reuse_batch: bool = False,
+                    slice_size: int = 1):
     """The training step over stacked ranks.
 
-    ``grad_fn(params, batch) -> (loss, grads)`` is per rank; the returned
+    ``grad_fn(params, batch) -> (loss, grads)`` is per rank, or per DP
+    replica of ``slice_size`` peers (:func:`stacked_grads`); the returned
     ``step(params, state, batch) -> (new_params, new_state, loss)`` maps
     trees whose leaves all carry the leading rank axis, with ``loss``
     ``[n]``.  ``steps_per_call > 1`` runs that many optimizer steps in a
@@ -298,7 +331,7 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
         for t in range(steps_per_call):
             b = batch if steps_per_call == 1 or reuse_batch else \
                 tree_map(lambda x: x[:, t], batch)
-            loss, grads = stacked_grads(grad_fn, params, b)
+            loss, grads = stacked_grads(grad_fn, params, b, slice_size)
             with torch.no_grad():
                 params, state = strategy.update(grads, state, params)
             del grads

@@ -1,24 +1,31 @@
-"""The composed decoder LM (counterpart of ``bluefog_tpu/parallel/compose.py``)
-at pp = tp = sp = 1: serving and gossip data-parallel training.  The
-MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the attention half,
-:class:`AttnBlock`, and brings its own FFN.
+"""The composed decoder LM (counterpart of
+``bluefog_tpu/parallel/compose.py``): serving at pp = tp = 1, and
+training at any gossip-DP x pipeline x tensor x Ulysses carving (ep =
+1).  The MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the
+attention half, :class:`AttnBlock`, and brings its own FFN.
 
 Weights keep the JAX orientation (``x @ W`` with ``wqkv: [D, 3D]``,
 ``wo: [D, D]``, ``w1: [D, F]``, ``w2: [F, D]``, ``embed: [V, D]``,
 ``head: [D, V]``), so :func:`params_from_jax` is a copy, not a
 transpose.
 
-Training runs the JAX carving's gossip-DP axis on one card: the ``dp``
-ranks live stacked along dim 0 of every parameter (the JAX API's
-``[n, ...]`` layout).  :func:`compose_parallelism` validates the carving
-and compiles the gossip graph; :func:`make_train_step` wires
-``neighbor_communicator`` and ``adapt_with_combine(delayed=...)`` through
-:func:`bluefog_tpu_torch.optimizers.make_train_step`; the per-rank
-:func:`make_lm_grad_fn` runs each rank's microbatches through the decoder
-blocks, whose attention goes through the K1/K2 flash kernels on the card
-(:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`).  Pipeline,
-tensor, sequence (Ulysses) and expert carvings (pp/tp/sp/ep > 1) and
-gossip wire codecs are not ported yet and raise.
+Training runs the whole JAX carving on one card.  NCCL refuses two ranks
+on one device, so every (replica r, stage s, tp t, sp u) peer lives
+stacked along dim 0 of every parameter in the JAX flat device order
+``i = ((r * pp + s) * tp + t) * sp + u`` (the JAX API's ``[n, ...]``
+layout), and a collective over one axis is a tensor op on that axis of a
+``[dp, pp, tp, sp, ...]`` view (:mod:`bluefog_tpu_torch.ops.collectives`).
+:func:`compose_parallelism` validates the carving and compiles the
+gossip graph over the ``dp`` replicas; :func:`make_train_step` wires
+``neighbor_communicator`` (gossip over dp for each (s, t, u) coordinate)
+and ``adapt_with_combine(delayed=...)`` through
+:func:`bluefog_tpu_torch.optimizers.make_train_step`.
+:func:`make_lm_grad_fn` runs one replica's peers at once: GPipe over the
+stages (:func:`~bluefog_tpu_torch.parallel.pipeline.pipeline_apply`),
+Megatron tp with a ``psum`` after ``wo`` and after ``w2``, and Ulysses
+over sp around the K1/K2 flash kernels
+(:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`).  Expert
+carvings (ep > 1) and gossip wire codecs are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ from torch import nn
 
 from .. import topology as topo_util
 from ..device import resolve_device
-from ..models.rope import apply_rope
+from ..models.rope import _cos_sin, _rotate, apply_rope
+from ..ops.collectives import psum
 from ..ops.ulysses import dense_attention, ulysses_attention
 from ..schedule import CommSchedule, compile_topology
+from .pipeline import pipeline_apply
 
 __all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
            "init_lm_params", "params_from_jax", "_ln", "Mesh3D",
@@ -45,18 +54,23 @@ __all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
 
 @dataclasses.dataclass(frozen=True)
 class Mesh3D:
-    """A validated carving of the gossip-DP ranks stacked on one device.
+    """A validated (gossip-DP, PP, TP, SP, EP) carving, its peers stacked
+    on one device.
 
     ``topology``/``schedule`` describe the gossip graph over the ``dp``
-    ranks; ``device`` is where the stacked tensors live.  The other axes
-    of the JAX carving are not ported: they are the constants below, kept
-    so :meth:`describe` has the JAX carving's keys."""
+    replicas (not over all peers); ``device`` is where the stacked tensors
+    live.  ``ep`` is 1 and ``wire``, ``num_experts`` and
+    ``capacity_factor`` are None until their slices are ported; they are
+    kept so :meth:`describe` has the JAX carving's keys."""
     dp: int
     topology: nx.DiGraph
     is_weighted: bool
     schedule: CommSchedule
     device: torch.device
-    pp = tp = sp = ep = 1
+    pp: int = 1
+    tp: int = 1
+    sp: int = 1
+    ep: int = 1
     wire = num_experts = capacity_factor = None
 
     @property
@@ -65,7 +79,7 @@ class Mesh3D:
 
     @property
     def slice_size(self) -> int:
-        """Ranks per DP replica."""
+        """Peers per DP replica."""
         return self.pp * self.tp * self.sp * self.ep
 
     def leader_degree(self) -> int:
@@ -112,23 +126,22 @@ def compose_parallelism(
     weighted: bool = True,
     wire: Optional[str] = None,
 ) -> Mesh3D:
-    """Carve ``dp`` gossip-DP ranks, stacked on ``device`` (CUDA unless the
-    caller asks for another).  The checks the JAX function shares keep its
-    error texts; pp/tp/sp/ep > 1 and ``wire`` raise "not yet ported".
-    ``topology``: an ``nx.DiGraph`` with exactly ``dp`` nodes or a callable
-    ``f(dp) -> DiGraph`` (default ``ExponentialTwoGraph(dp)``);
+    """Carve ``dp x pp x tp x sp`` peers, stacked on ``device`` (CUDA
+    unless the caller asks for another) in the JAX flat device order.
+    The checks the JAX function shares keep its error texts; ep > 1 and
+    ``wire`` raise "not yet ported".  ``topology``: the gossip graph over
+    the ``dp`` replicas, an ``nx.DiGraph`` with exactly ``dp`` nodes or a
+    callable ``f(dp) -> DiGraph`` (default ``ExponentialTwoGraph(dp)``);
     ``weighted`` compiles the graph's own weights (vs the uniform
     ``1/(in_degree+1)``)."""
     for name, v in (("dp", dp), ("pp", pp), ("tp", tp), ("sp", sp),
                     ("ep", ep)):
         if not isinstance(v, (int, np.integer)) or v < 1:
             raise ValueError(f"axis size {name}={v!r} must be a positive int")
-    for name, v in (("pp", pp), ("tp", tp), ("sp", sp), ("ep", ep)):
-        if v > 1:
-            raise ValueError(
-                f"{name}={v}: only the gossip-DP axis is ported to "
-                "bluefog_tpu_torch; pipeline, tensor, sequence and expert "
-                "carvings (pp/tp/sp/ep > 1) are not yet ported")
+    if ep > 1:
+        raise ValueError(
+            f"ep={ep}: expert carvings (ep > 1) are not yet ported to "
+            "bluefog_tpu_torch")
     if wire is not None:
         if dp == 1:
             raise ValueError(
@@ -150,8 +163,9 @@ def compose_parallelism(
             f"DP axis has {dp} leaders; the gossip graph lives over DP "
             "replicas only (PP/TP/SP peers hold different shards and must "
             "not be mixed)")
-    return Mesh3D(dp=dp, topology=topo, is_weighted=weighted,
-                  schedule=compile_topology(topo, weighted), device=dev)
+    return Mesh3D(dp=int(dp), topology=topo, is_weighted=weighted,
+                  schedule=compile_topology(topo, weighted), device=dev,
+                  pp=int(pp), tp=int(tp), sp=int(sp))
 
 
 def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
@@ -159,20 +173,23 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     reuse_batch: bool = False, fuse: bool = True,
                     concurrent: Optional[bool] = None):
     """Wire the carving through the step machinery: a
-    ``neighbor_communicator`` over the DP ranks, ``opt`` (a
-    ``torch.optim`` factory such as
-    :func:`bluefog_tpu_torch.optimizers.adam`) wrapped in
+    ``neighbor_communicator`` that gossips over the ``dp`` replicas for
+    every (stage, tp, sp) coordinate, ``opt`` (a ``torch.optim`` factory
+    such as :func:`bluefog_tpu_torch.optimizers.adam`) wrapped in
     ``adapt_with_combine(delayed=...)``, and
-    :func:`bluefog_tpu_torch.optimizers.make_train_step`.  Returns
-    ``(step, strategy)``; the strategy is needed for
-    ``init_distributed(strategy, params)``."""
+    :func:`bluefog_tpu_torch.optimizers.make_train_step`, which calls
+    ``grad_fn`` once per replica on that replica's ``slice_size`` peers
+    (see :func:`make_lm_grad_fn`).  Returns ``(step, strategy)``; the
+    strategy is needed for ``init_distributed(strategy, params)``."""
     from .. import optimizers as bfopt
     comm = bfopt.neighbor_communicator(m.schedule, fuse=fuse,
-                                       concurrent=concurrent)
+                                       concurrent=concurrent,
+                                       slice_size=m.slice_size)
     strategy = bfopt.adapt_with_combine(opt, comm, delayed=delayed)
     step = bfopt.make_train_step(grad_fn, strategy,
                                  steps_per_call=steps_per_call,
-                                 reuse_batch=reuse_batch)
+                                 reuse_batch=reuse_batch,
+                                 slice_size=m.slice_size)
     return step, strategy
 
 
@@ -191,15 +208,26 @@ class LMConfig:
     lag: int = 2
     ffn_mult: int = 4
 
-    def validate(self) -> None:
-        """The JAX rules at pp = tp = sp = 1 (the rules on those axes
-        always hold there)."""
+    def validate(self, m: Optional["Mesh3D"] = None) -> None:
+        """The JAX rules for the carving ``m`` (pp = tp = sp = 1 without
+        one), in the JAX order and with its texts."""
         D, H = self.d_model, self.heads
+        pp, tp, sp = (1, 1, 1) if m is None else (m.pp, m.tp, m.sp)
+        if self.layers % pp:
+            raise ValueError(f"layers ({self.layers}) % pp ({pp}) != 0")
         if D % H:
             raise ValueError(f"d_model ({D}) % heads ({H}) != 0")
         if (D // H) % 2:
             raise ValueError(f"head_dim ({D // H}) must be even for rope")
-        if self.seq_len <= self.lag:
+        if H % tp:
+            raise ValueError(f"heads ({H}) % tp ({tp}) != 0")
+        if (H // tp) % sp:
+            raise ValueError(
+                f"local heads ({H // tp}) % sp ({sp}) != 0: ulysses "
+                "scatters this tp rank's heads across the sp axis")
+        if self.seq_len % sp:
+            raise ValueError(f"seq_len ({self.seq_len}) % sp ({sp}) != 0")
+        if self.seq_len // sp <= self.lag:
             raise ValueError("local sequence shorter than the copy lag")
 
     @property
@@ -373,93 +401,189 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LMConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# Training: stacked params, batches and the per-rank gradient
+# Training: stacked params, batches and the per-replica gradient
 # ---------------------------------------------------------------------------
 
+def _coords(m: Mesh3D):
+    """``(r, s, t, u)`` of every stacked peer, in the flat device order."""
+    r, s, t, u, _ = np.unravel_index(np.arange(m.size),
+                                     (m.dp, m.pp, m.tp, m.sp, m.ep))
+    return r, s, t, u
+
+
 def init_lm_train_params(cfg: LMConfig, m: Mesh3D, seed: int = 0) -> dict:
-    """The JAX ``init_lm_params(cfg, m, seed)`` tree at pp = tp = sp = 1:
+    """The JAX ``init_lm_params(cfg, m, seed)`` tree, bit for bit:
     ``{"blocks": {wqkv, wo, w1, w2}, "shared": {embed, head}}`` with every
-    leaf stacked ``[dp, ...]`` on ``m.device`` (every rank starts from the
-    same draw)."""
-    cfg.validate()
-    blocks, embed, head = _draw_weights(cfg, seed)
+    leaf stacked ``[n, ...]`` on ``m.device``.  Block owners are drawn
+    ``[pp, tp, layers / pp, ...]`` (tp-sharded columns of ``wqkv``/``w1``,
+    rows of ``wo``/``w2``) and peer ``(r, s, t, u)`` holds owner ``(s,
+    t)``'s; every peer holds the shared embed/head."""
+    cfg.validate(m)
+    rng = np.random.default_rng(seed)
+    D, F_ = cfg.d_model, cfg.ffn_mult * cfg.d_model
+    Lps, TP = cfg.layers // m.pp, m.tp
+
+    def w(*shape, scale=0.1):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    blocks = {"wqkv": w(m.pp, TP, Lps, D, 3 * D // TP),
+              "wo": w(m.pp, TP, Lps, D // TP, D),
+              "w1": w(m.pp, TP, Lps, D, F_ // TP),
+              "w2": w(m.pp, TP, Lps, F_ // TP, D)}
+    shared = {"embed": w(cfg.vocab, D), "head": w(D, cfg.vocab)}
+    _, s, t, _ = _coords(m)
 
     def stack(a):
-        t = torch.from_numpy(a).to(m.device)
-        return t.unsqueeze(0).expand((m.size,) + a.shape).contiguous()
+        x = torch.from_numpy(a).to(m.device)
+        return x.unsqueeze(0).expand((m.size,) + a.shape).contiguous()
 
-    return {"blocks": {k: stack(v) for k, v in blocks.items()},
-            "shared": {"embed": stack(embed), "head": stack(head)}}
+    return {"blocks": {k: torch.from_numpy(np.ascontiguousarray(v[s, t]))
+                       .to(m.device) for k, v in blocks.items()},
+            "shared": {k: stack(v) for k, v in shared.items()}}
 
 
 def make_lm_batch(cfg: LMConfig, m: Mesh3D, seed: int = 0,
                   steps: Optional[int] = None) -> torch.Tensor:
-    """Copy-task tokens stacked per rank, ``[dp, (steps,) micro, batch,
-    seq_len]`` int32 on ``m.device``: the JAX ``make_lm_batch`` tokens bit
-    for bit (the same ``rng.integers`` call; each rank draws its own
-    data)."""
+    """Copy-task tokens stacked per peer, ``[n, (steps,) micro, batch,
+    seq_len / sp]`` int32 on ``m.device``: the JAX ``make_lm_batch``
+    tokens bit for bit (the same ``rng.integers`` call; each replica draws
+    its own data, stage and tp peers see the same tokens, sp peers slice
+    the sequence)."""
     rng = np.random.default_rng(seed)
     shape = (m.dp, cfg.micro, cfg.batch, cfg.seq_len) if steps is None \
         else (m.dp, steps, cfg.micro, cfg.batch, cfg.seq_len)
     data = rng.integers(0, cfg.vocab, size=shape).astype(np.int32)
-    return torch.from_numpy(data).to(m.device)
+    Tl = cfg.seq_len // m.sp
+    r, _, _, u = _coords(m)
+    per_peer = np.stack([data[ri][..., ui * Tl:(ui + 1) * Tl]
+                         for ri, ui in zip(r, u)])
+    return torch.from_numpy(per_peer).to(m.device)
 
 
-def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, use_pallas: bool = False):
-    """Per-rank ``grad_fn(params, toks) -> (loss, grads)`` for the composed
-    LM at pp = tp = sp = 1 (the JAX ``make_lm_grad_fn``'s ``layer_fn`` and
-    copy-task loss: mean cross-entropy of predicting the token ``lag``
-    positions back, over positions ``lag:``).
+def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
+                    use_pallas: bool = False):
+    """``grad_fn(params, toks) -> (loss, grads)`` for one DP replica of the
+    composed LM (the JAX ``make_lm_grad_fn``'s ``layer_fn``, ``stage_fn``
+    and copy-task loss: mean cross-entropy of predicting the token ``lag``
+    positions back within each sp peer's slice, over positions ``lag:``).
 
-    The microbatch loop is ``pipeline_apply`` at one stage: the decoder
-    blocks run once per microbatch, so the K1/K2 kernels launch once per
-    (microbatch, layer).  Each microbatch's loss (``1/micro`` of the mean)
-    is back-propagated before the next one runs, so the
-    ``[micro, batch, seq, vocab]`` logits never exist at once; only the
-    summation order of the mean differs from the JAX function.
-    ``use_pallas`` selects the flash attention path on the CPU (the
-    kernels' plain versions); on CUDA the kernels always run."""
-    cfg.validate()
-    from ..fusion import tree_flatten, tree_unflatten
+    Contract: one call takes one replica's ``slice_size`` peers, leaves
+    ``[pp * tp * sp, ...]`` in the flat (s, t, u) order, and ``toks``
+    ``[pp * tp * sp, micro, batch, seq_len / sp]``; it returns the loss of
+    each peer ``[slice_size]`` and the grads stacked like the params.  At
+    ``slice_size == 1`` the slice axis is absent (leaves are the rank's
+    own, the loss a scalar).  :func:`bluefog_tpu_torch.optimizers.
+    stacked_grads` calls it once per replica.
 
+    Every peer of the replica runs at once: the stages by the GPipe
+    schedule of :func:`~bluefog_tpu_torch.parallel.pipeline.pipeline_apply`
+    (each tick runs its live stages in one call), the tp peers' shards as
+    one batched product with a ``psum`` over tp after ``wo`` and after
+    ``w2``, and attention by Ulysses over sp
+    (:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`; K1/K2 on
+    the card, every stage, tp and sp peer of a tick folded into one
+    launch), with rope at the global positions ``u * Tl + arange(Tl)``.
+    So K1 and K2 each launch ``(micro + pp - 1) * layers / pp`` times a
+    call (twice as many forwards with ``remat``).
+
+    The gradients are the JAX function's under ``check_vma=False``: its
+    loss is masked to the last stage and seeded ``1/TP`` on every tp
+    peer, the shared grads ``psum``'d over (stage, tp) and everything
+    ``pmean``'d over sp.  Here the head and loss run on the last stage's
+    tp peer 0 alone (the other peers' head gradient is exactly zero in
+    JAX, and is zero here before the reduction), seeded with 1 for the
+    mean over the sp peers; the psums' autograd transposes sum the
+    cotangents over tp, then the block grads are summed over sp and the
+    shared grads over the whole replica.  The pipeline output is cut from
+    the graph so that one microbatch's logits live at a time: each
+    microbatch's head and loss backpropagate into its rows, then one
+    backward runs through the pipeline.  Only summation order differs
+    from the JAX function.  ``use_pallas`` selects the flash path on the
+    CPU (the kernels' plain versions); on CUDA the kernels always run."""
+    cfg.validate(m)
+    from ..fusion import tree_flatten, tree_map, tree_unflatten
+
+    S, TP, SP = m.pp, m.tp, m.sp
+    n = m.slice_size
     D, H, V = cfg.d_model, cfg.heads, cfg.vocab
-    hsz, T, B, lag = D // H, cfg.seq_len, cfg.batch, cfg.lag
+    Hl, hsz = H // TP, D // H
+    Tl, B, lag = cfg.seq_len // SP, cfg.batch, cfg.lag
+    Lps = cfg.layers // S
     block_q = min(512, cfg.seq_len)
 
-    def layer_fn(lp, x, positions):
-        h = _ln(x)
-        q, k, v = (h @ lp["wqkv"]).split(D, dim=-1)
-        q = apply_rope(q.reshape(B, T, H, hsz), positions)
-        k = apply_rope(k.reshape(B, T, H, hsz), positions)
-        v = v.reshape(B, T, H, hsz)
-        att = ulysses_attention(q, k, v, causal=True, use_pallas=use_pallas,
+    def layer_fn(lp, x, cos, sin):
+        # x [k, TP, SP, B * Tl, D] for k live stages; lp leaves
+        # [k, TP, SP, ...]: every peer's own shard
+        k_ = x.shape[0]
+        shape = (k_, TP, SP, B, Tl, Hl, hsz)
+        q, k, v = torch.matmul(_ln(x), lp["wqkv"]).split(D // TP, dim=-1)
+        q = _rotate(q.reshape(shape), cos, sin)
+        k = _rotate(k.reshape(shape), cos, sin)
+        att = ulysses_attention(q, k, v.reshape(shape), axis=2, causal=True,
+                                use_pallas=use_pallas,
                                 pallas_block_q=block_q)
-        x = x + att.reshape(B, T, D) @ lp["wo"]
-        h = _ln(x)
-        return x + _gelu(h @ lp["w1"]) @ lp["w2"]
+        att = att.reshape(k_, TP, SP, B * Tl, D // TP)
+        x = x + psum(torch.matmul(att, lp["wo"]), 1)
+        h = _gelu(torch.matmul(_ln(x), lp["w1"]))
+        return x + psum(torch.matmul(h, lp["w2"]), 1)
 
     def grad_fn(params, toks):
         leaves, treedef = tree_flatten(params)
+        if n == 1:                           # the rank's own view
+            leaves, toks = [x[None] for x in leaves], toks[None]
         ws = [x.detach().requires_grad_() for x in leaves]
         p = tree_unflatten(treedef, ws)
-        positions = torch.arange(T, device=toks.device)
-        micro = toks.shape[0]
-        total = torch.zeros((), device=toks.device)
+        dev, M = toks.device, toks.shape[1]
+        tk = toks.long().view(S, TP, SP, M, B, Tl)
+        blocks = {k: w.view((S, TP, SP) + tuple(w.shape[1:]))
+                  for k, w in p["blocks"].items()}
+        embed = p["shared"]["embed"].view(S, TP, SP, V, D)
+        head = p["shared"]["head"].view(S, TP, SP, D, V)
+        pos = (torch.arange(SP, device=dev)[:, None] * Tl
+               + torch.arange(Tl, device=dev))
+        cos, sin = _cos_sin(pos, hsz, 10000.0)         # [SP, Tl, hsz / 2]
+        cos, sin = (c[:, None, :, None, :] for c in (cos, sin))
+
+        def stage_fn(bp, x):
+            for i in range(Lps):
+                x = layer_fn({k: w[:, :, :, i] for k, w in bp.items()}, x,
+                             cos, sin)
+            return x
+
+        total = torch.zeros((), device=dev)
         with torch.enable_grad():
-            for mb in range(micro):
-                t = toks[mb].long()
-                x = p["shared"]["embed"][t]                    # [B, T, D]
-                for layer in range(cfg.layers):
-                    x = layer_fn({k: w[layer] for k, w in p["blocks"].items()},
-                                 x, positions)
-                logits = _ln(x) @ p["shared"]["head"]
-                targets = torch.roll(t, lag, dims=-1)
+            # stage 0's peers embed their own tokens with their own rows
+            ti = torch.arange(TP, device=dev).view(TP, 1, 1, 1, 1)
+            ui = torch.arange(SP, device=dev).view(1, SP, 1, 1, 1)
+            x0 = embed[0][ti, ui, tk[0]]          # [TP, SP, M, B, Tl, D]
+            mbs = x0.permute(2, 0, 1, 3, 4, 5).reshape(M, TP, SP, B * Tl, D)
+            del x0
+            out = pipeline_apply(stage_fn, blocks, mbs, remat=remat)
+            del mbs
+            out_cut = out.detach().requires_grad_()   # [M, TP, SP, .., D]
+            hd = head[S - 1, 0]                       # [SP, D, V]
+            targets = torch.roll(tk[S - 1, 0], lag, dims=-1)
+            for mb in range(M):
+                logits = torch.matmul(_ln(out_cut[mb, 0]), hd)
+                logits = logits.view(SP, B, Tl, V)[:, :, lag:]
                 loss = F.cross_entropy(
-                    logits[:, lag:].reshape(-1, V),
-                    targets[:, lag:].reshape(-1)) / micro
+                    logits.reshape(-1, V),
+                    targets[:, mb, :, lag:].reshape(-1)) / M
                 loss.backward()
                 total = total + loss.detach()
-                del x, logits, loss
-        return total, tree_unflatten(treedef, [w.grad for w in ws])
+                del logits, loss
+            out.backward(out_cut.grad)
+            del out, out_cut
+        grads = tree_unflatten(treedef, [w.grad for w in ws])
+        # the JAX pmean over sp (block grads) and psum over (stage, tp)
+        # then pmean over sp (shared grads), of these 1/sp-scaled partials
+        grads["blocks"] = {
+            k: psum(g.view((S, TP, SP) + tuple(g.shape[1:])), 2).reshape(
+                g.shape) for k, g in grads["blocks"].items()}
+        grads["shared"] = {k: psum(g, 0)
+                           for k, g in grads["shared"].items()}
+        if n == 1:
+            return total, tree_map(lambda g: g[0], grads)
+        return total.expand(n), grads
 
     return grad_fn

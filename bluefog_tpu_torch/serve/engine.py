@@ -12,8 +12,9 @@ layer LN -> qkv -> rope -> cache append (quantized for int8/fp8 stores)
 and the next token, which feeds the next step without leaving the
 device.  Decode attention goes through
 :func:`~bluefog_tpu_torch.ops.flash_decode.flash_attend_rows`: on a CUDA
-cache that is always the hand-written kernel (``decode_kernel`` is kept
-as a token for parity with the JAX env surface and selects nothing).
+cache that is always the hand-written kernel (``decode_kernel`` selects
+no path: as in the JAX config, ``"pallas"`` declares ``decode_block_k``
+and checks it, ``"xla"`` leaves it unchecked).
 Prefill attention over the prompt itself is dense and full precision.
 
 An :class:`~bluefog_tpu_torch.moe.model.MoELMConfig` model is served as
@@ -144,9 +145,10 @@ class ServeConfig:
     ``prefix_page_tokens`` are kept for parity and unused.
     ``moe_experts``/``moe_top_k`` declare an MoE model (checked against
     it by the engine) and ``moe_tile`` its decode tile (0: auto).
-    ``decode_block_k`` is the kernel's KV block (clamped to
-    ``max_len``), validated here because the port's decode attention
-    always uses it."""
+    ``decode_block_k`` is the flash-decode KV block (clamped to
+    ``max_len``), checked only under ``decode_kernel == "pallas"``, as
+    the JAX config checks it; :attr:`kernel_block_k` is what the engine
+    hands the kernel."""
     batch_buckets: Tuple[int, ...] = (1, 2, 4)
     prefill_buckets: Tuple[int, ...] = (8, 16)
     slots: int = 8
@@ -195,7 +197,9 @@ class ServeConfig:
                 "'pallas'")
         if self.decode_block_k < 1:
             raise ValueError("decode_block_k must be >= 1")
-        _fd._block_k_for(self.max_len, self.decode_block_k)
+        if self.decode_kernel == "pallas":
+            # fail at config time, not at the first decode step
+            _fd._block_k_for(self.max_len, self.decode_block_k)
         if self.temperature < 0.0:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if not 0.0 < self.top_p <= 1.0:
@@ -227,6 +231,14 @@ class ServeConfig:
             raise _not_ported("shared prefix pages", "prefix_pages")
         if self.moe_experts and self.moe_ep > 1:
             raise _not_ported("expert-parallel MoE serving", "moe_ep")
+
+    @property
+    def kernel_block_k(self) -> int:
+        """The KV block handed to the decode kernel.  K3 reads it only to
+        pick a key's prefix row, so under ``"xla"`` (no block declared)
+        it is ``max_len``, which always tiles."""
+        return (self.decode_block_k if self.decode_kernel == "pallas"
+                else self.max_len)
 
     @property
     def decode_window(self) -> int:
@@ -451,7 +463,7 @@ class ServeEngine:
         att = _fd.flash_attend_rows(
             q, cl["k"], cl["v"], slot_ids, lens,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
-            block_k=self.scfg.decode_block_k)
+            block_k=self.scfg.kernel_block_k)
         return blk.finish(x, att.reshape(S, H * Dh),
                           self._moe_tile if self._moe else None)
 

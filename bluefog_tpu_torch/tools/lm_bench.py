@@ -1,18 +1,20 @@
-"""Decentralized LM training benchmark (counterpart of ``tools/lm_bench.py``
-at ``--pp 1 --tp 1 --sp 1``).
+"""Decentralized LM training benchmark (counterpart of ``tools/lm_bench.py``).
 
-Trains the composed LM by gossip over ``--dp`` data-parallel ranks
-stacked on one device (``adapt_with_combine`` over
+Trains the composed LM at the carving ``--dp`` x ``--pp`` x ``--tp`` x
+``--sp`` (the JAX tool's defaults: 2 x 2 x 2 x 1), every peer stacked on
+one device: gossip over the ``dp`` replicas (``adapt_with_combine`` over
 ``ExponentialTwoGraph(dp)``, ``delayed`` unless ``--no-delayed``, Adam at
-5e-3) and prints one JSON line: per-step time, tokens per second, the
-first and last mean loss, the carving's ``describe()``, the config, and
+5e-3), GPipe stages, Megatron tp and Ulysses sp inside each replica.  It
+prints one JSON line: per-step time, tokens per second (``dp x micro x
+batch x seq`` tokens a step), the first and last mean loss, the
+carving's ``describe()``, the config, the peak device memory, and
 ``mfu`` (``flops_per_token`` from ``LMConfig.flops_per_token`` over the
 H100's f32 rate outside the tensor cores, since the model trains in f32
 without TF32).  On a CUDA device attention runs through the K1/K2 flash
 kernels; the JSON names the device the numbers were taken on, and a CPU
-run reports no MFU.
+run reports no MFU and no memory.
 
-Run:    python -m bluefog_tpu_torch.tools.lm_bench
+Run:    python -m bluefog_tpu_torch.tools.lm_bench [--pp 2 --tp 2 | --sp 2]
 Smoke:  python -m bluefog_tpu_torch.tools.lm_bench --device cpu
 
 Left out of the JAX tool (XLA features or later slices): the StableHLO
@@ -38,15 +40,19 @@ PEAK_FLOPS = 67e12
 
 def _parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dp", type=int, default=4,
-                    help="gossip-DP ranks, stacked on one device")
+    ap.add_argument("--dp", type=int, default=2,
+                    help="gossip-DP replicas, stacked on one device")
+    ap.add_argument("--pp", type=int, default=2, help="pipeline stages")
+    ap.add_argument("--tp", type=int, default=2, help="tensor-parallel ways")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="Ulysses sequence ways")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length (default 2048; smoke 32)")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--d-model", type=int, default=None)
     ap.add_argument("--heads", type=int, default=None)
     ap.add_argument("--micro", type=int, default=None,
-                    help="microbatches per step")
+                    help="microbatches per step (pipeline fill)")
     ap.add_argument("--batch", type=int, default=None,
                     help="per-microbatch batch size")
     ap.add_argument("--vocab", type=int, default=None)
@@ -66,15 +72,18 @@ def _parse(argv=None):
 
 def main(argv=None) -> dict:
     args = _parse(argv)
-    m = compose.compose_parallelism(args.dp, device=args.device)
+    m = compose.compose_parallelism(args.dp, args.pp, args.tp, args.sp,
+                                    device=args.device)
     smoke = m.device.type == "cpu"
     seq = args.seq or (32 if smoke else 2048)
     cfg = compose.LMConfig(
         vocab=args.vocab or (64 if smoke else 32768),
         d_model=args.d_model or (32 if smoke else 1024),
         heads=args.heads or (4 if smoke else 16),
-        layers=args.layers or (1 if smoke else 2),
-        seq_len=seq, micro=args.micro or (2 if smoke else 4),
+        layers=args.layers or (args.pp * (1 if smoke else 2)),
+        seq_len=seq,
+        micro=args.micro or (max(2 * args.pp, 2) if smoke
+                             else 4 * args.pp),
         batch=args.batch or (2 if smoke else 4))
     iters = args.iters or (4 if smoke else 8)
     steps_per_call = args.steps_per_call or (1 if smoke else 4)
@@ -104,6 +113,8 @@ def main(argv=None) -> dict:
 
     run(2)                                          # warm-up
     sync()
+    if m.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(m.device)
     t0 = time.perf_counter()
     run(iters)
     sync()
@@ -126,7 +137,10 @@ def main(argv=None) -> dict:
                    "pallas": args.pallas, "delayed": not args.no_delayed,
                    "steps_per_call": steps_per_call, "iters": iters},
         "per_step_s": per_step,
+        "tokens_per_step": tokens_per_step,
         "tokens_per_sec": tok_per_sec,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(m.device) / 2 ** 30
+                        if on_card else None),
         "mfu": {"flops_per_token": flops_per_token,
                 "model_flops_per_sec": tok_per_sec * flops_per_token,
                 "peak": PEAK_NAME if on_card else None,

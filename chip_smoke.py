@@ -51,6 +51,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and backward through the kernels against the same ring over the plain
    block functions (and the forward against the plain online-softmax
    ring), at the tolerances of phase 4;
+4b. K1/K2 at head_dim 8, which the wrappers zero-pad to the built 64,
+   against their plain versions at phase 4's tolerances, timed beside
+   head_dim 64 at the trainer's shape (B 4, T 2048, 16 heads, causal);
 6. the decentralized trainer at full width (tools/lm_bench.py's
    non-smoke shape: vocab 32768, d_model 1024, 16 heads, seq 2048, batch
    4, micro 4, 2 layers, dp 4 ranks stacked on the card, Exp2 gossip,
@@ -62,6 +65,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    losses rtol 1e-5, step-1 gradients atol 1e-4 x max|g|, step-2 losses
    rtol 1e-3 (Adam's first updates are +-lr wherever |g| >> eps, so
    rounding noise in g can flip a sign only where g ~ 0);
+9-10 (run after phase 6). the composed trainer at full width at
+   lm_bench's default carving dp 2 x pp 2 x tp 2 (layers 4, micro 8) and
+   at dp 2 x tp 2 x sp 2 (Ulysses, layers 2, micro 4): vocab 32768,
+   d_model 1024, 16 heads, seq 2048, batch 4, delayed AWC, Adam 5e-3,
+   seed 0; 1 warm-up and 3 timed steps.  K1 and K2 must each launch dp x
+   (micro + pp - 1) x layers / pp times a step (every live stage, tp and
+   sp peer of a GPipe tick folded into one launch), the mean loss must
+   fall, and step 1 replayed with attention through the plain versions
+   must agree: losses rtol 1e-5, every peer's gradients atol 1e-4 x
+   max|g|.  Peak device memory over the 4 steps (a copy of the initial
+   params is kept on the card for the replay);
 7. the grouped expert FFN K4 (``grouped_ffn``) against its plain version
    (gather + einsum) on inputs laid out by the dropless dispatch itself:
    D 1024, F 4096, 8 experts unless noted; the decode shapes (16 rows at
@@ -307,8 +321,8 @@ def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
     from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
     scfg = ServeConfig(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
                        prefill_buckets=(64, 256, 512),
-                       decode_steps_per_call=4, decode_block_k=BK,
-                       kv_dtype=kv_dtype)
+                       decode_steps_per_call=4, decode_kernel="pallas",
+                       decode_block_k=BK, kv_dtype=kv_dtype)
     engine = ServeEngine(cfg, model, scfg, device=DEV)
     engine.warmup()
     torch.cuda.synchronize()
@@ -596,6 +610,51 @@ def attention_phase(fa):
     return main
 
 
+def head_dim_phase(fa):
+    """Phase 4b: K1/K2 at head_dim 8 (zero-padded to the built 64 by the
+    wrappers) and at 64 on the trainer's shape, checked against the plain
+    versions at phase 4's tolerances and timed side by side: the cost of
+    the padding."""
+    rng = np.random.default_rng(9)
+    B, T = 4, 2048
+    rows = {}
+    for D in (8, 64):
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(
+            np.float32)).to(DEV) for _ in range(4))
+        kw = dict(causal=True, scale=D ** -0.5)
+        want = fa.attention_block_partial_plain(q, k, v, 0, 0, **kw)
+        fwd_err = _check_partial(fa.attention_block_partial(q, k, v, 0, 0,
+                                                            **kw), want)
+        wo, wl, wm = want
+        lse = wm + torch.log(wl)
+        delta = (do * wo / wl[..., None]).sum(-1)
+        del want, wo
+        got = fa.attention_block_backward(q, k, v, do, lse, delta, 0, 0,
+                                          **kw)
+        wgrads = fa.attention_block_backward_plain(q, k, v, do, lse, delta,
+                                                   0, 0, **kw)
+        bwd_err = 0.0
+        for a, b in zip(got, wgrads):
+            err, ok = _grad_err(a, b)
+            bwd_err = max(bwd_err, err)
+            if not ok:
+                raise AssertionError(f"flash_bwd at head_dim {D} disagrees "
+                                     f"with its plain version: {err}")
+        del got, wgrads
+        torch.cuda.synchronize()
+        rows[D] = dict(
+            D=D, fwd_err=fwd_err, bwd_err=bwd_err,
+            fwd_ms=_cuda_ms(lambda: fa.attention_block_partial(
+                q, k, v, 0, 0, **kw), iters=10, warmup=2),
+            bwd_ms=_cuda_ms(lambda: fa.attention_block_backward(
+                q, k, v, do, lse, delta, 0, 0, **kw), iters=5, warmup=1))
+    print("head_dim_case " + json.dumps({
+        "B": B, "T": T, "H": H, "causal": True, "cases": list(rows.values()),
+        "fwd_ratio_d8_over_d64": rows[8]["fwd_ms"] / rows[64]["fwd_ms"],
+        "bwd_ratio_d8_over_d64": rows[8]["bwd_ms"] / rows[64]["bwd_ms"],
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
 def ring_phase(fa, ring):
     """Phase 5: the stacked ring through the kernels against the ring
     over the plain block functions."""
@@ -765,7 +824,111 @@ def train_phase(fa, smi):
     return launches, step, strategy, init, toks
 
 
-def profile_train(step, strategy, init, toks):
+def compose_phase(fa, smi, dp, pp, tp, sp, tag):
+    """Phases 9-10: the composed trainer at full width (tools/lm_bench.py's
+    non-smoke shape at this carving: layers 2 x pp, micro 4 x pp), its
+    launch counts, falling loss, peak memory, and step 1 replayed with
+    attention through the K1/K2 plain versions."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.fusion import tree_flatten
+    from bluefog_tpu_torch.parallel import compose
+    cfg = compose.LMConfig(vocab=32768, d_model=1024, heads=16,
+                           layers=2 * pp, seq_len=2048, micro=4 * pp,
+                           batch=4)
+    m = compose.compose_parallelism(dp, pp, tp, sp, device=DEV)
+    grad_fn = compose.make_lm_grad_fn(cfg, m, use_pallas=True)
+    recorded, record = [], [True]
+
+    def recording(params, toks):
+        loss, grads = grad_fn(params, toks)
+        if record[0]:                 # kept on the host: the peak stays
+            recorded.append((loss, [g.cpu() for g in   # the path's own
+                                    tree_flatten(grads)[0]]))
+        return loss, grads
+
+    step, strategy = compose.make_train_step(m, recording, bfopt.adam(5e-3),
+                                             delayed=True)
+    init = compose.init_lm_train_params(cfg, m, seed=0)
+    toks = compose.make_lm_batch(cfg, m, seed=0)
+    params = {g: {k: v.clone() for k, v in d.items()}
+              for g, d in init.items()}
+    state = bfopt.init_distributed(strategy, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts at 0, 1 warm-up + 3 timed steps, counts read
+    steps = 4
+    fa.fwd_launches = fa.bwd_launches = 0
+    losses = []
+    params, state, loss = step(params, state, toks)
+    losses.append(loss.tolist())
+    record[0] = False
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps - 1):
+        params, state, loss = step(params, state, toks)
+        losses.append(loss.tolist())
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / (steps - 1)
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # per replica, one launch per GPipe tick and layer of a stage: every
+    # live stage, tp and sp peer of the tick is folded into it
+    want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
+    if launches != (want, want):
+        raise AssertionError(
+            f"{tag}: flash_fwd/flash_bwd launched {launches} times, want "
+            f"dp x (micro + pp - 1) x layers / pp x steps = {want} each")
+    mean = [float(np.mean(x)) for x in losses]
+    if not (np.isfinite(mean).all() and mean[-1] < mean[0]):
+        raise AssertionError(f"{tag}: loss did not fall: {mean}")
+    del params, state
+
+    # -- replay step 1 from the same init with the plain attention
+    kernel_rec = recorded[:]
+    recorded.clear()
+    record[0] = True
+    state = bfopt.init_distributed(strategy, init)
+    with mock.patch.object(fa, "attention_block_partial",
+                           fa.attention_block_partial_plain), \
+            mock.patch.object(fa, "attention_block_backward",
+                              fa.attention_block_backward_plain):
+        _, state, replay = step(init, state, toks)
+    record[0] = False
+    if (fa.fwd_launches, fa.bwd_launches) != launches:
+        raise AssertionError(f"{tag}: the plain replay launched a kernel")
+    if not np.allclose(replay.tolist(), losses[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"{tag}: plain replay loss {replay.tolist()} "
+                             f"!= kernel loss {losses[0]}")
+    grad_err = 0.0
+    for (_, gk), (_, gp) in zip(kernel_rec, recorded):
+        for a, b in zip(gk, gp):
+            err, ok = _grad_err(a.to(DEV), b.to(DEV))
+            grad_err = max(grad_err, err / max(float(b.abs().max()), 1e-30))
+            if not ok:
+                raise AssertionError(f"{tag}: step-1 gradient of the plain "
+                                     f"replay differs: {err} > 1e-4 max|g|")
+    del state, kernel_rec, recorded[:]
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    summary = {
+        "mesh": m.describe(), "n_params": cfg.n_params,
+        "config": {"layers": cfg.layers, "micro": cfg.micro,
+                   "batch": cfg.batch, "seq": cfg.seq_len},
+        "timed_steps": steps - 1, "per_step_s": per_step,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / per_step,
+        "model_flops_per_s": tokens / per_step * cfg.flops_per_token(),
+        "losses_mean": mean, "replay_loss": replay.tolist(),
+        "step1_grad_rel_err": grad_err,
+        "flash_fwd_launches": launches[0],
+        "flash_bwd_launches": launches[1],
+        "launch_formula": "dp x (micro + pp - 1) x layers / pp x steps",
+        "peak_mem_gb": peak,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print(f"{tag} " + json.dumps(summary), flush=True)
+    return launches, step, strategy, init, toks
+
+
+def profile_train(step, strategy, init, toks, tag="profile_train"):
     """One full-width train step under torch.profiler: device time by
     kernel and the device's busy share of the step."""
     from torch.autograd import DeviceType
@@ -787,12 +950,12 @@ def profile_train(step, strategy, init, toks):
             and ev.self_device_time_total > 0]
     total_us = sum(r[0] for r in rows)
     for dt, key, count in sorted(rows, reverse=True)[:15]:
-        print("profile_train " + json.dumps({
+        print(f"{tag} " + json.dumps({
             "kernel": key[:90], "calls": count, "device_us": dt,
             "share": dt / total_us}))
     names = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")
-    print("profile_train " + json.dumps({
+    print(f"{tag} " + json.dumps({
         "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
         "busy_share": total_us / 1e3 / wall_ms,
         "kernel_device_ms": {n: sum(r[0] for r in rows if n in r[1]) / 1e3
@@ -950,8 +1113,8 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
     init_s = time.monotonic() - t0
     scfg = ServeConfig(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
                        prefill_buckets=(64, 256, 512),
-                       decode_steps_per_call=4, decode_block_k=BK,
-                       moe_experts=8, moe_top_k=2)
+                       decode_steps_per_call=4, decode_kernel="pallas",
+                       decode_block_k=BK, moe_experts=8, moe_top_k=2)
     engine = ServeEngine(cfg, model, scfg, device=DEV)
     engine.warmup()
     torch.cuda.synchronize()
@@ -1039,13 +1202,19 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
 
 def _build_all(builders):
     """Build every kernel library at once: one nvcc process each, all
-    started together; returns the wall seconds."""
+    started together; returns the wall seconds and each library's."""
     from concurrent.futures import ThreadPoolExecutor
+
+    def timed(build):
+        t0 = time.monotonic()
+        build()
+        return time.monotonic() - t0
+
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
-        for f in [pool.submit(b) for b in builders]:
-            f.result()
-    return time.monotonic() - t0
+        each = [f.result() for f in [pool.submit(timed, b)
+                                     for b in builders.values()]]
+    return time.monotonic() - t0, dict(zip(builders, each))
 
 
 _ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1094,7 +1263,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
-    build_s = _build_all([fd.build, fa.build, gf.build])
+    build_s, lib_s = _build_all({"flash_decode": fd.build,
+                                 "flash_attention": fa.build,
+                                 "grouped_ffn": gf.build})
     for lib in ("flash_decode", "flash_attention", "grouped_ffn"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1102,7 +1273,8 @@ def main(argv=None) -> int:
     print("env " + json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(), "kernel_build_s": build_s}),
+        "count": torch.cuda.device_count(), "kernel_build_s": build_s,
+        "library_build_s": lib_s}),
         flush=True)
     phase_s = {"build": build_s}
 
@@ -1128,6 +1300,7 @@ def main(argv=None) -> int:
     # -- phase 4: flash attention K1/K2 against their plain versions ----
     t0 = time.monotonic()
     attn = attention_phase(fa)
+    head_dim_phase(fa)
     phase_s["flash_attention_cases"] = time.monotonic() - t0
 
     # -- phase 5: ring attention over stacked ranks ---------------------
@@ -1144,6 +1317,20 @@ def main(argv=None) -> int:
     del step, strategy, init, toks
     torch.cuda.empty_cache()
     phase_s["train"] = time.monotonic() - t0
+
+    # -- phases 9-10: the composed trainer (pp x tp; tp x Ulysses sp) ----
+    compose_launches = {}
+    for tag, carving in (("compose_pp2_tp2", (2, 2, 2, 1)),
+                         ("compose_tp2_sp2", (2, 1, 2, 2))):
+        t0 = time.monotonic()
+        launches_c, step, strategy, init, toks = compose_phase(
+            fa, smi, *carving, tag)
+        compose_launches[tag] = launches_c
+        if args.profile:
+            profile_train(step, strategy, init, toks, "profile_" + tag)
+        del step, strategy, init, toks
+        torch.cuda.empty_cache()
+        phase_s[tag] = time.monotonic() - t0
 
     # -- phase 7: the grouped expert FFN K4 against its plain version ---
     t0 = time.monotonic()
@@ -1170,14 +1357,18 @@ def main(argv=None) -> int:
     decode["int8"] = {key: int8_case[key]
                       for key in _ROW_KEYS + ("warm_ms",)}
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
+    main_c = compose_launches["compose_pp2_tp2"]
+    paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches}
     print(json.dumps({"kernels": [
         decode,
-        _kernel_row("flash_fwd", src,
-                    "bluefog_tpu/ops/pallas_attention.py:134", fwd_n,
-                    attn["fwd"]),
+        dict(_kernel_row("flash_fwd", src,
+                         "bluefog_tpu/ops/pallas_attention.py:134",
+                         main_c[0], attn["fwd"]),
+             launches_by_path={k: v[0] for k, v in paths.items()}),
         dict(_kernel_row("flash_bwd", src,
-                         "bluefog_tpu/ops/pallas_attention.py:275", bwd_n,
-                         attn["bwd"]),
+                         "bluefog_tpu/ops/pallas_attention.py:275",
+                         main_c[1], attn["bwd"]),
+             launches_by_path={k: v[1] for k, v in paths.items()},
              library_fwd_bwd_ms=attn["bwd"]["library_fwd_bwd_ms"]),
         dict(_kernel_row("grouped_ffn",
                          "bluefog_tpu_torch/csrc/grouped_ffn.cu",

@@ -259,3 +259,38 @@ def test_attention_bound_is_taken_at_the_3xtf32_rate():
     assert simt == pytest.approx(fwd * (495e12 / 3) / 67e12)
     bf16, _ = cs._attn_bound(B, T, T, H, H, D, 2, pairs, False)
     assert bf16 == pytest.approx(1e3 * 4 * B * H * pairs * D / 989e12)
+
+
+@pytest.mark.parametrize("D", [2, 8, 40, 96, 128])
+def test_head_dim_padding_route_matches_plain(D):
+    """K1/K2 are built for head_dim 64 and 128; the wrappers zero-pad
+    every other even D to the next and slice the results back.  The
+    padding route, run here around the plain versions on CPU tensors,
+    gives the unpadded plain results (the zero columns add exact zeros;
+    only the einsums' summation order may differ): atol 1e-6."""
+    q, k, v = (torch.from_numpy(a) for a in
+               _inputs(D, 2, 12, 20, 4, 2, D, "f32"))
+    kw = dict(causal=True, scale=D ** -0.5, window=0)
+    got = tfa._padded_fwd(tfa.attention_block_partial_plain, q, k, v, 20,
+                          4, **kw)
+    want = tfa.attention_block_partial_plain(q, k, v, 20, 4, **kw)
+    padded = D not in (64, 128)         # a padded result is sliced back
+    assert got[0].shape == q.shape and got[0].is_contiguous() >= padded
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+    rng = np.random.default_rng(D)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    lse = torch.from_numpy(rng.normal(size=q.shape[:3]).astype(np.float32))
+    delta = torch.from_numpy(rng.normal(size=q.shape[:3]).astype(
+        np.float32))
+    got = tfa._padded_bwd(tfa.attention_block_backward_plain, q, k, v, do,
+                          lse, delta, 20, 4, **kw)
+    want = tfa.attention_block_backward_plain(q, k, v, do, lse, delta, 20,
+                                              4, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous() >= padded
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+    assert tfa.kernel_head_dim(D) == (64 if D <= 64 else 128)
+    for bad in (7, 130, 136, 0):
+        with pytest.raises(ValueError, match=f"head_dim {bad}: .* up to 128"):
+            tfa.kernel_head_dim(bad)

@@ -22,6 +22,13 @@ the tensor cores; ``test_flash_attention_is_f32_accurate`` holds them to
 these tolerances on inputs where one TF32 pass would fail them, and the
 backward must give bit-identical results on two runs (no atomics).
 
+Head dims: K1/K2 are built for 64 and 128 and the wrappers zero-pad
+every other even head dim up to 128; K3 takes the head dim at run time
+inside buckets of 32/64/128.  Both are held to the tolerances above at
+head dims they are not built for, and the entry points that build
+``LMConfig()``'s head dim 8 (the serve demos, a composed train step) run
+on the card.
+
 Grouped expert FFN K4: both sides accumulate in f32 from the same values
 and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
 bf16 operands one bf16 ulp of each output (rtol 8e-3) on top of that.
@@ -106,11 +113,11 @@ def test_flash_decode_kernel_matches_plain(cuda, store, qdt, Hkv, T, Dh,
 
 @pytest.mark.gpu
 def test_flash_decode_refuses_what_it_does_not_take(cuda):
-    cl = {"k": torch.zeros(2, 1, 16, 32, device=cuda),
-          "v": torch.zeros(2, 1, 16, 32, device=cuda)}
+    cl = {"k": torch.zeros(2, 1, 16, 136, device=cuda),
+          "v": torch.zeros(2, 1, 16, 136, device=cuda)}
     idx = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        fd.flash_attend_rows(torch.zeros(1, 1, 32, device=cuda), cl["k"],
+    with pytest.raises(ValueError, match="head_dim 136"):
+        fd.flash_attend_rows(torch.zeros(1, 1, 136, device=cuda), cl["k"],
                              cl["v"], idx, idx, block_k=8)
     cl64 = {"k": torch.zeros(2, 1, 16, 64, device=cuda, dtype=torch.half),
             "v": torch.zeros(2, 1, 16, 64, device=cuda, dtype=torch.half)}
@@ -361,8 +368,8 @@ def test_flash_attention_is_f32_accurate(cuda):
 
 @pytest.mark.gpu
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 32"):
+    q = torch.zeros(1, 8, 2, 136, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 136"):
         fa.attention_block_partial(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.half)
     with pytest.raises(TypeError, match="dtype"):
@@ -515,3 +522,158 @@ def test_grouped_ffn_reruns_are_bit_identical(cuda, dtype):
     got, args = _k4_case(cuda, eid, 4, D=512, F=1024, dtype=dtype)
     for _ in range(3):
         assert torch.equal(gf.grouped_ffn(*args), got)
+
+
+# -- every even head dim up to 128 ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 16, 32, 40, 96])
+@pytest.mark.parametrize("B,Tq,Tk,H,Hkv,causal,qoff,koff", [
+    (2, 100, 77, 4, 4, False, 0, 0),
+    (1, 130, 130, 8, 2, True, 0, 0),                # GQA 4, causal
+    (2, 64, 192, 4, 1, True, 192, 64)])             # GQA 4, offsets
+def test_flash_attention_other_head_dims(cuda, D, B, Tq, Tk, H, Hkv,
+                                         causal, qoff, koff):
+    """K1/K2 at head dims they are not built for: the wrappers pad to 64
+    or 128; tolerances as for the built ones."""
+    rng = np.random.default_rng(D)
+    q, k, v = _qkv(rng, B, Tq, Tk, H, Hkv, D, torch.float32, cuda)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    got = fa.attention_block_partial(q, k, v, qoff, koff, **kw)
+    want = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == q.shape
+    _close_partial(got, want)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    lse = _lse(want)
+    delta = (do * want[0] / torch.where(want[1] == 0, torch.ones_like(
+        want[1]), want[1])[..., None]).sum(-1)
+    got = fa.attention_block_backward(q, k, v, do, lse, delta, qoff, koff,
+                                      **kw)
+    want = fa.attention_block_backward_plain(q, k, v, do, lse, delta, qoff,
+                                             koff, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close_grad(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "int8", "bf16", "fp8"])
+@pytest.mark.parametrize("Dh", [8, 32, 40, 2])
+@pytest.mark.parametrize("lens,T,L", [
+    ([5, 0, 700, 1023 - 1], 1, 1024),               # splits, trash lane
+    ([0, 31, 33, 60], 2, 64)])                      # one split, T 2
+def test_flash_decode_other_head_dims(cuda, store, Dh, lens, T, L):
+    """K3 at head dims inside its 32/64/128 buckets, on the 16-byte
+    staging path (f32 at Dh 8, int8 at Dh 32) and the value-by-value one
+    (int8 at Dh 8, every page type at Dh 2)."""
+    _decode_case(cuda, lens, Hkv=4, T=T, Dh=Dh, L=L, block_k=min(128, L),
+                 store=store, seed=Dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp,H,D", [(2, 8, 64), (4, 8, 8), (2, 4, 40)])
+def test_ulysses_through_the_kernels_matches_plain(cuda, sp, H, D):
+    """Ulysses over stacked sp peers (and two more peers folded in front):
+    K1 in the forward, K2 in the backward, one launch each, against the
+    plain online-softmax path with autograd."""
+    from bluefog_tpu_torch.ops import ulysses as ul
+    rng = np.random.default_rng(sp * H + D)
+    shape = (2, sp, 2, 96 // sp, H, D)          # [peers, sp, B, Tl, H, D]
+
+    def t():
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda).requires_grad_()
+
+    q, k, v = t(), t(), t()
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    out = ul.ulysses_attention(q, k, v, axis=1, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    with torch.no_grad():
+        scattered = [ul._scatter_heads(x, 1) for x in (q, k, v)]
+    qs, ks, vs = (ul._fold(x).detach().cpu().requires_grad_()
+                  for x in scattered)
+    plain = ul._plain_local_attention(qs, ks, vs, True, D ** -0.5)
+    want = ul._gather_heads(plain.view(scattered[0].shape), 1)
+    # the gather is the scatter's inverse: want's VJP of g is plain's of
+    # the scattered g
+    wgrads = torch.autograd.grad(plain, (qs, ks, vs),
+                                 ul._fold(ul._scatter_heads(g, 1)).cpu())
+    torch.cuda.synchronize()
+    assert float((out.detach().cpu() - want.detach()).abs().max()) <= 1e-4
+    for a, b in zip(grads, wgrads):
+        _close_grad(ul._fold(ul._scatter_heads(a, 1)).cpu(), b)
+
+
+_REPO = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", ["", "8x2"])
+def test_serve_demo_runs_on_the_card(cuda, moe):
+    """``python -m bluefog_tpu_torch.serve`` builds ``LMConfig(layers=4)``
+    (head_dim 8) on the card; with ``BLUEFOG_SERVE_MOE`` the MoE LM."""
+    import json
+    import os
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BLUEFOG_")}
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    if moe:
+        env["BLUEFOG_SERVE_MOE"] = moe
+    p = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.serve",
+                        "--requests", "4"], cwd=_REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    doc = json.loads(p.stdout.strip().splitlines()[-1])
+    assert doc["completed"] == 4 and doc["tokens"] == 16
+    assert doc["device"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.gpu
+def test_default_lm_config_trains_on_the_card(cuda):
+    """One step of ``make_lm_grad_fn(LMConfig())`` (head_dim 8) at dp 2 x
+    pp 2 x tp 2 through the kernels, against the same step with attention
+    through the K1/K2 plain versions: loss rtol 1e-5, grads atol 1e-4 x
+    max|g|."""
+    from unittest import mock
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.parallel import compose
+    cfg = compose.LMConfig()
+    m = compose.compose_parallelism(2, 2, 2, 1, device=cuda)
+    grad_fn = compose.make_lm_grad_fn(cfg, m)
+    params = compose.init_lm_train_params(cfg, m)
+    toks = compose.make_lm_batch(cfg, m)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    loss, grads = bfopt.stacked_grads(grad_fn, params, toks, m.slice_size)
+    torch.cuda.synchronize()
+    per_step = m.dp * (cfg.micro + m.pp - 1) * cfg.layers // m.pp
+    assert (fa.fwd_launches - before[0], fa.bwd_launches - before[1]) == \
+        (per_step, per_step)
+    with mock.patch.object(fa, "attention_block_partial",
+                           fa.attention_block_partial_plain), \
+            mock.patch.object(fa, "attention_block_backward",
+                              fa.attention_block_backward_plain):
+        wloss, wgrads = bfopt.stacked_grads(grad_fn, params, toks,
+                                            m.slice_size)
+    assert bool(torch.isfinite(loss).all())
+    torch.testing.assert_close(loss, wloss, rtol=1e-5, atol=0)
+    for group in ("blocks", "shared"):
+        for k, w in wgrads[group].items():
+            _close_grad(grads[group][k], w)
+    step, strategy = compose.make_train_step(m, grad_fn, bfopt.adam(5e-3))
+    state = bfopt.init_distributed(strategy, params)
+    losses = []
+    for _ in range(3):
+        params, state, loss = step(params, state, toks)
+        losses.append(float(loss.mean()))
+    assert losses[-1] < losses[0]

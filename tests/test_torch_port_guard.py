@@ -39,7 +39,9 @@ def test_port_imports_no_jax():
     for m in ("ops.flash_decode", "ops.flash_attention", "ops.ring",
               "optimizers", "topology", "schedule", "fusion",
               "tools.lm_bench", "ops.grouped_ffn", "moe.dropless",
-              "moe.layers", "moe.model", "parallel.expert"):
+              "moe.layers", "moe.model", "parallel.expert",
+              "parallel.pipeline", "parallel.tensor_parallel",
+              "ops.collectives", "ops.ulysses"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of

@@ -169,19 +169,33 @@ def test_serve_config_rules_match_jax(monkeypatch):
     assert _parse_buckets("1,2,4@8,16") == ((1, 2, 4), (8, 16))
     with pytest.raises(ValueError, match="expected"):
         _parse_buckets("a,b@c")
+    # each case builds both sides with the same decode_kernel: the block
+    # is checked only under "pallas"
     bad = [dict(batch_buckets=(4, 2)), dict(batch_buckets=(1, 16)),
            dict(prefill_buckets=(8, 128)), dict(batch_buckets=()),
            dict(kv_dtype="int4"), dict(decode_kernel="triton"),
-           dict(decode_block_k=24), dict(temperature=-1.0),
-           dict(top_p=0.0), dict(decode_steps_per_call=0)]
+           dict(decode_kernel="pallas", decode_block_k=24),
+           dict(decode_kernel="pallas", max_len=200,
+                prefill_buckets=(8, 16)),
+           dict(decode_kernel="pallas", max_len=60, decode_block_k=12),
+           dict(temperature=-1.0), dict(top_p=0.0),
+           dict(decode_steps_per_call=0)]
     for kw in bad:
         with pytest.raises(ValueError) as jerr:
-            JServeConfig(decode_kernel=kw.get("decode_kernel", "pallas"),
-                         **{k: v for k, v in kw.items()
-                            if k != "decode_kernel"})
+            JServeConfig(**kw)
         with pytest.raises(ValueError) as terr:
             ServeConfig(**kw)
         assert str(terr.value) == str(jerr.value)
+    good = [dict(max_len=200, prefill_buckets=(8, 16)),
+            dict(max_len=60, decode_block_k=12), dict(decode_block_k=24),
+            dict(decode_kernel="pallas", max_len=64, decode_block_k=16)]
+    for kw in good:
+        jcfg, tcfg = JServeConfig(**kw), ServeConfig(**kw)
+        assert (tcfg.max_len, tcfg.decode_block_k) == \
+            (jcfg.max_len, jcfg.decode_block_k)
+        assert tcfg.kernel_block_k == (
+            tcfg.decode_block_k if tcfg.decode_kernel == "pallas"
+            else tcfg.max_len)
     monkeypatch.setenv("BLUEFOG_SERVE_BUCKETS", "1,2@4,32")
     monkeypatch.setenv("BLUEFOG_KV_DTYPE", "fp8")
     monkeypatch.setenv("BLUEFOG_DECODE_KERNEL", "pallas@16")

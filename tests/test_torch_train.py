@@ -197,7 +197,7 @@ def test_strategy_contracts():
                              topt.gradient_allreduce(topt.sgd(0.1)),
                              reuse_batch=True)
     with pytest.raises(ValueError, match="not yet ported"):
-        tcompose.compose_parallelism(2, 2, device="cpu")
+        tcompose.compose_parallelism(2, 1, 1, 1, 2, device="cpu")
     with pytest.raises(ValueError, match="gossip topology has 3 nodes"):
         tcompose.compose_parallelism(
             4, device="cpu", topology=lambda d: __import__(
@@ -247,9 +247,14 @@ def test_lm_bench_cli_on_cpu():
         capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-3000:]
     doc = json.loads(p.stdout.strip().splitlines()[-1])
-    assert doc["device"] == "cpu" and doc["mesh"]["dp"] == 4
+    # the JAX tool's default carving: dp 2 x pp 2 x tp 2, layers 1 a stage
+    assert doc["device"] == "cpu" and doc["mesh"]["dp"] == 2
+    assert (doc["mesh"]["pp"], doc["mesh"]["tp"], doc["mesh"]["sp"]) == \
+        (2, 2, 1)
     assert doc["config"]["seq"] == 32 and doc["config"]["pallas"]
+    assert doc["config"]["micro"] == 4
+    assert doc["tokens_per_step"] == 2 * 4 * 2 * 32
     assert doc["loss_decreased"] and doc["per_step_s"] > 0
-    assert doc["mfu"]["mfu"] is None
+    assert doc["mfu"]["mfu"] is None and doc["peak_mem_gb"] is None
     assert doc["mfu"]["flops_per_token"] == tcompose.LMConfig(
-        vocab=64, d_model=32, heads=4, layers=1).flops_per_token()
+        vocab=64, d_model=32, heads=4, layers=2).flops_per_token()

@@ -11,14 +11,15 @@
 // query attention by index: q head h reads kv head h / (H / Hkv).  Masks
 // come from the global offsets: with `causal`, key position koff + j is
 // visible to query position qoff + i iff koff + j <= qoff + i and, with a
-// window w > 0, qoff + i - (koff + j) < w.  Any Tq, Tk; D is 64 or 128.
+// window w > 0, qoff + i - (koff + j) < w.  Any Tq, Tk; D is 64, 128 or
+// 256.
 //
 // What the kernels compute (unchanged from the SIMT kernels they replace):
-//   flash_fwd: one CTA per (b, h, tile of q rows) streams 64-key K/V
-//     tiles with an f32 online softmax, so the running max ends as the row
-//     max over all of Tk and (o, l, m) are relative to it, as the TPU
-//     partial's are.  Rows with no visible key write m = -inf, l = 0,
-//     o = 0.  With f32 inputs q is scaled before the dot, as
+//   flash_fwd: one CTA per (b, h, tile of q rows) streams K/V tiles
+//     (64 keys; 32 at D = 256) with an f32 online softmax, so the running
+//     max ends as the row max over all of Tk and (o, l, m) are relative
+//     to it, as the TPU partial's are.  Rows with no visible key write
+//     m = -inf, l = 0, o = 0.  With f32 inputs q is scaled before the dot, as
 //     _partial_kernel does; with bf16 inputs the exact dot is scaled
 //     (q * scale would leave TF32; the two differ by one f32 rounding).
 //   flash_bwd_dkdv / flash_bwd_dq: the FlashAttention-2 backward given the
@@ -103,6 +104,20 @@
 // operands are read from shared memory and split per k-step (one fragment
 // serves 8 MMAs).
 //
+// D = 256 (Shape<T, 256>) cannot carry the D = 128 shape up: 8 warps of
+// q rows and two stages of 64-row K/V tiles at 1 KB a row would need
+// about 400 KB of shared memory, and a warp's 16 x 256 f32 output
+// accumulator (beside the tile's zeroed product fragment) 256 registers
+// a thread.  So at D = 256 a CTA is 4 warps (64 rows) that stream 32-row
+// tiles, single-staged in the backward (about 195 KB in f32), and it
+// accumulates only DO = 128 of the output columns: the grid runs two
+// CTAs per row tile, one per column half, each recomputing the tile's
+// scores (and dP in the backward) over all 256 columns and writing its
+// half of o (dq, dk, dv).  The two halves of a forward row tile compute
+// the same m and l; the first writes them.  That costs a third more
+// products in the forward (q.k^T twice) and more in the backward, for
+// the register budget of D = 128.
+//
 // Every kernel is declared __launch_bounds__(threads, 1): without the
 // minimum ptxas capped an f32 forward of 4 warps at 168 registers (three
 // CTAs an SM, which shared memory never allows) and spilled.
@@ -119,15 +134,17 @@
 
 namespace {
 
-constexpr int kTile = 64;           // rows of a streamed tile
-
-// CTA shape: W warps of 16 rows (FWD_W in flash_fwd) and the number of
-// stages of the backward's streamed tiles (the forward always has 2); see
-// the header
+// CTA shape: W warps of 16 rows (FWD_W in flash_fwd), the number of
+// stages of the backward's streamed tiles (the forward always has 2), the
+// rows of a streamed tile (KT) and the output columns one CTA accumulates
+// (DO: the grid runs D / DO CTAs per row tile); see the header
 template <typename T, int D> struct Shape {
-  static constexpr int W = 8;
-  static constexpr int FWD_W = sizeof(T) == 2 && D == 64 ? 4 : 8;
+  static constexpr int W = D == 256 ? 4 : 8;
+  static constexpr int FWD_W = D == 256 || (sizeof(T) == 2 && D == 64)
+                                   ? 4 : 8;
   static constexpr int BWD_NS = D == 64 ? 2 : 1;
+  static constexpr int KT = D == 256 ? 32 : 64;
+  static constexpr int DO = D == 256 ? 128 : D;
 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -190,11 +207,11 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src,
   }
 }
 
-// 64 values with the given stride into dst; rows past nvalid read 0
-template <int NT>
+// KT values with the given stride into dst; rows past nvalid read 0
+template <int KT, int NT>
 __device__ __forceinline__ void stage_vec(float* dst, const float* src,
                                           size_t stride, int nvalid) {
-  for (int i = threadIdx.x; i < kTile; i += NT)
+  for (int i = threadIdx.x; i < KT; i += NT)
     cp4(dst + i, src + (size_t)(i < nvalid ? i : 0) * stride, i < nvalid);
 }
 
@@ -323,19 +340,19 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// first and last tile of [0, n) (tiles of 64 along the streamed axis)
+// first and last tile of [0, n) (tiles of KT along the streamed axis)
 // that the mask leaves visible against the fixed tile; lo > hi if none.
 // Visibility is an interval of position differences, so the visible
 // tiles are contiguous.
-template <bool STREAM_KEYS>
+template <bool STREAM_KEYS, int KT>
 __device__ __forceinline__ void visible_range(const Mask& mask, int fixed0,
                                               int nfixed, int n, int& lo,
                                               int& hi) {
   lo = 0;
   hi = -1;
-  const int nt = (n + kTile - 1) / kTile;
+  const int nt = (n + KT - 1) / KT;
   for (int i = 0; i < nt; ++i) {
-    const int s0 = i * kTile, ns = min(kTile, n - s0);
+    const int s0 = i * KT, ns = min(KT, n - s0);
     const bool vis = STREAM_KEYS ? mask.visible(fixed0, nfixed, s0, ns)
                                  : mask.visible(s0, ns, fixed0, nfixed);
     if (vis) {
@@ -347,30 +364,35 @@ __device__ __forceinline__ void visible_range(const Mask& mask, int fixed0,
 
 // -- K1: flash_fwd -------------------------------------------------------
 
-// One CTA per (b, h, 16 W q rows); warp w owns rows 16 w .. 16 w + 15.
+// One CTA per (b, h, 16 W q rows, DO output columns); warp w owns rows
+// 16 w .. 16 w + 15.
 template <typename T, int D>
 __global__ void __launch_bounds__(Shape<T, D>::FWD_W * 32, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ l, float* __restrict__ m, int Tq, int Tk,
                  int H, int Hkv, float scale, Mask mask) {
-  constexpr int SD = stride_of<T, D>(), KS = D / 8, NO = D / 8;
-  constexpr int W = Shape<T, D>::FWD_W, NT = W * 32, ROWS = W * 16;
+  using SH = Shape<T, D>;
+  constexpr int SD = stride_of<T, D>(), KS = D / 8, NO = SH::DO / 8;
+  constexpr int KT = SH::KT, NK = KT / 8, NC = D / SH::DO;
+  constexpr int W = SH::FWD_W, NT = W * 32, ROWS = W * 16;
   constexpr bool EX = sizeof(T) == 2;          // bf16: exact in TF32
   // f32 at D = 64: q split once, K/V split once a tile (see the header)
   constexpr bool PRE = !EX && D == 64;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + ROWS * SD;                      // 2 stages
-  T* Vs = Ks + 2 * kTile * SD;                 // 2 stages
+  T* Vs = Ks + 2 * KT * SD;                    // 2 stages
   // PRE: the small parts of q * scale, K and V (big ones in place)
-  uint32_t* Qsm = reinterpret_cast<uint32_t*>(Vs + 2 * kTile * SD);
+  uint32_t* Qsm = reinterpret_cast<uint32_t*>(Vs + 2 * KT * SD);
   uint32_t* Ksm = Qsm + ROWS * SD;
-  uint32_t* Vsm = Ksm + kTile * SD;
+  uint32_t* Vsm = Ksm + KT * SD;
 
-  // the last q tiles (most visible keys when causal) launch first
-  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / nqt;
-  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;
+  // the last q tiles (most visible keys when causal) launch first; the
+  // NC CTAs of a tile write output columns c0 .. c0 + DO
+  const int nc = (int)blockIdx.x % NC, blk = (int)blockIdx.x / NC;
+  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / NC / nqt;
+  const int qt = nqt - 1 - blk / BH, bh = blk % BH, c0 = nc * SH::DO;
   const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int q0 = qt * ROWS, nq = min(ROWS, Tq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -382,13 +404,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float qmul = EX ? 1.f : scale, smul = EX ? scale : 1.f;
 
   int lo, hi;
-  visible_range<true>(mask, q0, nq, Tk, lo, hi);
+  visible_range<true, KT>(mask, q0, nq, Tk, lo, hi);
   stage_rows<T, D, ROWS, NT>(Qs, q + ((size_t)b * Tq * H + h) * D + q0 * qs,
                              qs, nq);
   if (lo <= hi) {
-    const int n0 = min(kTile, Tk - lo * kTile);
-    stage_rows<T, D, kTile, NT>(Ks, kbase + lo * kTile * ks, ks, n0);
-    stage_rows<T, D, kTile, NT>(Vs, vbase + lo * kTile * ks, ks, n0);
+    const int n0 = min(KT, Tk - lo * KT);
+    stage_rows<T, D, KT, NT>(Ks, kbase + lo * KT * ks, ks, n0);
+    stage_rows<T, D, KT, NT>(Vs, vbase + lo * KT * ks, ks, n0);
   }
   cp_commit();
 
@@ -396,21 +418,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(acc);
 
   for (int kt = lo, it = 0; kt <= hi; ++kt, ++it) {
-    const int st = it & 1, k0 = kt * kTile;
+    const int st = it & 1, k0 = kt * KT;
     if (kt < hi) {                       // prefetch the next tile
-      const int k1 = k0 + kTile, n1 = min(kTile, Tk - k1);
-      stage_rows<T, D, kTile, NT>(Ks + (st ^ 1) * kTile * SD,
-                                  kbase + k1 * ks, ks, n1);
-      stage_rows<T, D, kTile, NT>(Vs + (st ^ 1) * kTile * SD,
-                                  vbase + k1 * ks, ks, n1);
+      const int k1 = k0 + KT, n1 = min(KT, Tk - k1);
+      stage_rows<T, D, KT, NT>(Ks + (st ^ 1) * KT * SD, kbase + k1 * ks, ks,
+                               n1);
+      stage_rows<T, D, KT, NT>(Vs + (st ^ 1) * KT * SD, vbase + k1 * ks, ks,
+                               n1);
       cp_commit();
       cp_wait<1>();
     } else {
       cp_wait<0>();
     }
     __syncthreads();
-    const T* Kt = Ks + st * kTile * SD;
-    const T* Vt = Vs + st * kTile * SD;
+    const T* Kt = Ks + st * KT * SD;
+    const T* Vt = Vs + st * KT * SD;
     if constexpr (PRE) {
       if (it == 0) {                     // this warp's q rows, split once
         uint32_t* Qb = reinterpret_cast<uint32_t*>(Qs);
@@ -419,14 +441,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           split<false>(Qs[i] * scale, Qb[i], Qsm[i]);
         }
       }
-      presplit<D, kTile, NT>(Ks + st * kTile * SD, Ksm);
-      presplit<D, kTile, NT>(Vs + st * kTile * SD, Vsm);
+      presplit<D, KT, NT>(Ks + st * KT * SD, Ksm);
+      presplit<D, KT, NT>(Vs + st * KT * SD, Vsm);
       __syncthreads();
     }
 
-    // s = q k^T: 16 rows x 64 keys in 8 accumulator tiles, each k-step
+    // s = q k^T: 16 rows x KT keys in NK accumulator tiles, each k-step
     // added with round-to-nearest (m is held to 1e-5)
-    float s[8][4];
+    float s[NK][4];
     zero(s);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
@@ -435,17 +457,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  r0, kk * 8)
               : load_a<T, SD, EX>(Qs, r0, kk * 8, qmul);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
         mma3_rn<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE>(Kt, n * 8,
                                                              kk * 8, Ksm));
     }
 
     // online softmax over rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    const bool cut =
-        !mask.all_kept(q0, ROWS, k0, kTile) || k0 + kTile > Tk;
+    const bool cut = !mask.all_kept(q0, ROWS, k0, KT) || k0 + KT > Tk;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * smul;
@@ -467,7 +488,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lrow[r] *= corr[r];
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[n][e];
@@ -476,17 +497,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         lrow[e >> 1] += p;
       }
 
-    // o = o corr + p v: the accumulators of p are the A operand, 8 keys a
-    // k-step; the tile's p v goes to a zeroed fragment
+    // o = o corr + p v over this CTA's columns: the accumulators of p are
+    // the A operand, 8 keys a k-step; the tile's p v goes to a zeroed
+    // fragment
     float pv[NO][4];
     zero(pv);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NK; ++j) {
       const FragA a = a_from_acc(s[j]);
 #pragma unroll
       for (int n = 0; n < NO; ++n)
-        mma3<false, EX>(pv[n], a, load_b_cols<T, SD, EX, PRE>(Vt, j * 8,
-                                                              n * 8, Vsm));
+        mma3<false, EX>(pv[n], a, load_b_cols<T, SD, EX, PRE>(
+                                      Vt, j * 8, c0 + n * 8, Vsm));
     }
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -505,9 +527,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = ((size_t)b * Tq + i) * H + h;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(o + row * D + n * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(o + row * D + c0 + n * 8 + 2 * t) =
           make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-    if (t == 0) {
+    if (t == 0 && nc == 0) {             // every column CTA has the same
       l[row] = lsum;
       m[row] = mrow[r];
     }
@@ -535,9 +557,9 @@ __device__ __forceinline__ void await_tile(int it, bool has_next,
 
 // -- K2: flash_bwd_dkdv --------------------------------------------------
 
-// One CTA per (b, kv head, 16 W keys); warp w owns keys 16 w .. 16 w + 15.
-// DV / DK select what this sweep accumulates (both at D = 64; at D = 128
-// one launch each, see the header).
+// One CTA per (b, kv head, 16 W keys, DO output columns); warp w owns
+// keys 16 w .. 16 w + 15.  DV / DK select what this sweep accumulates
+// (both at D = 64; at D = 128 and 256 one launch each, see the header).
 template <typename T, int D, bool DV, bool DK>
 __global__ void __launch_bounds__(Shape<T, D>::W * 32, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -548,24 +570,27 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ dk, float* __restrict__ dv, int Tq,
                       int Tk, int H, int Hkv, float scale, Mask mask) {
   constexpr int SD = stride_of<T, D>(), SF = stride_of<float, D>();
-  constexpr int KS = D / 8, NO = D / 8, NS = Shape<T, D>::BWD_NS;
-  constexpr int NT = Shape<T, D>::W * 32, ROWS = Shape<T, D>::W * 16;
+  using SH = Shape<T, D>;
+  constexpr int KS = D / 8, NO = SH::DO / 8, NS = SH::BWD_NS;
+  constexpr int KT = SH::KT, NK = KT / 8, NC = D / SH::DO;
+  constexpr int NT = SH::W * 32, ROWS = SH::W * 16;
   constexpr bool EX = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + ROWS * SD;
   T* Qs = Vs + ROWS * SD;                        // NS stages
-  float* dOs = reinterpret_cast<float*>(Qs + NS * kTile * SD);  // NS stages
-  float* Ls = dOs + NS * kTile * SF;             // NS stages
-  float* Dl = Ls + NS * kTile;                   // NS stages
+  float* dOs = reinterpret_cast<float*>(Qs + NS * KT * SD);  // NS stages
+  float* Ls = dOs + NS * KT * SF;             // NS stages
+  float* Dl = Ls + NS * KT;                   // NS stages
   // at D = 64 dO (and an f32 Q) are split once a tile: small parts here
   constexpr bool PRE_O = D == 64, PRE_Q = PRE_O && !EX;
-  uint32_t* dOsm = reinterpret_cast<uint32_t*>(Dl + NS * kTile);
-  uint32_t* Qsm = dOsm + kTile * SF;
+  uint32_t* dOsm = reinterpret_cast<uint32_t*>(Dl + NS * KT);
+  uint32_t* Qsm = dOsm + KT * SF;
 
   // the first key tiles (most visible queries when causal) launch first
-  const int nkt = (Tk + ROWS - 1) / ROWS, BHk = gridDim.x / nkt;
-  const int kt = (int)blockIdx.x / BHk, bhk = blockIdx.x % BHk;
+  const int nc = (int)blockIdx.x % NC, blk = (int)blockIdx.x / NC;
+  const int nkt = (Tk + ROWS - 1) / ROWS, BHk = gridDim.x / NC / nkt;
+  const int kt = blk / BHk, bhk = blk % BHk, c0 = nc * SH::DO;
   const int b = bhk / Hkv, hk = bhk % Hkv, G = H / Hkv;
   const int k0 = kt * ROWS, nk = min(ROWS, Tk - k0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -574,19 +599,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kbase = ((size_t)b * Tk * Hkv + hk) * D + k0 * ks;
 
   int lo, hi;
-  visible_range<false>(mask, k0, nk, Tq, lo, hi);
+  visible_range<false, KT>(mask, k0, nk, Tq, lo, hi);
   const int nqt = hi - lo + 1, items = nqt > 0 ? G * nqt : 0;
   // item i: q head hk * G + i / nqt, q tile lo + i % nqt
   auto stage_item = [&](int i, int st) {
-    const int h = hk * G + i / nqt, q0 = (lo + i % nqt) * kTile;
-    const int nq = min(kTile, Tq - q0);
+    const int h = hk * G + i / nqt, q0 = (lo + i % nqt) * KT;
+    const int nq = min(KT, Tq - q0);
     const size_t base = ((size_t)b * Tq * H + h) * D + q0 * qs;
     const size_t rbase = ((size_t)b * Tq + q0) * H + h;
-    stage_rows<T, D, kTile, NT>(Qs + st * kTile * SD, q + base, qs, nq);
-    stage_rows<float, D, kTile, NT>(dOs + st * kTile * SF, dout + base, qs,
+    stage_rows<T, D, KT, NT>(Qs + st * KT * SD, q + base, qs, nq);
+    stage_rows<float, D, KT, NT>(dOs + st * KT * SF, dout + base, qs,
                                     nq);
-    stage_vec<NT>(Ls + st * kTile, lse + rbase, H, nq);
-    if (DK) stage_vec<NT>(Dl + st * kTile, delta + rbase, H, nq);
+    stage_vec<KT, NT>(Ls + st * KT, lse + rbase, H, nq);
+    if (DK) stage_vec<KT, NT>(Dl + st * KT, delta + rbase, H, nq);
     cp_commit();
   };
   stage_rows<T, D, ROWS, NT>(Ks, k + kbase, ks, nk);
@@ -599,37 +624,37 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(dka);
 
   for (int it = 0; it < items; ++it) {
-    const int st = NS == 2 ? it & 1 : 0, q0 = (lo + it % nqt) * kTile;
+    const int st = NS == 2 ? it & 1 : 0, q0 = (lo + it % nqt) * KT;
     await_tile<NS>(it, it + 1 < items, [&] { stage_item(it + 1, st ^ 1); },
                    [&] { stage_item(it, 0); });
-    const T* Qt = Qs + st * kTile * SD;
-    const float* dOt = dOs + st * kTile * SF;
-    const float* Lt = Ls + st * kTile;
-    const float* Dt = Dl + st * kTile;
+    const T* Qt = Qs + st * KT * SD;
+    const float* dOt = dOs + st * KT * SF;
+    const float* Lt = Ls + st * KT;
+    const float* Dt = Dl + st * KT;
     if constexpr (PRE_O) {
       if constexpr (PRE_Q)
-        presplit<D, kTile, NT>(reinterpret_cast<float*>(Qs) + st * kTile * SD,
+        presplit<D, KT, NT>(reinterpret_cast<float*>(Qs) + st * KT * SD,
                                Qsm);
-      presplit<D, kTile, NT>(dOs + st * kTile * SF, dOsm);
+      presplit<D, KT, NT>(dOs + st * KT * SF, dOsm);
       __syncthreads();
     }
 
-    // s^T = k q^T: 16 keys x 64 queries
-    float s[8][4];
+    // s^T = k q^T: 16 keys x KT queries
+    float s[NK][4];
     zero(s);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const FragA a = load_a<T, SD, EX>(Ks, r0, kk * 8);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
         mma3<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE_Q>(Qt, n * 8,
                                                             kk * 8, Qsm));
     }
     // p^T = exp(s^T scale - lse), 0 where masked, past Tq or lse = -inf
     const bool cut =
-        !mask.all_kept(q0, kTile, k0, ROWS) || q0 + kTile > Tq;
+        !mask.all_kept(q0, KT, k0, ROWS) || q0 + KT > Tq;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);
@@ -644,47 +669,49 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     if (DK) {
       // dp^T = v do^T, then ds^T = p^T (dp^T - delta)
-      float dp[8][4];
+      float dp[NK][4];
       zero(dp);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const FragA a = load_a<T, SD, EX>(Vs, r0, kk * 8);
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < NK; ++n)
           mma3<EX, false>(dp[n], a, load_b_rows<float, SF, false, PRE_O>(
                                         dOt, n * 8, kk * 8, dOsm));
       }
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[n][e] = s[n][e] * (dp[n][e] - Dt[n * 8 + 2 * t + (e & 1)]);
-      // dk += ds^T q, the tile's part in a zeroed fragment
+      // dk += ds^T q over this CTA's columns, the tile's part in a
+      // zeroed fragment
       float part[DK ? NO : 1][4];
       zero(part);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NK; ++j) {
         const FragA a = a_from_acc(dp[j]);
 #pragma unroll
         for (int n = 0; n < NO; ++n)
           mma3<false, EX>(part[DK ? n : 0], a,
-                          load_b_cols<T, SD, EX, PRE_Q>(Qt, j * 8, n * 8,
-                                                        Qsm));
+                          load_b_cols<T, SD, EX, PRE_Q>(Qt, j * 8,
+                                                        c0 + n * 8, Qsm));
       }
       add(dka, part);
     }
     if (DV) {
-      // dv += p^T do, the tile's part in a zeroed fragment
+      // dv += p^T do over this CTA's columns, the tile's part in a
+      // zeroed fragment
       float part[DV ? NO : 1][4];
       zero(part);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NK; ++j) {
         const FragA a = a_from_acc(s[j]);
 #pragma unroll
         for (int n = 0; n < NO; ++n)
           mma3<false, false>(part[DV ? n : 0], a,
                              load_b_cols<float, SF, false, PRE_O>(
-                                 dOt, j * 8, n * 8, dOsm));
+                                 dOt, j * 8, c0 + n * 8, dOsm));
       }
       add(dva, part);
     }
@@ -696,7 +723,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int j = k0 + r0 + g + 8 * r;
     if (j >= Tk) continue;
-    const size_t row = (((size_t)b * Tk + j) * Hkv + hk) * D;
+    const size_t row = (((size_t)b * Tk + j) * Hkv + hk) * D + c0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if (DK)
@@ -711,7 +738,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- K2: flash_bwd_dq ----------------------------------------------------
 
-// One CTA per (b, h, 16 W q rows); warp w owns rows 16 w .. 16 w + 15.
+// One CTA per (b, h, 16 W q rows, DO output columns); warp w owns rows
+// 16 w .. 16 w + 15.
 template <typename T, int D>
 __global__ void __launch_bounds__(Shape<T, D>::W * 32, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -720,21 +748,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Tq, int Tk, int H, int Hkv, float scale, Mask mask) {
   constexpr int SD = stride_of<T, D>(), SF = stride_of<float, D>();
-  constexpr int KS = D / 8, NO = D / 8, NS = Shape<T, D>::BWD_NS;
-  constexpr int NT = Shape<T, D>::W * 32, ROWS = Shape<T, D>::W * 16;
+  using SH = Shape<T, D>;
+  constexpr int KS = D / 8, NO = SH::DO / 8, NS = SH::BWD_NS;
+  constexpr int KT = SH::KT, NK = KT / 8, NC = D / SH::DO;
+  constexpr int NT = SH::W * 32, ROWS = SH::W * 16;
   constexpr bool EX = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + ROWS * SD;                        // NS stages
-  T* Vs = Ks + NS * kTile * SD;                  // NS stages
-  float* dOs = reinterpret_cast<float*>(Vs + NS * kTile * SD);
+  T* Vs = Ks + NS * KT * SD;                  // NS stages
+  float* dOs = reinterpret_cast<float*>(Vs + NS * KT * SD);
   // f32 at D = 64: K/V split once a tile, small parts here
   constexpr bool PRE = !EX && D == 64;
   uint32_t* Ksm = reinterpret_cast<uint32_t*>(dOs + ROWS * SF);
-  uint32_t* Vsm = Ksm + kTile * SD;
+  uint32_t* Vsm = Ksm + KT * SD;
 
-  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / nqt;
-  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;
+  const int nc = (int)blockIdx.x % NC, blk = (int)blockIdx.x / NC;
+  const int nqt = (Tq + ROWS - 1) / ROWS, BH = gridDim.x / NC / nqt;
+  const int qt = nqt - 1 - blk / BH, bh = blk % BH, c0 = nc * SH::DO;
   const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int q0 = qt * ROWS, nq = min(ROWS, Tq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -744,12 +775,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vbase = v + ((size_t)b * Tk * Hkv + hk) * D;
 
   int lo, hi;
-  visible_range<true>(mask, q0, nq, Tk, lo, hi);
+  visible_range<true, KT>(mask, q0, nq, Tk, lo, hi);
   auto stage_kv = [&](int kt, int st) {
-    const int k1 = kt * kTile, n1 = min(kTile, Tk - k1);
-    stage_rows<T, D, kTile, NT>(Ks + st * kTile * SD, kbase + k1 * ks, ks,
+    const int k1 = kt * KT, n1 = min(KT, Tk - k1);
+    stage_rows<T, D, KT, NT>(Ks + st * KT * SD, kbase + k1 * ks, ks,
                                 n1);
-    stage_rows<T, D, kTile, NT>(Vs + st * kTile * SD, vbase + k1 * ks, ks,
+    stage_rows<T, D, KT, NT>(Vs + st * KT * SD, vbase + k1 * ks, ks,
                                 n1);
     cp_commit();
   };
@@ -772,26 +803,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(dqa);
 
   for (int kt = lo, it = 0; kt <= hi; ++kt, ++it) {
-    const int st = NS == 2 ? it & 1 : 0, k0 = kt * kTile;
+    const int st = NS == 2 ? it & 1 : 0, k0 = kt * KT;
     await_tile<NS>(it, kt < hi, [&] { stage_kv(kt + 1, st ^ 1); },
                    [&] { stage_kv(kt, 0); });
-    const T* Kt = Ks + st * kTile * SD;
-    const T* Vt = Vs + st * kTile * SD;
+    const T* Kt = Ks + st * KT * SD;
+    const T* Vt = Vs + st * KT * SD;
     if constexpr (PRE) {
-      presplit<D, kTile, NT>(Ks + st * kTile * SD, Ksm);
-      presplit<D, kTile, NT>(Vs + st * kTile * SD, Vsm);
+      presplit<D, KT, NT>(Ks + st * KT * SD, Ksm);
+      presplit<D, KT, NT>(Vs + st * KT * SD, Vsm);
       __syncthreads();
     }
 
-    // s = q k^T and dp = do v^T: 16 rows x 64 keys each
-    float s[8][4], dp[8][4];
+    // s = q k^T and dp = do v^T: 16 rows x KT keys each
+    float s[NK][4], dp[NK][4];
     zero(s);
     zero(dp);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const FragA a = load_a<T, SD, EX>(Qs, r0, kk * 8);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
         mma3<EX, EX>(s[n], a, load_b_rows<T, SD, EX, PRE>(Kt, n * 8, kk * 8,
                                                           Ksm));
     }
@@ -799,15 +830,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < KS; ++kk) {
       const FragA a = load_a<float, SF, false>(dOs, r0, kk * 8);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NK; ++n)
         mma3<false, EX>(dp[n], a, load_b_rows<T, SD, EX, PRE>(
                                       Vt, n * 8, kk * 8, Vsm));
     }
     // ds = p (dp - delta), p = exp(s scale - lse) or 0
     const bool cut =
-        !mask.all_kept(q0, ROWS, k0, kTile) || k0 + kTile > Tk;
+        !mask.all_kept(q0, ROWS, k0, KT) || k0 + KT > Tk;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float L = Lr[e >> 1];
@@ -820,16 +851,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = ok ? expf(s[n][e] * scale - L) : 0.f;
         dp[n][e] = p * (dp[n][e] - Dr[e >> 1]);
       }
-    // dq += ds k, the tile's part in a zeroed fragment (s is dead)
+    // dq += ds k over this CTA's columns, the tile's part in a zeroed
+    // fragment (s is dead)
     float part[NO][4];
     zero(part);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NK; ++j) {
       const FragA a = a_from_acc(dp[j]);
 #pragma unroll
       for (int n = 0; n < NO; ++n)
         mma3<false, EX>(part[n], a, load_b_cols<T, SD, EX, PRE>(
-                                        Kt, j * 8, n * 8, Ksm));
+                                        Kt, j * 8, c0 + n * 8, Ksm));
     }
     add(dqa, part);
     __syncthreads();                     // this stage is refilled next
@@ -840,7 +872,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + r0 + g + 8 * r;
     if (i >= Tq) continue;
-    const size_t row = (((size_t)b * Tq + i) * H + h) * D;
+    const size_t row = (((size_t)b * Tq + i) * H + h) * D + c0;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(dq + row + n * 8 + 2 * t) =
@@ -854,26 +886,36 @@ template <typename T, int D> constexpr size_t tile_bytes(int rows) {
 }
 template <typename T, int D> constexpr size_t fwd_smem() {
   // Q, 2 x K, 2 x V, and at D = 64 in f32 the small parts of Q, K, V
-  constexpr int R = Shape<T, D>::FWD_W * 16;
-  return tile_bytes<T, D>(R + 4 * kTile) +
-         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(R + 2 * kTile)
-                                    : 0);
+  constexpr int R = Shape<T, D>::FWD_W * 16, KT = Shape<T, D>::KT;
+  return tile_bytes<T, D>(R + 4 * KT) +
+         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(R + 2 * KT) : 0);
 }
 template <typename T, int D> constexpr size_t dkdv_smem() {
   // K, V, NS x (Q, dO, lse, delta), and at D = 64 the small parts of dO
   // (and of an f32 Q)
   constexpr int R = Shape<T, D>::W * 16, NS = Shape<T, D>::BWD_NS;
-  constexpr int SMALL = D == 64 ? (sizeof(T) == 4 ? 2 : 1) * kTile : 0;
-  return tile_bytes<T, D>(2 * R + NS * kTile) +
-         tile_bytes<float, D>(NS * kTile + SMALL) +
-         2 * NS * kTile * sizeof(float);
+  constexpr int KT = Shape<T, D>::KT;
+  constexpr int SMALL = D == 64 ? (sizeof(T) == 4 ? 2 : 1) * KT : 0;
+  return tile_bytes<T, D>(2 * R + NS * KT) +
+         tile_bytes<float, D>(NS * KT + SMALL) + 2 * NS * KT * sizeof(float);
 }
 template <typename T, int D> constexpr size_t dq_smem() {
   // Q, NS x (K, V), dO, and at D = 64 in f32 the small parts of K, V
   constexpr int R = Shape<T, D>::W * 16, NS = Shape<T, D>::BWD_NS;
-  return tile_bytes<T, D>(R + 2 * NS * kTile) + tile_bytes<float, D>(R) +
-         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(2 * kTile) : 0);
+  constexpr int KT = Shape<T, D>::KT;
+  return tile_bytes<T, D>(R + 2 * NS * KT) + tile_bytes<float, D>(R) +
+         (sizeof(T) == 4 && D == 64 ? tile_bytes<float, D>(2 * KT) : 0);
 }
+
+// every instance fits the 227 KB a CTA may use
+template <typename T, int D> constexpr bool fits() {
+  return fwd_smem<T, D>() <= 232448 && dkdv_smem<T, D>() <= 232448 &&
+         dq_smem<T, D>() <= 232448;
+}
+static_assert(fits<float, 64>() && fits<float, 128>() &&
+              fits<float, 256>() && fits<__nv_bfloat16, 64>() &&
+              fits<__nv_bfloat16, 128>() && fits<__nv_bfloat16, 256>(),
+              "a flash attention CTA needs more than 227 KB");
 
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes) {
@@ -889,11 +931,12 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* l,
         void* m, int B, int Tq, int Tk, int H, int Hkv, float scale,
         Mask mask, cudaStream_t st) {
-  constexpr int W = Shape<T, D>::FWD_W;
+  constexpr int W = Shape<T, D>::FWD_W, NC = D / Shape<T, D>::DO;
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t e = allow_smem(kern, fwd_smem<T, D>());
   if (e != cudaSuccess) return (int)e;
-  kern<<<B * H * ceil_div(Tq, 16 * W), 32 * W, fwd_smem<T, D>(), st>>>(
+  kern<<<B * H * ceil_div(Tq, 16 * W) * NC, 32 * W, fwd_smem<T, D>(),
+         st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(o),
       static_cast<float*>(l), static_cast<float*>(m), Tq, Tk, H, Hkv, scale,
@@ -906,11 +949,12 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int Tq, int Tk, int H,
                         int Hkv, float scale, Mask mask, cudaStream_t st) {
-  constexpr int W = Shape<T, D>::W;
+  constexpr int W = Shape<T, D>::W, NC = D / Shape<T, D>::DO;
   auto kern = flash_bwd_dkdv_kernel<T, D, DV, DK>;
   cudaError_t e = allow_smem(kern, dkdv_smem<T, D>());
   if (e != cudaSuccess) return e;
-  kern<<<B * Hkv * ceil_div(Tk, 16 * W), 32 * W, dkdv_smem<T, D>(), st>>>(
+  kern<<<B * Hkv * ceil_div(Tk, 16 * W) * NC, 32 * W, dkdv_smem<T, D>(),
+         st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -924,7 +968,7 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq, void* dk, void* dv,
         int B, int Tq, int Tk, int H, int Hkv, float scale, Mask mask,
         cudaStream_t st) {
-  constexpr int W = Shape<T, D>::W;
+  constexpr int W = Shape<T, D>::W, NC = D / Shape<T, D>::DO;
   cudaError_t e;
   if constexpr (D == 64) {
     e = launch_dkdv<T, D, true, true>(q, k, v, dout, lse, delta, dk, dv, B,
@@ -940,7 +984,8 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
   auto q_kern = flash_bwd_dq_kernel<T, D>;
   e = allow_smem(q_kern, dq_smem<T, D>());
   if (e != cudaSuccess) return (int)e;
-  q_kern<<<B * H * ceil_div(Tq, 16 * W), 32 * W, dq_smem<T, D>(), st>>>(
+  q_kern<<<B * H * ceil_div(Tq, 16 * W) * NC, 32 * W, dq_smem<T, D>(),
+           st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -952,7 +997,7 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 f32, 1 bf16 (q, k and v share it).  D is 64 or 128.  Outputs
+// dtype: 0 f32, 1 bf16 (q, k and v share it).  D is 64, 128 or 256.  Outputs
 // are f32: o [B, Tq, H, D], l and m [B, Tq, H].  Every pointer 16-byte
 // aligned.
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -973,12 +1018,18 @@ int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1 && D == 128)
     return fwd<__nv_bfloat16, 128>(q, k, v, o, l, m, B, Tq, Tk, H, Hkv,
                                    scale, mask, st);
+  if (dtype == 0 && D == 256)
+    return fwd<float, 256>(q, k, v, o, l, m, B, Tq, Tk, H, Hkv, scale, mask,
+                           st);
+  if (dtype == 1 && D == 256)
+    return fwd<__nv_bfloat16, 256>(q, k, v, o, l, m, B, Tq, Tk, H, Hkv,
+                                   scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // dout, lse and delta are f32; dq [B, Tq, H, D] and dk/dv [B, Tk, Hkv, D]
-// are written in f32.  Launches flash_bwd_dkdv (twice at D = 128: dv,
-// then dk), then flash_bwd_dq.
+// are written in f32.  Launches flash_bwd_dkdv (twice at D = 128 and 256:
+// dv, then dk), then flash_bwd_dq.
 int bf_flash_bwd(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, int B, int Tq, int Tk, int H,
@@ -997,6 +1048,12 @@ int bf_flash_bwd(const void* q, const void* k, const void* v,
                                   Tq, Tk, H, Hkv, scale, mask, st);
   if (dtype == 1 && D == 128)
     return bwd<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B,
+                                   Tq, Tk, H, Hkv, scale, mask, st);
+  if (dtype == 0 && D == 256)
+    return bwd<float, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, Tq, Tk,
+                           H, Hkv, scale, mask, st);
+  if (dtype == 1 && D == 256)
+    return bwd<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B,
                                    Tq, Tk, H, Hkv, scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,15 +48,22 @@
 //     a second, small launch merges the splits in split order and writes
 //     o / l in q's type.  No atomics: reruns are bit-identical.
 //
-//   * Head dims.  The kernel is built for head-dim buckets DH = 32, 64
-//     and 128 and takes the actual head dim dr (any even dr <= 128) at
-//     run time: rows of q, pages and the output are dr values apart, and
-//     the staged tiles are DH wide with the columns past dr zero-filled,
+//   * Head dims.  The kernel is built for head-dim buckets DH = 32, 64,
+//     128 and 256 and takes the actual head dim dr (any dr <= 256, odd
+//     ones too) at run time: rows of q, pages and the output are dr
+//     values apart, and the staged tiles are DH wide with the columns
+//     past dr zero-filled,
 //     so they add nothing to q.k and give output columns that are not
 //     written.  A tile row arrives by 16-byte cp.async when dr fills whole
 //     16-byte chunks (dr % 4 == 0 for f32 pages, % 8 for bf16, % 16 for
 //     int8 / e4m3); otherwise each value is copied by a plain load and
-//     store, since a row then does not start on a 16-byte boundary.
+//     store, since a row then does not start on a 16-byte boundary.  At
+//     DH = 256 a lane holds 32 values of each of its rows' q and output
+//     in registers, so the 4-row groups (T * G > 16) hold 256 of them:
+//     ptxas spills those to local memory (chip_smoke prints its lines).
+//     Shared memory stays inside the card's 232,448 bytes at T * G = 64:
+//     at DH = 256 it takes 205,824 (f32 pages), 214,528 (bf16) and
+//     231,936 (int8 / e4m3, 128-key tiles).
 //
 // The C interface takes every pointer as void* (ctypes passes them as
 // c_void_p) and returns cudaGetLastError() after the launches.
@@ -97,8 +104,8 @@ template <> struct RawOf<4> { using T = uint32_t; };
 
 // the built head dim a run-time head dim dr runs at (0: none)
 __host__ __device__ inline int dh_bucket(int dr) {
-  if (dr < 2 || dr % 2 || dr > 128) return 0;
-  return dr <= 32 ? 32 : dr <= 64 ? 64 : 128;
+  if (dr < 1 || dr > 256) return 0;
+  return dr <= 32 ? 32 : dr <= 64 ? 64 : dr <= 128 ? 128 : 256;
 }
 
 // keys per staged tile: 8 KB of K at Dh 64 for every page type
@@ -483,6 +490,7 @@ int by_dh(int Dh, const void* q, const void* k, const void* v,
     case 32: return launch<QT, PT, 32>(BF_LAUNCH_ARGS);
     case 64: return launch<QT, PT, 64>(BF_LAUNCH_ARGS);
     case 128: return launch<QT, PT, 128>(BF_LAUNCH_ARGS);
+    case 256: return launch<QT, PT, 256>(BF_LAUNCH_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -523,7 +531,7 @@ size_t bf_flash_decode_smem_bytes(int TG, int Dh, int page_dtype) {
 // when no lane reads through a prefix page.  part: f32 scratch of
 // S * Hkv * nsplit * T * G * (DH + 2) values, DH the head-dim bucket of
 // Dh (null when nsplit is 1); split sp covers keys [sp * chunk, (sp + 1)
-// * chunk).  Dh: any even head dim up to 128.
+// * chunk).  Dh: any head dim from 1 to 256.
 int bf_flash_decode(const void* q, const void* k, const void* v,
                     const void* ksc, const void* vsc, const void* slots,
                     const void* lengths, const void* ps, const void* pl,

@@ -13,12 +13,13 @@ versions,
 (dense einsums over the whole ``Tk``).  A CUDA tensor never takes the
 plain version: the kernel launches or the call raises.
 
-The kernels are built for head_dim 64 and 128.  Every other even head
-dim up to 128 (the JAX models take any even one) runs at the next of the
-two: the wrappers zero-pad q/k/v (and ``do``) along the head dim and
-slice the results back.  That is exact: the zero columns add nothing to
-q.k, and the padded columns of o, dq, dk and dv are dropped; the caller's
-``scale`` (``1/sqrt(D)`` of the unpadded D) is used as given.
+The kernels are built for head_dim 64, 128 and 256.  Every other head
+dim from 1 to 256 (the JAX kernels take any one; odd ones too) runs at
+the next of the three: the wrappers zero-pad q/k/v (and ``do``) along the
+head dim and slice the results back.  That is exact: the zero columns add
+nothing to q.k, and the padded columns of o, dq, dk and dv are dropped;
+the caller's ``scale`` (``1/sqrt(D)`` of the unpadded D) is used as
+given.
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches (one per
 forward call; one per backward call, which runs the dkdv and dq kernels),
@@ -44,8 +45,8 @@ NEG_INF = -1e30  # large-negative stand-in: keeps exp() exact zeros without nan
 _LIB = "flash_attention"
 _SOURCES = ("flash_attention.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)       # built instances; other even D pad up
-MAX_HEAD_DIM = 128
+_HEAD_DIMS = (64, 128, 256)  # built instances; other D pad up
+MAX_HEAD_DIM = 256
 
 fwd_launches = 0
 bwd_launches = 0
@@ -164,14 +165,14 @@ def attention_block_backward_plain(q, k, v, do, lse, delta, q_offset=0,
 
 
 def kernel_head_dim(D: int, name: str = "flash attention") -> int:
-    """The built head dim that ``D`` runs at: 64 for every even D up to
-    64, 128 for every even D up to 128.  Anything else raises."""
-    if D % 2 or not 0 < D <= MAX_HEAD_DIM:
+    """The built head dim that ``D`` runs at: the least of 64, 128 and 256
+    that holds it.  Anything outside 1..256 raises."""
+    if not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{name} head_dim {D}: the kernels take even head dims up to "
+            f"{name} head_dim {D}: the kernels take head dims from 1 up to "
             f"{MAX_HEAD_DIM} (built for {_HEAD_DIMS}; the others are "
             "zero-padded to the next)")
-    return _HEAD_DIMS[0] if D <= _HEAD_DIMS[0] else _HEAD_DIMS[1]
+    return next(b for b in _HEAD_DIMS if D <= b)
 
 
 def _pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -239,7 +240,7 @@ def _shapes(q, k, v) -> Tuple[int, int, int, int, int, int]:
 def flash_fwd_cuda(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
                    scale: float, window: int = 0) -> Tensors3:
     """Launch ``flash_fwd`` on CUDA tensors: ``(o, l, m)`` in f32; any
-    even head dim up to 128 (padded to the built one)."""
+    head dim up to 256 (padded to the built one)."""
     return _padded_fwd(_launch_fwd, q, k, v, q_offset, k_offset,
                        causal=causal, scale=scale, window=window)
 
@@ -273,7 +274,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, q_offset: int, k_offset: int,
                    *, causal: bool, scale: float, window: int = 0
                    ) -> Tensors3:
     """Launch ``flash_bwd_dkdv`` and ``flash_bwd_dq`` on CUDA tensors:
-    ``(dq, dk, dv)`` in f32; any even head dim up to 128 (padded to the
+    ``(dq, dk, dv)`` in f32; any head dim up to 256 (padded to the
     built one)."""
     return _padded_bwd(_launch_bwd, q, k, v, do, lse, delta, q_offset,
                        k_offset, causal=causal, scale=scale, window=window)

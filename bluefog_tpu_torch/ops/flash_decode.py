@@ -15,12 +15,12 @@ batch, the kv heads and the page length alone, and a second small launch
 merges the splits' partials.  Nothing on this path reads a device value
 back to the host.
 
-The kernel takes every even head dim up to 128 at run time, inside a
-built bucket of 32, 64 or 128 (:func:`head_dim_bucket`): the pages keep
-their own width, nothing is padded or copied.  Tile rows arrive by
+The kernel takes every head dim from 1 to 256 at run time, inside a
+built bucket of 32, 64, 128 or 256 (:func:`head_dim_bucket`): the pages
+keep their own width, nothing is padded or copied.  Tile rows arrive by
 16-byte ``cp.async`` when a row is whole 16-byte chunks (head_dim % 4
 for f32 pages, % 8 for bf16, % 16 for int8 / e4m3), else value by value
-with plain loads.
+with plain loads (every odd head dim).
 
 ``flash_decode_cuda.launches`` counts calls that launched the kernel (one
 per call, whether or not it needed the merge launch), so a run can show
@@ -44,8 +44,8 @@ _SOURCES = ("flash_decode.cu",)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
-_BUCKETS = (32, 64, 128)    # built head dims; dr <= bucket runs inside
-MAX_HEAD_DIM = 128
+_BUCKETS = (32, 64, 128, 256)   # built head dims; dr <= bucket runs inside
+MAX_HEAD_DIM = 256
 _MAX_SMEM = 232448          # bytes of shared memory one H100 CTA may use
 _MAX_ROWS = 64              # T * G rows of one CTA (16 row groups x 4)
 SMS = 132                   # streaming multiprocessors of an H100
@@ -81,11 +81,11 @@ def split_plan(S: int, Hkv: int, L: int) -> Tuple[int, int]:
 
 
 def head_dim_bucket(Dh: int) -> int:
-    """The built head dim a head dim ``Dh`` runs inside (every even ``Dh``
-    up to 128; anything else raises)."""
-    if Dh % 2 or not 0 < Dh <= MAX_HEAD_DIM:
+    """The built head dim a head dim ``Dh`` runs inside (every ``Dh``
+    from 1 up to 256; anything else raises)."""
+    if not 0 < Dh <= MAX_HEAD_DIM:
         raise ValueError(
-            f"flash decode head_dim {Dh}: the kernel takes even head dims "
+            f"flash decode head_dim {Dh}: the kernel takes head dims from 1 "
             f"up to {MAX_HEAD_DIM} (built in buckets {_BUCKETS})")
     return next(b for b in _BUCKETS if Dh <= b)
 

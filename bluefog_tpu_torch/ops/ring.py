@@ -1,21 +1,37 @@
-"""Ring attention over stacked ranks (counterpart of the contiguous layout
-of ``bluefog_tpu/ops/ring.py``).
+"""Ring primitives and ring attention over stacked ranks (counterpart of
+``bluefog_tpu/ops/ring.py``).
 
-The JAX function runs inside ``shard_map``: each device holds one block
+The JAX functions run inside ``shard_map``: each device holds one block
 of the sequence and K/V blocks rotate around the ring by ``ppermute``.
 Here the ranks live stacked along dim 0 of every tensor (``q, k, v``:
-``[n, batch, block_len, heads, head_dim]``), so rotation is a roll along
-dim 0: ring step ``t`` hands rank ``i`` the block of rank
-``src = (i - t) % n`` (rank i receives from i - 1 at every step), at
-global offsets ``i * block_q`` and ``src * block_k``.
+``[n, batch, block_len, heads, head_dim]``), so rotation is an index
+along dim 0: ring step ``t`` hands rank ``i`` the block of rank ``src =
+(i - t) % n`` (rank i receives from i - 1 at every step; :func:`ring_pass`
+is the one-step roll that moves every block).
 
-:func:`ring_attention` with CUDA tensors (or ``use_pallas`` on the CPU)
-goes through one ``torch.autograd.Function``: the forward folds K1
-partials (:func:`~bluefog_tpu_torch.ops.flash_attention.attention_block_partial`)
-with ``merge_partials`` and keeps ``(q, k, v, out, lse)``; the backward
-runs its own ring of K2 calls whose dk/dv accumulate per source block in
-the order the JAX accumulators rotate.  Otherwise it takes the plain
-path, :func:`_plain_ring_attention` (online softmax, autograd).
+Two layouts, both exact causal (or, contiguous only, bidirectional or
+windowed) attention over the whole sequence:
+
+* ``contiguous``: rank i holds block i, at global offsets ``i * block_q``
+  and ``src * block_k``.  With CUDA tensors (or ``use_pallas`` on the CPU)
+  one ``torch.autograd.Function`` folds a K1 partial
+  (:func:`~bluefog_tpu_torch.ops.flash_attention.attention_block_partial`)
+  per visible block with ``merge_partials`` and keeps ``(q, k, v, out,
+  lse)``; the backward runs its own ring of K2 calls whose dk/dv
+  accumulate per source block in the order the JAX accumulators rotate.
+  Otherwise the plain path, :func:`_plain_ring_attention` (online
+  softmax, autograd).
+* ``zigzag`` (causal only): the sequence is pre-permuted by
+  :func:`zigzag_order`, so rank i holds chunks ``i`` and ``2n-1-i``.  A
+  chunk pair is then wholly visible or wholly masked, except the two
+  diagonal pairs of step 0, so the kernel path launches K1 (and K2 in the
+  backward) once per class of chunk pair per ring step with every rank's
+  pairs stacked on the batch dim: at step 0 the diagonal pairs (causal,
+  relative offset 0) and the always-visible ``q_hi x k_lo`` pairs, at
+  every later step the two visible pairs of each rank (``causal=False``):
+  ``n + 1`` launches a call each way (:class:`_ZigzagFlash`).  The plain
+  path is :func:`_plain_zigzag` (the JAX ``_zigzag_impl`` with jnp
+  partials; autograd).
 """
 from __future__ import annotations
 
@@ -25,8 +41,56 @@ import numpy as np
 import torch
 
 from . import flash_attention as _fa
+from .collectives import allreduce
 
-__all__ = ["ring_attention", "online_softmax_merge"]
+__all__ = ["ring_attention", "online_softmax_merge", "ring_pass",
+           "ring_allreduce", "zigzag_order", "zigzag_inverse",
+           "zigzag_positions"]
+
+
+def ring_pass(x: torch.Tensor, *, shift: int = 1) -> torch.Tensor:
+    """Rotate blocks around the ranks stacked on dim 0: rank i receives
+    from rank ``i - shift`` (the JAX ``ppermute`` with pairs ``(i, i +
+    shift)``)."""
+    return torch.roll(x, shifts=shift, dims=0)
+
+
+def ring_allreduce(x: torch.Tensor, *, average: bool = False
+                   ) -> torch.Tensor:
+    """The JAX name of :func:`~bluefog_tpu_torch.ops.collectives.allreduce`
+    with the JAX default, the sum (what its reduce-scatter + all-gather
+    leaves on each device)."""
+    return allreduce(x, average=average)
+
+
+def zigzag_order(n: int, total_len: int) -> np.ndarray:
+    """Permutation putting a contiguous sequence into the zigzag layout:
+    ``tokens[zigzag_order(n, T)]`` sharded contiguously over ``n`` ranks
+    gives rank i chunks ``(i, 2n-1-i)`` of the original sequence."""
+    if total_len % (2 * n):
+        raise ValueError(f"sequence length {total_len} not divisible by 2n")
+    C = total_len // (2 * n)
+    chunks = np.arange(total_len).reshape(2 * n, C)
+    order = [c for i in range(n) for c in (chunks[i], chunks[2 * n - 1 - i])]
+    return np.concatenate(order)
+
+
+def zigzag_inverse(n: int, total_len: int) -> np.ndarray:
+    """Inverse permutation of :func:`zigzag_order` (zigzag ->
+    contiguous)."""
+    return np.argsort(zigzag_order(n, total_len))
+
+
+def zigzag_positions(idx, n: int, chunk: int) -> torch.Tensor:
+    """Global positions of rank ``idx``'s zigzag tokens (``[2 * chunk]``
+    int32): chunk ``idx`` followed by chunk ``2n-1-idx``.  ``idx`` may be
+    a 1-D tensor of ranks (``[len(idx), 2 * chunk]``), e.g.
+    ``torch.arange(n)`` for every stacked rank at once."""
+    idx = torch.as_tensor(idx, dtype=torch.int32)
+    ar = torch.arange(chunk, dtype=torch.int32, device=idx.device)
+    lo = idx[..., None] * chunk + ar
+    hi = (2 * n - 1 - idx)[..., None] * chunk + ar
+    return torch.cat([lo, hi], dim=-1)
 
 
 def _block_visible(idx: int, src: int, blk_q: int, blk_k: int,
@@ -73,9 +137,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA tensors the blocks always go through the K1/K2 kernels
     (``use_pallas`` is accepted for parity and selects nothing there); on
     the CPU ``use_pallas`` selects the same ring over the kernels' plain
-    versions.  ``window`` (needs ``causal``) masks keys more than
-    ``window - 1`` tokens behind the query.  Only the contiguous layout is
-    ported."""
+    versions.  ``window`` (needs ``causal``, contiguous layout) masks keys
+    more than ``window - 1`` tokens behind the query.  ``layout="zigzag"``
+    (causal only) expects each rank's block in the balanced order of
+    :func:`zigzag_order`: chunks ``(i, 2n-1-i)``."""
     if q.ndim != 5:
         raise ValueError(
             "expected stacked [n_ranks, batch, block_len, heads, head_dim]")
@@ -101,8 +166,21 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "window is a contiguous-layout feature (the zigzag "
                 "visibility table assumes full causal attention)")
     if layout == "zigzag":
-        raise ValueError("the zigzag ring layout is not yet ported to "
-                         "bluefog_tpu_torch; use layout='contiguous'")
+        if not causal:
+            raise ValueError(
+                "zigzag layout only pays for causal attention; use the "
+                "contiguous layout for bidirectional")
+        if q.shape[2] % 2:
+            raise ValueError("zigzag needs an even per-device block length "
+                             "(two chunks per device)")
+        if k.shape[2] != q.shape[2] or v.shape[2] != q.shape[2]:
+            raise ValueError(
+                "zigzag needs equal q/k/v block lengths (the chunk ids that "
+                "drive the visibility table assume one shard layout)")
+        if q.device.type == "cuda" or use_pallas:
+            return _ZigzagFlash.apply(q, k, v, float(scale),
+                                      int(pallas_block_q))
+        return _plain_zigzag(q, k, v, float(scale))
     if q.device.type == "cuda" or use_pallas:
         return _RingFlash.apply(q, k, v, bool(causal), float(scale),
                                 int(pallas_block_q), int(window or 0))
@@ -209,4 +287,199 @@ def _plain_ring_attention(q, k, v, causal: bool, scale: float,
             o, l, m = online_softmax_merge(o, l, m, s, vt)
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         outs.append((o / l[..., None]).to(q.dtype))
+    return torch.stack(outs)
+
+
+# -- the zigzag layout ---------------------------------------------------
+
+def _lo_hi(x: torch.Tensor, copies: int = 2) -> torch.Tensor:
+    """``[n, B, 2C, ...] -> [copies * n, B, C, ...]``: every rank's low
+    chunk, then every rank's high chunk (chunk ``i`` is rank i's sequence
+    chunk i, chunk ``n + i`` its chunk 2n-1-i); ``copies=3`` repeats the
+    high chunks once more, so that each ring step's q chunks are one
+    slice (:func:`_zigzag_plan`)."""
+    n, B, T2 = x.shape[:3]
+    halves = x.reshape((n, B, 2, T2 // 2) + tuple(x.shape[3:]))
+    lo, hi = halves[:, :, 0], halves[:, :, 1]
+    return torch.cat([lo] + [hi] * (copies - 1))
+
+
+def _from_lo_hi(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_lo_hi` (two copies)."""
+    n2, B, C = x.shape[:3]
+    y = x.reshape((2, n2 // 2, B, C) + tuple(x.shape[3:])).movedim(0, 2)
+    return y.reshape((n2 // 2, B, 2 * C) + tuple(x.shape[3:]))
+
+
+def _zigzag_plan(n: int, t: int):
+    """Ring step ``t`` as ``(launches, q_folds, k_folds)``, over the chunks
+    of :func:`_lo_hi`.
+
+    A launch ``(causal, q0, rows, k_pieces)`` takes q chunks ``q0 .. q0 +
+    rows - 1`` of ``[lo, hi, hi]`` (a slice) and the k/v chunks of the
+    ``[a, b)`` pieces of ``[lo, hi]`` laid end to end; its row r pairs
+    the r-th of each.  A fold ``(launch, r0, r1, chunk)`` adds rows ``[r0,
+    r1)`` of a launch's result into q (or k) chunks ``chunk ..``; the
+    folds run in the order the JAX step sums: a q chunk takes ``q_hi x
+    k_lo`` before its other pair, a k chunk its other pair before ``q_hi
+    x k_lo``.
+
+    Step 0: ``q_hi x k_lo`` of every rank (wholly visible), then the
+    diagonal pairs (causal at relative offset 0).  Step t >= 1, ranks
+    enumerated ``i = t, ..., n-1, 0, ..., t-1`` so that the source ``s =
+    (i - t) % n`` runs ``0 .. n-1``: rows ``0 .. n-1`` are ``q_lo[i] x
+    k_lo[s]`` (i >= t) and ``q_hi[i] x k_hi[s]`` (i < t), rows ``n ..
+    2n-1`` are ``q_hi[i] x k_lo[s]``; every pair is wholly visible, so
+    the step is one launch."""
+    if t == 0:
+        return ([(False, n, n, [(0, n)]), (True, 0, 2 * n, [(0, 2 * n)])],
+                [(0, 0, n, n), (1, 0, 2 * n, 0)],
+                [(1, 0, 2 * n, 0), (0, 0, n, 0)])
+    return ([(False, t, 2 * n, [(0, n - t), (2 * n - t, 2 * n), (0, n)])],
+            [(0, n, 2 * n - t, n + t), (0, 2 * n - t, 2 * n, n),
+             (0, 0, n, t)],
+            [(0, 0, n - t, 0), (0, n - t, n, 2 * n - t), (0, n, 2 * n, 0)])
+
+
+def _pieces(x: torch.Tensor, pieces) -> torch.Tensor:
+    """Chunks ``[a, b)`` of ``x`` for each piece, end to end."""
+    parts = [x[a:b] for a, b in pieces]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _fold_batch(x: torch.Tensor) -> torch.Tensor:
+    """``[rows, B, ...] -> [rows * B, ...]``, as the kernels take it."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _rows(parts, rows: int):
+    """Each kernel result ``[rows * B, ...]`` as ``[rows, B, ...]``."""
+    return [p.reshape((rows, -1) + tuple(p.shape[1:])) for p in parts]
+
+
+class _ZigzagFlash(torch.autograd.Function):
+    """The zigzag ring through K1/K2 (the JAX ``_zigzag_pallas`` and its
+    backward): per ring step one launch per class of chunk pair, every
+    rank's pairs of the class stacked on the batch dim (``n + 1`` launches
+    each way, :func:`_zigzag_plan`).  q-side operands are slices of a
+    ``[lo, hi, hi]`` copy made once a call; k/v are cut from ``[lo, hi]``
+    with one concatenation a step.  The forward keeps ``(q, k, v, out,
+    lse)``; the backward recomputes each pair's scores in K2 and
+    accumulates dk/dv per source chunk in the order the JAX accumulators
+    rotate."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, block_q):
+        n, dev = q.shape[0], q.device
+        qw, ks, vs = _lo_hi(q, 3), _lo_hi(k), _lo_hi(v)
+        shape = (2 * n,) + tuple(qw.shape[1:])
+        o = torch.zeros(shape, dtype=torch.float32, device=dev)
+        l = torch.zeros(shape[:4], dtype=torch.float32, device=dev)
+        m = torch.full(shape[:4], float("-inf"), device=dev)
+        for t in range(n):
+            launches, q_folds, _ = _zigzag_plan(n, t)
+            parts = [_rows(_fa.attention_block_partial(
+                _fold_batch(qw[q0:q0 + rows]), _fold_batch(_pieces(ks, kp)),
+                _fold_batch(_pieces(vs, kp)), 0, 0, causal=causal,
+                scale=scale, block_q=block_q), rows)
+                for causal, q0, rows, kp in launches]
+            for j, r0, r1, c in q_folds:
+                at = slice(c, c + r1 - r0)
+                o[at], l[at], m[at] = _fa.merge_partials(
+                    (o[at], l[at], m[at]), tuple(p[r0:r1] for p in parts[j]))
+        denom = torch.where(l == 0.0, torch.ones_like(l), l)
+        out = _from_lo_hi((o / denom[..., None]).to(q.dtype))
+        lse = _from_lo_hi(torch.where(
+            l == 0.0, torch.full_like(l, float("-inf")),
+            m + torch.log(denom)))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, block_q)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, block_q = ctx.args
+        n, dev = q.shape[0], q.device
+        do = g.float().contiguous()
+        delta = (do * out.float()).sum(dim=-1)           # [n, B, 2C, H]
+        qw, dow, lsew, dlw = (_lo_hi(x, 3) for x in (q, do, lse, delta))
+        ks, vs = _lo_hi(k), _lo_hi(v)
+        dq = torch.zeros((2 * n,) + tuple(qw.shape[1:]), dtype=torch.float32,
+                         device=dev)
+        dk = torch.zeros(ks.shape, dtype=torch.float32, device=dev)
+        dv = torch.zeros(vs.shape, dtype=torch.float32, device=dev)
+        for t in range(n):
+            launches, q_folds, k_folds = _zigzag_plan(n, t)
+            grads = []
+            for causal, q0, rows, kp in launches:
+                qt, dot, lset, dlt = (_fold_batch(x[q0:q0 + rows])
+                                      for x in (qw, dow, lsew, dlw))
+                grads.append(_rows(_fa.attention_block_backward(
+                    qt, _fold_batch(_pieces(ks, kp)),
+                    _fold_batch(_pieces(vs, kp)), dot, lset, dlt, 0, 0,
+                    causal=causal, scale=scale, block_q=block_q), rows))
+            for j, r0, r1, c in q_folds:
+                dq[c:c + r1 - r0] += grads[j][0][r0:r1]
+            for j, r0, r1, c in k_folds:
+                dk[c:c + r1 - r0] += grads[j][1][r0:r1]
+                dv[c:c + r1 - r0] += grads[j][2][r0:r1]
+        return (_from_lo_hi(dq).to(q.dtype), _from_lo_hi(dk).to(k.dtype),
+                _from_lo_hi(dv).to(v.dtype), None, None)
+
+
+def _plain_zigzag(q, k, v, scale: float) -> torch.Tensor:
+    """The plain path (JAX ``_zigzag_impl`` with jnp partials): per rank,
+    its low and high chunks fold the visible chunk pairs of each ring step
+    with an online softmax; gradients by autograd."""
+    n, B, T2 = q.shape[:3]
+    C = T2 // 2
+    G = q.shape[3] // k.shape[3]
+    ar = torch.arange(C, device=q.device)
+
+    def partial(qc, kc, vc, q_off, k_off, masked):
+        if G > 1:
+            kc = kc.repeat_interleave(G, dim=2)
+            vc = vc.repeat_interleave(G, dim=2)
+        s = torch.einsum("bihd,bjhd->bihj", qc.float() * scale, kc.float())
+        if masked:
+            keep = (q_off + ar)[:, None] >= (k_off + ar)[None, :]
+            s = s.masked_fill(~keep[None, :, None, :], float("-inf"))
+        o = torch.zeros(qc.shape[:3] + vc.shape[-1:], dtype=torch.float32,
+                        device=q.device)
+        l = torch.zeros(qc.shape[:3], dtype=torch.float32, device=q.device)
+        m = torch.full(qc.shape[:3], float("-inf"), device=q.device)
+        return online_softmax_merge(o, l, m, s, vc)
+
+    def fresh():
+        return (torch.zeros((B, C) + q.shape[3:], dtype=torch.float32,
+                            device=q.device),
+                torch.zeros((B, C, q.shape[3]), dtype=torch.float32,
+                            device=q.device),
+                torch.full((B, C, q.shape[3]), float("-inf"),
+                           device=q.device))
+
+    def norm(olm):
+        o, l, _ = olm
+        return o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+
+    outs = []
+    for i in range(n):
+        q_lo, q_hi = q[i][:, :C], q[i][:, C:]
+        off_lo, off_hi = i * C, (2 * n - 1 - i) * C
+        lo, hi = fresh(), fresh()
+        for t in range(n):
+            src = (i - t) % n
+            k_lo, k_hi = k[src][:, :C], k[src][:, C:]
+            v_lo, v_hi = v[src][:, :C], v[src][:, C:]
+            koff_lo, koff_hi = src * C, (2 * n - 1 - src) * C
+            if i >= src:
+                lo = _fa.merge_partials(lo, partial(q_lo, k_lo, v_lo, off_lo,
+                                                    koff_lo, True))
+            hi = _fa.merge_partials(hi, partial(q_hi, k_lo, v_lo, off_hi,
+                                                koff_lo, False))
+            if src >= i:
+                hi = _fa.merge_partials(hi, partial(q_hi, k_hi, v_hi, off_hi,
+                                                    koff_hi, True))
+        outs.append(torch.cat([norm(lo), norm(hi)], dim=1).to(q.dtype))
     return torch.stack(outs)

@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    are timed cold (``_device_ms``: L2 flushed before each call, as each
    layer's call finds its pages in the engine), the kernel and SDPA also
    warm (``warm_ms``); the kernels line carries the f32 and the int8
-   main-path cases (8 lanes, 16 kv heads);
+   main-path cases (8 lanes, 16 kv heads); then head_dim 256 (the widest
+   bucket) beside 64 on that shape with f32 and int8 pages, at the f32
+   tolerance, timed cold with their bounds (a ``head_dim_case`` line);
 3. the serving path at full width (the non-smoke shape of
    tools/serve_bench.py: vocab 32768, d_model 1024, 16 heads, 8 layers,
    random weights from seed 0) through ``ServeEngine`` and
@@ -50,10 +52,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    heads over 16 or 4 kv heads, causal, and a 2048-token window), forward
    and backward through the kernels against the same ring over the plain
    block functions (and the forward against the plain online-softmax
-   ring), at the tolerances of phase 4;
-4b. K1/K2 at head_dim 8, which the wrappers zero-pad to the built 64,
-   against their plain versions at phase 4's tolerances, timed beside
-   head_dim 64 at the trainer's shape (B 4, T 2048, 16 heads, causal);
+   ring), at the tolerances of phase 4; then the zigzag layout at the
+   same shapes (no window): K1 and K2 launched exactly n + 1 times a call
+   each, against the same ring over the plain block functions and the
+   contiguous ring on the un-permuted sequence, forward and grads;
+4b. K1/K2 at head_dim 8 (the wrappers zero-pad it to the built 64), 64,
+   128 and 256 (the widest built instance) against their plain versions
+   at phase 4's tolerances, timed side by side with their bounds at the
+   trainer's shape (B 4, T 2048, 16 heads, causal, f32);
 6. the decentralized trainer at full width (tools/lm_bench.py's
    non-smoke shape: vocab 32768, d_model 1024, 16 heads, seq 2048, batch
    4, micro 4, 2 layers, dp 4 ranks stacked on the card, Exp2 gossip,
@@ -76,6 +82,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must agree: losses rtol 1e-5, every peer's gradients atol 1e-4 x
    max|g|.  Peak device memory over the 4 steps (a copy of the initial
    params is kept on the card for the replay);
+11 (run after phases 9-10). the long-context trainer at full width:
+   ``RingTransformerLM`` at lm_bench's widths (vocab 32768, d_model 1024,
+   16 heads, 2 layers, rope, f32; 92.3 M parameters) over 8 stacked
+   sequence ranks, 16,384 tokens (2,048 a rank), batch 1, through
+   ``tools/long_context.py``'s step on its copy task (lag 8), Adam 3e-3,
+   seed 0, three ways: the contiguous ring, the zigzag ring and Ulysses;
+   1 warm-up and 3 timed steps each.  K1 and K2 must each launch layers x
+   n (n + 1) / 2 = 72, layers x (n + 1) = 18 and layers = 2 times a
+   step, the loss must fall, the zigzag's step-1 loss must equal the
+   contiguous one's (rtol 1e-5; same init, tokens permuted by
+   ``zigzag_order``), both the loss the step returned (the mean of
+   per-rank means) and the loss over every target token, and step 1
+   replayed with attention through the
+   plain versions (called one batch row at a time) must agree: loss rtol
+   1e-5, every parameter's gradient atol 1e-4 x max|g|.  s/step,
+   tokens/s, model FLOP/s and peak memory per layout; under
+   ``--profile`` K1+K2's share of device time;
 7. the grouped expert FFN K4 (``grouped_ffn``) against its plain version
    (gather + einsum) on inputs laid out by the dropless dispatch itself:
    D 1024, F 4096, 8 experts unless noted; the decode shapes (16 rows at
@@ -177,11 +200,11 @@ def _device_ms(fn, cold, iters=20, warmup=3):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def _pages(rng, rows, Hkv, store, kv):
+def _pages(rng, rows, Hkv, store, kv, dh=DH):
     """One layer's pages on the card: raw f32/bf16 or quantized."""
     cl = {}
     for name in ("k", "v"):
-        x = torch.from_numpy(rng.normal(size=(rows, Hkv, L, DH)).astype(
+        x = torch.from_numpy(rng.normal(size=(rows, Hkv, L, dh)).astype(
             np.float32)).to(DEV)
         if store == "f32":
             cl[name] = x
@@ -193,17 +216,17 @@ def _pages(rng, rows, Hkv, store, kv):
     return cl
 
 
-def _bound_ms(lens, T, Hkv, G, page_item, q_item, quantized, S):
+def _bound_ms(lens, T, Hkv, G, page_item, q_item, quantized, S, dh=DH):
     """Least time for the work: every needed K/V row read once (plus its
     scales), q read and the output written once, against the larger of
     the memory and the f32 arithmetic bound."""
     keys = sum(int(n) + T for n in lens)
-    nbytes = keys * Hkv * DH * 2 * page_item
+    nbytes = keys * Hkv * dh * 2 * page_item
     if quantized:
         nbytes += keys * Hkv * 2 * 4
-    nbytes += 2 * S * T * H * DH * q_item + 4 * S * 4
+    nbytes += 2 * S * T * H * dh * q_item + 4 * S * 4
     scored = sum((int(n) + t + 1) for n in lens for t in range(T))
-    flops = scored * H * DH * 4                       # q.k and p.v
+    flops = scored * H * dh * 4                       # q.k and p.v
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -307,6 +330,55 @@ def kernel_phase(fd, kv):
                 and store in ("f32", "int8"):
             main[store] = row
     return main["f32"], main["int8"]
+
+
+def decode_head_dim_phase(fd, kv):
+    """Phase 2 (head dims): K3 at head_dim 256 (its widest bucket) beside
+    64 on the main-path shape (8 lanes, 16 kv heads, T 1, f32 q) with f32
+    and int8 pages, against the plain version at phase 2's tolerance,
+    timed cold with their bounds; returns the Dh-256 rows."""
+    rng = np.random.default_rng(12)
+    S, Hkv, T = 8, 16, 1
+    lens = np.linspace(0, L - T, S).astype(np.int64)
+    slots_t = torch.arange(S, dtype=torch.int32, device=DEV)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    rows, out = [], {}
+    for store in ("f32", "int8"):
+        for dh in (64, 256):
+            cl = _pages(rng, S + 1, Hkv, store, kv, dh)
+            q = torch.from_numpy(rng.normal(size=(S, T, H, dh)).astype(
+                np.float32)).to(DEV)
+
+            def kern():
+                return fd.flash_attend_chunk(q, cl, slots_t, lens_t,
+                                             block_k=BK)
+
+            def plain():
+                return kv.attend_chunk(q, cl, slots_t, lens_t)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not (err <= 1e-4 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"flash decode at head_dim {dh} "
+                                     f"({store} pages) disagrees with its "
+                                     f"plain version: {err} (atol 1e-4)")
+            bound, bound_by = _bound_ms(lens, T, Hkv, H // Hkv,
+                                        cl["k"].element_size(), 4,
+                                        "k_scale" in cl, S, dh)
+            row = dict(store=store, Dh=dh, max_abs_err=err,
+                       ms=_device_ms(kern, True),
+                       warm_ms=_device_ms(kern, False),
+                       plain_ms=_device_ms(plain, True, iters=5, warmup=1),
+                       bound_ms=bound, bound_by=bound_by)
+            rows.append(row)
+            if dh == 256:
+                out[store] = row
+    print("head_dim_case " + json.dumps({
+        "kernel": "flash_decode", "S": S, "Hkv": Hkv, "H": H, "T": T,
+        "L": L, "cases": rows, "device": torch.cuda.get_device_name(0)}),
+        flush=True)
+    return out
 
 
 def _top2_gap(model, tokens):
@@ -612,13 +684,15 @@ def attention_phase(fa):
 
 def head_dim_phase(fa):
     """Phase 4b: K1/K2 at head_dim 8 (zero-padded to the built 64 by the
-    wrappers) and at 64 on the trainer's shape, checked against the plain
-    versions at phase 4's tolerances and timed side by side: the cost of
-    the padding."""
+    wrappers), 64, 128 and 256 (the widest built instance: 32-row tiles,
+    two column halves) on the trainer's shape (B 4, T 2048, 16 heads,
+    causal, f32), checked against the plain versions at phase 4's
+    tolerances and timed side by side with their bounds: the cost of the
+    padding and of the D-256 shape.  Returns the D-256 row."""
     rng = np.random.default_rng(9)
     B, T = 4, 2048
     rows = {}
-    for D in (8, 64):
+    for D in (8, 64, 128, 256):
         q, k, v, do = (torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(
             np.float32)).to(DEV) for _ in range(4))
         kw = dict(causal=True, scale=D ** -0.5)
@@ -642,17 +716,38 @@ def head_dim_phase(fa):
                                      f"with its plain version: {err}")
         del got, wgrads
         torch.cuda.synchronize()
+        pairs = _visible_pairs(T, T, 0, 0, True, 0)
+        fb, fby = _attn_bound(B, T, T, H, H, D, 4, pairs, False)
+        bb, bby = _attn_bound(B, T, T, H, H, D, 4, pairs, True)
         rows[D] = dict(
             D=D, fwd_err=fwd_err, bwd_err=bwd_err,
             fwd_ms=_cuda_ms(lambda: fa.attention_block_partial(
                 q, k, v, 0, 0, **kw), iters=10, warmup=2),
             bwd_ms=_cuda_ms(lambda: fa.attention_block_backward(
-                q, k, v, do, lse, delta, 0, 0, **kw), iters=5, warmup=1))
+                q, k, v, do, lse, delta, 0, 0, **kw), iters=5, warmup=1),
+            fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+            bwd_bound_by=bby)
+        if D == 256:
+            rows[D]["fwd_plain_ms"] = _cuda_ms(
+                lambda: fa.attention_block_partial_plain(q, k, v, 0, 0,
+                                                         **kw),
+                iters=2, warmup=1)
+            rows[D]["bwd_plain_ms"] = _cuda_ms(
+                lambda: fa.attention_block_backward_plain(
+                    q, k, v, do, lse, delta, 0, 0, **kw), iters=2, warmup=1)
+        del q, k, v, do, lse, delta
+        torch.cuda.empty_cache()
     print("head_dim_case " + json.dumps({
-        "B": B, "T": T, "H": H, "causal": True, "cases": list(rows.values()),
+        "kernel": "flash_fwd/flash_bwd", "B": B, "T": T, "H": H,
+        "causal": True, "cases": list(rows.values()),
         "fwd_ratio_d8_over_d64": rows[8]["fwd_ms"] / rows[64]["fwd_ms"],
         "bwd_ratio_d8_over_d64": rows[8]["bwd_ms"] / rows[64]["bwd_ms"],
+        "fwd_ratio_d256_over_d128": rows[256]["fwd_ms"]
+        / rows[128]["fwd_ms"],
+        "bwd_ratio_d256_over_d128": rows[256]["bwd_ms"]
+        / rows[128]["bwd_ms"],
         "device": torch.cuda.get_device_name(0)}), flush=True)
+    return rows[256]
 
 
 def ring_phase(fa, ring):
@@ -704,6 +799,98 @@ def ring_phase(fa, ring):
             "grad_errs": [e for e, _ in errs], "fwd_launches": launches[0],
             "bwd_launches": launches[1], "fwd_bwd_wall_ms": ms}),
             flush=True)
+
+
+def _plain_by_row(fn):
+    """``fn`` (a K1/K2 plain version) called on one batch row at a time:
+    the same function (rows are independent), with a fraction of the
+    dense score tensors' memory."""
+    def call(q, k, v, *rest, **kw):
+        outs = [fn(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                   *(r[b:b + 1] if torch.is_tensor(r) else r for r in rest),
+                   **kw) for b in range(q.shape[0])]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return call
+
+
+def _plain_attention():
+    """A context in which K1/K2 run their plain versions (row by row)."""
+    from contextlib import ExitStack
+    from bluefog_tpu_torch.ops import flash_attention as fa
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        fa, "attention_block_partial",
+        _plain_by_row(fa.attention_block_partial_plain)))
+    stack.enter_context(mock.patch.object(
+        fa, "attention_block_backward",
+        _plain_by_row(fa.attention_block_backward_plain)))
+    return stack
+
+
+def zigzag_phase(fa, ring):
+    """Phase 5 (zigzag): the zigzag ring through the kernels at phase 5's
+    shapes, K1 and K2 launched exactly n + 1 times a call each, against
+    the same ring over the plain block functions and against the
+    contiguous ring through the kernels on the un-permuted sequence
+    (forward and q/k/v grads), at phase 4's tolerances; the contiguous
+    ring's launches beside it."""
+    rng = np.random.default_rng(4)
+    n, B, Tl, D = 4, 1, 4096, 64
+    T = n * Tl
+    inv = ring.zigzag_inverse(n, T)
+    for Hkv in (16, 4):
+        def t(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(DEV)
+        q, k, v = t(n, B, Tl, H, D), t(n, B, Tl, Hkv, D), t(n, B, Tl, Hkv, D)
+        g = t(n, B, Tl, H, D)
+
+        def run(layout, *xs_g):
+            xs = [x.clone().requires_grad_() for x in xs_g[:3]]
+            out = ring.ring_attention(*xs, causal=True, layout=layout)
+            return (out.detach(),) + torch.autograd.grad(out, xs, xs_g[3])
+
+        def unzig(x):                      # zigzag stack -> contiguous stack
+            flat = x.transpose(0, 1).reshape((B, T) + tuple(x.shape[3:]))
+            return flat[:, torch.as_tensor(inv, device=DEV)].reshape(
+                (B, n, Tl) + tuple(x.shape[3:])).transpose(0, 1).contiguous()
+
+        before = (fa.fwd_launches, fa.bwd_launches)
+        t0 = time.monotonic()
+        got = run("zigzag", q, k, v, g)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0)
+        launches = (fa.fwd_launches - before[0], fa.bwd_launches - before[1])
+        if launches != (n + 1, n + 1):
+            raise AssertionError(f"zigzag ring launched K1/K2 {launches} "
+                                 f"times, want n + 1 = {n + 1} each")
+        mid = (fa.fwd_launches, fa.bwd_launches)
+        with _plain_attention():
+            want = run("zigzag", q, k, v, g)
+        if (fa.fwd_launches, fa.bwd_launches) != mid:
+            raise AssertionError("the plain zigzag ring launched a kernel")
+        contig = run("contiguous", *(unzig(x) for x in (q, k, v, g)))
+        c_launches = (fa.fwd_launches - mid[0], fa.bwd_launches - mid[1])
+        out_err = float((got[0] - want[0]).abs().max())
+        contig_err = float((unzig(got[0]) - contig[0]).abs().max())
+        errs = [_grad_err(a, b) for a, b in zip(got[1:], want[1:])]
+        c_errs = [_grad_err(unzig(a), b) for a, b in zip(got[1:], contig[1:])]
+        if out_err > 1e-4 or contig_err > 1e-4 or not all(
+                ok for _, ok in errs + c_errs):
+            raise AssertionError(
+                f"zigzag ring (Hkv={Hkv}) disagrees: out err {out_err} / "
+                f"{contig_err} (plain ring / contiguous ring), grad errs "
+                f"{errs} / {c_errs}")
+        print("ring_case " + json.dumps({
+            "layout": "zigzag", "n": n, "B": B, "block_len": Tl, "Hkv": Hkv,
+            "out_err": out_err, "out_err_vs_contiguous": contig_err,
+            "grad_errs": [e for e, _ in errs],
+            "grad_errs_vs_contiguous": [e for e, _ in c_errs],
+            "fwd_launches": launches[0], "bwd_launches": launches[1],
+            "contiguous_launches": list(c_launches),
+            "fwd_bwd_wall_ms": ms}), flush=True)
+        del q, k, v, g, got, want, contig
+        torch.cuda.empty_cache()
 
 
 def _spread(params):
@@ -962,6 +1149,151 @@ def profile_train(step, strategy, init, toks, tag="profile_train"):
                              for n in names},
         "kernel_shares": {n: sum(r[0] for r in rows if n in r[1]) / total_us
                           for n in names},
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+# -- phase 11: the long-context trainer ---------------------------------
+
+LC_RANKS, LC_SEQ, LC_LAYERS = 8, 16384, 2
+
+
+def long_context_phase(fa, smi, sp_mode, layout, profile=False):
+    """Phase 11: ``RingTransformerLM`` at lm_bench's widths (vocab 32768,
+    d_model 1024, 16 heads, 2 layers, rope, f32) over 8 stacked sequence
+    ranks, 16,384 tokens (2,048 a rank), batch 1, through
+    ``tools/long_context.py``'s step on its copy task (lag 8), Adam 3e-3,
+    seed 0: 1 warm-up and 3 timed steps.  K1 and K2 must each launch
+    layers x (n (n + 1) / 2 | n + 1 | 1) times a step (contiguous ring,
+    zigzag ring, Ulysses), the loss must fall, and step 1 replayed with
+    attention through the plain versions (row by row) must agree: loss
+    rtol 1e-5, every parameter's gradient atol 1e-4 x max|g|.  Returns
+    the launches, the init's loss over every target token (through the
+    kernels) and the summary."""
+    from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
+                                                      lm_loss)
+    from bluefog_tpu_torch.ops.ring import zigzag_order
+    from bluefog_tpu_torch.tools import long_context as lc
+    n, T, Tl = LC_RANKS, LC_SEQ, LC_SEQ // LC_RANKS
+    zig = layout == "zigzag"
+    model = RingTransformerLM(
+        vocab_size=32768, num_layers=LC_LAYERS, num_heads=16, d_model=1024,
+        max_seq_len=T, axis="rank", dtype=torch.float32, sp_mode=sp_mode,
+        sp_layout=layout, rope=True,
+        use_pallas=True).reset_parameters(0).to(DEV)
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    pos = lc.rank_positions(n, Tl, zig, DEV)
+    step = lc.make_step(model, opt, pos)
+    order = zigzag_order(n, T) if zig else np.arange(T)
+    seq, tgts = lc.copy_batch(np.random.default_rng(0), T, 8, 32768, order)
+    toks, tgts = lc.stack_ranks(seq, n, DEV), lc.stack_ranks(tgts, n, DEV)
+    # the loss over every target token at the init, through the kernels:
+    # unlike the mean over ranks of the per-rank means, it does not depend
+    # on which rank holds the masked first targets
+    counts = (tgts >= 0).reshape(n, -1).sum(1).double()
+    with torch.no_grad():
+        per_rank0 = lm_loss(model(toks, positions=pos), tgts).double()
+    token_loss = float((per_rank0 * counts).sum() / counts.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts at 0, 1 warm-up + 3 timed steps, counts read
+    steps = 4
+    fa.fwd_launches = fa.bwd_launches = 0
+    losses = [float(step(toks, tgts))]
+    grads1 = {k: p.grad.detach().clone()
+              for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps - 1):
+        losses.append(float(step(toks, tgts)))
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / (steps - 1)
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_call = {"contiguous": n * (n + 1) // 2, "zigzag": n + 1}
+    want = LC_LAYERS * (per_call[layout] if sp_mode == "ring" else 1)
+    tag = f"long_context_{layout if sp_mode == 'ring' else sp_mode}"
+    if launches != (want * steps, want * steps):
+        raise AssertionError(f"{tag}: K1/K2 launched {launches} times in "
+                             f"{steps} steps, want {want} each a step")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    if profile:
+        profile_long_context(step, toks, tgts, "profile_" + tag)
+
+    # -- replay step 1 from the same init with the plain attention
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(init[k])
+    del init, opt
+    model.zero_grad(set_to_none=True)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    with _plain_attention():
+        per_rank = lm_loss(model(toks, positions=pos), tgts)
+        per_rank.sum().backward()
+    replay = float(per_rank.detach().mean())
+    if (fa.fwd_launches, fa.bwd_launches) != before:
+        raise AssertionError(f"{tag}: the plain replay launched a kernel")
+    if not np.isclose(replay, losses[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"{tag}: plain replay loss {replay} != kernel "
+                             f"loss {losses[0]}")
+    grad_err = 0.0
+    for k, p in model.named_parameters():
+        err, ok = _grad_err(grads1[k], p.grad)
+        grad_err = max(grad_err, err / max(float(p.grad.abs().max()),
+                                           1e-30))
+        if not ok:
+            raise AssertionError(f"{tag}: step-1 gradient of {k} in the "
+                                 f"plain replay differs: {err} > 1e-4 "
+                                 "max|g|")
+    summary = {
+        "sp_mode": sp_mode, "layout": layout, "ranks": n, "seq": T,
+        "tokens_per_rank": Tl, "batch": 1, "layers": LC_LAYERS,
+        "n_params": model.n_params, "timed_steps": steps - 1,
+        "per_step_s": per_step, "tokens_per_s": T / per_step,
+        "model_flops_per_s": T / per_step * model.flops_per_token(T),
+        "losses": losses, "step1_token_mean_loss": token_loss,
+        "replay_loss": replay,
+        "step1_grad_rel_err": grad_err,
+        "flash_fwd_launches": launches[0],
+        "flash_bwd_launches": launches[1],
+        "launches_per_step": want, "peak_mem_gb": peak,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print(f"{tag} " + json.dumps(summary), flush=True)
+    del model, grads1
+    torch.cuda.empty_cache()
+    return launches, token_loss, summary
+
+
+def profile_long_context(step, toks, tgts, tag):
+    """One long-context step under torch.profiler: the device's busy
+    share of it and K1+K2's share of device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(toks, tgts)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.monotonic() - t0)
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    total_us = sum(r[0] for r in rows)
+    for dt, key, count in sorted(rows, reverse=True)[:10]:
+        print(f"{tag} " + json.dumps({
+            "kernel": key[:90], "calls": count, "device_us": dt,
+            "share": dt / total_us}))
+    names = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+             "flash_bwd_dq_kernel")
+    k12 = sum(r[0] for r in rows if any(nm in r[1] for nm in names))
+    print(f"{tag} " + json.dumps({
+        "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
+        "busy_share": total_us / 1e3 / wall_ms,
+        "k1_k2_device_ms": k12 / 1e3, "k1_k2_share": k12 / total_us,
         "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
@@ -1281,6 +1613,7 @@ def main(argv=None) -> int:
     # -- phase 2: flash decode against its plain version ----------------
     t0 = time.monotonic()
     main_case, int8_case = kernel_phase(fd, kv)
+    k3_256 = decode_head_dim_phase(fd, kv)
     phase_s["flash_decode_cases"] = time.monotonic() - t0
 
     # -- phase 3: the serving path at full width ------------------------
@@ -1300,12 +1633,13 @@ def main(argv=None) -> int:
     # -- phase 4: flash attention K1/K2 against their plain versions ----
     t0 = time.monotonic()
     attn = attention_phase(fa)
-    head_dim_phase(fa)
+    attn256 = head_dim_phase(fa)
     phase_s["flash_attention_cases"] = time.monotonic() - t0
 
     # -- phase 5: ring attention over stacked ranks ---------------------
     t0 = time.monotonic()
     ring_phase(fa, ring)
+    zigzag_phase(fa, ring)
     phase_s["ring"] = time.monotonic() - t0
 
     # -- phase 6: the decentralized trainer at full width ---------------
@@ -1332,6 +1666,36 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_s[tag] = time.monotonic() - t0
 
+    # -- phase 11: the long-context trainer (ring contiguous / zigzag,
+    #    Ulysses) over 8 stacked sequence ranks --------------------------
+    lc_launches, lc_loss1, lc_rank_loss1 = {}, {}, {}
+    for sp_mode, layout in (("ring", "contiguous"), ("ring", "zigzag"),
+                            ("ulysses", "contiguous")):
+        t0 = time.monotonic()
+        launches_l, loss1, summ = long_context_phase(fa, smi, sp_mode,
+                                                     layout, args.profile)
+        tag = f"long_context_{layout if sp_mode == 'ring' else sp_mode}"
+        lc_launches[tag], lc_loss1[tag] = launches_l, loss1
+        lc_rank_loss1[tag] = summ["losses"][0]
+        phase_s[tag] = time.monotonic() - t0
+    # the same init, the permuted tokens: the step-1 loss must agree, both
+    # the loss the timed step returned (the mean of per-rank means, which
+    # weighs the rank holding the lag's masked targets apart) and the
+    # loss over every target token (which does not depend on the layout)
+    z, c = lc_loss1["long_context_zigzag"], lc_loss1["long_context_contiguous"]
+    zr = lc_rank_loss1["long_context_zigzag"]
+    cr = lc_rank_loss1["long_context_contiguous"]
+    print("long_context_layouts " + json.dumps({
+        "step1_token_mean_loss": lc_loss1,
+        "step1_rank_mean_loss": lc_rank_loss1,
+        "zigzag_vs_contiguous_rel": abs(z - c) / abs(c),
+        "zigzag_vs_contiguous_step_rel": abs(zr - cr) / abs(cr)}),
+        flush=True)
+    for what, a, b in (("token-mean", z, c), ("step's own", zr, cr)):
+        if not np.isclose(a, b, rtol=1e-5, atol=0):
+            raise AssertionError(f"long context: the zigzag step-1 {what} "
+                                 f"loss {a} != the contiguous one {b}")
+
     # -- phase 7: the grouped expert FFN K4 against its plain version ---
     t0 = time.monotonic()
     k4_decode, k4_prefill = grouped_ffn_phase(gf)
@@ -1356,20 +1720,34 @@ def main(argv=None) -> int:
     decode["launches_int8_run"] = launches_int8
     decode["int8"] = {key: int8_case[key]
                       for key in _ROW_KEYS + ("warm_ms",)}
+    decode["head_dim_256"] = {store: {key: row[key] for key in (
+        "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")}
+        for store, row in k3_256.items()}
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
     main_c = compose_launches["compose_pp2_tp2"]
-    paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches}
+    paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches,
+             **lc_launches}
     print(json.dumps({"kernels": [
         decode,
         dict(_kernel_row("flash_fwd", src,
                          "bluefog_tpu/ops/pallas_attention.py:134",
                          main_c[0], attn["fwd"]),
-             launches_by_path={k: v[0] for k, v in paths.items()}),
+             launches_by_path={k: v[0] for k, v in paths.items()},
+             head_dim_256={"ms": attn256["fwd_ms"],
+                           "max_abs_err": attn256["fwd_err"],
+                           "plain_ms": attn256["fwd_plain_ms"],
+                           "bound_ms": attn256["fwd_bound_ms"],
+                           "bound_by": attn256["fwd_bound_by"]}),
         dict(_kernel_row("flash_bwd", src,
                          "bluefog_tpu/ops/pallas_attention.py:275",
                          main_c[1], attn["bwd"]),
              launches_by_path={k: v[1] for k, v in paths.items()},
-             library_fwd_bwd_ms=attn["bwd"]["library_fwd_bwd_ms"]),
+             library_fwd_bwd_ms=attn["bwd"]["library_fwd_bwd_ms"],
+             head_dim_256={"ms": attn256["bwd_ms"],
+                           "max_abs_err": attn256["bwd_err"],
+                           "plain_ms": attn256["bwd_plain_ms"],
+                           "bound_ms": attn256["bwd_bound_ms"],
+                           "bound_by": attn256["bwd_bound_by"]}),
         dict(_kernel_row("grouped_ffn",
                          "bluefog_tpu_torch/csrc/grouped_ffn.cu",
                          "bluefog_tpu/ops/pallas_moe.py:61", k4_launches,

@@ -212,9 +212,9 @@ def test_stacked_ring_attention_matches_jax(cpu_devices, Hkv, causal,
 
 def test_ring_contracts():
     x = torch.zeros(2, 1, 4, 2, 8)
-    with pytest.raises(ValueError, match="zigzag ring layout is not yet "
-                                         "ported"):
-        tring.ring_attention(x, x, x, causal=True, layout="zigzag")
+    # the zigzag layout runs (its own contracts: test_torch_long_context)
+    out = tring.ring_attention(x, x, x, causal=True, layout="zigzag")
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="needs causal=True"):
         tring.ring_attention(x, x, x, window=2)
     with pytest.raises(ValueError, match="expected stacked"):
@@ -261,11 +261,11 @@ def test_attention_bound_is_taken_at_the_3xtf32_rate():
     assert bf16 == pytest.approx(1e3 * 4 * B * H * pairs * D / 989e12)
 
 
-@pytest.mark.parametrize("D", [2, 8, 40, 96, 128])
+@pytest.mark.parametrize("D", [2, 8, 40, 96, 128, 7, 130, 136, 256])
 def test_head_dim_padding_route_matches_plain(D):
-    """K1/K2 are built for head_dim 64 and 128; the wrappers zero-pad
-    every other even D to the next and slice the results back.  The
-    padding route, run here around the plain versions on CPU tensors,
+    """K1/K2 are built for head_dim 64, 128 and 256; the wrappers zero-pad
+    every other D (odd ones too) to the next and slice the results back.
+    The padding route, run here around the plain versions on CPU tensors,
     gives the unpadded plain results (the zero columns add exact zeros;
     only the einsums' summation order may differ): atol 1e-6."""
     q, k, v = (torch.from_numpy(a) for a in
@@ -274,7 +274,7 @@ def test_head_dim_padding_route_matches_plain(D):
     got = tfa._padded_fwd(tfa.attention_block_partial_plain, q, k, v, 20,
                           4, **kw)
     want = tfa.attention_block_partial_plain(q, k, v, 20, 4, **kw)
-    padded = D not in (64, 128)         # a padded result is sliced back
+    padded = D not in (64, 128, 256)    # a padded result is sliced back
     assert got[0].shape == q.shape and got[0].is_contiguous() >= padded
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
@@ -290,7 +290,8 @@ def test_head_dim_padding_route_matches_plain(D):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.is_contiguous() >= padded
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
-    assert tfa.kernel_head_dim(D) == (64 if D <= 64 else 128)
-    for bad in (7, 130, 136, 0):
-        with pytest.raises(ValueError, match=f"head_dim {bad}: .* up to 128"):
+    assert tfa.kernel_head_dim(D) == (64 if D <= 64 else
+                                      128 if D <= 128 else 256)
+    for bad in (0, 258):
+        with pytest.raises(ValueError, match=f"head_dim {bad}: .* up to 256"):
             tfa.kernel_head_dim(bad)

@@ -22,12 +22,12 @@ the tensor cores; ``test_flash_attention_is_f32_accurate`` holds them to
 these tolerances on inputs where one TF32 pass would fail them, and the
 backward must give bit-identical results on two runs (no atomics).
 
-Head dims: K1/K2 are built for 64 and 128 and the wrappers zero-pad
-every other even head dim up to 128; K3 takes the head dim at run time
-inside buckets of 32/64/128.  Both are held to the tolerances above at
-head dims they are not built for, and the entry points that build
-``LMConfig()``'s head dim 8 (the serve demos, a composed train step) run
-on the card.
+Head dims: K1/K2 are built for 64, 128 and 256 and the wrappers
+zero-pad every other head dim up to 256 (odd ones too); K3 takes the
+head dim at run time inside buckets of 32/64/128/256.  Both are held to
+the tolerances above at head dims they are not built for, and the entry
+points that build ``LMConfig()``'s head dim 8 (the serve demos, a
+composed train step) run on the card.
 
 Grouped expert FFN K4: both sides accumulate in f32 from the same values
 and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
@@ -113,11 +113,11 @@ def test_flash_decode_kernel_matches_plain(cuda, store, qdt, Hkv, T, Dh,
 
 @pytest.mark.gpu
 def test_flash_decode_refuses_what_it_does_not_take(cuda):
-    cl = {"k": torch.zeros(2, 1, 16, 136, device=cuda),
-          "v": torch.zeros(2, 1, 16, 136, device=cuda)}
+    cl = {"k": torch.zeros(2, 1, 16, 258, device=cuda),
+          "v": torch.zeros(2, 1, 16, 258, device=cuda)}
     idx = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 136"):
-        fd.flash_attend_rows(torch.zeros(1, 1, 136, device=cuda), cl["k"],
+    with pytest.raises(ValueError, match="head_dim 258"):
+        fd.flash_attend_rows(torch.zeros(1, 1, 258, device=cuda), cl["k"],
                              cl["v"], idx, idx, block_k=8)
     cl64 = {"k": torch.zeros(2, 1, 16, 64, device=cuda, dtype=torch.half),
             "v": torch.zeros(2, 1, 16, 64, device=cuda, dtype=torch.half)}
@@ -368,8 +368,8 @@ def test_flash_attention_is_f32_accurate(cuda):
 
 @pytest.mark.gpu
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 136, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 136"):
+    q = torch.zeros(1, 8, 2, 258, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 258"):
         fa.attention_block_partial(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.half)
     with pytest.raises(TypeError, match="dtype"):
@@ -400,6 +400,124 @@ def test_ring_attention_kernels_match_plain_ring(cuda, Hkv, window):
     assert float((out - want).detach().abs().max()) <= 1e-4
     for a, b in zip(grads, wgrads):
         _close_grad(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,Hkv,Tl", [(4, 4, 64), (4, 2, 130), (8, 4, 32),
+                                      (1, 4, 64)])
+def test_zigzag_ring_through_the_kernels_matches_plain(cuda, n, Hkv, Tl):
+    """The zigzag ring through K1/K2: n + 1 launches each way, forward
+    and q/k/v grads against its plain path (online softmax, autograd) at
+    the tolerances of the ring above."""
+    rng = np.random.default_rng(n * Tl + Hkv)
+    B, H, D = 2, 4, 64
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda).requires_grad_()
+
+    q, k, v = t(n, B, Tl, H, D), t(n, B, Tl, Hkv, D), t(n, B, Tl, Hkv, D)
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    out = ring.ring_attention(q, k, v, causal=True, layout="zigzag")
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches - before[0], fa.bwd_launches - before[1]) == \
+        (n + 1, n + 1)
+    want = ring._plain_zigzag(q, k, v, D ** -0.5)
+    wgrads = torch.autograd.grad(want, (q, k, v), g)
+    assert float((out - want).detach().abs().max()) <= 1e-4
+    for a, b in zip(grads, wgrads):
+        _close_grad(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp_mode,layout,kv", [
+    ("ring", "contiguous", 2), ("ring", "zigzag", 2),
+    ("ulysses", "contiguous", None)])
+def test_ring_lm_step_runs_on_the_card(cuda, sp_mode, layout, kv):
+    """One long-context training step of ``RingTransformerLM`` (4 ranks,
+    rope, head_dim 64) through the kernels, against the same step with
+    attention through the K1/K2 plain versions: loss rtol 1e-5, grads
+    atol 1e-4 x max|g|; K1/K2 launch layers x (n (n + 1) / 2, n + 1 or 1)
+    times."""
+    from unittest import mock
+    from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
+                                                      lm_loss)
+    from bluefog_tpu_torch.tools import long_context as lc
+    n, Tl, layers = 4, 128, 2
+    model = RingTransformerLM(
+        vocab_size=512, num_layers=layers, num_heads=4, num_kv_heads=kv,
+        d_model=256, max_seq_len=n * Tl, axis="rank", dtype=torch.float32,
+        sp_mode=sp_mode, sp_layout=layout, rope=True,
+        use_pallas=True).reset_parameters(1).to(cuda)
+    zig = layout == "zigzag"
+    order = ring.zigzag_order(n, n * Tl) if zig else np.arange(n * Tl)
+    seq, tgts = lc.copy_batch(np.random.default_rng(0), n * Tl, 8, 512,
+                              order)
+    toks, tgts = lc.stack_ranks(seq, n, cuda), lc.stack_ranks(tgts, n, cuda)
+    pos = lc.rank_positions(n, Tl, zig, cuda)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        per_rank = lm_loss(model(toks, positions=pos), tgts)
+        per_rank.sum().backward()
+        return (float(per_rank.detach().mean()),
+                {k: p.grad.clone() for k, p in model.named_parameters()})
+
+    before = (fa.fwd_launches, fa.bwd_launches)
+    loss, got = grads()
+    per = {"contiguous": n * (n + 1) // 2, "zigzag": n + 1}.get(
+        layout if sp_mode == "ring" else "", 1)
+    assert (fa.fwd_launches - before[0], fa.bwd_launches - before[1]) == \
+        (layers * per, layers * per)
+    with mock.patch.object(fa, "attention_block_partial",
+                           fa.attention_block_partial_plain), \
+            mock.patch.object(fa, "attention_block_backward",
+                              fa.attention_block_backward_plain):
+        wloss, want = grads()
+    assert np.isfinite(loss) and abs(loss - wloss) <= 1e-5 * abs(wloss)
+    for name, w in want.items():
+        _close_grad(got[name], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, 2])
+def test_single_rank_lm_attends_through_the_kernels(cuda, kv):
+    """``RingTransformerLM(axis=None)`` with the default ``use_pallas``:
+    on the card every layer attends through K1/K2 (one launch each way a
+    layer); logits and grads against the same weights on the CPU, where
+    the model attends through ``dense_attention``: logits atol 1e-4,
+    grads atol 1e-4 x max|g|."""
+    from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
+                                                      lm_loss)
+    T, layers = 256, 2
+    kw = dict(vocab_size=512, num_layers=layers, num_heads=4,
+              num_kv_heads=kv, d_model=256, max_seq_len=T,
+              dtype=torch.float32, rope=True)
+    gpu = RingTransformerLM(**kw).reset_parameters(2).to(cuda)
+    cpu = RingTransformerLM(**kw).reset_parameters(2)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, 512, size=(2, T)))
+    tgts = torch.from_numpy(rng.integers(0, 512, size=(2, T)))
+
+    def run(model, dev):
+        model.zero_grad(set_to_none=True)
+        logits = model(toks.to(dev))
+        lm_loss(logits, tgts.to(dev)).sum().backward()
+        return logits.detach().cpu(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()}
+
+    before = (fa.fwd_launches, fa.bwd_launches)
+    logits, got = run(gpu, cuda)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches - before[0], fa.bwd_launches - before[1]) == \
+        (layers, layers)
+    wlogits, want = run(cpu, "cpu")
+    assert float((logits - wlogits).abs().max()) <= 1e-4
+    for name, w in want.items():
+        _close_grad(got[name], w)
 
 
 @pytest.mark.gpu
@@ -563,17 +681,74 @@ def test_flash_attention_other_head_dims(cuda, D, B, Tq, Tk, H, Hkv,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 130, 192, 256])
+@pytest.mark.parametrize("B,Tq,Tk,H,Hkv,causal,qoff,koff", [
+    (2, 100, 77, 8, 2, False, 0, 0),                # GQA 4, ragged
+    (1, 130, 130, 8, 2, True, 0, 0),                # GQA 4, causal
+    (1, 64, 200, 8, 2, True, 136, 0)])              # GQA 4, offsets
+def test_flash_attention_wide_and_odd_head_dims(cuda, dtype, D, B, Tq, Tk,
+                                                H, Hkv, causal, qoff,
+                                                koff):
+    """K1/K2 at D 256 (built: 32-row tiles, two column halves) and at
+    head dims padded to 128 or 256 (130, 192) or to 64 (an odd 7), f32
+    and bf16: the tolerances of the built head dims, one launch each, and
+    a bit-identical backward on a rerun."""
+    rng = np.random.default_rng(D)
+    q, k, v = _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, cuda)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    before = (fa.fwd_launches, fa.bwd_launches)
+    got = fa.attention_block_partial(q, k, v, qoff, koff, **kw)
+    want = fa.attention_block_partial_plain(q, k, v, qoff, koff, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == q.shape
+    _close_partial(got, want)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(
+        cuda)
+    lse = _lse(want)
+    delta = (do * want[0] / torch.where(want[1] == 0, torch.ones_like(
+        want[1]), want[1])[..., None]).sum(-1)
+    got = fa.attention_block_backward(q, k, v, do, lse, delta, qoff, koff,
+                                      **kw)
+    again = fa.attention_block_backward(q, k, v, do, lse, delta, qoff,
+                                        koff, **kw)
+    want = fa.attention_block_backward_plain(q, k, v, do, lse, delta, qoff,
+                                             koff, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 2)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a)
+        _close_grad(g, w)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("store", ["f32", "int8", "bf16", "fp8"])
-@pytest.mark.parametrize("Dh", [8, 32, 40, 2])
+@pytest.mark.parametrize("Dh", [8, 32, 40, 2, 7, 130, 256])
 @pytest.mark.parametrize("lens,T,L", [
     ([5, 0, 700, 1023 - 1], 1, 1024),               # splits, trash lane
     ([0, 31, 33, 60], 2, 64)])                      # one split, T 2
 def test_flash_decode_other_head_dims(cuda, store, Dh, lens, T, L):
-    """K3 at head dims inside its 32/64/128 buckets, on the 16-byte
-    staging path (f32 at Dh 8, int8 at Dh 32) and the value-by-value one
-    (int8 at Dh 8, every page type at Dh 2)."""
+    """K3 at head dims inside its 32/64/128/256 buckets, on the 16-byte
+    staging path (f32 at Dh 8, int8 at Dh 32, every page type at Dh 256)
+    and the value-by-value one (int8 at Dh 8, every page type at Dh 2 and
+    at the odd Dh 7)."""
     _decode_case(cuda, lens, Hkv=4, T=T, Dh=Dh, L=L, block_k=min(128, L),
                  store=store, seed=Dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "int8", "bf16", "fp8"])
+def test_flash_decode_head_dim_256_at_the_row_cap(cuda, store):
+    """Dh 256 at T x G = 64 (T 4 over one kv head of 16 q heads): the
+    4-row groups and the largest shared-memory tile (231,936 bytes with
+    int8 / e4m3 pages) of the kernel."""
+    lib = fd.build()
+    assert lib.bf_flash_decode_smem_bytes(64, 256, fd._PAGE_DTYPES[
+        {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+         "fp8": torch.float8_e4m3fn}[store]]) <= fd._MAX_SMEM
+    _decode_case(cuda, [0, 500, 1019], Hkv=1, T=4, Dh=256, store=store,
+                 seed=3)
 
 
 @pytest.mark.gpu

@@ -146,10 +146,12 @@ def test_build_includes_csrc_and_hashes_its_headers(monkeypatch, tmp_path):
 
 
 def test_flash_decode_head_dim_buckets():
-    """K3 takes every even head dim up to 128 at run time inside a built
-    bucket of 32, 64 or 128; anything else is refused by name."""
-    assert [fd.head_dim_bucket(d) for d in (2, 8, 32, 34, 64, 66, 128)] == \
-        [32, 32, 32, 64, 64, 128, 128]
-    for bad in (7, 130, 136, 0):
-        with pytest.raises(ValueError, match=f"head_dim {bad}: .* up to 128"):
+    """K3 takes every head dim from 1 up to 256 at run time inside a built
+    bucket of 32, 64, 128 or 256 (odd ones too); anything else is refused
+    by name."""
+    assert [fd.head_dim_bucket(d) for d in (2, 8, 32, 34, 64, 66, 128, 7,
+                                            130, 136, 256, 1)] == \
+        [32, 32, 32, 64, 64, 128, 128, 32, 256, 256, 256, 32]
+    for bad in (0, 258):
+        with pytest.raises(ValueError, match=f"head_dim {bad}: .* up to 256"):
             fd.head_dim_bucket(bad)

@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
               "tools.lm_bench", "ops.grouped_ffn", "moe.dropless",
               "moe.layers", "moe.model", "parallel.expert",
               "parallel.pipeline", "parallel.tensor_parallel",
-              "ops.collectives", "ops.ulysses"):
+              "ops.collectives", "ops.ulysses", "models.transformer",
+              "tools.long_context", "tools.sp_bench"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -104,6 +105,16 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     assert compose_parallelism(4, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_bench.main([])
+    from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
+                                                      init_decode_cache)
+    from bluefog_tpu_torch.tools import long_context, sp_bench
+    for tool in (long_context, sp_bench):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main([])
+    lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,
+                           d_model=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_cache(lm, 1, 4, device="cuda")
     from bluefog_tpu_torch.moe.model import MoELMConfig, init_moe_params
     mcfg = MoELMConfig(layers=1, num_experts=2, dispatch="dropless")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -5,25 +5,45 @@
 ``xt [G, tile, D]`` expert-grouped rows, ``tile_eid [G]`` the expert of
 each tile, ``w1 [E, D, F]`` and ``w2 [E, F, D]``, and returns
 ``gelu_tanh(xt[g] @ w1[eid[g]]) @ w2[eid[g]]`` per tile as ``[G, tile,
-D]`` in xt's dtype, computed in f32.  On CUDA tensors it launches the
-hand-written Hopper kernel in ``csrc/grouped_ffn.cu`` (see its header for
-the design and what bounds it); on CPU tensors it runs
-:func:`grouped_ffn_plain`.  A CUDA tensor never takes the plain version:
-the kernel launches or the call raises.
+D]`` in xt's dtype, computed in f32 (f64 inputs stay f64 on the CPU).
+On CUDA tensors it launches the hand-written Hopper kernel in
+``csrc/grouped_ffn.cu`` (see its header for the design and what bounds
+it); on CPU tensors it runs :func:`grouped_ffn_plain`.  A CUDA tensor
+never takes the plain version: the kernel launches or the call raises.
 
-The kernel runs expert-major blocks: the host-side plan :func:`ffn_plan`
-picks, from the shapes alone, how many of an expert's rows a block
-multiplies at once and how many output columns it owns.  Nothing on this
-path reads ``tile_eid`` or any other device value back to the host.
+The weights may also be stacked peers, ``w1 [P, E, D, F]`` and ``w2 [P,
+E, F, D]`` with any stride between peers (a layer's slice of a stacked
+parameter), with ids in ``[0, P * E)``: id ``i`` is peer ``i // E``'s
+expert ``i % E``.  The composed trainer folds every live peer of a tick
+into one call this way, and the kernel reads each peer's block in place.
 
-``grouped_ffn_cuda.launches`` counts calls that launched the kernel (one
-per call; each call is two CUDA launches, up- and down-projection), so a
-run can show that its expert FFNs went through it.
+Under autograd (any operand requiring grad) the call is
+:class:`GroupedFFN`: on the card the forward also keeps the
+pre-activation ``s = xt @ w1`` (f32) and the backward is two more
+hand-written launches pairs, :func:`grouped_ffn_dgrad_cuda` (``dxt``,
+with ``u = gelu(s)`` rebuilt in its epilogue) and
+:func:`grouped_ffn_wgrad_cuda` (``dw1``, ``dw2`` per expert, no
+atomics); on the CPU the backward is :func:`grouped_ffn_backward_plain`,
+the same formulas in plain PyTorch.  The backward takes f32 only.
+
+The kernel runs expert-major blocks: the host-side plans
+:func:`ffn_plan` and :func:`wgrad_plan` pick, from the shapes alone, how
+a launch covers the experts.  Nothing on this path reads ``tile_eid`` or
+any other device value back to the host.
+
+``grouped_ffn_cuda.launches`` counts calls that launched the forward (one
+per call; each call is two CUDA launches, up- and down-projection),
+``grouped_ffn_dgrad_cuda.launches`` and ``grouped_ffn_wgrad_cuda.
+launches`` the backward's, so a run can show that its expert FFNs went
+through them.  :func:`grouped_ffn_plain_by_expert` is a second plain
+version, for the card: it reads the tile layout on the host and runs one
+product per run of an expert's tiles, with no weight gather, so it holds
+the kernels to account at training shapes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +52,9 @@ from . import _build
 from .flash_attention import _aligned
 
 __all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda",
-           "ffn_plan", "build"]
+           "grouped_ffn_plain_by_expert", "grouped_ffn_backward_plain",
+           "grouped_ffn_dgrad_cuda", "grouped_ffn_wgrad_cuda", "GroupedFFN",
+           "ffn_plan", "wgrad_plan", "build"]
 
 _LIB = "grouped_ffn"
 _SOURCES = ("grouped_ffn.cu",)
@@ -41,15 +63,23 @@ _MAX_EXPERTS = 65535        # the kernel's grid y
 SMS = 132                   # streaming multiprocessors of an H100
 BLOCKS_PER_SM = 2           # the plan's target for each launch
 _WIDTH = 8                  # D and F are copied 16 bytes at a time
+_WG_TILE = 64               # the wgrad's tile of dw is 64 x 64
+_WG_CHUNK = 128             # rows of an expert a wgrad block gathers at once
+WGRAD_BLOCKS = 4 * SMS      # the wgrad plan's target for each launch
 
 
 def build() -> ctypes.CDLL:
-    """Compile (at the first call in a checkout) and load the kernel."""
+    """Compile (at the first call in a checkout) and load the kernels."""
     lib = _build.load_library(_LIB, _SOURCES)
-    fn = lib.bf_grouped_ffn
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bf_grouped_ffn.argtypes = [p] * 7 + [i] * 4 + [ll] * 2 + [i] * 7 \
+        + [p]
+    lib.bf_grouped_ffn_dgrad.argtypes = [p] * 8 + [i] * 4 + [ll] * 2 \
+        + [i] * 6 + [p]
+    lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 6 + [p]
+    for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_dgrad,
+               lib.bf_grouped_ffn_wgrad):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -62,7 +92,8 @@ def ffn_plan(G: int, tile: int, E: int, D: int, F: int
     for an even share), and each launch's output columns per block, the
     widest of 64, 32 and 16 that still gives ``BLOCKS_PER_SM`` blocks on
     each SM (16 when none does).  Host integers only: the plan never
-    reads ``tile_eid``."""
+    reads ``tile_eid``.  The dgrad's two launches take the same plan
+    (its first writes F columns, its second D)."""
     share = -(-G * tile // E)
     rows = 16 if share <= 16 else 32 if share <= 32 else 64
     slots = -(-share // rows)
@@ -76,13 +107,27 @@ def ffn_plan(G: int, tile: int, E: int, D: int, F: int
     return rows, slots, cols(F), cols(D)
 
 
+def wgrad_plan(G: int, tile: int, E: int, D: int, F: int) -> int:
+    """The wgrad's ``splits``: 1 when ``E`` experts x the 64 x 64 tiles of
+    a ``D x F`` gradient already give ``WGRAD_BLOCKS`` blocks, else
+    enough splits of each expert's rows to reach it, but no more than
+    the rows allow (two 128-row chunks a split, counted on ``G * tile``,
+    the most rows one expert can hold).  Host integers only."""
+    blocks = E * -(-D // _WG_TILE) * -(-F // _WG_TILE)
+    if blocks >= WGRAD_BLOCKS:
+        return 1
+    most = max(1, G * tile // (2 * _WG_CHUNK))
+    return int(min(-(-WGRAD_BLOCKS // blocks), most, 65535))
+
+
 def _pad_widths(xt: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The operands with D and F zero-padded up to multiples of 8 (the
     kernel copies 16 bytes at a time); unchanged when they already are.
     Exact: a zero column of x or w1 adds nothing, gelu(0) = 0, and the
-    caller cuts the padded output columns."""
-    D, Fd = xt.shape[2], w1.shape[2]
+    caller cuts the padded output columns (and, under autograd, the pad's
+    backward cuts the gradients back)."""
+    D, Fd = xt.shape[2], w1.shape[-1]
     Dp, Fp = -(-D // _WIDTH) * _WIDTH, -(-Fd // _WIDTH) * _WIDTH
     if (Dp, Fp) == (D, Fd):
         return xt, w1, w2
@@ -90,20 +135,97 @@ def _pad_widths(xt: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
             F.pad(w2, (0, Dp - D, 0, Fp - Fd)))
 
 
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for f32 and narrower types (as the TPU kernel computes), f64
+    for f64 (the float64 oracles)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _flat(w: torch.Tensor) -> torch.Tensor:
+    """Stacked peers' ``[P, E, a, b]`` weights as ``[P * E, a, b]`` (a
+    copy when the peers are not contiguous); 3-D weights unchanged."""
+    return w if w.ndim == 3 else w.reshape((-1,) + tuple(w.shape[2:]))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _plain(xt, tile_eid, w1, w2):
+    """``(out, s)``: the plain forward and its pre-activation."""
+    ct = _compute_dtype(xt.dtype)
+    idx = tile_eid.long()
+    s = torch.einsum("gtd,gdf->gtf", xt.to(ct), _flat(w1)[idx].to(ct))
+    out = torch.einsum("gtf,gfd->gtd", _gelu(s), _flat(w2)[idx].to(ct))
+    return out.to(xt.dtype), s
+
+
 def grouped_ffn_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
                       w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """The plain version: gather each tile's expert weights, then two
     batched einsums with the tanh gelu between (the JAX
-    ``grouped_ffn_xla``), in f32 as the TPU kernel computes, cast back to
-    xt's dtype.  The gather materializes ``[G, D, F]`` copies of the
-    weights (about 4.5 GB in f32 for the 135 tiles of a 512-token prefill
-    at D 1024, F 4096), which is acceptable for the CPU tests and the
-    card-side comparisons that use it, and why the card's main path never
-    does."""
+    ``grouped_ffn_xla``), in f32 as the TPU kernel computes (f64 for f64
+    inputs), cast back to xt's dtype.  The gather materializes ``[G, D,
+    F]`` copies of the weights (about 4.5 GB in f32 for the 135 tiles of
+    a 512-token prefill at D 1024, F 4096), which is acceptable for the
+    CPU tests and the card-side comparisons that use it, and why the
+    card's main path never does; at training shapes the card compares
+    against :func:`grouped_ffn_plain_by_expert` instead."""
+    return _plain(xt, tile_eid, w1, w2)[0]
+
+
+def grouped_ffn_plain_by_expert(xt: torch.Tensor, tile_eid: torch.Tensor,
+                                w1: torch.Tensor, w2: torch.Tensor
+                                ) -> torch.Tensor:
+    """The same function as one product pair per run of consecutive tiles
+    of one expert (the dropless layout holds one run per expert), the
+    expert's weights read in place: no gather, differentiable by
+    autograd.  It reads ``tile_eid`` on the host, so it is a reference
+    for the card's checks and never on the main path."""
+    G, tile, D = xt.shape
+    ids = tile_eid.cpu().tolist()
+    E = w1.shape[1] if w1.ndim == 4 else None
+    ct = _compute_dtype(xt.dtype)
+    x = xt.reshape(G * tile, D).to(ct)
+    parts, g0 = [], 0
+    while g0 < G:
+        g1 = g0 + 1
+        while g1 < G and ids[g1] == ids[g0]:
+            g1 += 1
+        e = ids[g0]
+        a, b = (w1[e], w2[e]) if E is None else (w1[e // E, e % E],
+                                                 w2[e // E, e % E])
+        rows = x[g0 * tile:g1 * tile]
+        parts.append(torch.matmul(_gelu(torch.matmul(rows, a.to(ct))),
+                                  b.to(ct)))
+        g0 = g1
+    return torch.cat(parts).reshape(G, tile, -1).to(xt.dtype)
+
+
+def grouped_ffn_backward_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
+                               w1: torch.Tensor, w2: torch.Tensor,
+                               s: torch.Tensor, g: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """``(dxt, dw1, dw2)`` from the kept pre-activation ``s`` and the
+    output's cotangent ``g``, the formulas of the kernels (and the values
+    of the JAX ``_grouped_bwd``): ``ds = (g @ w2^T) * gelu'(s)``, ``dxt =
+    ds @ w1^T``, ``dw1[e]`` / ``dw2[e]`` the sums of ``xt^T ds`` / ``gelu(
+    s)^T g`` over e's tiles (``index_add_`` in tile order)."""
+    ct = _compute_dtype(xt.dtype)
     idx = tile_eid.long()
-    u = F.gelu(torch.einsum("gtd,gdf->gtf", xt.float(), w1[idx].float()),
-               approximate="tanh")
-    return torch.einsum("gtf,gfd->gtd", u, w2[idx].float()).to(xt.dtype)
+    W1, W2 = _flat(w1), _flat(w2)
+    w1g, w2g = W1[idx].to(ct), W2[idx].to(ct)
+    g, s = g.to(ct), s.to(ct)
+    du = torch.einsum("gtd,gfd->gtf", g, w2g)
+    ds = torch.ops.aten.gelu_backward(du, s, approximate="tanh")
+    dxt = torch.einsum("gtf,gdf->gtd", ds, w1g)
+    dw1 = torch.zeros(W1.shape, dtype=ct).index_add_(
+        0, idx, torch.einsum("gtd,gtf->gdf", xt.to(ct), ds))
+    dw2 = torch.zeros(W2.shape, dtype=ct).index_add_(
+        0, idx, torch.einsum("gtf,gtd->gfd", _gelu(s), g))
+    return (dxt.to(xt.dtype), dw1.reshape(w1.shape).to(w1.dtype),
+            dw2.reshape(w2.shape).to(w2.dtype))
 
 
 def _check(xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
@@ -113,69 +235,248 @@ def _check(xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
             f"grouped_ffn: xt must be [n_tiles, tile, D] with tile_eid "
             f"[n_tiles], got {tuple(xt.shape)} / {tuple(tile_eid.shape)}")
     D = xt.shape[2]
-    if (w1.ndim != 3 or w2.ndim != 3 or w1.shape[1] != D
-            or w2.shape != (w1.shape[0], w1.shape[2], D)):
+    lead = tuple(w1.shape[:-2])
+    if (w1.ndim not in (3, 4) or w2.ndim != w1.ndim or w1.shape[-2] != D
+            or w2.shape != lead + (w1.shape[-1], D)):
         raise ValueError(
-            f"grouped_ffn: want w1 [E, D={D}, F] and w2 [E, F, D], got "
-            f"{tuple(w1.shape)} / {tuple(w2.shape)}")
+            f"grouped_ffn: want w1 [(P,) E, D={D}, F] and w2 [(P,) E, F, "
+            f"D], got {tuple(w1.shape)} / {tuple(w2.shape)}")
 
 
-def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
-                     w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel; raises on anything it does not take.  The ids
-    in ``tile_eid`` must lie in ``[0, E)`` (the layout guarantees it;
-    checking would cost a host sync)."""
+def _experts(w: torch.Tensor) -> Tuple[int, int, int]:
+    """``(experts, experts a peer, elements between peers)`` of a 3-D
+    contiguous or 4-D stacked-peer weight whose blocks are contiguous."""
+    if w.ndim == 3:
+        if not w.is_contiguous():
+            raise ValueError("grouped_ffn weights must be contiguous")
+        return w.shape[0], w.shape[0], w.numel()
+    P, E, a, b = w.shape
+    if w[0].is_contiguous() and (P == 1 or w.stride(0) >= E * a * b):
+        return P * E, E, w.stride(0) if P > 1 else E * a * b
+    raise ValueError(f"grouped_ffn stacked weights {tuple(w.shape)} need "
+                     f"contiguous [E, a, b] blocks, got strides "
+                     f"{w.stride()}")
+
+
+def _cuda_operands(xt, tile_eid, w1, w2, dtypes):
     dev = xt.device
     if dev.type != "cuda":
         raise RuntimeError(f"grouped_ffn_cuda needs CUDA tensors, got {dev}")
     _check(xt, tile_eid, w1, w2)
-    if xt.dtype not in _DTYPES or w1.dtype != xt.dtype \
+    if xt.dtype not in dtypes or w1.dtype != xt.dtype \
             or w2.dtype != xt.dtype:
         raise TypeError(f"grouped_ffn dtypes {xt.dtype}/{w1.dtype}/"
                         f"{w2.dtype}: expected all alike, one of "
-                        f"{list(_DTYPES)}")
+                        f"{list(dtypes)}")
     if tile_eid.dtype != torch.int32:
         raise TypeError(f"tile_eid must be int32, got {tile_eid.dtype}")
     for t in (xt, tile_eid, w1, w2):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"grouped_ffn operands must be contiguous on "
-                             f"{dev}; got one on {t.device} "
-                             f"(contiguous={t.is_contiguous()})")
+        if t.device != dev:
+            raise ValueError(f"grouped_ffn operands must all be on {dev}; "
+                             f"got one on {t.device}")
+    for t in (xt, tile_eid):
+        if not t.is_contiguous():
+            raise ValueError("grouped_ffn xt and tile_eid must be "
+                             "contiguous")
     G, tile, D = xt.shape
-    E, Fd = w1.shape[0], w1.shape[2]
+    Fd = w1.shape[-1]
+    E, epp, p1 = _experts(w1)
+    p2 = _experts(w2)[2]
     if E > _MAX_EXPERTS or 0 in (G, tile, D, Fd, E):
         raise ValueError(f"grouped_ffn takes 1 .. {_MAX_EXPERTS} experts "
                          f"and non-empty tiles/widths, got G={G} "
                          f"tile={tile} D={D} F={Fd} E={E}")
-    xt, w1, w2 = _pad_widths(xt, w1, w2)
-    Dp, Fp = xt.shape[2], w1.shape[2]
+    return G, tile, D, Fd, E, epp, p1, p2
+
+
+def _forward_cuda(xt, tile_eid, w1, w2, keep_s: bool):
+    """``(out, s or None)`` on padded operands (D, F multiples of 8)."""
+    dev = xt.device
     xt, w1, w2 = _aligned(xt), _aligned(w1), _aligned(w2)
-    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, Dp, Fp)
+    G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(xt, tile_eid, w1, w2,
+                                                    _DTYPES)
+    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd)
     lib = build()
-    u = torch.empty((G, tile, Fp), dtype=torch.float32, device=dev)
+    u = torch.empty((G, tile, Fd), dtype=torch.float32, device=dev)
+    s = torch.empty_like(u) if keep_s else None
     out = torch.empty_like(xt)
     err = lib.bf_grouped_ffn(
         xt.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        u.data_ptr(), out.data_ptr(), G, tile, E, Dp, Fp, rows, slots,
-        up_cols, down_cols, _DTYPES[xt.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
+        G, tile, E, epp, p1, p2, D, Fd, rows, slots, up_cols, down_cols,
+        _DTYPES[xt.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn kernel launch failed: CUDA error "
                            f"{err} (G={G} tile={tile} E={E} D={D} F={Fd})")
     grouped_ffn_cuda.launches += 1
-    return out if Dp == D else out[..., :D].contiguous()
+    return out, s
+
+
+def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
+                     w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel; raises on anything it does not take.
+    The ids in ``tile_eid`` must lie in ``[0, E)`` (the layout guarantees
+    it; checking would cost a host sync)."""
+    if xt.device.type != "cuda":
+        raise RuntimeError(f"grouped_ffn_cuda needs CUDA tensors, got "
+                           f"{xt.device}")
+    D = xt.shape[-1]
+    out, _ = _forward_cuda(*_padded(xt, tile_eid, w1, w2), keep_s=False)
+    return out if out.shape[2] == D else out[..., :D].contiguous()
 
 
 grouped_ffn_cuda.launches = 0
 
 
+def _padded(xt, tile_eid, w1, w2):
+    xt, w1, w2 = _pad_widths(xt, w1, w2)
+    return xt, tile_eid, w1, w2
+
+
+def _f32_only(t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"grouped_ffn backward: the kernels take f32 only "
+                        f"(the trainer's type), got {t.dtype}; bf16 "
+                        f"training through K4 is not ported")
+
+
+def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
+                           w1: torch.Tensor, w2: torch.Tensor,
+                           s: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``(dxt, ds, u)``: the dgrad launches on padded f32 operands (D, F
+    multiples of 8): ``ds = (g @ w2^T) * gelu'(s)``, ``u = gelu(s)``,
+    ``dxt = ds @ w1^T``, expert-major on the forward's plan."""
+    dev = g.device
+    g, w1, w2 = _aligned(g), _aligned(w1), _aligned(w2)
+    G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(g, tile_eid, w1, w2,
+                                                    (torch.float32,))
+    if s.shape != (G, tile, Fd) or s.dtype != torch.float32 \
+            or not s.is_contiguous():
+        raise ValueError(f"grouped_ffn dgrad: s must be contiguous f32 "
+                         f"{(G, tile, Fd)}, got {tuple(s.shape)} {s.dtype}")
+    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd)
+    lib = build()
+    ds, u = torch.empty_like(s), torch.empty_like(s)
+    dxt = torch.empty_like(g)
+    err = lib.bf_grouped_ffn_dgrad(
+        g.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        s.data_ptr(), ds.data_ptr(), u.data_ptr(), dxt.data_ptr(), G, tile,
+        E, epp, p1, p2, D, Fd, rows, slots, up_cols, down_cols,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped ffn dgrad launch failed: CUDA error "
+                           f"{err} (G={G} tile={tile} E={E} D={D} F={Fd})")
+    grouped_ffn_dgrad_cuda.launches += 1
+    return dxt, ds, u
+
+
+grouped_ffn_dgrad_cuda.launches = 0
+
+
+def grouped_ffn_wgrad_cuda(xt: torch.Tensor, ds: torch.Tensor,
+                           u: torch.Tensor, g: torch.Tensor,
+                           tile_eid: torch.Tensor, num_experts: int,
+                           splits: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dw1 [E, D, F], dw2 [E, F, D])``, f32: per expert, the sums over
+    its rows of ``xt^T ds`` and ``u^T g``, in tile order, with no
+    atomics; ``splits`` (default :func:`wgrad_plan`) parts of each
+    expert's rows go to a scratch that a second launch adds in order."""
+    dev = xt.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"grouped_ffn_wgrad_cuda needs CUDA tensors, "
+                           f"got {dev}")
+    G, tile, D = xt.shape
+    Fd = ds.shape[2]
+    E = num_experts
+    for t, shape in ((xt, (G, tile, D)), (ds, (G, tile, Fd)),
+                     (u, (G, tile, Fd)), (g, (G, tile, D))):
+        _f32_only(t)
+        if t.shape != shape or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"grouped_ffn wgrad operands must be "
+                             f"contiguous f32 on {dev}; want {shape}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if tile_eid.dtype != torch.int32 or tile_eid.shape != (G,):
+        raise TypeError(f"tile_eid must be int32 [{G}], got "
+                        f"{tile_eid.dtype} {tuple(tile_eid.shape)}")
+    if D % 4 or Fd % 4 or not 1 <= E <= _MAX_EXPERTS:
+        raise ValueError(f"grouped_ffn wgrad takes D, F multiples of 4 and "
+                         f"1 .. {_MAX_EXPERTS} experts, got D={D} F={Fd} "
+                         f"E={E}")
+    if splits is None:
+        splits = wgrad_plan(G, tile, E, D, Fd)
+    xt, ds, u, g = (_aligned(t) for t in (xt, ds, u, g))
+    lib = build()
+    dw1 = torch.empty((E, D, Fd), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((E, Fd, D), dtype=torch.float32, device=dev)
+    scratch = torch.empty((splits, E, D * Fd), dtype=torch.float32,
+                          device=dev) if splits > 1 else None
+    err = lib.bf_grouped_ffn_wgrad(
+        xt.data_ptr(), ds.data_ptr(), u.data_ptr(), g.data_ptr(),
+        tile_eid.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), G, tile, E, D, Fd,
+        splits, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped ffn wgrad launch failed: CUDA error "
+                           f"{err} (G={G} tile={tile} E={E} D={D} F={Fd} "
+                           f"splits={splits})")
+    grouped_ffn_wgrad_cuda.launches += 1
+    return dw1, dw2
+
+
+grouped_ffn_wgrad_cuda.launches = 0
+
+
+class GroupedFFN(torch.autograd.Function):
+    """K4 with its gradient: on the card the forward keeps ``s`` and the
+    backward is the dgrad and wgrad kernels; on the CPU the plain forward
+    and :func:`grouped_ffn_backward_plain`.  Takes operands whose widths
+    are multiples of 8 on the card (:func:`grouped_ffn` pads them); no
+    gradient for ``tile_eid``."""
+
+    @staticmethod
+    def forward(ctx, xt, tile_eid, w1, w2):
+        if xt.device.type == "cuda":
+            _f32_only(xt)
+            out, s = _forward_cuda(xt, tile_eid, w1, w2, keep_s=True)
+        else:
+            out, s = _plain(xt, tile_eid, w1, w2)
+        ctx.save_for_backward(xt, tile_eid, w1, w2, s)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xt, tile_eid, w1, w2, s = ctx.saved_tensors
+        if g.device.type != "cuda":
+            dxt, dw1, dw2 = grouped_ffn_backward_plain(xt, tile_eid, w1, w2,
+                                                       s, g)
+            return dxt, None, dw1, dw2
+        g = g.contiguous()
+        dxt, ds, u = grouped_ffn_dgrad_cuda(g, tile_eid, w1, w2, s)
+        dw1, dw2 = grouped_ffn_wgrad_cuda(xt, ds, u, g, tile_eid,
+                                          _experts(w1)[0])
+        return dxt, None, dw1.view(w1.shape), dw2.view(w2.shape)
+
+
 def grouped_ffn(xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
                 w2: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    if xt.device.type == "cuda":
-        return grouped_ffn_cuda(xt, tile_eid, w1, w2)
-    if xt.device.type != "cpu":
+    """The kernel on CUDA tensors, the plain version on CPU tensors; under
+    autograd, :class:`GroupedFFN` (widths padded to multiples of 8 on the
+    card, the gradients cut back by the pad's own backward)."""
+    if xt.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"grouped_ffn runs on CUDA or the CPU, not "
                            f"{xt.device}")
     _check(xt, tile_eid, w1, w2)
-    return grouped_ffn_plain(xt, tile_eid, w1, w2)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xt, w1, w2))
+    if not grad:
+        if xt.device.type == "cuda":
+            return grouped_ffn_cuda(xt, tile_eid, w1, w2)
+        return grouped_ffn_plain(xt, tile_eid, w1, w2)
+    if xt.device.type == "cpu":
+        return GroupedFFN.apply(xt, tile_eid, w1, w2)
+    D = xt.shape[2]
+    out = GroupedFFN.apply(*_padded(xt, tile_eid, w1, w2))
+    return out if out.shape[2] == D else out[..., :D]

@@ -59,9 +59,11 @@ class Mesh3D:
 
     ``topology``/``schedule`` describe the gossip graph over the ``dp``
     replicas (not over all peers); ``device`` is where the stacked tensors
-    live.  ``ep`` is 1 and ``wire``, ``num_experts`` and
-    ``capacity_factor`` are None until their slices are ported; they are
-    kept so :meth:`describe` has the JAX carving's keys."""
+    live.  ``num_experts`` / ``capacity_factor`` are the JAX carving's
+    metadata for the MoE model it will run (see
+    :class:`bluefog_tpu_torch.moe.model.MoELMConfig`).  ``ep`` is 1 and
+    ``wire`` None until their slices are ported; they are kept so
+    :meth:`describe` has the JAX carving's keys."""
     dp: int
     topology: nx.DiGraph
     is_weighted: bool
@@ -71,7 +73,9 @@ class Mesh3D:
     tp: int = 1
     sp: int = 1
     ep: int = 1
-    wire = num_experts = capacity_factor = None
+    num_experts: Optional[int] = None
+    capacity_factor: Optional[float] = None
+    wire = None
 
     @property
     def size(self) -> int:
@@ -125,6 +129,8 @@ def compose_parallelism(
     topology: Union[nx.DiGraph, Callable[[int], nx.DiGraph], None] = None,
     weighted: bool = True,
     wire: Optional[str] = None,
+    num_experts: Optional[int] = None,
+    capacity_factor: Optional[float] = None,
 ) -> Mesh3D:
     """Carve ``dp x pp x tp x sp`` peers, stacked on ``device`` (CUDA
     unless the caller asks for another) in the JAX flat device order.
@@ -133,15 +139,27 @@ def compose_parallelism(
     the ``dp`` replicas, an ``nx.DiGraph`` with exactly ``dp`` nodes or a
     callable ``f(dp) -> DiGraph`` (default ``ExponentialTwoGraph(dp)``);
     ``weighted`` compiles the graph's own weights (vs the uniform
-    ``1/(in_degree+1)``)."""
+    ``1/(in_degree+1)``).  ``num_experts`` / ``capacity_factor``: the MoE
+    metadata the JAX function takes (optional at ep = 1; the model
+    config holds the operative values), reported by ``describe()``."""
     for name, v in (("dp", dp), ("pp", pp), ("tp", tp), ("sp", sp),
                     ("ep", ep)):
         if not isinstance(v, (int, np.integer)) or v < 1:
             raise ValueError(f"axis size {name}={v!r} must be a positive int")
+    if num_experts is not None and (
+            not isinstance(num_experts, (int, np.integer))
+            or num_experts < 1):
+        raise ValueError(
+            f"num_experts={num_experts!r} must be a positive int")
     if ep > 1:
         raise ValueError(
             f"ep={ep}: expert carvings (ep > 1) are not yet ported to "
             "bluefog_tpu_torch")
+    if capacity_factor is not None and not (
+            isinstance(capacity_factor, (int, float, np.floating))
+            and float(capacity_factor) > 0):
+        raise ValueError(
+            f"capacity_factor={capacity_factor!r} must be a positive number")
     if wire is not None:
         if dp == 1:
             raise ValueError(
@@ -165,7 +183,10 @@ def compose_parallelism(
             "not be mixed)")
     return Mesh3D(dp=int(dp), topology=topo, is_weighted=weighted,
                   schedule=compile_topology(topo, weighted), device=dev,
-                  pp=int(pp), tp=int(tp), sp=int(sp))
+                  pp=int(pp), tp=int(tp), sp=int(sp),
+                  num_experts=num_experts,
+                  capacity_factor=(None if capacity_factor is None
+                                   else float(capacity_factor)))
 
 
 def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
@@ -460,6 +481,156 @@ def make_lm_batch(cfg: LMConfig, m: Mesh3D, seed: int = 0,
     return torch.from_numpy(per_peer).to(m.device)
 
 
+def _attention(cfg: LMConfig, m: Mesh3D, use_pallas: bool):
+    """The attention sublayer of one GPipe tick's peers: ``attn(lp, x,
+    cos, sin)`` for ``x [k, TP, SP, B * Tl, D]`` (k live stages) and
+    ``lp`` leaves ``[k, TP, SP, ...]`` (every peer's own ``wqkv`` / ``wo``
+    shard): pre-LN, rope at the global positions, Ulysses over sp around
+    the K1/K2 flash kernels, ``wo`` and the psum over tp, residual."""
+    TP, SP = m.tp, m.sp
+    D, H = cfg.d_model, cfg.heads
+    Hl, hsz = H // TP, D // H
+    Tl, B = cfg.seq_len // SP, cfg.batch
+    block_q = min(512, cfg.seq_len)
+
+    def attn(lp, x, cos, sin):
+        k_ = x.shape[0]
+        shape = (k_, TP, SP, B, Tl, Hl, hsz)
+        q, k, v = torch.matmul(_ln(x), lp["wqkv"]).split(D // TP, dim=-1)
+        q = _rotate(q.reshape(shape), cos, sin)
+        k = _rotate(k.reshape(shape), cos, sin)
+        att = ulysses_attention(q, k, v.reshape(shape), axis=2, causal=True,
+                                use_pallas=use_pallas,
+                                pallas_block_q=block_q)
+        att = att.reshape(k_, TP, SP, B * Tl, D // TP)
+        return x + psum(torch.matmul(att, lp["wo"]), 1)
+
+    return attn
+
+
+def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
+                 remat: bool = False, n_ch: int = 0, channel_loss=None):
+    """``(grad_fn, probe)`` for one DP replica of a stacked pipelined LM:
+    the machinery :func:`make_lm_grad_fn` documents, shared with the MoE
+    trainer (:func:`bluefog_tpu_torch.moe.model.make_moe_grad_fn`).
+
+    ``layer_fn(lp, x, cos, sin) -> (x, vec)`` is one layer of a tick's
+    peers, ``lp`` a dict of the param groups that ride the pipeline (every
+    group of ``sums`` but ``"shared"``; leaves ``[k, TP, SP, ...]``),
+    ``vec`` ``[k, TP, SP, n_ch]`` or None.
+    With ``n_ch`` a carrier rides the pipeline as the JAX MoE model's
+    carrier row: ``Tl`` zero rows appended to each peer's ``B * Tl``
+    activation rows, which the layer math never sees; each stage adds its
+    layers' ``vec`` sum to the first carrier row's first ``n_ch``
+    channels, so the channels reach the last stage, and their
+    cotangents every stage, through the pipeline itself.  Each
+    microbatch's loss is its cross-entropy plus ``channel_loss(ch [SP,
+    n_ch])``, over the microbatch count.  ``sums`` maps each param group
+    to the dims of the ``[pp, tp, sp]`` peer view its gradient is summed
+    over outside autograd (the JAX ``psum``/``pmean``s).  ``probe(params,
+    toks)`` returns replica 0's cross-entropy and carrier channels, mean
+    over microbatches and sp peers, without a graph."""
+    from ..fusion import tree_flatten, tree_map, tree_unflatten
+
+    S, TP, SP = m.pp, m.tp, m.sp
+    n = m.slice_size
+    D, H, V = cfg.d_model, cfg.heads, cfg.vocab
+    hsz = D // H
+    Tl, B, lag = cfg.seq_len // SP, cfg.batch, cfg.lag
+    Lps = cfg.layers // S
+    R = B * Tl                       # a peer's activation rows
+    groups = [g for g in sorted(sums) if g != "shared"]
+
+    def forward(p, toks):
+        """The last stage's pipeline output ``[M, TP, SP, rows, D]``."""
+        dev, M = toks.device, toks.shape[1]
+        tk = toks.long().view(S, TP, SP, M, B, Tl)
+        stage_params = {g: {k: w.view((S, TP, SP) + tuple(w.shape[1:]))
+                            for k, w in p[g].items()} for g in groups}
+        embed = p["shared"]["embed"].view(S, TP, SP, V, D)
+        pos = (torch.arange(SP, device=dev)[:, None] * Tl
+               + torch.arange(Tl, device=dev))
+        cos, sin = _cos_sin(pos, hsz, 10000.0)         # [SP, Tl, hsz / 2]
+        cos, sin = (c[:, None, :, None, :] for c in (cos, sin))
+
+        def stage_fn(bp, x):
+            data, acc = (x[..., :R, :] if n_ch else x), None
+            for i in range(Lps):
+                lp = {g: {k: w[:, :, :, i] for k, w in d.items()}
+                      for g, d in bp.items()}
+                data, vec = layer_fn(lp, data, cos, sin)
+                if vec is not None:
+                    acc = vec if acc is None else acc + vec
+            if not n_ch:
+                return data
+            row = x[..., R:, :]
+            first = row[..., :1, :] + F.pad(acc, (0, D - n_ch))[..., None, :]
+            return torch.cat([data, first, row[..., 1:, :]], dim=-2)
+
+        # stage 0's peers embed their own tokens with their own rows
+        ti = torch.arange(TP, device=dev).view(TP, 1, 1, 1, 1)
+        ui = torch.arange(SP, device=dev).view(1, SP, 1, 1, 1)
+        x0 = embed[0][ti, ui, tk[0]]              # [TP, SP, M, B, Tl, D]
+        mbs = x0.permute(2, 0, 1, 3, 4, 5).reshape(M, TP, SP, R, D)
+        del x0
+        if n_ch:                                  # the carrier rows
+            mbs = torch.cat([mbs, mbs.new_zeros((M, TP, SP, Tl, D))], 3)
+        return pipeline_apply(stage_fn, stage_params, mbs, remat=remat), tk
+
+    def head_loss(p, o, tk, mb):
+        """Microbatch ``mb``'s cross-entropy over the sp peers and its
+        carrier channels ``[SP, n_ch]``, from the last stage's tp peer 0
+        (``o [SP, rows, D]``)."""
+        hd = p["shared"]["head"].view(S, TP, SP, D, V)[S - 1, 0]
+        targets = torch.roll(tk[S - 1, 0, :, mb], lag, dims=-1)
+        logits = torch.matmul(_ln(o[:, :R]), hd)
+        logits = logits.view(SP, B, Tl, V)[:, :, lag:]
+        ce = F.cross_entropy(logits.reshape(-1, V),
+                             targets[..., lag:].reshape(-1))
+        return ce, (o[:, R, :n_ch] if n_ch else None)
+
+    def grad_fn(params, toks):
+        leaves, treedef = tree_flatten(params)
+        if n == 1:                           # the rank's own view
+            leaves, toks = [x[None] for x in leaves], toks[None]
+        ws = [x.detach().requires_grad_() for x in leaves]
+        p = tree_unflatten(treedef, ws)
+        total = torch.zeros((), device=toks.device)
+        with torch.enable_grad():
+            out, tk = forward(p, toks)
+            M = out.shape[0]
+            out_cut = out.detach().requires_grad_()   # [M, TP, SP, .., D]
+            for mb in range(M):
+                ce, ch = head_loss(p, out_cut[mb, 0], tk, mb)
+                loss = (ce if ch is None else ce + channel_loss(ch)) / M
+                loss.backward()
+                total = total + loss.detach()
+                del ce, ch, loss
+            out.backward(out_cut.grad)
+            del out, out_cut
+        grads = tree_unflatten(treedef, [w.grad for w in ws])
+        # the JAX psums / pmeans outside AD, over the peer view's dims
+        grads = {grp: {k: g.view((S, TP, SP) + tuple(g.shape[1:])).sum(
+            sums[grp], keepdim=True).expand(
+            (S, TP, SP) + tuple(g.shape[1:])).reshape(g.shape)
+            for k, g in d.items()} for grp, d in grads.items()}
+        if n == 1:
+            return total, tree_map(lambda g: g[0], grads)
+        return total.expand(n), grads
+
+    def probe(params, toks):
+        p = tree_map(lambda x: x[:n] if n > 1 else x[:1], params)
+        with torch.no_grad():
+            out, tk = forward(p, toks[:n] if n > 1 else toks[:1])
+            M = out.shape[0]
+            parts = [head_loss(p, out[mb, 0], tk, mb) for mb in range(M)]
+        ce = sum(c for c, _ in parts) / M
+        ch = (sum(c for _, c in parts) / M).mean(0) if n_ch else None
+        return ce, ch
+
+    return grad_fn, probe
+
+
 def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
                     use_pallas: bool = False):
     """``grad_fn(params, toks) -> (loss, grads)`` for one DP replica of the
@@ -501,89 +672,14 @@ def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
     from the JAX function.  ``use_pallas`` selects the flash path on the
     CPU (the kernels' plain versions); on CUDA the kernels always run."""
     cfg.validate(m)
-    from ..fusion import tree_flatten, tree_map, tree_unflatten
-
-    S, TP, SP = m.pp, m.tp, m.sp
-    n = m.slice_size
-    D, H, V = cfg.d_model, cfg.heads, cfg.vocab
-    Hl, hsz = H // TP, D // H
-    Tl, B, lag = cfg.seq_len // SP, cfg.batch, cfg.lag
-    Lps = cfg.layers // S
-    block_q = min(512, cfg.seq_len)
+    attn = _attention(cfg, m, use_pallas)
 
     def layer_fn(lp, x, cos, sin):
-        # x [k, TP, SP, B * Tl, D] for k live stages; lp leaves
-        # [k, TP, SP, ...]: every peer's own shard
-        k_ = x.shape[0]
-        shape = (k_, TP, SP, B, Tl, Hl, hsz)
-        q, k, v = torch.matmul(_ln(x), lp["wqkv"]).split(D // TP, dim=-1)
-        q = _rotate(q.reshape(shape), cos, sin)
-        k = _rotate(k.reshape(shape), cos, sin)
-        att = ulysses_attention(q, k, v.reshape(shape), axis=2, causal=True,
-                                use_pallas=use_pallas,
-                                pallas_block_q=block_q)
-        att = att.reshape(k_, TP, SP, B * Tl, D // TP)
-        x = x + psum(torch.matmul(att, lp["wo"]), 1)
-        h = _gelu(torch.matmul(_ln(x), lp["w1"]))
-        return x + psum(torch.matmul(h, lp["w2"]), 1)
+        bp = lp["blocks"]
+        x = attn(bp, x, cos, sin)
+        h = _gelu(torch.matmul(_ln(x), bp["w1"]))
+        return x + psum(torch.matmul(h, bp["w2"]), 1), None
 
-    def grad_fn(params, toks):
-        leaves, treedef = tree_flatten(params)
-        if n == 1:                           # the rank's own view
-            leaves, toks = [x[None] for x in leaves], toks[None]
-        ws = [x.detach().requires_grad_() for x in leaves]
-        p = tree_unflatten(treedef, ws)
-        dev, M = toks.device, toks.shape[1]
-        tk = toks.long().view(S, TP, SP, M, B, Tl)
-        blocks = {k: w.view((S, TP, SP) + tuple(w.shape[1:]))
-                  for k, w in p["blocks"].items()}
-        embed = p["shared"]["embed"].view(S, TP, SP, V, D)
-        head = p["shared"]["head"].view(S, TP, SP, D, V)
-        pos = (torch.arange(SP, device=dev)[:, None] * Tl
-               + torch.arange(Tl, device=dev))
-        cos, sin = _cos_sin(pos, hsz, 10000.0)         # [SP, Tl, hsz / 2]
-        cos, sin = (c[:, None, :, None, :] for c in (cos, sin))
-
-        def stage_fn(bp, x):
-            for i in range(Lps):
-                x = layer_fn({k: w[:, :, :, i] for k, w in bp.items()}, x,
-                             cos, sin)
-            return x
-
-        total = torch.zeros((), device=dev)
-        with torch.enable_grad():
-            # stage 0's peers embed their own tokens with their own rows
-            ti = torch.arange(TP, device=dev).view(TP, 1, 1, 1, 1)
-            ui = torch.arange(SP, device=dev).view(1, SP, 1, 1, 1)
-            x0 = embed[0][ti, ui, tk[0]]          # [TP, SP, M, B, Tl, D]
-            mbs = x0.permute(2, 0, 1, 3, 4, 5).reshape(M, TP, SP, B * Tl, D)
-            del x0
-            out = pipeline_apply(stage_fn, blocks, mbs, remat=remat)
-            del mbs
-            out_cut = out.detach().requires_grad_()   # [M, TP, SP, .., D]
-            hd = head[S - 1, 0]                       # [SP, D, V]
-            targets = torch.roll(tk[S - 1, 0], lag, dims=-1)
-            for mb in range(M):
-                logits = torch.matmul(_ln(out_cut[mb, 0]), hd)
-                logits = logits.view(SP, B, Tl, V)[:, :, lag:]
-                loss = F.cross_entropy(
-                    logits.reshape(-1, V),
-                    targets[:, mb, :, lag:].reshape(-1)) / M
-                loss.backward()
-                total = total + loss.detach()
-                del logits, loss
-            out.backward(out_cut.grad)
-            del out, out_cut
-        grads = tree_unflatten(treedef, [w.grad for w in ws])
-        # the JAX pmean over sp (block grads) and psum over (stage, tp)
-        # then pmean over sp (shared grads), of these 1/sp-scaled partials
-        grads["blocks"] = {
-            k: psum(g.view((S, TP, SP) + tuple(g.shape[1:])), 2).reshape(
-                g.shape) for k, g in grads["blocks"].items()}
-        grads["shared"] = {k: psum(g, 0)
-                           for k, g in grads["shared"].items()}
-        if n == 1:
-            return total, tree_map(lambda g: g[0], grads)
-        return total.expand(n), grads
-
-    return grad_fn
+    return _replica_fns(cfg, m, layer_fn,
+                        sums={"blocks": (2,), "shared": (0, 1, 2)},
+                        remat=remat)[0]

@@ -10,6 +10,13 @@ for step: regroup into the tile-padded buffer of
 total park on a trash row), run ``grouped_fn``, then invert every
 permutation, so dispatch and combine with an identity ``grouped_fn`` are
 the identity bit for bit.  An axis size above 1 raises "not yet ported".
+
+Both functions carry gradients: the regroup and the inverse sort are
+index writes into fresh zero buffers (``buf[slot] = recv``, ``y[order] =
+...``), whose autograd transposes are the matching gathers, and the trash
+row past the buffer is cut off before ``grouped_fn`` (as the JAX
+function's ``[:n_pad]`` slice), so it takes no cotangent.
+:func:`load_balancing_loss` is the JAX Switch-Transformer auxiliary loss.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 
 from ..moe.dropless import dropless_rows, sort_by_expert, tile_layout
 
-__all__ = ["moe_apply_dropless", "dropless_dispatch"]
+__all__ = ["moe_apply_dropless", "dropless_dispatch",
+           "load_balancing_loss"]
 
 
 def moe_apply_dropless(
@@ -102,3 +110,17 @@ def dropless_dispatch(x: torch.Tensor, expert_idx: torch.Tensor,
     y = torch.zeros((T, D), dtype=out.dtype, device=out.device)
     y[order] = o_pad[slot]
     return y
+
+
+def load_balancing_loss(router_probs: torch.Tensor,
+                        expert_idx: torch.Tensor) -> torch.Tensor:
+    """Switch-Transformer auxiliary load-balancing loss for one peer's
+    tokens: ``E * sum_e fraction_routed_e * mean_router_prob_e``, with
+    ``router_probs`` the full softmax ``[T, E]`` and ``expert_idx`` the
+    (top-1) assignment actually dispatched.  Minimized (value 1.0) by
+    uniform routing; differentiable in ``router_probs``."""
+    num_experts = router_probs.shape[-1]
+    f = torch.nn.functional.one_hot(expert_idx.long(), num_experts).to(
+        router_probs.dtype).mean(0)
+    p = router_probs.mean(0)
+    return num_experts * (f * p).sum()

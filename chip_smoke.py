@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (add
 ``--profile`` for a ``torch.profiler`` breakdown of one decode call, of
-one training step, with K1's and K2's device time and share, and of one
-MoE decode call).
+one training step, with K1's and K2's device time and share, of one
+MoE decode call, and of one MoE training step with K1, K2, K4's forward
+and K4's backward).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -123,7 +124,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    same tokens, or diverge only at a near tie: a top-2 logit gap below
    1e-3 at the first divergent token, or a router whose k-th and
    (k+1)-th probabilities lie within 1e-5 at some layer and position up
-   to it.
+   to it;
+12a (run after phase 8). K4's backward (``grouped_ffn_dgrad_cuda`` +
+   ``grouped_ffn_wgrad_cuda`` under ``GroupedFFN``, f32) against the
+   per-expert plain version under autograd: the MoE trainer's steady
+   tick (65,536 rows over 32 folded experts, D 1024, F 2048), the
+   serving prefill shape (135 tiles of 8, 8 experts, F 4096) and hostile
+   routing (every row on one expert but 3 on another, the rest empty;
+   the empty experts' gradients exactly 0).  dxt, dw1, dw2 within 1e-4 x
+   max|plain| (f32-accurate 3xTF32 products summed in another order,
+   the weight gradients over up to 16k rows of one expert); two runs bit
+   identical.  Timed cold and warm beside the bound (8 rows D F
+   operations at the 3xTF32 rate), the plain version's backward and the
+   per-expert cuBLAS yardstick (``torch.matmul`` over each expert's
+   rows, bounds read beforehand);
+12b. MoE training at full width: ``MoELMConfig(vocab=32768,
+   d_model=1024, heads=16, layers=4, seq_len=2048, micro=4, batch=4,
+   num_experts=8, top_k=2, dispatch="dropless", group_tile=8)`` at dp 2
+   x pp 2 x tp 2, Exp2 gossip, delayed AWC, Adam 5e-3, seed 0 (micro 4,
+   not lm_bench's 8, is the one cut); 1 warm-up and 3 timed steps.  K1,
+   K2, K4's forward, dgrad and wgrad must each launch dp x (micro + pp -
+   1) x layers / pp times a step, the loss must fall, the probe must
+   report dropped_fraction 0, usage summing to 1 and finite values.
+   Step 1 replayed through the plain versions (plain K1/K2, the
+   per-expert K4): the router calls' top-k may flip only at near ties
+   (each replica's first flip at a k-th to (k+1)-th probability gap
+   below 1e-5; later flips are counted), and on any flip the replay
+   takes the kernel run's routing; loss rtol 1e-5; every gradient within
+   the larger of 1e-4 x max|g| and twice its one-ulp floor (the kernel
+   path's own step-1 gradient with the embedding table moved by one ulp,
+   measured in the same run: at these widths f32 rounding alone moves
+   the gradients by ~2e-4 x max|g|, see PERF.md).  s/step, tokens/s,
+   model FLOP/s and peak memory; the K4 operand copies of step 1.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1299,13 +1331,15 @@ def profile_long_context(step, toks, tgts, tag):
 
 # -- phases 7-8: the grouped expert FFN and MoE serving -------------------
 
-def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile):
+def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile, ids=None):
     """K4's operands as the dropless dispatch lays them out: ``rows``
-    random rows routed at random (or all to the last expert), sorted and
-    padded into tiles, plus expert weights at the model's init scale."""
+    random rows routed at random (or all to the last expert, or by
+    ``ids``), sorted and padded into tiles, plus expert weights at the
+    model's init scale."""
     from bluefog_tpu_torch.parallel.expert import dropless_dispatch
     x = torch.from_numpy(rng.normal(size=(rows, D)).astype(np.float32))
-    ids = np.full(rows, E - 1) if hostile else rng.integers(0, E, rows)
+    if ids is None:
+        ids = np.full(rows, E - 1) if hostile else rng.integers(0, E, rows)
     seen = {}
 
     def capture(_, xt, tile_eid):
@@ -1532,6 +1566,448 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
     return engine, k4
 
 
+# -- phase 12: K4's backward and MoE training ----------------------------
+
+def _k4_bwd_bound(rows, E, D, F):
+    """Least time of K4's backward on ``rows`` routed rows: 8 rows D F
+    operations (dgrad's two products, wgrad's two) at the 3xTF32 rate,
+    or the bytes (xt, g, s and the weights read once; dxt and the weight
+    gradients written once)."""
+    flops = 8.0 * rows * D * F
+    nbytes = 4 * (3 * rows * D + rows * F + 4 * E * D * F)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32X3_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def _by_expert_yardstick(xt, eid, w1, w2, s, g):
+    """The per-expert cuBLAS yardstick of K4's backward: ``torch.matmul``
+    over each expert's contiguous rows (the run bounds read on the host
+    beforehand, as a per-expert loop must), gelu' and gelu between."""
+    import torch.nn.functional as F
+    ids = eid.tolist()
+    tile, D = xt.shape[1], xt.shape[2]
+    x2, g2, s2 = (t.reshape(-1, t.shape[-1]) for t in (xt, g, s))
+    runs, g0 = [], 0
+    while g0 < len(ids):
+        g1 = g0
+        while g1 < len(ids) and ids[g1] == ids[g0]:
+            g1 += 1
+        runs.append((ids[g0], g0 * tile, g1 * tile))
+        g0 = g1
+
+    def run():
+        dxt = torch.empty_like(x2)
+        dw1, dw2 = torch.zeros_like(w1), torch.zeros_like(w2)
+        for e, r0, r1 in runs:
+            gs, ss, xs = g2[r0:r1], s2[r0:r1], x2[r0:r1]
+            ds = torch.ops.aten.gelu_backward(
+                torch.matmul(gs, w2[e].t()), ss, approximate="tanh")
+            dxt[r0:r1] = torch.matmul(ds, w1[e].t())
+            dw1[e] += torch.matmul(xs.t(), ds)
+            dw2[e] += torch.matmul(F.gelu(ss, approximate="tanh").t(), gs)
+        return dxt, dw1, dw2
+
+    return run
+
+
+def grouped_ffn_backward_phase(gf):
+    """Phase 12a: K4's backward (the dgrad and wgrad kernels, f32) against
+    the per-expert plain version under autograd at the MoE trainer's
+    steady tick, the serving prefill shape and hostile routing: dxt, dw1,
+    dw2 within 1e-4 x max|plain| (f32-accurate 3xTF32 products summed in
+    another order, the weight gradients over up to 16k rows of one
+    expert), two runs bit-identical.  Times cold and warm beside the
+    bound, the plain version's backward and the per-expert cuBLAS
+    yardstick.  Returns the rows by case."""
+    rng = np.random.default_rng(12)
+    hostile = np.full(4096, 5)
+    hostile[:3] = 2                  # one expert with fewer rows than a tile
+    cases = [("steady_tick", 65536, 32, 1024, 2048, None),
+             ("prefill_512", 1024, 8, 1024, 4096, None),
+             ("hostile", 4096, 8, 1024, 4096, hostile)]
+    rows_out = {}
+    for name, rows, E, D, Fd, ids in cases:
+        xt, eid, w1, w2 = _k4_inputs(rng, rows, E, D, Fd, 8, torch.float32,
+                                     False, ids)
+        g = torch.from_numpy(rng.normal(size=tuple(xt.shape)).astype(
+            np.float32)).to(DEV)
+
+        def grads(fn):
+            x, a, b = (t.detach().requires_grad_() for t in (xt, w1, w2))
+            out = fn(x, eid, a, b)
+            return torch.autograd.grad(out, (x, a, b), g)
+
+        before = (gf.grouped_ffn_dgrad_cuda.launches,
+                  gf.grouped_ffn_wgrad_cuda.launches)
+        got = grads(gf.grouped_ffn)
+        again = grads(gf.grouped_ffn)
+        torch.cuda.synchronize()
+        if (gf.grouped_ffn_dgrad_cuda.launches - before[0],
+                gf.grouped_ffn_wgrad_cuda.launches - before[1]) != (2, 2):
+            raise AssertionError(f"grouped_ffn backward {name}: the dgrad/"
+                                 "wgrad kernels did not launch")
+        identical = all(torch.equal(p, q) for p, q in zip(got, again))
+        del again
+        want = grads(gf.grouped_ffn_plain_by_expert)
+        errs = {}
+        for key, a, b in zip(("dxt", "dw1", "dw2"), got, want):
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            errs[key] = err / top
+            if not (err <= 1e-4 * top and bool(torch.isfinite(a).all())):
+                raise AssertionError(
+                    f"grouped_ffn backward disagrees with the per-expert "
+                    f"plain version: {name} {key}: max abs err {err} > "
+                    f"1e-4 x max|plain| = {1e-4 * top}")
+        if not identical:
+            raise AssertionError(f"grouped_ffn backward {name}: two runs "
+                                 "differ")
+        if name == "hostile":
+            empty = [e for e in range(E) if e not in (2, 5)]
+            if bool(got[1][empty].any()) or bool(got[2][empty].any()):
+                raise AssertionError("grouped_ffn backward: an expert "
+                                     "without rows got a nonzero gradient")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        del got, want
+        _, s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+
+        def kern():
+            dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s)
+            return dxt, gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid, E)
+
+        x, a, b = (t.detach().requires_grad_() for t in (xt, w1, w2))
+        ref_out = gf.grouped_ffn_plain_by_expert(x, eid, a, b)
+
+        def plain():
+            return torch.autograd.grad(ref_out, (x, a, b), g,
+                                       retain_graph=True)
+
+        ms, warm_ms = _device_ms(kern, True, iters=5, warmup=1), \
+            _device_ms(kern, False, iters=5, warmup=1)
+        plain_ms = _device_ms(plain, True, iters=3, warmup=1)
+        lib = _by_expert_yardstick(xt, eid, w1, w2, s, g)
+        lib_ms, lib_warm_ms = _device_ms(lib, True, iters=5, warmup=1), \
+            _device_ms(lib, False, iters=5, warmup=1)
+        bound, bound_by = _k4_bwd_bound(rows, E, D, Fd)
+        G = xt.shape[0]
+        row = dict(case=name, rows=rows, G=G, tile=8, E=E, D=D, F=Fd,
+                   plan=list(gf.ffn_plan(G, 8, E, D, Fd)),
+                   wgrad_splits=gf.wgrad_plan(G, 8, E, D, Fd),
+                   max_abs_err=err, rel_err=errs, ms=ms, warm_ms=warm_ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   library_ms=lib_ms, library_warm_ms=lib_warm_ms,
+                   library="cuBLAS torch.matmul per expert over its "
+                           "contiguous rows (bounds read beforehand), "
+                           "gelu' and gelu between",
+                   plain="autograd backward of grouped_ffn_plain_by_expert "
+                         "on a kept graph")
+        print("kernel_case " + json.dumps(row), flush=True)
+        rows_out[name] = row
+        del xt, w1, w2, g, s, ref_out, x, a, b
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+class _Routing:
+    """Records every ``router_topk`` call's top-k ids and its k-th to
+    (k+1)-th probability gap (on the host), or forces the ids of a
+    recorded run onto a replay (gates taken from the replay's own
+    probabilities at those ids)."""
+
+    def __init__(self, layers_mod):
+        self.mod, self.orig = layers_mod, layers_mod.router_topk
+        self.calls, self.force, self.i = [], None, 0
+
+    def __call__(self, x, wr, *, top_k):
+        logits, probs, idx, gate = self.orig(x, wr, top_k=top_k)
+        if self.force is not None:
+            idx = self.force[self.i].to(idx.device)
+            gate = probs.gather(-1, idx)
+            if top_k > 1:
+                gate = gate / gate.sum(-1, keepdim=True)
+            self.i += 1
+            return logits, probs, idx, gate
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        self.calls.append((idx.cpu(), (srt[..., top_k - 1]
+                                       - srt[..., top_k]).detach().cpu()))
+        return logits, probs, idx, gate
+
+
+def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
+    """Phase 12b: MoE training at full width (lm_bench's widths, 8 experts
+    top-2, dropless, group tile 8) at dp 2 x pp 2 x tp 2: launch counts,
+    falling loss, the probe, peak memory, and step 1 replayed through the
+    plain versions (plain K1/K2, the per-expert K4)."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.fusion import tree_flatten
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    cfg = moe_model.MoELMConfig(vocab=32768, d_model=1024, heads=16,
+                                layers=4, seq_len=2048, micro=4, batch=4,
+                                num_experts=8, top_k=2, dispatch="dropless",
+                                group_tile=8)
+    m = compose.compose_parallelism(2, 2, 2, 1, device=DEV,
+                                    num_experts=cfg.num_experts,
+                                    capacity_factor=cfg.capacity_factor)
+    grad_fn = moe_model.make_moe_grad_fn(cfg, m)
+    recorded, record = [], [True]
+
+    def recording(params, toks):
+        loss, grads = grad_fn(params, toks)
+        if record[0]:                 # kept on the host: the peak stays
+            recorded.append([g.cpu() for g in       # the path's own
+                             tree_flatten(grads)[0]])
+        return loss, grads
+
+    step, strategy = compose.make_train_step(m, recording, bfopt.adam(5e-3),
+                                             delayed=True)
+    t0 = time.monotonic()
+    init = moe_model.init_moe_train_params(cfg, m, seed=0)
+    toks = moe_model.make_moe_batch(cfg, m, seed=0)
+    init_s = time.monotonic() - t0
+    params = {g: {k: v.clone() for k, v in d.items()}
+              for g, d in init.items()}
+    state = bfopt.init_distributed(strategy, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    routing = _Routing(layers_mod)
+
+    # -- the main path: counts at 0, 1 warm-up + 3 timed steps, counts read
+    steps = 4
+    fa.fwd_launches = fa.bwd_launches = 0
+    gf.grouped_ffn_cuda.launches = gf.grouped_ffn_dgrad_cuda.launches = \
+        gf.grouped_ffn_wgrad_cuda.launches = 0
+    losses = []
+    # step 1 also counts the K4 operands that _aligned / _pad_widths copy
+    # (none at these shapes: D 1024 and F / tp 2048 are multiples of 8, and
+    # every peer's weight block starts on a 16-byte boundary)
+    copies = {"aligned": 0, "padded": 0}
+    aligned, pad = gf._aligned, gf._pad_widths
+
+    def counted_aligned(t):
+        copies["aligned"] += t.data_ptr() % 16 != 0
+        return aligned(t)
+
+    def counted_pad(xt, w1, w2):
+        out = pad(xt, w1, w2)
+        copies["padded"] += out[0] is not xt
+        return out
+
+    with mock.patch.object(layers_mod, "router_topk", routing), \
+            mock.patch.object(gf, "_aligned", counted_aligned), \
+            mock.patch.object(gf, "_pad_widths", counted_pad):
+        params, state, loss = step(params, state, toks)
+    losses.append(loss.tolist())
+    record[0] = False
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps - 1):
+        params, state, loss = step(params, state, toks)
+        losses.append(loss.tolist())
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / (steps - 1)
+    launches = {"flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
+                "grouped_ffn": gf.grouped_ffn_cuda.launches,
+                "grouped_ffn_dgrad": gf.grouped_ffn_dgrad_cuda.launches,
+                "grouped_ffn_wgrad": gf.grouped_ffn_wgrad_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # per replica, one launch of each per GPipe tick and layer of a stage:
+    # every live stage, tp and sp peer of the tick is folded into it
+    want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
+    if set(launches.values()) != {want}:
+        raise AssertionError(
+            f"moe_train: launches {launches}, want dp x (micro + pp - 1) x "
+            f"layers / pp x steps = {want} each")
+    mean = [float(np.mean(x)) for x in losses]
+    if not (np.isfinite(mean).all() and mean[-1] < mean[0]):
+        raise AssertionError(f"moe_train: loss did not fall: {mean}")
+    health = moe_model.make_moe_probe(cfg, m)(params, toks)
+    if not (health["dropped_fraction"] == 0.0
+            and abs(sum(health["usage"]) - 1.0) < 1e-5
+            and all(np.isfinite(v).all() for v in health.values())):
+        raise AssertionError(f"moe_train: probe {health}")
+    del params, state
+    torch.cuda.empty_cache()
+    kernel_rec = recorded[:]
+    kernel_calls = routing.calls
+
+    # -- the f32 noise floor of step 1's gradients: the kernel path on
+    #    the kernel run's routing with the embedding table moved by one
+    #    ulp; summed over ~32k tokens a replica, rounding-sized changes of
+    #    each token's cotangent move these gradients by ~1e-4 of their
+    #    largest entry, so the replay below is held to the larger of
+    #    1e-4 x max|g| and twice this floor, leaf by leaf
+    p1 = {g: {k: v.clone() for k, v in d.items()} for g, d in init.items()}
+    p1["shared"]["embed"].mul_(1 + 2 ** -23)
+    noise_router = _Routing(layers_mod)
+    noise_router.force = [i for i, _ in kernel_calls]
+    with mock.patch.object(layers_mod, "router_topk", noise_router):
+        _, noise = bfopt.stacked_grads(grad_fn, p1, toks, m.slice_size)
+    noise = [x.cpu() for x in tree_flatten(noise)[0]]
+    del p1
+    torch.cuda.empty_cache()
+
+    # -- replay step 1 from the same init through the plain versions
+    plain = (mock.patch.object(fa, "attention_block_partial",
+                               fa.attention_block_partial_plain),
+             mock.patch.object(fa, "attention_block_backward",
+                               fa.attention_block_backward_plain),
+             mock.patch.object(gf, "grouped_ffn",
+                               gf.grouped_ffn_plain_by_expert))
+
+    def replay(router):
+        recorded.clear()
+        record[0] = True
+        p0 = {g: {k: v.clone() for k, v in d.items()}    # the step updates
+              for g, d in init.items()}                  # params in place
+        state = bfopt.init_distributed(strategy, p0)
+        with plain[0], plain[1], plain[2], \
+                mock.patch.object(layers_mod, "router_topk", router):
+            _, _, loss = step(p0, state, toks)
+        record[0] = False
+        del p0, state
+        return loss.tolist()
+
+    def counts():
+        return (fa.fwd_launches, fa.bwd_launches,
+                gf.grouped_ffn_cuda.launches,
+                gf.grouped_ffn_dgrad_cuda.launches,
+                gf.grouped_ffn_wgrad_cuda.launches)
+
+    before = counts()                # the probe's forward launched too
+    replay_routing = _Routing(layers_mod)
+    replay_loss = replay(replay_routing)
+    if len(kernel_calls) != len(replay_routing.calls):
+        raise AssertionError("moe_train: the replay routed another number "
+                             "of times")
+    # each replica's first router call with a flip must flip only at near
+    # ties (rounding moves a probability by ~1e-7); later flips may follow
+    # from that one through the layers and the attention, and are counted
+    flips, first_gaps = 0, []
+    per_replica = len(kernel_calls) // m.dp
+    for r in range(m.dp):
+        first = True
+        for (ki, kg), (pi, _) in zip(
+                kernel_calls[r * per_replica:(r + 1) * per_replica],
+                replay_routing.calls[r * per_replica:(r + 1) * per_replica]):
+            diff = (ki != pi).any(-1)
+            flips += int(diff.sum())
+            if first and bool(diff.any()):
+                first_gaps.append(float(kg[diff].max()))
+                first = False
+    if first_gaps and max(first_gaps) >= 1e-5:
+        raise AssertionError(f"moe_train: routing flips away from a near "
+                             f"tie (k-th to (k+1)-th gap {max(first_gaps)})")
+    forced = flips > 0
+    if forced:                       # replay again on the kernel's routing
+        replay_routing.force = [i for i, _ in kernel_calls]
+        replay_loss = replay(replay_routing)
+    if counts() != before:
+        raise AssertionError("moe_train: the plain replay launched a kernel")
+    if not np.allclose(replay_loss, losses[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"moe_train: plain replay loss {replay_loss} "
+                             f"!= kernel loss {losses[0]}")
+    names = [f"{g}/{k}" for g in sorted(init) for k in sorted(init[g])]
+    grad_err, leaf_err, leaf_floor, bad = 0.0, {}, {}, []
+    n = m.slice_size
+    for r, (gk, gp) in enumerate(zip(kernel_rec, recorded)):
+        for name, a, b, z in zip(names, gk, gp, noise):
+            err, ok = _grad_err(a.to(DEV), b.to(DEV))
+            floor = float((a - z[r * n:(r + 1) * n]).abs().max())
+            top = max(float(b.abs().max()), 1e-30)
+            grad_err = max(grad_err, err / top)
+            leaf_err[name] = max(leaf_err.get(name, 0.0), err / top)
+            leaf_floor[name] = max(leaf_floor.get(name, 0.0), floor / top)
+            if not (ok or err <= 2 * floor):
+                bad.append((r, name, err, floor, top))
+    if bad:
+        raise AssertionError(f"moe_train: step-1 gradients of the plain "
+                             f"replay differ (replica, leaf, err, one-ulp "
+                             f"floor, max|g|): {bad}; relative errors "
+                             f"{leaf_err}, floors {leaf_floor}; routing "
+                             f"flips {flips} (first gaps {first_gaps}, "
+                             f"forced {forced})")
+    del kernel_rec, recorded[:], noise
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    summary = {
+        "mesh": m.describe(), "n_params": cfg.n_params,
+        "n_active_params": cfg.n_active_params,
+        "config": {"layers": cfg.layers, "micro": cfg.micro,
+                   "batch": cfg.batch, "seq": cfg.seq_len,
+                   "num_experts": cfg.num_experts, "top_k": cfg.top_k,
+                   "group_tile": cfg.group_tile, "remat": False},
+        "timed_steps": steps - 1, "per_step_s": per_step,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / per_step,
+        "model_flops_per_s": tokens / per_step * cfg.flops_per_token(),
+        "mfu_f32": tokens / per_step * cfg.flops_per_token() / F32_FLOPS,
+        "losses_mean": mean, "replay_loss": replay_loss,
+        "step1_grad_rel_err": grad_err, "step1_grad_rel_err_by_leaf": leaf_err,
+        "step1_grad_one_ulp_floor_by_leaf": leaf_floor,
+        "routing_flips": flips,
+        "first_flip_tie_gaps": first_gaps, "replay_forced_routing": forced,
+        "probe": health, "launches": launches,
+        "k4_operand_copies_step1": copies,
+        "launch_formula": "dp x (micro + pp - 1) x layers / pp x steps",
+        "peak_mem_gb": peak, "init_s": init_s,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("moe_train " + json.dumps(summary), flush=True)
+    if profile:
+        profile_moe_train(step, strategy, init, toks)
+    del step, strategy, init, toks
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def profile_moe_train(step, strategy, init, toks):
+    """One MoE train step under torch.profiler: device busy over wall, and
+    the device ms and share of K1, K2, K4's forward and its backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bluefog_tpu_torch import optimizers as bfopt
+    state = bfopt.init_distributed(strategy, init)
+    params, state, _ = step(init, state, toks)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, toks)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.monotonic() - t0)
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    total_us = sum(r[0] for r in rows)
+    for dt, key, count in sorted(rows, reverse=True)[:15]:
+        print("profile_moe_train " + json.dumps({
+            "kernel": key[:90], "calls": count, "device_us": dt,
+            "share": dt / total_us}))
+
+    def kind(key):
+        if "flash_fwd" in key:
+            return "K1"
+        if "flash_bwd" in key:
+            return "K2"
+        if "expert_wgrad" in key or "sum_splits" in key or (
+                "expert_rows" in key and ("true>" in key
+                                          or "Lb1E" in key)):
+            return "K4_backward"
+        if "expert_rows" in key:
+            return "K4_forward"
+        return None
+
+    ms = {k: 0.0 for k in ("K1", "K2", "K4_forward", "K4_backward")}
+    for dt, key, _ in rows:
+        if kind(key):
+            ms[kind(key)] += dt / 1e3
+    print("profile_moe_train " + json.dumps({
+        "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
+        "busy_share": total_us / 1e3 / wall_ms, "kernel_device_ms": ms,
+        "kernel_shares": {k: v * 1e3 / total_us for k, v in ms.items()},
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+    del params, state
+
+
 def _build_all(builders):
     """Build every kernel library at once: one nvcc process each, all
     started together; returns the wall seconds and each library's."""
@@ -1708,7 +2184,18 @@ def main(argv=None) -> int:
         profile_phase(engine, "profile_moe",
                       shares=("expert_rows", "flash_decode"))
     del engine
+    torch.cuda.empty_cache()
     phase_s["moe_serve"] = time.monotonic() - t0
+
+    # -- phase 12a: K4's backward against the per-expert plain version ---
+    t0 = time.monotonic()
+    k4_bwd = grouped_ffn_backward_phase(gf)
+    phase_s["grouped_ffn_backward_cases"] = time.monotonic() - t0
+
+    # -- phase 12b: MoE training at full width (dp 2 x pp 2 x tp 2) -----
+    t0 = time.monotonic()
+    moe_launches, _ = moe_train_phase(fa, gf, moe_layers, smi, args.profile)
+    phase_s["moe_train"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -1726,7 +2213,8 @@ def main(argv=None) -> int:
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
     main_c = compose_launches["compose_pp2_tp2"]
     paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches,
-             **lc_launches}
+             **lc_launches, "moe_train": (moe_launches["flash_fwd"],
+                                          moe_launches["flash_bwd"])}
     print(json.dumps({"kernels": [
         decode,
         dict(_kernel_row("flash_fwd", src,
@@ -1753,8 +2241,21 @@ def main(argv=None) -> int:
                          "bluefog_tpu/ops/pallas_moe.py:61", k4_launches,
                          k4_decode),
              bound_ms_simt=k4_decode["bound_ms_simt"],
+             launches_moe_train=moe_launches["grouped_ffn"],
              prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
-                 "warm_ms", "bound_ms_simt")})]}))
+                 "warm_ms", "bound_ms_simt")}),
+        dict(_kernel_row("grouped_ffn_backward",
+                         "bluefog_tpu_torch/csrc/grouped_ffn.cu",
+                         "bluefog_tpu/ops/pallas_moe.py:99",
+                         moe_launches["grouped_ffn_dgrad"],
+                         k4_bwd["steady_tick"]),
+             kernels="expert_rows (dgrad, weights read transposed) + "
+                     "expert_wgrad (+ sum_splits)",
+             wgrad_launches=moe_launches["grouped_ffn_wgrad"],
+             prefill={key: k4_bwd["prefill_512"][key]
+                      for key in _ROW_KEYS + ("warm_ms",)},
+             hostile={key: k4_bwd["hostile"][key]
+                      for key in _ROW_KEYS + ("warm_ms",)})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -642,6 +642,145 @@ def test_grouped_ffn_reruns_are_bit_identical(cuda, dtype):
         assert torch.equal(gf.grouped_ffn(*args), got)
 
 
+# -- K4's backward: the dgrad and wgrad kernels ---------------------------
+
+
+def _k4_grad_case(cuda, eid, tile, D, F, E, seed=0, peers=None,
+                  splits=None):
+    """K4's forward and backward through the kernels on tiles routed by
+    ``eid`` against the per-expert plain version under autograd: out,
+    dxt, dw1, dw2 within 1e-4 x max|plain| each (f32 products summed in
+    another order, the weight gradients over up to every row).  With
+    ``peers`` the weights are a layer slice ``[:, 1]`` of stacked
+    ``[peers, 2, E / peers, ...]`` tensors (ids over every peer's
+    experts); ``splits`` forces the wgrad's split count.  Returns the
+    kernel's out and grads and the inputs."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    G = len(eid)
+    xt = t(G, tile, D)
+    if peers is None:
+        w1, w2 = t(E, D, F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+        v1, v2 = w1, w2
+    else:
+        e = E // peers
+        w1 = t(peers, 2, e, D, F, scale=D ** -0.5)
+        w2 = t(peers, 2, e, F, D, scale=F ** -0.5)
+        v1, v2 = w1[:, 1], w2[:, 1]
+    g = t(G, tile, D)
+    eid = torch.tensor(eid, dtype=torch.int32, device=cuda)
+
+    def run(fn, wg=None):
+        x, a, b = (z.detach().requires_grad_() for z in (xt, v1, v2))
+        out = fn(x, eid, a, b)
+        return (out.detach(),) + torch.autograd.grad(out, (x, a, b), g)
+
+    got = run(gf.grouped_ffn)
+    if splits is not None:                   # the wgrad alone, split
+        s = torch.einsum("gtd,gdf->gtf", xt, v1.reshape(-1, D, F)[
+            eid.long()])
+        dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid, v1, v2, s)
+        dw1, dw2 = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid, E,
+                                             splits=splits)
+        got = got[:2] + (dw1.view(v1.shape), dw2.view(v2.shape))
+    want = run(gf.grouped_ffn_plain_by_expert)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dxt", "dw1", "dw2"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1e-30), (name, err)
+        assert bool(torch.isfinite(a).all()), name
+    return got, (xt, eid, v1, v2, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "sorted", "unsorted", "tile1", "tile16", "hostile", "padded_widths",
+    "peers", "splits", "wide"])
+def test_grouped_ffn_backward_matches_plain(cuda, case):
+    rng = np.random.default_rng(9)
+    tile, D, F, E, kw = 4, 128, 256, 8, {}
+    eid = np.sort(rng.integers(0, E, 24))
+    if case == "unsorted":
+        eid = rng.permutation(eid)
+    elif case == "tile1":
+        tile, eid = 1, rng.integers(0, E, 40)
+    elif case == "tile16":
+        tile, eid = 16, np.sort(rng.integers(0, E, 9))
+    elif case == "hostile":
+        # every row on expert 6 but one tile of expert 1 (fewer rows than
+        # a wgrad stage); the other experts hold nothing: exact zeros
+        tile, eid = 2, np.array([1] + [6] * 300)
+    elif case == "padded_widths":
+        D, F = 36, 100
+    elif case == "peers":
+        E, kw = 16, {"peers": 4}
+        eid = np.sort(rng.integers(0, E, 30))
+    elif case == "splits":                   # 2 experts, 4096 rows
+        tile, D, F, E = 8, 64, 64, 2
+        eid = np.sort(rng.integers(0, E, 512))
+        assert gf.wgrad_plan(512, 8, 2, 64, 64) == 16
+    elif case == "wide":                     # D 1024, F 2048, 2 row chunks
+        tile, D, F = 8, 1024, 2048
+        eid = np.sort(rng.integers(0, E, 64))
+    got, (xt, eid_t, w1, w2, g) = _k4_grad_case(
+        cuda, [int(e) for e in eid], tile, D, F, E, **kw)
+    if case == "hostile":
+        empty = [e for e in range(E) if e not in (1, 6)]
+        assert bool((got[2][empty] == 0).all())
+        assert bool((got[3][empty] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_grouped_ffn_wgrad_splits_agree(cuda, splits):
+    """The split wgrad (round-robin chunks, summed in order by a second
+    launch) within the tolerance of the unsplit one and the plain
+    version; one expert holds rows past several chunks, one none."""
+    eid = [0] * 3 + [2] * 200 + [3] * 5
+    _k4_grad_case(cuda, eid, 4, 64, 128, 4, splits=splits)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_backward_is_deterministic_and_counted(cuda):
+    eid = [0, 0, 1, 2, 2, 2, 3, 5, 6, 6, 7, 7] * 8
+    got, (xt, eid_t, w1, w2, g) = _k4_grad_case(cuda, eid, 4, 256, 512, 8)
+    before = (gf.grouped_ffn_cuda.launches, gf.grouped_ffn_dgrad_cuda.launches,
+              gf.grouped_ffn_wgrad_cuda.launches)
+    for _ in range(2):
+        x, a, b = (z.detach().requires_grad_() for z in (xt, w1, w2))
+        out = gf.grouped_ffn(x, eid_t, a, b)
+        again = (out.detach(),) + torch.autograd.grad(out, (x, a, b), g)
+        for p, q in zip(got, again):
+            assert torch.equal(p, q)
+    for splits in (1, 5):
+        s = torch.einsum("gtd,gdf->gtf", xt, w1[eid_t.long()])
+        _, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid_t, w1, w2, s)
+        first = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8,
+                                          splits=splits)
+        second = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8,
+                                           splits=splits)
+        assert all(torch.equal(p, q) for p, q in zip(first, second))
+    after = (gf.grouped_ffn_cuda.launches, gf.grouped_ffn_dgrad_cuda.launches,
+             gf.grouped_ffn_wgrad_cuda.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 6)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_backward_refuses_bf16(cuda):
+    xt = torch.zeros(2, 2, 8, device=cuda, dtype=torch.bfloat16,
+                     requires_grad=True)
+    eid = torch.zeros(2, dtype=torch.int32, device=cuda)
+    w1 = torch.zeros(2, 8, 16, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(2, 16, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="f32 only"):
+        gf.grouped_ffn(xt, eid, w1, w2)
+
+
 # -- every even head dim up to 128 ---------------------------------------
 
 @pytest.mark.gpu
@@ -852,3 +991,72 @@ def test_default_lm_config_trains_on_the_card(cuda):
         params, state, loss = step(params, state, toks)
         losses.append(float(loss.mean()))
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+def test_moe_grad_fn_on_the_card_matches_the_cpu(cuda):
+    """One ``make_moe_grad_fn`` call (dropless top-2, 4 experts, group
+    tile 4) at dp 2 x pp 2 x tp 2 on the card, through K1/K2, K4 and its
+    backward pair, each launched dp x (micro + pp - 1) x layers / pp
+    times, against the same call on the CPU (plain versions): loss rtol
+    1e-5, grads atol 1e-4 x max|g|."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    cfg = moe_model.MoELMConfig(num_experts=4, top_k=2, dispatch="dropless",
+                                group_tile=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = compose.compose_parallelism(2, 2, 2, 1, device=dev,
+                                        num_experts=4)
+        counters = (fa, "fwd_launches"), (fa, "bwd_launches"), \
+            (gf.grouped_ffn_cuda, "launches"), \
+            (gf.grouped_ffn_dgrad_cuda, "launches"), \
+            (gf.grouped_ffn_wgrad_cuda, "launches")
+        before = [getattr(o, a) for o, a in counters]
+        out[str(dev)] = bfopt.stacked_grads(
+            moe_model.make_moe_grad_fn(cfg, m),
+            moe_model.init_moe_train_params(cfg, m),
+            moe_model.make_moe_batch(cfg, m), m.slice_size)
+        torch.cuda.synchronize()
+        got = [getattr(o, a) - b for (o, a), b in zip(counters, before)]
+        want = 0 if dev == "cpu" else \
+            m.dp * (cfg.micro + m.pp - 1) * cfg.layers // m.pp
+        assert got == [want] * 5, got
+    (closs, cgrads), (kloss, kgrads) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(kloss.cpu(), closs, rtol=1e-5, atol=0)
+    for group, leaves in cgrads.items():
+        for k, w in leaves.items():
+            _close_grad(kgrads[group][k].cpu(), w)
+
+
+@pytest.mark.gpu
+def test_moe_grad_fn_remat_on_the_card(cuda):
+    """``make_moe_grad_fn(remat=True)`` on the card: K4's forward runs
+    twice a tick (the recompute under ``torch.utils.checkpoint``), its
+    backward pair once, and the grads equal the plain call's (atol 1e-4
+    x max|g|; the recompute repeats the same launches)."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    cfg = moe_model.MoELMConfig(num_experts=4, top_k=2, dispatch="dropless",
+                                group_tile=4)
+    m = compose.compose_parallelism(2, 2, 2, 1, device=cuda, num_experts=4)
+    params = moe_model.init_moe_train_params(cfg, m)
+    toks = moe_model.make_moe_batch(cfg, m)
+    per_call = m.dp * (cfg.micro + m.pp - 1) * cfg.layers // m.pp
+    out = []
+    for remat in (False, True):
+        before = (gf.grouped_ffn_cuda.launches,
+                  gf.grouped_ffn_dgrad_cuda.launches)
+        out.append(bfopt.stacked_grads(
+            moe_model.make_moe_grad_fn(cfg, m, remat=remat), params, toks,
+            m.slice_size))
+        torch.cuda.synchronize()
+        assert (gf.grouped_ffn_cuda.launches - before[0],
+                gf.grouped_ffn_dgrad_cuda.launches - before[1]) == \
+            ((2 if remat else 1) * per_call, per_call)
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-6, atol=0)
+    for group, leaves in out[0][1].items():
+        for k, w in leaves.items():
+            _close_grad(out[1][1][group][k], w)

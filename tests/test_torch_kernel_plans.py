@@ -87,6 +87,30 @@ def test_plans_and_wrappers_read_no_device_value():
                    inspect.signature(fn).parameters.values())
 
 
+def test_k4_backward_and_moe_trainer_read_no_device_value():
+    """K4's backward and the MoE training path launch without reading a
+    device value: the wrappers, the autograd function, the dropless
+    sublayer and the replica machinery (the plain per-expert version,
+    a reference read on the host, is not on the path)."""
+    from bluefog_tpu_torch.moe import layers, model
+    from bluefog_tpu_torch.parallel import compose, expert
+    for fn in (gf.wgrad_plan, gf._forward_cuda, gf.grouped_ffn_dgrad_cuda,
+               gf.grouped_ffn_wgrad_cuda, gf.GroupedFFN, gf.grouped_ffn,
+               layers.moe_dropless_combine, layers.moe_ffn_dropless,
+               layers._router_stats, layers.router_topk,
+               expert.dropless_dispatch, compose._replica_fns,
+               model._moe_replica):
+        src = inspect.getsource(fn)
+        if fn is compose._replica_fns:      # its probe reads no value
+            src = src[:src.index("    def probe(")]
+        assert not _HOST_READS.search(src), (fn.__name__,
+                                             _HOST_READS.search(src))
+    assert all(p.annotation in (int, "int") for p in
+               inspect.signature(gf.wgrad_plan).parameters.values())
+    assert gf.wgrad_plan(8192, 8, 32, 1024, 2048) == 1
+    assert gf.wgrad_plan(512, 8, 2, 64, 64) == 16
+
+
 @pytest.mark.parametrize("D,F", [(96, 200), (100, 202), (8, 12)])
 def test_width_padding_is_exact(D, F):
     """K4 pads D and F to multiples of 8; the padded problem's output,

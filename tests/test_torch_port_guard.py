@@ -170,3 +170,42 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(
         fa.flash_bwd_cuda(q, q, q, q, q[..., 0], q[..., 0], 0, 0,
                           causal=True, scale=0.1)
     assert (fa.fwd_launches, fa.bwd_launches) == before
+
+
+def test_moe_training_refuses_a_missing_card(monkeypatch):
+    """The MoE trainer's entry points (the carving, ``lm_bench --moe``)
+    raise without a card unless asked for the CPU; on a CPU carving
+    ``init_moe_train_params`` / ``make_moe_grad_fn`` stay on the CPU, and
+    K4's backward wrappers refuse CPU tensors without counting."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.moe.model import (MoELMConfig, init_moe_train_params,
+                                             make_moe_batch, make_moe_grad_fn)
+    from bluefog_tpu_torch.ops import grouped_ffn as gf
+    from bluefog_tpu_torch.parallel.compose import compose_parallelism
+    from bluefog_tpu_torch.tools import lm_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compose_parallelism(2, 2, 2, 1, num_experts=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_bench.main(["--moe", "--dropless"])
+    cfg = MoELMConfig(layers=2, num_experts=2, dispatch="dropless",
+                      group_tile=4, micro=2, seq_len=8)
+    m = compose_parallelism(1, 2, 1, 1, device="cpu", num_experts=2)
+    params = init_moe_train_params(cfg, m)
+    assert sorted(params) == ["blocks", "experts", "router", "shared"]
+    loss, grads = bfopt.stacked_grads(make_moe_grad_fn(cfg, m), params,
+                                      make_moe_batch(cfg, m), m.slice_size)
+    assert loss.device.type == "cpu"
+    assert all(g.device.type == "cpu" for d in grads.values()
+               for g in d.values())
+    before = (gf.grouped_ffn_dgrad_cuda.launches,
+              gf.grouped_ffn_wgrad_cuda.launches)
+    xt, eid = torch.zeros(3, 2, 8), torch.zeros(3, dtype=torch.int32)
+    w1, w2 = torch.zeros(2, 8, 16), torch.zeros(2, 16, 8)
+    s = torch.zeros(3, 2, 16)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        gf.grouped_ffn_dgrad_cuda(xt, eid, w1, w2, s)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        gf.grouped_ffn_wgrad_cuda(xt, s, s, xt, eid, 2)
+    assert (gf.grouped_ffn_dgrad_cuda.launches,
+            gf.grouped_ffn_wgrad_cuda.launches) == before

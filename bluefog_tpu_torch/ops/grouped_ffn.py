@@ -19,31 +19,37 @@ into one call this way, and the kernel reads each peer's block in place.
 
 Under autograd (any operand requiring grad) the call is
 :class:`GroupedFFN`: on the card the forward also keeps the
-pre-activation ``s = xt @ w1`` (f32) and the backward is two more
-hand-written launches pairs, :func:`grouped_ffn_dgrad_cuda` (``dxt``,
-with ``u = gelu(s)`` rebuilt in its epilogue) and
-:func:`grouped_ffn_wgrad_cuda` (``dw1``, ``dw2`` per expert, no
-atomics); on the CPU the backward is :func:`grouped_ffn_backward_plain`,
-the same formulas in plain PyTorch.  The backward takes f32 only.
+pre-activation ``s = xt @ w1`` (f32) and the backward is hand-written
+too: :func:`backward_plan_cuda` builds the routing plan on the device,
+then :func:`grouped_ffn_dgrad_cuda` (``dxt``, with ``u = gelu(s)``
+rebuilt in its epilogue) and :func:`grouped_ffn_wgrad_cuda` (``dw1``,
+``dw2`` per expert, no atomics) run on it; on the CPU the backward is
+:func:`grouped_ffn_backward_plain`, the same formulas in plain PyTorch.
+The backward takes f32 only.
 
-The kernel runs expert-major blocks: the host-side plans
-:func:`ffn_plan` and :func:`wgrad_plan` pick, from the shapes alone, how
-a launch covers the experts.  Nothing on this path reads ``tile_eid`` or
+The forward runs expert-major blocks by the host-side plan
+:func:`ffn_plan`, picked from the shapes alone.  The backward follows
+the routing instead: its plan (:func:`backward_plan_cuda`, with the
+plain version :func:`backward_plan_plain`) lists each expert's runs of
+tiles, the dgrad's row blocks and the wgrad's parts on the device, and
+the host sizes the plan's buffer and the wgrad's scratch from the shapes
+alone (:func:`plan_sizes`).  Nothing on this path reads ``tile_eid`` or
 any other device value back to the host.
 
 ``grouped_ffn_cuda.launches`` counts calls that launched the forward (one
 per call; each call is two CUDA launches, up- and down-projection),
-``grouped_ffn_dgrad_cuda.launches`` and ``grouped_ffn_wgrad_cuda.
-launches`` the backward's, so a run can show that its expert FFNs went
-through them.  :func:`grouped_ffn_plain_by_expert` is a second plain
-version, for the card: it reads the tile layout on the host and runs one
-product per run of an expert's tiles, with no weight gather, so it holds
-the kernels to account at training shapes.
+``backward_plan_cuda.launches``, ``grouped_ffn_dgrad_cuda.launches`` and
+``grouped_ffn_wgrad_cuda.launches`` the backward's, so a run can show
+that its expert FFNs went through them.
+:func:`grouped_ffn_plain_by_expert` is a second plain version, for the
+card: it reads the tile layout on the host and runs one product per run
+of an expert's tiles, with no weight gather, so it holds the kernels to
+account at training shapes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +60,8 @@ from .flash_attention import _aligned
 __all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda",
            "grouped_ffn_plain_by_expert", "grouped_ffn_backward_plain",
            "grouped_ffn_dgrad_cuda", "grouped_ffn_wgrad_cuda", "GroupedFFN",
-           "ffn_plan", "wgrad_plan", "build"]
+           "ffn_plan", "plan_sizes", "BackwardPlan", "backward_plan_cuda",
+           "backward_plan_plain", "unpack_plan", "build"]
 
 _LIB = "grouped_ffn"
 _SOURCES = ("grouped_ffn.cu",)
@@ -63,9 +70,15 @@ _MAX_EXPERTS = 65535        # the kernel's grid y
 SMS = 132                   # streaming multiprocessors of an H100
 BLOCKS_PER_SM = 2           # the plan's target for each launch
 _WIDTH = 8                  # D and F are copied 16 bytes at a time
-_WG_TILE = 64               # the wgrad's tile of dw is 64 x 64
-_WG_CHUNK = 128             # rows of an expert a wgrad block gathers at once
-WGRAD_BLOCKS = 4 * SMS      # the wgrad plan's target for each launch
+_TILE = 128                 # the backward GEMM's output tile is 128 x 128
+_STAGE = 32                 # rows (the wgrad's reduction) a staged slab
+_MIN_PART = 256             # least rows of a wgrad part
+WGRAD_TARGET = 4 * SMS      # wgrad items a launch aims for (see plan_sizes)
+# the plan's format as bf_grouped_ffn_backward_layout gives it
+_LAYOUT = ("tile", "stage", "n_runs", "n_row_blocks", "n_parts",
+           "n_part_sums", "n_slots", "fault", "expert_rows",
+           "expert_runs_ptr", "cursor", "runs", "expert_runs", "row_blocks",
+           "parts", "part_sums", "total")
 
 
 def build() -> ctypes.CDLL:
@@ -74,10 +87,13 @@ def build() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bf_grouped_ffn.argtypes = [p] * 7 + [i] * 4 + [ll] * 2 + [i] * 7 \
         + [p]
+    lib.bf_grouped_ffn_backward_plan.argtypes = [p] * 2 + [i] * 11 + [p]
+    lib.bf_grouped_ffn_backward_layout.argtypes = [i] * 4 + [p]
     lib.bf_grouped_ffn_dgrad.argtypes = [p] * 8 + [i] * 4 + [ll] * 2 \
-        + [i] * 6 + [p]
-    lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 6 + [p]
-    for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_dgrad,
+        + [i] * 4 + [p]
+    lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 7 + [p]
+    for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_backward_plan,
+               lib.bf_grouped_ffn_backward_layout, lib.bf_grouped_ffn_dgrad,
                lib.bf_grouped_ffn_wgrad):
         fn.restype = ctypes.c_int
     return lib
@@ -92,8 +108,8 @@ def ffn_plan(G: int, tile: int, E: int, D: int, F: int
     for an even share), and each launch's output columns per block, the
     widest of 64, 32 and 16 that still gives ``BLOCKS_PER_SM`` blocks on
     each SM (16 when none does).  Host integers only: the plan never
-    reads ``tile_eid``.  The dgrad's two launches take the same plan
-    (its first writes F columns, its second D)."""
+    reads ``tile_eid``.  The forward's alone: the backward follows the
+    routing (:func:`backward_plan_cuda`)."""
     share = -(-G * tile // E)
     rows = 16 if share <= 16 else 32 if share <= 32 else 64
     slots = -(-share // rows)
@@ -107,17 +123,191 @@ def ffn_plan(G: int, tile: int, E: int, D: int, F: int
     return rows, slots, cols(F), cols(D)
 
 
-def wgrad_plan(G: int, tile: int, E: int, D: int, F: int) -> int:
-    """The wgrad's ``splits``: 1 when ``E`` experts x the 64 x 64 tiles of
-    a ``D x F`` gradient already give ``WGRAD_BLOCKS`` blocks, else
-    enough splits of each expert's rows to reach it, but no more than
-    the rows allow (two 128-row chunks a split, counted on ``G * tile``,
-    the most rows one expert can hold).  Host integers only."""
-    blocks = E * -(-D // _WG_TILE) * -(-F // _WG_TILE)
-    if blocks >= WGRAD_BLOCKS:
-        return 1
-    most = max(1, G * tile // (2 * _WG_CHUNK))
-    return int(min(-(-WGRAD_BLOCKS // blocks), most, 65535))
+def plan_sizes(G: int, tile: int, E: int, D: int, F: int,
+               splits: int = 0) -> Tuple[int, int, int]:
+    """``(rb_max, p_max, slots)``: the most row blocks, wgrad parts and
+    scratch slots the backward's plan can hold for ``G`` tiles of
+    ``tile`` rows over ``E`` experts and a ``D x F`` weight, whatever the
+    routing.  Host integers only: the wrappers size the plan and the
+    wgrad's scratch with them and never read the plan back.  The plan
+    kernel writes nothing past these sizes: a routing that needed more
+    would set the plan's fault word, on which the GEMMs trap.
+
+    Row blocks: at most one partial block per run, ``G`` runs at most.
+    Parts (``splits`` 0): an expert holding ``rows`` of the ``G * tile``
+    rows gets ``ceil(rows * WGRAD_TARGET / (G * tile * tiles))`` parts,
+    ``tiles`` the 128 x 128 tiles of its weight, so at most ``WGRAD_TARGET
+    / tiles`` beyond one a non-empty expert; only experts above that
+    share are split, fewer than ``WGRAD_TARGET / tiles`` of them, so the
+    split ones hold fewer than twice that many parts (scratch slots).
+    With ``splits`` > 0 every expert with rows gets at most ``splits``."""
+    tiles = -(-D // _TILE) * -(-F // _TILE)
+    rb_max = -(-G * tile // _TILE) + G
+    filled = min(E, G)
+    if splits:
+        return rb_max, splits * filled, splits * filled if splits > 1 else 0
+    share = -(-WGRAD_TARGET // tiles)
+    slots = 0 if WGRAD_TARGET <= tiles else -(-2 * WGRAD_TARGET // tiles)
+    return rb_max, share + filled, slots
+
+
+def _plan_layout(G: int, E: int, rb_max: int, p_max: int) -> Dict[str, int]:
+    """The plan's format as the library defines it: the header words, the
+    int32 offsets of its lists and its total length.  Raises when the
+    library's GEMM tile or stage differs from the sizes' (``_TILE``,
+    ``_STAGE``)."""
+    out = (ctypes.c_int * len(_LAYOUT))()
+    if build().bf_grouped_ffn_backward_layout(G, E, rb_max, p_max, out):
+        raise ValueError(f"backward plan layout: G={G} E={E} "
+                         f"rb_max={rb_max} p_max={p_max}")
+    layout = dict(zip(_LAYOUT, out))
+    if (layout["tile"], layout["stage"]) != (_TILE, _STAGE):
+        raise RuntimeError(f"the built backward GEMM takes {layout['tile']}"
+                           f"-row tiles and {layout['stage']}-row stages; "
+                           f"plan_sizes assumes {_TILE} and {_STAGE}")
+    return layout
+
+
+class BackwardPlan(NamedTuple):
+    """K4's backward plan on the card (``buf``, int32) and the shapes it
+    was built for; ``slots`` is the scratch the wgrad allocates."""
+    buf: torch.Tensor
+    G: int
+    tile: int
+    E: int
+    D: int
+    F: int
+    rb_max: int
+    p_max: int
+    slots: int
+
+
+def backward_plan_cuda(tile_eid: torch.Tensor, tile: int, E: int, D: int,
+                       F: int, splits: int = 0) -> BackwardPlan:
+    """Launch the plan kernel (one block) on ``tile_eid``: each expert's
+    rows and runs of tiles in tile order, the dgrad's row blocks (up to
+    128 rows of one run each), the wgrad's parts (``splits`` > 0 forces
+    that many on every expert with rows) and the experts whose weight
+    gradient the wgrad's part sum writes.  Sized by :func:`plan_sizes`;
+    nothing is read back."""
+    dev = tile_eid.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"backward_plan_cuda needs CUDA tensors, got "
+                           f"{dev}")
+    if tile_eid.dtype != torch.int32 or tile_eid.ndim != 1 \
+            or not tile_eid.is_contiguous():
+        raise TypeError(f"tile_eid must be contiguous int32 [G], got "
+                        f"{tile_eid.dtype} {tuple(tile_eid.shape)}")
+    G = tile_eid.shape[0]
+    if min(G, tile, E, D, F) < 1 or E > _MAX_EXPERTS or splits < 0:
+        raise ValueError(f"backward plan: G={G} tile={tile} E={E} D={D} "
+                         f"F={F} splits={splits}")
+    rb_max, p_max, slots = plan_sizes(G, tile, E, D, F, splits)
+    buf = torch.empty(_plan_layout(G, E, rb_max, p_max)["total"],
+                      dtype=torch.int32, device=dev)
+    err = build().bf_grouped_ffn_backward_plan(
+        tile_eid.data_ptr(), buf.data_ptr(), G, tile, E, D, F,
+        WGRAD_TARGET, _MIN_PART, splits, rb_max, p_max, slots,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped ffn backward plan launch failed: CUDA "
+                           f"error {err} (G={G} tile={tile} E={E})")
+    backward_plan_cuda.launches += 1
+    return BackwardPlan(buf, G, tile, E, D, F, rb_max, p_max, slots)
+
+
+backward_plan_cuda.launches = 0
+
+
+def backward_plan_plain(tile_eid: torch.Tensor, tile: int, E: int, D: int,
+                        F: int, splits: int = 0) -> Dict[str, torch.Tensor]:
+    """The plan kernel's lists in plain PyTorch (``bincount``, ``cumsum``
+    and a stable sort over ``tile_eid``), int32 on tile_eid's device:
+    ``expert_rows [E]``; ``runs [R, 2]`` (expert, first tile) in tile
+    order; ``expert_runs_ptr [E + 1]`` and ``expert_runs [R, 2]`` (first
+    row, rows) grouped by expert, in tile order within one; ``row_blocks
+    [B, 3]`` (first row, rows, expert) for the dgrad; ``parts [P, 4]``
+    (expert, first and end offset into the expert's rows, scratch slot
+    or -1) for the wgrad; ``part_sums [S, 3]`` (expert, first slot,
+    parts) for the experts whose gradient the part sum writes (0 parts:
+    no rows, exact zeros); and ``slots``."""
+    ids = tile_eid.long()
+    G, dev = ids.numel(), ids.device
+    head = torch.ones(G, dtype=torch.bool, device=dev)
+    head[1:] = ids[1:] != ids[:-1]
+    first = head.nonzero().flatten()
+    rexp = ids[first]
+    rrows = torch.diff(first, append=first.new_tensor([G])) * tile
+    erows = torch.bincount(ids, minlength=E) * tile
+    eptr = torch.zeros(E + 1, dtype=torch.long, device=dev)
+    eptr[1:] = torch.cumsum(torch.bincount(rexp, minlength=E), 0)
+    order = torch.argsort(rexp, stable=True)
+
+    def spread(counts):        # (owner, index within the owner) of items
+        owner = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=dev), counts)
+        start = torch.cumsum(counts, 0) - counts
+        return owner, torch.arange(owner.numel(), device=dev) - start[owner]
+
+    run, k = spread(-(-rrows // _TILE))
+    row_blocks = torch.stack([first[run] * tile + k * _TILE,
+                              (rrows[run] - k * _TILE).clamp(max=_TILE),
+                              rexp[run]], 1)
+    if splits:
+        s = torch.clamp(-(-erows // _STAGE), max=splits)
+    else:
+        den = G * tile * (-(-D // _TILE) * -(-F // _TILE))
+        s = torch.minimum(-(-(erows * WGRAD_TARGET) // den),
+                          -(-erows // _MIN_PART))
+    s = s.clamp(min=1)
+    psize = -(-(-(-erows // s)) // _STAGE) * _STAGE
+    nparts = torch.where(erows > 0, -(-erows // psize.clamp(min=1)), 0)
+    multi = torch.where(nparts > 1, nparts, 0)
+    first_slot = torch.cumsum(multi, 0) - multi
+    e, k = spread(nparts)
+    parts = torch.stack([e, k * psize[e],
+                         torch.minimum(erows[e], (k + 1) * psize[e]),
+                         torch.where(nparts[e] > 1, first_slot[e] + k, -1)],
+                        1)
+    summed = (nparts != 1).nonzero().flatten()
+    part_sums = torch.stack([summed, first_slot[summed], nparts[summed]], 1)
+    i32 = torch.int32
+    return {"expert_rows": erows.to(i32),
+            "runs": torch.stack([rexp, first], 1).to(i32),
+            "expert_runs_ptr": eptr.to(i32),
+            "expert_runs": torch.stack([first[order] * tile, rrows[order]],
+                                       1).to(i32),
+            "row_blocks": row_blocks.to(i32), "parts": parts.to(i32),
+            "part_sums": part_sums.to(i32),
+            "slots": torch.tensor(int(multi.sum()), dtype=i32)}
+
+
+def unpack_plan(plan: BackwardPlan) -> Dict[str, torch.Tensor]:
+    """The device plan's lists as :func:`backward_plan_plain` gives them,
+    on the CPU.  It reads the plan back, so it is for checks only; it
+    raises when the plan's fault word is set."""
+    buf = plan.buf.cpu()
+    off = _plan_layout(plan.G, plan.E, plan.rb_max, plan.p_max)
+    runs, blocks, parts, sums, slots, fault = (int(buf[off[k]]) for k in (
+        "n_runs", "n_row_blocks", "n_parts", "n_part_sums", "n_slots",
+        "fault"))
+    if fault:
+        raise RuntimeError(f"the backward plan outgrew its room: {blocks} "
+                           f"row blocks, {parts} parts, {slots} slots "
+                           f"against {plan.rb_max}, {plan.p_max}, "
+                           f"{plan.slots}")
+
+    def rows(name, n, width):
+        return buf[off[name]:off[name] + n * width].reshape(n, width)
+
+    return {"expert_rows": buf[off["expert_rows"]:][:plan.E],
+            "runs": rows("runs", runs, 2),
+            "expert_runs_ptr": buf[off["expert_runs_ptr"]:][:plan.E + 1],
+            "expert_runs": rows("expert_runs", runs, 2),
+            "row_blocks": rows("row_blocks", blocks, 3),
+            "parts": rows("parts", parts, 4),
+            "part_sums": rows("part_sums", sums, 3),
+            "slots": torch.tensor(slots, dtype=torch.int32)}
 
 
 def _pad_widths(xt: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
@@ -340,14 +530,32 @@ def _f32_only(t: torch.Tensor) -> None:
                         f"training through K4 is not ported")
 
 
+def _plan_for(plan: Optional[BackwardPlan], tile_eid: torch.Tensor,
+              tile: int, E: int, D: int, F: int,
+              splits: int = 0) -> BackwardPlan:
+    """``plan`` when it was built for these shapes (else a ValueError), or
+    a new one."""
+    if plan is None:
+        return backward_plan_cuda(tile_eid, tile, E, D, F, splits)
+    want = (tile_eid.shape[0], tile, E, D, F)
+    if tuple(plan[1:6]) != want or plan.buf.device != tile_eid.device:
+        raise ValueError(f"grouped_ffn backward: the plan was built for "
+                         f"(G, tile, E, D, F) = {tuple(plan[1:6])} on "
+                         f"{plan.buf.device}, not {want} on "
+                         f"{tile_eid.device}")
+    return plan
+
+
 def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
                            w1: torch.Tensor, w2: torch.Tensor,
-                           s: torch.Tensor
+                           s: torch.Tensor,
+                           plan: Optional[BackwardPlan] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """``(dxt, ds, u)``: the dgrad launches on padded f32 operands (D, F
     multiples of 8): ``ds = (g @ w2^T) * gelu'(s)``, ``u = gelu(s)``,
-    ``dxt = ds @ w1^T``, expert-major on the forward's plan."""
+    ``dxt = ds @ w1^T``, over the row blocks of ``plan`` (built here when
+    none is given)."""
     dev = g.device
     g, w1, w2 = _aligned(g), _aligned(w1), _aligned(w2)
     G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(g, tile_eid, w1, w2,
@@ -356,14 +564,15 @@ def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
             or not s.is_contiguous():
         raise ValueError(f"grouped_ffn dgrad: s must be contiguous f32 "
                          f"{(G, tile, Fd)}, got {tuple(s.shape)} {s.dtype}")
-    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd)
+    s = _aligned(s)
+    plan = _plan_for(plan, tile_eid, tile, E, D, Fd)
     lib = build()
     ds, u = torch.empty_like(s), torch.empty_like(s)
     dxt = torch.empty_like(g)
     err = lib.bf_grouped_ffn_dgrad(
-        g.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        s.data_ptr(), ds.data_ptr(), u.data_ptr(), dxt.data_ptr(), G, tile,
-        E, epp, p1, p2, D, Fd, rows, slots, up_cols, down_cols,
+        g.data_ptr(), w1.data_ptr(), w2.data_ptr(), s.data_ptr(),
+        ds.data_ptr(), u.data_ptr(), dxt.data_ptr(), plan.buf.data_ptr(), G,
+        tile, E, epp, p1, p2, D, Fd, plan.rb_max, plan.p_max,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn dgrad launch failed: CUDA error "
@@ -378,12 +587,15 @@ grouped_ffn_dgrad_cuda.launches = 0
 def grouped_ffn_wgrad_cuda(xt: torch.Tensor, ds: torch.Tensor,
                            u: torch.Tensor, g: torch.Tensor,
                            tile_eid: torch.Tensor, num_experts: int,
-                           splits: Optional[int] = None
+                           splits: Optional[int] = None,
+                           plan: Optional[BackwardPlan] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dw1 [E, D, F], dw2 [E, F, D])``, f32: per expert, the sums over
     its rows of ``xt^T ds`` and ``u^T g``, in tile order, with no
-    atomics; ``splits`` (default :func:`wgrad_plan`) parts of each
-    expert's rows go to a scratch that a second launch adds in order."""
+    atomics, over the parts of ``plan`` (built here when none is given;
+    ``splits`` then forces that many parts on every expert with rows).
+    A split expert's parts go to a scratch that a second launch adds in
+    part order; it also writes exact zeros for experts without rows."""
     dev = xt.device
     if dev.type != "cuda":
         raise RuntimeError(f"grouped_ffn_wgrad_cuda needs CUDA tensors, "
@@ -405,23 +617,25 @@ def grouped_ffn_wgrad_cuda(xt: torch.Tensor, ds: torch.Tensor,
         raise ValueError(f"grouped_ffn wgrad takes D, F multiples of 4 and "
                          f"1 .. {_MAX_EXPERTS} experts, got D={D} F={Fd} "
                          f"E={E}")
-    if splits is None:
-        splits = wgrad_plan(G, tile, E, D, Fd)
+    if plan is not None and splits is not None:
+        raise ValueError("grouped_ffn wgrad: give splits or a plan, not "
+                         "both")
+    plan = _plan_for(plan, tile_eid, tile, E, D, Fd, splits or 0)
     xt, ds, u, g = (_aligned(t) for t in (xt, ds, u, g))
     lib = build()
     dw1 = torch.empty((E, D, Fd), dtype=torch.float32, device=dev)
     dw2 = torch.empty((E, Fd, D), dtype=torch.float32, device=dev)
-    scratch = torch.empty((splits, E, D * Fd), dtype=torch.float32,
-                          device=dev) if splits > 1 else None
+    scratch = torch.empty((plan.slots, D * Fd), dtype=torch.float32,
+                          device=dev) if plan.slots else None
     err = lib.bf_grouped_ffn_wgrad(
         xt.data_ptr(), ds.data_ptr(), u.data_ptr(), g.data_ptr(),
-        tile_eid.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        plan.buf.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
         None if scratch is None else scratch.data_ptr(), G, tile, E, D, Fd,
-        splits, torch.cuda.current_stream(dev).cuda_stream)
+        plan.rb_max, plan.p_max, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn wgrad launch failed: CUDA error "
                            f"{err} (G={G} tile={tile} E={E} D={D} F={Fd} "
-                           f"splits={splits})")
+                           f"slots={plan.slots})")
     grouped_ffn_wgrad_cuda.launches += 1
     return dw1, dw2
 
@@ -431,7 +645,8 @@ grouped_ffn_wgrad_cuda.launches = 0
 
 class GroupedFFN(torch.autograd.Function):
     """K4 with its gradient: on the card the forward keeps ``s`` and the
-    backward is the dgrad and wgrad kernels; on the CPU the plain forward
+    backward is the plan, dgrad and wgrad kernels (one plan for both); on
+    the CPU the plain forward
     and :func:`grouped_ffn_backward_plain`.  Takes operands whose widths
     are multiples of 8 on the card (:func:`grouped_ffn` pads them); no
     gradient for ``tile_eid``."""
@@ -454,9 +669,12 @@ class GroupedFFN(torch.autograd.Function):
                                                        s, g)
             return dxt, None, dw1, dw2
         g = g.contiguous()
-        dxt, ds, u = grouped_ffn_dgrad_cuda(g, tile_eid, w1, w2, s)
-        dw1, dw2 = grouped_ffn_wgrad_cuda(xt, ds, u, g, tile_eid,
-                                          _experts(w1)[0])
+        G, tile, D = xt.shape
+        E = _experts(w1)[0]
+        plan = backward_plan_cuda(tile_eid, tile, E, D, w1.shape[-1])
+        dxt, ds, u = grouped_ffn_dgrad_cuda(g, tile_eid, w1, w2, s, plan)
+        dw1, dw2 = grouped_ffn_wgrad_cuda(xt, ds, u, g, tile_eid, E,
+                                          plan=plan)
         return dxt, None, dw1.view(w1.shape), dw2.view(w2.shape)
 
 

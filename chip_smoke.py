@@ -125,26 +125,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-3 at the first divergent token, or a router whose k-th and
    (k+1)-th probabilities lie within 1e-5 at some layer and position up
    to it;
-12a (run after phase 8). K4's backward (``grouped_ffn_dgrad_cuda`` +
-   ``grouped_ffn_wgrad_cuda`` under ``GroupedFFN``, f32) against the
-   per-expert plain version under autograd: the MoE trainer's steady
-   tick (65,536 rows over 32 folded experts, D 1024, F 2048), the
-   serving prefill shape (135 tiles of 8, 8 experts, F 4096) and hostile
-   routing (every row on one expert but 3 on another, the rest empty;
-   the empty experts' gradients exactly 0).  dxt, dw1, dw2 within 1e-4 x
-   max|plain| (f32-accurate 3xTF32 products summed in another order,
-   the weight gradients over up to 16k rows of one expert); two runs bit
-   identical.  Timed cold and warm beside the bound (8 rows D F
-   operations at the 3xTF32 rate), the plain version's backward and the
-   per-expert cuBLAS yardstick (``torch.matmul`` over each expert's
-   rows, bounds read beforehand);
+12a (run after phase 8). K4's backward (``backward_plan_cuda``, then
+   ``grouped_ffn_dgrad_cuda`` + ``grouped_ffn_wgrad_cuda`` under
+   ``GroupedFFN``, f32) against the per-expert plain version under
+   autograd: the MoE trainer's steady tick (65,536 rows over 32 folded
+   experts, D 1024, F 2048), the serving prefill shape (135 tiles of 8,
+   8 experts, F 4096), hostile routing (every row on one expert but 3 on
+   another, the rest empty) and Zipf-skewed routing at the steady tick's
+   shape (seeded weights k^-1.2: a trained router is uneven).  dxt, dw1,
+   dw2 within 1e-4 x max|plain| (f32-accurate 3xTF32 products summed in
+   another order, the weight gradients over up to 65k rows of one
+   expert); two runs bit identical; experts without rows exactly 0; the
+   device plan equal to its plain version, list by list.  Timed cold and
+   warm beside the bound (8 rows D F operations at the 3xTF32 rate), the
+   plain version's backward and the per-expert cuBLAS yardstick
+   (``torch.matmul`` over each expert's rows, bounds read beforehand),
+   with the dgrad, the wgrad and the plan timed apart and the plan's item
+   counts.  The build (phase 1) prints ptxas's registers and spills for
+   the backward's kernels and fails on any spill in them;
 12b. MoE training at full width: ``MoELMConfig(vocab=32768,
    d_model=1024, heads=16, layers=4, seq_len=2048, micro=4, batch=4,
    num_experts=8, top_k=2, dispatch="dropless", group_tile=8)`` at dp 2
    x pp 2 x tp 2, Exp2 gossip, delayed AWC, Adam 5e-3, seed 0 (micro 4,
    not lm_bench's 8, is the one cut); 1 warm-up and 3 timed steps.  K1,
    K2, K4's forward, dgrad and wgrad must each launch dp x (micro + pp -
-   1) x layers / pp times a step, the loss must fall, the probe must
+   1) x layers / pp times a step (and the backward's plan once with
+   each dgrad), the loss must fall, the probe must
    report dropped_fraction 0, usage summing to 1 and finite values.
    Step 1 replayed through the plain versions (plain K1/K2, the
    per-expert K4): the router calls' top-k may flip only at near ties
@@ -1611,21 +1617,46 @@ def _by_expert_yardstick(xt, eid, w1, w2, s, g):
     return run
 
 
+def _zipf_ids(rng, rows, E, exponent=1.2):
+    """Expert ids of ``rows`` rows drawn with Zipf-like weights k^-exponent
+    over a random order of the ``E`` experts (a trained router is
+    uneven)."""
+    w = 1.0 / np.arange(1, E + 1) ** exponent
+    return rng.permutation(E)[rng.choice(E, rows, p=w / w.sum())]
+
+
+def _plan_row(lists, plan, D, Fd):
+    """The device plan's item counts (``lists`` read back by
+    ``unpack_plan``: for the report only)."""
+    tiles = -(-D // 128) * -(-Fd // 128)
+    blocks, parts = len(lists["row_blocks"]), len(lists["parts"])
+    return {"runs": len(lists["runs"]), "row_blocks": blocks,
+            "dgrad_items": [blocks * -(-Fd // 128), blocks * -(-D // 128)],
+            "wgrad_parts": parts, "wgrad_items": parts * tiles,
+            "part_sums": len(lists["part_sums"]),
+            "scratch_slots": int(lists["slots"]),
+            "scratch_slots_sized": plan.slots}
+
+
 def grouped_ffn_backward_phase(gf):
-    """Phase 12a: K4's backward (the dgrad and wgrad kernels, f32) against
-    the per-expert plain version under autograd at the MoE trainer's
-    steady tick, the serving prefill shape and hostile routing: dxt, dw1,
-    dw2 within 1e-4 x max|plain| (f32-accurate 3xTF32 products summed in
-    another order, the weight gradients over up to 16k rows of one
-    expert), two runs bit-identical.  Times cold and warm beside the
-    bound, the plain version's backward and the per-expert cuBLAS
-    yardstick.  Returns the rows by case."""
+    """Phase 12a: K4's backward (the plan, dgrad and wgrad kernels, f32)
+    against the per-expert plain version under autograd at the MoE
+    trainer's steady tick, the serving prefill shape, hostile routing and
+    Zipf-skewed routing at the steady tick's shape: dxt, dw1, dw2 within
+    1e-4 x max|plain| (f32-accurate 3xTF32 products summed in another
+    order, the weight gradients over up to 65k rows of one expert), two
+    runs bit-identical, experts without rows exactly 0, the device plan
+    equal to its plain version.  Times cold and warm beside the bound, the
+    plain version's backward and the per-expert cuBLAS yardstick, the
+    dgrad, wgrad and plan apart.  Returns the rows by case."""
     rng = np.random.default_rng(12)
     hostile = np.full(4096, 5)
     hostile[:3] = 2                  # one expert with fewer rows than a tile
     cases = [("steady_tick", 65536, 32, 1024, 2048, None),
              ("prefill_512", 1024, 8, 1024, 4096, None),
-             ("hostile", 4096, 8, 1024, 4096, hostile)]
+             ("hostile", 4096, 8, 1024, 4096, hostile),
+             ("skewed", 65536, 32, 1024, 2048,
+              _zipf_ids(np.random.default_rng(1212), 65536, 32))]
     rows_out = {}
     for name, rows, E, D, Fd, ids in cases:
         xt, eid, w1, w2 = _k4_inputs(rng, rows, E, D, Fd, 8, torch.float32,
@@ -1639,14 +1670,17 @@ def grouped_ffn_backward_phase(gf):
             return torch.autograd.grad(out, (x, a, b), g)
 
         before = (gf.grouped_ffn_dgrad_cuda.launches,
-                  gf.grouped_ffn_wgrad_cuda.launches)
+                  gf.grouped_ffn_wgrad_cuda.launches,
+                  gf.backward_plan_cuda.launches)
         got = grads(gf.grouped_ffn)
         again = grads(gf.grouped_ffn)
         torch.cuda.synchronize()
         if (gf.grouped_ffn_dgrad_cuda.launches - before[0],
-                gf.grouped_ffn_wgrad_cuda.launches - before[1]) != (2, 2):
-            raise AssertionError(f"grouped_ffn backward {name}: the dgrad/"
-                                 "wgrad kernels did not launch")
+                gf.grouped_ffn_wgrad_cuda.launches - before[1],
+                gf.backward_plan_cuda.launches - before[2]) != (2, 2, 2):
+            raise AssertionError(f"grouped_ffn backward {name}: the plan/"
+                                 "dgrad/wgrad kernels did not launch once "
+                                 "a backward")
         identical = all(torch.equal(p, q) for p, q in zip(got, again))
         del again
         want = grads(gf.grouped_ffn_plain_by_expert)
@@ -1662,18 +1696,35 @@ def grouped_ffn_backward_phase(gf):
         if not identical:
             raise AssertionError(f"grouped_ffn backward {name}: two runs "
                                  "differ")
-        if name == "hostile":
-            empty = [e for e in range(E) if e not in (2, 5)]
-            if bool(got[1][empty].any()) or bool(got[2][empty].any()):
-                raise AssertionError("grouped_ffn backward: an expert "
-                                     "without rows got a nonzero gradient")
+        named = set(eid.tolist())
+        empty = [e for e in range(E) if e not in named]
+        if empty and (bool(got[1][empty].any())
+                      or bool(got[2][empty].any())):
+            raise AssertionError(f"grouped_ffn backward {name}: an expert "
+                                 "without rows got a nonzero gradient")
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         del got, want
         _, s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+        plan = gf.backward_plan_cuda(eid, 8, E, D, Fd)
+        plain_plan = gf.backward_plan_plain(eid, 8, E, D, Fd)
+        lists = gf.unpack_plan(plan)
+        if any(lists[k].shape != v.shape for k, v in plain_plan.items()):
+            raise AssertionError(f"grouped_ffn backward {name}: the device "
+                                 "plan's lists differ in length from its "
+                                 "plain version's")
+        plan_err = max(float((lists[k] - v.cpu()).abs().max())
+                       if v.numel() else 0.0 for k, v in plain_plan.items())
+        if plan_err != 0:
+            raise AssertionError(f"grouped_ffn backward {name}: the device "
+                                 f"plan differs from its plain version by "
+                                 f"up to {plan_err}")
+        dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, plan)
 
         def kern():
-            dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s)
-            return dxt, gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid, E)
+            pl = gf.backward_plan_cuda(eid, 8, E, D, Fd)
+            dx, d_s, uu = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, pl)
+            return dx, gf.grouped_ffn_wgrad_cuda(xt, d_s, uu, g, eid, E,
+                                                 plan=pl)
 
         x, a, b = (t.detach().requires_grad_() for t in (xt, w1, w2))
         ref_out = gf.grouped_ffn_plain_by_expert(x, eid, a, b)
@@ -1684,16 +1735,41 @@ def grouped_ffn_backward_phase(gf):
 
         ms, warm_ms = _device_ms(kern, True, iters=5, warmup=1), \
             _device_ms(kern, False, iters=5, warmup=1)
+        dgrad_ms = _device_ms(
+            lambda: gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, plan), True,
+            iters=5, warmup=1)
+        wgrad_ms = _device_ms(
+            lambda: gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid, E,
+                                              plan=plan), True, iters=5,
+            warmup=1)
+        plan_ms = _device_ms(lambda: gf.backward_plan_cuda(eid, 8, E, D, Fd),
+                             True, iters=5, warmup=1)
+        plan_plain_ms = _device_ms(
+            lambda: gf.backward_plan_plain(eid, 8, E, D, Fd), True, iters=3,
+            warmup=1)
         plain_ms = _device_ms(plain, True, iters=3, warmup=1)
         lib = _by_expert_yardstick(xt, eid, w1, w2, s, g)
         lib_ms, lib_warm_ms = _device_ms(lib, True, iters=5, warmup=1), \
             _device_ms(lib, False, iters=5, warmup=1)
         bound, bound_by = _k4_bwd_bound(rows, E, D, Fd)
         G = xt.shape[0]
+        # the plan's least time: tile_eid read once, and written once what
+        # this routing's plan holds: the header's 7 counts and flags, each
+        # expert's rows, run pointers (E + 1) and cursor, the runs by tile
+        # and by expert, the row blocks, the parts and the part sums
+        plan_words = (7 + 3 * E + 1 + 4 * len(lists["runs"])
+                      + 3 * len(lists["row_blocks"]) + 4 * len(lists["parts"])
+                      + 3 * len(lists["part_sums"]))
+        plan_bytes = 4 * (G + plan_words)
         row = dict(case=name, rows=rows, G=G, tile=8, E=E, D=D, F=Fd,
-                   plan=list(gf.ffn_plan(G, 8, E, D, Fd)),
-                   wgrad_splits=gf.wgrad_plan(G, 8, E, D, Fd),
+                   experts_named=len(named),
+                   largest_expert_rows=int(lists["expert_rows"].max()),
+                   plan=_plan_row(lists, plan, D, Fd),
+                   plan_max_abs_err=plan_err,
                    max_abs_err=err, rel_err=errs, ms=ms, warm_ms=warm_ms,
+                   dgrad_ms=dgrad_ms, wgrad_ms=wgrad_ms, plan_ms=plan_ms,
+                   plan_plain_ms=plan_plain_ms,
+                   plan_bound_ms=1e3 * plan_bytes / HBM_BYTES_PER_S,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                    library_ms=lib_ms, library_warm_ms=lib_warm_ms,
                    library="cuBLAS torch.matmul per expert over its "
@@ -1703,7 +1779,7 @@ def grouped_ffn_backward_phase(gf):
                          "on a kept graph")
         print("kernel_case " + json.dumps(row), flush=True)
         rows_out[name] = row
-        del xt, w1, w2, g, s, ref_out, x, a, b
+        del xt, w1, w2, g, s, ref_out, x, a, b, dxt, ds, u, plan
         torch.cuda.empty_cache()
     return rows_out
 
@@ -1776,7 +1852,8 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
     steps = 4
     fa.fwd_launches = fa.bwd_launches = 0
     gf.grouped_ffn_cuda.launches = gf.grouped_ffn_dgrad_cuda.launches = \
-        gf.grouped_ffn_wgrad_cuda.launches = 0
+        gf.grouped_ffn_wgrad_cuda.launches = \
+        gf.backward_plan_cuda.launches = 0
     losses = []
     # step 1 also counts the K4 operands that _aligned / _pad_widths copy
     # (none at these shapes: D 1024 and F / tp 2048 are multiples of 8, and
@@ -1809,7 +1886,8 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
     launches = {"flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
                 "grouped_ffn": gf.grouped_ffn_cuda.launches,
                 "grouped_ffn_dgrad": gf.grouped_ffn_dgrad_cuda.launches,
-                "grouped_ffn_wgrad": gf.grouped_ffn_wgrad_cuda.launches}
+                "grouped_ffn_wgrad": gf.grouped_ffn_wgrad_cuda.launches,
+                "grouped_ffn_backward_plan": gf.backward_plan_cuda.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # per replica, one launch of each per GPipe tick and layer of a stage:
     # every live stage, tp and sp peer of the tick is folded into it
@@ -1872,7 +1950,8 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
         return (fa.fwd_launches, fa.bwd_launches,
                 gf.grouped_ffn_cuda.launches,
                 gf.grouped_ffn_dgrad_cuda.launches,
-                gf.grouped_ffn_wgrad_cuda.launches)
+                gf.grouped_ffn_wgrad_cuda.launches,
+                gf.backward_plan_cuda.launches)
 
     before = counts()                # the probe's forward launched too
     replay_routing = _Routing(layers_mod)
@@ -1988,9 +2067,8 @@ def profile_moe_train(step, strategy, init, toks):
             return "K1"
         if "flash_bwd" in key:
             return "K2"
-        if "expert_wgrad" in key or "sum_splits" in key or (
-                "expert_rows" in key and ("true>" in key
-                                          or "Lb1E" in key)):
+        if any(k in key for k in ("backward_gemm", "backward_plan",
+                                  "wgrad_parts_sum")):
             return "K4_backward"
         if "expert_rows" in key:
             return "K4_forward"
@@ -2006,6 +2084,41 @@ def profile_moe_train(step, strategy, init, toks):
         "kernel_shares": {k: v * 1e3 / total_us for k, v in ms.items()},
         "device": torch.cuda.get_device_name(0)}), flush=True)
     del params, state
+
+
+def _ptxas_functions(log, names):
+    """ptxas's report (-Xptxas -v) for each entry function whose mangled
+    name holds one of ``names``: registers, spill stores + loads, and any
+    wgmma serialization warning."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur:
+                out[cur] = {"spill_bytes": 0, "registers": None,
+                            "warnings": []}
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur:
+                out.setdefault(cur, {"spill_bytes": 0, "registers": None,
+                                     "warnings": []})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+        if "wgmma" in line:
+            out[cur]["warnings"].append(line.strip()[:200])
+    return out
 
 
 def _build_all(builders):
@@ -2078,6 +2191,13 @@ def main(argv=None) -> int:
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas {lib} " + line.strip())
+    bwd = _ptxas_functions(_build.build_log("grouped_ffn"),
+                           ("backward_gemm", "backward_plan",
+                            "wgrad_parts_sum"))
+    print("ptxas_k4_backward " + json.dumps(bwd), flush=True)
+    if len(bwd) != 5 or any(f["spill_bytes"] for f in bwd.values()):
+        raise AssertionError(f"K4's backward kernels: want 5 built without "
+                             f"spills, got {bwd}")
     print("env " + json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
@@ -2249,13 +2369,26 @@ def main(argv=None) -> int:
                          "bluefog_tpu/ops/pallas_moe.py:99",
                          moe_launches["grouped_ffn_dgrad"],
                          k4_bwd["steady_tick"]),
-             kernels="expert_rows (dgrad, weights read transposed) + "
-                     "expert_wgrad (+ sum_splits)",
+             kernels="backward_plan, then backward_gemm (wgmma: dgrad x 2, "
+                     "wgrad x 2) + wgrad_parts_sum",
              wgrad_launches=moe_launches["grouped_ffn_wgrad"],
-             prefill={key: k4_bwd["prefill_512"][key]
-                      for key in _ROW_KEYS + ("warm_ms",)},
-             hostile={key: k4_bwd["hostile"][key]
-                      for key in _ROW_KEYS + ("warm_ms",)})]}))
+             dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
+             wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
+             **{case: {key: k4_bwd[case][key] for key in _ROW_KEYS + (
+                 "warm_ms", "dgrad_ms", "wgrad_ms")}
+                for case in ("prefill_512", "hostile", "skewed")}),
+        {"name": "grouped_ffn_backward_plan", "route": "cuda",
+         "source": "bluefog_tpu_torch/csrc/grouped_ffn.cu",
+         "replaces": "bluefog_tpu/ops/pallas_moe.py:99",
+         "launches": moe_launches["grouped_ffn_backward_plan"],
+         "max_abs_err": max(row["plan_max_abs_err"]
+                            for row in k4_bwd.values()),
+         "ms": k4_bwd["steady_tick"]["plan_ms"],
+         "plain_ms": k4_bwd["steady_tick"]["plan_plain_ms"],
+         "bound_ms": k4_bwd["steady_tick"]["plan_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "note": "integer lists, equal to the plain version's in every "
+                 "phase 12a case"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,6 +45,7 @@ from bluefog_tpu_torch.ops import flash_decode as fd
 from bluefog_tpu_torch.ops import grouped_ffn as gf
 from bluefog_tpu_torch.ops import ring
 from bluefog_tpu_torch.serve import kv_cache as kv
+import torch_plan_routings as routings
 
 
 @pytest.fixture
@@ -700,7 +701,7 @@ def _k4_grad_case(cuda, eid, tile, D, F, E, seed=0, peers=None,
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
     "sorted", "unsorted", "tile1", "tile16", "hostile", "padded_widths",
-    "peers", "splits", "wide"])
+    "peers", "splits", "wide", "one_tile", "skewed", "shuffled_hostile"])
 def test_grouped_ffn_backward_matches_plain(cuda, case):
     rng = np.random.default_rng(9)
     tile, D, F, E, kw = 4, 128, 256, 8, {}
@@ -723,14 +724,25 @@ def test_grouped_ffn_backward_matches_plain(cuda, case):
     elif case == "splits":                   # 2 experts, 4096 rows
         tile, D, F, E = 8, 64, 64, 2
         eid = np.sort(rng.integers(0, E, 512))
-        assert gf.wgrad_plan(512, 8, 2, 64, 64) == 16
+        # one dw tile an expert: the plan splits each expert's rows
+        plan = gf.backward_plan_plain(torch.tensor(eid, dtype=torch.int32),
+                                      tile, E, D, F)
+        assert len(plan["parts"]) > E and int(plan["slots"]) > 0
     elif case == "wide":                     # D 1024, F 2048, 2 row chunks
         tile, D, F = 8, 1024, 2048
         eid = np.sort(rng.integers(0, E, 64))
+    elif case == "one_tile":                 # G 1: one row block, one part
+        tile, eid = 4, np.array([3])
+    elif case == "skewed":                   # Zipf-like expert sizes
+        tile, D, F = 8, 256, 512
+        w = 1.0 / np.arange(1, E + 1) ** 1.2
+        eid = np.sort(rng.choice(E, 96, p=w / w.sum()))
+    elif case == "shuffled_hostile":         # a hot expert in many runs
+        tile, eid = 2, rng.permutation(np.array([1] * 5 + [6] * 200))
     got, (xt, eid_t, w1, w2, g) = _k4_grad_case(
         cuda, [int(e) for e in eid], tile, D, F, E, **kw)
-    if case == "hostile":
-        empty = [e for e in range(E) if e not in (1, 6)]
+    if case in ("hostile", "shuffled_hostile", "one_tile"):
+        empty = [e for e in range(E) if e not in set(eid.tolist())]
         assert bool((got[2][empty] == 0).all())
         assert bool((got[3][empty] == 0).all())
 
@@ -738,11 +750,16 @@ def test_grouped_ffn_backward_matches_plain(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("splits", [1, 3, 7])
 def test_grouped_ffn_wgrad_splits_agree(cuda, splits):
-    """The split wgrad (round-robin chunks, summed in order by a second
-    launch) within the tolerance of the unsplit one and the plain
-    version; one expert holds rows past several chunks, one none."""
+    """The wgrad with every expert's rows forced into ``splits`` parts
+    (each a stretch of the expert's rows, summed in part order by a
+    second launch) within the tolerance of the plain version; one expert
+    holds rows past several parts, one none (exact zeros)."""
     eid = [0] * 3 + [2] * 200 + [3] * 5
-    _k4_grad_case(cuda, eid, 4, 64, 128, 4, splits=splits)
+    got, _ = _k4_grad_case(cuda, eid, 4, 64, 128, 4, splits=splits)
+    assert bool((got[2][1] == 0).all()) and bool((got[3][1] == 0).all())
+    parts = gf.backward_plan_plain(torch.tensor(eid, dtype=torch.int32), 4,
+                                   4, 64, 128, splits=splits)["parts"]
+    assert len(parts) == 2 + min(splits, 25)   # 800 rows of expert 2
 
 
 @pytest.mark.gpu
@@ -750,7 +767,8 @@ def test_grouped_ffn_backward_is_deterministic_and_counted(cuda):
     eid = [0, 0, 1, 2, 2, 2, 3, 5, 6, 6, 7, 7] * 8
     got, (xt, eid_t, w1, w2, g) = _k4_grad_case(cuda, eid, 4, 256, 512, 8)
     before = (gf.grouped_ffn_cuda.launches, gf.grouped_ffn_dgrad_cuda.launches,
-              gf.grouped_ffn_wgrad_cuda.launches)
+              gf.grouped_ffn_wgrad_cuda.launches,
+              gf.backward_plan_cuda.launches)
     for _ in range(2):
         x, a, b = (z.detach().requires_grad_() for z in (xt, w1, w2))
         out = gf.grouped_ffn(x, eid_t, a, b)
@@ -766,8 +784,64 @@ def test_grouped_ffn_backward_is_deterministic_and_counted(cuda):
                                            splits=splits)
         assert all(torch.equal(p, q) for p, q in zip(first, second))
     after = (gf.grouped_ffn_cuda.launches, gf.grouped_ffn_dgrad_cuda.launches,
-             gf.grouped_ffn_wgrad_cuda.launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 6)
+             gf.grouped_ffn_wgrad_cuda.launches,
+             gf.backward_plan_cuda.launches)
+    # autograd: one plan for each backward's dgrad and wgrad; called
+    # alone, each wrapper builds its own
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 6, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", routings.CASES)
+def test_backward_plan_kernel_matches_plain(cuda, case):
+    """The plan built on the card equals its plain version list by list
+    (every routing, stacked-peer ids over [0, P * E), forced splits)."""
+    ids, tile, E, D, F, splits = routings.routing(case)
+    eid = ids.to(cuda)
+    before = gf.backward_plan_cuda.launches
+    plan = gf.backward_plan_cuda(eid, tile, E, D, F, splits)
+    got = gf.unpack_plan(plan)
+    want = gf.backward_plan_plain(ids, tile, E, D, F, splits)
+    assert gf.backward_plan_cuda.launches == before + 1
+    assert plan.slots >= int(want["slots"])
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+
+
+@pytest.mark.gpu
+def test_backward_plan_stays_in_its_room(cuda):
+    """A plan launched with less room than its routing needs (one row
+    block, one part, no scratch slot against 33, 4 and 3) writes no list
+    entry past its room, sets its fault word, and ``unpack_plan`` refuses
+    it (the GEMMs, which trap on that word, are not run here)."""
+    ids, tile, E, D, F, _ = routings.routing("hostile")
+    G, rb_max, p_max, slots = len(ids), 1, 1, 0
+    off = gf._plan_layout(G, E, rb_max, p_max)
+    buf = torch.full((off["total"] + 64,), -7, dtype=torch.int32,
+                     device=cuda)
+    err = gf.build().bf_grouped_ffn_backward_plan(
+        ids.to(cuda).data_ptr(), buf.data_ptr(), G, tile, E, D, F,
+        gf.WGRAD_TARGET, gf._MIN_PART, 0, rb_max, p_max, slots,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    host = buf.cpu()
+    want = gf.backward_plan_plain(ids, tile, E, D, F)
+    assert (len(want["row_blocks"]), len(want["parts"]),
+            int(want["slots"])) == (33, 4, 3)
+    assert int(host[off["fault"]]) == 1
+    assert bool((host[off["total"]:] == -7).all())
+
+    def rows(name, n, width):
+        return host[off[name]:off[name] + n * width].reshape(n, width)
+
+    # the lists after the row blocks' and the parts' room are intact
+    assert torch.equal(rows("row_blocks", 1, 3), want["row_blocks"][:1])
+    assert torch.equal(rows("parts", 1, 4), want["parts"][:1])
+    assert torch.equal(rows("part_sums", len(want["part_sums"]), 3),
+                       want["part_sums"])
+    plan = gf.BackwardPlan(buf, G, tile, E, D, F, rb_max, p_max, slots)
+    with pytest.raises(RuntimeError, match="outgrew its room"):
+        gf.unpack_plan(plan)
 
 
 @pytest.mark.gpu

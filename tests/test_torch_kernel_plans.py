@@ -7,8 +7,12 @@ expert FFN K4 runs expert-major blocks
 host integer arithmetic on shapes: they must fill the card (at least two
 CTAs per SM at the engine's shapes), never split finer than the work
 allows, and never read a device value (the engine's decode path does not
-wait for the device).  The kernels themselves run only on the card
-(tests/test_torch_gpu_kernels.py).
+wait for the device).  K4's backward builds its plan on the card from
+the routing; its plain version
+(:func:`bluefog_tpu_torch.ops.grouped_ffn.backward_plan_plain`) is held
+here to what the kernels rely on, and the host sizes it from shapes
+alone (:func:`bluefog_tpu_torch.ops.grouped_ffn.plan_sizes`).  The
+kernels themselves run only on the card (tests/test_torch_gpu_kernels.py).
 """
 import inspect
 import re
@@ -21,6 +25,7 @@ import torch
 from bluefog_tpu_torch.ops import _build
 from bluefog_tpu_torch.ops import flash_decode as fd
 from bluefog_tpu_torch.ops import grouped_ffn as gf
+import torch_plan_routings as routings
 
 SMS = 132
 # device-to-host reads that would stall the engine's decode path
@@ -94,7 +99,8 @@ def test_k4_backward_and_moe_trainer_read_no_device_value():
     a reference read on the host, is not on the path)."""
     from bluefog_tpu_torch.moe import layers, model
     from bluefog_tpu_torch.parallel import compose, expert
-    for fn in (gf.wgrad_plan, gf._forward_cuda, gf.grouped_ffn_dgrad_cuda,
+    for fn in (gf.plan_sizes, gf.backward_plan_cuda, gf._plan_for,
+               gf._forward_cuda, gf.grouped_ffn_dgrad_cuda,
                gf.grouped_ffn_wgrad_cuda, gf.GroupedFFN, gf.grouped_ffn,
                layers.moe_dropless_combine, layers.moe_ffn_dropless,
                layers._router_stats, layers.router_topk,
@@ -106,9 +112,91 @@ def test_k4_backward_and_moe_trainer_read_no_device_value():
         assert not _HOST_READS.search(src), (fn.__name__,
                                              _HOST_READS.search(src))
     assert all(p.annotation in (int, "int") for p in
-               inspect.signature(gf.wgrad_plan).parameters.values())
-    assert gf.wgrad_plan(8192, 8, 32, 1024, 2048) == 1
-    assert gf.wgrad_plan(512, 8, 2, 64, 64) == 16
+               inspect.signature(gf.plan_sizes).parameters.values())
+    # the trainer's steady tick: 65,536 rows over 32 experts, D 1024, F
+    # 2048 (128 dw tiles an expert): no expert can be split twice over
+    assert gf.plan_sizes(8192, 8, 32, 1024, 2048) == (8704, 37, 9)
+    # one dw tile an expert: up to 528 parts beyond one per expert
+    assert gf.plan_sizes(512, 8, 2, 64, 64) == (544, 530, 1056)
+    assert gf.plan_sizes(512, 8, 2, 64, 64, splits=5) == (544, 10, 10)
+
+
+@pytest.mark.parametrize("case", routings.CASES)
+def test_backward_plan_covers_every_row_once_in_tile_order(case):
+    """The dgrad's row blocks and the wgrad's parts (walked through the
+    expert's runs) each cover every row of every expert exactly once, in
+    tile order; no row block crosses a run's end."""
+    eid, tile, E, D, F, splits = routings.routing(case)
+    plan = gf.backward_plan_plain(eid, tile, E, D, F, splits)
+    ids = eid.long().tolist()
+    rows_of = {e: [g * tile + r for g, x in enumerate(ids) if x == e
+                   for r in range(tile)] for e in range(E)}
+    runs = plan["runs"].tolist()
+    ends = [first for _, first in runs[1:]] + [len(ids)]
+    run_rows = {(first * tile, (end - first) * tile): x
+                for (x, first), end in zip(runs, ends)}
+    # dgrad: blocks of at most 128 rows, inside one run of their expert
+    seen = {e: [] for e in range(E)}
+    for first, n, e in plan["row_blocks"].tolist():
+        assert 1 <= n <= 128
+        assert any(r0 <= first and first + n <= r0 + m and x == e
+                   for (r0, m), x in run_rows.items())
+        seen[e] += list(range(first, first + n))
+    assert seen == rows_of
+    # the expert's runs, grouped by expert, in tile order
+    ptr, eruns = plan["expert_runs_ptr"].tolist(), plan["expert_runs"]
+    for e in range(E):
+        mine = eruns[ptr[e]:ptr[e + 1]].tolist()
+        assert [r for first, n in mine for r in range(first, first + n)] \
+            == rows_of[e]
+    # wgrad: the parts of an expert tile its rows in order, part by part
+    covered = {e: [] for e in range(E)}
+    for e, r0, r1, slot in plan["parts"].tolist():
+        assert covered[e] == list(range(r0)) and r0 < r1 and r0 % 32 == 0
+        covered[e] += list(range(r0, r1))
+    assert all(len(covered[e]) == len(rows_of[e]) for e in range(E))
+
+
+@pytest.mark.parametrize("case", routings.CASES)
+def test_backward_plan_follows_the_routing(case):
+    """Item counts follow the routing, within the host's shape-only
+    sizes: one row block per 128 rows of a run, experts without rows
+    listed for exact zeros and given no part, split experts' parts on
+    their own scratch slots and listed for the ordered sum."""
+    eid, tile, E, D, F, splits = routings.routing(case)
+    plan = gf.backward_plan_plain(eid, tile, E, D, F, splits)
+    rb_max, p_max, slots_max = gf.plan_sizes(len(eid), tile, E, D, F,
+                                             splits)
+    counts = torch.bincount(eid.long(), minlength=E) * tile
+    assert torch.equal(plan["expert_rows"], counts.int())
+    runs = plan["runs"].tolist()
+    ends = [first for _, first in runs[1:]] + [len(eid)]
+    assert len(plan["row_blocks"]) == sum(
+        -(-(end - first) * tile // 128) for (_, first), end in
+        zip(runs, ends)) <= rb_max
+    parts, sums = plan["parts"].tolist(), plan["part_sums"].tolist()
+    assert len(parts) <= p_max and int(plan["slots"]) <= slots_max
+    nparts = [sum(p[0] == e for p in parts) for e in range(E)]
+    empty = [e for e in range(E) if counts[e] == 0]
+    split = [e for e in range(E) if nparts[e] > 1]
+    assert [e for e in range(E) if nparts[e] == 0] == empty
+    assert sums == sorted(sums) and [s[0] for s in sums] == sorted(
+        empty + split)
+    slots = [p[3] for p in parts if p[3] >= 0]
+    assert slots == list(range(len(slots))) == list(
+        range(int(plan["slots"])))
+    for e, first, n in sums:
+        assert n == nparts[e]
+        assert [p[3] for p in parts if p[0] == e and n > 1] == list(
+            range(first, first + n)) or n == 0
+    for e in range(E):             # equal parts on 32-row boundaries
+        sizes = [p[2] - p[1] for p in parts if p[0] == e]
+        assert all(s == sizes[0] and s % 32 == 0 for s in sizes[:-1])
+        assert not splits or len(sizes) <= splits
+    if case == "hostile":          # the hot expert: 4088 rows, 32 blocks
+        assert sum(b[2] == 5 for b in plan["row_blocks"].tolist()) == 32
+    if case in ("random", "stacked_peers"):
+        assert not split           # an even share is never split
 
 
 @pytest.mark.parametrize("D,F", [(96, 200), (100, 202), (8, 12)])

@@ -11,21 +11,31 @@
 // head): the k scale multiplies score columns, the v scale probability
 // columns.  q is f32 or bf16, the output is in q's type, all math is f32.
 //
-// What bounds it: the bytes.  One row of q against each key (T * G rows
-// in all) is a few FLOP per byte of page, far below what the tensor cores
-// could use; the least time is sum_s (lengths[s] + T) * Hkv * Dh * 2 *
-// itemsize (plus the scales) over the memory rate.  So the design only
-// tries to move the pages at full bandwidth:
+// What bounds it: the bytes at decode shapes.  One row of q against
+// each key (T * G rows in all) is a few FLOP per byte of page, far below
+// what the tensor cores could use; the least time is sum_s (lengths[s] +
+// T) * Hkv * Dh * 2 * itemsize (plus the scales) over the memory rate.
+// A chunked prefill (T of 64 to 512 queries a lane) is another matter:
+// its visible q/k pairs grow as T^2 / 2 + T * lengths, and past a few
+// hundred rows the 4 * Dh flops a pair, on the CUDA cores, outweigh the
+// pages' bytes, so there the kernel is bound by operations.  The CUDA-core
+// math below was designed for T * G <= 64 (decode and the speculative
+// verify); larger T * G runs as 64-row tiles of the same code, which is
+// right but leaves the tensor cores idle.
 //
-//   * Split-KV grid (S, Hkv, splits).  The wrapper picks `splits` and the
-//     keys per split (`chunk`, a multiple of 32) from S * Hkv and L alone,
-//     never from lengths, so that small batches still put several CTAs on
-//     each of the 132 SMs.  A CTA walks keys [sp * chunk, (sp + 1) *
-//     chunk) of its lane, cut at the last key any of its rows sees; a CTA
-//     whose chunk lies wholly past it writes m = -inf, l = 0, o = 0 and
-//     exits (K1's rule for rows with no visible key).  The prefix row is
-//     picked per key by the key's bk-block, so a split may end inside a
-//     block.
+//   * Split-KV grid (S, Hkv, splits x row tiles).  The wrapper picks
+//     `splits` and the keys per split (`chunk`, a multiple of 32) from
+//     S * Hkv, the row tiles and L alone, never from lengths, so that
+//     small batches still put several CTAs on each of the 132 SMs.  A
+//     CTA walks keys [sp * chunk, (sp + 1) * chunk) of its lane, cut at
+//     the last key any row of its tile sees; a CTA whose chunk lies
+//     wholly past it writes m = -inf, l = 0, o = 0 and exits (K1's rule
+//     for rows with no visible key).  The prefix row is picked per key
+//     by the key's bk-block, so a split may end inside a block.
+//   * Row tiles.  The T * G query rows of a (lane, kv head), query t of
+//     group lane g at row t * G + g, are cut into tiles of at most 64
+//     rows; blockIdx.z = tile * splits + split.  A CTA stages only its
+//     tile's q, and shared memory is sized for 64 rows whatever T * G is.
 //   * Staging.  Each 32-key f32 tile (64 keys bf16, 128 int8 / e4m3: 8 KB
 //     of K at Dh 64) is copied by cp.async, 16 bytes a thread with
 //     neighbouring threads on neighbouring addresses, K and V into their
@@ -35,18 +45,20 @@
 //     pages stay 8-bit in shared memory and widen in registers.
 //   * Math at the warp level.  The CTA's 128 threads are 16 groups of 8
 //     lanes; the lanes of a group split Dh (Dh / 8 values each) and reduce
-//     a dot product with 3 shuffles.  Groups split the T * G rows (up to
-//     16 row groups, 1 or 4 rows each) and the tile's keys (16 / row
-//     groups ways), so at T * G = 1 every group works on its own keys and
-//     no thread idles.  q lives in registers, pre-scaled.  Each group
-//     keeps its own f32 online softmax (m, l and its Dh / 8 outputs per
-//     row in registers) over its keys; at the end the groups' partials
-//     meet in shared memory and are merged in group order.
+//     a dot product with 3 shuffles.  Groups split the row tile's rows
+//     (up to 16 row groups, 1 or 4 rows each) and the key tile's keys
+//     (16 / row groups ways), so at T * G = 1 every group works on its
+//     own keys and no thread idles.  q lives in registers, pre-scaled.
+//     Each group keeps its own f32 online softmax (m, l and its Dh / 8
+//     outputs per row in registers) over its keys; at the end the groups'
+//     partials meet in shared memory and are merged in group order.
 //   * Merge.  With one split the CTA normalizes and writes the output.
 //     Otherwise it writes its partial (o, l, m) to an f32 scratch
 //     [S, Hkv, splits, T * G, Dh] (+ m, l) that the wrapper allocates, and
-//     a second, small launch merges the splits in split order and writes
-//     o / l in q's type.  No atomics: reruns are bit-identical.
+//     a second, small launch (grid S, Hkv, T * G / 2: two query rows a
+//     CTA, so that hundreds of rows do not queue on a few CTAs) merges
+//     the splits in split order and writes o / l in q's type.  No
+//     atomics: reruns are bit-identical.
 //
 //   * Head dims.  The kernel is built for head-dim buckets DH = 32, 64,
 //     128 and 256 and takes the actual head dim dr (any dr <= 256, odd
@@ -61,8 +73,8 @@
 //     DH = 256 a lane holds 32 values of each of its rows' q and output
 //     in registers, so the 4-row groups (T * G > 16) hold 256 of them:
 //     ptxas spills those to local memory (chip_smoke prints its lines).
-//     Shared memory stays inside the card's 232,448 bytes at T * G = 64:
-//     at DH = 256 it takes 205,824 (f32 pages), 214,528 (bf16) and
+//     Shared memory stays inside the card's 232,448 bytes at a 64-row
+//     tile: at DH = 256 it takes 205,824 (f32 pages), 214,528 (bf16) and
 //     231,936 (int8 / e4m3, 128-key tiles).
 //
 // The C interface takes every pointer as void* (ctypes passes them as
@@ -80,7 +92,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kGroups = kThreads / 8;   // groups of 8 lanes
-constexpr int kMaxRows = 64;            // T * G: 16 row groups x 4 rows
+constexpr int kMaxRows = 64;            // rows of a tile: 16 groups x 4
+constexpr int kMergeRows = 2;           // query rows of one merge CTA
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -115,12 +128,20 @@ __host__ __device__ constexpr int keys_per_tile() {
 }
 
 // Shared memory: K and V tiles [2][KT][Dh] each (page type), their
-// scales [2][KT] each, the scores [TG][KT], and the groups' partials
-// [groups][TG][Dh + 2] (f32).
-__host__ __device__ inline size_t smem_bytes(int TG, int DH, int item,
+// scales [2][KT] each, the scores [TS][KT], and the groups' partials
+// [groups][TS][Dh + 2] (f32); TS = min(T * G, 64), the rows of a tile.
+__host__ __device__ inline size_t smem_bytes(int TS, int DH, int item,
                                              int KT, int kg) {
   return (size_t)4 * KT * DH * item + (size_t)4 * KT * 4 +
-         (size_t)TG * KT * 4 + (size_t)kg * TG * (DH + 2) * 4;
+         (size_t)TS * KT * 4 + (size_t)kg * TS * (DH + 2) * 4;
+}
+
+// rows of one tile, and the tiles of T * G rows
+__host__ __device__ inline int tile_rows(int TG) {
+  return TG < kMaxRows ? TG : kMaxRows;
+}
+__host__ __device__ inline int row_tiles(int TG) {
+  return (TG + kMaxRows - 1) / kMaxRows;
 }
 
 // row groups: the least power of two >= TG, at most 16
@@ -168,9 +189,10 @@ template <typename PT, int DH> struct Slice {
   }
 };
 
-// One CTA: lane s = blockIdx.x, kv head h = blockIdx.y, split blockIdx.z.
-// RPG: rows a group holds in registers (1, or 4 when T * G > 16).  DH is
-// the head-dim bucket, dr <= DH the head dim of q, pages and output.
+// One CTA: lane s = blockIdx.x, kv head h = blockIdx.y, row tile
+// blockIdx.z / splits, split blockIdx.z % splits.  RPG: rows a group holds
+// in registers (1, or 4 when a tile has more than 16 rows).  DH is the
+// head-dim bucket, dr <= DH the head dim of q, pages and output.
 template <typename QT, typename PT, int DH, int RPG>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
@@ -189,37 +211,40 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   constexpr int EPC = 16 / (int)sizeof(PT);      // values per 16 bytes
   constexpr int CH = DH / EPC;                   // 16-byte chunks a key
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = gridDim.x, nsplit = gridDim.z;
-  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
-  const int TG = T * G;
+  const int TG = T * G, TS = tile_rows(TG);
+  const int S = gridDim.x, nsplit = gridDim.z / row_tiles(TG);
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z % nsplit;
+  const int r0 = (blockIdx.z / nsplit) * kMaxRows;   // the tile's first row
+  const int TR = min(TS, TG - r0);                   // and its row count
   const int tid = threadIdx.x, li = tid & 7, gi = tid >> 3;
-  const int nrg = row_groups(TG), nkg = kGroups / nrg;
+  const int nrg = row_groups(TS), nkg = kGroups / nrg;
   const int rg = gi % nrg, kg = gi / nrg;
 
   PT* kbuf = reinterpret_cast<PT*>(smem);
   PT* vbuf = kbuf + 2 * KT * DH;
   float* ksh = reinterpret_cast<float*>(vbuf + 2 * KT * DH);
   float* vsh = ksh + 2 * KT;
-  float* s_sh = vsh + 2 * KT;          // [TG][KT]
-  float* red = s_sh + TG * KT;         // [nkg][TG][DH + 2]
+  float* s_sh = vsh + 2 * KT;          // [TS][KT]
+  float* red = s_sh + TS * KT;         // [nkg][TS][DH + 2]
 
   const int len = lengths[s], slot = slots[s];
   const int prow = prefix_slots ? prefix_slots[s] : slot;
   const int plen = prefix_slots ? prefix_lens[s] : 0;
   const bool quant = ksc != nullptr;
-  const int last = min(len + T - 1, L - 1);      // last key a row sees
+  // the last key a row of this tile sees
+  const int last = min(len + (r0 + TR - 1) / G, L - 1);
   const int c0 = sp * chunk;
   const int c1 = min(min(c0 + chunk, L), last + 1);
-  // this split's partial rows in the scratch: o, then m, then l
-  const size_t prow0 = (((size_t)s * Hkv + h) * nsplit + sp) * TG;
+  // this tile's partial rows of this split in the scratch: o, m, then l
+  const size_t prow0 = (((size_t)s * Hkv + h) * nsplit + sp) * TG + r0;
   const size_t nrows_all = (size_t)S * Hkv * nsplit * TG;
   float* po = part;
   float* pm = part + nrows_all * DH;
   float* pl = pm + nrows_all;
 
   if (c0 >= c1) {                      // nothing visible in this split
-    for (int e = tid; e < TG * DH; e += kThreads) po[prow0 * DH + e] = 0.f;
-    for (int r = tid; r < TG; r += kThreads) {
+    for (int e = tid; e < TR * DH; e += kThreads) po[prow0 * DH + e] = 0.f;
+    for (int r = tid; r < TR; r += kThreads) {
       pm[prow0 + r] = -INFINITY;
       pl[prow0 + r] = 0.f;
     }
@@ -230,12 +255,12 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 #pragma unroll
   for (int i = 0; i < RPG; ++i) {
     const int r = rg + nrg * i;
-    const int t = r / G, g = r % G;
+    const int t = (r0 + r) / G, g = (r0 + r) % G;
     const size_t qi = (((size_t)s * T + t) * H + (size_t)h * G + g) * dr;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = SL::d(li, j);
-      qr[i][j] = r < TG && d < dr ? widen(q[qi + d]) * scale : 0.f;
+      qr[i][j] = r < TR && d < dr ? widen(q[qi + d]) * scale : 0.f;
       acc[i][j] = 0.f;
     }
     m[i] = -INFINITY;
@@ -321,9 +346,9 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
         a += __shfl_xor_sync(0xffffffffu, a, 1);
         a += __shfl_xor_sync(0xffffffffu, a, 2);
         a += __shfl_xor_sync(0xffffffffu, a, 4);
-        const bool vis = r < TG && kpos < c1 && kpos <= len + r / G;
+        const bool vis = r < TR && kpos < c1 && kpos <= len + (r0 + r) / G;
         a = vis ? a * ks : -INFINITY;
-        if (li == 0 && r < TG) s_sh[r * KT + j] = a;
+        if (li == 0 && r < TR) s_sh[r * KT + j] = a;
         tmax[i] = fmaxf(tmax[i], a);
       }
     }
@@ -349,7 +374,7 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 #pragma unroll
       for (int i = 0; i < RPG; ++i) {
         const int r = rg + nrg * i;
-        const float sc = r < TG ? s_sh[r * KT + j] : -INFINITY;
+        const float sc = r < TR ? s_sh[r * KT + j] : -INFINITY;
         const float p = sc == -INFINITY ? 0.f : expf(sc - m[i]);
         l[i] += p;
         const float pv = p * vs;
@@ -364,8 +389,8 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 #pragma unroll
   for (int i = 0; i < RPG; ++i) {
     const int r = rg + nrg * i;
-    if (r < TG) {
-      float* rr = red + ((size_t)kg * TG + r) * (DH + 2);
+    if (r < TR) {
+      float* rr = red + ((size_t)kg * TS + r) * (DH + 2);
 #pragma unroll
       for (int j = 0; j < DPL; ++j) rr[SL::d(li, j)] = acc[i][j];
       if (li == 0) {
@@ -375,22 +400,22 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     }
   }
   __syncthreads();
-  for (int e = tid; e < TG * DH; e += kThreads) {
+  for (int e = tid; e < TR * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
     if (nsplit == 1 && d >= dr) continue;    // a column not written
     float M = -INFINITY;
     for (int k = 0; k < nkg; ++k)
-      M = fmaxf(M, red[((size_t)k * TG + r) * (DH + 2) + DH]);
+      M = fmaxf(M, red[((size_t)k * TS + r) * (DH + 2) + DH]);
     float O = 0.f, Ls = 0.f;
     if (M != -INFINITY)
       for (int k = 0; k < nkg; ++k) {
-        const float* rr = red + ((size_t)k * TG + r) * (DH + 2);
+        const float* rr = red + ((size_t)k * TS + r) * (DH + 2);
         const float w = expf(rr[DH] - M);
         Ls += rr[DH + 1] * w;
         O += rr[d] * w;
       }
     if (nsplit == 1) {
-      const int t = r / G, g = r % G;
+      const int t = (r0 + r) / G, g = (r0 + r) % G;
       const size_t oi =
           (((size_t)s * T + t) * H + (size_t)h * G + g) * dr + d;
       narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
@@ -404,29 +429,35 @@ flash_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   }
 }
 
-// Merges the splits' partials of lane blockIdx.x, kv head blockIdx.y in
-// split order and writes o / l in q's type (the first dr columns).
+// Merges the splits' partials of lane blockIdx.x, kv head blockIdx.y and
+// query rows blockIdx.z * kMergeRows .. + kMergeRows - 1 in split order
+// and writes o / l in q's type (the first dr columns).  The split loops
+// are unrolled so that their loads are in flight together.
 template <typename QT, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_merge(const float* __restrict__ part, QT* __restrict__ out,
                    int T, int H, int Hkv, int G, int nsplit, int dr) {
   const int S = gridDim.x, s = blockIdx.x, h = blockIdx.y, TG = T * G;
+  const int r0 = blockIdx.z * kMergeRows, TR = min(kMergeRows, TG - r0);
   const size_t nrows_all = (size_t)S * Hkv * nsplit * TG;
   const float* pm = part + nrows_all * DH;
   const float* pl = pm + nrows_all;
   const size_t base = ((size_t)s * Hkv + h) * nsplit * TG;
-  for (int e = threadIdx.x; e < TG * dr; e += kThreads) {
-    const int r = e / dr, d = e % dr;
+  for (int e = threadIdx.x; e < TR * dr; e += kThreads) {
+    const int r = r0 + e / dr, d = e % dr;
     float M = -INFINITY;
+#pragma unroll 4
     for (int k = 0; k < nsplit; ++k) M = fmaxf(M, pm[base + k * TG + r]);
     float O = 0.f, Ls = 0.f;
-    if (M != -INFINITY)
+    if (M != -INFINITY) {
+#pragma unroll 4
       for (int k = 0; k < nsplit; ++k) {
         const size_t i = base + k * TG + r;
         const float w = expf(pm[i] - M);
         Ls += pl[i] * w;
         O += part[i * DH + d] * w;
       }
+    }
     const int t = r / G, g = r % G;
     const size_t oi = (((size_t)s * T + t) * H + (size_t)h * G + g) * dr + d;
     narrow(out + oi, Ls > 0.f ? O / Ls : 0.f);
@@ -435,8 +466,9 @@ flash_decode_merge(const float* __restrict__ part, QT* __restrict__ out,
 
 template <typename PT>
 size_t smem_for(int TG, int DH) {
-  return smem_bytes(TG, DH, (int)sizeof(PT), keys_per_tile<PT>(),
-                    kGroups / row_groups(TG));
+  const int TS = tile_rows(TG);
+  return smem_bytes(TS, DH, (int)sizeof(PT), keys_per_tile<PT>(),
+                    kGroups / row_groups(TS));
 }
 
 template <typename QT, typename PT, int DH>
@@ -445,11 +477,14 @@ int launch(const void* q, const void* k, const void* v, const void* ksc,
            const void* prefix_slots, const void* prefix_lens, void* out,
            void* part, int S, int T, int H, int Hkv, int L, int bk,
            int chunk, int nsplit, float scale, int dr, cudaStream_t stream) {
-  const int G = H / Hkv, TG = T * G;
-  if (TG > kMaxRows || (nsplit > 1 && part == nullptr))
+  const int G = H / Hkv, TG = T * G, TS = tile_rows(TG);
+  const int tiles = row_tiles(TG);
+  const int merges = (TG + kMergeRows - 1) / kMergeRows;
+  if (TG < 1 || (long long)tiles * nsplit > 65535 || merges > 65535 ||
+      (nsplit > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_for<PT>(TG, DH);
-  const bool wide = (TG + row_groups(TG) - 1) / row_groups(TG) > 1;
+  const bool wide = (TS + row_groups(TS) - 1) / row_groups(TS) > 1;
   auto kern = wide ? flash_decode_kernel<QT, PT, DH, 4>
                    : flash_decode_kernel<QT, PT, DH, 1>;
   if (smem > 48 * 1024) {
@@ -457,7 +492,7 @@ int launch(const void* q, const void* k, const void* v, const void* ksc,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(S, Hkv, nsplit), kThreads, smem, stream>>>(
+  kern<<<dim3(S, Hkv, tiles * nsplit), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const PT*>(k),
       static_cast<const PT*>(v), static_cast<const float*>(ksc),
       static_cast<const float*>(vsc), static_cast<const int*>(slots),
@@ -467,7 +502,7 @@ int launch(const void* q, const void* k, const void* v, const void* ksc,
       static_cast<float*>(part), T, H, Hkv, L, bk, G, scale, chunk, dr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
-  flash_decode_merge<QT, DH><<<dim3(S, Hkv), kThreads, 0, stream>>>(
+  flash_decode_merge<QT, DH><<<dim3(S, Hkv, merges), kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<QT*>(out), T, H, Hkv, G,
       nsplit, dr);
   return (int)cudaGetLastError();
@@ -515,8 +550,9 @@ int by_page(int page_dtype, int Dh, const void* q, const void* k,
 
 extern "C" {
 
-// Shared memory bytes one CTA needs at T * G = TG rows and head dim Dh
-// (the wrapper checks it against the card's 227 KB before launching).
+// Shared memory bytes one CTA needs at T * G = TG rows (a tile of at most
+// 64 of them) and head dim Dh (the wrapper checks it against the card's
+// 227 KB before launching).
 size_t bf_flash_decode_smem_bytes(int TG, int Dh, int page_dtype) {
   const int DH = dh_bucket(Dh);
   switch (page_dtype) {
@@ -531,7 +567,8 @@ size_t bf_flash_decode_smem_bytes(int TG, int Dh, int page_dtype) {
 // when no lane reads through a prefix page.  part: f32 scratch of
 // S * Hkv * nsplit * T * G * (DH + 2) values, DH the head-dim bucket of
 // Dh (null when nsplit is 1); split sp covers keys [sp * chunk, (sp + 1)
-// * chunk).  Dh: any head dim from 1 to 256.
+// * chunk).  Dh: any head dim from 1 to 256.  T * G: any row count (in
+// tiles of 64).
 int bf_flash_decode(const void* q, const void* k, const void* v,
                     const void* ksc, const void* vsc, const void* slots,
                     const void* lengths, const void* ps, const void* pl,

@@ -2,8 +2,9 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` from a plain-C
 interface (no PyTorch headers, so a build takes seconds) into
-``bluefog_tpu_torch/_build/``, keyed by a hash of its sources and flags,
-and loaded with ``ctypes``.  Every ``csrc/*.cuh`` header is on the include
+``bluefog_tpu_torch/_build/``, keyed by a hash of its sources and flags
+(nvcc's output beside it, for :func:`build_log`), and loaded with
+``ctypes``.  Every ``csrc/*.cuh`` header is on the include
 path (``-I csrc``) and in the hash, so an edit to a shared header rebuilds
 each library that may include it.  Nothing is compiled at import: the first
 call that needs a library builds it.
@@ -28,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOGS: Dict[str, str] = {}
+_LOGS: Dict[str, Path] = {}   # nvcc's output, beside each library
 
 
 def _nvcc() -> str:
@@ -66,13 +67,17 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name} "
                                f"({' '.join(cmd)}):\n{proc.stderr[-4000:]}")
+        log = so.with_suffix(".log")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)                 # atomic: concurrent builders
-        _LOGS[name] = proc.stdout + proc.stderr
+    _LOGS[name] = so.with_suffix(".log")
     _LIBS[name] = ctypes.CDLL(str(so))
     return _LIBS[name]
 
 
 def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v`` register and shared-memory use) from
-    this process's build of ``name``; empty when it was already built."""
-    return _LOGS.get(name, "")
+    the build of the library ``name`` this process loaded, kept beside it
+    (a build by an earlier process included); empty before the load."""
+    log = _LOGS.get(name)
+    return log.read_text() if log is not None and log.exists() else ""

@@ -11,9 +11,11 @@ takes the plain version: the kernel launches or the call raises.
 
 The kernel splits each lane's keys across CTAs (flash-decoding): the
 host-side plan :func:`split_plan` picks the number of splits from the
-batch, the kv heads and the page length alone, and a second small launch
-merges the splits' partials.  Nothing on this path reads a device value
-back to the host.
+batch, the kv heads, the query-row tiles and the page length alone, and
+a second small launch merges the splits' partials.  A call takes any
+number of query rows ``T * G``: they run as tiles of ``ROW_TILE`` rows
+in the same launch (:func:`row_tiles`).  Nothing on this path reads a
+device value back to the host.
 
 The kernel takes every head dim from 1 to 256 at run time, inside a
 built bucket of 32, 64, 128 or 256 (:func:`head_dim_bucket`): the pages
@@ -37,7 +39,7 @@ from ..serve import kv_cache as _kv
 from . import _build
 
 __all__ = ["flash_attend_rows", "flash_attend_chunk", "flash_decode_cuda",
-           "split_plan", "head_dim_bucket", "build"]
+           "split_plan", "row_tiles", "head_dim_bucket", "build"]
 
 _LIB = "flash_decode"
 _SOURCES = ("flash_decode.cu",)
@@ -47,7 +49,7 @@ _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _BUCKETS = (32, 64, 128, 256)   # built head dims; dr <= bucket runs inside
 MAX_HEAD_DIM = 256
 _MAX_SMEM = 232448          # bytes of shared memory one H100 CTA may use
-_MAX_ROWS = 64              # T * G rows of one CTA (16 row groups x 4)
+ROW_TILE = 64               # query rows of one CTA (16 row groups x 4)
 SMS = 132                   # streaming multiprocessors of an H100
 CTAS_PER_SM = 4             # the split plan's target
 MIN_CHUNK = 32              # keys: the finest split
@@ -66,14 +68,21 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def split_plan(S: int, Hkv: int, L: int) -> Tuple[int, int]:
-    """``(splits, chunk)``: how many CTAs share each (lane, kv head) and
-    the keys each covers (a multiple of ``MIN_CHUNK``; ``splits * chunk >=
-    L``).  Enough splits for ``CTAS_PER_SM`` CTAs on each SM, but no more
-    than ``L`` has ``MIN_CHUNK``-key chunks.  Host integers only: the plan
-    never looks at ``lengths`` (a CTA whose keys lie past its lane's
-    length exits at once)."""
-    want = -(-CTAS_PER_SM * SMS // (S * Hkv))
+def row_tiles(TG: int) -> int:
+    """Tiles of at most ``ROW_TILE`` query rows that ``TG = T * G`` rows
+    of one (lane, kv head) take."""
+    return -(-TG // ROW_TILE)
+
+
+def split_plan(S: int, Hkv: int, L: int, tiles: int = 1) -> Tuple[int, int]:
+    """``(splits, chunk)``: how many CTAs share each (lane, kv head, row
+    tile) and the keys each covers (a multiple of ``MIN_CHUNK``; ``splits
+    * chunk >= L``).  Enough splits for ``CTAS_PER_SM`` CTAs on each SM
+    over the ``S * Hkv * tiles`` (lane, kv head, row tile) triples, but no
+    more than ``L`` has ``MIN_CHUNK``-key chunks.  Host integers only: the
+    plan never looks at ``lengths`` (a CTA whose keys lie past what its
+    rows see exits at once)."""
+    want = -(-CTAS_PER_SM * SMS // (S * Hkv * tiles))
     splits = max(1, min(want, -(-L // MIN_CHUNK)))
     chunk = -(-L // splits)
     chunk = -(-chunk // MIN_CHUNK) * MIN_CHUNK
@@ -182,23 +191,21 @@ def flash_decode_cuda(q4: torch.Tensor, cl: Dict[str, torch.Tensor],
                          f"{tuple(ksc.shape)} {ksc.dtype} / "
                          f"{tuple(vsc.shape)} {vsc.dtype}")
     TG = T * (H // Hkv)
-    if TG > _MAX_ROWS:
-        raise ValueError(f"flash decode takes T*G <= {_MAX_ROWS} query "
-                         f"rows per kv head, got T={T} x G={H // Hkv}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash decode pages must be 16-byte aligned (they "
                          "are copied 16 bytes at a time)")
     lib = build()
     smem = lib.bf_flash_decode_smem_bytes(TG, Dh, _PAGE_DTYPES[k.dtype])
     if smem > _MAX_SMEM:
-        raise ValueError(f"flash decode tile of T*G={TG} rows at head_dim "
+        raise ValueError(f"flash decode tile of T*G={min(TG, ROW_TILE)} "
+                         f"rows at head_dim "
                          f"{Dh} needs {smem} bytes of shared memory "
                          f"(> {_MAX_SMEM})")
     slots = _index(slots, S, dev, "slots")
     lengths = _index(lengths, S, dev, "lengths")
     prefix_slots = _index(prefix_slots, S, dev, "prefix_slots")
     prefix_lens = _index(prefix_lens, S, dev, "prefix_lens")
-    splits, chunk = split_plan(S, Hkv, L)
+    splits, chunk = split_plan(S, Hkv, L, row_tiles(TG))
     out = torch.empty_like(q4)
     # the splits' partials: o [S, Hkv, splits, T*G, DH], then m and l
     part = (torch.empty(S * Hkv * splits * TG * (DH + 2),
@@ -269,7 +276,8 @@ def flash_attend_chunk(q: torch.Tensor, cl: Dict[str, torch.Tensor],
                        block_k: int = 128) -> torch.Tensor:
     """Flash-decode drop-in for ``attend_chunk``: query t of lane i sits at
     position ``lengths[i] + t`` and attends keys ``0 .. lengths[i] + t``;
-    the T queries fold into the q tile with the GQA group."""
+    the T queries fold into the q rows with the GQA group (row ``t * G +
+    g``), any number of them, in tiles of ``ROW_TILE``."""
     S, T, H, Dh = q.shape
     _common_checks(H, Dh, cl, slots, lengths, prefix_slots, prefix_lens)
     if scale is None:

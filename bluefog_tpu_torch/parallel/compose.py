@@ -1,5 +1,7 @@
 """The composed decoder LM (counterpart of
-``bluefog_tpu/parallel/compose.py``): serving at pp = tp = 1, and
+``bluefog_tpu/parallel/compose.py``): serving at tp = 1 (a pp-carved
+serving tree loads as one module whose stages run in order; the
+speculative draft is a prefix of those stages, :func:`draft_carve`), and
 training at any gossip-DP x pipeline x tensor x Ulysses carving (ep =
 1).  The MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the
 attention half, :class:`AttnBlock`, and brings its own FFN.
@@ -30,6 +32,7 @@ carvings (ep > 1) and gossip wire codecs are not ported yet and raise.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Callable, Mapping, Optional, Tuple, Union
 
 import networkx as nx
@@ -48,6 +51,7 @@ from .pipeline import pipeline_apply
 
 __all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
            "init_lm_params", "params_from_jax", "_ln", "Mesh3D",
+           "DraftCarve", "draft_carve", "serving_carve",
            "compose_parallelism", "make_train_step", "init_lm_train_params",
            "make_lm_batch", "make_lm_grad_fn"]
 
@@ -269,6 +273,58 @@ class LMConfig:
                 + 6.0 * self.layers * self.d_model * self.seq_len)
 
 
+def serving_carve(pp: int = 1):
+    """The axes a serving engine on one card validates a config against:
+    ``pp`` pipeline stages run in order, everything else 1 (the JAX
+    engine's carving at dp = tp = sp = ep = 1)."""
+    return types.SimpleNamespace(pp=pp, tp=1, sp=1, ep=1, num_experts=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftCarve:
+    """The truncated-stage draft of self-speculative decoding (the JAX
+    ``DraftCarve``): the first ``stages`` of the target's ``pp`` pipeline
+    stages, early-exited into the shared LN + head.  No extra weights: the
+    draft is a prefix of the served model, so its early-layer KV writes
+    equal the target's and the verify pass overwrites them with the same
+    values.  Pure metadata: the engine reads ``layers``."""
+    stages: int            # pipeline stages the draft runs (1 .. pp)
+    pp: int                # target pipeline depth it was carved from
+    layers: int            # decoder blocks the draft runs
+    total_layers: int      # decoder blocks in the target
+    n_params: int          # dense draft params (blocks run + embed/head)
+    target_params: int     # dense target params
+
+    @property
+    def cost_fraction(self) -> float:
+        """Draft-token FLOPs as a fraction of a target token's (the ``c``
+        of the speculative speedup model ``(1 - a^(k+1)) / ((1 - a) (ck +
+        1))``)."""
+        return self.n_params / self.target_params
+
+    def describe(self) -> dict:
+        return {"stages": self.stages, "pp": self.pp,
+                "layers": self.layers, "total_layers": self.total_layers,
+                "cost_fraction": round(self.cost_fraction, 4)}
+
+
+def draft_carve(pp: int, cfg: "LMConfig", stages: int) -> DraftCarve:
+    """Carve the truncated-stage draft off a ``pp``-stage serving carving
+    (``1 <= stages <= pp``; ``stages == pp`` is the identity draft: every
+    token accepted, no speedup).  The JAX rules and texts."""
+    if not isinstance(stages, int) or not 1 <= stages <= pp:
+        raise ValueError(f"draft stages={stages!r} must be an int in "
+                         f"[1, pp={pp}]")
+    cfg.validate(serving_carve(pp))
+    draft_layers = stages * (cfg.layers // pp)
+    D, F_ = cfg.d_model, cfg.ffn_mult * cfg.d_model
+    per_block = D * 3 * D + D * D + D * F_ + F_ * D
+    return DraftCarve(
+        stages=stages, pp=pp, layers=draft_layers, total_layers=cfg.layers,
+        n_params=draft_layers * per_block + 2 * cfg.vocab * D,
+        target_params=cfg.n_params)
+
+
 def _ln(z: torch.Tensor) -> torch.Tensor:
     """Parameter-free layer norm, eps 1e-6 (the JAX ``_ln``)."""
     mu = z.mean(-1, keepdim=True)
@@ -398,24 +454,32 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LMConfig, *,
                     device: Optional[Union[str, torch.device]] = None,
                     stacked: bool = False) -> Union[ComposeLM, dict]:
     """Build the port's LM from a JAX ``init_lm_params`` /
-    ``checkpoint.load_for_serving`` tree carved at pp = tp = 1 (leaves as
+    ``checkpoint.load_for_serving`` tree carved at tp = 1 (leaves as
     numpy arrays or anything ``np.asarray`` takes).  Leaves come stacked
-    ``[n_devices, ...]``.  By default every row is a replica and row 0
-    becomes the serving module; with ``stacked=True`` the training tree
-    ``{"blocks", "shared"}`` comes back as stacked tensors with every row
-    kept (ranks diverge once training starts)."""
+    ``[n_devices, ...]``.  By default row 0 becomes the serving module; a
+    tree carved at pp > 1 (each row holds ``layers / pp`` blocks, device
+    ``r * pp + s`` stage s of replica r) loads with the stages' blocks of
+    replica 0 joined in stage order.  With ``stacked=True`` (pp = tp = 1
+    only) the training tree ``{"blocks", "shared"}`` comes back as
+    stacked tensors with every row kept (ranks diverge once training
+    starts)."""
     dev = resolve_device(device)
-    want = (cfg.layers, cfg.d_model, 3 * cfg.d_model)
-    if np.asarray(tree["blocks"]["wqkv"]).shape[1:] != want:
-        raise ValueError(f"wqkv {np.asarray(tree['blocks']['wqkv']).shape}"
-                         f" != [n, {want}]: the tree must be a pp = tp = 1 "
-                         "carving of this LMConfig")
+    shape = np.asarray(tree["blocks"]["wqkv"]).shape
+    Lps = shape[1] if len(shape) == 4 else 0
+    pp = cfg.layers // Lps if Lps and cfg.layers % Lps == 0 else 0
+    if (not pp or shape[2:] != (cfg.d_model, 3 * cfg.d_model)
+            or shape[0] % pp or (stacked and pp != 1)):
+        want = (cfg.layers, cfg.d_model, 3 * cfg.d_model)
+        raise ValueError(f"wqkv {shape} != [n, {want}] (or [n * pp, "
+                         f"layers / pp, ...]): the tree must be a tp = 1 "
+                         f"carving of this LMConfig{' at pp = 1' * stacked}")
     if stacked:
         def t(x):
             return torch.as_tensor(np.array(x, dtype=np.float32)).to(dev)
         return {"blocks": {k: t(v) for k, v in tree["blocks"].items()},
                 "shared": {k: t(v) for k, v in tree["shared"].items()}}
-    blocks = {k: np.asarray(v)[0] for k, v in tree["blocks"].items()}
+    blocks = {k: np.concatenate(list(np.asarray(v)[:pp]))
+              for k, v in tree["blocks"].items()}
     shared = tree["shared"]
     return _load(ComposeLM(cfg), blocks, np.asarray(shared["embed"])[0],
                  np.asarray(shared["head"])[0]).to(dev)

@@ -3,15 +3,20 @@
 Builds an engine and a scheduler over a composed LM with random weights
 from ``--seed``, answers a burst of random prompts, and prints one JSON
 summary line.  Runs on the CUDA card unless ``--device cpu`` is given.
-The bucket and KV-store knobs follow ``ServeConfig.from_env``
-(``BLUEFOG_SERVE_BUCKETS``, ``BLUEFOG_KV_DTYPE``, ...); with
-``BLUEFOG_SERVE_MOE`` set (e.g. ``8x2``) the model is a dropless top-k
-MoE LM with that many experts, as in the JAX demo.
+The bucket, KV-store and fast-path knobs follow
+``ServeConfig.from_env`` (``BLUEFOG_SERVE_BUCKETS``, ``BLUEFOG_KV_DTYPE``,
+``BLUEFOG_SPEC_DECODE='<k>[@<stages>]'``,
+``BLUEFOG_PREFIX_PAGES='<pages>[x<page_tokens>]'``, ...); ``--pp``
+(default ``BLUEFOG_SERVE_PP``, else 1) is the carving's pipeline depth,
+which sets the speculative draft's depth; with ``BLUEFOG_SERVE_MOE`` set
+(e.g. ``8x2``) the model is a dropless top-k MoE LM with that many
+experts, as in the JAX demo.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -24,6 +29,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new-tokens", type=int, default=4)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pp", type=int,
+                    default=int(os.environ.get("BLUEFOG_SERVE_PP", "1")),
+                    help="pipeline stages of the carving (the draft's "
+                         "depth unit; must divide --layers)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -42,7 +51,7 @@ def main(argv=None) -> int:
     else:
         cfg = LMConfig(layers=args.layers)
         model = init_lm_params(cfg, args.seed, device=args.device)
-    engine = ServeEngine(cfg, model, scfg, device=args.device)
+    engine = ServeEngine(cfg, model, scfg, pp=args.pp, device=args.device)
     engine.warmup()
     sched = Scheduler(engine)
     rng = np.random.default_rng(args.seed)
@@ -59,7 +68,12 @@ def main(argv=None) -> int:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
         "kv_dtype": engine.scfg.kv_dtype,
-        "moe_experts": scfg.moe_experts,
+        "moe_experts": scfg.moe_experts, "pp": args.pp,
+        "spec_decode": scfg.spec_decode, "prefix_pages": scfg.prefix_pages,
+        "spec_drafted": engine.spec_drafted_total,
+        "spec_accepted": engine.spec_accepted_total,
+        "prefix_hits": sum(pc.prefix_hits_total
+                           for pc in sched._prefix if pc is not None),
         "completed": len(sched.completed),
         "tokens": sum(len(r.generated) for r in sched.completed),
         "decode_calls": sched.decode_calls,

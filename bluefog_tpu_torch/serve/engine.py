@@ -1,5 +1,5 @@
 """Prefill + fused decode engine on one device (counterpart of
-``bluefog_tpu/serve/engine.py`` at one replica, pp = tp = 1).
+``bluefog_tpu/serve/engine.py`` at one replica, tp = 1).
 
 Shapes are bucketed as in the JAX engine: decode batches only have the
 lane counts in ``ServeConfig.batch_buckets`` (idle lanes ride the trash
@@ -25,9 +25,25 @@ decode path and ``group_tile`` for prefill.  Decode folds each layer's
 routing of the live lanes into the ``[E + 2]`` hot-expert carrier that
 :meth:`ServeEngine.moe_load` reads.
 
-Not ported yet (each raises ``ValueError`` naming the feature):
-speculative decoding, shared prefix pages and expert-parallel (ep > 1)
-MoE serving.
+Fast paths, as in the JAX engine:
+
+- **Self-speculative decoding** (``spec_decode=k``): the draft is the
+  first ``spec_stages`` of the carving's ``pp`` pipeline stages
+  (:func:`~bluefog_tpu_torch.parallel.compose.draft_carve`; on one card
+  the stages' layers simply run in order), early-exited into the shared
+  LN + head; it drafts k greedy tokens, then one chunk call of T = k + 1
+  (K3's chunk form) verifies them and the host keeps the longest
+  agreeing prefix plus the target's bonus token.  An MoE draft runs the
+  expert-mean dense FFN (plain PyTorch: the JAX engine computes it in
+  XLA).
+- **Shared prefix pages** (``prefix_pages=p``): prompt prefixes sealed
+  once into reserved cache rows by a plain prefill; a prefix-hit request
+  prefills only its remainder (:meth:`ServeEngine.chunk_prefill`, K3's
+  chunk form at the prefill bucket's T) and every attention reads
+  through the page indirection.
+
+Not ported yet: expert-parallel (ep > 1) MoE serving (``ValueError``
+naming the feature).
 """
 from __future__ import annotations
 
@@ -39,12 +55,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.rope import apply_rope, apply_rope_rows
+from ..models.rope import apply_rope, apply_rope_grid, apply_rope_rows
 from ..moe.dropless import decode_tile
 from ..moe.model import MoELMConfig
 from ..ops import flash_decode as _fd
 from ..ops.ulysses import dense_attention
-from ..parallel.compose import ComposeLM, LMConfig
+from ..parallel.compose import (ComposeLM, LMConfig, _gelu, _ln, draft_carve,
+                                serving_carve)
 from . import kv_cache as _kv
 
 __all__ = ["ServeConfig", "ServeEngine"]
@@ -140,9 +157,11 @@ def _not_ported(feature: str, knob: str) -> ValueError:
 class ServeConfig:
     """Static serving shapes: the JAX ``ServeConfig``'s fields and rules.
 
-    ``spec_decode`` and ``prefix_pages`` must stay 0, and ``moe_ep`` 1,
-    until their slices are ported; ``spec_stages`` and
-    ``prefix_page_tokens`` are kept for parity and unused.
+    ``spec_decode`` is the draft depth k of self-speculative decoding (0:
+    off; greedy only) and ``spec_stages`` the pipeline stages its draft
+    runs; ``prefix_pages`` / ``prefix_page_tokens`` size the shared
+    prefix pool and the page granularity prompts are keyed at.
+    ``moe_ep`` must stay 1 until expert-parallel serving is ported.
     ``moe_experts``/``moe_top_k`` declare an MoE model (checked against
     it by the engine) and ``moe_tile`` its decode tile (0: auto).
     ``decode_block_k`` is the flash-decode KV block (clamped to
@@ -199,11 +218,37 @@ class ServeConfig:
             raise ValueError("decode_block_k must be >= 1")
         if self.decode_kernel == "pallas":
             # fail at config time, not at the first decode step
-            _fd._block_k_for(self.max_len, self.decode_block_k)
+            bk = _fd._block_k_for(self.max_len, self.decode_block_k)
+            if self.prefix_pages and self.prefix_page_tokens % bk:
+                raise ValueError(
+                    f"prefix_page_tokens ({self.prefix_page_tokens}) must be "
+                    f"a multiple of the flash-decode KV block "
+                    f"({bk}): the kernel routes whole KV blocks through the "
+                    "shared prefix page, so a prefix may not end mid-block")
+        if self.spec_decode < 0:
+            raise ValueError("spec_decode (draft depth k) must be >= 0")
+        if self.spec_stages < 1:
+            raise ValueError("spec_stages must be >= 1")
+        if self.prefix_pages < 0:
+            raise ValueError("prefix_pages must be >= 0")
+        if self.prefix_page_tokens < 1:
+            raise ValueError("prefix_page_tokens must be >= 1")
+        if self.prefix_pages and \
+                self.prefix_page_tokens > self.prefill_buckets[-1]:
+            raise ValueError(
+                f"prefix_page_tokens ({self.prefix_page_tokens}) exceeds "
+                f"the largest prefill bucket ({self.prefill_buckets[-1]}): "
+                "a prefix page is sealed by one prefill call")
         if self.temperature < 0.0:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError("top_p must be in (0, 1]")
+        if self.spec_decode and self.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding is greedy-only: its accept rule is "
+                "argmax-prefix agreement; sampled speculation needs the "
+                "full accept-reject rule (set temperature=0.0 or "
+                "spec_decode=0)")
         if self.moe_experts < 0:
             raise ValueError("moe_experts must be >= 0 (0 = dense model)")
         if self.moe_experts:
@@ -225,10 +270,6 @@ class ServeConfig:
                     "auto): decode batches are tiny, so grouped tiles "
                     "above 8 rows pad every expert group with mostly-zero "
                     "tiles")
-        if self.spec_decode:
-            raise _not_ported("speculative decoding", "spec_decode")
-        if self.prefix_pages:
-            raise _not_ported("shared prefix pages", "prefix_pages")
         if self.moe_experts and self.moe_ep > 1:
             raise _not_ported("expert-parallel MoE serving", "moe_ep")
 
@@ -242,15 +283,18 @@ class ServeConfig:
 
     @property
     def decode_window(self) -> int:
-        """Most tokens one engine call can add to a slot."""
-        return self.decode_steps_per_call
+        """Most tokens one engine call can add to a slot (plain fused
+        decode vs one speculative round's k drafts + bonus)."""
+        return max(self.decode_steps_per_call,
+                   self.spec_decode + 1 if self.spec_decode else 0)
 
     @classmethod
     def from_env(cls, **overrides) -> "ServeConfig":
         """The JAX env surface: ``BLUEFOG_SERVE_BUCKETS``,
         ``BLUEFOG_KV_DTYPE``, ``BLUEFOG_DECODE_KERNEL`` (``'xla'``,
-        ``'pallas'`` or ``'pallas@<block_k>'``), ``BLUEFOG_SPEC_DECODE``
-        and ``BLUEFOG_PREFIX_PAGES`` (refused above 0), and
+        ``'pallas'`` or ``'pallas@<block_k>'``),
+        ``BLUEFOG_SPEC_DECODE='<k>[@<stages>]'``,
+        ``BLUEFOG_PREFIX_PAGES='<pages>[x<page_tokens>]'`` and
         ``BLUEFOG_SERVE_MOE='<experts>[x<top_k>][@<ep>][:<tile>]'`` (ep
         above 1 refused)."""
         spec = os.environ.get("BLUEFOG_SERVE_BUCKETS", "")
@@ -338,13 +382,16 @@ class ServeEngine:
     params_from_jax`, or their MoE counterparts in
     :mod:`bluefog_tpu_torch.moe.model`; the engine moves it to ``device``
     (CUDA unless the caller passes ``device="cpu"``) and never changes its
-    weights.  The cache is updated in place.
+    weights.  The cache is updated in place.  ``pp`` is the JAX carving's
+    pipeline stages: on one card their layers run in order with the same
+    math, so ``pp`` only sets how deep the speculative draft is
+    (``draft_carve(pp, cfg, spec_stages)``) and must divide the layers.
     """
 
     replicas = 1
 
     def __init__(self, cfg: LMConfig, model: ComposeLM,
-                 scfg: Optional[ServeConfig] = None, *,
+                 scfg: Optional[ServeConfig] = None, *, pp: int = 1,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self._moe = isinstance(cfg, MoELMConfig)
@@ -356,7 +403,9 @@ class ServeEngine:
                 "time — an EC router at serve time would condition routing "
                 "on future tokens (the causality caveat that keeps it "
                 "training-only).  Serve with router_mode='topk'.")
-        cfg.validate()
+        if not isinstance(pp, int) or pp < 1:
+            raise ValueError(f"pp ({pp!r}) must be an int >= 1")
+        cfg.validate(serving_carve(pp))
         if model.cfg != cfg:
             raise ValueError(f"model was built for {model.cfg}, not {cfg}")
         scfg = scfg or ServeConfig.from_env()
@@ -381,22 +430,30 @@ class ServeEngine:
                         "must agree with the MoELMConfig and the ep carve")
         if self._moe:
             # decode tile: S * k rows over the E expert groups; prefill
-            # (chunk) shapes keep the training tile
+            # and verify (chunk) shapes keep the training tile
             self._moe_tile = scfg.moe_tile or decode_tile(
                 scfg.batch_buckets[-1] * cfg.top_k, cfg.num_experts)
             self._moe_chunk_tile = cfg.group_tile
         self._route_stats: Optional[torch.Tensor] = None
-        self.cfg, self.scfg = cfg, scfg
+        self.cfg, self.scfg, self.pp = cfg, scfg, pp
+        self.draft = draft_carve(pp, cfg, scfg.spec_stages) \
+            if scfg.spec_decode else None
         self.model = model.to(self.device).requires_grad_(False)
         self.cache_cfg = _kv.KVCacheConfig(
             layers=cfg.layers, slots=scfg.slots, max_len=scfg.max_len,
             kv_heads=cfg.heads, head_dim=cfg.head_dim, dtype=scfg.dtype,
-            store=scfg.kv_dtype)
+            store=scfg.kv_dtype, prefix_slots=scfg.prefix_pages)
         self.cache = _kv.init_cache(self.cache_cfg, self.device)
         # per-row sampling generators, re-seeded at each prefill from
         # (seed, row, admission count) so a fixed seed replays a fixed run
         self._gens: Dict[int, torch.Generator] = {}
         self._seed_count = 0
+        # the MoE draft's expert-mean FFN weights, per draft layer (built
+        # at the first draft: the weights never change)
+        self._mean_ffn: Optional[list] = None
+        # the JAX engine's bluefog_serve_spec_{drafted,accepted}_total
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
 
     # ------------------------------------------------------------------
     # device-side math
@@ -449,11 +506,27 @@ class ServeEngine:
         ent = (-(probs * torch.log(probs + 1e-20)).sum(-1) * w).sum()
         return torch.cat([cnt, ent[None], w.sum()[None]])
 
-    def _layer_step(self, blk, x: torch.Tensor, cl, slot_ids: torch.Tensor,
-                    lens: torch.Tensor):
-        """One decoder block on one new token per lane: ``x [S, D]``;
-        returns ``(x, routing)`` (``routing`` is ``None`` when dense)."""
+    def _draft_ffn(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The MoE draft's FFN at layer ``i``: the dense FFN over the
+        experts' mean weights (one matmul pair, no routing), as the JAX
+        engine's ``_ffn(draft=True)``.  Any draft keeps the stream exact:
+        the verify overwrites every drafted KV row and only target-argmax
+        tokens are emitted."""
+        if self._mean_ffn is None:
+            E = self.cfg.num_experts
+            blocks = self.model.blocks[:self.draft.layers]
+            self._mean_ffn = [(blk.w1e.sum(0) / E, blk.w2e.sum(0) / E)
+                              for blk in blocks]
+        w1, w2 = self._mean_ffn[i]
+        return x + _gelu(_ln(x) @ w1) @ w2
+
+    def _layer_step(self, i: int, x: torch.Tensor, slot_ids: torch.Tensor,
+                    lens: torch.Tensor, prows, plens, draft: bool = False):
+        """Decoder block ``i`` on one new token per lane: ``x [S, D]``;
+        returns ``(x, routing)`` (``routing`` is ``None`` when dense or on
+        the MoE draft)."""
         H, Dh = self.cfg.heads, self.cfg.head_dim
+        blk, cl = self.model.blocks[i], self._layer(i)
         S = x.shape[0]
         q, k, v = blk.qkv(x)
         q = apply_rope_rows(q.reshape(S, H, Dh), lens)
@@ -463,33 +536,83 @@ class ServeEngine:
         att = _fd.flash_attend_rows(
             q, cl["k"], cl["v"], slot_ids, lens,
             k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+            prefix_slots=prows, prefix_lens=plens,
             block_k=self.scfg.kernel_block_k)
-        return blk.finish(x, att.reshape(S, H * Dh),
-                          self._moe_tile if self._moe else None)
+        att = att.reshape(S, H * Dh)
+        if draft and self._moe:
+            return self._draft_ffn(i, x + att @ blk.wo), None
+        return blk.finish(x, att, self._moe_tile if self._moe else None)
 
     @torch.inference_mode()
     def _decode_steps(self, toks: torch.Tensor, slot_ids: torch.Tensor,
-                      lens: torch.Tensor) -> torch.Tensor:
-        """``decode_steps_per_call`` fused tokens: ``[steps, S]``.  On the
-        MoE path the call's routing of live lanes (every step, every
+                      lens: torch.Tensor, prows=None, plens=None,
+                      draft: bool = False) -> torch.Tensor:
+        """Fused tokens ``[steps, S]``: ``decode_steps_per_call`` steps
+        through every layer, or (``draft``) ``spec_decode`` greedy steps
+        through the draft's layers, then the shared LN and head.  On the
+        MoE path a target call's routing of live lanes (every step, every
         layer) becomes the hot-expert snapshot."""
         model, gen = self.model, []
+        n_layers = self.draft.layers if draft else self.cfg.layers
+        steps = self.scfg.spec_decode if draft else \
+            self.scfg.decode_steps_per_call
+        track = self._moe and not draft
         live = slot_ids < self.scfg.slots                     # [S] real lanes
         st = torch.zeros((self.cfg.num_experts + 2,), device=self.device) \
-            if self._moe else None
-        for _ in range(self.scfg.decode_steps_per_call):
+            if track else None
+        for _ in range(steps):
             x = model.embed[toks]                                  # [S, D]
-            for i, blk in enumerate(model.blocks):
-                x, routing = self._layer_step(blk, x, self._layer(i),
-                                              slot_ids, lens)
-                if routing is not None:
+            for i in range(n_layers):
+                x, routing = self._layer_step(i, x, slot_ids, lens, prows,
+                                              plens, draft)
+                if track:
                     st = st + self._route_vec(routing, live)
-            toks = self._next_token(model.logits(x), slot_ids)
+            logits = model.logits(x)
+            toks = torch.argmax(logits, dim=-1) if draft else \
+                self._next_token(logits, slot_ids)
             gen.append(toks)
             lens = lens + 1
-        if self._moe:
+        if track:
             self._route_stats = st
         return torch.stack(gen)
+
+    @torch.inference_mode()
+    def _chunk_forward(self, toks: torch.Tensor, slot_ids: torch.Tensor,
+                       lens: torch.Tensor, prows, plens) -> torch.Tensor:
+        """The k-token verify forward / chunked prefill (the JAX
+        ``_chunk_body``): ``toks [S, T]``, token t of lane i at position
+        ``lens[i] + t``.  Appends all T kv rows, attends causally over the
+        slot (and through the prefix pages) with K3's chunk form, and
+        returns the argmax at every position ``[S, T]``: for a verify the
+        target tokens, for a chunked prefill the request's first token at
+        its last real position.  On the MoE path every chunk row of a
+        live lane counts toward the hot-expert snapshot."""
+        H, Dh = self.cfg.heads, self.cfg.head_dim
+        S, T = toks.shape
+        pos = lens[:, None] + torch.arange(T, device=self.device)[None]
+        live = (slot_ids < self.scfg.slots)[:, None].expand(S, T).reshape(-1)
+        st = torch.zeros((self.cfg.num_experts + 2,), device=self.device) \
+            if self._moe else None
+        x = self.model.embed[toks]                             # [S, T, D]
+        for i, blk in enumerate(self.model.blocks):
+            cl = self._layer(i)
+            q, k, v = blk.qkv(x)
+            q = apply_rope_grid(q.reshape(S, T, H, Dh), pos)
+            k = apply_rope_grid(k.reshape(S, T, H, Dh), pos)
+            _kv.layer_append_chunk(cl, slot_ids, lens, k,
+                                   v.reshape(S, T, H, Dh),
+                                   store=self.scfg.kv_dtype)
+            att = _fd.flash_attend_chunk(
+                q, cl, slot_ids, lens, prefix_slots=prows,
+                prefix_lens=plens, block_k=self.scfg.kernel_block_k)
+            x, routing = blk.finish(x, att.reshape(S, T, H * Dh),
+                                    self._moe_chunk_tile if self._moe
+                                    else None)
+            if routing is not None:
+                st = st + self._route_vec(routing, live)
+        if self._moe:
+            self._route_stats = st
+        return torch.argmax(self.model.logits(x), dim=-1)
 
     @torch.inference_mode()
     def _prefill_forward(self, toks: torch.Tensor, row: int,
@@ -521,30 +644,109 @@ class ServeEngine:
 
     def _lanes(self, arr, name: str) -> torch.Tensor:
         arr = np.asarray(arr, np.int64)
-        if arr.ndim != 2 or arr.shape[0] != self.replicas:
+        if arr.ndim < 2 or arr.shape[0] != self.replicas:
             raise ValueError(f"{name} must be [replicas={self.replicas}, S],"
                              f" got {arr.shape}")
         return torch.as_tensor(arr[0], device=self.device)
+
+    def _bucket(self, S: int) -> None:
+        if S not in self.scfg.batch_buckets:
+            raise ValueError(f"batch lane count {S} is not a declared "
+                             f"bucket {self.scfg.batch_buckets}")
+
+    def _slot_in_range(self, slot: int) -> None:
+        if not 0 <= slot < self.scfg.slots:
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {self.scfg.slots})")
+
+    def _trash_vec(self, S: int) -> np.ndarray:
+        return np.full((self.replicas, S), self.cache_cfg.trash_slot,
+                       np.int32)
+
+    def _prefix_args(self, prefix_rows, prefix_lens, S: int):
+        """Per-lane prefix attachments as int32 tensors on the device, or
+        ``(None, None)`` when prefix pages are off.  A lane that is not
+        attached reads the trash row at length 0 (no indirection)."""
+        if not self.scfg.prefix_pages:
+            if prefix_rows is not None:
+                raise ValueError("prefix attachments need prefix_pages > 0")
+            return None, None
+        if prefix_rows is None:
+            prefix_rows = self._trash_vec(S)
+            prefix_lens = np.zeros((self.replicas, S), np.int32)
+        return (self._lanes(prefix_rows, "prefix_rows").to(torch.int32),
+                self._lanes(prefix_lens, "prefix_lens").to(torch.int32))
 
     def prefill(self, replica: int, slot: int,
                 tokens: Sequence[int]) -> Tuple[int, np.ndarray]:
         """Prefill one request into ``slot``; returns the first greedy
         token and the last-position logits ``[vocab]``."""
+        self._slot_in_range(slot)
+        logits = self._prefill_into(replica, slot, tokens)
+        self._seed_row(slot)
+        logits = logits.float().cpu().numpy()
+        return int(np.argmax(logits)), logits
+
+    def _prefill_into(self, replica: int, row: int,
+                      tokens: Sequence[int]) -> torch.Tensor:
         if replica != 0:
             raise ValueError(f"replica {replica} out of range [0, 1)")
-        if not 0 <= slot < self.scfg.slots:
-            raise ValueError(f"slot {slot} out of range "
-                             f"[0, {self.scfg.slots})")
         if not tokens:
             raise ValueError("empty prompt")
         Tpad = self.scfg.prefill_bucket_for(len(tokens))
         toks = np.zeros((Tpad,), np.int64)
         toks[:len(tokens)] = np.asarray(tokens, np.int64)
-        logits = self._prefill_forward(
-            torch.as_tensor(toks, device=self.device), slot, len(tokens))
+        return self._prefill_forward(
+            torch.as_tensor(toks, device=self.device), row, len(tokens))
+
+    def seal_prefix(self, replica: int, row: int,
+                    tokens: Sequence[int]) -> None:
+        """Prefill a shared prefix into reserved page row ``row`` (from
+        the replica's :class:`~bluefog_tpu_torch.serve.kv_cache.
+        PrefixCache` ``admit``) with the plain prefill."""
+        cc = self.cache_cfg
+        if not cc.slots <= row < cc.slots + cc.prefix_slots:
+            raise ValueError(f"prefix row {row} out of range "
+                             f"[{cc.slots}, {cc.slots + cc.prefix_slots})")
+        if len(tokens) % self.scfg.prefix_page_tokens:
+            raise ValueError(f"prefix of {len(tokens)} tokens is not whole "
+                             f"pages of {self.scfg.prefix_page_tokens}")
+        self._prefill_into(replica, row, tokens)
+
+    def chunk_prefill(self, replica: int, slot: int, tokens: Sequence[int],
+                      start: int, prefix_row: int) -> int:
+        """Prefill only the remainder of a prefix-hit request.
+
+        The request attached to a sealed prefix of ``start`` tokens at
+        page row ``prefix_row``; ``tokens`` is the rest of its prompt
+        (``>= 1`` token).  The remainder, padded to its prefill bucket,
+        runs as one chunk through the page indirection, writes its own kv
+        into the private ``slot`` (positions ``start ..``) and returns the
+        request's first greedy token."""
+        if replica != 0:
+            raise ValueError(f"replica {replica} out of range [0, 1)")
+        self._slot_in_range(slot)
+        if not tokens:
+            raise ValueError("empty remainder: a prefix hit always leaves "
+                             ">= 1 prompt token")
+        Tpad = self.scfg.prefill_bucket_for(len(tokens))
+        toks = np.zeros((1, 1, Tpad), np.int32)
+        toks[0, 0, :len(tokens)] = np.asarray(tokens, np.int32)
+        gen = self._chunk_call(toks, [[slot]], [[start]], [[prefix_row]],
+                               [[start]])
         self._seed_row(slot)
-        logits = logits.float().cpu().numpy()
-        return int(np.argmax(logits)), logits
+        return int(gen[0, 0, len(tokens) - 1])
+
+    def _chunk_call(self, toks, slots, lens, prows, plens) -> np.ndarray:
+        """One chunk forward on ``[replicas, S, T]`` host arrays; returns
+        the argmax tokens ``[replicas, S, T]``."""
+        toks = np.asarray(toks)
+        prows, plens = self._prefix_args(prows, plens, toks.shape[1])
+        gen = self._chunk_forward(
+            self._lanes(toks, "tokens"),
+            self._lanes(slots, "slots").to(torch.int32),
+            self._lanes(lens, "lens").to(torch.int32), prows, plens)
+        return gen.cpu().numpy().astype(np.int32)[None]
 
     def decode(self, tokens: np.ndarray, slots: np.ndarray,
                lens: np.ndarray, prefix_rows: Optional[np.ndarray] = None,
@@ -554,29 +756,83 @@ class ServeEngine:
         ``tokens``/``slots``/``lens``: ``[replicas, S]`` with ``S`` in
         ``batch_buckets``; idle lanes use the trash slot with ``lens=0``.
         ``lens[0, i]`` is the position the lane's pending token occupies.
+        ``prefix_rows`` / ``prefix_lens`` attach lanes to sealed prefix
+        pages (trash row at length 0 for lanes that are not attached).
         Returns ``[replicas, decode_steps_per_call, S]`` tokens."""
-        if prefix_rows is not None or prefix_lens is not None:
-            raise _not_ported("shared prefix pages", "prefix_rows")
         S = np.asarray(tokens).shape[1]
-        if S not in self.scfg.batch_buckets:
-            raise ValueError(f"batch lane count {S} is not a declared "
-                             f"bucket {self.scfg.batch_buckets}")
+        self._bucket(S)
+        prows, plens = self._prefix_args(prefix_rows, prefix_lens, S)
         gen = self._decode_steps(self._lanes(tokens, "tokens"),
                                  self._lanes(slots, "slots").to(torch.int32),
-                                 self._lanes(lens, "lens").to(torch.int32))
+                                 self._lanes(lens, "lens").to(torch.int32),
+                                 prows, plens)
         return gen.cpu().numpy().astype(np.int32)[None]
+
+    def spec_decode(self, tokens: np.ndarray, slots: np.ndarray,
+                    lens: np.ndarray,
+                    prefix_rows: Optional[np.ndarray] = None,
+                    prefix_lens: Optional[np.ndarray] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative round: draft k, verify in one chunk, accept.
+
+        Same lane contract as :meth:`decode`.  Returns ``(emitted,
+        counts)``: ``emitted`` is ``[replicas, S, k+1]`` int32 (positions
+        ``>= counts`` hold -1) and ``counts`` ``[replicas, S]``: each lane
+        advances by ``counts`` tokens (``1 <= counts <= k+1``: the
+        accepted draft prefix plus the target's bonus token).  Every
+        emitted token is a target-argmax token, so the stream equals plain
+        greedy decode; speculation only changes how many arrive a call.
+        The drafts stay on the device for the verify: the one read back
+        is the drafts and the verify's tokens, together, at the end."""
+        k = self.scfg.spec_decode
+        if not k:
+            raise ValueError("spec_decode is not armed "
+                             "(ServeConfig.spec_decode == 0)")
+        tokens = np.asarray(tokens, np.int32)
+        slots = np.asarray(slots, np.int32)
+        S = tokens.shape[1]
+        self._bucket(S)
+        prows, plens = self._prefix_args(prefix_rows, prefix_lens, S)
+        toks_t = self._lanes(tokens, "tokens")
+        slots_t = self._lanes(slots, "slots").to(torch.int32)
+        lens_t = self._lanes(lens, "lens").to(torch.int32)
+        drafts = self._decode_steps(toks_t, slots_t, lens_t, prows, plens,
+                                    draft=True).T               # [S, k]
+        # verify chunk [t0, d_1 .. d_k] per lane: the draft's kv rows are
+        # overwritten with the (same) target values and the later layers
+        # get theirs written for the first time
+        gen = self._chunk_forward(torch.cat([toks_t[:, None], drafts], 1),
+                                  slots_t, lens_t, prows, plens)
+        d = drafts.cpu().numpy().astype(np.int32)[None]       # [1, S, k]
+        gen = gen.cpu().numpy().astype(np.int32)[None]        # [1, S, k+1]
+        # accept: the longest prefix where draft_i == target g_i, then the
+        # bonus g_{j+1}; rejected rows past the new frontier are garbage
+        # that the next round's appends overwrite before any read
+        match = d == gen[:, :, :k]
+        j = np.argmin(np.concatenate(
+            [match, np.zeros_like(match[:, :, :1])], axis=2), axis=2)
+        counts = (j + 1).astype(np.int32)
+        t_idx = np.arange(k + 1)[None, None, :]
+        d_pad = np.concatenate([d, np.zeros_like(d[:, :, :1])], axis=2)
+        emitted = np.where(
+            t_idx < j[:, :, None], d_pad,
+            np.where(t_idx == j[:, :, None], gen, -1)).astype(np.int32)
+        live = slots < self.scfg.slots          # trash lanes do not count
+        self.spec_drafted_total += int(live.sum()) * k
+        self.spec_accepted_total += int(j[live].sum())
+        return emitted, counts
 
     def idle_lane(self) -> Tuple[int, int, int]:
         """(token, slot, len) triple a padding lane carries."""
         return 0, self.cache_cfg.trash_slot, 0
 
     def moe_load(self) -> Optional[list]:
-        """Routing load from the most recent MoE decode call, in the JAX
-        layout: one dict per replica with ``counts`` (``[E]`` live
+        """Routing load from the most recent MoE target call (fused
+        decode, or a chunk: the spec verify or a chunked prefill), in the
+        JAX layout: one dict per replica with ``counts`` (``[E]`` live
         token-layer top-1 counts), ``fractions``, ``entropy`` (mean
-        live-token router entropy, nats) and ``tokens`` (live
-        token-layer count).  ``None`` for dense engines or before the
-        first decode call."""
+        live-token router entropy, nats) and ``tokens`` (live token-layer
+        count).  ``None`` for dense engines or before the first call."""
         if not self._moe or self._route_stats is None:
             return None
         st = self._route_stats.cpu().numpy().astype(np.float64)
@@ -592,12 +848,21 @@ class ServeEngine:
         }]
 
     def warmup(self) -> None:
-        """Run every declared prefill and decode bucket once (on CUDA this
-        builds the flash-decode kernel and the library handles before
-        traffic arrives)."""
-        for Tpad in self.scfg.prefill_buckets:
+        """Run every declared shape once: prefill and decode buckets, and
+        when armed a speculative round (draft + verify) per decode bucket
+        and a chunk per prefill bucket (on CUDA this builds the kernels
+        and the library handles before traffic arrives)."""
+        scfg = self.scfg
+        for Tpad in scfg.prefill_buckets:
             self.prefill(0, 0, [0] * Tpad)
         tok, slot, ln = self.idle_lane()
-        for S in self.scfg.batch_buckets:
+        for S in scfg.batch_buckets:
             full = lambda v: np.full((1, S), v, np.int32)   # noqa: E731
             self.decode(full(tok), full(slot), full(ln))
+            if scfg.spec_decode:
+                self.spec_decode(full(tok), full(slot), full(ln))
+        if scfg.prefix_pages:
+            for Tpad in scfg.prefill_buckets:
+                self._chunk_call(np.zeros((1, 1, Tpad), np.int32),
+                                 self._trash_vec(1), [[0]],
+                                 self._trash_vec(1), [[0]])

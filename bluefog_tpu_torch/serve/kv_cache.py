@@ -21,12 +21,19 @@ The JAX functions return new arrays; here :func:`append_rows`,
 cache and never needs the old one) and return it for parity.
 :func:`attend_rows` / :func:`attend_chunk` are the gather-then-attend
 plain versions of the flash-decode kernel.
+
+:class:`PrefixCache` is the host-side content-addressed directory of the
+shared prefix pages.  The JAX class bumps the metrics registry, which is
+not ported yet; until it is, this one keeps the same counts as plain
+integers named after the JAX metrics (``prefix_hits_total``,
+``prefix_misses_total``, ``pages_in_use``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,7 +43,7 @@ from ..ops.collectives import _amax_scale
 __all__ = ["KVCacheConfig", "init_cache", "append_rows", "attend_rows",
            "attend_chunk", "layer_append", "layer_append_chunk",
            "layer_prefill", "quantize_rows", "dequantize_rows",
-           "store_dtype", "SlotAllocator", "KV_STORES"]
+           "store_dtype", "SlotAllocator", "PrefixCache", "KV_STORES"]
 
 KV_STORES = ("raw", "int8", "fp8")
 
@@ -117,9 +124,32 @@ class KVCacheConfig:
     def trash_slot(self) -> int:
         return self.slots + self.prefix_slots
 
+    def prefix_row(self, page: int) -> int:
+        """Physical row of shared prefix page ``page``."""
+        if not 0 <= page < self.prefix_slots:
+            raise ValueError(f"prefix page {page} out of range "
+                             f"[0, {self.prefix_slots})")
+        return self.slots + page
+
     @property
     def quantized(self) -> bool:
         return self.store != "raw"
+
+    def _item(self) -> int:
+        return torch.empty((), dtype=store_dtype(self.store,
+                                                 self.dtype)).element_size()
+
+    def bytes(self) -> int:
+        """Device bytes of one cache (payload pages + their scales)."""
+        per = self.layers * self.rows * self.max_len * self.kv_heads
+        scales = 2 * per * 4 if self.quantized else 0
+        return 2 * per * self.head_dim * self._item() + scales
+
+    def bytes_per_token(self) -> int:
+        """Device bytes one cached token costs (k + v + scales)."""
+        per_head = self.head_dim * self._item() + (4 if self.quantized
+                                                   else 0)
+        return 2 * self.layers * self.kv_heads * per_head
 
 
 def init_cache(cfg: KVCacheConfig,
@@ -179,10 +209,14 @@ def layer_append_chunk(cl: Cache, slots: torch.Tensor,
                        v_new: torch.Tensor, store: str = "raw") -> Cache:
     """A T-token chunk per lane: ``k_new/v_new`` are ``[S, T, kv_heads,
     head_dim]`` and token t of lane i lands at ``lengths[i] + t`` of
-    ``slots[i]``."""
+    ``slots[i]``.  Positions past ``max_len`` (the padding of a chunked
+    prefill near the end of a slot) are dropped, as JAX's scatter drops
+    them: they go to the trash row, the last, which nothing reads."""
     T = k_new.shape[1]
-    rows = slots[:, None]
     pos = lengths[:, None] + torch.arange(T, device=lengths.device)[None]
+    past = pos >= cl["k"].shape[2]
+    rows = torch.where(past, cl["k"].shape[0] - 1, slots[:, None])
+    pos = pos.masked_fill(past, 0)
     qk, sk = quantize_rows(k_new, store)
     qv, sv = quantize_rows(v_new, store)
     # duplicate trash-row indices as in append_rows
@@ -335,3 +369,146 @@ class SlotAllocator:
     @property
     def occupancy(self) -> float:
         return len(self._in_use) / self.slots
+
+
+@dataclasses.dataclass
+class _Prefix:
+    row: int               # physical cache row holding the sealed pages
+    tokens: Tuple[int, ...]
+    digest: str            # content hash (for debugging and describe())
+    refs: int = 0
+    sealed: bool = False
+    tick: int = 0          # LRU clock
+
+
+class PrefixCache:
+    """Host-side content-addressed directory of shared prefix pages.
+
+    One replica's reserved prefix rows (physical rows ``first_row ..
+    first_row + pages - 1``) each hold one sealed prefix: a prompt prefix
+    whose length is a multiple of ``page_tokens``, keyed by its tokens.
+    The first request with a shareable prefix reserves a row
+    (:meth:`admit`), the engine prefills the prefix into it and
+    :meth:`seal` makes it attachable; later requests with the same prefix
+    attach by reference (:meth:`acquire` / :meth:`release`).  Each
+    request's own suffix lands in its private slot, so sealed pages are
+    never written again.  Refcount-0 entries are evicted LRU when the
+    pool is full.
+
+    ``prefix_hits_total`` / ``prefix_misses_total`` count :meth:`acquire`
+    outcomes and ``pages_in_use`` the resident entries, as the JAX
+    class's ``bluefog_serve_prefix_*`` metrics do."""
+
+    def __init__(self, pages: int, page_tokens: int, first_row: int, *,
+                 replica: int = 0):
+        if pages < 1:
+            raise ValueError(f"need >= 1 prefix page, got {pages}")
+        if page_tokens < 1:
+            raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
+        self.pages = int(pages)
+        self.page_tokens = int(page_tokens)
+        self.first_row = int(first_row)
+        self.replica = int(replica)
+        self._free = list(range(first_row, first_row + pages))  # min-heap
+        self._by_key: Dict[Tuple[int, ...], _Prefix] = {}
+        self._by_row: Dict[int, _Prefix] = {}
+        self._tick = 0
+        self.prefix_hits_total = 0
+        self.prefix_misses_total = 0
+
+    def _share_len(self, prompt: Sequence[int]) -> int:
+        """Longest shareable prefix length: whole pages, and at least one
+        prompt token left over to carry the request's own logits."""
+        return ((len(prompt) - 1) // self.page_tokens) * self.page_tokens
+
+    def match(self, prompt: Sequence[int]) -> Optional[Tuple[int, int]]:
+        """Longest sealed prefix of ``prompt``: ``(row, plen)`` or None."""
+        plen = self._share_len(prompt)
+        while plen >= self.page_tokens:
+            e = self._by_key.get(tuple(prompt[:plen]))
+            if e is not None and e.sealed:
+                return e.row, plen
+            plen -= self.page_tokens
+        return None
+
+    def acquire(self, prompt: Sequence[int]) -> Optional[Tuple[int, int]]:
+        """Attach to the longest sealed prefix (refcount, hit or miss)."""
+        got = self.match(prompt)
+        if got is None:
+            self.prefix_misses_total += 1
+            return None
+        self.prefix_hits_total += 1
+        self._ref(got[0])
+        return got
+
+    def attach(self, row: int) -> None:
+        """Refcount a row without counting a hit or a miss: the
+        seal-then-attach path of the request that missed and prefilled
+        the page itself."""
+        self._ref(row)
+
+    def _ref(self, row: int) -> None:
+        e = self._by_row[row]
+        self._tick += 1
+        e.refs, e.tick = e.refs + 1, self._tick
+
+    def release(self, row: int) -> None:
+        e = self._by_row.get(row)
+        if e is None or e.refs < 1:
+            raise ValueError(f"prefix row {row} is not acquired")
+        e.refs -= 1
+
+    def admit(self, prompt: Sequence[int]) -> Optional[Tuple[int, int]]:
+        """Reserve a page row for ``prompt``'s shareable prefix.
+
+        Returns ``(row, plen)`` for the engine to seal (prefill
+        ``prompt[:plen]`` into ``row``, then :meth:`seal`), or None when
+        the prefix is shorter than one page or every row is in use.
+        Evicts the LRU refcount-0 entry when the pool is full; a prefix
+        already reserved (a racing admit) gets its row back."""
+        plen = self._share_len(prompt)
+        if plen < self.page_tokens:
+            return None
+        key = tuple(prompt[:plen])
+        if key in self._by_key:
+            return self._by_key[key].row, plen
+        if self._free:
+            row = heapq.heappop(self._free)
+        else:
+            idle = [e for e in self._by_row.values() if e.refs == 0]
+            if not idle:
+                return None
+            victim = min(idle, key=lambda e: e.tick)
+            del self._by_key[victim.tokens]
+            del self._by_row[victim.row]
+            row = victim.row
+        digest = hashlib.blake2s(
+            b",".join(str(t).encode() for t in key), digest_size=8
+        ).hexdigest()
+        e = _Prefix(row=row, tokens=key, digest=digest)
+        self._by_key[key] = e
+        self._by_row[row] = e
+        return row, plen
+
+    def seal(self, row: int) -> None:
+        """Mark a row's pages as prefilled: attachable from now on."""
+        self._by_row[row].sealed = True
+
+    @property
+    def in_use(self) -> int:
+        return len(self._by_row)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.in_use
+
+    def describe(self) -> dict:
+        """What is resident, with content digests."""
+        return {
+            "pages": self.pages, "page_tokens": self.page_tokens,
+            "resident": [
+                {"row": e.row, "tokens": len(e.tokens), "refs": e.refs,
+                 "digest": e.digest, "sealed": e.sealed}
+                for e in sorted(self._by_row.values(),
+                                key=lambda e: e.row)],
+        }

@@ -3,12 +3,23 @@ admission, decode and retirement path of
 ``bluefog_tpu/serve/scheduler.py``).
 
 Each :meth:`Scheduler.step` admits queued requests into free slots
-(prefilling each one), runs one fused decode call at the smallest
-declared batch bucket that fits the active lanes, and retires requests
-that reached ``max_new_tokens`` or the KV-cache length ceiling.
+(prefilling each one), runs one engine call at the smallest declared
+batch bucket that fits the active lanes, and retires requests that
+reached ``max_new_tokens`` or the KV-cache length ceiling.
+
+With prefix pages armed, each replica keeps a
+:class:`~bluefog_tpu_torch.serve.kv_cache.PrefixCache`: a prompt whose
+shareable prefix is sealed attaches to it and prefills only its
+remainder (one chunk call); a shareable miss seals its prefix on the way
+in, so the next request with the same system prompt hits.  Admission
+prefers the replica holding the longest sealed prefix of the head
+request, then the least loaded, then (MoE) the least skewed last batch.
+With ``spec_decode=k`` armed the decode call is one speculative round
+and each lane advances by its own accepted count.
 
 Replica failure, preemption, autoscaling and the metrics / tracing /
-flight-recorder hooks come with later slices.
+flight-recorder hooks come with later slices (the hot-expert gauges with
+the metrics port).
 """
 from __future__ import annotations
 
@@ -20,7 +31,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 
 from .engine import ServeEngine
-from .kv_cache import SlotAllocator
+from .kv_cache import PrefixCache, SlotAllocator
 
 __all__ = ["Request", "Scheduler"]
 
@@ -34,6 +45,9 @@ class Request:
     state: str = "queued"            # queued -> running -> done
     replica: int = -1
     slot: int = -1
+    prefix_row: int = -1             # sealed page this request reads through
+    prefix_len: int = 0              # tokens served by that page
+    prefix_hit: bool = False         # read a page another request sealed
     generated: List[int] = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
     admitted_at: Optional[float] = None
@@ -56,9 +70,10 @@ class Scheduler:
     """Continuous batching over one :class:`ServeEngine`.
 
     ``decode_calls``, ``decode_steps`` and ``decode_seconds`` count the
-    fused decode calls, the token steps they ran (each step runs every
-    layer once) and their host wall time, which ends with the tokens on
-    the host."""
+    decode calls (speculative rounds when armed), the token steps they
+    ran (a plain step runs every layer once; a round counts its largest
+    accepted count) and their host wall time, which ends with the tokens
+    on the host."""
 
     def __init__(self, engine: ServeEngine):
         self.engine = engine
@@ -66,8 +81,15 @@ class Scheduler:
         self._queue: Deque[Request] = deque()
         self._alloc = [SlotAllocator(engine.scfg.slots, replica=r)
                        for r in range(self.replicas)]
+        scfg = engine.scfg
+        self._prefix: List[Optional[PrefixCache]] = [
+            PrefixCache(scfg.prefix_pages, scfg.prefix_page_tokens,
+                        first_row=scfg.slots, replica=r)
+            if scfg.prefix_pages else None
+            for r in range(self.replicas)]
         self._active: List[Dict[int, Request]] = [
             {} for _ in range(self.replicas)]
+        self._moe_load = None            # last ServeEngine.moe_load()
         self._next_id = 0
         self.completed: List[Request] = []
         self.decode_calls = 0
@@ -110,7 +132,30 @@ class Scheduler:
         raise RuntimeError(f"scheduler did not drain in {max_steps} steps")
 
     def _prefill_request(self, req: Request) -> int:
-        first, _ = self.engine.prefill(req.replica, req.slot, req.prompt)
+        """Prefill one admitted request, through a sealed prefix page when
+        one matches, and return its first token.  A shareable miss seals
+        its prefix first and reads through it itself (the "copy" of
+        copy-on-write is the suffix landing in the private slot)."""
+        r, pc = req.replica, self._prefix[req.replica]
+        if pc is not None:
+            got = pc.acquire(req.prompt)
+            if got is None:
+                adm = pc.admit(req.prompt)
+                if adm is not None:
+                    row, plen = adm
+                    self.engine.seal_prefix(r, row, req.prompt[:plen])
+                    pc.seal(row)
+                    pc.attach(row)
+                    req.prefix_row, req.prefix_len = row, plen
+            else:
+                req.prefix_row, req.prefix_len = got
+                req.prefix_hit = True
+        if req.prefix_row >= 0:
+            first = self.engine.chunk_prefill(
+                r, req.slot, req.prompt[req.prefix_len:], req.prefix_len,
+                req.prefix_row)
+        else:
+            first, _ = self.engine.prefill(r, req.slot, req.prompt)
         req.first_token_at = time.monotonic()
         return first
 
@@ -125,7 +170,16 @@ class Scheduler:
                               and len(self._active[r]) < lane_cap)]
             if not candidates:
                 return
-            target = min(candidates, key=lambda r: (len(self._active[r]), r))
+            # prefix-affine routing: the longest sealed match of the head
+            # request's prompt first, then load, then the MoE skew
+            head = self._queue[0]
+
+            def _rank(r):
+                pc = self._prefix[r]
+                got = pc.match(head.prompt) if pc is not None else None
+                return (-(got[1] if got else 0), len(self._active[r]),
+                        self._expert_skew(r), r)
+            target = min(candidates, key=_rank)
             req = self._queue.popleft()
             slot = self._alloc[target].alloc()
             req.replica, req.slot, req.state = target, slot, "running"
@@ -145,30 +199,58 @@ class Scheduler:
         toks = np.full((R, S), idle_tok, np.int32)
         slots = np.full((R, S), idle_slot, np.int32)
         lens = np.full((R, S), idle_len, np.int32)
+        prows = np.full((R, S), idle_slot, np.int32)
+        plens = np.zeros((R, S), np.int32)
         for r in range(R):
             for i, slot in enumerate(lanes[r]):
                 req = self._active[r][slot]
                 toks[r, i] = req.generated[-1]
                 slots[r, i] = slot
                 lens[r, i] = req.next_pos
+                if req.prefix_row >= 0:
+                    prows[r, i] = req.prefix_row
+                    plens[r, i] = req.prefix_len
+        pargs = (prows, plens) if self._prefix[0] is not None else (None,
+                                                                    None)
         t0 = time.monotonic()
-        gen = self.engine.decode(toks, slots, lens)         # [R, steps, S]
+        if self.engine.scfg.spec_decode:
+            emitted, counts = self.engine.spec_decode(toks, slots, lens,
+                                                      *pargs)
+            new = lambda r, i: emitted[r, i, :counts[r, i]]   # noqa: E731
+            steps = int(counts.max())
+        else:
+            gen = self.engine.decode(toks, slots, lens, *pargs)  # [R,steps,S]
+            new = lambda r, i: gen[r, :, i]                   # noqa: E731
+            steps = gen.shape[1]
         self.decode_seconds += time.monotonic() - t0
         self.decode_calls += 1
-        self.decode_steps += gen.shape[1]
+        self.decode_steps += steps
+        self._moe_load = self.engine.moe_load()
         retired: List[Request] = []
         for r in range(R):
             for i, slot in enumerate(lanes[r]):
                 req = self._active[r][slot]
                 room = req.max_new_tokens - len(req.generated)
-                req.generated.extend(int(t) for t in gen[r, :room, i])
+                req.generated.extend(int(t) for t in new(r, i)[:room])
                 if self._maybe_retire(req):
                     retired.append(req)
         return retired
 
+    def _expert_skew(self, r: int) -> int:
+        """Quantized routing skew of replica ``r``'s last engine call: the
+        hottest expert's excess top-1 fraction over perfect balance, in
+        eighths (0 for dense engines, balanced batches, or no data yet).
+        Admission breaks load ties with it."""
+        load = self._moe_load
+        if not load or r >= len(load) or not load[r]["tokens"]:
+            return 0
+        frac = load[r]["fractions"]
+        return int((float(frac.max()) - 1.0 / len(frac)) * 8)
+
     def _maybe_retire(self, req: Request) -> bool:
-        # the next fused call appends at next_pos .. next_pos + window - 1,
-        # all of which must fit under the per-slot capacity
+        # the next call appends at next_pos .. next_pos + window - 1 (a
+        # speculative round's k + 1 when armed), all of which must fit
+        # under the per-slot capacity
         window = self.engine.scfg.decode_window
         if (len(req.generated) < req.max_new_tokens
                 and req.next_pos + window <= self.engine.scfg.max_len):
@@ -177,5 +259,7 @@ class Scheduler:
         req.finished_at = time.monotonic()
         self._active[req.replica].pop(req.slot, None)
         self._alloc[req.replica].free(req.slot)
+        if req.prefix_row >= 0:
+            self._prefix[req.replica].release(req.prefix_row)
         self.completed.append(req)
         return True

@@ -27,6 +27,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main-path cases (8 lanes, 16 kv heads); then head_dim 256 (the widest
    bucket) beside 64 on that shape with f32 and int8 pages, at the f32
    tolerance, timed cold with their bounds (a ``head_dim_case`` line);
+2b. K3's chunk form at the serving fast path's shapes, every lane read
+   through a 256-token prefix row: the speculative verify (8 lanes, T 5,
+   272-448 keys), the chunked prefill's remainder buckets (1 lane, T 64,
+   256 and 512: up to 8 tiles of 64 query rows in one launch) with f32
+   and int8 pages, and 16 q heads over 4 kv heads at T 32 (128 rows).
+   One launch a call, f32 atol 1e-4, reruns bit-identical; cold and warm
+   ms beside the plain version, the bound (bytes at the verify,
+   operations past a few hundred rows) and SDPA (``chunk_case`` lines);
 3. the serving path at full width (the non-smoke shape of
    tools/serve_bench.py: vocab 32768, d_model 1024, 16 heads, 8 layers,
    random weights from seed 0) through ``ServeEngine`` and
@@ -36,6 +44,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    requests replayed with decode attention forced to the plain version
    must give the same tokens (or diverge only at a near tie of the
    reference logits, top-2 gap < 1e-3);
+13 (run after phase 3, on its model). the serving fast path at full
+   width: ``ServeEngine(pp=2)`` with ``spec_decode=4``, ``spec_stages=1``
+   (a 4-layer draft) and 4 prefix pages of 128 tokens, 16 greedy
+   requests of one seeded 256-token system prompt plus a seeded suffix
+   of 16-128 tokens, 64 new tokens each.  Every request completes; one
+   seal and 15 prefix hits; K3's launches by form equal the path's
+   formula (rows: rounds x k x draft layers; chunk: (rounds + chunk
+   prefills) x layers); the streams equal a plain drain of the same
+   prompts (no spec, no prefix pages, 4 steps a call) up to phase 3's
+   near-tie rule; 4 requests replayed with both K3 entry points forced
+   to their plain versions give the same streams and launch nothing.
+   The ``serve_fast`` line: tokens/s, TTFT and prefill time by prefix
+   hit and cold, rounds, drafted and accepted tokens (random weights:
+   the acceptance rate says nothing of a trained model), K3 launches by
+   form, the cache's bytes, and the plain drain's numbers beside;
 4. flash attention K1 (``flash_fwd``) and K2 (``flash_bwd_dkdv`` +
    ``flash_bwd_dq``) against their plain versions: B in {1, 4}, T 2048,
    16 q heads over 16 or 4 kv heads, head_dim 64 and 128, causal and not,
@@ -125,6 +148,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-3 at the first divergent token, or a router whose k-th and
    (k+1)-th probabilities lie within 1e-5 at some layer and position up
    to it;
+8b. the MoE serving fast path on phase 8's model: pp 1, ``spec_decode=2``
+   (the draft: every layer with the expert-mean dense FFN), prefix pages
+   as in phase 13, 8 requests of 32 new tokens; phase 13's gates, with
+   K4 launched layers x (rounds + chunk prefills + seals) times and
+   phase 8's near-tie rule (router ties too) against the plain MoE
+   drain;
 12a (run after phase 8). K4's backward (``backward_plan_cuda``, then
    ``grouped_ffn_dgrad_cuda`` + ``grouped_ffn_wgrad_cuda`` under
    ``GroupedFFN``, f32) against the per-expert plain version under
@@ -270,10 +299,35 @@ def _bound_ms(lens, T, Hkv, G, page_item, q_item, quantized, S, dh=DH):
                                         else "operations")
 
 
+def _sdpa_yardstick(kv, q, cl, slots_t, lens_t, pre, want):
+    """K3's library yardstick: one SDPA call over pages gathered through
+    the slot and prefix tables, dequantized and head-expanded beforehand,
+    with the causal-offset mask (query t of lane s sees keys up to
+    lens[s] + t).  Returns the call and its max abs error against the
+    plain version's output ``want``."""
+    import torch.nn.functional as F
+    S, T, Hq, _ = q.shape
+    G = Hq // cl["k"].shape[1]
+    ks, vs = kv._gather_pages(cl, slots_t, pre.get("prefix_slots"),
+                              pre.get("prefix_lens"))
+    kh = ks.to(q.dtype).repeat_interleave(G, dim=1)          # [S, H, L, Dh]
+    vh = vs.to(q.dtype).repeat_interleave(G, dim=1)
+    qh = q.transpose(1, 2)                                   # [S, H, T, Dh]
+    qpos = lens_t[:, None] + torch.arange(T, device=q.device)[None]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            <= qpos[:, :, None])[:, None]                    # [S, 1, T, L]
+
+    def lib_call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    lib_err = float((lib_call().transpose(1, 2).float() - want.float())
+                    .abs().max())
+    return lib_call, lib_err
+
+
 def kernel_phase(fd, kv):
     """Phase 2: every case once; returns the rows of the main-path cases
     (8 lanes, 16 kv heads, f32 q; f32 and int8 pages)."""
-    import torch.nn.functional as F
     rng = np.random.default_rng(1)
     cases = []
     for S in (1, 8):
@@ -333,22 +387,8 @@ def kernel_phase(fd, kv):
                 f"flash decode disagrees with its plain version: S={S} "
                 f"Hkv={Hkv} T={T} store={store} q={qdt} prefix={prefix} "
                 f"trash={trash}: max abs err {err} ({tol})")
-        # the library yardstick: SDPA over pre-gathered, head-expanded pages
-        ks, vs = kv._gather_pages(cl, slots_t, pre.get("prefix_slots"),
-                                  pre.get("prefix_lens"))
-        kh = ks.to(qdt).repeat_interleave(G, dim=1)          # [S, H, L, Dh]
-        vh = vs.to(qdt).repeat_interleave(G, dim=1)
-        qh = q.transpose(1, 2)                               # [S, H, T, Dh]
-        qpos = lens_t[:, None] + torch.arange(T, device=dev)[None]
-        mask = (torch.arange(L, device=dev)[None, None, :]
-                <= qpos[:, :, None])[:, None]                # [S, 1, T, L]
-        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-        lib_err = float((lib.transpose(1, 2).float() - want.float()).abs()
-                        .max())
-        def lib_call():
-            return F.scaled_dot_product_attention(qh, kh, vh,
-                                                  attn_mask=mask)
-
+        lib_call, lib_err = _sdpa_yardstick(kv, q, cl, slots_t, lens_t, pre,
+                                            want)
         ms, warm_ms = _device_ms(kern, True), _device_ms(kern, False)
         plain_ms = _device_ms(plain, True)
         lib_ms = _device_ms(lib_call, True)
@@ -419,11 +459,125 @@ def decode_head_dim_phase(fd, kv):
     return out
 
 
+PREFIX = 256                  # phase 2b / 13: the sealed system prompt
+
+
+def chunk_phase(fd, kv):
+    """Phase 2b: K3's chunk form at the serving fast path's shapes, every
+    lane attached to a 256-token prefix row: the verify (8 lanes, T 5,
+    lengths 272-448), the chunked prefill's remainder buckets (1 lane, T
+    64 / 256 / 512) with f32 and int8 pages, and one GQA case past one
+    64-row tile (16 q heads over 4 kv heads, T 32: 128 rows).  One launch
+    a call, f32 atol 1e-4 against the plain version, two reruns bit
+    identical; timed cold and warm beside the plain version, the bound
+    and the SDPA yardstick.  Returns the f32 rows by case (T5 ... T512)."""
+    rng = np.random.default_rng(21)
+    verify_lens = np.linspace(PREFIX + 16, PREFIX + 192, 8).astype(np.int64)
+    cases = [("T5", 8, 16, 5, verify_lens, store) for store in ("f32",
+                                                                 "int8")]
+    cases += [(f"T{T}", 1, 16, T, np.array([PREFIX]), store)
+              for T in (64, 256, 512) for store in ("f32", "int8")]
+    cases.append(("T32_gqa4", 1, 4, 32, np.array([PREFIX]), "f32"))
+    out = {}
+    for tag, S, Hkv, T, lens, store in cases:
+        G = H // Hkv
+        cl = _pages(rng, S + 2, Hkv, store, kv)   # S slots, a prefix, trash
+        slots_t = torch.arange(S, dtype=torch.int32, device=DEV)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        pre = dict(prefix_slots=torch.full((S,), S, dtype=torch.int32,
+                                           device=DEV),
+                   prefix_lens=torch.full((S,), PREFIX, dtype=torch.int32,
+                                          device=DEV))
+        q = torch.from_numpy(rng.normal(size=(S, T, H, DH)).astype(
+            np.float32)).to(DEV)
+
+        def kern():
+            return fd.flash_attend_chunk(q, cl, slots_t, lens_t,
+                                         block_k=BK, **pre)
+
+        def plain():
+            return kv.attend_chunk(q, cl, slots_t, lens_t, **pre)
+
+        before = fd.flash_decode_cuda.launches
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        launched = fd.flash_decode_cuda.launches - before
+        err = float((got - want).abs().max())
+        same = all(torch.equal(kern(), got) for _ in range(2))
+        if not (err <= 1e-4 and launched == 1 and same
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(
+                f"flash decode chunk case {tag} ({store} pages): max abs "
+                f"err {err} (atol 1e-4), {launched} launches (want 1), "
+                f"reruns bit-identical: {same}")
+        lib_call, lib_err = _sdpa_yardstick(kv, q, cl, slots_t, lens_t, pre,
+                                            want)
+        tiles = fd.row_tiles(T * G)
+        bound, bound_by = _bound_ms(lens, T, Hkv, G, cl["k"].element_size(),
+                                    4, "k_scale" in cl, S)
+        row = dict(case=tag, S=S, Hkv=Hkv, T=T, rows=T * G, tiles=tiles,
+                   store=store, lens=lens.tolist(), prefix=PREFIX,
+                   splits=fd.split_plan(S, Hkv, L, tiles)[0],
+                   max_abs_err=err, ms=_device_ms(kern, True),
+                   warm_ms=_device_ms(kern, False),
+                   plain_ms=_device_ms(plain, True, iters=5, warmup=1),
+                   bound_ms=bound, bound_by=bound_by,
+                   library_ms=_device_ms(lib_call, True),
+                   library_warm_ms=_device_ms(lib_call, False),
+                   library_err=lib_err)
+        print("chunk_case " + json.dumps(row), flush=True)
+        if store == "f32":
+            out[tag] = row
+    return out
+
+
 def _top2_gap(model, tokens):
     with torch.inference_mode():
         lg = model(torch.tensor([tokens], device=DEV))[0, -1].float()
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1])
+
+
+def _plain_decode_attention(kv):
+    """K3's two entry points as their plain versions (the wrappers'
+    signatures, ``block_k`` unused): ``(rows, chunk)``."""
+    def rows(q, kl, vl, slots, lengths, scale=None, *, k_scale=None,
+             v_scale=None, prefix_slots=None, prefix_lens=None, block_k=128):
+        return kv.attend_rows(q, kl, vl, slots, lengths, scale,
+                              k_scale=k_scale, v_scale=v_scale,
+                              prefix_slots=prefix_slots,
+                              prefix_lens=prefix_lens)
+
+    def chunk(q, cl, slots, lengths, scale=None, *, prefix_slots=None,
+              prefix_lens=None, block_k=128):
+        return kv.attend_chunk(q, cl, slots, lengths, scale,
+                               prefix_slots=prefix_slots,
+                               prefix_lens=prefix_lens)
+    return rows, chunk
+
+
+def _stream_gate(name, model, got, want, layers_mod=None, top_k=None):
+    """Requests ``got`` must generate what ``want`` generated, request by
+    request, or first diverge at a near tie of the cache-free forward: a
+    top-2 logit gap below 1e-3, or (``layers_mod`` given, MoE) a router
+    whose k-th and (k+1)-th probabilities lie within 1e-5 at some layer
+    and position up to there.  Returns the divergences."""
+    diverged = []
+    for r_a, r_b in zip(got, want):
+        if r_a.generated == r_b.generated:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r_a.generated,
+                                                  r_b.generated)) if a != b)
+        seq = r_a.prompt + r_a.generated[:i]
+        d = {"request": r_a.id, "position": i,
+             "top2_gap": _top2_gap(model, seq)}
+        if layers_mod is not None:
+            d["router_gap"] = _router_tie(model, layers_mod, seq, top_k)
+        diverged.append(d)
+        if d["top2_gap"] >= 1e-3 and d.get("router_gap", 1.0) >= 1e-5:
+            raise AssertionError(f"{name}: streams diverge at request "
+                                 f"{r_a.id} token {i}: {d}")
+    return diverged
 
 
 def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
@@ -464,14 +618,7 @@ def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
         raise AssertionError(f"{name}: first token {reqs[0].generated[0]} "
                              f"!= dense forward's {ref0}")
     # replay the first 4 with decode attention forced to the plain version
-    def plain_rows(q, kl, vl, slots, lengths, scale=None, *, k_scale=None,
-                   v_scale=None, prefix_slots=None, prefix_lens=None,
-                   block_k=128):
-        return kv.attend_rows(q, kl, vl, slots, lengths, scale,
-                              k_scale=k_scale, v_scale=v_scale,
-                              prefix_slots=prefix_slots,
-                              prefix_lens=prefix_lens)
-
+    plain_rows, _ = _plain_decode_attention(kv)
     with mock.patch.object(fd, "flash_attend_rows", plain_rows):
         replay = Scheduler(engine)
         for p in prompts[:4]:
@@ -480,19 +627,8 @@ def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
         replay.drain()
         if fd.flash_decode_cuda.launches != before:
             raise AssertionError("replay launched the kernel")
-    diverged = []
-    for r_k, r_p in zip(reqs[:4], sorted(replay.completed,
-                                         key=lambda r: r.id)):
-        if r_k.generated == r_p.generated:
-            continue
-        i = next(j for j, (a, b) in enumerate(zip(r_k.generated,
-                                                  r_p.generated)) if a != b)
-        gap = _top2_gap(model, r_k.prompt + r_k.generated[:i])
-        diverged.append({"request": r_k.id, "position": i, "top2_gap": gap})
-        if gap >= 1e-3:
-            raise AssertionError(f"{name}: kernel and plain streams diverge "
-                                 f"at request {r_k.id} token {i} with a "
-                                 f"top-2 gap of {gap}")
+    diverged = _stream_gate(name, model, reqs[:4], sorted(
+        replay.completed, key=lambda r: r.id))
     tokens = sum(len(r.generated) for r in reqs)
     summary = {
         "run": name, "kv_dtype": kv_dtype, "requests": n_req,
@@ -510,6 +646,153 @@ def serve_phase(fd, kv, name, model, cfg, kv_dtype, n_req, max_new):
     }
     print("serve " + json.dumps(summary), flush=True)
     return engine, launches
+
+
+def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
+                     max_new, gf=None, layers_mod=None):
+    """Phases 13 (dense) and 8b (MoE, ``gf`` / ``layers_mod`` given): the
+    serving fast path at full width, ``ServeEngine(pp=pp)`` with
+    ``spec_decode=spec`` (draft: the first of ``pp`` stages) and 4 prefix
+    pages of 128 tokens, over ``n_req`` greedy requests that share one
+    seeded 256-token system prompt (own suffixes of 16-128 tokens).
+    Gates: every request completes; one seal and ``n_req - 1`` prefix
+    hits; K3's launches by form equal what the path must launch (rows:
+    rounds x k x draft layers; chunk: (rounds + chunk prefills) x
+    layers), and for MoE K4's (layers x (rounds + chunk prefills +
+    seals)); the streams equal a plain drain of the same prompts (no
+    spec, no prefix pages, 4 steps a call) up to near ties; for the dense
+    cell, 4 requests replayed with both K3 entry points forced to their
+    plain versions give the same streams and launch nothing.  Returns the
+    summary."""
+    from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    base = dict(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
+                prefill_buckets=(64, 256, 512), decode_kernel="pallas",
+                decode_block_k=BK)
+    if gf is not None:
+        base.update(moe_experts=cfg.num_experts, moe_top_k=cfg.top_k)
+    engine = ServeEngine(cfg, model, ServeConfig(
+        spec_decode=spec, spec_stages=1, prefix_pages=4,
+        prefix_page_tokens=128, **base), pp=pp, device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab, PREFIX).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, 129, n_req)]
+
+    def drain(eng, batch):
+        sched = Scheduler(eng)
+        t0 = time.monotonic()
+        for p in batch:
+            sched.submit(p, max_new_tokens=max_new)
+        sched.drain()
+        torch.cuda.synchronize()
+        return sched, time.monotonic() - t0
+
+    form = {"rows": 0, "chunk": 0}
+
+    def counting(key, fn):
+        def call(*a, **kw):
+            before = fd.flash_decode_cuda.launches
+            out = fn(*a, **kw)
+            form[key] += fd.flash_decode_cuda.launches - before
+            return out
+        return call
+
+    fd.flash_decode_cuda.launches = 0
+    if gf is not None:
+        gf.grouped_ffn_cuda.launches = 0
+    with mock.patch.object(fd, "flash_attend_rows",
+                           counting("rows", fd.flash_attend_rows)), \
+            mock.patch.object(fd, "flash_attend_chunk",
+                              counting("chunk", fd.flash_attend_chunk)):
+        sched, wall = drain(engine, prompts)
+    k3 = fd.flash_decode_cuda.launches
+    k4 = gf.grouped_ffn_cuda.launches if gf is not None else None
+    reqs = sorted(sched.completed, key=lambda r: r.id)
+    if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
+        raise AssertionError(f"{name}: {len(reqs)}/{n_req} requests done")
+    hits = sched._prefix[0].prefix_hits_total
+    chunks = sum(r.prefix_row >= 0 for r in reqs)
+    seals = chunks - sum(r.prefix_hit for r in reqs)
+    if (seals, hits, chunks) != (1, n_req - 1, n_req):
+        raise AssertionError(f"{name}: {seals} seals, {hits} prefix hits, "
+                             f"{chunks} chunk prefills; want 1, "
+                             f"{n_req - 1}, {n_req}")
+    rounds, layers, dl = sched.decode_calls, cfg.layers, engine.draft.layers
+    want = {"rows": rounds * spec * dl, "chunk": (rounds + chunks) * layers}
+    if form != want or k3 != sum(want.values()):
+        raise AssertionError(
+            f"{name}: K3 launched {form} ({k3} in all), want rows = rounds "
+            f"{rounds} x k {spec} x draft layers {dl}, chunk = (rounds + "
+            f"chunk prefills {chunks}) x layers {layers}: {want}")
+    if gf is not None and k4 != layers * (rounds + chunks + seals):
+        raise AssertionError(f"{name}: K4 launched {k4} times, want layers "
+                             f"x (rounds + chunk prefills + seals)")
+    plain = ServeEngine(cfg, model, ServeConfig(decode_steps_per_call=4,
+                                                **base), device=DEV)
+    plain.warmup()
+    psched, plain_wall = drain(plain, prompts)
+    del plain
+    preqs = sorted(psched.completed, key=lambda r: r.id)
+    diverged = _stream_gate(name, model, reqs, preqs, layers_mod,
+                            getattr(cfg, "top_k", None))
+    replay_div = None
+    if gf is None:
+        rows_fn, chunk_fn = _plain_decode_attention(kv)
+        with mock.patch.object(fd, "flash_attend_rows", rows_fn), \
+                mock.patch.object(fd, "flash_attend_chunk", chunk_fn):
+            before = fd.flash_decode_cuda.launches
+            replay, _ = drain(engine, prompts[:4])
+            if fd.flash_decode_cuda.launches != before:
+                raise AssertionError(f"{name}: the plain replay launched K3")
+        replay_div = _stream_gate(
+            name + " replay", model, reqs[:4],
+            sorted(replay.completed, key=lambda r: r.id))
+    tokens = sum(len(r.generated) for r in reqs)
+
+    def mean(xs):
+        return float(np.mean(xs)) if xs else None
+    hit = [r for r in reqs if r.prefix_hit]
+    cold = [r for r in reqs if not r.prefix_hit]
+    summary = {
+        "run": name, "pp": pp, "draft_layers": dl, "layers": layers,
+        "spec_decode": spec, "prefix_pages": 4, "prefix_page_tokens": 128,
+        "requests": n_req, "max_new_tokens": max_new, "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "mean_ttft_hit_s": mean([r.ttft for r in hit]),
+        "mean_ttft_cold_s": mean([r.ttft for r in cold]),
+        "mean_prefill_hit_s": mean([r.first_token_at - r.admitted_at
+                                    for r in hit]),
+        "mean_prefill_cold_s": mean([r.first_token_at - r.admitted_at
+                                     for r in cold]),
+        "decode_calls": rounds, "decode_seconds": sched.decode_seconds,
+        "drafted": engine.spec_drafted_total,
+        "accepted": engine.spec_accepted_total,
+        "acceptance_rate": engine.spec_accepted_total
+        / max(engine.spec_drafted_total, 1),
+        "prefix_hits": hits, "seals": seals, "chunk_prefills": chunks,
+        "k3_launches": dict(form, total=k3),
+        "k3_formula": "rows = rounds x k x draft layers; chunk = (rounds + "
+                      "chunk prefills) x layers",
+        "k4_launches": k4,
+        "kv_cache_bytes": engine.cache_cfg.bytes(),
+        "kv_bytes_per_token": engine.cache_cfg.bytes_per_token(),
+        "plain": {"tokens_per_s": tokens / plain_wall,
+                  "wall_s": plain_wall,
+                  "mean_ttft_s": mean([r.ttft for r in preqs]),
+                  "mean_prefill_s": mean([r.first_token_at - r.admitted_at
+                                          for r in preqs]),
+                  "decode_calls": psched.decode_calls},
+        "stream_diverged": diverged, "replay_diverged": replay_div,
+        "weights": "random (seed 0): the acceptance rate says nothing of "
+                   "a trained model",
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+    }
+    print("serve_fast " + json.dumps(summary), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
 
 
 def profile_phase(engine, tag="profile", shares=()):
@@ -1532,23 +1815,8 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
         replay.drain()
         if gf.grouped_ffn_cuda.launches != before:
             raise AssertionError("the plain-K4 replay launched the kernel")
-    diverged = []
-    for r_k, r_p in zip(reqs[:4], sorted(replay.completed,
-                                         key=lambda r: r.id)):
-        if r_k.generated == r_p.generated:
-            continue
-        i = next(j for j, (a, b) in enumerate(zip(r_k.generated,
-                                                  r_p.generated)) if a != b)
-        seq = r_k.prompt + r_k.generated[:i]
-        gap = _top2_gap(model, seq)
-        tie = _router_tie(model, layers_mod, seq, cfg.top_k)
-        diverged.append({"request": r_k.id, "position": i, "top2_gap": gap,
-                         "router_gap": tie})
-        if gap >= 1e-3 and tie >= 1e-5:
-            raise AssertionError(
-                f"moe: kernel and plain-K4 streams diverge at request "
-                f"{r_k.id} token {i} with a top-2 gap of {gap} and a "
-                f"router gap of {tie}")
+    diverged = _stream_gate("moe", model, reqs[:4], sorted(
+        replay.completed, key=lambda r: r.id), layers_mod, cfg.top_k)
     tokens = sum(len(r.generated) for r in reqs)
     print("serve " + json.dumps({
         "run": "moe", "kv_dtype": "raw", "requests": n_req,
@@ -1569,7 +1837,7 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
         "replay_diverged": diverged,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
         flush=True)
-    return engine, k4
+    return engine, k4, k3, model, cfg
 
 
 # -- phase 12: K4's backward and MoE training ----------------------------
@@ -2212,6 +2480,11 @@ def main(argv=None) -> int:
     k3_256 = decode_head_dim_phase(fd, kv)
     phase_s["flash_decode_cases"] = time.monotonic() - t0
 
+    # -- phase 2b: K3's chunk form (verify, chunked prefill, > 64 rows) --
+    t0 = time.monotonic()
+    k3_chunk = chunk_phase(fd, kv)
+    phase_s["flash_decode_chunk_cases"] = time.monotonic() - t0
+
     # -- phase 3: the serving path at full width ------------------------
     t0 = time.monotonic()
     cfg = LMConfig(vocab=32768, d_model=1024, heads=16, layers=8,
@@ -2222,9 +2495,17 @@ def main(argv=None) -> int:
                                    32)
     if args.profile:
         profile_phase(engine, shares=("flash_decode",))
-    del engine, model
+    del engine
     torch.cuda.empty_cache()
     phase_s["serve"] = time.monotonic() - t0
+
+    # -- phase 13: the serving fast path (spec decoding, prefix pages) ---
+    t0 = time.monotonic()
+    fast = fast_serve_phase(fd, kv, "serve_fast", model, cfg, smi, pp=2,
+                            spec=4, n_req=16, max_new=64)
+    del model
+    torch.cuda.empty_cache()
+    phase_s["serve_fast"] = time.monotonic() - t0
 
     # -- phase 4: flash attention K1/K2 against their plain versions ----
     t0 = time.monotonic()
@@ -2299,13 +2580,23 @@ def main(argv=None) -> int:
 
     # -- phase 8: MoE serving at full width -----------------------------
     t0 = time.monotonic()
-    engine, k4_launches = moe_serve_phase(fd, gf, moe_layers, smi)
+    engine, k4_launches, k3_moe, moe_model, moe_cfg = moe_serve_phase(
+        fd, gf, moe_layers, smi)
     if args.profile:
         profile_phase(engine, "profile_moe",
                       shares=("expert_rows", "flash_decode"))
     del engine
     torch.cuda.empty_cache()
     phase_s["moe_serve"] = time.monotonic() - t0
+
+    # -- phase 8b: the MoE serving fast path (expert-mean draft) --------
+    t0 = time.monotonic()
+    moe_fast = fast_serve_phase(fd, kv, "moe_serve_fast", moe_model,
+                                moe_cfg, smi, pp=1, spec=2, n_req=8,
+                                max_new=32, gf=gf, layers_mod=moe_layers)
+    del moe_model
+    torch.cuda.empty_cache()
+    phase_s["moe_serve_fast"] = time.monotonic() - t0
 
     # -- phase 12a: K4's backward against the per-expert plain version ---
     t0 = time.monotonic()
@@ -2325,6 +2616,13 @@ def main(argv=None) -> int:
                          "bluefog_tpu/ops/pallas_decode.py:136", launches,
                          main_case)
     decode["launches_int8_run"] = launches_int8
+    decode["launches_by_path"] = {
+        "serve": launches, "serve_int8": launches_int8,
+        "serve_fast": fast["k3_launches"], "moe_serve": k3_moe,
+        "moe_serve_fast": moe_fast["k3_launches"]}
+    decode["chunk"] = {tag: {key: row[key] for key in _ROW_KEYS + (
+        "warm_ms", "library_warm_ms", "rows", "tiles", "splits")}
+        for tag, row in k3_chunk.items()}
     decode["int8"] = {key: int8_case[key]
                       for key in _ROW_KEYS + ("warm_ms",)}
     decode["head_dim_256"] = {store: {key: row[key] for key in (
@@ -2362,6 +2660,9 @@ def main(argv=None) -> int:
                          k4_decode),
              bound_ms_simt=k4_decode["bound_ms_simt"],
              launches_moe_train=moe_launches["grouped_ffn"],
+             launches_by_path={"moe_serve": k4_launches,
+                               "moe_serve_fast": moe_fast["k4_launches"],
+                               "moe_train": moe_launches["grouped_ffn"]},
              prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
                  "warm_ms", "bound_ms_simt")}),
         dict(_kernel_row("grouped_ffn_backward",

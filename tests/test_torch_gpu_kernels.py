@@ -226,6 +226,32 @@ def test_flash_decode_reruns_are_bit_identical(cuda):
                                       block_k=block_k, **pre)
         assert torch.equal(again, got)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,Hkv,store,qdt", [
+    (65, 16, "f32", torch.float32),       # T*G 65: a one-row second tile
+    (128, 16, "int8", torch.float32),
+    (32, 4, "f32", torch.float32),        # GQA 4: T*G 128
+    (64, 2, "fp8", torch.float32),        # GQA 8: T*G 512
+    (256, 16, "bf16", torch.bfloat16),
+    (512, 16, "f32", torch.float32),      # the chunked prefill's largest
+])
+def test_flash_decode_beyond_64_rows(cuda, T, Hkv, store, qdt):
+    """T*G past one 64-row tile in one call (one launch): ragged lengths
+    with a length-0 lane on the trash row and lanes attached to a prefix
+    row, against the plain version; reruns bit-identical."""
+    lens = [0, 256, 1024 - T, 300]
+    plens = [0, 256, 128, 256]
+    before = fd.flash_decode_cuda.launches
+    got, (q, cl, slots, lens_t, block_k, pre) = _decode_case(
+        cuda, lens, Hkv=Hkv, T=T, store=store, qdt=qdt, plens=plens)
+    assert fd.flash_decode_cuda.launches == before + 1
+    assert fd.row_tiles(T * 16 // Hkv) == -(-T * 16 // Hkv // 64)
+    for _ in range(2):
+        again = fd.flash_attend_chunk(q, cl, slots, lens_t,
+                                      block_k=block_k, **pre)
+        assert torch.equal(again, got)
+
 def _qkv(rng, B, Tq, Tk, H, Hkv, D, dtype, device):
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(
@@ -1025,6 +1051,83 @@ def test_serve_demo_runs_on_the_card(cuda, moe):
     doc = json.loads(p.stdout.strip().splitlines()[-1])
     assert doc["completed"] == 4 and doc["tokens"] == 16
     assert doc["device"] == torch.cuda.get_device_name(0)
+
+
+def _first_token_gap(model, tokens):
+    with torch.inference_mode():
+        lg = model(torch.tensor([tokens], device=model.embed.device))[0, -1]
+    top = torch.topk(lg.float(), 2).values
+    return float(top[0] - top[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True])
+def test_spec_and_prefix_streams_equal_plain_on_the_card(cuda, moe):
+    """The serving fast path on the card at a small width: speculative
+    decoding (k 3; dense at pp 2, a 2-layer draft; MoE at pp 1, the
+    expert-mean draft) with prefix pages (16-token pages) gives the plain
+    engine's streams (4 steps a call, no prefix pages), or diverges first
+    where the cache-free forward's top-2 logit gap is below 1e-3 (the two
+    paths attend through K3's chunk and row forms: the same values summed
+    in another order).  K3 launches through both forms, K4 (MoE) too."""
+    from unittest import mock
+    from bluefog_tpu_torch.moe.model import MoELMConfig, init_moe_params
+    from bluefog_tpu_torch.parallel.compose import LMConfig, init_lm_params
+    from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    if moe:
+        cfg = MoELMConfig(vocab=256, d_model=64, heads=4, layers=2,
+                          num_experts=4, top_k=2, dispatch="dropless",
+                          group_tile=4)
+        model, pp = init_moe_params(cfg, 1, device=cuda), 1
+        extra = dict(moe_experts=4, moe_top_k=2)
+    else:
+        cfg = LMConfig(vocab=256, d_model=64, heads=4, layers=4)
+        model, pp, extra = init_lm_params(cfg, 1, device=cuda), 2, {}
+    base = dict(slots=4, max_len=128, batch_buckets=(1, 2, 4),
+                prefill_buckets=(16, 32), decode_kernel="pallas",
+                decode_block_k=16, **extra)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab, 16).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 16, 1, 12)] + [[5, 7, 9]]
+
+    def drain(eng):
+        sched = Scheduler(eng)
+        reqs = [sched.submit(p, max_new_tokens=12) for p in prompts]
+        sched.drain()
+        return sched, reqs
+
+    fast = ServeEngine(cfg, model, ServeConfig(
+        spec_decode=3, prefix_pages=2, prefix_page_tokens=16, **base),
+        pp=pp, device=cuda)
+    calls = {"rows": 0, "chunk": 0}
+
+    def counting(key, fn):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    before = (fd.flash_decode_cuda.launches, gf.grouped_ffn_cuda.launches)
+    with mock.patch.object(fd, "flash_attend_rows",
+                           counting("rows", fd.flash_attend_rows)), \
+            mock.patch.object(fd, "flash_attend_chunk",
+                              counting("chunk", fd.flash_attend_chunk)):
+        sched, got = drain(fast)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_cuda.launches - before[0] == \
+        calls["rows"] + calls["chunk"]
+    assert calls["rows"] > 0 and calls["chunk"] > 0
+    assert (gf.grouped_ffn_cuda.launches > before[1]) == moe
+    assert sched._prefix[0].prefix_hits_total == 4
+    _, want = drain(ServeEngine(cfg, model, ServeConfig(
+        decode_steps_per_call=4, **base), device=cuda))
+    for a, b in zip(got, want):
+        assert len(a.generated) == len(b.generated) == 12
+        if a.generated != b.generated:
+            i = next(j for j, (x, y) in enumerate(zip(a.generated,
+                                                      b.generated)) if x != y)
+            assert _first_token_gap(model, a.prompt + a.generated[:i]) < 1e-3
 
 
 @pytest.mark.gpu

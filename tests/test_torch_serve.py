@@ -11,8 +11,10 @@ A JAX ``ServeEngine`` on one CPU device (dp = pp = tp = 1) and the port's
   four mixed-length requests with raw and int8 KV pages — the port's
   decode attention on the CPU is the plain version of the flash-decode
   kernel, the JAX engine's is its ``"xla"`` gather-then-attend path;
-* the config surface keeps the JAX rules and refuses the features later
-  slices port (MoE serving itself is ported; expert parallelism is not).
+* the config surface keeps the JAX rules; speculative decoding and
+  prefix pages are accepted and parse as the JAX config parses them
+  (their engine paths: tests/test_torch_serve_fast.py), expert-parallel
+  MoE serving is still refused by name.
 """
 import json
 import os
@@ -146,7 +148,7 @@ def test_decode_surface_and_slot_reuse(jax_side):
         eng.decode(np.zeros((1, 3)), np.zeros((1, 3)), np.zeros((1, 3)))
     with pytest.raises(ValueError, match="replicas=1"):
         eng.decode(np.zeros((2, 2)), np.zeros((2, 2)), np.zeros((2, 2)))
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="prefix_pages > 0"):
         eng.decode(np.zeros((1, 2)), np.zeros((1, 2)), np.zeros((1, 2)),
                    prefix_rows=np.zeros((1, 2)))
     fresh = _streams(Scheduler, _port(jax_side))
@@ -205,15 +207,28 @@ def test_serve_config_rules_match_jax(monkeypatch):
         ((1, 2), (4, 32), "fp8", "pallas", 16)
 
 
+_FAST_FIELDS = ("spec_decode", "spec_stages", "prefix_pages",
+                "prefix_page_tokens", "decode_window")
+
+
 @pytest.mark.parametrize("kw,env,match", [
-    (dict(spec_decode=2), ("BLUEFOG_SPEC_DECODE", "2"),
-     "speculative decoding"),
-    (dict(prefix_pages=2), ("BLUEFOG_PREFIX_PAGES", "2x8"),
-     "shared prefix pages"),
+    (dict(spec_decode=2), ("BLUEFOG_SPEC_DECODE", "2@1"), None),
+    (dict(prefix_pages=2), ("BLUEFOG_PREFIX_PAGES", "2x8"), None),
     (dict(moe_experts=4, moe_ep=2), ("BLUEFOG_SERVE_MOE", "4@2"),
      "MoE serving"),
 ])
 def test_later_slices_refused_by_name(monkeypatch, kw, env, match):
+    """Speculative decoding and prefix pages are ported: the same kwargs
+    and env strings are accepted and parse as the JAX config's; expert-
+    parallel MoE serving is still refused by name."""
+    if match is None:
+        def fields(c):
+            return [getattr(c, f) for f in _FAST_FIELDS]
+        assert fields(ServeConfig(**kw)) == fields(JServeConfig(**kw))
+        monkeypatch.setenv(*env)
+        assert fields(ServeConfig.from_env()) == \
+            fields(JServeConfig.from_env())
+        return
     with pytest.raises(ValueError, match=match + ".*not yet ported"):
         ServeConfig(**kw)
     monkeypatch.setenv(*env)

@@ -8,7 +8,11 @@
 //
 // with xt [G, tile, D], tile_eid [G] int32, w1 [E, D, F], w2 [E, F, D],
 // f32 or bf16 operands (all alike), f32 accumulation, the output in xt's
-// type.  Any tile size and any tile order.
+// type.  Any tile size and any tile order.  A tile whose id is -1 is
+// trash (the dropless dispatch marks so the tiles past an owner's last
+// group, which hold only zero rows: about half of an expert-parallel
+// owner's buffer): no block takes it, and zero_marked_tiles writes its
+// output rows as zeros.
 //
 // What bounds it: at decode the bytes (each named expert's w1 + w2,
 // 2 * D * F * itemsize, 33.5 MB at D 1024, F 4096, f32), at a 512-token
@@ -108,9 +112,11 @@
 //     end (a box may reach into the next expert's rows) are zeroed as they
 //     are read.  Stage k + 1 is split and its A fragments loaded (two
 //     register buffers) while stage k's wgmmas run.
-//   * No atomics on data: two runs are bit-identical.  The clamped tail
-//     tiles of the dropless layout hold zero rows of xt and g, so they add
-//     exact zeros.
+//   * No atomics on data: two runs are bit-identical.  Tiles of the
+//     dropless layout's clamped tail hold zero rows of xt and g, so they
+//     add exact zeros; marked ones (id -1) form runs of no expert, which
+//     get no row block and no part, and zero_marked_tiles writes their
+//     rows of dxt as zeros.
 //   * Stacked peers: the weights may be [P, E, D, F] with any stride
 //     between peers (a layer's slice of a stacked parameter) and ids in
 //     [0, P * E); expert e reads peer e / E's block e % E, so the folded
@@ -487,7 +493,8 @@ __device__ int block_scan(int v, int* sum) {
   return r;
 }
 
-// The plan (one block): tile_eid [G] (ids in [0, E)), tile rows a tile;
+// The plan (one block): tile_eid [G] (ids in [-1, E): -1 marks a trash
+// tile, whose runs are listed but hold no rows), tile rows a tile;
 // tiles_mn the 128 x 128 tiles of one expert's dw; an expert's rows are
 // split into parts when it holds more than target / tiles_mn of all rows'
 // share of the card's work (and each part keeps min_part rows), or into
@@ -517,15 +524,15 @@ backward_plan(const int* __restrict__ eid, int* __restrict__ plan, int G,
     int n;
     const int r = nruns + block_scan(head, &n);
     if (head) {
-      runs[2 * r] = x;
+      runs[2 * r] = x;                 // a trash run ends the run before
       runs[2 * r + 1] = g;
-      atomicAdd(ecur + x, 1);
+      if (x >= 0) atomicAdd(ecur + x, 1);
     }
     // one atomic per expert a warp: a hot expert's tiles meet in few adds
     const unsigned valid = __ballot_sync(0xffffffffu, g < G);
     if (g < G) {
       const unsigned same = __match_any_sync(valid, x);
-      if ((tid & 31) == __ffs(same) - 1)
+      if (x >= 0 && (tid & 31) == __ffs(same) - 1)
         atomicAdd(erows + x, tile * __popc(same));
     }
     nruns += n;
@@ -592,7 +599,7 @@ backward_plan(const int* __restrict__ eid, int* __restrict__ plan, int G,
       first = runs[2 * r + 1] * tile;
       rows = ((r + 1 < nruns ? runs[2 * r + 3] : G) - runs[2 * r + 1]) *
              tile;
-      nb = ceil_div(rows, kBM);
+      nb = x < 0 ? 0 : ceil_div(rows, kBM);
     }
     int n;
     const int bo = blk0 + block_scan(nb, &n);
@@ -617,11 +624,13 @@ backward_plan(const int* __restrict__ eid, int* __restrict__ plan, int G,
         const int g1 = r + 1 < nruns ? runs[2 * r + 3] : G;
         const unsigned same = __match_any_sync(act, x);
         const int rank = __popc(same & ((1u << tid) - 1u));
-        const int base = ecur[x];
-        plan[L.eruns + 2 * (base + rank)] = g0 * tile;
-        plan[L.eruns + 2 * (base + rank) + 1] = (g1 - g0) * tile;
+        const int base = x >= 0 ? ecur[x] : 0;
+        if (x >= 0) {                  // trash runs belong to no expert
+          plan[L.eruns + 2 * (base + rank)] = g0 * tile;
+          plan[L.eruns + 2 * (base + rank) + 1] = (g1 - g0) * tile;
+        }
         __syncwarp(act);
-        if (rank == 0) ecur[x] = base + __popc(same);
+        if (rank == 0 && x >= 0) ecur[x] = base + __popc(same);
       }
       __syncwarp();
     }
@@ -1064,6 +1073,26 @@ int by_rows(int MR, int NC, const Rows& a, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
+// zeros over the rows of every marked tile (id -1) of out [G, tile, *]:
+// vec 16-byte words a tile; a block a tile at a time, grid-strided
+__global__ void __launch_bounds__(256)
+zero_marked_tiles(const int* __restrict__ eid, uint4* __restrict__ out,
+                  int G, long long vec) {
+  for (int g = blockIdx.x; g < G; g += gridDim.x) {
+    if (eid[g] >= 0) continue;
+    uint4* p = out + (long long)g * vec;
+    for (long long i = threadIdx.x; i < vec; i += blockDim.x)
+      p[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+int zero_marked(const int* eid, void* out, int G, long long tile_bytes,
+                cudaStream_t st) {
+  zero_marked_tiles<<<std::min(G, 1024), 256, 0, st>>>(
+      eid, static_cast<uint4*>(out), G, tile_bytes / 16);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int run(const void* xt, const int* eid, const void* w1, const void* w2,
         float* u, float* s, void* out, int G, int tile, int E, int epp,
@@ -1073,9 +1102,11 @@ int run(const void* xt, const int* eid, const void* w1, const void* w2,
       MR, up_cols, Rows{xt, eid, w1, u, s, G, tile, E, Z, D, F, epp, p1},
       st);
   if (e != 0) return e;
-  return by_rows<float, T, T, EPI_NONE>(
+  const int e2 = by_rows<float, T, T, EPI_NONE>(
       MR, down_cols, Rows{u, eid, w2, out, nullptr, G, tile, E, Z, F, D, epp,
                           p2}, st);
+  if (e2 != 0) return e2;
+  return zero_marked(eid, out, G, (long long)tile * D * sizeof(T), st);
 }
 
 // the card's SM count, queried once (0 if the query fails)
@@ -1202,7 +1233,8 @@ int wgrad(const Bw& p, cudaStream_t st) {
 
 extern "C" {
 
-// xt [G, tile, D], tile_eid [G] int32 (every id in [0, E)), w1 [E, D, F],
+// xt [G, tile, D], tile_eid [G] int32 (every id in [-1, E); -1 marks a
+// trash tile, whose rows of out are written as zeros), w1 [E, D, F],
 // w2 [E, F, D], u [G, tile, F] f32 scratch, s [G, tile, F] f32 or null
 // (the pre-activation, kept for the backward), out [G, tile, D]; D and F
 // multiples of 8; dtype 0 = f32, 1 = bf16 (xt, w1, w2 and out alike).
@@ -1275,11 +1307,13 @@ int bf_grouped_ffn_backward_plan(const void* tile_eid, void* plan, int G,
 // The dgrad, f32: g [G, tile, D] the output's cotangent, s [G, tile, F]
 // the forward's pre-activation; writes ds [G, tile, F] = (g @ w2^T) *
 // gelu'(s), u [G, tile, F] = gelu(s) and dxt [G, tile, D] = ds @ w1^T, by
-// the plan's row blocks.  Weights and strides as bf_grouped_ffn's.
-int bf_grouped_ffn_dgrad(const void* g, const void* w1, const void* w2,
-                         const void* s, void* ds, void* u, void* dxt,
-                         void* plan, int G, int tile, int E, int epp,
-                         long long p1, long long p2, int D, int F,
+// the plan's row blocks (built from tile_eid), and zero rows of dxt on the
+// marked tiles (ds and u are left unwritten there).  Weights and strides
+// as bf_grouped_ffn's.
+int bf_grouped_ffn_dgrad(const void* g, const void* tile_eid, const void* w1,
+                         const void* w2, const void* s, void* ds, void* u,
+                         void* dxt, void* plan, int G, int tile, int E,
+                         int epp, long long p1, long long p2, int D, int F,
                          int rb_max, int p_max, void* stream) {
   if (G < 1 || tile < 1 || E < 1 || epp < 1 || E % epp || D < 8 || F < 8 ||
       D % 8 || F % 8 || p1 % 8 || p2 % 8 || rb_max < 1 || p_max < 1)
@@ -1312,7 +1346,10 @@ int bf_grouped_ffn_dgrad(const void* g, const void* w1, const void* w2,
   b.N = D;
   b.K = F;
   b.pstride = p1;
-  return dgrad<BW_DGRAD>(b, st);
+  const int e2 = dgrad<BW_DGRAD>(b, st);
+  if (e2 != 0) return e2;
+  return zero_marked(static_cast<const int*>(tile_eid), dxt, G,
+                     (long long)tile * D * 4, st);
 }
 
 // The wgrad, f32: dw1 [E, D, F] = per expert xt^T ds, dw2 [E, F, D] = u^T

@@ -1,15 +1,17 @@
 """The routed-MoE LM (counterpart of ``bluefog_tpu/moe/model.py``):
 serving at pp = tp = sp = ep = 1, and training at any gossip-DP x
-pipeline x tensor x Ulysses carving with ep = 1, dropless top-k routing.
+pipeline x tensor x Ulysses x expert carving, with dropless or capacity
+dispatch and top-k or expert-choice routing.
 
 :class:`MoELMConfig` keeps the JAX fields, defaults, env surface and
-rules (with their error texts and order, at ep = 1).  :class:`MoELM` is
+rules (with their error texts and order).  :class:`MoELM` is
 the composed LM with every block's dense FFN replaced by the routed
 dropless expert FFN: blocks hold ``wqkv``, ``wo``, ``wr [D, E]``, ``w1e
 [E, D, F]`` and ``w2e [E, F, D]`` in the JAX orientation.
 :func:`init_moe_params` draws bit-identical weights to the JAX
 ``init_moe_params`` (the serving module); :func:`moe_params_from_jax`
-loads a JAX MoE tree.
+loads a JAX MoE tree (carved at ep > 1 too: the experts of replica 0's
+ep peers joined).
 
 Training: :func:`init_moe_train_params` and :func:`make_moe_batch` are
 the JAX tree and tokens bit for bit, stacked ``[n, ...]`` per peer as in
@@ -17,13 +19,15 @@ the JAX tree and tokens bit for bit, stacked ``[n, ...]`` per peer as in
 the JAX gradient recipe (see the JAX module's docstring) for one DP
 replica's peers at once, on the composed trainer's machinery
 (``compose._replica_fns``): GPipe ticks, tp as a batched product with
-psums, Ulysses over sp around K1/K2, and every live stage, tp and sp
-peer of a tick folded into ONE grouped-FFN call a layer (K4 and its
-hand-written backward on the card).  The per-layer aux / z / metric
+psums, Ulysses over sp around K1/K2, the expert axis's ``all_to_all``s
+over the stacked ep peers, and every live stage, tp, sp and ep peer of a
+tick folded into ONE dropless dispatch and ONE grouped-FFN call a layer
+(K4 and its hand-written backward on the card).  Capacity dispatch and
+expert choice compute their experts with ``torch.matmul``, as JAX does
+with an einsum (no TPU kernel there).  The per-layer aux / z / metric
 channels ride the pipeline on carrier rows appended to the activations,
 so their cotangents reach every stage's routers.  :func:`make_moe_probe`
-returns the routing-health scalars.  Capacity dispatch, expert-choice
-routing and ep > 1 raise "not yet ported".
+returns the routing-health scalars.
 """
 from __future__ import annotations
 
@@ -168,7 +172,7 @@ class MoELMConfig(LMConfig):
         """Static per-(source, expert, choice) slot count for one
         capacity dispatch: ``ceil(capacity_factor * local_tokens /
         num_experts)`` over the ``batch/ep * seq_len/sp`` tokens of one
-        microbatch (capacity dispatch itself is not ported)."""
+        microbatch."""
         _, _, sp, ep, _ = _axes(m)
         tokens = (self.batch // ep) * (self.seq_len // sp)
         return max(1, math.ceil(
@@ -282,21 +286,32 @@ def moe_params_from_jax(tree: Mapping[str, Any], cfg: MoELMConfig, *,
                         device: Optional[Union[str, torch.device]] = None
                         ) -> MoELM:
     """Build the port's MoE LM from a JAX ``init_moe_params`` tree carved
-    at pp = tp = ep = 1 (leaves stacked ``[n_devices, ...]`` as numpy
-    arrays or anything ``np.asarray`` takes; row 0 is served)."""
+    at pp = tp = 1 (leaves stacked ``[n_devices, ...]`` as numpy arrays
+    or anything ``np.asarray`` takes).  Replica 0 is served: at ep = 1
+    row 0; carved at ep > 1, rows ``0 .. ep - 1`` (replica 0's expert
+    peers, ep innermost in the flat order) each hold ``E / ep`` experts,
+    joined along the expert axis in owner order."""
     dev = resolve_device(device)
     E, D = cfg.num_experts, cfg.d_model
     want = (cfg.layers, E, D, cfg.ffn_mult * D)
-    got = np.asarray(tree["experts"]["w1"]).shape[1:]
-    if got != want:
-        raise ValueError(f"experts w1 [n, {got}] != [n, {want}]: the tree "
-                         "must be a pp = tp = ep = 1 carving of this "
-                         "MoELMConfig")
+    w1 = np.asarray(tree["experts"]["w1"])
+    got = w1.shape[1:]
+    e_local = got[1] if len(got) == 4 else 0
+    ep = E // e_local if e_local and E % e_local == 0 else 0
+    if not ep or got[:1] + got[2:] != want[:1] + want[2:] \
+            or w1.shape[0] % ep:
+        raise ValueError(f"experts w1 [n, {got}] != [n, {want}] (or [n, "
+                         f"layers, E / ep, ...]): the tree must be a pp = "
+                         "tp = 1 carving of this MoELMConfig")
+
+    def experts(name):
+        return np.concatenate(list(np.asarray(tree["experts"][name])[:ep]),
+                              axis=1)
+
     row0 = {k: np.asarray(v)[0] for k, v in tree["blocks"].items()}
     blocks = {"wqkv": row0["wqkv"], "wo": row0["wo"],
               "wr": np.asarray(tree["router"]["wr"])[0],
-              "w1e": np.asarray(tree["experts"]["w1"])[0],
-              "w2e": np.asarray(tree["experts"]["w2"])[0]}
+              "w1e": experts("w1"), "w2e": experts("w2")}
     shared = tree["shared"]
     return _load(MoELM(cfg), blocks, np.asarray(shared["embed"])[0],
                  np.asarray(shared["head"])[0]).to(dev)
@@ -306,21 +321,27 @@ def moe_params_from_jax(tree: Mapping[str, Any], cfg: MoELMConfig, *,
 # Training: stacked params, batches, the per-replica gradient and the probe
 # ---------------------------------------------------------------------------
 
-def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0
-                          ) -> dict:
-    """The JAX ``init_moe_params(cfg, m, seed)`` tree, bit for bit, every
-    leaf stacked ``[n, ...]`` on ``m.device``: ``blocks`` (``wqkv``,
-    ``wo``: owner ``(s, t)``'s tp shard of ``[pp, tp, layers / pp,
-    ...]``), ``router`` (``wr``, stage s's ``[layers / pp, D, E]``),
-    ``experts`` (``w1`` / ``w2``: the experts drawn at the full ``[pp,
-    layers / pp, E, D, F]`` and ``[..., F, D]`` and cut per (stage, tp)
-    owner, columns of w1 and rows of w2) and ``shared`` (``embed``,
-    ``head`` on every peer)."""
+def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0, *,
+                          dense_equiv: bool = False) -> dict:
+    """The JAX ``init_moe_params(cfg, m, seed, dense_equiv=...)`` tree,
+    bit for bit, every leaf stacked ``[n, ...]`` on ``m.device``:
+    ``blocks`` (``wqkv``, ``wo``: owner ``(s, t)``'s tp shard of ``[pp,
+    tp, layers / pp, ...]``), ``router`` (``wr``, stage s's ``[layers /
+    pp, D, E]``), ``experts`` (``w1`` / ``w2``: the experts drawn at the
+    full ``[pp, layers / pp, E, D, F]`` and ``[..., F, D]`` and cut per
+    (stage, tp, ep) owner: ep peer e's ``E / ep`` experts, columns of w1
+    and rows of w2) and ``shared`` (``embed``, ``head`` on every peer).
+    So carvings that differ only in ep share every value.
+    ``dense_equiv`` (the float64 oracle's twin, every expert local)
+    refuses ep != 1 with the JAX text."""
     cfg.validate(m)
+    if dense_equiv and m.ep != 1:
+        raise ValueError("dense_equiv keeps every expert local — carve "
+                         f"ep=1, not ep={m.ep}")
     rng = np.random.default_rng(seed)
     D, F, E = cfg.d_model, cfg.ffn_mult * cfg.d_model, cfg.num_experts
     Lps, TP = cfg.layers // m.pp, m.tp
-    Fl = F // TP
+    Fl, El = F // TP, E // m.ep
 
     def w(*shape, scale=0.1):
         return (rng.normal(size=shape) * scale).astype(np.float32)
@@ -331,13 +352,14 @@ def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0
     w1_full = w(m.pp, Lps, E, D, F)
     w2_full = w(m.pp, Lps, E, F, D)
     shared = {"embed": w(cfg.vocab, D), "head": w(D, cfg.vocab)}
-    _, s, t, _ = _compose._coords(m)
+    _, s, t, _, e = _compose._coords(m)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(m.device)
 
     def per_peer(cut):
-        return torch.stack([dev(cut(si, ti)) for si, ti in zip(s, t)])
+        return torch.stack([dev(cut(si, ti)[:, ei * El:(ei + 1) * El])
+                            for si, ti, ei in zip(s, t, e)])
 
     def stack(a):
         x = dev(a)
@@ -357,57 +379,81 @@ def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0
 
 def make_moe_batch(cfg: MoELMConfig, m: Mesh3D, seed: int = 0,
                    steps: Optional[int] = None) -> torch.Tensor:
-    """Copy-task tokens stacked per peer, ``[n, (steps,) micro, batch,
-    seq_len / sp]`` int32: the JAX ``make_moe_batch`` bit for bit (at
-    ep = 1 its batch slice is the whole batch, so it is
-    :func:`~bluefog_tpu_torch.parallel.compose.make_lm_batch`'s draw)."""
-    return _compose.make_lm_batch(cfg, m, seed, steps)
+    """Copy-task tokens stacked per peer, ``[n, (steps,) micro, batch /
+    ep, seq_len / sp]`` int32: the JAX ``make_moe_batch`` bit for bit.
+    Each replica draws its own global batch (the draw of
+    :func:`~bluefog_tpu_torch.parallel.compose.make_lm_batch`); ep peer
+    e takes its contiguous rows ``e * batch / ep ..``, so carvings that
+    differ only in ep train on the same data."""
+    rng = np.random.default_rng(seed)
+    shape = (m.dp, cfg.micro, cfg.batch, cfg.seq_len) if steps is None \
+        else (m.dp, steps, cfg.micro, cfg.batch, cfg.seq_len)
+    data = rng.integers(0, cfg.vocab, size=shape).astype(np.int32)
+    Tl, Bl = cfg.seq_len // m.sp, cfg.batch // m.ep
+    r, _, _, u, e = _compose._coords(m)
+    per_peer = np.stack(
+        [data[ri][..., ei * Bl:(ei + 1) * Bl, ui * Tl:(ui + 1) * Tl]
+         for ri, ui, ei in zip(r, u, e)])
+    return torch.from_numpy(per_peer).to(m.device)
 
 
 def _moe_replica(cfg: MoELMConfig, m: Mesh3D, *, remat: bool,
                  dense_equiv: bool):
     """``(grad_fn, probe)`` of one replica (``compose._replica_fns``)."""
     cfg.validate(m)
-    if cfg.router_mode == "expert_choice":
-        raise ValueError(
-            "router_mode='expert_choice': expert-choice routing is not "
-            "yet ported to bluefog_tpu_torch (use router_mode='topk')")
-    if cfg.dispatch != "dropless" and not dense_equiv:
-        raise ValueError(
-            f"dispatch={cfg.dispatch!r}: capacity dispatch is not yet "
-            "ported to bluefog_tpu_torch (use dispatch='dropless')")
+    if dense_equiv and m.ep != 1:
+        raise ValueError("dense_equiv keeps every expert local — carve "
+                         f"ep=1, not ep={m.ep}")
     E, k, L = cfg.num_experts, cfg.top_k, cfg.layers
     n_ch = _CH_FIXED + E
+    Tl = cfg.seq_len // m.sp
+    ec = cfg.router_mode == "expert_choice"
+    ec_cap = cfg.ec_capacity(m) if ec else 0
+    cap = cfg.capacity(m)
     attn = _compose._attention(cfg, m, use_pallas=False)
 
     def layer_fn(lp, x, cos, sin):
-        # x [kst, TP, SP, B * Tl, D]: every live stage, tp and sp peer
+        # x [kst, TP, SP, EP, B / EP * Tl, D]: every live stage, tp, sp
+        # and ep peer; the sublayer is picked in the JAX order
         x = attn(lp["blocks"], x, cos, sin)
         h = _ln(x)
         wr, w1, w2 = lp["router"]["wr"], lp["experts"]["w1"], \
             lp["experts"]["w2"]
-        if dense_equiv:
+        seqs = h.shape[:-2] + (-1, Tl, h.shape[-1])       # [.., B, Tl, D]
+        if ec and dense_equiv:
+            y, st = _layers.moe_ffn_dense_ec(h.reshape(seqs), wr, w1, w2,
+                                             capacity=ec_cap, tp_dim=1)
+        elif ec:
+            y, st = _layers.moe_ffn_expert_choice(
+                h.reshape(seqs), wr, w1, w2, num_experts=E, capacity=ec_cap,
+                tp_dim=1, ep_dim=3)
+        elif dense_equiv:
             y, st = _layers.moe_ffn_dense(h, wr, w1, w2, top_k=k, tp_dim=1)
-        else:
+        elif cfg.dispatch == "dropless":
             y, st = _layers.moe_ffn_dropless(h, wr, w1, w2, num_experts=E,
                                              top_k=k, tile=cfg.group_tile,
-                                             tp_dim=1)
+                                             tp_dim=1, ep_dim=3)
+        else:
+            y, st = _layers.moe_ffn_routed(h, wr, w1, w2, num_experts=E,
+                                           top_k=k, capacity=cap, tp_dim=1,
+                                           ep_dim=3)
         zero = torch.zeros_like(st["aux"])
+        cover = st["coverage"].detach() if "coverage" in st else zero
         vec = torch.cat([torch.stack([
             st["aux"], st["z"], st["dropped"].detach(),
-            st["entropy"].detach(), zero, zero], -1),
+            st["entropy"].detach(), cover, zero], -1),
             st["usage"].detach().to(x.dtype)], -1)
-        return x + y, vec
+        return x + y.reshape(x.shape), vec
 
-    def channel_loss(ch):                # ch [SP, n_ch]
-        return (cfg.aux_alpha * ch[:, 0] / L
-                + cfg.z_alpha * ch[:, 1] / L).mean()
+    def channel_loss(ch):                # ch [SP, EP, n_ch]
+        return (cfg.aux_alpha * ch[..., 0] / L
+                + cfg.z_alpha * ch[..., 1] / L).mean()
 
     return _compose._replica_fns(
         cfg, m, layer_fn,
-        sums={"blocks": (2,), "experts": (2,), "router": (1, 2),
-              "shared": (0, 1, 2)},
-        remat=remat, n_ch=n_ch, channel_loss=channel_loss)
+        sums={"blocks": (2, 3), "experts": (2,), "router": (1, 2, 3),
+              "shared": (0, 1, 2, 3)},
+        remat=remat, n_ch=n_ch, channel_loss=channel_loss, ep_batch=True)
 
 
 def make_moe_grad_fn(cfg: MoELMConfig, m: Mesh3D, *, remat: bool = False,
@@ -415,25 +461,32 @@ def make_moe_grad_fn(cfg: MoELMConfig, m: Mesh3D, *, remat: bool = False,
     """``grad_fn(params, toks) -> (loss, grads)`` for one DP replica of the
     routed-MoE LM, with the contract of
     :func:`~bluefog_tpu_torch.parallel.compose.make_lm_grad_fn` (one
-    replica's ``slice_size`` peers stacked in the flat (s, t, u) order;
-    :func:`~bluefog_tpu_torch.parallel.compose.make_train_step` drives
-    it).
+    replica's ``slice_size`` peers stacked in the flat (s, t, u, e)
+    order; :func:`~bluefog_tpu_torch.parallel.compose.make_train_step`
+    drives it).
 
-    The JAX recipe at ep = 1: each layer's expert FFN is the dropless
-    sublayer (:func:`~bluefog_tpu_torch.moe.layers.moe_ffn_dropless`;
-    every live stage, tp and sp peer of a GPipe tick in one K4 call, so
-    K4 and its backward pair each run ``(micro + pp - 1) * layers / pp``
-    times a call, twice the forwards under ``remat``), the grouped
-    output summed over tp before the gate-weighted combine, and the
-    per-layer aux / z / metric channels on carrier rows through the
-    pipeline.  The loss is ``ce + aux_alpha * ch[0] / L + z_alpha *
-    ch[1] / L`` on the last stage (seeded as the dense recipe is); the
-    reductions outside autograd are the JAX ones: shared grads over
-    (stage, tp), router grads over tp, then everything over sp (the
-    port's partials carry the 1/sp of the mean, so those are sums).
-    ``dense_equiv`` computes every expert on every token instead (the
-    JAX float64 oracle's twin).  Capacity dispatch and expert-choice
-    routing raise "not yet ported"."""
+    The JAX recipe (see the JAX module's docstring).  Each layer's expert
+    FFN is, in the JAX order: expert choice (its dense twin under
+    ``dense_equiv``), the dense-equivalent twin, the dropless sublayer
+    (:func:`~bluefog_tpu_torch.moe.layers.moe_ffn_dropless`: every live
+    stage, tp, sp and ep peer of a GPipe tick in one dispatch and one K4
+    call, so K4 and its backward pair each run ``(micro + pp - 1) *
+    layers / pp`` times a call, twice the forwards under ``remat``), or
+    capacity dispatch (:func:`~bluefog_tpu_torch.moe.layers.
+    moe_ffn_routed`).  The expert outputs are summed over tp before the
+    gate-weighted combine, and the per-layer aux / z / metric channels
+    ride carrier rows through the pipeline.  Each ep peer holds ``batch /
+    ep`` rows; the router statistics are global over the ep peers (sums
+    of ``1 / ep``-scaled shard means), and the loss is the mean over the
+    sp and ep peers of ``ce + aux_alpha * ch[0] / L + z_alpha * ch[1] /
+    L`` on the last stage (JAX's ``(ce + aux + z) / ep`` summed over the
+    expert axis).  The reductions outside autograd are the JAX ones:
+    shared grads over (stage, tp), router grads over tp, then the loss
+    and the shared, block and router grads over the ep peers (global-
+    batch partials), everything over sp (the port's partials carry the
+    1/sp of the mean, so those are sums); expert grads stay sharded over
+    ep, each owner's complete.  ``dense_equiv`` computes every expert on
+    every token instead (the JAX float64 oracle's twin; ep 1 only)."""
     return _moe_replica(cfg, m, remat=remat, dense_equiv=dense_equiv)[0]
 
 
@@ -441,9 +494,10 @@ def make_moe_probe(cfg: MoELMConfig, m: Mesh3D, *,
                    dense_equiv: bool = False):
     """``probe(params, toks) -> dict``: the JAX probe's routing-health
     scalars of replica 0 (the last stage's carrier, mean over
-    microbatches and sp peers, divided by the layer count): ``aux_loss``,
-    ``z_loss``, ``dropped_fraction``, ``token_entropy``, ``ec_coverage``,
-    per-expert ``usage`` and its ``usage_entropy`` (nats), and ``ce``.
+    microbatches and the sp and ep peers, divided by the layer count):
+    ``aux_loss``, ``z_loss``, ``dropped_fraction``, ``token_entropy``,
+    ``ec_coverage``, per-expert ``usage`` and its ``usage_entropy``
+    (nats), and ``ce``.
     A forward without a graph, outside any timed step."""
     probe_fn = _moe_replica(cfg, m, remat=False, dense_equiv=dense_equiv)[1]
     L, E = cfg.layers, cfg.num_experts

@@ -17,6 +17,16 @@ parameter), with ids in ``[0, P * E)``: id ``i`` is peer ``i // E``'s
 expert ``i % E``.  The composed trainer folds every live peer of a tick
 into one call this way, and the kernel reads each peer's block in place.
 
+A tile whose id is ``-1`` is trash: the dropless dispatch marks so the
+tiles past each owner's last group, which hold only zero rows (about
+half of an expert-parallel owner's buffer, sized for the worst case).
+Every path skips them and writes zeros there: the forward's blocks never
+take them and its output rows there are zeros, the backward's plan gives
+them no row block and no rows of any expert, and the dgrad writes zero
+rows of ``dxt`` there.  ``rows`` (optional, a host int) is how many rows
+the live tiles may hold; :func:`ffn_plan` sizes the forward's blocks by
+it instead of by the whole buffer.
+
 Under autograd (any operand requiring grad) the call is
 :class:`GroupedFFN`: on the card the forward also keeps the
 pre-activation ``s = xt @ w1`` (f32) and the backward is hand-written
@@ -89,7 +99,7 @@ def build() -> ctypes.CDLL:
         + [p]
     lib.bf_grouped_ffn_backward_plan.argtypes = [p] * 2 + [i] * 11 + [p]
     lib.bf_grouped_ffn_backward_layout.argtypes = [i] * 4 + [p]
-    lib.bf_grouped_ffn_dgrad.argtypes = [p] * 8 + [i] * 4 + [ll] * 2 \
+    lib.bf_grouped_ffn_dgrad.argtypes = [p] * 9 + [i] * 4 + [ll] * 2 \
         + [i] * 4 + [p]
     lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 7 + [p]
     for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_backward_plan,
@@ -99,18 +109,20 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def ffn_plan(G: int, tile: int, E: int, D: int, F: int
-             ) -> Tuple[int, int, int, int]:
+def ffn_plan(G: int, tile: int, E: int, D: int, F: int,
+             live_rows: int = 0) -> Tuple[int, int, int, int]:
     """``(rows, slots, up_cols, down_cols)`` for ``G`` tiles of ``tile``
     rows over ``E`` experts: the chunk of an expert's rows a block
     multiplies at once (16, 32 or 64: the least that holds an even share
-    ``G * tile / E``), the blocks that share an expert's chunks (enough
-    for an even share), and each launch's output columns per block, the
-    widest of 64, 32 and 16 that still gives ``BLOCKS_PER_SM`` blocks on
-    each SM (16 when none does).  Host integers only: the plan never
-    reads ``tile_eid``.  The forward's alone: the backward follows the
-    routing (:func:`backward_plan_cuda`)."""
-    share = -(-G * tile // E)
+    ``G * tile / E``, or ``live_rows / E`` when the caller knows that at
+    most ``live_rows`` > 0 rows lie in live tiles), the blocks that share an
+    expert's chunks (enough for an even share), and each launch's output
+    columns per block, the widest of 64, 32 and 16 that still gives
+    ``BLOCKS_PER_SM`` blocks on each SM (16 when none does).  Host
+    integers only: the plan never reads ``tile_eid``.  The forward's
+    alone: the backward follows the routing (:func:`backward_plan_cuda`)."""
+    total = min(G * tile, live_rows) if live_rows > 0 else G * tile
+    share = -(-max(total, 1) // E)
     rows = 16 if share <= 16 else 32 if share <= 32 else 64
     slots = -(-share // rows)
 
@@ -224,7 +236,8 @@ def backward_plan_plain(tile_eid: torch.Tensor, tile: int, E: int, D: int,
     """The plan kernel's lists in plain PyTorch (``bincount``, ``cumsum``
     and a stable sort over ``tile_eid``), int32 on tile_eid's device:
     ``expert_rows [E]``; ``runs [R, 2]`` (expert, first tile) in tile
-    order; ``expert_runs_ptr [E + 1]`` and ``expert_runs [R, 2]`` (first
+    order, trash tiles (id -1) forming runs of expert -1 that hold no rows
+    and enter no other list; ``expert_runs_ptr [E + 1]`` and ``expert_runs [R, 2]`` (first
     row, rows) grouped by expert, in tile order within one; ``row_blocks
     [B, 3]`` (first row, rows, expert) for the dgrad; ``parts [P, 4]``
     (expert, first and end offset into the expert's rows, scratch slot
@@ -235,10 +248,13 @@ def backward_plan_plain(tile_eid: torch.Tensor, tile: int, E: int, D: int,
     G, dev = ids.numel(), ids.device
     head = torch.ones(G, dtype=torch.bool, device=dev)
     head[1:] = ids[1:] != ids[:-1]
-    first = head.nonzero().flatten()
-    rexp = ids[first]
-    rrows = torch.diff(first, append=first.new_tensor([G])) * tile
-    erows = torch.bincount(ids, minlength=E) * tile
+    first_all = head.nonzero().flatten()
+    rexp_all = ids[first_all]
+    rrows_all = torch.diff(first_all,
+                           append=first_all.new_tensor([G])) * tile
+    live = rexp_all >= 0                       # trash runs hold no rows
+    first, rexp, rrows = first_all[live], rexp_all[live], rrows_all[live]
+    erows = torch.bincount(ids[ids >= 0], minlength=E) * tile
     eptr = torch.zeros(E + 1, dtype=torch.long, device=dev)
     eptr[1:] = torch.cumsum(torch.bincount(rexp, minlength=E), 0)
     order = torch.argsort(rexp, stable=True)
@@ -273,7 +289,7 @@ def backward_plan_plain(tile_eid: torch.Tensor, tile: int, E: int, D: int,
     part_sums = torch.stack([summed, first_slot[summed], nparts[summed]], 1)
     i32 = torch.int32
     return {"expert_rows": erows.to(i32),
-            "runs": torch.stack([rexp, first], 1).to(i32),
+            "runs": torch.stack([rexp_all, first_all], 1).to(i32),
             "expert_runs_ptr": eptr.to(i32),
             "expert_runs": torch.stack([first[order] * tile, rrows[order]],
                                        1).to(i32),
@@ -300,10 +316,11 @@ def unpack_plan(plan: BackwardPlan) -> Dict[str, torch.Tensor]:
     def rows(name, n, width):
         return buf[off[name]:off[name] + n * width].reshape(n, width)
 
+    eptr = buf[off["expert_runs_ptr"]:][:plan.E + 1]
     return {"expert_rows": buf[off["expert_rows"]:][:plan.E],
-            "runs": rows("runs", runs, 2),
-            "expert_runs_ptr": buf[off["expert_runs_ptr"]:][:plan.E + 1],
-            "expert_runs": rows("expert_runs", runs, 2),
+            "runs": rows("runs", runs, 2),      # trash runs (-1) included
+            "expert_runs_ptr": eptr,
+            "expert_runs": rows("expert_runs", int(eptr[-1]), 2),
             "row_blocks": rows("row_blocks", blocks, 3),
             "parts": rows("parts", parts, 4),
             "part_sums": rows("part_sums", sums, 3),
@@ -341,17 +358,27 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _live(tile_eid: torch.Tensor):
+    """``(ids with trash tiles on expert 0, [G, 1, 1] mask of live
+    tiles)``."""
+    live = tile_eid >= 0
+    return torch.where(live, tile_eid, 0).long(), live[:, None, None]
+
+
 def _plain(xt, tile_eid, w1, w2):
-    """``(out, s)``: the plain forward and its pre-activation."""
+    """``(out, s)``: the plain forward and its pre-activation (zeros on
+    trash tiles)."""
     ct = _compute_dtype(xt.dtype)
-    idx = tile_eid.long()
+    idx, live = _live(tile_eid)
     s = torch.einsum("gtd,gdf->gtf", xt.to(ct), _flat(w1)[idx].to(ct))
+    s = torch.where(live, s, 0)
     out = torch.einsum("gtf,gfd->gtd", _gelu(s), _flat(w2)[idx].to(ct))
-    return out.to(xt.dtype), s
+    return torch.where(live, out, 0).to(xt.dtype), s
 
 
 def grouped_ffn_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
-                      w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+                      w1: torch.Tensor, w2: torch.Tensor,
+                      rows: Optional[int] = None) -> torch.Tensor:
     """The plain version: gather each tile's expert weights, then two
     batched einsums with the tanh gelu between (the JAX
     ``grouped_ffn_xla``), in f32 as the TPU kernel computes (f64 for f64
@@ -360,18 +387,20 @@ def grouped_ffn_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
     a 512-token prefill at D 1024, F 4096), which is acceptable for the
     CPU tests and the card-side comparisons that use it, and why the
     card's main path never does; at training shapes the card compares
-    against :func:`grouped_ffn_plain_by_expert` instead."""
+    against :func:`grouped_ffn_plain_by_expert` instead.  ``rows`` (the
+    kernel's plan hint) is taken and unused, so either plain version can
+    stand in for :func:`grouped_ffn`."""
     return _plain(xt, tile_eid, w1, w2)[0]
 
 
 def grouped_ffn_plain_by_expert(xt: torch.Tensor, tile_eid: torch.Tensor,
-                                w1: torch.Tensor, w2: torch.Tensor
-                                ) -> torch.Tensor:
+                                w1: torch.Tensor, w2: torch.Tensor,
+                                rows: Optional[int] = None) -> torch.Tensor:
     """The same function as one product pair per run of consecutive tiles
     of one expert (the dropless layout holds one run per expert), the
     expert's weights read in place: no gather, differentiable by
     autograd.  It reads ``tile_eid`` on the host, so it is a reference
-    for the card's checks and never on the main path."""
+    for the card's checks and never on the main path (``rows`` unused)."""
     G, tile, D = xt.shape
     ids = tile_eid.cpu().tolist()
     E = w1.shape[1] if w1.ndim == 4 else None
@@ -383,9 +412,13 @@ def grouped_ffn_plain_by_expert(xt: torch.Tensor, tile_eid: torch.Tensor,
         while g1 < G and ids[g1] == ids[g0]:
             g1 += 1
         e = ids[g0]
+        rows = x[g0 * tile:g1 * tile]
+        if e < 0:                              # trash tiles: zeros
+            parts.append(rows.new_zeros(rows.shape[:-1] + (w2.shape[-1],)))
+            g0 = g1
+            continue
         a, b = (w1[e], w2[e]) if E is None else (w1[e // E, e % E],
                                                  w2[e // E, e % E])
-        rows = x[g0 * tile:g1 * tile]
         parts.append(torch.matmul(_gelu(torch.matmul(rows, a.to(ct))),
                                   b.to(ct)))
         g0 = g1
@@ -401,12 +434,13 @@ def grouped_ffn_backward_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
     output's cotangent ``g``, the formulas of the kernels (and the values
     of the JAX ``_grouped_bwd``): ``ds = (g @ w2^T) * gelu'(s)``, ``dxt =
     ds @ w1^T``, ``dw1[e]`` / ``dw2[e]`` the sums of ``xt^T ds`` / ``gelu(
-    s)^T g`` over e's tiles (``index_add_`` in tile order)."""
+    s)^T g`` over e's tiles (``index_add_`` in tile order).  Trash tiles
+    add nothing and get zero rows of ``dxt``."""
     ct = _compute_dtype(xt.dtype)
-    idx = tile_eid.long()
+    idx, live = _live(tile_eid)
     W1, W2 = _flat(w1), _flat(w2)
     w1g, w2g = W1[idx].to(ct), W2[idx].to(ct)
-    g, s = g.to(ct), s.to(ct)
+    g, s = torch.where(live, g.to(ct), 0), s.to(ct)
     du = torch.einsum("gtd,gfd->gtf", g, w2g)
     ds = torch.ops.aten.gelu_backward(du, s, approximate="tanh")
     dxt = torch.einsum("gtf,gdf->gtd", ds, w1g)
@@ -479,13 +513,15 @@ def _cuda_operands(xt, tile_eid, w1, w2, dtypes):
     return G, tile, D, Fd, E, epp, p1, p2
 
 
-def _forward_cuda(xt, tile_eid, w1, w2, keep_s: bool):
+def _forward_cuda(xt, tile_eid, w1, w2, keep_s: bool,
+                  live_rows: Optional[int] = None):
     """``(out, s or None)`` on padded operands (D, F multiples of 8)."""
     dev = xt.device
     xt, w1, w2 = _aligned(xt), _aligned(w1), _aligned(w2)
     G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(xt, tile_eid, w1, w2,
                                                     _DTYPES)
-    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd)
+    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd,
+                                                live_rows or 0)
     lib = build()
     u = torch.empty((G, tile, Fd), dtype=torch.float32, device=dev)
     s = torch.empty_like(u) if keep_s else None
@@ -503,15 +539,17 @@ def _forward_cuda(xt, tile_eid, w1, w2, keep_s: bool):
 
 
 def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
-                     w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+                     w1: torch.Tensor, w2: torch.Tensor,
+                     rows: Optional[int] = None) -> torch.Tensor:
     """Launch the forward kernel; raises on anything it does not take.
-    The ids in ``tile_eid`` must lie in ``[0, E)`` (the layout guarantees
+    The ids in ``tile_eid`` must lie in ``[-1, E)`` (the layout guarantees
     it; checking would cost a host sync)."""
     if xt.device.type != "cuda":
         raise RuntimeError(f"grouped_ffn_cuda needs CUDA tensors, got "
                            f"{xt.device}")
     D = xt.shape[-1]
-    out, _ = _forward_cuda(*_padded(xt, tile_eid, w1, w2), keep_s=False)
+    out, _ = _forward_cuda(*_padded(xt, tile_eid, w1, w2), keep_s=False,
+                           live_rows=rows)
     return out if out.shape[2] == D else out[..., :D].contiguous()
 
 
@@ -555,7 +593,8 @@ def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
     """``(dxt, ds, u)``: the dgrad launches on padded f32 operands (D, F
     multiples of 8): ``ds = (g @ w2^T) * gelu'(s)``, ``u = gelu(s)``,
     ``dxt = ds @ w1^T``, over the row blocks of ``plan`` (built here when
-    none is given)."""
+    none is given); ``dxt`` is zero on trash tiles, where ``ds`` and ``u``
+    are left unwritten (no expert's rows lie there)."""
     dev = g.device
     g, w1, w2 = _aligned(g), _aligned(w1), _aligned(w2)
     G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(g, tile_eid, w1, w2,
@@ -570,9 +609,10 @@ def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
     ds, u = torch.empty_like(s), torch.empty_like(s)
     dxt = torch.empty_like(g)
     err = lib.bf_grouped_ffn_dgrad(
-        g.data_ptr(), w1.data_ptr(), w2.data_ptr(), s.data_ptr(),
-        ds.data_ptr(), u.data_ptr(), dxt.data_ptr(), plan.buf.data_ptr(), G,
-        tile, E, epp, p1, p2, D, Fd, plan.rb_max, plan.p_max,
+        g.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        s.data_ptr(), ds.data_ptr(), u.data_ptr(), dxt.data_ptr(),
+        plan.buf.data_ptr(), G, tile, E, epp, p1, p2, D, Fd, plan.rb_max,
+        plan.p_max,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn dgrad launch failed: CUDA error "
@@ -652,10 +692,11 @@ class GroupedFFN(torch.autograd.Function):
     gradient for ``tile_eid``."""
 
     @staticmethod
-    def forward(ctx, xt, tile_eid, w1, w2):
+    def forward(ctx, xt, tile_eid, w1, w2, rows=None):
         if xt.device.type == "cuda":
             _f32_only(xt)
-            out, s = _forward_cuda(xt, tile_eid, w1, w2, keep_s=True)
+            out, s = _forward_cuda(xt, tile_eid, w1, w2, keep_s=True,
+                                   live_rows=rows)
         else:
             out, s = _plain(xt, tile_eid, w1, w2)
         ctx.save_for_backward(xt, tile_eid, w1, w2, s)
@@ -667,7 +708,7 @@ class GroupedFFN(torch.autograd.Function):
         if g.device.type != "cuda":
             dxt, dw1, dw2 = grouped_ffn_backward_plain(xt, tile_eid, w1, w2,
                                                        s, g)
-            return dxt, None, dw1, dw2
+            return dxt, None, dw1, dw2, None
         g = g.contiguous()
         G, tile, D = xt.shape
         E = _experts(w1)[0]
@@ -675,14 +716,15 @@ class GroupedFFN(torch.autograd.Function):
         dxt, ds, u = grouped_ffn_dgrad_cuda(g, tile_eid, w1, w2, s, plan)
         dw1, dw2 = grouped_ffn_wgrad_cuda(xt, ds, u, g, tile_eid, E,
                                           plan=plan)
-        return dxt, None, dw1.view(w1.shape), dw2.view(w2.shape)
+        return dxt, None, dw1.view(w1.shape), dw2.view(w2.shape), None
 
 
 def grouped_ffn(xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
-                w2: torch.Tensor) -> torch.Tensor:
+                w2: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors; under
     autograd, :class:`GroupedFFN` (widths padded to multiples of 8 on the
-    card, the gradients cut back by the pad's own backward)."""
+    card, the gradients cut back by the pad's own backward).  ``rows``:
+    see the module docstring (the forward plan's hint)."""
     if xt.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"grouped_ffn runs on CUDA or the CPU, not "
                            f"{xt.device}")
@@ -691,10 +733,10 @@ def grouped_ffn(xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
         t.requires_grad for t in (xt, w1, w2))
     if not grad:
         if xt.device.type == "cuda":
-            return grouped_ffn_cuda(xt, tile_eid, w1, w2)
+            return grouped_ffn_cuda(xt, tile_eid, w1, w2, rows)
         return grouped_ffn_plain(xt, tile_eid, w1, w2)
     if xt.device.type == "cpu":
         return GroupedFFN.apply(xt, tile_eid, w1, w2)
     D = xt.shape[2]
-    out = GroupedFFN.apply(*_padded(xt, tile_eid, w1, w2))
+    out = GroupedFFN.apply(*_padded(xt, tile_eid, w1, w2), rows)
     return out if out.shape[2] == D else out[..., :D]

@@ -2,8 +2,8 @@
 ``bluefog_tpu/parallel/compose.py``): serving at tp = 1 (a pp-carved
 serving tree loads as one module whose stages run in order; the
 speculative draft is a prefix of those stages, :func:`draft_carve`), and
-training at any gossip-DP x pipeline x tensor x Ulysses carving (ep =
-1).  The MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the
+training at any gossip-DP x pipeline x tensor x Ulysses x expert
+carving.  The MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the
 attention half, :class:`AttnBlock`, and brings its own FFN.
 
 Weights keep the JAX orientation (``x @ W`` with ``wqkv: [D, 3D]``,
@@ -12,11 +12,12 @@ Weights keep the JAX orientation (``x @ W`` with ``wqkv: [D, 3D]``,
 transpose.
 
 Training runs the whole JAX carving on one card.  NCCL refuses two ranks
-on one device, so every (replica r, stage s, tp t, sp u) peer lives
-stacked along dim 0 of every parameter in the JAX flat device order
-``i = ((r * pp + s) * tp + t) * sp + u`` (the JAX API's ``[n, ...]``
-layout), and a collective over one axis is a tensor op on that axis of a
-``[dp, pp, tp, sp, ...]`` view (:mod:`bluefog_tpu_torch.ops.collectives`).
+on one device, so every (replica r, stage s, tp t, sp u, expert e) peer
+lives stacked along dim 0 of every parameter in the JAX flat device
+order ``i = (((r * pp + s) * tp + t) * sp + u) * ep + e`` (the JAX API's
+``[n, ...]`` layout), and a collective over one axis is a tensor op on
+that axis of a ``[dp, pp, tp, sp, ep, ...]`` view
+(:mod:`bluefog_tpu_torch.ops.collectives`).
 :func:`compose_parallelism` validates the carving and compiles the
 gossip graph over the ``dp`` replicas; :func:`make_train_step` wires
 ``neighbor_communicator`` (gossip over dp for each (s, t, u) coordinate)
@@ -26,8 +27,10 @@ and ``adapt_with_combine(delayed=...)`` through
 stages (:func:`~bluefog_tpu_torch.parallel.pipeline.pipeline_apply`),
 Megatron tp with a ``psum`` after ``wo`` and after ``w2``, and Ulysses
 over sp around the K1/K2 flash kernels
-(:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`).  Expert
-carvings (ep > 1) and gossip wire codecs are not ported yet and raise.
+(:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`).  The expert
+axis shards the MoE LM's experts and batch rows; the dense LM, as in
+JAX, runs a full copy of the replica on each of its ep peers.  Gossip
+wire codecs are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -65,9 +68,9 @@ class Mesh3D:
     replicas (not over all peers); ``device`` is where the stacked tensors
     live.  ``num_experts`` / ``capacity_factor`` are the JAX carving's
     metadata for the MoE model it will run (see
-    :class:`bluefog_tpu_torch.moe.model.MoELMConfig`).  ``ep`` is 1 and
-    ``wire`` None until their slices are ported; they are kept so
-    :meth:`describe` has the JAX carving's keys."""
+    :class:`bluefog_tpu_torch.moe.model.MoELMConfig`).  ``wire`` is None
+    until the wire codecs are ported; it is kept so :meth:`describe` has
+    the JAX carving's keys."""
     dp: int
     topology: nx.DiGraph
     is_weighted: bool
@@ -136,16 +139,18 @@ def compose_parallelism(
     num_experts: Optional[int] = None,
     capacity_factor: Optional[float] = None,
 ) -> Mesh3D:
-    """Carve ``dp x pp x tp x sp`` peers, stacked on ``device`` (CUDA
-    unless the caller asks for another) in the JAX flat device order.
-    The checks the JAX function shares keep its error texts; ep > 1 and
-    ``wire`` raise "not yet ported".  ``topology``: the gossip graph over
+    """Carve ``dp x pp x tp x sp x ep`` peers, stacked on ``device`` (CUDA
+    unless the caller asks for another) in the JAX flat device order, ep
+    innermost.  The checks the JAX function shares keep its error texts
+    (``num_experts`` is required at ep > 1 and must split over it);
+    ``wire`` raises "not yet ported".  ``topology``: the gossip graph over
     the ``dp`` replicas, an ``nx.DiGraph`` with exactly ``dp`` nodes or a
     callable ``f(dp) -> DiGraph`` (default ``ExponentialTwoGraph(dp)``);
     ``weighted`` compiles the graph's own weights (vs the uniform
     ``1/(in_degree+1)``).  ``num_experts`` / ``capacity_factor``: the MoE
-    metadata the JAX function takes (optional at ep = 1; the model
-    config holds the operative values), reported by ``describe()``."""
+    metadata the JAX function takes (``num_experts`` optional at ep = 1;
+    the model config holds the operative values), reported by
+    ``describe()``."""
     for name, v in (("dp", dp), ("pp", pp), ("tp", tp), ("sp", sp),
                     ("ep", ep)):
         if not isinstance(v, (int, np.integer)) or v < 1:
@@ -156,9 +161,16 @@ def compose_parallelism(
         raise ValueError(
             f"num_experts={num_experts!r} must be a positive int")
     if ep > 1:
-        raise ValueError(
-            f"ep={ep}: expert carvings (ep > 1) are not yet ported to "
-            "bluefog_tpu_torch")
+        if num_experts is None:
+            raise ValueError(
+                f"ep={ep} carves an expert-parallel axis but num_experts "
+                "was not given; each expert peer owns num_experts // ep "
+                "experts, so the carving contract needs the total")
+        if num_experts % ep:
+            raise ValueError(
+                f"num_experts ({num_experts}) % ep ({ep}) != 0: each "
+                "expert-parallel peer owns a contiguous block of "
+                "num_experts // ep experts")
     if capacity_factor is not None and not (
             isinstance(capacity_factor, (int, float, np.floating))
             and float(capacity_factor) > 0):
@@ -187,7 +199,7 @@ def compose_parallelism(
             "not be mixed)")
     return Mesh3D(dp=int(dp), topology=topo, is_weighted=weighted,
                   schedule=compile_topology(topo, weighted), device=dev,
-                  pp=int(pp), tp=int(tp), sp=int(sp),
+                  pp=int(pp), tp=int(tp), sp=int(sp), ep=int(ep),
                   num_experts=num_experts,
                   capacity_factor=(None if capacity_factor is None
                                    else float(capacity_factor)))
@@ -199,7 +211,7 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     concurrent: Optional[bool] = None):
     """Wire the carving through the step machinery: a
     ``neighbor_communicator`` that gossips over the ``dp`` replicas for
-    every (stage, tp, sp) coordinate, ``opt`` (a ``torch.optim`` factory
+    every (stage, tp, sp, expert) coordinate, ``opt`` (a ``torch.optim`` factory
     such as :func:`bluefog_tpu_torch.optimizers.adam`) wrapped in
     ``adapt_with_combine(delayed=...)``, and
     :func:`bluefog_tpu_torch.optimizers.make_train_step`, which calls
@@ -490,10 +502,10 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LMConfig, *,
 # ---------------------------------------------------------------------------
 
 def _coords(m: Mesh3D):
-    """``(r, s, t, u)`` of every stacked peer, in the flat device order."""
-    r, s, t, u, _ = np.unravel_index(np.arange(m.size),
-                                     (m.dp, m.pp, m.tp, m.sp, m.ep))
-    return r, s, t, u
+    """``(r, s, t, u, e)`` of every stacked peer, in the flat device
+    order."""
+    return np.unravel_index(np.arange(m.size),
+                            (m.dp, m.pp, m.tp, m.sp, m.ep))
 
 
 def init_lm_train_params(cfg: LMConfig, m: Mesh3D, seed: int = 0) -> dict:
@@ -502,7 +514,8 @@ def init_lm_train_params(cfg: LMConfig, m: Mesh3D, seed: int = 0) -> dict:
     leaf stacked ``[n, ...]`` on ``m.device``.  Block owners are drawn
     ``[pp, tp, layers / pp, ...]`` (tp-sharded columns of ``wqkv``/``w1``,
     rows of ``wo``/``w2``) and peer ``(r, s, t, u)`` holds owner ``(s,
-    t)``'s; every peer holds the shared embed/head."""
+    t)``'s (its ep peers hold copies); every peer holds the shared
+    embed/head."""
     cfg.validate(m)
     rng = np.random.default_rng(seed)
     D, F_ = cfg.d_model, cfg.ffn_mult * cfg.d_model
@@ -516,7 +529,7 @@ def init_lm_train_params(cfg: LMConfig, m: Mesh3D, seed: int = 0) -> dict:
               "w1": w(m.pp, TP, Lps, D, F_ // TP),
               "w2": w(m.pp, TP, Lps, F_ // TP, D)}
     shared = {"embed": w(cfg.vocab, D), "head": w(D, cfg.vocab)}
-    _, s, t, _ = _coords(m)
+    _, s, t, _, _ = _coords(m)
 
     def stack(a):
         x = torch.from_numpy(a).to(m.device)
@@ -532,14 +545,14 @@ def make_lm_batch(cfg: LMConfig, m: Mesh3D, seed: int = 0,
     """Copy-task tokens stacked per peer, ``[n, (steps,) micro, batch,
     seq_len / sp]`` int32 on ``m.device``: the JAX ``make_lm_batch``
     tokens bit for bit (the same ``rng.integers`` call; each replica draws
-    its own data, stage and tp peers see the same tokens, sp peers slice
-    the sequence)."""
+    its own data, stage, tp and ep peers see the same tokens, sp peers
+    slice the sequence)."""
     rng = np.random.default_rng(seed)
     shape = (m.dp, cfg.micro, cfg.batch, cfg.seq_len) if steps is None \
         else (m.dp, steps, cfg.micro, cfg.batch, cfg.seq_len)
     data = rng.integers(0, cfg.vocab, size=shape).astype(np.int32)
     Tl = cfg.seq_len // m.sp
-    r, _, _, u = _coords(m)
+    r, _, _, u, _ = _coords(m)
     per_peer = np.stack([data[ri][..., ui * Tl:(ui + 1) * Tl]
                          for ri, ui in zip(r, u)])
     return torch.from_numpy(per_peer).to(m.device)
@@ -547,71 +560,79 @@ def make_lm_batch(cfg: LMConfig, m: Mesh3D, seed: int = 0,
 
 def _attention(cfg: LMConfig, m: Mesh3D, use_pallas: bool):
     """The attention sublayer of one GPipe tick's peers: ``attn(lp, x,
-    cos, sin)`` for ``x [k, TP, SP, B * Tl, D]`` (k live stages) and
-    ``lp`` leaves ``[k, TP, SP, ...]`` (every peer's own ``wqkv`` / ``wo``
-    shard): pre-LN, rope at the global positions, Ulysses over sp around
-    the K1/K2 flash kernels, ``wo`` and the psum over tp, residual."""
+    cos, sin)`` for ``x [k, TP, SP, EP, B * Tl, D]`` (k live stages, each
+    ep peer's own ``B`` batch rows) and ``lp`` leaves ``[k, TP, SP, EP,
+    ...]`` (every peer's own ``wqkv`` / ``wo`` shard): pre-LN, rope at the
+    global positions, Ulysses over sp around the K1/K2 flash kernels (the
+    ep peers' rows as more batch rows of one launch), ``wo`` and the psum
+    over tp, residual."""
     TP, SP = m.tp, m.sp
     D, H = cfg.d_model, cfg.heads
     Hl, hsz = H // TP, D // H
-    Tl, B = cfg.seq_len // SP, cfg.batch
+    Tl = cfg.seq_len // SP
     block_q = min(512, cfg.seq_len)
 
     def attn(lp, x, cos, sin):
-        k_ = x.shape[0]
-        shape = (k_, TP, SP, B, Tl, Hl, hsz)
+        shape = (x.shape[0], TP, SP, -1, Tl, Hl, hsz)
         q, k, v = torch.matmul(_ln(x), lp["wqkv"]).split(D // TP, dim=-1)
         q = _rotate(q.reshape(shape), cos, sin)
         k = _rotate(k.reshape(shape), cos, sin)
         att = ulysses_attention(q, k, v.reshape(shape), axis=2, causal=True,
                                 use_pallas=use_pallas,
                                 pallas_block_q=block_q)
-        att = att.reshape(k_, TP, SP, B * Tl, D // TP)
+        att = att.reshape(x.shape[:-1] + (D // TP,))
         return x + psum(torch.matmul(att, lp["wo"]), 1)
 
     return attn
 
 
 def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
-                 remat: bool = False, n_ch: int = 0, channel_loss=None):
+                 remat: bool = False, n_ch: int = 0, channel_loss=None,
+                 ep_batch: bool = False):
     """``(grad_fn, probe)`` for one DP replica of a stacked pipelined LM:
     the machinery :func:`make_lm_grad_fn` documents, shared with the MoE
     trainer (:func:`bluefog_tpu_torch.moe.model.make_moe_grad_fn`).
 
     ``layer_fn(lp, x, cos, sin) -> (x, vec)`` is one layer of a tick's
-    peers, ``lp`` a dict of the param groups that ride the pipeline (every
-    group of ``sums`` but ``"shared"``; leaves ``[k, TP, SP, ...]``),
-    ``vec`` ``[k, TP, SP, n_ch]`` or None.
+    peers, ``x [k, TP, SP, EP, rows, D]``, ``lp`` a dict of the param
+    groups that ride the pipeline (every group of ``sums`` but
+    ``"shared"``; leaves ``[k, TP, SP, EP, ...]``), ``vec`` ``[k, TP, SP,
+    EP, n_ch]`` or None.  With ``ep_batch`` each ep peer holds ``batch /
+    ep`` rows of the batch (the MoE LM), else the whole batch (the dense
+    LM's ep peers are copies).
     With ``n_ch`` a carrier rides the pipeline as the JAX MoE model's
     carrier row: ``Tl`` zero rows appended to each peer's ``B * Tl``
     activation rows, which the layer math never sees; each stage adds its
     layers' ``vec`` sum to the first carrier row's first ``n_ch``
     channels, so the channels reach the last stage, and their
     cotangents every stage, through the pipeline itself.  Each
-    microbatch's loss is its cross-entropy plus ``channel_loss(ch [SP,
-    n_ch])``, over the microbatch count.  ``sums`` maps each param group
-    to the dims of the ``[pp, tp, sp]`` peer view its gradient is summed
-    over outside autograd (the JAX ``psum``/``pmean``s).  ``probe(params,
-    toks)`` returns replica 0's cross-entropy and carrier channels, mean
-    over microbatches and sp peers, without a graph."""
+    microbatch's loss is its cross-entropy (the mean over the sp and ep
+    peers' tokens) plus ``channel_loss(ch [SP, EP, n_ch])``, over the
+    microbatch count.  ``sums`` maps each param group to the dims of the
+    ``[pp, tp, sp, ep]`` peer view its gradient is summed over outside
+    autograd (the JAX ``psum``/``pmean``s).  ``probe(params, toks)``
+    returns replica 0's cross-entropy and carrier channels, mean over
+    microbatches and the sp and ep peers, without a graph."""
     from ..fusion import tree_flatten, tree_map, tree_unflatten
 
-    S, TP, SP = m.pp, m.tp, m.sp
+    S, TP, SP, EP = m.pp, m.tp, m.sp, m.ep
+    view = (S, TP, SP, EP)           # the replica's peers
     n = m.slice_size
     D, H, V = cfg.d_model, cfg.heads, cfg.vocab
     hsz = D // H
-    Tl, B, lag = cfg.seq_len // SP, cfg.batch, cfg.lag
+    Tl, lag = cfg.seq_len // SP, cfg.lag
+    B = cfg.batch // EP if ep_batch else cfg.batch
     Lps = cfg.layers // S
     R = B * Tl                       # a peer's activation rows
     groups = [g for g in sorted(sums) if g != "shared"]
 
     def forward(p, toks):
-        """The last stage's pipeline output ``[M, TP, SP, rows, D]``."""
+        """The last stage's pipeline output ``[M, TP, SP, EP, rows, D]``."""
         dev, M = toks.device, toks.shape[1]
-        tk = toks.long().view(S, TP, SP, M, B, Tl)
-        stage_params = {g: {k: w.view((S, TP, SP) + tuple(w.shape[1:]))
+        tk = toks.long().view(view + (M, B, Tl))
+        stage_params = {g: {k: w.view(view + tuple(w.shape[1:]))
                             for k, w in p[g].items()} for g in groups}
-        embed = p["shared"]["embed"].view(S, TP, SP, V, D)
+        embed = p["shared"]["embed"].view(view + (V, D))
         pos = (torch.arange(SP, device=dev)[:, None] * Tl
                + torch.arange(Tl, device=dev))
         cos, sin = _cos_sin(pos, hsz, 10000.0)         # [SP, Tl, hsz / 2]
@@ -620,7 +641,7 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
         def stage_fn(bp, x):
             data, acc = (x[..., :R, :] if n_ch else x), None
             for i in range(Lps):
-                lp = {g: {k: w[:, :, :, i] for k, w in d.items()}
+                lp = {g: {k: w[:, :, :, :, i] for k, w in d.items()}
                       for g, d in bp.items()}
                 data, vec = layer_fn(lp, data, cos, sin)
                 if vec is not None:
@@ -632,26 +653,27 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
             return torch.cat([data, first, row[..., 1:, :]], dim=-2)
 
         # stage 0's peers embed their own tokens with their own rows
-        ti = torch.arange(TP, device=dev).view(TP, 1, 1, 1, 1)
-        ui = torch.arange(SP, device=dev).view(1, SP, 1, 1, 1)
-        x0 = embed[0][ti, ui, tk[0]]              # [TP, SP, M, B, Tl, D]
-        mbs = x0.permute(2, 0, 1, 3, 4, 5).reshape(M, TP, SP, R, D)
+        ti = torch.arange(TP, device=dev).view(TP, 1, 1, 1, 1, 1)
+        ui = torch.arange(SP, device=dev).view(1, SP, 1, 1, 1, 1)
+        ei = torch.arange(EP, device=dev).view(1, 1, EP, 1, 1, 1)
+        x0 = embed[0][ti, ui, ei, tk[0]]      # [TP, SP, EP, M, B, Tl, D]
+        mbs = x0.permute(3, 0, 1, 2, 4, 5, 6).reshape(M, TP, SP, EP, R, D)
         del x0
         if n_ch:                                  # the carrier rows
-            mbs = torch.cat([mbs, mbs.new_zeros((M, TP, SP, Tl, D))], 3)
+            mbs = torch.cat([mbs, mbs.new_zeros((M, TP, SP, EP, Tl, D))], 4)
         return pipeline_apply(stage_fn, stage_params, mbs, remat=remat), tk
 
     def head_loss(p, o, tk, mb):
-        """Microbatch ``mb``'s cross-entropy over the sp peers and its
-        carrier channels ``[SP, n_ch]``, from the last stage's tp peer 0
-        (``o [SP, rows, D]``)."""
-        hd = p["shared"]["head"].view(S, TP, SP, D, V)[S - 1, 0]
-        targets = torch.roll(tk[S - 1, 0, :, mb], lag, dims=-1)
-        logits = torch.matmul(_ln(o[:, :R]), hd)
-        logits = logits.view(SP, B, Tl, V)[:, :, lag:]
+        """Microbatch ``mb``'s cross-entropy over the sp and ep peers and
+        its carrier channels ``[SP, EP, n_ch]``, from the last stage's tp
+        peer 0 (``o [SP, EP, rows, D]``)."""
+        hd = p["shared"]["head"].view(view + (D, V))[S - 1, 0]
+        targets = torch.roll(tk[S - 1, 0, :, :, mb], lag, dims=-1)
+        logits = torch.matmul(_ln(o[..., :R, :]), hd)
+        logits = logits.view(SP, EP, B, Tl, V)[..., lag:, :]
         ce = F.cross_entropy(logits.reshape(-1, V),
                              targets[..., lag:].reshape(-1))
-        return ce, (o[:, R, :n_ch] if n_ch else None)
+        return ce, (o[..., R, :n_ch] if n_ch else None)
 
     def grad_fn(params, toks):
         leaves, treedef = tree_flatten(params)
@@ -663,7 +685,7 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
         with torch.enable_grad():
             out, tk = forward(p, toks)
             M = out.shape[0]
-            out_cut = out.detach().requires_grad_()   # [M, TP, SP, .., D]
+            out_cut = out.detach().requires_grad_()   # [M, TP, SP, EP, ..]
             for mb in range(M):
                 ce, ch = head_loss(p, out_cut[mb, 0], tk, mb)
                 loss = (ce if ch is None else ce + channel_loss(ch)) / M
@@ -674,9 +696,9 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
             del out, out_cut
         grads = tree_unflatten(treedef, [w.grad for w in ws])
         # the JAX psums / pmeans outside AD, over the peer view's dims
-        grads = {grp: {k: g.view((S, TP, SP) + tuple(g.shape[1:])).sum(
+        grads = {grp: {k: g.view(view + tuple(g.shape[1:])).sum(
             sums[grp], keepdim=True).expand(
-            (S, TP, SP) + tuple(g.shape[1:])).reshape(g.shape)
+            view + tuple(g.shape[1:])).reshape(g.shape)
             for k, g in d.items()} for grp, d in grads.items()}
         if n == 1:
             return total, tree_map(lambda g: g[0], grads)
@@ -689,7 +711,7 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
             M = out.shape[0]
             parts = [head_loss(p, out[mb, 0], tk, mb) for mb in range(M)]
         ce = sum(c for c, _ in parts) / M
-        ch = (sum(c for _, c in parts) / M).mean(0) if n_ch else None
+        ch = (sum(c for _, c in parts) / M).mean((0, 1)) if n_ch else None
         return ce, ch
 
     return grad_fn, probe
@@ -703,8 +725,9 @@ def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
     positions back within each sp peer's slice, over positions ``lag:``).
 
     Contract: one call takes one replica's ``slice_size`` peers, leaves
-    ``[pp * tp * sp, ...]`` in the flat (s, t, u) order, and ``toks``
-    ``[pp * tp * sp, micro, batch, seq_len / sp]``; it returns the loss of
+    ``[pp * tp * sp * ep, ...]`` in the flat (s, t, u, e) order, and
+    ``toks`` ``[pp * tp * sp * ep, micro, batch, seq_len / sp]``; it
+    returns the loss of
     each peer ``[slice_size]`` and the grads stacked like the params.  At
     ``slice_size == 1`` the slice axis is absent (leaves are the rank's
     own, the loss a scalar).  :func:`bluefog_tpu_torch.optimizers.
@@ -729,7 +752,10 @@ def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
     JAX, and is zero here before the reduction), seeded with 1 for the
     mean over the sp peers; the psums' autograd transposes sum the
     cotangents over tp, then the block grads are summed over sp and the
-    shared grads over the whole replica.  The pipeline output is cut from
+    shared grads over the whole replica.  At ep > 1 each ep peer is a copy
+    of the replica on the whole batch (the JAX dense LM's): the loss is
+    their mean, and every gradient is also summed over them, which gives
+    each copy the whole gradient.  The pipeline output is cut from
     the graph so that one microbatch's logits live at a time: each
     microbatch's head and loss backpropagate into its rows, then one
     backward runs through the pipeline.  Only summation order differs
@@ -745,5 +771,5 @@ def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
         return x + psum(torch.matmul(h, bp["w2"]), 1), None
 
     return _replica_fns(cfg, m, layer_fn,
-                        sums={"blocks": (2,), "shared": (0, 1, 2)},
+                        sums={"blocks": (2, 3), "shared": (0, 1, 2, 3)},
                         remat=remat)[0]

@@ -1,7 +1,8 @@
 """Decentralized LM training benchmark (counterpart of ``tools/lm_bench.py``).
 
 Trains the composed LM at the carving ``--dp`` x ``--pp`` x ``--tp`` x
-``--sp`` (the JAX tool's defaults: 2 x 2 x 2 x 1), every peer stacked on
+``--sp`` x ``--ep`` (the JAX tool's defaults: 2 x 2 x 2 x 1 x 1), every
+peer stacked on
 one device: gossip over the ``dp`` replicas (``adapt_with_combine`` over
 ``ExponentialTwoGraph(dp)``, ``delayed`` unless ``--no-delayed``, Adam at
 5e-3), GPipe stages, Megatron tp and Ulysses sp inside each replica.  It
@@ -14,30 +15,35 @@ without TF32).  On a CUDA device attention runs through the K1/K2 flash
 kernels; the JSON names the device the numbers were taken on, and a CPU
 run reports no MFU and no memory.
 
-``--moe --dropless`` trains the routed-MoE LM instead
-(:mod:`bluefog_tpu_torch.moe.model`; ``--experts`` / ``--top-k`` /
-``--group-tile`` / ``--capacity-factor`` / ``--router`` default from the
-``BLUEFOG_MOE_*`` env knobs as in the JAX tool): every expert FFN through
-the grouped kernel K4 and its hand-written backward on the card.  The
-JSON then carries the JAX tool's ``moe`` block, its routing-health
-values read off :func:`~bluefog_tpu_torch.moe.model.make_moe_probe`
-after the timed run, and the MFU counts the active parameters
-(``n_active_params``, ``mfu.flops_source`` "active").  ``--dropless``,
-``--router`` and ``--group-tile`` without ``--moe`` are refused, as are
-the unported capacity dispatch (``--moe`` without ``--dropless``) and
-expert-choice routing (exit code 2).
+``--moe`` trains the routed-MoE LM instead
+(:mod:`bluefog_tpu_torch.moe.model`; ``--ep`` adds the expert axis;
+``--experts`` / ``--top-k`` / ``--group-tile`` / ``--capacity-factor`` /
+``--router`` default from the ``BLUEFOG_MOE_*`` env knobs as in the JAX
+tool): capacity dispatch by default, ``--dropless`` for the sort-based
+grouped dispatch (every expert FFN through the grouped kernel K4 and its
+hand-written backward on the card), ``--router expert_choice`` (with
+``--dropless``, sp 1) for expert-choice routing.  The JSON then carries
+the JAX tool's ``moe`` block, with the analytic grouped-GEMM rows per
+peer and sublayer of the dropless run against the capacity path
+(``rows_per_device``), its routing-health values read off
+:func:`~bluefog_tpu_torch.moe.model.make_moe_probe` after the timed run,
+and the MFU counts the active parameters (``n_active_params``,
+``mfu.flops_source`` "active").  ``--ep`` > 1 without ``--moe`` is
+refused, as are ``--dropless``, ``--router`` and ``--group-tile``
+without it (exit code 2, the JAX texts).
 
 Run:    python -m bluefog_tpu_torch.tools.lm_bench [--pp 2 --tp 2 | --sp 2]
         python -m bluefog_tpu_torch.tools.lm_bench --moe --dropless --top-k 2
+        python -m bluefog_tpu_torch.tools.lm_bench --moe --dropless --pp 1 \
+            --tp 1 --ep 2
 Smoke:  python -m bluefog_tpu_torch.tools.lm_bench --device cpu [--moe
-        --dropless]
+        [--dropless [--router expert_choice]] [--ep 2]]
 
 Left out of the JAX tool (XLA features or later slices): the StableHLO
 wire sweep, the profiler-trace overlap grading, chaos, the flight
-recorder, the retrace sentinel, expert parallelism (``--ep``), and in the
-``moe`` block ``dot_flops`` (StableHLO dot counting) and
-``per_step_s_capacity`` (the capacity-dispatch twin, not ported): both
-stay null.
+recorder, the retrace sentinel, and in the ``moe`` block ``dot_flops``'s
+StableHLO dot counts (its analytic rows are kept as ``rows_per_device``)
+and ``per_step_s_capacity`` (the timed capacity twin): both stay null.
 """
 from __future__ import annotations
 
@@ -67,6 +73,8 @@ def _parse(argv=None):
     ap.add_argument("--tp", type=int, default=2, help="tensor-parallel ways")
     ap.add_argument("--sp", type=int, default=1,
                     help="Ulysses sequence ways")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ways (requires --moe)")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length (default 2048; smoke 32)")
     ap.add_argument("--layers", type=int, default=None)
@@ -90,15 +98,14 @@ def _parse(argv=None):
                     help="router top-k, 1 or 2 (default BLUEFOG_MOE_TOPK)")
     ap.add_argument("--capacity-factor", type=float, default=None,
                     help="expert capacity factor (default "
-                         "BLUEFOG_MOE_CAPACITY_FACTOR or 1.25; metadata "
-                         "here: capacity dispatch is not ported)")
+                         "BLUEFOG_MOE_CAPACITY_FACTOR or 1.25)")
     ap.add_argument("--dropless", action="store_true",
-                    help="dropless grouped dispatch (requires --moe; the "
-                         "only dispatch ported)")
+                    help="dropless grouped dispatch instead of the padded "
+                         "capacity path (requires --moe)")
     ap.add_argument("--router", choices=("topk", "expert_choice"),
                     default=None,
                     help="routing mode (default BLUEFOG_MOE_ROUTER or "
-                         "topk; expert_choice is not ported)")
+                         "topk; expert_choice requires --dropless, sp=1)")
     ap.add_argument("--group-tile", type=int, default=None,
                     help="dropless grouped-GEMM tile rows (default "
                          "BLUEFOG_MOE_TILE or 8)")
@@ -126,18 +133,30 @@ def _moe_config(args, **dense) -> "moe_model.MoELMConfig":
             overrides[key] = v
     if args.dropless:
         overrides["dispatch"] = "dropless"
-    cfg = moe_model.MoELMConfig.from_env(**dense, **overrides)
+    return moe_model.MoELMConfig.from_env(**dense, **overrides)
+
+
+def _grouped_rows(cfg, m, batch: int, seq: int) -> dict:
+    """The JAX tool's analytic grouped-GEMM rows per peer and MoE
+    sublayer: the dropless buffer (expert choice: its statically equal
+    groups) against the capacity path's padded slots."""
+    from ..moe.dropless import dropless_rows
+    e_local = cfg.num_experts // m.ep
     if cfg.router_mode == "expert_choice":
-        _refuse("expert-choice routing is not yet ported to "
-                "bluefog_tpu_torch")
-    if cfg.dispatch != "dropless":
-        _refuse("capacity dispatch is not yet ported to bluefog_tpu_torch; "
-                "pass --dropless")
-    return cfg
+        rows_drop = e_local * m.ep * (batch // m.ep) * cfg.ec_capacity(m)
+    else:
+        rows_drop = dropless_rows(
+            m.ep * cfg.top_k * (batch // m.ep) * (seq // m.sp),
+            e_local, cfg.group_tile)
+    rows_cap = cfg.num_experts * cfg.top_k * cfg.capacity(m)
+    return {"dropless": rows_drop, "capacity": rows_cap,
+            "row_ratio": round(rows_drop / rows_cap, 6)}
 
 
 def main(argv=None) -> dict:
     args = _parse(argv)
+    if args.ep > 1 and not args.moe:
+        _refuse("--ep > 1 needs --moe (the dense LM has no expert axis)")
     if (args.dropless or args.router or args.group_tile) and not args.moe:
         _refuse("--dropless/--router/--group-tile need --moe")
     dev = resolve_device(args.device)
@@ -159,7 +178,7 @@ def main(argv=None) -> dict:
     else:
         cfg, carve_kw = compose.LMConfig(**dense), {}
     m = compose.compose_parallelism(args.dp, args.pp, args.tp, args.sp,
-                                    device=dev, **carve_kw)
+                                    args.ep, device=dev, **carve_kw)
     cfg.validate(m)
     iters = args.iters or (4 if smoke else 8)
     steps_per_call = args.steps_per_call or (1 if smoke else 4)
@@ -254,10 +273,17 @@ def main(argv=None) -> dict:
             "aux_loss": health["aux_loss"], "z_loss": health["z_loss"],
             "usage_entropy": health["usage_entropy"],
             "ec_coverage": health["ec_coverage"],
+            "rows_per_device": (_grouped_rows(cfg, m, cfg.batch,
+                                              cfg.seq_len)
+                                if cfg.dispatch == "dropless" else None),
             "dot_flops": None, "per_step_s_capacity": None,
         }
-        # dropless is drop-free by construction: a nonzero value is a bug
-        doc["ok"] = bool(doc["ok"] and health["dropped_fraction"] == 0.0)
+        doc["ok"] = bool(doc["ok"]
+                         and 0.0 <= health["dropped_fraction"] <= 1.0)
+        if cfg.dispatch == "dropless":
+            # drop-free by construction: a nonzero value is a bug
+            doc["ok"] = bool(doc["ok"]
+                             and health["dropped_fraction"] == 0.0)
     print(json.dumps(doc), flush=True)
     return doc
 

@@ -131,8 +131,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    operands, and D 96 / F 200.  Tolerance: f32 max abs error 1e-4 x
    max|plain| (both accumulate in f32, only the order differs); bf16 one
    bf16 ulp of each output (rtol 8e-3) on top of that.  The library
-   yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over weights
-   gathered beforehand (the port never calls it).  Timed cold and warm as
+   yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over the live
+   tiles and their weights gathered beforehand (the port never calls
+   it).  Timed cold and warm as
    in phase 2; the f32 bound is at the 3xTF32 rate (the CUDA-core f32
    bound of earlier versions beside it as ``bound_ms_simt``);
 8. MoE serving at full width (tools/serve_bench.py's non-smoke widths
@@ -190,7 +191,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    path's own step-1 gradient with the embedding table moved by one ulp,
    measured in the same run: at these widths f32 rounding alone moves
    the gradients by ~2e-4 x max|g|, see PERF.md).  s/step, tokens/s,
-   model FLOP/s and peak memory; the K4 operand copies of step 1.
+   model FLOP/s and peak memory; the K4 operand copies of step 1;
+12c. MoE training at ep 2: phase 12b's config at dp 2 x ep 2 (4 stacked
+   peers: each ep peer holds 2 of the 4 batch rows and 4 of the 8
+   experts; every tp/ep peer of a tick in one dispatch and one K4 call,
+   each owner's buffer sized for 16,384 rows of which ~8,192 are real,
+   the rest trash tiles that K4 skips) and its ep-1 twin at dp 2, seed 0,
+   Exp2 gossip, delayed AWC, Adam 5e-3; 1 warm-up and 3 timed steps each.
+   K1, K2, K4's forward, plan, dgrad and wgrad must each launch dp x
+   micro x layers = 32 times a step in both runs; the loss must fall and
+   the probe drop none; step 1's loss must equal the twin's (rtol 1e-5),
+   its non-expert gradients be equal on every ep peer, and every leaf
+   (experts joined over the ep peers) equal the twin's within 12b's rule
+   (the larger of 1e-4 x max|g| and twice the one-ulp floor of the ep-2
+   run, measured in the same run with the embedding moved one ulp up and
+   one down, each leaf's larger change; routing may flip only at near ties:
+   each replica's first flip at a gap below the larger of 1e-5 and
+   twice how far a one-ulp move of the embedding moves that router
+   call's probabilities, the gap the flip crosses (a change of the
+   chosen set or only of its order); on any flip the twin is taken
+   again on the ep-2 run's routing);
+   the probe's usage at the init must equal the twin's (1e-4); step 1
+   replayed through the plain versions (plain K1/K2, the per-expert K4)
+   under 12b's rules.  s/step, tokens/s, model FLOP/s and peak memory of
+   both runs; K4's forward and backward device ms per step of both (one
+   more step under torch.profiler); the trash tiles of one K4 call and
+   that call timed cold with them marked against clamped onto a real
+   expert (the evidence that K4 spends no time on them);
+12d. capacity dispatch (capacity factor 1.25) and expert choice at dp 2
+   x ep 2, phase 12b's widths, 1 warm-up and 2 timed steps each: K1/K2
+   launch dp x micro x layers times a step and K4 never; the loss falls;
+   step 1 replayed through plain K1/K2 has the same loss (rtol 1e-5;
+   flips only at near ties by 12c's rule, then the routing forced); capacity: dropped_fraction in [0,
+   1); expert choice: usage exactly 1/E, aux 0, coverage in (0, 1].
+   s/step, tokens/s and peak memory.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1647,16 +1681,19 @@ def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile, ids=None):
 
 
 def _k4_bound(xt, eid, w1, rate=None):
-    """Least time: the weights of every distinct expert the tiles name
-    read once, xt read and the output written once, against 4 G tile D F
-    operations at the rate of f32-accurate products on the tensor cores
+    """Least time: the weights of every distinct expert the live tiles
+    name read once, their rows of xt read and the whole output written
+    once, against 4 G_live tile D F operations (trash tiles, id -1, need
+    none) at the rate of f32-accurate products on the tensor cores
     (3xTF32), or the bf16 tensor-core rate for bf16; ``rate`` overrides
     it (the CUDA-core f32 bound of earlier versions)."""
     G, tile, D = xt.shape
     Fd, item = w1.shape[2], xt.element_size()
-    experts = int(torch.unique(eid).numel())
-    nbytes = experts * 2 * D * Fd * item + 2 * G * tile * D * item + 4 * G
-    flops = 4.0 * G * tile * D * Fd
+    live = eid[eid >= 0]
+    experts, g_live = int(torch.unique(live).numel()), int(live.numel())
+    nbytes = experts * 2 * D * Fd * item + (g_live + G) * tile * D * item \
+        + 4 * G
+    flops = 4.0 * g_live * tile * D * Fd
     rate = rate or (BF16_FLOPS if item == 2 else TF32X3_FLOPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1702,12 +1739,13 @@ def grouped_ffn_phase(gf):
                 f"G={xt.shape[0]} tile={tile}: max abs err {err} "
                 f"(1e-4 x max|plain| = {1e-4 * top}"
                 f"{' + rtol 8e-3' if dt == bf16 else ''})")
-        idx = eid.long()
+        live = eid >= 0                   # trash tiles (id -1) need nothing
+        idx, xl = eid[live].long(), xt[live]
         w1g, w2g = w1[idx], w2[idx]                       # cuBLAS yardstick
         G = xt.shape[0]
 
         def lib():
-            u = F.gelu(torch.bmm(xt, w1g), approximate="tanh")
+            u = F.gelu(torch.bmm(xl, w1g), approximate="tanh")
             return torch.bmm(u, w2g)
 
         def kern():
@@ -1723,7 +1761,7 @@ def grouped_ffn_phase(gf):
             if dt == f32 else None
         row = dict(case=name, G=G, tile=tile, D=D, F=Fd, dtype=str(dt)[6:],
                    plan=list(gf.ffn_plan(G, tile, 8, D, Fd)),
-                   experts_named=int(torch.unique(eid).numel()),
+                   experts_named=int(torch.unique(eid[live]).numel()),
                    max_abs_err=err, max_abs_plain=top, ms=ms,
                    warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=bound,
                    bound_by=bound_by, bound_ms_simt=simt, library_ms=lib_ms,
@@ -1857,7 +1895,8 @@ def _k4_bwd_bound(rows, E, D, F):
 def _by_expert_yardstick(xt, eid, w1, w2, s, g):
     """The per-expert cuBLAS yardstick of K4's backward: ``torch.matmul``
     over each expert's contiguous rows (the run bounds read on the host
-    beforehand, as a per-expert loop must), gelu' and gelu between."""
+    beforehand, as a per-expert loop must), gelu' and gelu between;
+    trash tiles (id -1) get zero rows of dxt and no product."""
     import torch.nn.functional as F
     ids = eid.tolist()
     tile, D = xt.shape[1], xt.shape[2]
@@ -1867,11 +1906,12 @@ def _by_expert_yardstick(xt, eid, w1, w2, s, g):
         g1 = g0
         while g1 < len(ids) and ids[g1] == ids[g0]:
             g1 += 1
-        runs.append((ids[g0], g0 * tile, g1 * tile))
+        if ids[g0] >= 0:
+            runs.append((ids[g0], g0 * tile, g1 * tile))
         g0 = g1
 
     def run():
-        dxt = torch.empty_like(x2)
+        dxt = torch.zeros_like(x2)
         dw1, dw2 = torch.zeros_like(w1), torch.zeros_like(w2)
         for e, r0, r1 in runs:
             gs, ss, xs = g2[r0:r1], s2[r0:r1], x2[r0:r1]
@@ -2052,18 +2092,31 @@ def grouped_ffn_backward_phase(gf):
     return rows_out
 
 
+def _tie_gaps(probs, k):
+    """Each row's gaps, from its probabilities sorted in descending order:
+    ``(k-th - (k+1)-th``, the gap a change of the chosen set crosses, and
+    the least gap between neighbours among the first k, the one a change
+    of their order crosses; inf where there is none), on the host."""
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    nxt = srt[..., min(k, srt.shape[-1] - 1)]
+    order = (srt[..., :k - 1] - srt[..., 1:k]).amin(-1) if k > 1 \
+        else torch.full_like(nxt, float("inf"))
+    return (srt[..., k - 1] - nxt).detach().cpu(), order.detach().cpu()
+
+
 class _Routing:
-    """Records every ``router_topk`` call's top-k ids and its k-th to
-    (k+1)-th probability gap (on the host), or forces the ids of a
-    recorded run onto a replay (gates taken from the replay's own
-    probabilities at those ids)."""
+    """Records every ``router_topk`` call's top-k ids and its tie gaps
+    (:func:`_tie_gaps`, on the host), or forces the ids of a recorded run
+    onto a replay (gates taken from the replay's own probabilities at
+    those ids); either way it keeps each call's probabilities."""
 
     def __init__(self, layers_mod):
         self.mod, self.orig = layers_mod, layers_mod.router_topk
-        self.calls, self.force, self.i = [], None, 0
+        self.calls, self.probs, self.force, self.i = [], [], None, 0
 
     def __call__(self, x, wr, *, top_k):
         logits, probs, idx, gate = self.orig(x, wr, top_k=top_k)
+        self.probs.append(probs.detach().cpu())
         if self.force is not None:
             idx = self.force[self.i].to(idx.device)
             gate = probs.gather(-1, idx)
@@ -2071,9 +2124,7 @@ class _Routing:
                 gate = gate / gate.sum(-1, keepdim=True)
             self.i += 1
             return logits, probs, idx, gate
-        srt = torch.sort(probs, dim=-1, descending=True).values
-        self.calls.append((idx.cpu(), (srt[..., top_k - 1]
-                                       - srt[..., top_k]).detach().cpu()))
+        self.calls.append((idx.cpu(), _tie_gaps(probs, top_k)))
         return logits, probs, idx, gate
 
 
@@ -2118,10 +2169,7 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
 
     # -- the main path: counts at 0, 1 warm-up + 3 timed steps, counts read
     steps = 4
-    fa.fwd_launches = fa.bwd_launches = 0
-    gf.grouped_ffn_cuda.launches = gf.grouped_ffn_dgrad_cuda.launches = \
-        gf.grouped_ffn_wgrad_cuda.launches = \
-        gf.backward_plan_cuda.launches = 0
+    _launch_counts(fa, gf, reset=True)
     losses = []
     # step 1 also counts the K4 operands that _aligned / _pad_widths copy
     # (none at these shapes: D 1024 and F / tp 2048 are multiples of 8, and
@@ -2151,11 +2199,7 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
         losses.append(loss.tolist())
     torch.cuda.synchronize()
     per_step = (time.monotonic() - t0) / (steps - 1)
-    launches = {"flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
-                "grouped_ffn": gf.grouped_ffn_cuda.launches,
-                "grouped_ffn_dgrad": gf.grouped_ffn_dgrad_cuda.launches,
-                "grouped_ffn_wgrad": gf.grouped_ffn_wgrad_cuda.launches,
-                "grouped_ffn_backward_plan": gf.backward_plan_cuda.launches}
+    launches = _launch_counts(fa, gf)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # per replica, one launch of each per GPipe tick and layer of a stage:
     # every live stage, tp and sp peer of the tick is folded into it
@@ -2214,14 +2258,7 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
         del p0, state
         return loss.tolist()
 
-    def counts():
-        return (fa.fwd_launches, fa.bwd_launches,
-                gf.grouped_ffn_cuda.launches,
-                gf.grouped_ffn_dgrad_cuda.launches,
-                gf.grouped_ffn_wgrad_cuda.launches,
-                gf.backward_plan_cuda.launches)
-
-    before = counts()                # the probe's forward launched too
+    before = _launch_counts(fa, gf)  # the probe's forward launched too
     replay_routing = _Routing(layers_mod)
     replay_loss = replay(replay_routing)
     if len(kernel_calls) != len(replay_routing.calls):
@@ -2234,7 +2271,7 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
     per_replica = len(kernel_calls) // m.dp
     for r in range(m.dp):
         first = True
-        for (ki, kg), (pi, _) in zip(
+        for (ki, (kg, _)), (pi, _) in zip(
                 kernel_calls[r * per_replica:(r + 1) * per_replica],
                 replay_routing.calls[r * per_replica:(r + 1) * per_replica]):
             diff = (ki != pi).any(-1)
@@ -2249,7 +2286,7 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
     if forced:                       # replay again on the kernel's routing
         replay_routing.force = [i for i, _ in kernel_calls]
         replay_loss = replay(replay_routing)
-    if counts() != before:
+    if _launch_counts(fa, gf) != before:
         raise AssertionError("moe_train: the plain replay launched a kernel")
     if not np.allclose(replay_loss, losses[0], rtol=1e-5, atol=0):
         raise AssertionError(f"moe_train: plain replay loss {replay_loss} "
@@ -2352,6 +2389,537 @@ def profile_moe_train(step, strategy, init, toks):
         "kernel_shares": {k: v * 1e3 / total_us for k, v in ms.items()},
         "device": torch.cuda.get_device_name(0)}), flush=True)
     del params, state
+
+
+# -- phases 12c-12d: expert parallelism, capacity dispatch, expert choice --
+
+def _moe_cfg(**kw):
+    """Phase 12b's full-width MoE config (lm_bench's widths, 8 experts
+    top-2, dropless, group tile 8, micro 4) with ``kw`` over it."""
+    from bluefog_tpu_torch.moe import model as moe_model
+    base = dict(vocab=32768, d_model=1024, heads=16, layers=4, seq_len=2048,
+                micro=4, batch=4, num_experts=8, top_k=2, dispatch="dropless",
+                group_tile=8)
+    base.update(kw)
+    return moe_model.MoELMConfig(**base)
+
+
+def _launch_counts(fa, gf, reset=False):
+    """The kernels' launch counts (set to 0 first with ``reset``)."""
+    pairs = ((fa, "fwd_launches"), (fa, "bwd_launches"),
+             (gf.grouped_ffn_cuda, "launches"),
+             (gf.grouped_ffn_dgrad_cuda, "launches"),
+             (gf.grouped_ffn_wgrad_cuda, "launches"),
+             (gf.backward_plan_cuda, "launches"))
+    if reset:
+        for obj, attr in pairs:
+            setattr(obj, attr, 0)
+    return dict(zip(("flash_fwd", "flash_bwd", "grouped_ffn",
+                     "grouped_ffn_dgrad", "grouped_ffn_wgrad",
+                     "grouped_ffn_backward_plan"),
+                    (getattr(obj, attr) for obj, attr in pairs)))
+
+
+class _ECRouting:
+    """:class:`_Routing` for ``router_expert_choice``: records each call's
+    picks and their tie gaps over the tokens (:func:`_tie_gaps` at C), or
+    forces a recorded run's picks onto a replay (gates from the replay's
+    own probabilities)."""
+
+    def __init__(self, layers_mod):
+        self.orig = layers_mod.router_expert_choice
+        self.calls, self.probs, self.force, self.i = [], [], None, 0
+
+    def __call__(self, x, wr, *, capacity):
+        logits, probs, sel, gate = self.orig(x, wr, capacity=capacity)
+        self.probs.append(probs.detach().cpu())
+        pt = probs.transpose(-1, -2)
+        if self.force is not None:
+            sel = self.force[self.i].to(sel.device)
+            self.i += 1
+            return logits, probs, sel, pt.gather(-1, sel)
+        self.calls.append((sel.cpu(), _tie_gaps(pt, capacity)))
+        return logits, probs, sel, gate
+
+
+def _prob_noise(a, b):
+    """Per router call, the largest change of a routing probability
+    between two runs' recorded calls (``_Routing.probs``)."""
+    return [float((x - y).abs().max()) for x, y in zip(a, b)]
+
+
+def _flips(kernel_calls, replay_calls, dp, tag, noise):
+    """Routing flips between two runs' router calls: rows whose chosen
+    set differs, or only its order.  Each replica's first call with a
+    flip must flip at near ties only: the set's gap for a set change, the
+    order's for an order change, below the larger of 1e-5 and twice
+    ``noise[call]``, how far a one-ulp move of the embedding moves that
+    call's probabilities (measured in the same run).  Returns ``(flips,
+    first gaps)``."""
+    if len(kernel_calls) != len(replay_calls):
+        raise AssertionError(f"{tag}: the runs routed another number of "
+                             f"times ({len(kernel_calls)} vs "
+                             f"{len(replay_calls)})")
+    flips, first_gaps, bad = 0, [], []
+    per = len(kernel_calls) // dp
+    for r in range(dp):
+        first = True
+        for c in range(r * per, (r + 1) * per):
+            (ki, (gset, gorder)), pi = kernel_calls[c], replay_calls[c][0]
+            pi = pi.reshape(ki.shape)
+            diff = (ki != pi).any(-1)
+            moved = (ki.sort(-1).values != pi.sort(-1).values).any(-1)
+            flips += int(diff.sum())
+            if first and bool(diff.any()):
+                gap = float(torch.where(moved, gset, gorder)[diff].max())
+                first_gaps.append(gap)
+                if gap >= max(1e-5, 2 * noise[c]):
+                    bad.append((c, gap, noise[c]))
+                first = False
+    if bad:
+        raise AssertionError(f"{tag}: routing flips away from a near tie "
+                             f"(call, gap, one-ulp probability noise): "
+                             f"{bad}")
+    return flips, first_gaps
+
+
+class _MoERun:
+    """One full-width MoE trainer on the card (the main path): the launch
+    counts set to 0 just before its ``steps`` steps (the first untimed)
+    and read just after, step 1's gradients kept on the host and its
+    router calls recorded, the probe on the final params; then
+    :meth:`grads` gives step-1 losses and gradients from the same init
+    under other kernels, a forced routing or a moved embedding."""
+
+    def __init__(self, fa, gf, layers_mod, cfg, m, steps, hooks=()):
+        from bluefog_tpu_torch import optimizers as bfopt
+        from bluefog_tpu_torch.fusion import tree_flatten
+        from bluefog_tpu_torch.moe import model as moe_model
+        from bluefog_tpu_torch.parallel import compose
+        self.fa, self.gf, self.mod = fa, gf, layers_mod
+        self.cfg, self.m = cfg, m
+        self.ec = cfg.router_mode == "expert_choice"
+        self.grad_fn = moe_model.make_moe_grad_fn(cfg, m)
+        recorded, record = [], [True]
+
+        def recording(params, toks):
+            loss, grads = self.grad_fn(params, toks)
+            if record[0]:             # kept on the host
+                recorded.append([g.cpu() for g in tree_flatten(grads)[0]])
+            return loss, grads
+
+        step, self.strategy = compose.make_train_step(
+            m, recording, bfopt.adam(5e-3), delayed=True)
+        self.step = step
+        self.init = moe_model.init_moe_train_params(cfg, m, seed=0)
+        self.toks = moe_model.make_moe_batch(cfg, m, seed=0)
+        self.names = [f"{g}/{k}" for g in sorted(self.init)
+                      for k in sorted(self.init[g])]
+        params = {g: {k: v.clone() for k, v in d.items()}
+                  for g, d in self.init.items()}
+        state = bfopt.init_distributed(self.strategy, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.routing = self._router()
+        losses = []
+        _launch_counts(fa, gf, reset=True)
+        with self._route(self.routing):
+            for hook in hooks:
+                hook.__enter__()
+            params, state, loss = step(params, state, self.toks)
+            for hook in hooks:
+                hook.__exit__(None, None, None)
+        losses.append(loss.tolist())
+        record[0] = False
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(steps - 1):
+            params, state, loss = step(params, state, self.toks)
+            losses.append(loss.tolist())
+        torch.cuda.synchronize()
+        self.per_step = (time.monotonic() - t0) / (steps - 1)
+        self.launches = _launch_counts(fa, gf)
+        self.peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.losses = losses
+        self.mean = [float(np.mean(x)) for x in losses]
+        self.health = moe_model.make_moe_probe(cfg, m)(params, self.toks)
+        self.health_init = moe_model.make_moe_probe(cfg, m)(self.init,
+                                                            self.toks)
+        self.step1 = recorded[:]
+        del params, state
+        torch.cuda.empty_cache()
+
+    def _router(self):
+        return (_ECRouting if self.ec else _Routing)(self.mod)
+
+    def _route(self, router):
+        name = "router_expert_choice" if self.ec else "router_topk"
+        return mock.patch.object(self.mod, name, router)
+
+    def grads(self, router=None, plain=False, ulp=0):
+        """Step 1 from the init: ``(losses [n], leaves per replica on the
+        host)``; ``plain`` through plain K1/K2 and the per-expert K4,
+        ``ulp`` (+1 or -1) with the embedding moved by one ulp up or
+        down."""
+        from bluefog_tpu_torch import optimizers as bfopt
+        from bluefog_tpu_torch.fusion import tree_flatten
+        fa, gf = self.fa, self.gf
+        p0 = {g: {k: v.clone() for k, v in d.items()}
+              for g, d in self.init.items()}
+        if ulp:
+            p0["shared"]["embed"].mul_(1 + ulp * 2 ** -23)
+        patches = [self._route(router or self._router())]
+        if plain:
+            patches += [mock.patch.object(fa, "attention_block_partial",
+                                          fa.attention_block_partial_plain),
+                        mock.patch.object(fa, "attention_block_backward",
+                                          fa.attention_block_backward_plain),
+                        mock.patch.object(gf, "grouped_ffn",
+                                          gf.grouped_ffn_plain_by_expert)]
+        before = _launch_counts(fa, gf)
+        for p in patches:
+            p.__enter__()
+        try:
+            loss, grads = bfopt.stacked_grads(self.grad_fn, p0, self.toks,
+                                              self.m.slice_size)
+        finally:
+            for p in reversed(patches):
+                p.__exit__(None, None, None)
+        if plain and _launch_counts(fa, gf) != before:
+            raise AssertionError("the plain replay launched a kernel")
+        n, k = self.m.dp, self.m.slice_size
+        leaves = [g.cpu() for g in tree_flatten(grads)[0]]
+        del p0, grads
+        torch.cuda.empty_cache()
+        per = [[x[r] if k == 1 else x[r * k:(r + 1) * k] for x in leaves]
+               for r in range(n)]
+        return loss.tolist(), per
+
+    def replica_loss(self, losses):
+        """Each replica's step loss (its peers all report it)."""
+        return [float(x) for x in np.asarray(losses).reshape(
+            self.m.dp, -1)[:, 0]]
+
+
+def _grad_gate(tag, names, got, want, floor_of, join=None):
+    """Every leaf of ``got`` (per replica) within the larger of 1e-4 x
+    max|want| and twice its one-ulp floor ``floor_of(r, i)``; ``join``
+    maps a leaf to ``want``'s layout.  Returns the relative errors and
+    floors by leaf."""
+    leaf_err, leaf_floor, bad = {}, {}, []
+    for r, (gr, wr) in enumerate(zip(got, want)):
+        for i, (name, a, b) in enumerate(zip(names, gr, wr)):
+            if join is not None:
+                a = join(name, a)
+            a, b = a.reshape(b.shape), b
+            err = float((a - b).abs().max())
+            top = max(float(b.abs().max()), 1e-30)
+            floor = floor_of(r, i)
+            leaf_err[name] = max(leaf_err.get(name, 0.0), err / top)
+            leaf_floor[name] = max(leaf_floor.get(name, 0.0), floor / top)
+            if not (err <= 1e-4 * top + 1e-6 or err <= 2 * floor):
+                bad.append((r, name, err, floor, top))
+    if bad:
+        raise AssertionError(f"{tag}: step-1 gradients differ (replica, "
+                             f"leaf, err, one-ulp floor, max|g|): {bad}; "
+                             f"relative {leaf_err}, floors {leaf_floor}")
+    return leaf_err, leaf_floor
+
+
+def _profile_k4(run):
+    """One more step from the init under torch.profiler: the device ms of
+    K4's forward, its backward and the trash tiles' zero writes, and the
+    step's busy and wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bluefog_tpu_torch import optimizers as bfopt
+    p0 = {g: {k: v.clone() for k, v in d.items()}
+          for g, d in run.init.items()}
+    state = bfopt.init_distributed(run.strategy, p0)
+    p0, state, _ = run.step(p0, state, run.toks)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p0, state, _ = run.step(p0, state, run.toks)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.monotonic() - t0)
+    ms = {"K4_forward": 0.0, "K4_backward": 0.0, "K4_trash_zeros": 0.0,
+          "K1": 0.0, "K2": 0.0}
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt, key = ev.self_device_time_total / 1e3, ev.key
+        busy += dt
+        kind = ("K4_trash_zeros" if "zero_marked_tiles" in key else
+                "K4_forward" if "expert_rows" in key else
+                "K4_backward" if any(k in key for k in (
+                    "backward_gemm", "backward_plan", "wgrad_parts_sum"))
+                else "K1" if "flash_fwd" in key
+                else "K2" if "flash_bwd" in key else None)
+        if kind:
+            ms[kind] += dt
+    del p0, state
+    torch.cuda.empty_cache()
+    return dict(ms, busy_ms=busy, wall_ms=wall, busy_share=busy / wall)
+
+
+def _trash_evidence(gf, cap):
+    """One captured K4 call of the ep-2 run: its trash tiles, and the
+    forward and forward + backward timed cold with them marked (the main
+    path) against the same layout with them clamped onto each owner's
+    last expert (tile_layout's own ids, which K4 would compute on)."""
+    xt, eid, w1, w2, rows = (cap[k] for k in ("xt", "eid", "w1", "w2",
+                                              "rows"))
+    G, P, el = eid.numel(), w1.shape[0], w1.shape[1]
+    owner = torch.arange(G, device=DEV) // (G // P)
+    clamped = torch.where(eid < 0, owner * el + el - 1, eid).to(torch.int32)
+    g = torch.randn_like(xt) * (eid >= 0)[:, None, None]
+    trash = int((eid < 0).sum())
+
+    def fwd_bwd(ids, hint):
+        x, a, b = (z.detach().requires_grad_() for z in (xt, w1, w2))
+        out = gf.grouped_ffn(x, ids, a, b, rows=hint)
+        out.backward(g)
+
+    t = {}
+    for name, ids, hint in (("marked", eid, rows), ("clamped", clamped,
+                                                     None)):
+        t[name] = {
+            "fwd_ms": _device_ms(lambda: gf.grouped_ffn_cuda(
+                xt, ids, w1, w2, hint), cold=True, iters=5, warmup=1),
+            "fwd_bwd_ms": _device_ms(lambda: fwd_bwd(ids, hint), cold=True,
+                                     iters=5, warmup=1)}
+        t[name]["bwd_ms"] = t[name]["fwd_bwd_ms"] - t[name]["fwd_ms"]
+    return {"tiles_per_call": G, "trash_tiles_per_call": trash,
+            "rows_per_call": G * xt.shape[1], "live_rows_hint": rows,
+            "owners": P, "experts_per_owner": el, **t,
+            "marked_over_clamped_fwd": t["marked"]["fwd_ms"]
+            / t["clamped"]["fwd_ms"],
+            "marked_over_clamped_bwd": t["marked"]["bwd_ms"]
+            / t["clamped"]["bwd_ms"]}
+
+
+def moe_ep_phase(fa, gf, layers_mod, smi):
+    """Phase 12c: MoE training at ep 2 (dp 2 x ep 2) and its ep-1 twin (dp
+    2) at phase 12b's widths: launch counts, the same step-1 loss and
+    gradients as the twin (experts joined over the ep peers), a plain
+    replay, the probe, K4's device ms per step and the trash tiles."""
+    from bluefog_tpu_torch.parallel import compose
+    cfg = _moe_cfg()
+    steps = 4
+    out = {}
+    cap = {}
+    orig = gf.grouped_ffn
+
+    def capturing(xt, eid, w1, w2, rows=None):
+        if not cap:                   # the first K4 call of step 1
+            cap.update(xt=xt.detach().clone(), eid=eid.clone(),
+                       w1=w1.detach().clone(), w2=w2.detach().clone(),
+                       rows=rows)
+        return orig(xt, eid, w1, w2, rows=rows)
+
+    def carve(ep):
+        return compose.compose_parallelism(
+            2, 1, 1, 1, ep, device=DEV, num_experts=cfg.num_experts,
+            capacity_factor=cfg.capacity_factor)
+
+    # -- the ep-2 run: the main path, then its one-ulp floor and replay
+    m = carve(2)
+    run = _MoERun(fa, gf, layers_mod, cfg, m, steps,
+                  hooks=(mock.patch.object(gf, "grouped_ffn", capturing),))
+    want = m.dp * cfg.micro * cfg.layers * steps
+    if set(run.launches.values()) != {want}:
+        raise AssertionError(f"moe_train_ep2: launches {run.launches}, "
+                             f"want dp x micro x layers x steps = {want}")
+    if not (np.isfinite(run.mean).all() and run.mean[-1] < run.mean[0]):
+        raise AssertionError(f"moe_train_ep2: loss did not fall {run.mean}")
+    if not (run.health["dropped_fraction"] == 0.0
+            and abs(sum(run.health["usage"]) - 1.0) < 1e-5):
+        raise AssertionError(f"moe_train_ep2: probe {run.health}")
+    for r, leaves in enumerate(run.step1):      # non-expert grads: equal
+        for name, g in zip(run.names, leaves):  # on every ep peer
+            if not name.startswith("experts/") and not torch.equal(
+                    g, g[:1].expand_as(g)):
+                raise AssertionError(f"moe_train_ep2: {name} differs "
+                                     f"over the ep peers of replica {r}")
+    # the f32 noise floor of step 1, as in 12b, from the embedding moved
+    # one ulp up and one down (each leaf's larger change: one direction
+    # alone can sample a leaf's floor ~2x low at these widths), on the
+    # kernel run's routing; and how far that moves the router's
+    # probabilities
+    kernel_calls = run.routing.calls
+    floor, p_noise = None, None
+    for step in (1, -1):
+        forced = _Routing(layers_mod)
+        forced.force = [i for i, _ in kernel_calls]
+        _, noise = run.grads(forced, ulp=step)
+        f = [[float((a - b).abs().max()) for a, b in zip(k, z)]
+             for k, z in zip(run.step1, noise)]
+        pn = _prob_noise(run.routing.probs, forced.probs)
+        floor = f if floor is None else [
+            [max(a, b) for a, b in zip(x, y)] for x, y in zip(floor, f)]
+        p_noise = pn if p_noise is None else [
+            max(a, b) for a, b in zip(p_noise, pn)]
+        del noise
+    replay_router = _Routing(layers_mod)
+    replay_loss, replay = run.grads(replay_router, plain=True)
+    flips, gaps = _flips(kernel_calls, replay_router.calls, m.dp,
+                         "moe_train_ep2 replay", p_noise)
+    if flips:                         # the replay on the kernel's routing
+        forced.i = 0
+        replay_loss, replay = run.grads(forced, plain=True)
+    if not np.allclose(replay_loss, run.losses[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"moe_train_ep2: plain replay loss "
+                             f"{replay_loss} != {run.losses[0]}")
+    rep_err, rep_floor = _grad_gate(
+        "moe_train_ep2 replay", run.names, replay, run.step1,
+        lambda r, i: floor[r][i])
+    del replay
+    k4_ms = _profile_k4(run)
+    evidence = _trash_evidence(gf, cap)
+    cap.clear()
+    ep2 = {"run": run, "calls": kernel_calls, "floor": floor,
+           "replay": {"loss": replay_loss, "flips": flips,
+                      "first_flip_tie_gaps": gaps, "forced": bool(flips),
+                      "one_ulp_prob_noise_max": max(p_noise),
+                      "grad_rel_err_by_leaf": rep_err,
+                      "one_ulp_floor_by_leaf": rep_floor},
+           "k4_ms": k4_ms}
+    run.init = run.toks = None
+    torch.cuda.empty_cache()
+
+    # -- the ep-1 twin: same widths, data and init values
+    m1 = carve(1)
+    twin = _MoERun(fa, gf, layers_mod, cfg, m1, steps)
+    if set(twin.launches.values()) != {want}:
+        raise AssertionError(f"moe_train_ep2_twin: launches "
+                             f"{twin.launches}, want {want} each")
+    if not np.allclose(run.replica_loss(run.losses[0]),
+                       twin.replica_loss(twin.losses[0]), rtol=1e-5,
+                       atol=0):
+        raise AssertionError(f"moe_train_ep2: step-1 loss "
+                             f"{run.losses[0]} != the twin's "
+                             f"{twin.losses[0]}")
+    # the ep-2 run's routing on the twin's layout (ep peer e holds batch
+    # rows e * B / 2 ..): flips only at near ties; on any, the twin's
+    # gradient is taken again on the ep-2 run's routing
+    tflips, tgaps = _flips(kernel_calls, twin.routing.calls, m.dp,
+                           "moe_train_ep2 vs twin", p_noise)
+    twin_step1 = twin.step1
+    if tflips:
+        to_twin = _Routing(layers_mod)
+        to_twin.force = [i.reshape(t.shape) for (i, _), (t, _) in
+                         zip(kernel_calls, twin.routing.calls)]
+        _, twin_step1 = twin.grads(to_twin)
+    usage_diff = max(abs(a - b) for a, b in zip(
+        run.health_init["usage"], twin.health_init["usage"]))
+    if usage_diff > 1e-4:
+        raise AssertionError(f"moe_train_ep2: probe usage "
+                             f"{run.health_init['usage']} != the twin's "
+                             f"{twin.health_init['usage']}")
+
+    def join(name, g):                # [ep, L, E / ep, ...] -> [L, E, ...]
+        return torch.cat(list(g), 1) if name.startswith("experts/") \
+            else g[0]
+
+    twin_err, twin_floor = _grad_gate(
+        "moe_train_ep2 vs twin", run.names, run.step1, twin_step1,
+        lambda r, i: floor[r][i], join=join)
+    twin_k4 = _profile_k4(twin)
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    for tag, r_, k4 in (("moe_train_ep2", run, k4_ms),
+                        ("moe_train_ep2_twin", twin, twin_k4)):
+        out[tag] = {
+            "mesh": r_.m.describe(), "timed_steps": steps - 1,
+            "per_step_s": r_.per_step, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / r_.per_step,
+            "model_flops_per_s": tokens / r_.per_step
+            * cfg.flops_per_token(),
+            "peak_mem_gb": r_.peak, "losses_mean": r_.mean,
+            "launches": r_.launches, "probe": r_.health,
+            "k4_device_ms_per_step": k4,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    out["moe_train_ep2"].update(
+        replay=ep2["replay"], step1_loss=run.replica_loss(run.losses[0]),
+        twin_step1_loss=twin.replica_loss(twin.losses[0]),
+        twin_routing_flips=tflips, twin_first_flip_tie_gaps=tgaps,
+        twin_grad_rel_err_by_leaf=twin_err,
+        one_ulp_floor_by_leaf=twin_floor, probe_usage_diff=usage_diff,
+        trash_tiles=evidence,
+        k4_fwd_over_twin=k4_ms["K4_forward"] / twin_k4["K4_forward"],
+        k4_bwd_over_twin=k4_ms["K4_backward"] / twin_k4["K4_backward"],
+        launch_formula="dp x micro x layers x steps (pp 1)")
+    for tag, summ in out.items():
+        print(tag + " " + json.dumps(summ), flush=True)
+    del run, twin
+    torch.cuda.empty_cache()
+    return {tag: summ["launches"] for tag, summ in out.items()}, out
+
+
+def moe_route_phase(fa, gf, layers_mod, smi, tag, **kw):
+    """Phase 12d: capacity dispatch or expert choice at dp 2 x ep 2,
+    phase 12b's widths: K1/K2 launch counts by the formula and no K4, a
+    falling loss, step 1 replayed through plain K1/K2 (loss rtol 1e-5),
+    and the routing health."""
+    from bluefog_tpu_torch.parallel import compose
+    cfg = _moe_cfg(**kw)
+    m = compose.compose_parallelism(2, 1, 1, 1, 2, device=DEV,
+                                    num_experts=cfg.num_experts,
+                                    capacity_factor=cfg.capacity_factor)
+    steps = 3
+    run = _MoERun(fa, gf, layers_mod, cfg, m, steps)
+    want = m.dp * cfg.micro * cfg.layers * steps
+    k1k2 = (run.launches["flash_fwd"], run.launches["flash_bwd"])
+    k4 = [v for k, v in run.launches.items() if k.startswith("grouped")]
+    if k1k2 != (want, want) or any(k4):
+        raise AssertionError(f"{tag}: launches {run.launches}, want K1/K2 "
+                             f"{want} each and no K4")
+    if not (np.isfinite(run.mean).all() and run.mean[-1] < run.mean[0]):
+        raise AssertionError(f"{tag}: loss did not fall {run.mean}")
+    h = run.health
+    if cfg.router_mode == "expert_choice":
+        if not (h["usage"] == [1.0 / cfg.num_experts] * cfg.num_experts
+                and h["aux_loss"] == 0.0 and 0.0 < h["ec_coverage"] <= 1.0):
+            raise AssertionError(f"{tag}: probe {h}")
+    elif not 0.0 <= h["dropped_fraction"] < 1.0:
+        raise AssertionError(f"{tag}: probe {h}")
+    kernel_calls = run.routing.calls
+    ulp = run._router()
+    ulp.force = [i for i, _ in kernel_calls]
+    run.grads(ulp, ulp=1)
+    p_noise = _prob_noise(run.routing.probs, ulp.probs)
+    router = run._router()
+    replay_loss, _ = run.grads(router, plain=True)
+    flips, gaps = _flips(kernel_calls, router.calls, m.dp, tag + " replay",
+                         p_noise)
+    if flips:
+        router = run._router()
+        router.force = [i for i, _ in kernel_calls]
+        replay_loss, _ = run.grads(router, plain=True)
+    if not np.allclose(replay_loss, run.losses[0], rtol=1e-5, atol=0):
+        raise AssertionError(f"{tag}: plain replay loss {replay_loss} != "
+                             f"{run.losses[0]}")
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    summ = {"mesh": m.describe(), "dispatch": cfg.dispatch,
+            "router_mode": cfg.router_mode,
+            "capacity": cfg.capacity(m), "ec_capacity": cfg.ec_capacity(m),
+            "timed_steps": steps - 1, "per_step_s": run.per_step,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / run.per_step,
+            "model_flops_per_s": tokens / run.per_step
+            * cfg.flops_per_token(),
+            "peak_mem_gb": run.peak, "losses_mean": run.mean,
+            "replay_loss": replay_loss, "routing_flips": flips,
+            "first_flip_tie_gaps": gaps,
+            "one_ulp_prob_noise_max": max(p_noise),
+            "launches": run.launches,
+            "probe": h, "launch_formula": "dp x micro x layers x steps",
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print(tag + " " + json.dumps(summ), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return summ["launches"], summ
 
 
 def _ptxas_functions(log, names):
@@ -2607,6 +3175,21 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     moe_launches, _ = moe_train_phase(fa, gf, moe_layers, smi, args.profile)
     phase_s["moe_train"] = time.monotonic() - t0
+
+    # -- phase 12c: MoE training at ep 2 (dp 2 x ep 2) and its ep-1 twin --
+    t0 = time.monotonic()
+    ep_launches, ep_summ = moe_ep_phase(fa, gf, moe_layers, smi)
+    phase_s["moe_train_ep2"] = time.monotonic() - t0
+
+    # -- phase 12d: capacity dispatch and expert choice at dp 2 x ep 2 ---
+    route_launches = {}
+    for tag, kw in (("moe_train_capacity", {"dispatch": "capacity"}),
+                    ("moe_train_expert_choice",
+                     {"router_mode": "expert_choice"})):
+        t0 = time.monotonic()
+        route_launches[tag], _ = moe_route_phase(fa, gf, moe_layers, smi,
+                                                 tag, **kw)
+        phase_s[tag] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -2631,8 +3214,14 @@ def main(argv=None) -> int:
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
     main_c = compose_launches["compose_pp2_tp2"]
     paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches,
-             **lc_launches, "moe_train": (moe_launches["flash_fwd"],
-                                          moe_launches["flash_bwd"])}
+             **lc_launches, **{tag: (n["flash_fwd"], n["flash_bwd"]) for
+                               tag, n in (("moe_train", moe_launches),
+                                          *ep_launches.items(),
+                                          *route_launches.items())}}
+    k4_ep = {tag: {"launches": n["grouped_ffn"],
+                   "backward_launches": n["grouped_ffn_dgrad"],
+                   **ep_summ[tag]["k4_device_ms_per_step"]}
+             for tag, n in ep_launches.items()}
     print(json.dumps({"kernels": [
         decode,
         dict(_kernel_row("flash_fwd", src,
@@ -2662,7 +3251,10 @@ def main(argv=None) -> int:
              launches_moe_train=moe_launches["grouped_ffn"],
              launches_by_path={"moe_serve": k4_launches,
                                "moe_serve_fast": moe_fast["k4_launches"],
-                               "moe_train": moe_launches["grouped_ffn"]},
+                               "moe_train": moe_launches["grouped_ffn"],
+                               **{tag: n["grouped_ffn"] for tag, n in
+                                  ep_launches.items()}},
+             moe_train_ep2=k4_ep,
              prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
                  "warm_ms", "bound_ms_simt")}),
         dict(_kernel_row("grouped_ffn_backward",
@@ -2673,6 +3265,10 @@ def main(argv=None) -> int:
              kernels="backward_plan, then backward_gemm (wgmma: dgrad x 2, "
                      "wgrad x 2) + wgrad_parts_sum",
              wgrad_launches=moe_launches["grouped_ffn_wgrad"],
+             launches_by_path={"moe_train": moe_launches["grouped_ffn_dgrad"],
+                               **{tag: n["grouped_ffn_dgrad"] for tag, n in
+                                  ep_launches.items()}},
+             moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
              **{case: {key: k4_bwd[case][key] for key in _ROW_KEYS + (
@@ -2682,6 +3278,10 @@ def main(argv=None) -> int:
          "source": "bluefog_tpu_torch/csrc/grouped_ffn.cu",
          "replaces": "bluefog_tpu/ops/pallas_moe.py:99",
          "launches": moe_launches["grouped_ffn_backward_plan"],
+         "launches_by_path": {
+             "moe_train": moe_launches["grouped_ffn_backward_plan"],
+             **{tag: n["grouped_ffn_backward_plan"] for tag, n in
+                ep_launches.items()}},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

@@ -380,7 +380,7 @@ def test_float64_dp_x_pp_equals_flat_dp():
 def test_carving_contracts(cpu_devices):
     m = tcompose.compose_parallelism(2, 2, 2, 2, device="cpu")
     assert (m.size, m.slice_size, m.ep) == (16, 8, 1)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="num_experts was not given"):
         tcompose.compose_parallelism(2, 1, 1, 1, 2, device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         tcompose.compose_parallelism(2, 2, 2, 1, device="cpu", wire="bf16")

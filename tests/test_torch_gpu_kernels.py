@@ -34,7 +34,11 @@ and only the order differs, so f32 max abs error 1e-4 x max|plain|; with
 bf16 operands one bf16 ulp of each output (rtol 8e-3) on top of that.
 Its blocks are expert-major, so the cases route tiles out of order, leave
 experts without tiles, put every tile on one expert or more rows on one
-expert than a chunk holds, and rerun bit-identically.
+expert than a chunk holds, and rerun bit-identically.  Trash tiles (id
+-1, the tail of each expert-parallel owner's buffer): the forward, the
+plan, the dgrad and the wgrad skip them and write zeros there, and
+every other value equals the same layout's with the trash tiles on a
+real expert; the expert-parallel MoE trainer on the card equals the CPU.
 """
 import numpy as np
 import pytest
@@ -1200,6 +1204,122 @@ def test_moe_grad_fn_on_the_card_matches_the_cpu(cuda):
         want = 0 if dev == "cpu" else \
             m.dp * (cfg.micro + m.pp - 1) * cfg.layers // m.pp
         assert got == [want] * 5, got
+    (closs, cgrads), (kloss, kgrads) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(kloss.cpu(), closs, rtol=1e-5, atol=0)
+    for group, leaves in cgrads.items():
+        for k, w in leaves.items():
+            _close_grad(kgrads[group][k].cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["fold_ep2", "fold_ep4", "all_trash_tail"])
+def test_grouped_ffn_trash_tiles_match_plain(cuda, dtype, case):
+    """Trash tiles (id -1) get zero output rows (their input rows are
+    not zero here, so nothing but the skip makes them so); every live
+    row equals the plain version's and the same layout's with the trash
+    tiles clamped onto the owner's last expert, as ``tile_layout`` leaves
+    them; the forward plan sized by the live rows launches once."""
+    rng = np.random.default_rng(case.__len__())
+    owners = {"fold_ep2": 2, "fold_ep4": 4, "all_trash_tail": 1}[case]
+    el, tile, D, F = 2, 4, 256, 512
+    ids, clamped = [], []
+    for o in range(owners):
+        live = np.sort(rng.integers(0, el, 6 if case != "all_trash_tail"
+                                    else 1)) + o * el
+        ids += list(live) + [-1] * 5
+        clamped += list(live) + [o * el + el - 1] * 5
+    _, (xt, eid, w1, w2) = _k4_case(cuda, ids, tile, D, F, owners * el,
+                                    dtype=dtype)
+    trash = eid < 0
+    before = gf.grouped_ffn_cuda.launches
+    got = gf.grouped_ffn(xt, eid, w1, w2, rows=int((~trash).sum()) * tile)
+    torch.cuda.synchronize()
+    assert gf.grouped_ffn_cuda.launches == before + 1
+    assert bool((got[trash] == 0).all())
+    xz = xt.clone()
+    xz[trash] = 0                     # what the dispatch leaves there
+    ref = gf.grouped_ffn(xz, torch.tensor(clamped, dtype=torch.int32,
+                                          device=cuda), w1, w2)
+    diff = (got[~trash].float() - ref[~trash].float()).abs()
+    lim = 1e-4 * float(ref.float().abs().max())
+    if dtype == torch.bfloat16:
+        lim = lim + 8e-3 * ref[~trash].float().abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fold_ep2", "fold_ep4"])
+def test_grouped_ffn_backward_trash_tiles_match_plain(cuda, case):
+    """K4's backward on a folded expert-parallel layout with trash tiles:
+    out, dxt, dw1, dw2 against the per-expert plain version (which
+    answers trash tiles with zeros), dxt exactly 0 on them, the device
+    plan equal to its plain version, and the weight gradients equal to
+    those of the same layout with the trash tiles clamped onto a real
+    expert (zero rows of xt and g there, as in the trainer)."""
+    owners = {"fold_ep2": 2, "fold_ep4": 4}[case]
+    rng = np.random.default_rng(owners)
+    el, tile, D, F = 2, 8, 128, 256
+    ids, clamped = [], []
+    for o in range(owners):
+        live = np.sort(rng.integers(0, el, 20)) + o * el
+        ids += list(live) + [-1] * 18
+        clamped += list(live) + [o * el + el - 1] * 18
+    E = owners * el
+    got, (xt, eid, w1, w2, g) = _k4_grad_case(cuda, ids, tile, D, F, E)
+    trash = eid < 0
+    assert bool((got[0][trash] == 0).all())
+    assert bool((got[1][trash] == 0).all())
+    want = gf.backward_plan_plain(eid.cpu(), tile, E, D, F)
+    plan = gf.unpack_plan(gf.backward_plan_cuda(eid, tile, E, D, F))
+    for key, value in want.items():
+        assert torch.equal(plan[key], value), key
+    xz, gz = xt.clone(), g.clone()
+    xz[trash], gz[trash] = 0, 0
+    x, a, b = (z.detach().requires_grad_() for z in (xz, w1, w2))
+    out = gf.grouped_ffn(x, torch.tensor(clamped, dtype=torch.int32,
+                                         device=cuda), a, b)
+    ref = torch.autograd.grad(out, (x, a, b), gz)
+    for name, p, q in (("dxt", got[1][~trash], ref[0][~trash]),
+                       ("dw1", got[2], ref[1]), ("dw2", got[3], ref[2])):
+        err = float((p - q).abs().max())
+        assert err <= 1e-4 * float(q.abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(dispatch="dropless"),
+                                dict(dispatch="capacity"),
+                                dict(dispatch="dropless",
+                                     router_mode="expert_choice")])
+def test_moe_grad_fn_ep2_on_the_card_matches_the_cpu(cuda, kw):
+    """One ``make_moe_grad_fn`` call at dp 2 x tp 2 x ep 2 (top-2, 4
+    experts, batch 4) on the card against the same call on the CPU: the
+    dropless sublayer through K4 and its backward pair (one launch a
+    tick and layer each, every tp and ep peer folded in), capacity
+    dispatch and expert choice without K4; loss rtol 1e-5, grads atol
+    1e-4 x max|g|."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    cfg = moe_model.MoELMConfig(num_experts=4, top_k=2, group_tile=4,
+                                batch=4, **kw)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = compose.compose_parallelism(2, 1, 2, 1, 2, device=dev,
+                                        num_experts=4)
+        before = (gf.grouped_ffn_cuda.launches,
+                  gf.grouped_ffn_dgrad_cuda.launches)
+        out[str(dev)] = bfopt.stacked_grads(
+            moe_model.make_moe_grad_fn(cfg, m),
+            moe_model.init_moe_train_params(cfg, m),
+            moe_model.make_moe_batch(cfg, m), m.slice_size)
+        torch.cuda.synchronize()
+        got = (gf.grouped_ffn_cuda.launches - before[0],
+               gf.grouped_ffn_dgrad_cuda.launches - before[1])
+        per_call = m.dp * cfg.micro * cfg.layers
+        want = per_call if dev != "cpu" and kw == {"dispatch": "dropless"} \
+            else 0
+        assert got == (want, want), got
     (closs, cgrads), (kloss, kgrads) = out["cpu"], out["cuda"]
     torch.testing.assert_close(kloss.cpu(), closs, rtol=1e-5, atol=0)
     for group, leaves in cgrads.items():

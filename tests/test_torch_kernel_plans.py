@@ -160,20 +160,21 @@ def test_backward_plan_covers_every_row_once_in_tile_order(case):
 @pytest.mark.parametrize("case", routings.CASES)
 def test_backward_plan_follows_the_routing(case):
     """Item counts follow the routing, within the host's shape-only
-    sizes: one row block per 128 rows of a run, experts without rows
+    sizes: one row block per 128 rows of a run (none for a run of trash
+    tiles), experts without rows
     listed for exact zeros and given no part, split experts' parts on
     their own scratch slots and listed for the ordered sum."""
     eid, tile, E, D, F, splits = routings.routing(case)
     plan = gf.backward_plan_plain(eid, tile, E, D, F, splits)
     rb_max, p_max, slots_max = gf.plan_sizes(len(eid), tile, E, D, F,
                                              splits)
-    counts = torch.bincount(eid.long(), minlength=E) * tile
+    counts = torch.bincount(eid[eid >= 0].long(), minlength=E) * tile
     assert torch.equal(plan["expert_rows"], counts.int())
     runs = plan["runs"].tolist()
     ends = [first for _, first in runs[1:]] + [len(eid)]
-    assert len(plan["row_blocks"]) == sum(
-        -(-(end - first) * tile // 128) for (_, first), end in
-        zip(runs, ends)) <= rb_max
+    assert len(plan["row_blocks"]) == sum(     # trash runs (id -1): none
+        -(-(end - first) * tile // 128) for (x, first), end in
+        zip(runs, ends) if x >= 0) <= rb_max
     parts, sums = plan["parts"].tolist(), plan["part_sums"].tolist()
     assert len(parts) <= p_max and int(plan["slots"]) <= slots_max
     nparts = [sum(p[0] == e for p in parts) for e in range(E)]

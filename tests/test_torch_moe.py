@@ -218,9 +218,21 @@ def test_moe_apply_dropless_refusals_match_jax(cpu_devices):
     assert "moe_routing_expert_idx_out_of_range" in str(terr.value)
     with pytest.raises(ValueError, match="must be a positive int"):
         moe_apply_dropless(_t(x), _t(idx), None, None, num_experts=0)
-    with pytest.raises(ValueError, match="not yet ported"):
-        moe_apply_dropless(_t(x), _t(idx), None, None, num_experts=E,
-                           axis_size=2)
+    # an expert axis of size 2: the experts must split evenly over it
+    mesh2 = Mesh(np.array(cpu_devices[:2]), ("expert",))
+    x2 = np.zeros((2, 3, 4), np.float32)
+
+    def f2(xb):
+        return jdropless(xb[0], jnp.zeros(3, jnp.int32), lambda p, xt, e: xt,
+                         None, axis="expert", num_experts=3, tile=2)[None]
+
+    with pytest.raises(ValueError) as jerr:
+        jax.jit(jax.shard_map(f2, mesh=mesh2, in_specs=(P("expert"),),
+                              out_specs=P("expert")))(jnp.asarray(x2))
+    with pytest.raises(ValueError) as terr:
+        moe_apply_dropless(_t(x2), torch.zeros((2, 3), dtype=torch.int32),
+                           None, None, num_experts=3, axis_size=2)
+    assert str(terr.value) == str(jerr.value)
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +356,6 @@ def test_init_moe_params_bit_identical_and_from_jax(cpu_devices):
             for i, blk in enumerate(mod.blocks):
                 np.testing.assert_array_equal(getattr(blk, name).numpy(),
                                               want[i])
-    with pytest.raises(ValueError, match="pp = tp = ep = 1"):
+    with pytest.raises(ValueError, match="pp = tp = 1 carving"):
         moe_params_from_jax(tree, MoELMConfig(**dict(_CFG, num_experts=2)),
                             device="cpu")

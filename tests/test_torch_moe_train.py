@@ -26,9 +26,9 @@ handed to both sides.
 * the property of ``tests/test_moe_dropless.py``'s float64 trajectory
   oracle for the port: the routed top-1 model trains loss for loss like
   its dense-equivalent twin (atol 1e-12 over 12 SGD steps);
-* the probe's keys and values against JAX's; the refusals (capacity
-  dispatch, expert choice, ep > 1); an ``lm_bench --moe --dropless
-  --device cpu`` smoke.
+* the probe's keys and values against JAX's; the refusals (a carving
+  validated for other experts, bf16 through K4's backward); an
+  ``lm_bench --moe --dropless --device cpu`` smoke.
 """
 import json
 
@@ -412,19 +412,14 @@ def test_probe_matches_jax(cpu_devices):
 
 def test_refusals(cpu_devices):
     _, tcfg, _, tm = _carve(cpu_devices, (2, 2, 2, 1))
-    with pytest.raises(ValueError, match="dispatch='capacity'.*not yet "
-                                         "ported"):
-        tmoe.make_moe_grad_fn(_cfg(tmoe, 2, 1, dispatch="capacity"), tm)
-    with pytest.raises(ValueError, match="expert_choice.*not yet ported"):
-        tmoe.make_moe_grad_fn(_cfg(tmoe, 2, 1, router_mode="expert_choice"),
-                              tm)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcompose.compose_parallelism(2, 1, 1, 1, 2, device="cpu",
-                                     num_experts=4)
     with pytest.raises(ValueError, match="carving was validated for "
                                          "num_experts=4"):
         tmoe.make_moe_grad_fn(_cfg(tmoe, 2, 1, num_experts=8, d_model=32),
                               tm)
+    # bf16 training through K4's backward stays refused, by name
+    with pytest.raises(TypeError, match="bf16 training through K4 is not "
+                                        "ported"):
+        gf._f32_only(torch.zeros(1, dtype=torch.bfloat16))
 
 
 def test_lm_bench_moe_smoke():
@@ -442,9 +437,8 @@ def test_lm_bench_moe_smoke():
     assert all(np.isfinite(doc["losses"]))
     json.dumps(doc)
     for argv, text in ((["--dropless"], "need --moe"),
-                       (["--moe"], "capacity dispatch"),
-                       (["--moe", "--dropless", "--router", "expert_choice"],
-                        "expert-choice")):
+                       (["--ep", "2"], "--ep > 1 needs --moe"),
+                       (["--router", "expert_choice"], "need --moe")):
         with pytest.raises(SystemExit) as err:
             lm_bench.main(["--device", "cpu"] + argv)
         assert err.value.code == 2, (argv, text)

@@ -196,7 +196,7 @@ def test_strategy_contracts():
         topt.make_train_step(lambda p, b: None,
                              topt.gradient_allreduce(topt.sgd(0.1)),
                              reuse_batch=True)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="num_experts was not given"):
         tcompose.compose_parallelism(2, 1, 1, 1, 2, device="cpu")
     with pytest.raises(ValueError, match="gossip topology has 3 nodes"):
         tcompose.compose_parallelism(

@@ -6,14 +6,15 @@ Each case is ``(tile_eid, tile, E, D, F, splits)``: random, shuffled tile
 order, hostile (all but one tile on one expert), one expert empty, all
 rows on one expert, stacked-peer ids over ``[0, P * E)``, one-row tiles in
 a shuffled order, Zipf-skewed (exponent 1.2) at the trainer's steady-tick
-width, and forced wgrad splits.
+width, forced wgrad splits, and the fold of two expert-parallel owners
+whose trash tiles (id -1) follow each owner's last group.
 """
 import numpy as np
 import torch
 
 CASES = ["random", "shuffled", "hostile", "one_expert_empty",
          "all_on_one_expert", "stacked_peers", "tile_1_shuffled", "skewed",
-         "forced_splits"]
+         "forced_splits", "trash_tiles"]
 
 
 def routing(case):
@@ -33,5 +34,9 @@ def routing(case):
         "skewed": (np.sort(rng.choice(32, 8192, p=w / w.sum())), 8, 32,
                    1024, 2048, 0),
         "forced_splits": (np.sort(rng.integers(0, 4, 90)), 4, 4, 64, 128,
-                          3)}[case]
+                          3),
+        "trash_tiles": (np.concatenate(
+            [np.sort(rng.integers(0, 4, 40)), np.full(37, -1),
+             np.sort(rng.integers(4, 8, 45)), np.full(32, -1)]), 8, 8,
+            256, 512, 0)}[case]
     return torch.tensor(ids, dtype=torch.int32), tile, E, D, F, splits

@@ -30,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.collectives import all_to_all, psum
+from ..ops.collectives import all_to_all, peer_sum, psum
 from ..parallel.expert import (capacity_combine, capacity_dispatch,
                                choice_major, dropless_dispatch, gate_sum)
 from .dropless import grouped_ffn
@@ -135,7 +135,8 @@ def moe_dropless_combine(
     summed over the tp peers before the gate-weighted combine, as the JAX
     ``psum`` over ``"tp"`` inside ``grouped`` (there before the home
     ``all_to_all`` and the inverse sort; each tp peer routes the same
-    tokens alike, so the sum commutes with them bit for bit).  The ids
+    tokens alike, so the sum commutes with them bit for bit), the peers
+    added in order.  The ids
     come from the router and lie in range, so this takes the unchecked
     dispatch and reads nothing back to the host."""
     lead, (T, D) = x.shape[:-2], x.shape[-2:]
@@ -152,7 +153,9 @@ def moe_dropless_combine(
     out = dropless_dispatch(_groups(x_rep, n), _groups(flat[..., None], n)
                             [..., 0], grouped, wk, num_experts, tile)
     out = out.reshape(lead + (k * T, D))
-    return gate_sum(_psum(out, tp_dim), gate)
+    if tp_dim is not None:
+        out = peer_sum(out, tp_dim).unsqueeze(tp_dim).expand_as(out)
+    return gate_sum(out, gate)
 
 
 def moe_ffn_dropless(

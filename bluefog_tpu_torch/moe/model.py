@@ -1,5 +1,5 @@
 """The routed-MoE LM (counterpart of ``bluefog_tpu/moe/model.py``):
-serving at pp = tp = sp = ep = 1, and training at any gossip-DP x
+serving at any dp x pp x tp x ep carving, and training at any gossip-DP x
 pipeline x tensor x Ulysses x expert carving, with dropless or capacity
 dispatch and top-k or expert-choice routing.
 
@@ -10,8 +10,9 @@ dropless expert FFN: blocks hold ``wqkv``, ``wo``, ``wr [D, E]``, ``w1e
 [E, D, F]`` and ``w2e [E, F, D]`` in the JAX orientation.
 :func:`init_moe_params` draws bit-identical weights to the JAX
 ``init_moe_params`` (the serving module); :func:`moe_params_from_jax`
-loads a JAX MoE tree (carved at ep > 1 too: the experts of replica 0's
-ep peers joined).
+loads a JAX MoE tree: replica 0 as one module (at ep > 1 its ep peers'
+experts joined), or with the carving ``m`` every replica and peer in the
+serving engine's layout.
 
 Training: :func:`init_moe_train_params` and :func:`make_moe_batch` are
 the JAX tree and tokens bit for bit, stacked ``[n, ...]`` per peer as in
@@ -283,14 +284,33 @@ def init_moe_params(cfg: MoELMConfig, seed: int = 0, *,
 
 
 def moe_params_from_jax(tree: Mapping[str, Any], cfg: MoELMConfig, *,
-                        device: Optional[Union[str, torch.device]] = None
-                        ) -> MoELM:
-    """Build the port's MoE LM from a JAX ``init_moe_params`` tree carved
-    at pp = tp = 1 (leaves stacked ``[n_devices, ...]`` as numpy arrays
-    or anything ``np.asarray`` takes).  Replica 0 is served: at ep = 1
-    row 0; carved at ep > 1, rows ``0 .. ep - 1`` (replica 0's expert
-    peers, ep innermost in the flat order) each hold ``E / ep`` experts,
-    joined along the expert axis in owner order."""
+                        device: Optional[Union[str, torch.device]] = None,
+                        m: Optional[Mesh3D] = None
+                        ) -> Union[MoELM, "_compose.ServingParams"]:
+    """Build the port's MoE LM from a JAX ``init_moe_params`` tree (leaves
+    stacked ``[n_devices, ...]`` as numpy arrays or anything
+    ``np.asarray`` takes).
+
+    With ``m``, the carving the tree was made for (dp, pp, tp, sp, ep),
+    the whole carving loads into the serving engine's layout
+    (:class:`~bluefog_tpu_torch.parallel.compose.ServingParams` on
+    ``device``, default ``m.device``): every replica's rows, each
+    owner's ``E / ep`` experts cut ``F / tp`` by its tp peer, the router
+    once a replica (replicated over tp and ep).
+
+    Without ``m`` the tree must be carved at pp = tp = 1 and replica 0
+    is served: at ep = 1 row 0; carved at ep > 1, rows ``0 .. ep - 1``
+    (replica 0's expert peers, ep innermost in the flat order) each hold
+    ``E / ep`` experts, joined along the expert axis in owner order."""
+    if m is not None:
+        D, E = cfg.d_model, cfg.num_experts
+        Dl, Fl, El = D // m.tp, cfg.ffn_mult * D // m.tp, E // m.ep
+        return _compose._serving_from_tree(tree, cfg, m, device, [
+            ("blocks", "wqkv", "wqkv", (D, 3 * Dl), ("tp",)),
+            ("blocks", "wo", "wo", (Dl, D), ("tp",)),
+            ("router", "wr", "wr", (D, E), ()),
+            ("experts", "w1", "w1e", (El, D, Fl), ("tp", "ep")),
+            ("experts", "w2", "w2e", (El, Fl, D), ("tp", "ep"))])
     dev = resolve_device(device)
     E, D = cfg.num_experts, cfg.d_model
     want = (cfg.layers, E, D, cfg.ffn_mult * D)

@@ -29,7 +29,8 @@ import torch
 from ..schedule import CommSchedule
 
 __all__ = ["neighbor_allreduce", "allreduce", "allgather", "broadcast",
-           "psum", "pmean", "ppermute", "all_to_all", "_amax_scale"]
+           "psum", "peer_sum", "pmean", "ppermute", "all_to_all",
+           "_amax_scale"]
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -128,6 +129,16 @@ def psum(x: torch.Tensor, axis: int) -> torch.Tensor:
     """``lax.psum`` over the peers stacked along dim ``axis``: every peer
     gets the sum (a broadcast view of it)."""
     return x.sum(dim=axis, keepdim=True).expand_as(x)
+
+
+def peer_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The sum over the peers stacked along dim ``axis``, added in peer
+    order (``(x0 + x1) + x2 ...``, the order the JAX reference's ``psum``
+    over the tp axis adds them), that dim removed.  One peer: a view."""
+    out = x.select(axis, 0)
+    for t in range(1, x.shape[axis]):
+        out = out + x.select(axis, t)
+    return out
 
 
 def pmean(x: torch.Tensor, axis: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The composed decoder LM (counterpart of
-``bluefog_tpu/parallel/compose.py``): serving at tp = 1 (a pp-carved
-serving tree loads as one module whose stages run in order; the
-speculative draft is a prefix of those stages, :func:`draft_carve`), and
-training at any gossip-DP x pipeline x tensor x Ulysses x expert
+``bluefog_tpu/parallel/compose.py``): serving at any dp x pp x tp (x
+ep) carving (:class:`ServingParams`: every replica's and peer's weights
+as the serving engine reads them; a module is the carving of size 1;
+the speculative draft is a prefix of the stages, :func:`draft_carve`),
+and training at any gossip-DP x pipeline x tensor x Ulysses x expert
 carving.  The MoE LM (:mod:`bluefog_tpu_torch.moe.model`) reuses the
 attention half, :class:`AttnBlock`, and brings its own FFN.
 
@@ -36,7 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Any, Callable, Mapping, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Tuple,
+                    Union)
 
 import networkx as nx
 import numpy as np
@@ -54,7 +56,7 @@ from .pipeline import pipeline_apply
 
 __all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
            "init_lm_params", "params_from_jax", "_ln", "Mesh3D",
-           "DraftCarve", "draft_carve", "serving_carve",
+           "DraftCarve", "draft_carve", "serving_carve", "ServingParams",
            "compose_parallelism", "make_train_step", "init_lm_train_params",
            "make_lm_batch", "make_lm_grad_fn"]
 
@@ -286,10 +288,11 @@ class LMConfig:
 
 
 def serving_carve(pp: int = 1):
-    """The axes a serving engine on one card validates a config against:
-    ``pp`` pipeline stages run in order, everything else 1 (the JAX
-    engine's carving at dp = tp = sp = ep = 1)."""
-    return types.SimpleNamespace(pp=pp, tp=1, sp=1, ep=1, num_experts=None)
+    """The carving of a serving module on one card: ``pp`` pipeline
+    stages run in order, everything else 1 (the JAX engine's carving at
+    dp = tp = sp = ep = 1)."""
+    return types.SimpleNamespace(dp=1, pp=pp, tp=1, sp=1, ep=1,
+                                 num_experts=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,17 +467,34 @@ def init_lm_params(cfg: LMConfig, seed: int = 0, *,
 
 def params_from_jax(tree: Mapping[str, Any], cfg: LMConfig, *,
                     device: Optional[Union[str, torch.device]] = None,
-                    stacked: bool = False) -> Union[ComposeLM, dict]:
+                    stacked: bool = False, m: Optional["Mesh3D"] = None
+                    ) -> Union[ComposeLM, dict, "ServingParams"]:
     """Build the port's LM from a JAX ``init_lm_params`` /
-    ``checkpoint.load_for_serving`` tree carved at tp = 1 (leaves as
-    numpy arrays or anything ``np.asarray`` takes).  Leaves come stacked
-    ``[n_devices, ...]``.  By default row 0 becomes the serving module; a
-    tree carved at pp > 1 (each row holds ``layers / pp`` blocks, device
-    ``r * pp + s`` stage s of replica r) loads with the stages' blocks of
-    replica 0 joined in stage order.  With ``stacked=True`` (pp = tp = 1
-    only) the training tree ``{"blocks", "shared"}`` comes back as
-    stacked tensors with every row kept (ranks diverge once training
-    starts)."""
+    ``checkpoint.load_for_serving`` tree (leaves as numpy arrays or
+    anything ``np.asarray`` takes, stacked ``[n_devices, ...]``).
+
+    With ``m``, the carving the tree was made for (a :class:`Mesh3D` of
+    the same dp, pp, tp, sp and ep), the whole carving loads into the
+    serving engine's layout: :class:`ServingParams` on ``device``
+    (default ``m.device``), every replica's rows kept and the tp shards
+    as JAX cuts them (sp and ep peers hold copies of their replica's
+    blocks; their first is read).
+
+    Without ``m`` the tree must be carved at tp = 1: by default row 0
+    becomes the serving module; a tree carved at pp > 1 (each row holds
+    ``layers / pp`` blocks, device ``r * pp + s`` stage s of replica r)
+    loads with the stages' blocks of replica 0 joined in stage order.
+    With ``stacked=True`` (pp = tp = 1 only) the training tree
+    ``{"blocks", "shared"}`` comes back as stacked tensors with every row
+    kept (ranks diverge once training starts)."""
+    if m is not None:
+        D, F_ = cfg.d_model, cfg.ffn_mult * cfg.d_model
+        Dl, Fl = D // m.tp, F_ // m.tp
+        return _serving_from_tree(tree, cfg, m, device, [
+            ("blocks", "wqkv", "wqkv", (D, 3 * Dl), ("tp",)),
+            ("blocks", "wo", "wo", (Dl, D), ("tp",)),
+            ("blocks", "w1", "w1", (D, Fl), ("tp",)),
+            ("blocks", "w2", "w2", (Fl, D), ("tp",))])
     dev = resolve_device(device)
     shape = np.asarray(tree["blocks"]["wqkv"]).shape
     Lps = shape[1] if len(shape) == 4 else 0
@@ -495,6 +515,140 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LMConfig, *,
     shared = tree["shared"]
     return _load(ComposeLM(cfg), blocks, np.asarray(shared["embed"])[0],
                  np.asarray(shared["head"])[0]).to(dev)
+
+
+def _join(name: str, w: torch.Tensor) -> torch.Tensor:
+    """One replica's ``[tp, ...]`` (``[tp, ep, ...]``) shards of block
+    weight ``name`` joined into the weight of one module, peers in
+    order."""
+    if name == "wqkv":              # [tp, D, 3 Dl]: q, k, v thirds per peer
+        TP, D, _ = w.shape
+        return w.reshape(TP, D, 3, -1).permute(1, 2, 0, 3).reshape(D, -1)
+    if name == "w1":                # [tp, D, Fl]: columns per peer
+        return w.permute(1, 0, 2).reshape(w.shape[1], -1)
+    if name in ("wo", "w2"):        # [tp, rows / tp, D]: rows per peer
+        return w.reshape(-1, w.shape[-1])
+    if name == "w1e":               # [tp, ep, El, D, Fl]
+        TP, EP, El, D, Fl = w.shape
+        return w.permute(1, 2, 3, 0, 4).reshape(EP * El, D, TP * Fl)
+    if name == "w2e":               # [tp, ep, El, Fl, D]
+        TP, EP, El, Fl, D = w.shape
+        return w.permute(1, 2, 0, 3, 4).reshape(EP * El, TP * Fl, D)
+    return w                        # wr [D, E]: replicated
+
+
+@dataclasses.dataclass
+class ServingParams:
+    """A carving's serving weights on one card, as the serving engine
+    reads them: every replica's, every tp and ep peer's.
+
+    ``m`` is the carving (a :class:`Mesh3D`, or :func:`serving_carve`'s
+    for one module) and ``cfg`` the model's config.  ``embed [dp, V, D]``
+    and ``head [dp, D, V]`` are each replica's own.  ``blocks`` maps each
+    block weight to one tensor per layer (the stages' layers in order):
+    ``wqkv [dp, tp, D, 3 D / tp]`` (tp peer t's q, k and v columns, for
+    heads ``t * H / tp ..``), ``wo [dp, tp, D / tp, D]`` (its rows); the
+    dense LM's ``w1 [dp, tp, D, F / tp]`` and ``w2 [dp, tp, F / tp, D]``;
+    the MoE LM's ``wr [dp, D, E]`` (the router, replicated over tp and
+    ep), ``w1e [dp, tp, ep, E / ep, D, F / tp]`` and ``w2e [dp, tp, ep,
+    E / ep, F / tp, D]`` (owner e's experts, tp peer t's cut).  Replicas
+    may hold different weights: trained replicas diverge."""
+    m: Any
+    cfg: LMConfig
+    embed: torch.Tensor
+    head: torch.Tensor
+    blocks: Dict[str, List[torch.Tensor]]
+
+    @classmethod
+    def from_module(cls, model: ComposeLM, pp: int = 1) -> "ServingParams":
+        """One module (dense or MoE) as the carving of size 1 at ``pp``
+        stages: views of its parameters, nothing copied."""
+        moe = hasattr(model.blocks[0], "w1e")
+        names = ("wqkv", "wo", "wr", "w1e", "w2e") if moe else \
+            ("wqkv", "wo", "w1", "w2")
+        lead = {"wr": 1, "w1e": 3, "w2e": 3}
+        blocks = {n: [getattr(b, n)[(None,) * lead.get(n, 2)]
+                      for b in model.blocks] for n in names}
+        return cls(serving_carve(pp), model.cfg, model.embed[None],
+                   model.head[None], blocks)
+
+    def tensors(self):
+        """``(name, tensor)`` of every weight, layer by layer."""
+        yield "embed", self.embed
+        yield "head", self.head
+        for name, per_layer in self.blocks.items():
+            for i, t in enumerate(per_layer):
+                yield f"{name}[{i}]", t
+
+    def to(self, device: Union[str, torch.device]) -> "ServingParams":
+        return ServingParams(
+            self.m, self.cfg, self.embed.to(device), self.head.to(device),
+            {k: [t.to(device) for t in v] for k, v in self.blocks.items()})
+
+    def replica(self, r: int) -> ComposeLM:
+        """Replica ``r``'s weights joined into one serving module (the
+        tp shards' columns and rows, the ep owners' experts, in peer
+        order) on the weights' device: the carving of size 1 that serves
+        the same model."""
+        if "w1e" in self.blocks:
+            from ..moe.model import MoELM as cls
+        else:
+            cls = ComposeLM
+        with torch.device(self.embed.device):
+            model = cls(self.cfg)
+        with torch.no_grad():
+            model.embed.copy_(self.embed[r])
+            model.head.copy_(self.head[r])
+            for i, blk in enumerate(model.blocks):
+                for name, per_layer in self.blocks.items():
+                    getattr(blk, name).copy_(_join(name, per_layer[i][r]))
+        return model.requires_grad_(False)
+
+
+def _serving_from_tree(tree: Mapping[str, Any], cfg: LMConfig, m: "Mesh3D",
+                       device, leaves) -> ServingParams:
+    """The JAX serving tree of carving ``m`` in the :class:`ServingParams`
+    layout.  ``leaves``: ``(group, name, engine name, per-device shape
+    past [n, layers / pp], peer axes)`` with peer axes a subset of
+    ``("tp", "ep")`` in that order (the flat device order ``(((r * pp +
+    s) * tp + t) * sp + u) * ep + e``; sp peers and, for blocks without
+    the axis, ep peers hold copies: the first is read)."""
+    cfg.validate(m)
+    dev = m.device if device is None else resolve_device(device)
+    idx = np.arange(m.size).reshape(m.dp, m.pp, m.tp, m.sp, m.ep)
+    Lps = cfg.layers // m.pp
+    carving = (f"dp {m.dp} x pp {m.pp} x tp {m.tp} x sp {m.sp} x ep "
+               f"{m.ep}")
+
+    def leaf(x, name, tail):
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.array(x))
+        if tuple(t.shape) != tail:
+            raise ValueError(f"{name} {tuple(t.shape)} != {list(tail)}: the "
+                             f"tree must be the carving {carving} of this "
+                             "config")
+        return t
+
+    def pick(t, ids):
+        return t[torch.as_tensor(ids, device=t.device)]
+
+    blocks = {}
+    for group, name, key, tail, axes in leaves:
+        t = leaf(tree[group][name], name, (m.size, Lps) + tail)
+        ids = idx[:, :, slice(None) if "tp" in axes else 0, 0,
+                  slice(None) if "ep" in axes else 0]
+        x = pick(t, ids)                   # [dp, pp, *peers, Lps, *tail]
+        k = len(axes)
+        x = x.permute(1, 2 + k, 0, *range(2, 2 + k),
+                      *range(3 + k, x.ndim))
+        x = x.reshape((cfg.layers, m.dp) + tuple(x.shape[3:]))
+        blocks[key] = list(x.to(dev).contiguous().unbind(0))
+    V, D = cfg.vocab, cfg.d_model
+    first = idx[:, 0, 0, 0, 0]
+    shared = tree["shared"]
+    embed = pick(leaf(shared["embed"], "embed", (m.size, V, D)), first)
+    head = pick(leaf(shared["head"], "head", (m.size, D, V)), first)
+    return ServingParams(m, cfg, embed.to(dev).contiguous(),
+                         head.to(dev).contiguous(), blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Slotted paged KV cache (counterpart of ``bluefog_tpu/serve/kv_cache.py``).
 
-Layout, one device::
+Layout of one (replica, tp peer)'s cache, as the JAX device holds it::
 
     k, v: [layers, slots + prefix_slots + 1, kv_heads, max_len, head_dim]
 
@@ -10,6 +10,12 @@ their garbage kv to.  The layout is kv-head major, so one (row, head)'s
 key positions are contiguous and the flash-decode kernel
 (:mod:`bluefog_tpu_torch.ops.flash_decode`) streams ``[block_k,
 head_dim]`` blocks straight from device memory.
+
+A carving's caches live in one tensor (:func:`init_cache` with
+``replicas`` and ``tp``): replica r's rows at ``r * rows ..`` (its own
+slots, prefix pages and trash row) and tp peer t's kv heads at ``t *
+kv_heads ..``, so one kernel launch a layer serves every replica's lanes
+and every peer's heads, each lane reading only its replica's rows.
 
 Quantized storage (``store="int8"`` / ``"fp8"``) keeps the payload plus
 per-(position, head) f32 amax scales in ``k_scale`` / ``v_scale``: the
@@ -153,12 +159,16 @@ class KVCacheConfig:
 
 
 def init_cache(cfg: KVCacheConfig,
-               device: Optional[Union[str, torch.device]] = None) -> Cache:
+               device: Optional[Union[str, torch.device]] = None, *,
+               replicas: int = 1, tp: int = 1) -> Cache:
     """Zeroed cache: ``k``/``v`` payload pages, plus ``k_scale`` /
     ``v_scale`` when quantized.  On CUDA unless ``device`` says otherwise
-    (:func:`~bluefog_tpu_torch.device.resolve_device`)."""
+    (:func:`~bluefog_tpu_torch.device.resolve_device`).  ``replicas`` x
+    ``tp`` caches of ``cfg`` fold into one: ``[layers, replicas * rows, tp
+    * kv_heads, max_len, head_dim]`` (see the module docstring)."""
     device = resolve_device(device)
-    shape = (cfg.layers, cfg.rows, cfg.kv_heads, cfg.max_len, cfg.head_dim)
+    shape = (cfg.layers, replicas * cfg.rows, tp * cfg.kv_heads,
+             cfg.max_len, cfg.head_dim)
     dt = store_dtype(cfg.store, cfg.dtype)
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -206,16 +216,19 @@ def layer_append(cl: Cache, slots: torch.Tensor, lengths: torch.Tensor,
 
 def layer_append_chunk(cl: Cache, slots: torch.Tensor,
                        lengths: torch.Tensor, k_new: torch.Tensor,
-                       v_new: torch.Tensor, store: str = "raw") -> Cache:
+                       v_new: torch.Tensor, store: str = "raw",
+                       trash: Optional[torch.Tensor] = None) -> Cache:
     """A T-token chunk per lane: ``k_new/v_new`` are ``[S, T, kv_heads,
     head_dim]`` and token t of lane i lands at ``lengths[i] + t`` of
     ``slots[i]``.  Positions past ``max_len`` (the padding of a chunked
     prefill near the end of a slot) are dropped, as JAX's scatter drops
-    them: they go to the trash row, the last, which nothing reads."""
+    them: they go to a trash row, which nothing reads: ``trash[i]`` (each
+    lane's replica's own in a folded cache), else the last row."""
     T = k_new.shape[1]
     pos = lengths[:, None] + torch.arange(T, device=lengths.device)[None]
     past = pos >= cl["k"].shape[2]
-    rows = torch.where(past, cl["k"].shape[0] - 1, slots[:, None])
+    rows = torch.where(past, cl["k"].shape[0] - 1 if trash is None
+                       else trash[:, None], slots[:, None])
     pos = pos.masked_fill(past, 0)
     qk, sk = quantize_rows(k_new, store)
     qv, sv = quantize_rows(v_new, store)

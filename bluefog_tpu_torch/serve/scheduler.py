@@ -2,10 +2,11 @@
 admission, decode and retirement path of
 ``bluefog_tpu/serve/scheduler.py``).
 
-Each :meth:`Scheduler.step` admits queued requests into free slots
-(prefilling each one), runs one engine call at the smallest declared
-batch bucket that fits the active lanes, and retires requests that
-reached ``max_new_tokens`` or the KV-cache length ceiling.
+Each :meth:`Scheduler.step` admits queued requests into free slots of
+the engine's replicas (prefilling each one on its replica), runs one
+engine call for every replica at the smallest declared batch bucket that
+fits the busiest replica's lanes, and retires requests that reached
+``max_new_tokens`` or the KV-cache length ceiling.
 
 With prefix pages armed, each replica keeps a
 :class:`~bluefog_tpu_torch.serve.kv_cache.PrefixCache`: a prompt whose

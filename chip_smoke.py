@@ -59,6 +59,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    hit and cold, rounds, drafted and accepted tokens (random weights:
    the acceptance rate says nothing of a trained model), K3 launches by
    form, the cache's bytes, and the plain drain's numbers beside;
+3c (run after phase 13). the carved serving engine at phase 3's widths
+   (vocab 32768, d_model 1024, 16 heads, 8 layers) at dp 2 x pp 2 x tp 2
+   (the JAX serving fixture's carving), the JAX ``init_lm_params`` tree
+   loaded by ``params_from_jax(tree, cfg, m=m)``, replica 1's weights
+   redrawn on the card from another seed: phase 3's buckets (8 slots a
+   replica, max_len 1024, 4 steps a call, f32 pages) and its 16 greedy
+   requests of 32-512 prompt tokens and 64 new, spread over the two
+   replicas by the scheduler.  Every request completes; K3 launches
+   layers x decode steps (one launch a layer-step covers both replicas'
+   lanes and both tp peers' heads); each replica's streams equal a
+   carving-1 engine on that replica's joined weights
+   (``ServingParams.replica``) up to phase 3's near-tie rule, and the
+   first 4 requests replayed with K3 forced to its plain version too.
+   The ``serve_carved`` line: tokens/s, mean TTFT, decode ms per fused
+   step, requests per replica, K3 launches; a ``kernel_case`` of K3 at
+   the carved decode shape (16 lanes over 18 cache rows, 16 kv heads:
+   one launch's real arguments, captured from a decode call at the full
+   bucket) timed cold and warm beside its plain version, bound and SDPA;
 4. flash attention K1 (``flash_fwd``) and K2 (``flash_bwd_dkdv`` +
    ``flash_bwd_dq``) against their plain versions: B in {1, 4}, T 2048,
    16 q heads over 16 or 4 kv heads, head_dim 64 and 128, causal and not,
@@ -155,6 +173,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K4 launched layers x (rounds + chunk prefills + seals) times and
    phase 8's near-tie rule (router ties too) against the plain MoE
    drain;
+8c. the carved MoE engine: phase 8's model at dp 2 x tp 2 x ep 2 (each
+   owner 4 experts cut F / 2 by its tp peer; the JAX ``init_moe_params``
+   tree through ``moe_params_from_jax(tree, cfg, m=m)``, replica 1
+   redrawn from another seed), phase 8's 16 greedy requests.  Every
+   request completes; K4 launches layers x (prefills + decode steps)
+   (one call a decode layer-step for every replica, tp peer and ep owner,
+   the decode tile ``decode_tile(ep x 8 x 2, 4)``), K3 layers x decode
+   steps; ``moe_load()`` has one entry per replica; each replica's
+   streams equal a carving-1 engine on its joined experts, and 4 requests
+   replayed with K4 forced to its per-expert plain version give the same
+   streams, both up to phase 8's near-tie rule (router ties included).
+   The ``serve_moe_carved`` line: tokens/s, mean TTFT, decode ms per
+   step, K4 and K3 launches, the trash tiles of one decode call's K4
+   call; ``kernel_case`` lines of K3 and of K4 at the carved decode
+   shapes (K4: one call over 8 owners' buffers of 32 rows, half of them
+   trash tiles marked -1), beside their plain versions, bounds and
+   library yardsticks;
 12a (run after phase 8). K4's backward (``backward_plan_cuda``, then
    ``grouped_ffn_dgrad_cuda`` + ``grouped_ffn_wgrad_cuda`` under
    ``GroupedFFN``, f32) against the per-expert plain version under
@@ -232,6 +267,7 @@ The second-to-last line is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -829,6 +865,298 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
     return summary
 
 
+def _redraw_replica(params, r, seed):
+    """Replica ``r``'s every weight drawn anew on the card (N(0, 0.1), the
+    init's scale, from ``seed``): the replicas serve different models, so
+    a lane that read another replica's weights or cache rows would show."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for _, t in params.tensors():
+            t[r].normal_(0.0, 0.1, generator=g)
+
+
+def _capture(store, key, fn):
+    """``fn`` passing through, its first call's arguments kept."""
+    def call(*a, **kw):
+        store.setdefault(key, (a, kw))
+        return fn(*a, **kw)
+    return call
+
+
+def _carved_k3_case(fd, kv, args, kw):
+    """K3 at the carved decode shape, on one launch's captured arguments:
+    against its plain version (atol 1e-4), timed cold and warm, its plain
+    version, its bound and SDPA over pre-gathered pages."""
+    q, kl, vl, slots, lens = args
+    pre = {k: kw[k] for k in ("prefix_slots", "prefix_lens")
+           if kw.get(k) is not None}
+    scales = {k: kw[k] for k in ("k_scale", "v_scale")
+              if kw.get(k) is not None}
+
+    def kern():
+        return fd.flash_attend_rows(q, kl, vl, slots, lens,
+                                    block_k=kw["block_k"], **scales, **pre)
+
+    def plain():
+        return kv.attend_rows(q, kl, vl, slots, lens, **scales, **pre)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (err <= 1e-4 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"flash decode at the carved decode shape "
+                             f"disagrees with its plain version: {err}")
+    S, Hq, dh = q.shape
+    Hkv = kl.shape[1]
+    cl = {"k": kl, "v": vl, **scales}
+    lib_call, lib_err = _sdpa_yardstick(kv, q[:, None], cl, slots, lens,
+                                        pre, want[:, None])
+    bound, bound_by = _bound_ms(lens.cpu().numpy(), 1, Hkv, Hq // Hkv,
+                                kl.element_size(), q.element_size(),
+                                bool(scales), S, dh)
+    row = dict(case="carved_decode", S=S, Hkv=Hkv, rows=kl.shape[0],
+               T=1, store=str(kl.dtype)[6:],
+               splits=fd.split_plan(S, Hkv, L)[0], max_abs_err=err,
+               ms=_device_ms(kern, True), warm_ms=_device_ms(kern, False),
+               plain_ms=_device_ms(plain, True), bound_ms=bound,
+               bound_by=bound_by, library_ms=_device_ms(lib_call, True),
+               library_warm_ms=_device_ms(lib_call, False),
+               library_err=lib_err)
+    print("kernel_case " + json.dumps(row), flush=True)
+    return row
+
+
+def _carved_k4_case(gf, args, kw):
+    """K4 at the carved decode shape, on one call's captured arguments
+    (every owner's buffer, trash tiles marked -1, the stacked-peer
+    weights): against its plain version (1e-4 x max|plain|), timed cold
+    and warm, its plain version, its bound and the cuBLAS yardstick over
+    the live tiles' weights gathered beforehand."""
+    import torch.nn.functional as F
+    xt, eid, w1, w2 = args
+    rows = kw.get("rows")
+
+    def kern():
+        return gf.grouped_ffn(xt, eid, w1, w2, rows=rows)
+
+    def plain():
+        return gf.grouped_ffn_plain(xt, eid, w1, w2)
+
+    before = gf.grouped_ffn_cuda.launches
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if gf.grouped_ffn_cuda.launches != before + 1:
+        raise AssertionError("grouped_ffn at the carved decode shape: the "
+                             "kernel did not launch")
+    diff = (got - want).abs()
+    err, top = float(diff.max()), float(want.abs().max())
+    trash = eid < 0
+    if not (err <= 1e-4 * top and bool(torch.isfinite(got).all())
+            and bool((got[trash] == 0).all())):
+        raise AssertionError(f"grouped_ffn at the carved decode shape "
+                             f"disagrees with its plain version: {err} "
+                             f"(1e-4 x max|plain| = {1e-4 * top})")
+    live = ~trash
+    D, Fd = w1.shape[-2], w1.shape[-1]
+    idx, xl = eid[live].long(), xt[live]
+    w1g = w1.reshape(-1, D, Fd)[idx]
+    w2g = w2.reshape(-1, Fd, D)[idx]
+
+    def lib():
+        return torch.bmm(F.gelu(torch.bmm(xl, w1g), approximate="tanh"),
+                         w2g)
+
+    bound, bound_by = _k4_bound(xt, eid, w1)
+    G, tile, _ = xt.shape
+    row = dict(case="carved_decode", G=G, tile=tile, D=D, F=Fd,
+               owners=w1.shape[0], experts_per_owner=w1.shape[1],
+               trash_tiles=int(trash.sum()), rows_hint=rows,
+               experts_named=int(torch.unique(eid[live]).numel()),
+               max_abs_err=err, max_abs_plain=top,
+               ms=_device_ms(kern, True), warm_ms=_device_ms(kern, False),
+               plain_ms=_device_ms(plain, True, iters=5, warmup=1),
+               bound_ms=bound, bound_by=bound_by,
+               library_ms=_device_ms(lib, True),
+               library_warm_ms=_device_ms(lib, False),
+               library="cuBLAS torch.bmm + gelu + torch.bmm over "
+                       "pre-gathered weights")
+    print("kernel_case " + json.dumps(row), flush=True)
+    del w1g, w2g
+    return row
+
+
+def carved_serve_phase(fd, kv, smi, gf=None, layers_mod=None,
+                       profile=False):
+    """Phases 3c (dense, dp 2 x pp 2 x tp 2) and 8c (MoE, ``gf`` given:
+    dp 2 x tp 2 x ep 2): one drain of the carved engine at full width,
+    its launch counts, each replica against the carving-1 engine on its
+    joined weights, the plain-kernel replay, and the carved decode
+    shapes' kernel cases.  Returns ``(summary, k3_row, k4_row)``."""
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    moe = gf is not None
+    name = "serve_moe_carved" if moe else "serve_carved"
+    t0 = time.monotonic()
+    if moe:
+        cfg = moe_model.MoELMConfig(
+            vocab=32768, d_model=1024, heads=16, layers=8, ffn_mult=4,
+            num_experts=8, top_k=2, dispatch="dropless", group_tile=8)
+        m = compose.compose_parallelism(2, 1, 2, 1, 2, num_experts=8,
+                                        device=DEV)
+        params = moe_model.moe_params_from_jax(
+            moe_model.init_moe_train_params(cfg, m, seed=0), cfg, m=m)
+        extra = dict(moe_experts=8, moe_top_k=2, moe_ep=2)
+    else:
+        cfg = compose.LMConfig(vocab=32768, d_model=1024, heads=16,
+                               layers=8, ffn_mult=4)
+        m = compose.compose_parallelism(2, 2, 2, device=DEV)
+        params = compose.params_from_jax(
+            compose.init_lm_train_params(cfg, m, seed=0), cfg, m=m)
+        extra = {}
+    torch.cuda.empty_cache()
+    _redraw_replica(params, 1, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    scfg = dict(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
+                prefill_buckets=(64, 256, 512), decode_steps_per_call=4,
+                decode_kernel="pallas", decode_block_k=BK, **extra)
+    engine = ServeEngine(cfg, params, ServeConfig(**scfg), device=DEV)
+    engine.warmup()
+    torch.cuda.synchronize()
+    n_req, max_new = 16, 64
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(32, 513, n_req)]
+    sched = Scheduler(engine)
+    fd.flash_decode_cuda.launches = 0
+    if moe:
+        gf.grouped_ffn_cuda.launches = 0
+    t0 = time.monotonic()
+    for p in prompts:
+        sched.submit(p, max_new_tokens=max_new)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    k3 = fd.flash_decode_cuda.launches
+    k4 = gf.grouped_ffn_cuda.launches if moe else None
+    reqs = sorted(sched.completed, key=lambda r: r.id)
+    if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
+        raise AssertionError(f"{name}: {len(reqs)}/{n_req} requests done")
+    steps = sched.decode_steps
+    if k3 != cfg.layers * steps or k3 == 0:
+        raise AssertionError(f"{name}: flash decode launched {k3} times, "
+                             f"want layers {cfg.layers} x decode steps "
+                             f"{steps} (one launch for both replicas and "
+                             "tp peers)")
+    if moe and k4 != cfg.layers * (n_req + steps):
+        raise AssertionError(f"{name}: grouped_ffn launched {k4} times, "
+                             f"want layers {cfg.layers} x (prefills "
+                             f"{n_req} + decode steps {steps})")
+    per = [[r for r in reqs if r.replica == i] for i in range(m.dp)]
+    if not all(per):
+        raise AssertionError(f"{name}: a replica served no request")
+    load = engine.moe_load() if moe else None
+    if moe and len(load) != m.dp:
+        raise AssertionError(f"{name}: moe_load() has {len(load)} entries, "
+                             f"want one per replica ({m.dp})")
+    # the carved decode shapes' kernel cases, on one decode call's own
+    # arguments at the full bucket (every lane live, lengths spread)
+    S = scfg["batch_buckets"][-1]
+    lanes = np.tile(np.arange(S, dtype=np.int32), (m.dp, 1))
+    lens = np.tile(np.linspace(32, 900, S).astype(np.int32), (m.dp, 1))
+    seen = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            fd, "flash_attend_rows", _capture(seen, "k3",
+                                              fd.flash_attend_rows)))
+        if moe:
+            stack.enter_context(mock.patch.object(
+                gf, "grouped_ffn", _capture(seen, "k4", gf.grouped_ffn)))
+        engine.decode(np.zeros((m.dp, S), np.int32), lanes, lens)
+    torch.cuda.synchronize()
+    k3_row = _carved_k3_case(fd, kv, *seen["k3"])
+    k4_row = _carved_k4_case(gf, *seen["k4"]) if moe else None
+    del seen
+    if profile:
+        profile_phase(engine, "profile_" + name,
+                      shares=("expert_rows", "flash_decode") if moe
+                      else ("flash_decode",))
+    # each replica against the carving of size 1 on its joined weights
+    models, diverged = [], {}
+    top_k = cfg.top_k if moe else None
+    one_cfg = ServeConfig(**dict(scfg, moe_ep=1) if moe else scfg)
+    for i in range(m.dp):
+        joined = params.replica(i)
+        one = ServeEngine(cfg, joined, one_cfg, device=DEV)
+        one.warmup()
+        ref = Scheduler(one)
+        for r in per[i]:
+            ref.submit(r.prompt, max_new_tokens=max_new)
+        ref.drain()
+        want = sorted(ref.completed, key=lambda r: r.id)
+        diverged[i] = _stream_gate(f"{name} replica {i}", joined, per[i],
+                                   want, layers_mod, top_k)
+        models.append(joined)
+        del one, ref
+        torch.cuda.empty_cache()
+    # the first 4 replayed with the kernel forced to its plain version
+    if moe:
+        patch = mock.patch.object(gf, "grouped_ffn",
+                                  gf.grouped_ffn_plain_by_expert)
+        count = gf.grouped_ffn_cuda
+    else:
+        patch = mock.patch.object(fd, "flash_attend_rows",
+                                  _plain_decode_attention(kv)[0])
+        count = fd.flash_decode_cuda
+    with patch:
+        replay = Scheduler(engine)
+        for p in prompts[:4]:
+            replay.submit(p, max_new_tokens=max_new)
+        before = count.launches
+        replay.drain()
+        if count.launches != before:
+            raise AssertionError(f"{name}: the plain replay launched the "
+                                 "kernel")
+    replay_div = []
+    for a, b in zip(reqs[:4], sorted(replay.completed, key=lambda r: r.id)):
+        if a.replica != b.replica:
+            raise AssertionError(f"{name}: the replay admitted request "
+                                 f"{a.id} to replica {b.replica}, not "
+                                 f"{a.replica}")
+        replay_div += _stream_gate(f"{name} replay", models[a.replica],
+                                   [a], [b], layers_mod, top_k)
+    tokens = sum(len(r.generated) for r in reqs)
+    cc = engine.cache_cfg
+    summary = {
+        "run": name, "dp": m.dp, "pp": m.pp, "tp": m.tp, "ep": m.ep,
+        "requests": n_req, "max_new_tokens": max_new, "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "mean_ttft_s": float(np.mean([r.ttft for r in reqs])),
+        "decode_calls": sched.decode_calls, "decode_steps": steps,
+        "decode_ms_per_step": 1e3 * sched.decode_seconds / steps,
+        "decode_ms_per_token": 1e3 * sched.decode_seconds
+        / (tokens - n_req),
+        "requests_per_replica": [len(p) for p in per],
+        "k3_launches": k3, "k4_launches": k4,
+        "k3_formula": "layers x decode steps",
+        "k4_formula": "layers x (prefills + decode steps)" if moe else None,
+        "decode_tile": engine._moe_tile if moe else None,
+        "trash_tiles_per_decode_call": k4_row["trash_tiles"] if moe
+        else None,
+        "tiles_per_decode_call": k4_row["G"] if moe else None,
+        "moe_load_replicas": len(load) if moe else None,
+        "kv_cache_bytes": cc.bytes() * m.dp * m.tp, "init_s": init_s,
+        "stream_diverged": diverged, "replay_diverged": replay_div,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+    }
+    print(f"{name} " + json.dumps(summary), flush=True)
+    del engine, params, models
+    torch.cuda.empty_cache()
+    return summary, k3_row, k4_row
+
+
 def profile_phase(engine, tag="profile", shares=()):
     """One fused decode call at the full batch bucket: its wall time
     unprofiled (mean of 3), then its device time by kernel under
@@ -838,10 +1166,10 @@ def profile_phase(engine, tag="profile", shares=()):
     ``shares``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    S = engine.scfg.batch_buckets[-1]
-    lens = np.linspace(32, 900, S).astype(np.int32)[None]
-    toks = np.zeros((1, S), np.int32)
-    slots = np.arange(S, dtype=np.int32)[None]
+    S, R = engine.scfg.batch_buckets[-1], engine.replicas
+    lens = np.tile(np.linspace(32, 900, S).astype(np.int32), (R, 1))
+    toks = np.zeros((R, S), np.int32)
+    slots = np.tile(np.arange(S, dtype=np.int32), (R, 1))
     engine.decode(toks, slots, lens)
     t0 = time.monotonic()
     for _ in range(3):
@@ -862,6 +1190,7 @@ def profile_phase(engine, tag="profile", shares=()):
                                       "share": dt / total_us}))
     print(f"{tag} " + json.dumps({
         "steps": engine.scfg.decode_steps_per_call, "lanes": S,
+        "replicas": R,
         "decode_call_wall_ms": wall_ms, "device_busy_ms": total_us / 1e3,
         "busy_share": total_us / 1e3 / wall_ms,
         "kernel_shares": {name: sum(r[0] for r in rows if name in r[1])
@@ -1688,7 +2017,7 @@ def _k4_bound(xt, eid, w1, rate=None):
     (3xTF32), or the bf16 tensor-core rate for bf16; ``rate`` overrides
     it (the CUDA-core f32 bound of earlier versions)."""
     G, tile, D = xt.shape
-    Fd, item = w1.shape[2], xt.element_size()
+    Fd, item = w1.shape[-1], xt.element_size()
     live = eid[eid >= 0]
     experts, g_live = int(torch.unique(live).numel()), int(live.numel())
     nbytes = experts * 2 * D * Fd * item + (g_live + G) * tile * D * item \
@@ -3075,6 +3404,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["serve_fast"] = time.monotonic() - t0
 
+    # -- phase 3c: the carved engine (dp 2 x pp 2 x tp 2) ---------------
+    t0 = time.monotonic()
+    carved, k3_carved, _ = carved_serve_phase(fd, kv, smi,
+                                              profile=args.profile)
+    phase_s["serve_carved"] = time.monotonic() - t0
+
     # -- phase 4: flash attention K1/K2 against their plain versions ----
     t0 = time.monotonic()
     attn = attention_phase(fa)
@@ -3166,6 +3501,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["moe_serve_fast"] = time.monotonic() - t0
 
+    # -- phase 8c: the carved MoE engine (dp 2 x tp 2 x ep 2) ----------
+    t0 = time.monotonic()
+    moe_carved, k3_moe_carved, k4_carved = carved_serve_phase(
+        fd, kv, smi, gf, moe_layers, profile=args.profile)
+    phase_s["moe_serve_carved"] = time.monotonic() - t0
+
     # -- phase 12a: K4's backward against the per-expert plain version ---
     t0 = time.monotonic()
     k4_bwd = grouped_ffn_backward_phase(gf)
@@ -3202,7 +3543,14 @@ def main(argv=None) -> int:
     decode["launches_by_path"] = {
         "serve": launches, "serve_int8": launches_int8,
         "serve_fast": fast["k3_launches"], "moe_serve": k3_moe,
-        "moe_serve_fast": moe_fast["k3_launches"]}
+        "moe_serve_fast": moe_fast["k3_launches"],
+        "serve_carved": carved["k3_launches"],
+        "moe_serve_carved": moe_carved["k3_launches"]}
+    decode["carved_decode"] = {
+        tag: {key: row[key] for key in _ROW_KEYS + (
+            "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
+        for tag, row in (("serve_carved", k3_carved),
+                         ("moe_serve_carved", k3_moe_carved))}
     decode["chunk"] = {tag: {key: row[key] for key in _ROW_KEYS + (
         "warm_ms", "library_warm_ms", "rows", "tiles", "splits")}
         for tag, row in k3_chunk.items()}
@@ -3251,10 +3599,14 @@ def main(argv=None) -> int:
              launches_moe_train=moe_launches["grouped_ffn"],
              launches_by_path={"moe_serve": k4_launches,
                                "moe_serve_fast": moe_fast["k4_launches"],
+                               "moe_serve_carved": moe_carved["k4_launches"],
                                "moe_train": moe_launches["grouped_ffn"],
                                **{tag: n["grouped_ffn"] for tag, n in
                                   ep_launches.items()}},
              moe_train_ep2=k4_ep,
+             carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
+                 "warm_ms", "library_warm_ms", "G", "tile", "owners",
+                 "trash_tiles")},
              prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
                  "warm_ms", "bound_ms_simt")}),
         dict(_kernel_row("grouped_ffn_backward",

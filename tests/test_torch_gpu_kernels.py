@@ -1357,3 +1357,162 @@ def test_moe_grad_fn_remat_on_the_card(cuda):
     for group, leaves in out[0][1].items():
         for k, w in leaves.items():
             _close_grad(out[1][1][group][k], w)
+
+
+# ---------------------------------------------------------------------------
+# The carved serving engine: dp replicas x tp (x ep) peers on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [2, 4, 8])
+def test_grouped_ffn_decode_tiles_with_trash_match_plain(cuda, tile):
+    """K4 at the carved engine's decode tiles: 4 owners' buffers over
+    stacked-peer weights ``[4, 2, D, F]``, the back half of each owner's
+    tiles trash (id -1, input rows not zero here); every live row equals
+    the plain version's, the trash rows are zeros, one launch with the
+    plan sized by the live rows."""
+    rng = np.random.default_rng(tile)
+    P, el, per, D, F = 4, 2, 8, 256, 512
+    ids = []
+    for o in range(P):
+        ids += sorted(int(i) + o * el for i in rng.integers(0, el, per // 2))
+        ids += [-1] * (per // 2)
+    xt = torch.from_numpy(rng.normal(size=(len(ids), tile, D)).astype(
+        np.float32)).to(cuda)
+    w1 = torch.from_numpy((rng.normal(size=(P, el, D, F)) * D ** -0.5)
+                          .astype(np.float32)).to(cuda)
+    w2 = torch.from_numpy((rng.normal(size=(P, el, F, D)) * F ** -0.5)
+                          .astype(np.float32)).to(cuda)
+    eid = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    trash = eid < 0
+    before = gf.grouped_ffn_cuda.launches
+    got = gf.grouped_ffn(xt, eid, w1, w2,
+                         rows=int((~trash).sum()) * tile)
+    want = gf.grouped_ffn_plain(xt, eid, w1, w2)
+    torch.cuda.synchronize()
+    assert gf.grouped_ffn_cuda.launches == before + 1
+    assert bool((got[trash] == 0).all())
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "int8"])
+def test_flash_decode_folded_replicas_stay_apart(cuda, store):
+    """K3 over two replicas' caches folded into one (rows ``r * rows
+    ..``, the carved engine's layout): replica 1's lanes, attached to its
+    own prefix row or idle on its own trash row, give outputs bit for bit
+    independent of replica 0's rows (filled with other values, large
+    ones, between two launches), equal to the plain version's."""
+    rng = np.random.default_rng(5)
+    R, rows, Hkv, H, Lk, Dh = 2, 6, 4, 8, 128, 64   # 4 slots, prefix, trash
+    cl = {}
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.normal(size=(R * rows, Hkv, Lk, Dh))
+                             .astype(np.float32)).to(cuda)
+        if store == "f32":
+            cl[name] = x
+        else:
+            cl[name], sc = kv.quantize_rows(x, store)
+            cl[name + "_scale"] = sc.contiguous()
+    S = 4                                   # lanes a replica
+    slots = np.array([[0, 1, 2, 5], [0, 2, 3, 5]]) + \
+        np.arange(R)[:, None] * rows        # the last lane: trash row
+    lens = np.array([[70, 33, 127, 0], [64, 90, 17, 0]])
+    prows = np.array([[4, 5, 4, 5], [4, 4, 5, 5]]) + \
+        np.arange(R)[:, None] * rows        # prefix row 4, trash row 5
+    plens = np.array([[32, 0, 64, 0], [64, 32, 0, 0]])
+
+    def t(a):
+        return torch.tensor(a.reshape(-1), dtype=torch.int32, device=cuda)
+    q = torch.from_numpy(rng.normal(size=(R * S, H, Dh)).astype(
+        np.float32)).to(cuda)
+    args = (t(slots), t(lens))
+    kw = dict(k_scale=cl.get("k_scale"), v_scale=cl.get("v_scale"),
+              prefix_slots=t(prows), prefix_lens=t(plens), block_k=32)
+    first = fd.flash_attend_rows(q, cl["k"], cl["v"], *args, **kw)
+    want = kv.attend_rows(q, cl["k"], cl["v"], *args,
+                          **{k: v for k, v in kw.items() if k != "block_k"})
+    for name in ("k", "v"):                 # replica 0's rows change
+        cl[name][:rows] = (cl[name][:rows].float() * 3 + 5).to(
+            cl[name].dtype)
+    second = fd.flash_attend_rows(q, cl["k"], cl["v"], *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[S:], second[S:])
+    assert not torch.equal(first[:S], second[:S])
+    assert float((first - want).abs().max()) <= 1e-4
+
+
+def _carved_params(moe, device):
+    """Small carved params (JAX-equal draws through the loader), replica
+    1 redrawn from another seed: dense dp 2 x pp 2 x tp 2, or MoE dp 2 x
+    tp 2 x ep 2."""
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose
+    if moe:
+        cfg = moe_model.MoELMConfig(vocab=256, d_model=64, heads=4,
+                                    layers=2, num_experts=8, top_k=2,
+                                    dispatch="dropless", group_tile=4)
+        m = compose.compose_parallelism(2, 1, 2, 1, 2, num_experts=8,
+                                        device=device)
+        params = moe_model.moe_params_from_jax(
+            moe_model.init_moe_train_params(cfg, m, 2), cfg, m=m)
+    else:
+        cfg = compose.LMConfig(vocab=256, d_model=64, heads=4, layers=4)
+        m = compose.compose_parallelism(2, 2, 2, device=device)
+        params = compose.params_from_jax(
+            compose.init_lm_train_params(cfg, m, 2), cfg, m=m)
+    g = torch.Generator(device=device)
+    g.manual_seed(9)
+    with torch.no_grad():
+        for _, w in params.tensors():
+            w[1].normal_(0.0, 0.1, generator=g)
+    return cfg, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True])
+def test_carved_engine_on_the_card_matches_the_cpu(cuda, moe):
+    """The carved engine (dense dp 2 x pp 2 x tp 2; MoE dp 2 x tp 2 x ep
+    2) on the card against the same engine on the CPU: the same replica
+    for every request and the same streams, or a first divergence where
+    the replica's joined module has a top-2 logit gap below 1e-3 (K3 and
+    K4 sum in another order than their plain versions); K3 launches
+    layers x decode steps (one launch for both replicas and tp peers),
+    K4 layers x (prefills + decode steps)."""
+    from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    cfg, params = _carved_params(moe, "cpu")
+    extra = dict(moe_experts=8, moe_top_k=2, moe_ep=2) if moe else {}
+    scfg = ServeConfig(slots=4, max_len=128, batch_buckets=(1, 2, 4),
+                       prefill_buckets=(16, 32), decode_steps_per_call=2,
+                       decode_kernel="pallas", decode_block_k=16, **extra)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in (3, 9, 16, 30, 12, 5, 21, 8)]
+
+    def drain(device):
+        eng = ServeEngine(cfg, params, scfg, device=device)
+        sched = Scheduler(eng)
+        reqs = [sched.submit(p, max_new_tokens=10) for p in prompts]
+        sched.drain()
+        return sched, reqs
+
+    before = (fd.flash_decode_cuda.launches, gf.grouped_ffn_cuda.launches)
+    sched, got = drain(cuda)
+    torch.cuda.synchronize()
+    k3 = fd.flash_decode_cuda.launches - before[0]
+    k4 = gf.grouped_ffn_cuda.launches - before[1]
+    assert k3 == cfg.layers * sched.decode_steps
+    assert k4 == (cfg.layers * (len(prompts) + sched.decode_steps)
+                  if moe else 0)
+    _, want = drain("cpu")
+    models = [params.replica(r).to(cuda) for r in range(2)]
+    assert {a.replica for a in got} == {0, 1}
+    for a, b in zip(got, want):
+        assert a.replica == b.replica
+        assert len(a.generated) == len(b.generated) == 10
+        if a.generated != b.generated:
+            i = next(j for j, (x, y) in enumerate(zip(a.generated,
+                                                      b.generated)) if x != y)
+            assert _first_token_gap(models[a.replica],
+                                    a.prompt + a.generated[:i]) < 1e-3

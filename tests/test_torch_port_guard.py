@@ -209,3 +209,25 @@ def test_moe_training_refuses_a_missing_card(monkeypatch):
         gf.grouped_ffn_wgrad_cuda(xt, s, s, xt, eid, 2)
     assert (gf.grouped_ffn_dgrad_cuda.launches,
             gf.grouped_ffn_wgrad_cuda.launches) == before
+
+
+def test_carved_serving_refuses_a_missing_card(monkeypatch):
+    """The carved serving engine and the demo raise without a card unless
+    asked for the CPU; a CPU carving's params stay on the CPU."""
+    from bluefog_tpu_torch.parallel.compose import (LMConfig,
+                                                    compose_parallelism,
+                                                    init_lm_train_params,
+                                                    params_from_jax)
+    from bluefog_tpu_torch.serve import ServeConfig, ServeEngine
+    from bluefog_tpu_torch.serve import __main__ as demo
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LMConfig(layers=2)
+    m = compose_parallelism(2, 1, 2, device="cpu")
+    params = params_from_jax(init_lm_train_params(cfg, m), cfg, m=m)
+    assert params.embed.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params, ServeConfig())
+    eng = ServeEngine(cfg, params, ServeConfig(), device="cpu")
+    assert eng.cache["k"].device.type == "cpu" and eng.replicas == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.main(["--dp", "2", "--tp", "2"])

@@ -11,10 +11,10 @@ A JAX ``ServeEngine`` on one CPU device (dp = pp = tp = 1) and the port's
   four mixed-length requests with raw and int8 KV pages — the port's
   decode attention on the CPU is the plain version of the flash-decode
   kernel, the JAX engine's is its ``"xla"`` gather-then-attend path;
-* the config surface keeps the JAX rules; speculative decoding and
-  prefix pages are accepted and parse as the JAX config parses them
-  (their engine paths: tests/test_torch_serve_fast.py), expert-parallel
-  MoE serving is still refused by name.
+* the config surface keeps the JAX rules; speculative decoding, prefix
+  pages and expert-parallel MoE serving are accepted and parse as the
+  JAX config parses them (their engine paths:
+  tests/test_torch_serve_fast.py and tests/test_torch_serve_carved.py).
 """
 import json
 import os
@@ -209,6 +209,7 @@ def test_serve_config_rules_match_jax(monkeypatch):
 
 _FAST_FIELDS = ("spec_decode", "spec_stages", "prefix_pages",
                 "prefix_page_tokens", "decode_window")
+_MOE_FIELDS = ("moe_experts", "moe_top_k", "moe_ep", "moe_tile")
 
 
 @pytest.mark.parametrize("kw,env,match", [
@@ -218,22 +219,19 @@ _FAST_FIELDS = ("spec_decode", "spec_stages", "prefix_pages",
      "MoE serving"),
 ])
 def test_later_slices_refused_by_name(monkeypatch, kw, env, match):
-    """Speculative decoding and prefix pages are ported: the same kwargs
-    and env strings are accepted and parse as the JAX config's; expert-
-    parallel MoE serving is still refused by name."""
-    if match is None:
-        def fields(c):
-            return [getattr(c, f) for f in _FAST_FIELDS]
-        assert fields(ServeConfig(**kw)) == fields(JServeConfig(**kw))
-        monkeypatch.setenv(*env)
-        assert fields(ServeConfig.from_env()) == \
-            fields(JServeConfig.from_env())
-        return
-    with pytest.raises(ValueError, match=match + ".*not yet ported"):
-        ServeConfig(**kw)
+    """Speculative decoding, prefix pages and expert-parallel MoE serving
+    (``match`` names that case: its fields are the MoE knobs) are ported:
+    the same kwargs and env strings are accepted and parse as the JAX
+    config's."""
+    names = _MOE_FIELDS if match else _FAST_FIELDS
+
+    def fields(c):
+        return [getattr(c, f) for f in names]
+    assert fields(ServeConfig(**kw)) == fields(JServeConfig(**kw))
     monkeypatch.setenv(*env)
-    with pytest.raises(ValueError, match=match + ".*not yet ported"):
-        ServeConfig.from_env()
+    assert fields(ServeConfig.from_env()) == fields(JServeConfig.from_env())
+    if match:
+        assert ServeConfig.from_env().moe_ep == 2
 
 
 def test_demo_entry_point_on_cpu():
@@ -247,3 +245,42 @@ def test_demo_entry_point_on_cpu():
     doc = json.loads(p.stdout.strip().splitlines()[-1])
     assert doc["completed"] == 3 and doc["tokens"] == 12
     assert doc["device"] == "cpu"
+
+
+@pytest.mark.parametrize("argv,moe,want", [
+    (["--dp", "2", "--tp", "2"], "", (2, 1, 2, 1)),
+    (["--dp", "2"], "4x2@2", (2, 1, 1, 2)),
+])
+def test_demo_carved_on_cpu(argv, moe, want):
+    """The demo carves ``--dp`` replicas x ``--tp`` (x the ``@ep`` of
+    ``BLUEFOG_SERVE_MOE``) and prints the JAX demo's carving fields."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BLUEFOG_")}
+    if moe:
+        env["BLUEFOG_SERVE_MOE"] = moe
+    p = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.serve", "--device", "cpu",
+         "--requests", "4", "--layers", "2"] + argv,
+        cwd=REPO, capture_output=True, text=True, timeout=240, env=env)
+    assert p.returncode == 0, p.stderr[-2000:]
+    doc = json.loads(p.stdout.strip().splitlines()[-1])
+    assert (doc["replicas"], doc["pp"], doc["tp"], doc["ep"]) == want
+    assert doc["completed"] == 4 and doc["tokens"] == 16
+
+
+def test_serve_calls_tool_on_cpu():
+    """``tools/serve_calls.py`` times decode calls and counts the host's
+    operators a call; ``--ab`` runs two checkouts alternately (here this
+    one twice)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BLUEFOG_")}
+    p = subprocess.run(
+        [sys.executable, "-m", "bluefog_tpu_torch.tools.serve_calls",
+         "--device", "cpu", "--calls", "2", "--ab", REPO, "--pairs", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=240, env=env)
+    assert p.returncode == 0, p.stderr[-2000:]
+    docs = [json.loads(line) for line in p.stdout.strip().splitlines()]
+    assert [d["tree"] for d in docs] == ["parent", "change"]
+    for d in docs:
+        assert d["model"] == "dense" and d["ops_per_decode_call"] > 0
+        assert d["decode_call_ms_min"] <= d["decode_call_ms_median"]

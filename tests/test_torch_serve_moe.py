@@ -8,7 +8,8 @@ the CPU is the plain version of the grouped-FFN kernel K4, the JAX
 engine's the ``"xla"`` batched einsum:
 
 * ``BLUEFOG_SERVE_MOE`` parsing and the ``ServeConfig`` / engine MoE
-  rules keep the JAX error texts; ``moe_ep = 2`` is refused by name;
+  rules keep the JAX error texts; ``moe_ep = 2`` parses as in JAX (the
+  carved engine: tests/test_torch_serve_carved.py);
 * prefill logits agree within 1e-4;
 * greedy token streams through ``Scheduler.drain()`` are identical (top-2
   with raw and int8 KV pages, top-1 with raw pages);
@@ -165,15 +166,12 @@ def test_serve_config_moe_rules_match_jax(monkeypatch):
     got, want = ServeConfig.from_env(), JServeConfig.from_env()
     for f in ("moe_experts", "moe_top_k", "moe_ep", "moe_tile"):
         assert getattr(got, f) == getattr(want, f)
-    # expert parallelism is the one MoE knob still refused, by name
+    # expert parallelism parses as in JAX (served by the carved engine)
     monkeypatch.setenv("BLUEFOG_SERVE_MOE", "8x2@2")
-    JServeConfig.from_env()
-    with pytest.raises(ValueError,
-                       match="expert-parallel MoE serving.*not yet ported"):
-        ServeConfig.from_env()
-    with pytest.raises(ValueError,
-                       match="expert-parallel MoE serving.*not yet ported"):
-        ServeConfig(moe_experts=8, moe_ep=2)
+    got, want = ServeConfig.from_env(), JServeConfig.from_env()
+    for f in ("moe_experts", "moe_top_k", "moe_ep", "moe_tile"):
+        assert getattr(got, f) == getattr(want, f)
+    assert got.moe_ep == ServeConfig(moe_experts=8, moe_ep=2).moe_ep == 2
 
 
 def test_engine_moe_cross_checks_match_jax(cpu_devices):

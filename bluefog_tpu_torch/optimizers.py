@@ -47,7 +47,7 @@ __all__ = ["neighbor_communicator", "allreduce_communicator",
            "DecentralizedOptimizer", "gradient_allreduce",
            "adapt_with_combine", "adapt_then_combine", "init_distributed",
            "make_train_step", "stacked_grads", "adam", "sgd",
-           "state_from_jax"]
+           "replicate", "state_from_jax"]
 
 Communicator = Callable[[Any, int], Any]       # (params tree, step) -> tree
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
@@ -64,9 +64,22 @@ def adam(learning_rate: float) -> OptimizerFactory:
                                            betas=(0.9, 0.999), eps=1e-8)
 
 
-def sgd(learning_rate: float) -> OptimizerFactory:
-    """``optax.sgd(learning_rate)`` as a ``torch.optim.SGD`` factory."""
-    return lambda params: torch.optim.SGD(params, lr=learning_rate)
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> OptimizerFactory:
+    """``optax.sgd(learning_rate, momentum, nesterov)`` as a
+    ``torch.optim.SGD`` factory.
+
+    optax's momentum is ``trace``: ``v <- g + momentum * v`` (from ``v =
+    0``), then the update ``-lr * v``, or ``-lr * (g + momentum * v)``
+    with ``nesterov``.  That is ``torch.optim.SGD(momentum=momentum,
+    dampening=0)``, whose first step sets its buffer to ``g``.  Without
+    ``momentum`` (optax's ``None``) ``nesterov`` does nothing, as in
+    optax."""
+    if momentum is None:
+        return lambda params: torch.optim.SGD(params, lr=learning_rate)
+    return lambda params: torch.optim.SGD(
+        params, lr=learning_rate, momentum=momentum, dampening=0.0,
+        nesterov=nesterov)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +270,14 @@ def adapt_then_combine(opt: OptimizerFactory, comm: Communicator, *,
 # Train-step builder
 # ---------------------------------------------------------------------------
 
+def replicate(tree, n: int):
+    """Stack ``n`` copies of every leaf on a new leading rank axis.  The
+    JAX function broadcasts a view; the port's strategies update the stack
+    in place, so every rank gets its own copy."""
+    return tree_map(
+        lambda x: x.unsqueeze(0).repeat((n,) + (1,) * x.ndim), tree)
+
+
 def init_distributed(strategy: DecentralizedOptimizer, dist_params
                      ) -> DecentralizedState:
     """Initialize strategy state for stacked params.  The strategy sees the
@@ -367,8 +388,10 @@ def state_from_jax(jstate, strategy: DecentralizedOptimizer, params
     ``init_distributed`` and the train step leave it) onto ``params``, the
     port's stacked params: ``step`` -> step; optax adam ``count``/``mu``/
     ``nu`` -> the ``torch.optim.Adam`` state ``step``/``exp_avg``/
-    ``exp_avg_sq``; the delayed carry -> the carry.  Leaves pair up
-    in sorted-key order, as ``jax.tree.flatten`` visits them."""
+    ``exp_avg_sq``; the optax momentum ``trace`` -> the
+    ``torch.optim.SGD`` ``momentum_buffer``; the delayed carry -> the
+    carry.  Leaves pair up in sorted-key order, as ``jax.tree.flatten``
+    visits them."""
     state = strategy.init(params)
     opt = state.opt_state
     slots = opt.param_groups[0]["params"]
@@ -381,6 +404,11 @@ def state_from_jax(jstate, strategy: DecentralizedOptimizer, params
             opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
                             "exp_avg": _tensor_like(mu, p),
                             "exp_avg_sq": _tensor_like(nu, p)}
+    trace = _find(jstate.opt_state, lambda s: "trace"
+                  in getattr(s, "_fields", ()))
+    if trace is not None:
+        for p, v in zip(slots, tree_flatten(trace.trace)[0]):
+            opt.state[p] = {"momentum_buffer": _tensor_like(v, p)}
     carry = None
     if jstate.comm_state is not None:
         ref = slots[0]

@@ -4,8 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py`` (add
 ``--profile`` for a ``torch.profiler`` breakdown of one decode call, of
 one training step, with K1's and K2's device time and share, of one
-MoE decode call, and of one MoE training step with K1, K2, K4's forward
-and K4's backward).
+MoE decode call, of one MoE training step with K1, K2, K4's forward
+and K4's backward, and of one ResNet-50 bench call by operator class).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -259,7 +259,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    step 1 replayed through plain K1/K2 has the same loss (rtol 1e-5;
    flips only at near ties by 12c's rule, then the routing forced); capacity: dropped_fraction in [0,
    1); expert choice: usage exactly 1/E, aux 0, coverage in (0, 1].
-   s/step, tokens/s and peak memory.
+   s/step, tokens/s and peak memory;
+14. the ResNet-50 gossip benchmark (``tools/bench.py``, bench.py's path;
+   no K1-K4 on it: their launch counts stay 0 over the phase).  14a: the
+   step-1 loss, logits and gradients of bench.py's loss for ResNet-50 at
+   full width (224 x 224, 1000 classes, seeded weights with every
+   BatchNorm scale and bias drawn, 4 distinct seeded images and
+   labels), on the card and on the CPU in bf16 and f32, and on the CPU
+   in float64 as the reference (cuDNN's TF32 off for the f32 runs
+   only): the card's f32 error against the reference within 1e-4 x
+   max|g| a leaf (logits 1e-4 x max|logits|, loss rtol 1e-5) or twice
+   the CPU f32 run's own, no leaf all zero; each bf16 gap (card against
+   CPU) at most twice the card's own bf16-against-f32 gap; both f32
+   runs replay the reference's ReLU masks and max-pool picks, each
+   element that left the reference's side a near tie and such elements
+   few (the gates of ``bluefog_tpu_torch/tools/resnet_parity.py``; a
+   ``resnet_parity`` line).
+   14b: the bench's card defaults at 1
+   rank (batch 64, 5 steps a call, 1 warm-up and 10 timed calls): the
+   loss finite and falling (a ``bench`` line; ``--profile`` adds
+   ``profile_resnet`` lines: one call's device time by operator class and
+   the busy share, with the port's BatchNorm and with PyTorch's fused
+   batch norm in its place as a yardstick, and their bench runs in a
+   ``resnet_bn_yardstick`` line).  14c: 4 stacked ranks over weighted
+   Exp2 at batch 16 a rank: every rank's parameters equal within 1e-5 x
+   max|param| (same data, same start), the loss falls (a
+   ``bench_ranks4`` line).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3251,6 +3276,254 @@ def moe_route_phase(fa, gf, layers_mod, smi, tag, **kw):
     return summ["launches"], summ
 
 
+# -- phase 14: the ResNet-50 gossip benchmark --------------------------
+
+RESNET_IMAGES = 4             # 14a's batch
+
+
+def resnet_parity_phase(smi):
+    """14a: ResNet-50 at full width on the card against the CPU, f32 and
+    bf16, on one set of seeded weights with live BatchNorm scales, by
+    ``tools/resnet_parity.py``'s gates (a CPU float64 run is the
+    reference; both f32 runs replay its ReLU masks and max-pool picks)."""
+    from bluefog_tpu_torch.models import ResNet50
+    from bluefog_tpu_torch.tools import resnet_parity
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(
+        size=(RESNET_IMAGES, 224, 224, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, RESNET_IMAGES))
+    models = {name: ResNet50(num_classes=1000, dtype=dt,
+                             generator=torch.Generator().manual_seed(0))
+              for name, dt in (("f64", torch.float64),
+                               ("f32", torch.float32),
+                               ("bf16", torch.bfloat16))}
+    variables = resnet_parity.live_variables(models["f32"], seed=0)
+    assert len(resnet_parity.leaf_names(variables["params"])) == 161
+    summary = dict(images=RESNET_IMAGES, image_size=224, classes=1000,
+                   **resnet_parity.compare(models, variables, x, labels,
+                                           DEV),
+                   device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    print("resnet_parity " + json.dumps(summary), flush=True)
+    resnet_parity.check(summary)
+    return summary
+
+
+def resnet_bench_phase(smi, tag, argv):
+    """14b / 14c: ``tools/bench.py`` on the card; the loss finite and
+    falling, every rank's parameters equal (same data, same start)."""
+    from bluefog_tpu_torch.fusion import tree_flatten
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.tools import bench
+    doc, b = bench.run(bench.parse(argv))
+    spread = 0.0
+    for leaf in tree_flatten(b.params)[0]:
+        scale = float(leaf.abs().max())
+        if scale:
+            spread = max(spread, float((leaf - leaf[:1]).abs().max())
+                         / scale)
+    doc.update(param_rank_spread_rel=spread, nvidia_smi=smi)
+    print(f"{tag} " + json.dumps(doc), flush=True)
+    if not (np.isfinite(doc["loss_last"])
+            and doc["loss_last"] < doc["loss_first"]):
+        raise AssertionError(f"{tag}: the loss did not fall: "
+                             f"{doc['loss_first']} -> {doc['loss_last']}")
+    if spread > 1e-5:
+        raise AssertionError(f"{tag}: the ranks' parameters differ by "
+                             f"{spread} x max|param| (same data and start)")
+    context.shutdown()
+    del b
+    torch.cuda.empty_cache()
+    return doc
+
+
+_OP_CLASSES = (
+    ("conv_backward", ("aten::convolution_backward",)),
+    ("conv_forward", ("aten::convolution",)),
+    ("max_pool", ("aten::max_pool2d", "aten::max_pool2d_with_indices",
+                  "aten::max_pool2d_with_indices_backward")),
+    ("dtype_casts", ("aten::_to_copy",)),
+    ("library_batch_norm", ("aten::native_batch_norm",
+                            "aten::cudnn_batch_norm", "aten::_batch_norm",
+                            "aten::batch_norm", "aten::var_mean")),
+    ("gossip", ("bench.gossip",)),
+    ("optimizer", ("bench.optimizer",)),
+    ("bn_relu_residual_loss", ("bench.grad_fn",
+                               "autograd::engine::evaluate_function")))
+
+
+def _op_class(ev):
+    names = []
+    while ev is not None:
+        names.append(ev.name)
+        ev = ev.cpu_parent
+    for cls, keys in _OP_CLASSES:
+        if any(n in keys or any(n.startswith(k) for k in keys)
+               for n in names):
+            return cls
+    return "other"
+
+
+def profile_resnet(smi, ranks=1, batch=64, label="port"):
+    """One bench call (5 steps, ``batch`` a rank) under torch.profiler: device time
+    by operator class (the CPU op that launched each kernel, and its
+    callers: convs forward / backward, max pool, dtype casts, the
+    gossip, the optimizer, then the rest of forward and backward: the
+    port's BatchNorm as eager ops, ReLU, residual adds and the loss;
+    ``library_batch_norm`` holds PyTorch's batch-norm operators, which
+    only :func:`resnet_bn_yardstick` runs), and the busy share: the
+    device time over the wall time of the same call unprofiled (and
+    profiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.tools import bench
+
+    def labelled(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    comm = bfopt.neighbor_communicator
+    grad_fn = bench.make_grad_fn
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True      # as tools/bench.py runs
+    with mock.patch.object(bfopt, "_apply",
+                           labelled(bfopt._apply, "bench.optimizer")), \
+            mock.patch.object(bfopt, "neighbor_communicator",
+                              lambda *a, **kw: labelled(
+                                  comm(*a, **kw), "bench.gossip")), \
+            mock.patch.object(bench, "make_grad_fn",
+                              lambda m: labelled(grad_fn(m),
+                                                 "bench.grad_fn")):
+        b = bench.build(ranks=ranks, batch=batch, steps_per_call=5,
+                        image_size=224, num_classes=1000, device=DEV)
+        params, state, loss = b.step(b.params, b.state, b.data)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, state, loss = b.step(params, state, b.data)
+        torch.cuda.synchronize()
+        wall_unprofiled_ms = 1e3 * (time.monotonic() - t0)
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, loss = b.step(params, state, b.data)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    torch.backends.cudnn.benchmark = benchmark
+    # kernels only: the ranges (ours, and the optimizer's own) show on
+    # the device timeline too and would count their kernels twice
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0
+            and not ev.key.startswith(("bench.", "Optimizer."))]
+    total_us = sum(r[0] for r in rows)
+    for dt, key, count in sorted(rows, reverse=True)[:12]:
+        print("profile_resnet " + json.dumps({
+            "kernel": key[:90], "calls": count, "device_us": dt,
+            "share": dt / total_us}))
+    by_class = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.self_device_time_total:
+            cls = _op_class(ev)
+            by_class[cls] = by_class.get(cls, 0.0) + \
+                ev.self_device_time_total / 1e3
+    print("profile_resnet " + json.dumps({
+        "label": label, "ranks": ranks, "batch_per_rank": batch,
+        "steps": 5,
+        "call_wall_ms": wall_unprofiled_ms,
+        "call_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
+        "busy_share": total_us / 1e3 / wall_unprofiled_ms,
+        "busy_share_profiled": total_us / 1e3 / wall_ms,
+        "device_ms_by_class": by_class,
+        "unattributed_ms": total_us / 1e3 - sum(by_class.values()),
+        "share_by_class": {k: v / (total_us / 1e3)
+                           for k, v in by_class.items()},
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+        flush=True)
+    context.shutdown()
+    del b, params, state
+    torch.cuda.empty_cache()
+
+
+def _torch_batch_norm(self, x, train, updates=None):
+    """``BatchNorm.forward`` through one ``F.batch_norm`` call (PyTorch's
+    fused kernels; Welford statistics), the running statistics from one
+    ``var_mean``: the yardstick of :func:`resnet_bn_yardstick`."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch.models.layers import nchw
+    xf = x.float()
+    if train and updates is not None:
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, (0, 1, 2), correction=0)
+            updates[self.path] = {"mean": 0.9 * self.mean + 0.1 * mean,
+                                  "var": 0.9 * self.var + 0.1 * var}
+    running = (None, None) if train else (self.mean, self.var)
+    return nchw(F.batch_norm, xf, *running, self.scale, self.bias,
+                training=train, eps=self.epsilon)
+
+
+def resnet_bn_yardstick(smi):
+    """bench.py's case (1 rank x 64) with the port's ``BatchNorm`` (flax's
+    formula as eager ops) and with :func:`_torch_batch_norm` in its place:
+    each a bench run (5 timed calls) and a profiled call
+    (:func:`profile_resnet`, labelled).  PyTorch's version is not the
+    port's: it is what the library's fused batch norm costs (in the CPU
+    tests its f32 error on ResNet34 in train mode is 2.7x flax's own,
+    past their 2x floor, where flax's formula stays under it)."""
+    from bluefog_tpu_torch.models import layers
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.tools import bench
+    out = {}
+    for name, fwd in (("port", layers.BatchNorm.forward),
+                      ("torch_batch_norm", _torch_batch_norm)):
+        with mock.patch.object(layers.BatchNorm, "forward", fwd):
+            doc, b = bench.run(bench.parse(["--iters", "5"]))
+            context.shutdown()
+            del b
+            torch.cuda.empty_cache()
+            profile_resnet(smi, label=name)
+        out[name] = {"img_per_s": doc["value"],
+                     "per_step_s": doc["per_step_s"],
+                     "loss_first": doc["loss_first"],
+                     "loss_last": doc["loss_last"]}
+    print("resnet_bn_yardstick " + json.dumps({
+        "ranks": 1, "batch_per_rank": 64, "bench": out,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+        flush=True)
+
+
+def resnet_phase(fa, gf, fd, smi, profile):
+    """Phase 14: 14a parity, 14b bench.py's case, 14c four stacked ranks;
+    K1-K4 launch nothing on this path."""
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    # the bench runs under torch's own TF32 defaults (14a's f32 pair
+    # turns cuDNN's off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _launch_counts(fa, gf, reset=True)
+        fd.flash_decode_cuda.launches = 0
+        parity = resnet_parity_phase(smi)
+        bench1 = resnet_bench_phase(smi, "bench", [])
+        bench4 = resnet_bench_phase(smi, "bench_ranks4",
+                                    ["--ranks", "4", "--batch", "16"])
+        launches = dict(_launch_counts(fa, gf),
+                        flash_decode=fd.flash_decode_cuda.launches)
+        print("resnet_kernel_launches " + json.dumps(launches), flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"the ResNet path launched {launches}")
+        if profile:
+            resnet_bn_yardstick(smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return parity, bench1, bench4
+
+
 def _ptxas_functions(log, names):
     """ptxas's report (-Xptxas -v) for each entry function whose mangled
     name holds one of ``names``: registers, spill stores + loads, and any
@@ -3531,6 +3804,11 @@ def main(argv=None) -> int:
         route_launches[tag], _ = moe_route_phase(fa, gf, moe_layers, smi,
                                                  tag, **kw)
         phase_s[tag] = time.monotonic() - t0
+
+    # -- phase 14: the ResNet-50 gossip benchmark (no K1-K4) ------------
+    t0 = time.monotonic()
+    resnet_phase(fa, gf, fd, smi, args.profile)
+    phase_s["resnet_bench"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 

@@ -42,7 +42,10 @@ def test_port_imports_no_jax():
               "moe.layers", "moe.model", "parallel.expert",
               "parallel.pipeline", "parallel.tensor_parallel",
               "ops.collectives", "ops.ulysses", "models.transformer",
-              "tools.long_context", "tools.sp_bench"):
+              "tools.long_context", "tools.sp_bench", "models.layers",
+              "models.resnet", "models.mlp", "models.cnn", "models.vgg",
+              "parallel.context", "api", "tools.bench",
+              "tools.resnet_parity", "examples.average_consensus"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -231,3 +234,29 @@ def test_carved_serving_refuses_a_missing_card(monkeypatch):
     assert eng.cache["k"].device.type == "cpu" and eng.replicas == 2
     with pytest.raises(RuntimeError, match="device='cpu'"):
         demo.main(["--dp", "2", "--tp", "2"])
+
+
+def test_bench_context_and_consensus_refuse_a_missing_card(monkeypatch):
+    """The ResNet bench, the context's ``init`` and the consensus example
+    raise without a card unless asked for the CPU; nothing is left
+    initialized."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.examples import average_consensus
+    from bluefog_tpu_torch.tools import bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bf.shutdown()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bf.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bf.init(size=4)
+    assert not bf.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["--image-size", "32", "--classes", "10", "--batch", "1",
+                    "--steps-per-call", "1", "--iters", "1"])
+    assert not bf.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        average_consensus.main(["--data-size", "8"])
+    assert bf.init(size=2, device="cpu").device.type == "cpu"
+    bf.shutdown()

@@ -18,8 +18,9 @@ from .ops import collectives as _coll
 from .parallel import context as _ctx
 from .schedule import CommSchedule, compile_from_weights
 
-__all__ = ["neighbor_allreduce", "barrier", "synchronize", "hard_sync",
-           "resolve_schedule", "shard_distributed"]
+__all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
+           "barrier", "synchronize", "hard_sync", "resolve_schedule",
+           "shard_distributed"]
 
 
 def _check_distributed(x: torch.Tensor, n: int) -> None:
@@ -102,18 +103,54 @@ def neighbor_allreduce(
     src_weights=None,
     dst_weights=None,
     schedule: Optional[CommSchedule] = None,
+    step: Optional[int] = None,
     wire: Optional[str] = None,
     concurrent: Optional[bool] = None,
 ) -> torch.Tensor:
     """Weighted neighbor averaging of each rank's row (the flagship op;
     reference: ``bf.neighbor_allreduce``) under the schedule
-    :func:`resolve_schedule` picks.  Wire codecs are not ported yet and
-    raise."""
+    :func:`resolve_schedule` picks.  With a dynamic topology installed
+    (``set_dynamic_topology``) pass the iteration counter as ``step``: the
+    period's schedule ``step % period`` is used.  ``wire`` compresses the
+    gossiped bytes (``"bf16"``/``"int8"``/``"fp8"``, ``"@B"`` blocks)."""
     ctx = _ctx.get_context()
     _check_distributed(x, ctx.size)
+    dyn = ctx.dynamic_schedules
+    if (dyn and schedule is None and self_weight is None
+            and src_weights is None and dst_weights is None):
+        if step is None:
+            raise ValueError(
+                "a dynamic topology is installed; pass step= (the iteration "
+                "counter) so the period's schedule can be selected")
+        schedule = dyn[int(step) % len(dyn)]
     sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
     return _coll.neighbor_allreduce(x, sched, wire=wire,
                                     concurrent=concurrent)
+
+
+def hierarchical_neighbor_allreduce(
+    x: torch.Tensor,
+    *,
+    self_weight=None,
+    src_machine_weights=None,
+    dst_machine_weights=None,
+    schedule: Optional[CommSchedule] = None,
+    wire: Optional[str] = None,
+    concurrent: Optional[bool] = None,
+) -> torch.Tensor:
+    """Machine-level neighbor averaging (reference: ``mpi_ops.py:848-864``):
+    the mean over each machine's local ranks, then gossip over the machine
+    topology, the result replicated within each machine.  Machine weights
+    resolve as :func:`resolve_schedule` does at machine scope.  ``wire``
+    compresses the machine hop only (default: ``set_dcn_wire`` /
+    ``BLUEFOG_DCN_WIRE``; ``"off"`` forces full width)."""
+    ctx = _ctx.get_context()
+    _check_distributed(x, ctx.size)
+    sched = resolve_schedule(
+        self_weight, src_machine_weights, dst_machine_weights, schedule,
+        size=ctx.machine_size, default_schedule=_ctx.machine_schedule)
+    return _coll.hierarchical_neighbor_allreduce(x, sched, wire=wire,
+                                                 concurrent=concurrent)
 
 
 def synchronize(x):

@@ -30,8 +30,10 @@ Megatron tp with a ``psum`` after ``wo`` and after ``w2``, and Ulysses
 over sp around the K1/K2 flash kernels
 (:func:`~bluefog_tpu_torch.ops.ulysses.ulysses_attention`).  The expert
 axis shards the MoE LM's experts and batch rows; the dense LM, as in
-JAX, runs a full copy of the replica on each of its ep peers.  Gossip
-wire codecs are not ported yet and raise.
+JAX, runs a full copy of the replica on each of its ep peers.  A
+``wire`` codec compresses the gossip between replicas (each peer encodes
+its own buffer, as each JAX device does); the intra-replica collectives
+stay full width.
 """
 from __future__ import annotations
 
@@ -70,9 +72,8 @@ class Mesh3D:
     replicas (not over all peers); ``device`` is where the stacked tensors
     live.  ``num_experts`` / ``capacity_factor`` are the JAX carving's
     metadata for the MoE model it will run (see
-    :class:`bluefog_tpu_torch.moe.model.MoELMConfig`).  ``wire`` is None
-    until the wire codecs are ported; it is kept so :meth:`describe` has
-    the JAX carving's keys."""
+    :class:`bluefog_tpu_torch.moe.model.MoELMConfig`).  ``wire`` is the
+    codec the gossip between replicas travels in (None: full width)."""
     dp: int
     topology: nx.DiGraph
     is_weighted: bool
@@ -84,7 +85,7 @@ class Mesh3D:
     ep: int = 1
     num_experts: Optional[int] = None
     capacity_factor: Optional[float] = None
-    wire = None
+    wire: Optional[str] = None
 
     @property
     def size(self) -> int:
@@ -145,7 +146,8 @@ def compose_parallelism(
     unless the caller asks for another) in the JAX flat device order, ep
     innermost.  The checks the JAX function shares keep its error texts
     (``num_experts`` is required at ep > 1 and must split over it);
-    ``wire`` raises "not yet ported".  ``topology``: the gossip graph over
+    ``wire`` is the gossip's codec, checked here (and refused at dp = 1,
+    which has no gossip edges).  ``topology``: the gossip graph over
     the ``dp`` replicas, an ``nx.DiGraph`` with exactly ``dp`` nodes or a
     callable ``f(dp) -> DiGraph`` (default ``ExponentialTwoGraph(dp)``);
     ``weighted`` compiles the graph's own weights (vs the uniform
@@ -179,12 +181,12 @@ def compose_parallelism(
         raise ValueError(
             f"capacity_factor={capacity_factor!r} must be a positive number")
     if wire is not None:
+        from ..ops import collectives as _coll
+        _coll._check_wire(wire)       # eager: fail at carve, not at step
         if dp == 1:
             raise ValueError(
                 "wire codec applies to gossip permutes only; a dp=1 "
                 "carving has no gossip edges to compress")
-        raise ValueError(f"wire codec {wire!r}: wire codecs are not yet "
-                         "ported to bluefog_tpu_torch")
     dev = resolve_device(device)
     if topology is None:
         topo = topo_util.ExponentialTwoGraph(dp) if dp > 1 \
@@ -204,7 +206,8 @@ def compose_parallelism(
                   pp=int(pp), tp=int(tp), sp=int(sp), ep=int(ep),
                   num_experts=num_experts,
                   capacity_factor=(None if capacity_factor is None
-                                   else float(capacity_factor)))
+                                   else float(capacity_factor)),
+                  wire=wire)
 
 
 def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
@@ -213,7 +216,7 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     concurrent: Optional[bool] = None):
     """Wire the carving through the step machinery: a
     ``neighbor_communicator`` that gossips over the ``dp`` replicas for
-    every (stage, tp, sp, expert) coordinate, ``opt`` (a ``torch.optim`` factory
+    every (stage, tp, sp, expert) coordinate (through ``m.wire``), ``opt`` (a ``torch.optim`` factory
     such as :func:`bluefog_tpu_torch.optimizers.adam`) wrapped in
     ``adapt_with_combine(delayed=...)``, and
     :func:`bluefog_tpu_torch.optimizers.make_train_step`, which calls
@@ -221,7 +224,7 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     (see :func:`make_lm_grad_fn`).  Returns ``(step, strategy)``; the
     strategy is needed for ``init_distributed(strategy, params)``."""
     from .. import optimizers as bfopt
-    comm = bfopt.neighbor_communicator(m.schedule, fuse=fuse,
+    comm = bfopt.neighbor_communicator(m.schedule, fuse=fuse, wire=m.wire,
                                        concurrent=concurrent,
                                        slice_size=m.slice_size)
     strategy = bfopt.adapt_with_combine(opt, comm, delayed=delayed)

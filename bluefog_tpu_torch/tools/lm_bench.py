@@ -5,7 +5,8 @@ Trains the composed LM at the carving ``--dp`` x ``--pp`` x ``--tp`` x
 peer stacked on
 one device: gossip over the ``dp`` replicas (``adapt_with_combine`` over
 ``ExponentialTwoGraph(dp)``, ``delayed`` unless ``--no-delayed``, Adam at
-5e-3), GPipe stages, Megatron tp and Ulysses sp inside each replica.  It
+5e-3; ``--wire`` names the gossip's codec, as in the JAX tool), GPipe
+stages, Megatron tp and Ulysses sp inside each replica.  It
 prints one JSON line: per-step time, tokens per second (``dp x micro x
 batch x seq`` tokens a step), the first and last mean loss, the
 carving's ``describe()``, the config, the peak device memory, and
@@ -75,6 +76,8 @@ def _parse(argv=None):
                     help="Ulysses sequence ways")
     ap.add_argument("--ep", type=int, default=1,
                     help="expert-parallel ways (requires --moe)")
+    ap.add_argument("--wire", default=None,
+                    help="gossip DCN codec (bf16 / fp8 / fp8@64 / int8@...)")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length (default 2048; smoke 32)")
     ap.add_argument("--layers", type=int, default=None)
@@ -178,7 +181,8 @@ def main(argv=None) -> dict:
     else:
         cfg, carve_kw = compose.LMConfig(**dense), {}
     m = compose.compose_parallelism(args.dp, args.pp, args.tp, args.sp,
-                                    args.ep, device=dev, **carve_kw)
+                                    args.ep, device=dev, wire=args.wire,
+                                    **carve_kw)
     cfg.validate(m)
     iters = args.iters or (4 if smoke else 8)
     steps_per_call = args.steps_per_call or (1 if smoke else 4)

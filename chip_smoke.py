@@ -284,7 +284,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``resnet_bn_yardstick`` line).  14c: 4 stacked ranks over weighted
    Exp2 at batch 16 a rank: every rank's parameters equal within 1e-5 x
    max|param| (same data, same start), the loss falls (a
-   ``bench_ranks4`` line).
+   ``bench_ranks4`` line);
+15. the strategy benchmark (``bluefog_tpu_torch/examples/benchmark.py``,
+   the port of ``examples/benchmark.py``; no K1-K4 on it: their launch
+   counts stay 0 over the phase).  15a: seeded f32 buffers [8, 2^20]
+   (rows 1e-3 to 1e4 in magnitude, an all-zero row, a subnormal row)
+   encoded for bf16, int8, int8@256, fp8 and fp8@64 on the card and on
+   the CPU: payloads, scales and decodes bit-identical, the subnormal
+   row's scale alone free, the quantizers storing zeros for it (a
+   ``codec_parity`` line).  15b: the example's ``--model mlp`` at 8
+   ranks, seeded rank-varying data, 5 steps of each of 15 variants
+   (neighbor_allreduce AWC / ATC / dynamic / bf16 / int8 wire,
+   gradient_allreduce, allreduce, empty, hierarchical, win_put,
+   pull_get, push_sum, choco, zero_allreduce, powersgd) on the card
+   (TF32 off) and on the CPU: each leaf within 1e-5 x max|leaf| or twice
+   the CPU f32 run's distance from a CPU float64 run, push-sum's weights
+   summing to n within 1e-6 x n, zero_allreduce = gradient_allreduce
+   within 1e-6 x max|param|, the gradient-averaging strategies' ranks
+   bit-equal (a ``strategy_parity`` line; the gates of
+   ``bluefog_tpu_torch/tools/strategy_parity.py``).  15c: the example at
+   its defaults (ResNet-50, 224 x 224, 1000 classes, batch 32 a rank,
+   SGD 0.01 momentum 0.9, 8 stacked ranks on weighted Exp2), 1 warm-up
+   and 10 timed steps for the default variant and 3 for the 14 others:
+   the loss finite and falling, every rank's parameters equal within
+   1e-5 x max|param| (same start, same data); one
+   ``benchmark_strategy`` line a variant (img/s, s/step, peak memory,
+   the bytes a rank puts on the wire a step from the schedule tables
+   and the codecs' widths).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3524,6 +3550,88 @@ def resnet_phase(fa, gf, fd, smi, profile):
     return parity, bench1, bench4
 
 
+# -- phase 15: the strategy benchmark --------------------------------
+
+def strategy_bench_phase(smi, variant, iters):
+    """15c: one variant of ``examples/benchmark.py`` at its defaults."""
+    from bluefog_tpu_torch.examples import benchmark as ex
+    from bluefog_tpu_torch.fusion import tree_flatten
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.tools import strategy_parity as sp
+    args = ex.parse(sp.argv(variant, "--num-iters", str(iters)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = ex.run(args)
+    leaves = tree_flatten(res["params"])[0]
+    spread = 0.0
+    for leaf in leaves:
+        scale = float(leaf.abs().max())
+        if scale:
+            spread = max(spread, float((leaf - leaf[:1]).abs().max())
+                         / scale)
+    first = float(res["loss_first"].mean())
+    last = float(res["loss_last"].mean())
+    doc = {"variant": variant[0], "label": ex.label(args),
+           "model": args.model, "ranks": args.ranks,
+           "batch_per_rank": args.batch_size, "image_size": 224,
+           "num_classes": 1000, "warmup": args.num_warmup, "iters": iters,
+           "img_per_s": res["img_per_s"], "s_per_step": res["step_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "wire_bytes_per_rank_step": ex.wire_bytes_per_rank(
+               args, res["params"], res["run"].schedules),
+           "loss_first": first, "loss_last": last,
+           "param_rank_spread_rel": spread,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("benchmark_strategy " + json.dumps(doc), flush=True)
+    context.shutdown()
+    del res, leaves
+    torch.cuda.empty_cache()
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"{variant[0]}: the loss did not fall: "
+                             f"{first} -> {last}")
+    if spread > 1e-5:
+        raise AssertionError(f"{variant[0]}: the ranks' parameters differ "
+                             f"by {spread} x max|param| (same data, start)")
+    return doc
+
+
+def strategy_phase(fa, gf, fd, smi, default_iters=10, other_iters=3):
+    """Phase 15: 15a codecs and 15b every strategy (card against CPU),
+    15c the example at full width; K1-K4 launch nothing."""
+    from bluefog_tpu_torch.tools import strategy_parity as sp
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _launch_counts(fa, gf, reset=True)
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.monotonic()
+        codecs = sp.codec_parity(DEV)
+        print("codec_parity " + json.dumps(codecs), flush=True)
+        sp.check_codecs(codecs)
+        parity = sp.strategy_parity(DEV)
+        parity["nvidia_smi"] = smi
+        print("strategy_parity " + json.dumps(sp.flat_summary(parity)),
+              flush=True)
+        sp.check_strategies(parity)
+        t_parity = time.monotonic() - t0
+        # 15c under torch's own TF32 default for cuDNN, as phase 14
+        torch.backends.cudnn.allow_tf32 = True
+        docs = [strategy_bench_phase(
+            smi, v, default_iters if v[0] == "awc" else other_iters)
+            for v in sp.VARIANTS]
+        launches = dict(_launch_counts(fa, gf),
+                        flash_decode=fd.flash_decode_cuda.launches)
+        print("strategy_kernel_launches " + json.dumps(launches),
+              flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"the strategy path launched {launches}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return codecs, parity, docs, t_parity
+
+
 def _ptxas_functions(log, names):
     """ptxas's report (-Xptxas -v) for each entry function whose mangled
     name holds one of ``names``: registers, spill stores + loads, and any
@@ -3809,6 +3917,11 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     resnet_phase(fa, gf, fd, smi, args.profile)
     phase_s["resnet_bench"] = time.monotonic() - t0
+
+    # -- phase 15: the strategy benchmark (no K1-K4) --------------------
+    t0 = time.monotonic()
+    _, _, _, phase_s["strategy_parity"] = strategy_phase(fa, gf, fd, smi)
+    phase_s["strategy_bench"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 

@@ -12,12 +12,11 @@ JAX package, on the CPU.
   ResNet-50 variables at 32 x 32, then optax's update (rtol 1e-5); the
   BatchNorm running statistics stay bit for bit at init (zero
   gradients, and the combine of equal ranks at weights 1/2 is exact);
-* ``python -m bluefog_tpu_torch.tools.bench --device cpu`` at the tiny
-  flags prints one JSON line with every schema key.
+* the CLI's ``main`` (``python -m bluefog_tpu_torch.tools.bench
+  --device cpu``), run in process at the tiny flags, prints one JSON
+  line with every schema key.
 """
 import json
-import os
-import subprocess
 import sys
 
 import jax
@@ -38,8 +37,8 @@ from bluefog_tpu_torch.fusion import tree_flatten
 from bluefog_tpu_torch.models import (ResNet50, variables_from_jax,
                                       variables_to_jax)
 from bluefog_tpu_torch.tools import bench
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
-REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 N = 4
 KEYS = {"schema", "metric", "value", "unit", "vs_baseline", "ok",
         "strategy", "on_accelerator", "device", "n_chips", "batch_per_chip",
@@ -236,14 +235,13 @@ def test_bench_first_losses_are_bench_py_losses(jax_bench_losses):
                for r in range(2))
 
 
-def test_bench_cli_tiny_cpu_run():
-    p = subprocess.run(
-        [sys.executable, "-m", "bluefog_tpu_torch.tools.bench", "--device",
-         "cpu", "--image-size", "32", "--classes", "10", "--batch", "2",
-         "--steps-per-call", "2", "--iters", "1", "--ranks", "2"],
-        cwd=REPO, capture_output=True, text=True, timeout=240)
-    assert p.returncode == 0, p.stderr[-3000:]
-    lines = p.stdout.strip().splitlines()
+def test_bench_cli_tiny_cpu_run(capsys):
+    """The CLI in process, at 32 x 32 images."""
+    assert bench.main(["--device", "cpu", "--image-size", "32",
+                       "--classes", "10", "--batch", "2",
+                       "--steps-per-call", "2", "--iters", "1",
+                       "--ranks", "2"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     doc = json.loads(lines[0])
     assert KEYS <= set(doc)
@@ -252,7 +250,7 @@ def test_bench_cli_tiny_cpu_run():
     assert doc["on_accelerator"] is False and doc["device"] == "cpu"
     assert doc["mfu"] is None and doc["power_limit_w"] is None
     assert (doc["n_chips"], doc["n_ranks"], doc["batch_per_chip"],
-            doc["steps_per_call"]) == (1, 2, 4, 2)
+            doc["steps_per_call"], doc["image_size"]) == (1, 2, 4, 2, 32)
     assert doc["value"] > 0 and np.isfinite(doc["loss_last"])
     assert doc["loss_last"] < doc["loss_first"]
     assert doc["step_flops"] == 3 * 4.089e9 * 2 * 2

@@ -22,6 +22,7 @@ from bluefog_tpu_torch import fusion as tfusion
 from bluefog_tpu_torch import schedule as tsch
 from bluefog_tpu_torch import topology as ttopo
 from bluefog_tpu_torch.ops import collectives as tcoll
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 N = 8
 TOPOS = ["ExponentialTwoGraph", "RingGraph", "StarGraph", "MeshGrid2DGraph",
@@ -87,8 +88,14 @@ def test_dst_weighted_and_irregular_schedule_matches_jax(cpu_devices):
     want = np.asarray(fn(jnp.asarray(x)))
     got = tcoll.neighbor_allreduce(torch.from_numpy(x), tsched).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcoll.neighbor_allreduce(torch.from_numpy(x), tsched, wire="bf16")
+    # the wire codecs ride the dst-scaled sends (tests/test_torch_wire.py
+    # holds every codec to JAX; here bf16 on this schedule)
+    wfn = _jax_op(cpu_devices, lambda b: jcoll.neighbor_allreduce(
+        b, jsched, axis="rank", wire="bf16"))
+    np.testing.assert_allclose(
+        tcoll.neighbor_allreduce(torch.from_numpy(x), tsched,
+                                 wire="bf16").numpy(),
+        np.asarray(wfn(jnp.asarray(x))), rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match=r"stacked \[n=8"):
         tcoll.neighbor_allreduce(torch.from_numpy(x[:4]), tsched)
 

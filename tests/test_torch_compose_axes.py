@@ -51,6 +51,7 @@ from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.parallel.pipeline import (last_stage_value,
                                                  pipeline_apply)
 from bluefog_tpu_torch.parallel.tensor_parallel import TPMlpBlock
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 CARVINGS = [(2, 2, 2, 1), (2, 1, 2, 2), (1, 2, 2, 2), (2, 1, 1, 4)]
 
@@ -382,8 +383,10 @@ def test_carving_contracts(cpu_devices):
     assert (m.size, m.slice_size, m.ep) == (16, 8, 1)
     with pytest.raises(ValueError, match="num_experts was not given"):
         tcompose.compose_parallelism(2, 1, 1, 1, 2, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcompose.compose_parallelism(2, 2, 2, 1, device="cpu", wire="bf16")
+    assert tcompose.compose_parallelism(
+        2, 2, 2, 1, device="cpu", wire="bf16").wire == "bf16"
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tcompose.compose_parallelism(2, 2, 2, 1, device="cpu", wire="int4")
     with pytest.raises(ValueError, match="dp=1 carving"):
         tcompose.compose_parallelism(1, 2, 2, 2, device="cpu", wire="bf16")
     with pytest.raises(ValueError, match="positive int"):

@@ -22,6 +22,7 @@ import bluefog_tpu_torch as tbf
 from bluefog_tpu_torch import schedule as tsch
 from bluefog_tpu_torch import topology as ttopo
 from bluefog_tpu_torch.examples import average_consensus
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 N = 8
 TOPOLOGIES = ["ExponentialGraph", "ExponentialTwoGraph", "RingGraph",

@@ -28,6 +28,7 @@ from bluefog_tpu.ops import ulysses as jul
 from bluefog_tpu_torch.ops import flash_attention as tfa
 from bluefog_tpu_torch.ops import ring as tring
 from bluefog_tpu_torch.ops import ulysses as tul
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 # B, Tq, Tk, H, Hkv, D, causal, q_offset, k_offset, window, block_q, dtype
 CASES = [

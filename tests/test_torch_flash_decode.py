@@ -21,6 +21,7 @@ from bluefog_tpu.ops import pallas_decode as jpd
 from bluefog_tpu.serve import kv_cache as jkv
 from bluefog_tpu_torch.ops import flash_decode as tfd
 from bluefog_tpu_torch.serve import kv_cache as tkv
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 ROWS, L, Dh, H, T = 6, 32, 8, 4, 3
 SLOTS = np.array([5, 0, 2, 3], np.int32)

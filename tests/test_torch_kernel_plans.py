@@ -26,6 +26,7 @@ from bluefog_tpu_torch.ops import _build
 from bluefog_tpu_torch.ops import flash_decode as fd
 from bluefog_tpu_torch.ops import grouped_ffn as gf
 import torch_plan_routings as routings
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 SMS = 132
 # device-to-host reads that would stall the engine's decode path

@@ -11,6 +11,7 @@
   stores, GQA and prefix-page lanes — only the summation order differs;
 * cache shapes and the slot allocator match.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import torch
 
 from bluefog_tpu.serve import kv_cache as jkv
 from bluefog_tpu_torch.serve import kv_cache as tkv
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 STORES = ("raw", "int8", "fp8")
 
@@ -38,6 +40,21 @@ def _rows(seed=0, shape=(6, 3, 16)):
     x[0, 1] = 1e-41                      # subnormal amax: floored scale
     x[1, 2] *= 1e4
     return x
+
+
+@pytest.mark.parametrize("store", ["int8", "fp8"])
+def test_quantize_rows_equal_the_compiled_jax(store):
+    """The JAX engine quantizes its pages inside compiled programs, where
+    XLA turns ``amax / qmax`` into ``amax * (1 / qmax)``: payloads and
+    scales equal that compiled function bit for bit on 4,000 rows (a
+    division gave other scales on 192 int8 rows and 2,222 fp8 rows)."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(4000, 64))
+         * rng.uniform(0.01, 10, size=(4000, 1))).astype(np.float32)
+    jq, js = jax.jit(lambda v: jkv.quantize_rows(v, store))(jnp.asarray(x))
+    tq, ts = tkv.quantize_rows(torch.from_numpy(x), store)
+    np.testing.assert_array_equal(_np(tq), _np(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 @pytest.mark.parametrize("store", ["int8", "fp8"])

@@ -40,6 +40,7 @@ from jax.sharding import PartitionSpec as P
 from bluefog_tpu.ops import ring as jring
 from bluefog_tpu_torch.ops import flash_attention as tfa
 from bluefog_tpu_torch.ops import ring as tring
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 N = 4
 

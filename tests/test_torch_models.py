@@ -47,6 +47,7 @@ from bluefog_tpu.models import vgg as jvgg
 from bluefog_tpu_torch import models as tm
 from bluefog_tpu_torch.models import layers as tl
 from bluefog_tpu_torch.tools import resnet_parity
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 CLASSES, NF, B = 10, 8, 4
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f64": jnp.float64}

@@ -38,6 +38,7 @@ from bluefog_tpu_torch.moe import layers as tlayers
 from bluefog_tpu_torch.moe.model import (MoELMConfig, init_moe_params,
                                          moe_params_from_jax)
 from bluefog_tpu_torch.parallel.expert import moe_apply_dropless
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 E = 4
 

@@ -55,6 +55,7 @@ from bluefog_tpu_torch.moe import model as tmoe
 from bluefog_tpu_torch.ops import grouped_ffn as gf
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.parallel import expert as texpert
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 CARVINGS = [(2, 1, 1, 1, 2), (1, 2, 1, 1, 2), (1, 1, 2, 1, 2),
             (1, 1, 1, 2, 2), (2, 2, 1, 1, 2)]

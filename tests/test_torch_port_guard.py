@@ -18,6 +18,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "bluefog_tpu_torch"
@@ -45,7 +46,8 @@ def test_port_imports_no_jax():
               "tools.long_context", "tools.sp_bench", "models.layers",
               "models.resnet", "models.mlp", "models.cnn", "models.vgg",
               "parallel.context", "api", "tools.bench",
-              "tools.resnet_parity", "examples.average_consensus"):
+              "tools.resnet_parity", "examples.average_consensus",
+              "ops.windows", "examples.benchmark"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -110,8 +112,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lm_bench.main([])
     from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
                                                       init_decode_cache)
+    from bluefog_tpu_torch.examples import benchmark
     from bluefog_tpu_torch.tools import long_context, sp_bench
-    for tool in (long_context, sp_bench):
+    for tool in (long_context, sp_bench, benchmark):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main([])
     lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,

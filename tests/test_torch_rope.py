@@ -13,6 +13,7 @@ import torch
 
 from bluefog_tpu.models import transformer as jtf
 from bluefog_tpu_torch.models import rope as trope
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 ATOL = 1e-6
 

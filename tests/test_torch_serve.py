@@ -37,6 +37,7 @@ from bluefog_tpu_torch.ops.ulysses import dense_attention as tdense
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
 from bluefog_tpu_torch.serve.engine import _parse_buckets
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _CFG = dict(vocab=64, d_model=32, heads=4, layers=2)
@@ -268,18 +269,36 @@ def test_demo_carved_on_cpu(argv, moe, want):
     assert doc["completed"] == 4 and doc["tokens"] == 16
 
 
-def test_serve_calls_tool_on_cpu():
+def test_serve_calls_tool_on_cpu(monkeypatch, capsys):
     """``tools/serve_calls.py`` times decode calls and counts the host's
     operators a call; ``--ab`` runs two checkouts alternately (here this
-    one twice)."""
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("BLUEFOG_")}
-    p = subprocess.run(
-        [sys.executable, "-m", "bluefog_tpu_torch.tools.serve_calls",
-         "--device", "cpu", "--calls", "2", "--ab", REPO, "--pairs", "1"],
-        cwd=REPO, capture_output=True, text=True, timeout=240, env=env)
-    assert p.returncode == 0, p.stderr[-2000:]
-    docs = [json.loads(line) for line in p.stdout.strip().splitlines()]
+    one twice).  Run in process: the fresh process of each ``--ab`` run
+    is replaced by the measurement it would make."""
+    from bluefog_tpu_torch.tools import serve_calls
+    for key in [k for k in os.environ if k.startswith("BLUEFOG_")]:
+        monkeypatch.delenv(key)
+    roots = []
+
+    def run_here(cmd, cwd, capture_output, text):
+        root = cmd[cmd.index("--root") + 1]
+        assert root == cwd
+        roots.append(root)
+        doc = serve_calls.measure("--moe" in cmd,
+                                  int(cmd[cmd.index("--calls") + 1]),
+                                  cmd[cmd.index("--device") + 1])
+        return subprocess.CompletedProcess(cmd, 0, json.dumps(doc) + "\n",
+                                           "")
+
+    monkeypatch.setattr(serve_calls.subprocess, "run", run_here)
+    threads = torch.get_num_threads()
+    try:
+        assert serve_calls.main(["--device", "cpu", "--calls", "2", "--ab",
+                                 REPO, "--pairs", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    docs = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert roots == [REPO, REPO]
     assert [d["tree"] for d in docs] == ["parent", "change"]
     for d in docs:
         assert d["model"] == "dense" and d["ops_per_decode_call"] > 0

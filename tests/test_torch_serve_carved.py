@@ -41,6 +41,7 @@ from bluefog_tpu.utils import metrics as bfm
 from bluefog_tpu_torch.moe.model import MoELMConfig, moe_params_from_jax
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 E = 4
 _DENSE = dict(vocab=32, d_model=32, heads=4, layers=4, seq_len=32)

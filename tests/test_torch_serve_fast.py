@@ -47,6 +47,7 @@ from bluefog_tpu_torch.ops import flash_decode as tfd
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
 from bluefog_tpu_torch.serve import kv_cache as tkv
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 _CFG = dict(vocab=64, d_model=32, heads=4, layers=4)
 _SCFG = dict(batch_buckets=(1, 2), prefill_buckets=(4, 8), slots=4,

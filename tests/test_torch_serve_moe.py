@@ -39,6 +39,7 @@ from bluefog_tpu_torch.moe.model import MoELMConfig, moe_params_from_jax
 from bluefog_tpu_torch.parallel.compose import LMConfig, init_lm_params
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
 from bluefog_tpu_torch.serve.engine import _parse_serve_moe
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 E = 4

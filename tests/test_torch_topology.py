@@ -13,6 +13,7 @@ from bluefog_tpu import schedule as jsch
 from bluefog_tpu import topology as jtopo
 from bluefog_tpu_torch import schedule as tsch
 from bluefog_tpu_torch import topology as ttopo
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 GENERATORS = ["ExponentialTwoGraph", "ExponentialGraph",
               "SymmetricExponentialGraph", "MeshGrid2DGraph", "StarGraph",

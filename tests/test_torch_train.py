@@ -37,6 +37,7 @@ import bluefog_tpu.optimizers as jopt
 from bluefog_tpu.parallel import compose as jcompose
 from bluefog_tpu_torch import optimizers as topt
 from bluefog_tpu_torch.parallel import compose as tcompose
+import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _CFG = dict(vocab=64, d_model=32, heads=4, layers=2, seq_len=32, micro=2,
@@ -188,10 +189,13 @@ def test_strategy_contracts():
                                 num_steps_per_communication=2)
     with pytest.raises(ValueError, match="exactly one"):
         topt.neighbor_communicator()
-    with pytest.raises(ValueError, match="not yet ported"):
-        topt.neighbor_communicator(schedules=[sched])
-    with pytest.raises(ValueError, match="not yet ported"):
-        topt.neighbor_communicator(sched, wire="bf16")
+    # a dynamic list of one schedule is the static schedule; a codec
+    # name is checked where it first encodes
+    params = {"w": torch.randn(4, 3)}
+    dyn = topt.neighbor_communicator(schedules=[sched])(params, 5)
+    assert torch.equal(dyn["w"], comm(params, 0)["w"])
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        topt.neighbor_communicator(sched, wire="int4")(params, 0)
     with pytest.raises(ValueError, match="reuse_batch requires"):
         topt.make_train_step(lambda p, b: None,
                              topt.gradient_allreduce(topt.sgd(0.1)),

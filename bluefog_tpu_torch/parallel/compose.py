@@ -295,7 +295,7 @@ def serving_carve(pp: int = 1):
     stages run in order, everything else 1 (the JAX engine's carving at
     dp = tp = sp = ep = 1)."""
     return types.SimpleNamespace(dp=1, pp=pp, tp=1, sp=1, ep=1,
-                                 num_experts=None)
+                                 num_experts=None, slice_size=pp)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,9 @@ from .. import topology as topo_util
 from ..device import resolve_device
 from ..schedule import (CommSchedule, compile_dynamic_schedules,
                         compile_topology)
+from ..utils import flight as _flight
+from ..utils import metrics as _metrics
+from ..utils import tracing as _tracing
 
 __all__ = ["BlueFogTorchContext", "init", "shutdown", "is_initialized",
            "get_context", "size", "load_topology", "is_topology_weighted",
@@ -118,6 +121,13 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
         raise ValueError(f"device count {n} not divisible by "
                          f"nodes_per_machine {nodes_per_machine}")
     dev = resolve_device(device)
+    # the registries' exporters, as JAX's init arms them: BLUEFOG_METRICS /
+    # BLUEFOG_METRICS_PORT, BLUEFOG_FLIGHT_DIR / BLUEFOG_FLIGHT_EVENTS and
+    # BLUEFOG_TRACE
+    _metrics.maybe_start_from_env()
+    _flight.maybe_enable_from_env()
+    _tracing.maybe_enable_from_env()
+    _flight.record("lifecycle", name="init", devices=n)
     topo = topology_fn() if topology_fn is not None \
         else topo_util.ExponentialGraph(n)
     _context = BlueFogTorchContext(n, dev, _check_topology(topo, n),

@@ -1,7 +1,10 @@
-"""Dense serving on one device: engine, slotted KV cache, scheduler."""
+"""Serving on one device: engine, slotted KV cache, scheduler and
+autoscaler, and the live weight refresher."""
 from .engine import ServeConfig, ServeEngine
-from .kv_cache import KVCacheConfig, SlotAllocator
-from .scheduler import Request, Scheduler
+from .kv_cache import KVCacheConfig, PrefixCache, SlotAllocator
+from .refresh import WeightRefresher
+from .scheduler import AutoScaler, Request, Scheduler
 
-__all__ = ["ServeConfig", "ServeEngine", "KVCacheConfig", "SlotAllocator",
-           "Request", "Scheduler"]
+__all__ = ["ServeConfig", "ServeEngine", "KVCacheConfig", "PrefixCache",
+           "SlotAllocator", "Request", "Scheduler", "AutoScaler",
+           "WeightRefresher"]

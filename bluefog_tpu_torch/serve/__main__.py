@@ -5,9 +5,11 @@ peers (x ep expert peers for an MoE model), stacked on one device,
 builds an engine and a scheduler over a composed LM with random weights
 from ``--seed`` (the JAX ``init_lm_params`` / ``init_moe_params``
 draws), answers a burst of random prompts, and prints one JSON summary
-line with the JAX demo's carving fields.  Runs on the CUDA card unless
-``--device cpu`` is given.  The bucket, KV-store and fast-path knobs
-follow ``ServeConfig.from_env`` (``BLUEFOG_SERVE_BUCKETS``,
+line with the JAX demo's carving fields; the token and fast-path counts
+are read from the metrics registry, as the JAX demo reads them.  Runs on
+the CUDA card unless ``--device cpu`` is given.  The bucket, KV-store and
+fast-path knobs follow ``ServeConfig.from_env``
+(``BLUEFOG_SERVE_BUCKETS``,
 ``BLUEFOG_KV_DTYPE``, ``BLUEFOG_SPEC_DECODE='<k>[@<stages>]'``,
 ``BLUEFOG_PREFIX_PAGES='<pages>[x<page_tokens>]'``, ...); ``--pp``
 (default ``BLUEFOG_SERVE_PP``, else 1) also sets the speculative draft's
@@ -52,6 +54,7 @@ def main(argv=None) -> int:
                              moe_params_from_jax)
     from ..parallel.compose import (LMConfig, compose_parallelism,
                                     init_lm_train_params, params_from_jax)
+    from ..utils import metrics as _metrics
     from .engine import ServeConfig, ServeEngine
     from .scheduler import Scheduler
 
@@ -84,6 +87,9 @@ def main(argv=None) -> int:
     sched.drain()
     wall = time.monotonic() - t0
     dev = engine.device
+
+    def total(name):
+        return int(_metrics.counter(name).total())
     print(json.dumps({
         "schema": "bluefog-torch-serve-demo-1",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -92,12 +98,11 @@ def main(argv=None) -> int:
         "kv_dtype": engine.scfg.kv_dtype,
         "moe_experts": scfg.moe_experts,
         "spec_decode": scfg.spec_decode, "prefix_pages": scfg.prefix_pages,
-        "spec_drafted": engine.spec_drafted_total,
-        "spec_accepted": engine.spec_accepted_total,
-        "prefix_hits": sum(pc.prefix_hits_total
-                           for pc in sched._prefix if pc is not None),
+        "spec_drafted": total("bluefog_serve_spec_drafted_total"),
+        "spec_accepted": total("bluefog_serve_spec_accepted_total"),
+        "prefix_hits": total("bluefog_serve_prefix_hits_total"),
         "completed": len(sched.completed),
-        "tokens": sum(len(r.generated) for r in sched.completed),
+        "tokens": total("bluefog_tokens_generated_total"),
         "decode_calls": sched.decode_calls,
         "wall_s": wall,
     }))

@@ -60,11 +60,23 @@ Fast paths, as in the JAX engine:
   prefix-hit request prefills only its remainder
   (:meth:`ServeEngine.chunk_prefill`, K3's chunk form at the prefill
   bucket's T) and every attention reads through the page indirection.
+
+Observability, as in the JAX engine: with request tracing armed
+(:mod:`bluefog_tpu_torch.utils.tracing`) each call adds a
+``prefill_call`` / ``chunk_call`` / ``decode_call`` / ``spec_round`` span
+(``cat="engine"``) on the host clock, ending where the call's tokens
+reach the host (a seal ends at its launch: it reads nothing back);
+disarmed, a call pays one flag read.  A speculative round counts
+``bluefog_serve_spec_{drafted,accepted}_total`` in the metrics registry,
+and :meth:`ServeEngine.warmup` leaves a ``warmup`` flight record.  The
+JAX engine's retrace sentinel has no counterpart: nothing here compiles
+per shape.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -80,6 +92,9 @@ from ..ops.collectives import peer_sum
 from ..ops.ulysses import dense_attention
 from ..parallel.compose import (ComposeLM, LMConfig, ServingParams, _gelu,
                                 _ln, draft_carve)
+from ..utils import flight as _flight
+from ..utils import metrics as _metrics
+from ..utils import tracing as _tracing
 from . import kv_cache as _kv
 
 __all__ = ["ServeConfig", "ServeEngine"]
@@ -498,9 +513,12 @@ class ServeEngine:
         # the MoE draft's expert-mean FFN weights, per draft layer (built
         # at the first draft, dropped when the weights are rebound)
         self._mean_ffn: Optional[list] = None
-        # the JAX engine's bluefog_serve_spec_{drafted,accepted}_total
-        self.spec_drafted_total = 0
-        self.spec_accepted_total = 0
+        self._engine_trace = ""          # minted lazily when tracing is armed
+
+    def _trace_id(self) -> str:
+        if not self._engine_trace:
+            self._engine_trace = _tracing.new_trace("engine")
+        return self._engine_trace
 
     # ------------------------------------------------------------------
     # device-side math: activations [R, N, D] (N positions a replica) of
@@ -834,10 +852,21 @@ class ServeEngine:
         """Prefill one request into ``slot`` of ``replica``; returns the
         first greedy token and the last-position logits ``[vocab]``."""
         self._slot_in_range(slot)
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         logits = self._prefill_into(replica, slot, tokens)
         self._seed_row(replica * self.cache_cfg.rows + slot)
         logits = logits.float().cpu().numpy()
+        if traced:
+            self._prefill_span(t0, tokens, replica)
         return int(np.argmax(logits)), logits
+
+    def _prefill_span(self, t0: float, tokens: Sequence[int],
+                      replica: int) -> None:
+        _tracing.add_span(self._trace_id(), "prefill_call", t0,
+                          time.monotonic(), cat="engine",
+                          Tpad=self.scfg.prefill_bucket_for(len(tokens)),
+                          replica=replica)
 
     def _prefill_into(self, replica: int, row: int,
                       tokens: Sequence[int]) -> torch.Tensor:
@@ -863,7 +892,11 @@ class ServeEngine:
         if len(tokens) % self.scfg.prefix_page_tokens:
             raise ValueError(f"prefix of {len(tokens)} tokens is not whole "
                              f"pages of {self.scfg.prefix_page_tokens}")
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         self._prefill_into(replica, row, tokens)
+        if traced:
+            self._prefill_span(t0, tokens, replica)
 
     def chunk_prefill(self, replica: int, slot: int, tokens: Sequence[int],
                       start: int, prefix_row: int) -> int:
@@ -890,23 +923,36 @@ class ServeEngine:
         def lane(v):
             return torch.full((1, 1), v, dtype=torch.int32,
                               device=self.device)
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         gen = self._chunk_forward(
             torch.as_tensor(toks, device=self.device), lane(slot),
             lane(start), lane(prefix_row), lane(start),
             rs=slice(replica, replica + 1))
         self._seed_row(replica * self.cache_cfg.rows + slot)
-        return int(gen[0, 0, len(tokens) - 1])
+        first = int(gen[0, 0, len(tokens) - 1])
+        if traced:
+            _tracing.add_span(self._trace_id(), "chunk_call", t0,
+                              time.monotonic(), cat="engine", S=1, T=Tpad)
+        return first
 
     def _chunk_call(self, toks, slots, lens, prows, plens) -> np.ndarray:
         """One chunk forward of every replica on ``[replicas, S, T]`` host
         arrays; returns the argmax tokens ``[replicas, S, T]``."""
         toks = np.asarray(toks)
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         prows, plens = self._prefix_args(prows, plens, toks.shape[1])
         gen = self._chunk_forward(
             self._lanes(toks, "tokens"),
             self._lanes(slots, "slots").to(torch.int32),
             self._lanes(lens, "lens").to(torch.int32), prows, plens)
-        return gen.cpu().numpy().astype(np.int32)
+        out = gen.cpu().numpy().astype(np.int32)
+        if traced:
+            _tracing.add_span(self._trace_id(), "chunk_call", t0,
+                              time.monotonic(), cat="engine",
+                              S=int(toks.shape[1]), T=int(toks.shape[2]))
+        return out
 
     def decode(self, tokens: np.ndarray, slots: np.ndarray,
                lens: np.ndarray, prefix_rows: Optional[np.ndarray] = None,
@@ -921,12 +967,18 @@ class ServeEngine:
         Returns ``[replicas, decode_steps_per_call, S]`` tokens."""
         S = np.asarray(tokens).shape[1]
         self._bucket(S)
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         prows, plens = self._prefix_args(prefix_rows, prefix_lens, S)
         gen = self._decode_steps(self._lanes(tokens, "tokens"),
                                  self._lanes(slots, "slots").to(torch.int32),
                                  self._lanes(lens, "lens").to(torch.int32),
                                  prows, plens)
-        return gen.permute(1, 0, 2).cpu().numpy().astype(np.int32)
+        out = gen.permute(1, 0, 2).cpu().numpy().astype(np.int32)
+        if traced:
+            _tracing.add_span(self._trace_id(), "decode_call", t0,
+                              time.monotonic(), cat="engine", S=int(S))
+        return out
 
     def spec_decode(self, tokens: np.ndarray, slots: np.ndarray,
                     lens: np.ndarray,
@@ -953,6 +1005,8 @@ class ServeEngine:
         slots = np.asarray(slots, np.int32)
         S = tokens.shape[1]
         self._bucket(S)
+        traced = _tracing.enabled()
+        t0 = time.monotonic() if traced else 0.0
         prows, plens = self._prefix_args(prefix_rows, prefix_lens, S)
         toks_t = self._lanes(tokens, "tokens")
         slots_t = self._lanes(slots, "slots").to(torch.int32)
@@ -962,10 +1016,15 @@ class ServeEngine:
         # verify chunk [t0, d_1 .. d_k] per lane: the draft's kv rows are
         # overwritten with the (same) target values and the later layers
         # get theirs written for the first time
+        tc = time.monotonic() if traced else 0.0
         gen = self._chunk_forward(torch.cat([toks_t[..., None], drafts], -1),
                                   slots_t, lens_t, prows, plens)
         d = drafts.cpu().numpy().astype(np.int32)             # [R, S, k]
         gen = gen.cpu().numpy().astype(np.int32)              # [R, S, k+1]
+        if traced:                 # the verify, as the JAX engine's span
+            _tracing.add_span(self._trace_id(), "chunk_call", tc,
+                              time.monotonic(), cat="engine", S=int(S),
+                              T=k + 1)
         # accept: the longest prefix where draft_i == target g_i, then the
         # bonus g_{j+1}; rejected rows past the new frontier are garbage
         # that the next round's appends overwrite before any read
@@ -979,8 +1038,19 @@ class ServeEngine:
             t_idx < j[:, :, None], d_pad,
             np.where(t_idx == j[:, :, None], gen, -1)).astype(np.int32)
         live = slots < self.scfg.slots          # trash lanes do not count
-        self.spec_drafted_total += int(live.sum()) * k
-        self.spec_accepted_total += int(j[live].sum())
+        drafted = int(live.sum()) * k
+        accepted = int(j[live].sum())
+        if drafted:
+            _metrics.counter(
+                "bluefog_serve_spec_drafted_total",
+                "draft tokens proposed by speculative decoding").inc(drafted)
+            _metrics.counter(
+                "bluefog_serve_spec_accepted_total",
+                "draft tokens accepted by the verify pass").inc(accepted)
+        if traced:
+            _tracing.add_span(self._trace_id(), "spec_round", t0,
+                              time.monotonic(), cat="engine", S=int(S), k=k,
+                              drafted=drafted, accepted=accepted)
         return emitted, counts
 
     def idle_lane(self) -> Tuple[int, int, int]:
@@ -1057,3 +1127,13 @@ class ServeEngine:
                                  np.zeros((R, 1), np.int32),
                                  self._trash_vec(1),
                                  np.zeros((R, 1), np.int32))
+        _flight.record("serve", name="warmup",
+                       batch_buckets=list(scfg.batch_buckets),
+                       prefill_buckets=list(scfg.prefill_buckets),
+                       spec_decode=scfg.spec_decode,
+                       prefix_pages=scfg.prefix_pages,
+                       kv_dtype=scfg.kv_dtype,
+                       moe_experts=self.cfg.num_experts if self._moe else 0,
+                       moe_ep=self.m.ep if self._moe else 0,
+                       moe_tile=self._moe_tile if self._moe else 0)
+        _metrics.mark_steady_state(True)

@@ -28,11 +28,14 @@ cache and never needs the old one) and return it for parity.
 :func:`attend_rows` / :func:`attend_chunk` are the gather-then-attend
 plain versions of the flash-decode kernel.
 
-:class:`PrefixCache` is the host-side content-addressed directory of the
-shared prefix pages.  The JAX class bumps the metrics registry, which is
-not ported yet; until it is, this one keeps the same counts as plain
-integers named after the JAX metrics (``prefix_hits_total``,
-``prefix_misses_total``, ``pages_in_use``).
+:class:`SlotAllocator` and :class:`PrefixCache` are the host-side
+bookkeeping: the free-slot heap and the content-addressed directory of
+the shared prefix pages.  They report to the metrics registry
+(:mod:`bluefog_tpu_torch.utils.metrics`) under the JAX names, labeled
+by replica: ``bluefog_serve_kv_slots_in_use`` and
+``bluefog_serve_kv_occupancy`` on every alloc and free,
+``bluefog_serve_prefix_{hits,misses}_total`` on every lookup and
+``bluefog_serve_prefix_pages_in_use`` on every change of the directory.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.collectives import _amax_scale
+from ..utils import metrics as _metrics
 
 __all__ = ["KVCacheConfig", "init_cache", "append_rows", "attend_rows",
            "attend_chunk", "layer_append", "layer_append_chunk",
@@ -367,6 +371,7 @@ class SlotAllocator:
             return None
         slot = heapq.heappop(self._free)
         self._in_use.add(slot)
+        self._export()
         return slot
 
     def free(self, slot: int) -> None:
@@ -374,6 +379,7 @@ class SlotAllocator:
             raise ValueError(f"slot {slot} is not allocated")
         self._in_use.discard(slot)
         heapq.heappush(self._free, slot)
+        self._export()
 
     @property
     def in_use(self) -> int:
@@ -382,6 +388,16 @@ class SlotAllocator:
     @property
     def occupancy(self) -> float:
         return len(self._in_use) / self.slots
+
+    def _export(self) -> None:
+        _metrics.gauge(
+            "bluefog_serve_kv_slots_in_use",
+            "allocated KV-cache slots, by replica").set(
+                float(self.in_use), replica=str(self.replica))
+        _metrics.gauge(
+            "bluefog_serve_kv_occupancy",
+            "KV-cache slot occupancy fraction, by replica").set(
+                self.occupancy, replica=str(self.replica))
 
 
 @dataclasses.dataclass
@@ -408,9 +424,9 @@ class PrefixCache:
     never written again.  Refcount-0 entries are evicted LRU when the
     pool is full.
 
-    ``prefix_hits_total`` / ``prefix_misses_total`` count :meth:`acquire`
-    outcomes and ``pages_in_use`` the resident entries, as the JAX
-    class's ``bluefog_serve_prefix_*`` metrics do."""
+    :meth:`acquire` counts ``bluefog_serve_prefix_{hits,misses}_total``
+    and every change of the directory sets
+    ``bluefog_serve_prefix_pages_in_use`` (labeled by replica)."""
 
     def __init__(self, pages: int, page_tokens: int, first_row: int, *,
                  replica: int = 0):
@@ -426,8 +442,6 @@ class PrefixCache:
         self._by_key: Dict[Tuple[int, ...], _Prefix] = {}
         self._by_row: Dict[int, _Prefix] = {}
         self._tick = 0
-        self.prefix_hits_total = 0
-        self.prefix_misses_total = 0
 
     def _share_len(self, prompt: Sequence[int]) -> int:
         """Longest shareable prefix length: whole pages, and at least one
@@ -447,10 +461,13 @@ class PrefixCache:
     def acquire(self, prompt: Sequence[int]) -> Optional[Tuple[int, int]]:
         """Attach to the longest sealed prefix (refcount, hit or miss)."""
         got = self.match(prompt)
+        _metrics.counter(
+            "bluefog_serve_prefix_hits_total"
+            if got else "bluefog_serve_prefix_misses_total",
+            "shared-prefix page lookups, by outcome").inc(
+                replica=str(self.replica))
         if got is None:
-            self.prefix_misses_total += 1
             return None
-        self.prefix_hits_total += 1
         self._ref(got[0])
         return got
 
@@ -464,12 +481,14 @@ class PrefixCache:
         e = self._by_row[row]
         self._tick += 1
         e.refs, e.tick = e.refs + 1, self._tick
+        self._export()
 
     def release(self, row: int) -> None:
         e = self._by_row.get(row)
         if e is None or e.refs < 1:
             raise ValueError(f"prefix row {row} is not acquired")
         e.refs -= 1
+        self._export()
 
     def admit(self, prompt: Sequence[int]) -> Optional[Tuple[int, int]]:
         """Reserve a page row for ``prompt``'s shareable prefix.
@@ -501,6 +520,7 @@ class PrefixCache:
         e = _Prefix(row=row, tokens=key, digest=digest)
         self._by_key[key] = e
         self._by_row[row] = e
+        self._export()
         return row, plen
 
     def seal(self, row: int) -> None:
@@ -510,10 +530,6 @@ class PrefixCache:
     @property
     def in_use(self) -> int:
         return len(self._by_row)
-
-    @property
-    def pages_in_use(self) -> int:
-        return self.in_use
 
     def describe(self) -> dict:
         """What is resident, with content digests."""
@@ -525,3 +541,9 @@ class PrefixCache:
                 for e in sorted(self._by_row.values(),
                                 key=lambda e: e.row)],
         }
+
+    def _export(self) -> None:
+        _metrics.gauge(
+            "bluefog_serve_prefix_pages_in_use",
+            "resident shared-prefix pages, by replica").set(
+                float(self.in_use), replica=str(self.replica))

@@ -1,0 +1,4 @@
+"""Host runtime utilities (the port's own copies of ``bluefog_tpu/utils``'
+env config, flight recorder, metrics registry, time series and request
+tracing).  Import the submodules directly: this package imports none of
+them eagerly."""

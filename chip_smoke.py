@@ -310,7 +310,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-5 x max|param| (same start, same data); one
    ``benchmark_strategy`` line a variant (img/s, s/step, peak memory,
    the bytes a rank puts on the wire a step from the schedule tables
-   and the codecs' widths).
+   and the codecs' widths);
+16. the train->serve estate (``bluefog_tpu_torch/tools/serve_bench.py``,
+   the port of the JAX grader): 16a dense, 16b ``--serve-moe 8x2@2``, at
+   the tool's full widths (vocab 32768, d_model 1024, 16 heads, 4
+   layers, seq 128) with ``--train-dp 2 --serve-dp 2 --pp 2
+   --refresh-every 2 --traffic-trace flash-crowd``: 16 requests drained
+   while 6 Adam steps train beside them (K1/K2, and K4 with its backward
+   in 16b), the refresher pulling mid-traffic, then 24 steps of bursty
+   traffic with the top replica parked.  Gates: every request done, none
+   failed; >= 2 pulls, staleness 0 after each; the served tensors equal
+   the training mean at their offsets (1e-6 of each tensor's largest
+   magnitude); the KV cache written in place; the parked replica grown
+   back, recovery within 2 x steps, the scale file = live replicas x
+   ranks a replica; K1/K2/K3 (and K4, its plan, dgrad and wgrad) launch
+   over the drain and the trace phase exactly as ``estate_phase``'s
+   formulas say; the drain's 16 prompts drained again with K3 and with
+   K3's plain version on the last pulled weights give the same streams
+   up to near ties; each kernel held against its plain version on one
+   launch's copied inputs from this path (K1/K2 from the trainer, K3
+   from the replay's widest decode call, K4 from the engine and K4 with
+   its backward from the trainer, on the gradient that reached it).
+   One ``serve_estate`` / ``serve_estate_moe`` line each (tokens/s while
+   training, per-token p50/p99, TTFT p50/p99, decode MFU, staleness,
+   pulls, s per train step, peak memory, launches, the trace row, the
+   MoE dense-twin tokens/s, the card and its power limit).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -786,6 +810,7 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
     plain versions give the same streams and launch nothing.  Returns the
     summary."""
     from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+    from bluefog_tpu_torch.utils import metrics as _metrics
     base = dict(slots=8, max_len=1024, batch_buckets=(1, 2, 4, 8),
                 prefill_buckets=(64, 256, 512), decode_kernel="pallas",
                 decode_block_k=BK)
@@ -820,6 +845,10 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
             return out
         return call
 
+    counted = ("bluefog_serve_prefix_hits_total",
+               "bluefog_serve_spec_drafted_total",
+               "bluefog_serve_spec_accepted_total")
+    c0 = {n: _metrics.counter(n).total() for n in counted}
     fd.flash_decode_cuda.launches = 0
     if gf is not None:
         gf.grouped_ffn_cuda.launches = 0
@@ -828,12 +857,13 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
             mock.patch.object(fd, "flash_attend_chunk",
                               counting("chunk", fd.flash_attend_chunk)):
         sched, wall = drain(engine, prompts)
+    hits, drafted, accepted = (int(_metrics.counter(n).total() - c0[n])
+                               for n in counted)
     k3 = fd.flash_decode_cuda.launches
     k4 = gf.grouped_ffn_cuda.launches if gf is not None else None
     reqs = sorted(sched.completed, key=lambda r: r.id)
     if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
         raise AssertionError(f"{name}: {len(reqs)}/{n_req} requests done")
-    hits = sched._prefix[0].prefix_hits_total
     chunks = sum(r.prefix_row >= 0 for r in reqs)
     seals = chunks - sum(r.prefix_hit for r in reqs)
     if (seals, hits, chunks) != (1, n_req - 1, n_req):
@@ -888,10 +918,9 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
         "mean_prefill_cold_s": mean([r.first_token_at - r.admitted_at
                                      for r in cold]),
         "decode_calls": rounds, "decode_seconds": sched.decode_seconds,
-        "drafted": engine.spec_drafted_total,
-        "accepted": engine.spec_accepted_total,
-        "acceptance_rate": engine.spec_accepted_total
-        / max(engine.spec_drafted_total, 1),
+        "drafted": drafted,
+        "accepted": accepted,
+        "acceptance_rate": accepted / max(drafted, 1),
         "prefix_hits": hits, "seals": seals, "chunk_prefills": chunks,
         "k3_launches": dict(form, total=k3),
         "k3_formula": "rows = rounds x k x draft layers; chunk = (rounds + "
@@ -1287,8 +1316,10 @@ def _grad_err(got, want):
     return err, err <= 1e-4 * float(want.abs().max()) + 1e-6
 
 
-def _check_partial(got, want):
-    """Phase-4 forward tolerances; returns the max abs error of o/l."""
+def _check_partial(got, want, o_scale=1.0, m_scale=1.0):
+    """Phase-4 forward tolerances (``o_scale`` / ``m_scale`` times the
+    atol of o/l and of m, for inputs far from unit scale); returns the max
+    abs error of o/l."""
     (o, l, m), (wo, wl, wm) = got, want
     if not torch.equal(torch.isneginf(m), torch.isneginf(wm)):
         raise AssertionError("flash_fwd: m is -inf on other rows than the "
@@ -1300,11 +1331,12 @@ def _check_partial(got, want):
     l_ok = bool(((l - wl).abs() <= 1e-4 * wl.abs()).all())
     den = torch.where(wl == 0, torch.ones_like(wl), wl)[..., None]
     o_err = float((o / den - wo / den).abs().max())
-    if not (o_err <= 1e-4 and l_ok and m_err <= 1e-5
+    if not (o_err <= 1e-4 * o_scale and l_ok and m_err <= 1e-5 * m_scale
             and bool(torch.isfinite(o).all())):
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
-                             f"o/l err {o_err} (atol 1e-4), l within rtol "
-                             f"1e-4: {l_ok}, m err {m_err} (atol 1e-5)")
+                             f"o/l err {o_err} (atol {1e-4 * o_scale}), l "
+                             f"within rtol 1e-4: {l_ok}, m err {m_err} "
+                             f"(atol {1e-5 * m_scale})")
     return o_err
 
 
@@ -3632,6 +3664,395 @@ def strategy_phase(fa, gf, fd, smi, default_iters=10, other_iters=3):
     return codecs, parity, docs, t_parity
 
 
+def _clone_args(a, kw):
+    """Detached copies of a call's tensor arguments (the rest as given)."""
+    def c(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+    return tuple(c(x) for x in a), {k: c(v) for k, v in kw.items()}
+
+
+def _capture_copy(store, key, fn, widest=False):
+    """``fn`` passing through, a copy of its first call's arguments kept
+    (``widest``: of the call whose first argument has the most rows), so
+    a later in-place update cannot change them."""
+    def call(*a, **kw):
+        if key not in store or (widest and a[0].shape[0]
+                                > store[key][0][0].shape[0]):
+            store[key] = _clone_args(a, kw)
+        return fn(*a, **kw)
+    return call
+
+
+def _capture_k4(store, fn):
+    """``grouped_ffn`` passing through, copies kept of its first training
+    call's arguments (under autograd: ``k4_train``, and the gradient that
+    reaches that call's output: ``k4_train_g``) and of its first serving
+    call's (``k4_serve``)."""
+    def call(xt, eid, w1, w2, *a, **kw):
+        train = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xt, w1, w2))
+        key = "k4_train" if train else "k4_serve"
+        first = key not in store
+        if first:
+            store[key] = _clone_args((xt, eid, w1, w2) + a, kw)
+        out = fn(xt, eid, w1, w2, *a, **kw)
+        if first and train:
+            def keep(g):
+                store.setdefault("k4_train_g", g.detach().clone())
+            out.register_hook(keep)
+        return out
+    return call
+
+
+def _partial_f64(fa, q, k, v, q_offset=0, k_offset=0, *, causal=False,
+                 scale=1.0, block_q=512, window=0):
+    """K1's normalized output and row max evaluated in f64 (every row has
+    a visible key on the estate's causal blocks at offset 0)."""
+    G = q.shape[2] // k.shape[2]
+    k, v = (x.double().repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("bihd,bjhd->bihj", q.double() * scale, k)
+    if causal:
+        keep = fa._keep(q.shape[1], k.shape[1], int(q_offset),
+                        int(k_offset), window, q.device)
+        s = s.masked_fill(~keep[None, :, None, :], float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bihj,bjhd->bihd", p, v)
+    return o / p.sum(dim=-1)[..., None], m
+
+
+def _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe):
+    """Each kernel of the estate held against its plain version on one
+    launch's captured inputs, at the shapes this path gives it: K1 and K2
+    from the trainer (phase 4's tolerances, K1's atols scaled by the
+    trained inputs' magnitudes), K3 from the replay's widest
+    decode call (atol 1e-4), and in 16b K4 from the engine (1e-4 x
+    max|plain|) and K4 with its backward from the trainer, on the
+    gradient that reached that call (out, dxt, dw1, dw2 within 1e-4 x
+    max|plain|, the per-expert plain version under autograd).  Returns
+    the errors and shapes by kernel."""
+    out = {}
+    a, kw = seen["k1"]
+    got = fa.attention_block_partial(*a, **kw)
+    want = fa.attention_block_partial_plain(*a, **kw)
+    # trained activations are far from unit scale: o/l's error scales
+    # with |v| (a convex mix of v rows), m's with the score's own size;
+    # both versions' distance from an f64 evaluation is kept beside
+    wm = want[2]
+    v_max = float(a[2].abs().max())
+    m_max = float(wm[~torch.isneginf(wm)].abs().max())
+    o64, m64 = _partial_f64(fa, *a, **kw)
+    vs_f64 = {}
+    for name, (o, l, m) in (("kernel", got), ("plain", want)):
+        den = torch.where(l == 0, torch.ones_like(l), l)[..., None]
+        vs_f64[name] = {"o": float((o / den - o64).abs().max()),
+                        "m": float((m - m64).abs().max())}
+    print(f"{tag}_k1_accuracy " + json.dumps(dict(
+        q=list(a[0].shape), max_abs_v=v_max, max_abs_m=m_max,
+        vs_f64=vs_f64)), flush=True)
+    err = _check_partial(got, want, max(1.0, v_max), max(1.0, m_max))
+    out["flash_fwd"] = {"q": list(a[0].shape), "max_abs_err": err,
+                        "max_abs_v": v_max, "max_abs_m": m_max,
+                        "vs_f64": vs_f64,
+                        "tol": "o/l 1e-4 x max(1, max|v|) abs, l 1e-4 "
+                               "rel, m 1e-5 x max(1, max|m|) abs"}
+    a, kw = seen["k2"]
+    got = fa.attention_block_backward(*a, **kw)
+    want = fa.attention_block_backward_plain(*a, **kw)
+    worst = 0.0
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        err, ok = _grad_err(x, y)
+        worst = max(worst, err)
+        if not ok:
+            raise AssertionError(f"{tag}: the trainer's flash_bwd {name} "
+                                 f"disagrees with its plain version: {err}")
+    out["flash_bwd"] = {"q": list(a[0].shape), "max_abs_err": worst,
+                        "tol": "1e-4 x max|plain| + 1e-6"}
+    a, kw = seen["k3"]
+    q, kl, vl, slots, lens = a
+    pre = {k: kw[k] for k in ("prefix_slots", "prefix_lens", "k_scale",
+                              "v_scale") if kw.get(k) is not None}
+    got = fd.flash_attend_rows(q, kl, vl, slots, lens,
+                               block_k=kw["block_k"], **pre)
+    want = kv.attend_rows(q, kl, vl, slots, lens, **pre)
+    err = float((got - want).abs().max())
+    if not (err <= 1e-4 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{tag}: the replay's widest flash decode "
+                             f"disagrees with its plain version: {err}")
+    out["flash_decode"] = {"q": list(q.shape), "max_abs_err": err,
+                           "tol": "1e-4 abs"}
+    if not moe:
+        return out
+    a, kw = seen["k4_serve"]
+    xt, eid = a[0], a[1]
+    got = gf.grouped_ffn(*a, **kw)
+    want = gf.grouped_ffn_plain(*a, **kw)
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    if not (err <= 1e-4 * top and bool(torch.isfinite(got).all())
+            and bool((got[eid < 0] == 0).all())):
+        raise AssertionError(f"{tag}: the engine's grouped_ffn disagrees "
+                             f"with its plain version: {err} (1e-4 x "
+                             f"max|plain| = {1e-4 * top})")
+    out["grouped_ffn_serve"] = {"xt": list(xt.shape), "max_abs_err": err,
+                                "tol": "1e-4 x max|plain|"}
+    if "k4_train_g" not in seen:
+        raise AssertionError(f"{tag}: no gradient reached the trainer's "
+                             "first grouped_ffn call")
+    (xt, eid, w1, w2, *rest), kw = seen["k4_train"]
+    g = seen["k4_train_g"]
+
+    def run(fn):
+        x, p, r = (t.detach().requires_grad_() for t in (xt, w1, w2))
+        y = fn(x, eid, p, r, *rest, **kw)
+        return (y.detach(),) + torch.autograd.grad(y, (x, p, r), g)
+    before = (gf.grouped_ffn_dgrad_cuda.launches,
+              gf.grouped_ffn_wgrad_cuda.launches,
+              gf.backward_plan_cuda.launches)
+    got = run(gf.grouped_ffn)
+    if (gf.grouped_ffn_dgrad_cuda.launches - before[0],
+            gf.grouped_ffn_wgrad_cuda.launches - before[1],
+            gf.backward_plan_cuda.launches - before[2]) != (1, 1, 1):
+        raise AssertionError(f"{tag}: the trainer's grouped_ffn backward "
+                             "did not launch its plan, dgrad and wgrad "
+                             "once each")
+    want = run(gf.grouped_ffn_plain_by_expert)
+    errs = {}
+    for name, x, y in zip(("out", "dxt", "dw1", "dw2"), got, want):
+        err, top = float((x - y).abs().max()), float(y.abs().max())
+        errs[name] = err
+        if not (err <= 1e-4 * top and bool(torch.isfinite(x).all())):
+            raise AssertionError(
+                f"{tag}: the trainer's grouped_ffn {name} disagrees with "
+                f"the per-expert plain version: {err} (1e-4 x max|plain| "
+                f"= {1e-4 * top})")
+    out["grouped_ffn_train"] = {"xt": list(xt.shape),
+                                "max_abs_err": errs["out"],
+                                "tol": "1e-4 x max|plain|"}
+    out["grouped_ffn_backward_train"] = {
+        "xt": list(xt.shape),
+        "max_abs_err": max(errs["dxt"], errs["dw1"], errs["dw2"]),
+        "tol": "1e-4 x max|plain| for each of dxt, dw1, dw2"}
+    return out
+
+
+def estate_phase(fa, fd, gf, layers_mod, smi, moe):
+    """Phase 16a (dense) / 16b (``--serve-moe 8x2@2``): the train->serve
+    estate of ``tools/serve_bench.py`` at its full widths (vocab 32768,
+    d_model 1024, 16 heads, 4 layers, seq 128), ``--train-dp 2
+    --serve-dp 2 --pp 2`` (the JAX tool's Run line), slots 8, max_len 64,
+    2 steps a call, 16 requests of 8 new tokens, 6 train steps with Adam
+    at 5e-3, ``--refresh-every 2``, then ``--traffic-trace flash-crowd``
+    (24 steps), through ``serve_bench.run``.
+
+    Gates: the tool's ``ok`` (every request completes, none fails, the
+    cache written in place, the trace phase grows the parked replica,
+    recovers within 2 x steps and writes the scale file in ranks);
+    ``pulls >= 2`` and staleness 0 after each pull; after the last pull
+    every served tensor (MoE: the router and both expert tables too)
+    equals the training replicas' mean at its slice offset to 1e-6 x the
+    tensor's largest magnitude; the launches over the drain and over the
+    trace phase equal the formulas (per train step K1 = K2 = train dp x
+    (micro + pp - 1) x layers / pp, and MoE K4 / dgrad / wgrad / plan as
+    many; K3 = layers x decode steps; the engine's K4 = layers x
+    (prefills + decode steps)); the drain's prompts drained again with
+    K3 and with K3's plain version on the last pulled weights (the same
+    admissions, so the drain's decode buckets) give the same streams up
+    to near ties; :func:`_estate_kernel_checks` on one launch of each
+    kernel from this path.  Returns the summary and the phase's launches
+    by kernel."""
+    import contextlib
+    import io
+    from bluefog_tpu_torch.serve import Scheduler, refresh
+    from bluefog_tpu_torch.serve import kv_cache as kv
+    from bluefog_tpu_torch.tools import serve_bench
+    tag = "serve_estate_moe" if moe else "serve_estate"
+    argv = ["--train-dp", "2", "--serve-dp", "2", "--pp", "2",
+            "--refresh-every", "2", "--traffic-trace", "flash-crowd"]
+    if moe:
+        argv += ["--serve-moe", "8x2@2"]
+    pulled = {}
+    orig_pull = refresh.WeightRefresher.pull
+
+    def pull(self, train_params, train_step=None):
+        pulled["tree"] = {g: {k: v.detach().clone() for k, v in
+                              leaves.items()}
+                          for g, leaves in train_params.items()}
+        return orig_pull(self, train_params, train_step)
+
+    out = io.StringIO()       # the tool's own JSON line: gated, summarized
+    seen = {}                 # one launch's inputs of each kernel, copied
+    fd.flash_decode_cuda.launches = 0
+    _launch_counts(fa, gf, reset=True)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            refresh.WeightRefresher, "pull", pull))
+        stack.enter_context(mock.patch.object(
+            fa, "attention_block_partial",
+            _capture_copy(seen, "k1", fa.attention_block_partial)))
+        stack.enter_context(mock.patch.object(
+            fa, "attention_block_backward",
+            _capture_copy(seen, "k2", fa.attention_block_backward)))
+        if moe:
+            stack.enter_context(mock.patch.object(
+                gf, "grouped_ffn", _capture_k4(seen, gf.grouped_ffn)))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        doc, st = serve_bench.run(argv)
+    torch.cuda.synchronize()
+    whole = dict(_launch_counts(fa, gf),
+                 flash_decode=fd.flash_decode_cuda.launches)
+    if not doc["ok"]:
+        raise AssertionError(f"{tag}: serve_bench not ok: requests "
+                             f"{doc['requests']}, trace {doc['trace']}, "
+                             f"invariants {doc['invariants']}, refresh "
+                             f"{doc['refresh']}")
+    ref = doc["refresh"]
+    if ref["pulls"] < 2 or any(v != 0 for v in
+                               ref["staleness_after_each_pull"]):
+        raise AssertionError(f"{tag}: want >= 2 pulls, each leaving "
+                             f"staleness 0: {ref}")
+    trace = doc["trace"]
+    if (trace["failed"] or trace["grow_step"] is None
+            or trace["scale_file_target"]
+            != trace["expected_world"]
+            or trace["expected_world"] % trace["ranks_per_replica"]):
+        raise AssertionError(f"{tag}: trace phase {trace}")
+
+    # the served weights = the training replicas' mean at their offset
+    eng, cfg, tm, sm = st["engine"], st["cfg"], st["train_m"], st["serve_m"]
+    mean_tree = {}
+    for g, leaves in pulled["tree"].items():
+        mean_tree[g] = {}
+        for k, t in leaves.items():
+            mean = t.reshape((tm.dp, tm.slice_size) + t.shape[1:]).mean(0)
+            mean_tree[g][k] = torch.cat([mean] * sm.dp)
+    if moe:
+        from bluefog_tpu_torch.moe.model import moe_params_from_jax as load
+    else:
+        from bluefog_tpu_torch.parallel.compose import params_from_jax \
+            as load
+    want = load(mean_tree, cfg, m=sm)
+    weight_err, names = 0.0, set()
+    for (name, got), (_, exp) in zip(eng.params.tensors(), want.tensors()):
+        err = float((got - exp).abs().max() / exp.abs().max())
+        weight_err = max(weight_err, err)
+        names.add(name.split("[")[0])
+        if err > 1e-6:
+            raise AssertionError(f"{tag}: served {name} differs from the "
+                                 f"training mean by {err} of its max")
+    need = {"embed", "head", "wqkv", "wo"} | (
+        {"wr", "w1e", "w2e"} if moe else {"w1", "w2"})
+    if not need <= names:
+        raise AssertionError(f"{tag}: compared {names}, want {need}")
+
+    # the launch formulas, over the drain and the trace phase
+    L, pp, mic = cfg.layers, 2, cfg.micro
+    per_step = tm.dp * (mic + pp - 1) * (L // pp)
+    gates = {}
+    for part in ("drain", "trace"):
+        got, ev = (doc["kernels"][part]["launches"],
+                   doc["kernels"][part]["events"])
+        want_n = {"flash_fwd": per_step * ev["train_steps"],
+                  "flash_bwd": per_step * ev["train_steps"],
+                  "flash_decode": L * ev["decode_steps"]}
+        if moe:
+            train_k4 = per_step * ev["train_steps"]
+            want_n.update(
+                grouped_ffn=train_k4 + L * (ev["prefills"]
+                                            + ev["decode_steps"]),
+                grouped_ffn_dgrad=train_k4, grouped_ffn_wgrad=train_k4,
+                grouped_ffn_backward_plan=train_k4)
+        bad = {k: (got[k], v) for k, v in want_n.items() if got[k] != v}
+        if bad or not got["flash_decode"]:
+            raise AssertionError(f"{tag} {part}: launches (got, want) "
+                                 f"{bad}, events {ev}")
+        gates[part] = {"launches": {k: got[k] for k in want_n},
+                       "events": ev}
+    zero = [k for k, v in whole.items()
+            if not v and (moe or not k.startswith("grouped"))]
+    if zero:
+        raise AssertionError(f"{tag}: kernels never launched: {zero}")
+
+    # the drain's prompts again, K3 against its plain version: the same
+    # admissions, so the same decode buckets as the drain
+    prompts = [r.prompt for r in st["requests"]]
+    max_new = doc["requests"]["max_new_tokens"]
+
+    def drain():
+        sched = Scheduler(eng)
+        reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+        sched.drain()
+        sched.close()
+        return reqs
+    before = fd.flash_decode_cuda.launches
+    with mock.patch.object(fd, "flash_attend_rows", _capture_copy(
+            seen, "k3", fd.flash_attend_rows, widest=True)):
+        got = drain()
+    if fd.flash_decode_cuda.launches == before:
+        raise AssertionError(f"{tag}: the kernel replay launched no K3")
+    before = fd.flash_decode_cuda.launches
+    with serve_bench.plain_decode_attention():
+        plain = drain()
+    if fd.flash_decode_cuda.launches != before:
+        raise AssertionError(f"{tag}: the plain replay launched K3")
+    if any(a.replica != b.replica for a, b in zip(got, plain)):
+        raise AssertionError(f"{tag}: the two replays admitted a request "
+                             "to different replicas")
+    diverged = []
+    for r in sorted({q.replica for q in got}):
+        model = eng.params.replica(r)
+        pairs = [(a, b) for a, b in zip(got, plain) if a.replica == r]
+        diverged += _stream_gate(
+            f"{tag} replay", model, [a for a, _ in pairs],
+            [b for _, b in pairs], layers_mod if moe else None,
+            cfg.top_k if moe else None)
+        del model
+    kernel_checks = _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe)
+    del seen
+
+    lat, mfu = doc["latency"], doc["mfu"]
+    summary = {
+        "run": tag, "carving": "train dp 2 x pp 2, serve dp 2 x pp 2"
+        + (" (x ep 2, 8 experts top-2)" if moe else ""),
+        "tokens_per_s_while_training": doc["tokens_per_sec"],
+        "per_token_p50_s": lat["per_token_p50_s"],
+        "per_token_p99_s": lat["per_token_p99_s"],
+        "ttft_p50_s": lat["ttft_p50_s"], "ttft_p99_s": lat["ttft_p99_s"],
+        "decode_mfu": mfu["mfu"], "mfu_rate": mfu["peak_name"],
+        "decode_flops_per_token": mfu["decode_flops_per_token"],
+        "staleness_max_steps": ref["staleness_max_steps"],
+        "staleness_final_steps": ref["staleness_final_steps"],
+        "pulls": ref["pulls"], "train_s_per_step": doc["train"]["s_per_step"],
+        "wall_s": doc["wall_s"],
+        "peak_memory_gb": (doc["memory"]["peak_bytes"] or 0) / 1e9,
+        "weights_vs_training_mean_rel_err": weight_err,
+        "launches": {"phase": whole, **gates},
+        "launch_formulas": "per train step K1 = K2 = train dp x (micro + pp "
+                           "- 1) x layers / pp (MoE: K4, dgrad, wgrad, plan "
+                           "as many); K3 = layers x decode steps; engine K4 "
+                           "= layers x (prefills + decode steps)",
+        "replay_diverged": diverged, "replay_requests": len(prompts),
+        "kernel_checks": kernel_checks,
+        "trace": {k: trace[k] for k in (
+            "shape", "steps", "submitted", "completed", "failed", "requeued",
+            "grow_step", "recovery_steps", "recovery_bound_steps",
+            "scale_file_target", "expected_world", "ranks_per_replica",
+            "ok")},
+        "trace_scale_events": [(e["action"], e["step"], e["target_world"])
+                               for e in trace["scale_events"]],
+        "latency_breakdown": {k: (doc["latency_breakdown"] or {}).get(k)
+                              for k in ("queue_mean_s", "prefill_mean_s",
+                                        "decode_mean_s", "gap_mean_s")},
+        "device": torch.cuda.get_device_name(0), "smi": smi}
+    if moe:
+        summary["tokens_per_s_moe_probe"] = doc["moe"]["tokens_per_sec_moe"]
+        summary["tokens_per_s_dense_twin"] = \
+            doc["moe"]["tokens_per_sec_dense_twin"]
+    print(tag + " " + json.dumps(summary), flush=True)
+    del st, eng, want, mean_tree, pulled
+    torch.cuda.empty_cache()
+    return summary, whole
+
+
 def _ptxas_functions(log, names):
     """ptxas's report (-Xptxas -v) for each entry function whose mangled
     name holds one of ``names``: registers, spill stores + loads, and any
@@ -3922,6 +4343,13 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     _, _, _, phase_s["strategy_parity"] = strategy_phase(fa, gf, fd, smi)
     phase_s["strategy_bench"] = time.monotonic() - t0
+
+    # -- phase 16: the train->serve estate (16a dense, 16b MoE) ----------
+    estate = {}
+    for tag, moe in (("serve_estate", False), ("serve_estate_moe", True)):
+        t0 = time.monotonic()
+        estate[tag] = estate_phase(fa, fd, gf, moe_layers, smi, moe)[1]
+        phase_s[tag] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -3932,6 +4360,7 @@ def main(argv=None) -> int:
                          main_case)
     decode["launches_int8_run"] = launches_int8
     decode["launches_by_path"] = {
+        **{tag: n["flash_decode"] for tag, n in estate.items()},
         "serve": launches, "serve_int8": launches_int8,
         "serve_fast": fast["k3_launches"], "moe_serve": k3_moe,
         "moe_serve_fast": moe_fast["k3_launches"],
@@ -3953,6 +4382,8 @@ def main(argv=None) -> int:
     src = "bluefog_tpu_torch/csrc/flash_attention.cu"
     main_c = compose_launches["compose_pp2_tp2"]
     paths = {"train_dp4": (fwd_n, bwd_n), **compose_launches,
+             **{tag: (n["flash_fwd"], n["flash_bwd"])
+                for tag, n in estate.items()},
              **lc_launches, **{tag: (n["flash_fwd"], n["flash_bwd"]) for
                                tag, n in (("moe_train", moe_launches),
                                           *ep_launches.items(),
@@ -3992,6 +4423,8 @@ def main(argv=None) -> int:
                                "moe_serve_fast": moe_fast["k4_launches"],
                                "moe_serve_carved": moe_carved["k4_launches"],
                                "moe_train": moe_launches["grouped_ffn"],
+                               "serve_estate_moe":
+                                   estate["serve_estate_moe"]["grouped_ffn"],
                                **{tag: n["grouped_ffn"] for tag, n in
                                   ep_launches.items()}},
              moe_train_ep2=k4_ep,
@@ -4009,6 +4442,8 @@ def main(argv=None) -> int:
                      "wgrad x 2) + wgrad_parts_sum",
              wgrad_launches=moe_launches["grouped_ffn_wgrad"],
              launches_by_path={"moe_train": moe_launches["grouped_ffn_dgrad"],
+                               "serve_estate_moe": estate[
+                                   "serve_estate_moe"]["grouped_ffn_dgrad"],
                                **{tag: n["grouped_ffn_dgrad"] for tag, n in
                                   ep_launches.items()}},
              moe_train_ep2=k4_ep,
@@ -4023,6 +4458,8 @@ def main(argv=None) -> int:
          "launches": moe_launches["grouped_ffn_backward_plan"],
          "launches_by_path": {
              "moe_train": moe_launches["grouped_ffn_backward_plan"],
+             "serve_estate_moe":
+                 estate["serve_estate_moe"]["grouped_ffn_backward_plan"],
              **{tag: n["grouped_ffn_backward_plan"] for tag, n in
                 ep_launches.items()}},
          "max_abs_err": max(row["plan_max_abs_err"]

@@ -49,6 +49,7 @@ from bluefog_tpu_torch.ops import flash_decode as fd
 from bluefog_tpu_torch.ops import grouped_ffn as gf
 from bluefog_tpu_torch.ops import ring
 from bluefog_tpu_torch.serve import kv_cache as kv
+from bluefog_tpu_torch.utils import metrics
 import torch_plan_routings as routings
 
 
@@ -1113,6 +1114,7 @@ def test_spec_and_prefix_streams_equal_plain_on_the_card(cuda, moe):
         return call
 
     before = (fd.flash_decode_cuda.launches, gf.grouped_ffn_cuda.launches)
+    hits0 = metrics.counter("bluefog_serve_prefix_hits_total").total()
     with mock.patch.object(fd, "flash_attend_rows",
                            counting("rows", fd.flash_attend_rows)), \
             mock.patch.object(fd, "flash_attend_chunk",
@@ -1123,7 +1125,8 @@ def test_spec_and_prefix_streams_equal_plain_on_the_card(cuda, moe):
         calls["rows"] + calls["chunk"]
     assert calls["rows"] > 0 and calls["chunk"] > 0
     assert (gf.grouped_ffn_cuda.launches > before[1]) == moe
-    assert sched._prefix[0].prefix_hits_total == 4
+    assert metrics.counter("bluefog_serve_prefix_hits_total").total() \
+        - hits0 == 4
     _, want = drain(ServeEngine(cfg, model, ServeConfig(
         decode_steps_per_call=4, **base), device=cuda))
     for a, b in zip(got, want):

@@ -47,7 +47,10 @@ def test_port_imports_no_jax():
               "models.resnet", "models.mlp", "models.cnn", "models.vgg",
               "parallel.context", "api", "tools.bench",
               "tools.resnet_parity", "examples.average_consensus",
-              "ops.windows", "examples.benchmark"):
+              "ops.windows", "examples.benchmark", "utils.config",
+              "utils.flight", "utils.metrics", "utils.timeseries",
+              "utils.tracing", "diagnostics", "run.launcher",
+              "serve.refresh", "tools.trace_report", "tools.serve_bench"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -113,8 +116,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
                                                       init_decode_cache)
     from bluefog_tpu_torch.examples import benchmark
-    from bluefog_tpu_torch.tools import long_context, sp_bench
-    for tool in (long_context, sp_bench, benchmark):
+    from bluefog_tpu_torch.tools import long_context, serve_bench, sp_bench
+    for tool in (long_context, sp_bench, benchmark, serve_bench):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main([])
     lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,

@@ -41,6 +41,7 @@ from bluefog_tpu.utils import metrics as bfm
 from bluefog_tpu_torch.moe.model import MoELMConfig, moe_params_from_jax
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
+from bluefog_tpu_torch.utils import metrics as tbm
 import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 E = 4
@@ -59,6 +60,9 @@ PROMPTS = [[5, 11, 2, 7, 19, 3], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2],
 SHARED = [3, 1, 4, 1]                             # one prefix page of 4
 FAST_PROMPTS = [SHARED + [5, 9, 2], SHARED + [6, 5, 3, 5], [7, 7, 1],
                 SHARED + [2, 7], [9, 2, 6, 5, 3, 5, 8], SHARED + [8, 1]]
+_FAST_COUNTERS = ("bluefog_serve_spec_drafted_total",
+                  "bluefog_serve_spec_accepted_total",
+                  "bluefog_serve_prefix_hits_total")
 
 
 @pytest.fixture(autouse=True)
@@ -279,18 +283,16 @@ def test_spec_and_prefix_streams_match_jax(carving):
     jeng, teng = c.engines(spec_decode=2, spec_stages=1, prefix_pages=2,
                            prefix_page_tokens=4)
     jsched, jreqs = _drain(JScheduler, jeng, FAST_PROMPTS)
-    jcounts = [int(bfm.get_metric(n).total()) for n in (
-        "bluefog_serve_spec_drafted_total",
-        "bluefog_serve_spec_accepted_total",
-        "bluefog_serve_prefix_hits_total")]
+    jcounts = [int(bfm.get_metric(n).total()) for n in _FAST_COUNTERS]
+    t0 = {n: tbm.counter(n).total() for n in _FAST_COUNTERS}
     tsched, treqs = _drain(Scheduler, teng, FAST_PROMPTS)
 
     def view(reqs):
         return [(r.replica, r.prefix_row, r.prefix_len, r.generated)
                 for r in reqs]
     assert view(treqs) == view(jreqs)
-    assert [teng.spec_drafted_total, teng.spec_accepted_total,
-            sum(pc.prefix_hits_total for pc in tsched._prefix)] == jcounts
+    tcounts = [tbm.counter(n).total() - t0[n] for n in _FAST_COUNTERS]
+    assert tcounts == jcounts
     assert {r.replica for r in treqs if r.prefix_row >= 0} == {0, 1}
     for r in range(2):
         assert tsched._prefix[r].describe() == jsched._prefix[r].describe()

@@ -47,6 +47,8 @@ from bluefog_tpu_torch.ops import flash_decode as tfd
 from bluefog_tpu_torch.parallel import compose as tcompose
 from bluefog_tpu_torch.serve import Scheduler, ServeConfig, ServeEngine
 from bluefog_tpu_torch.serve import kv_cache as tkv
+from bluefog_tpu_torch.utils import flight as tflight
+from bluefog_tpu_torch.utils import metrics as tbm
 import torch_cpu_threads  # noqa: F401  (the worker's thread share)
 
 _CFG = dict(vocab=64, d_model=32, heads=4, layers=4)
@@ -61,16 +63,25 @@ PROMPTS = [SHARED + [5, 9, 2], SHARED + [6, 5, 3, 5], [7, 7, 1],
 
 @pytest.fixture(autouse=True)
 def _clean():
-    bfm.reset_metrics()
-    bfflight.reset()
+    for reg in (bfm, tbm):
+        reg.reset_metrics()
+    for fl in (bfflight, tflight):
+        fl.reset()
     yield
-    bfflight.reset()
-    bfm.reset_metrics()
+    for fl in (bfflight, tflight):
+        fl.reset()
+    for reg in (bfm, tbm):
+        reg.reset_metrics()
 
 
-def _metric(name):
-    m = bfm.get_metric(name)
+def _metric(name, reg=bfm):
+    m = reg.get_metric(name)
     return 0 if m is None else int(m.total())
+
+
+def _tmetric(name):
+    """The port's registry (each fixture starts it empty)."""
+    return _metric(name, tbm)
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +134,15 @@ def test_prefix_cache_matches_jax(case):
     tpc = tkv.PrefixCache(pages, 4, first_row=5)
     assert _apply(tpc, ops) == _apply(jpc, ops)
     assert tpc.describe() == jpc.describe()
-    assert tpc.in_use == jpc.in_use == tpc.pages_in_use
-    assert tpc.prefix_hits_total == _metric(
+    pages = "bluefog_serve_prefix_pages_in_use"
+    assert tpc.in_use == jpc.in_use
+    assert (tbm.get_metric(pages) is None) == (bfm.get_metric(pages) is None)
+    if tbm.get_metric(pages) is not None:
+        assert tbm.gauge(pages).value(replica="0") == \
+            bfm.gauge(pages).value(replica="0") == tpc.in_use
+    assert _tmetric("bluefog_serve_prefix_hits_total") == _metric(
         "bluefog_serve_prefix_hits_total")
-    assert tpc.prefix_misses_total == _metric(
+    assert _tmetric("bluefog_serve_prefix_misses_total") == _metric(
         "bluefog_serve_prefix_misses_total")
     for bad in (0, -1):
         with pytest.raises(ValueError) as jerr:
@@ -304,9 +320,10 @@ def test_fast_drain_matches_jax_and_plain_greedy(dense):
     assert got == [r.generated for r in jreqs]
     assert [(r.prefix_row, r.prefix_len) for r in treqs] == \
         [(r.prefix_row, r.prefix_len) for r in jreqs]
-    assert (teng.spec_drafted_total, teng.spec_accepted_total) == \
+    assert (_tmetric("bluefog_serve_spec_drafted_total"),
+            _tmetric("bluefog_serve_spec_accepted_total")) == \
         (jdrafted, jaccepted)
-    assert tsched._prefix[0].prefix_hits_total == jhits == 3
+    assert _tmetric("bluefog_serve_prefix_hits_total") == jhits == 3
     assert [r.prefix_hit for r in treqs] == [False, True, False, True,
                                              False, True]
     assert tsched._prefix[0].describe() == jsched._prefix[0].describe()
@@ -325,7 +342,7 @@ def test_prefix_cow_no_cross_contamination(dense):
     want = [r.generated for r in _drain(Scheduler, plain, [a, b])[1]]
     sched, reqs = _drain(Scheduler, fast, [a, b])
     assert [r.generated for r in reqs] == want
-    assert sched._prefix[0].prefix_hits_total == 1
+    assert _tmetric("bluefog_serve_prefix_hits_total") == 1
     assert [r.prefix_len for r in reqs] == [4, 4]
 
 
@@ -360,7 +377,8 @@ def test_moe_spec_and_prefix_drain_matches_jax(cpu_devices):
     teng = ServeEngine(cfg, model, ServeConfig(**scfg), device="cpu")
     _, treqs = _drain(Scheduler, teng, PROMPTS)
     assert [r.generated for r in treqs] == [r.generated for r in jreqs]
-    assert (teng.spec_drafted_total, teng.spec_accepted_total) == jcounts
+    assert (_tmetric("bluefog_serve_spec_drafted_total"),
+            _tmetric("bluefog_serve_spec_accepted_total")) == jcounts
     assert teng.draft.layers == cfg.layers          # pp 1: every layer
     j, t = jeng.moe_load()[0], teng.moe_load()[0]   # the last verify chunk
     np.testing.assert_array_equal(t["counts"], j["counts"])

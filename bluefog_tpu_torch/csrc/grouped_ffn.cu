@@ -120,7 +120,27 @@
 //   * Stacked peers: the weights may be [P, E, D, F] with any stride
 //     between peers (a layer's slice of a stacked parameter) and ids in
 //     [0, P * E); expert e reads peer e / E's block e % E, so the folded
-//     call copies no weight.  The backward is f32 only.
+//     call copies no weight.
+//
+// The bf16 backward (bf16 xt, g and weights; s f32 from the forward) runs
+// on the same plan with its own GEMM kernel, backward_gemm16, and none of
+// the 3xTF32 machinery: bf16 x bf16 products are exact in f32, so wgmma
+// m64n64k16.f32.bf16.bf16 takes both operands straight from the TMA-staged
+// tiles (128-byte lines, the 128-byte swizzle), K-major for the dgrad
+// (rows and weights hold the reduction innermost) and MN-major for the
+// wgrad (the reduction runs over rows: the transpose immediates replace
+// the f32 kernel's transposing pass).  A stage is 64 reduction entries
+// (one 128-byte line of bf16), 16 KB an operand; with no split buffers
+// the ring is 6 stages deep.  The wgrad's stages still stop at a run's
+// and a part's end (the plan cuts parts at 32 rows): the lines past a
+// stage's rows are zeroed in shared memory before its products.  Rounding
+// points, those of the plain version: du = g @ w2^T accumulates in f32;
+// ds = du * gelu'(s) and u = gelu(s) are rounded to bf16 once (they are
+// the next products' operands); dxt = ds @ w1^T accumulates in f32 and is
+// rounded once; each expert's dw1 / dw2 is summed over all its rows in
+// f32 (split experts' parts in part order) and rounded once.  What bounds
+// it: the operations, 8 * G * tile * D * F at the bf16 rate (1.1 ms at the
+// steady tick), where the f32 kernel needs three TF32 products for one.
 //
 // The C interface takes every pointer as void* (ctypes passes them as
 // c_void_p) and returns cudaGetLastError() after the launches.
@@ -677,13 +697,15 @@ __device__ __forceinline__ int sw_cols(int k, int c) {
          (c & 3);
 }
 
-struct Bw {
-  const float* a;       // dgrad: the rows [R, K]; wgrad: [R, M]
-  const float* b;       // dgrad: the weights, expert e at [N, K]; wgrad:
+// the operands of one backward GEMM in T (f32 or bf16)
+template <typename T>
+struct BwT {
+  const T* a;           // dgrad: the rows [R, K]; wgrad: [R, M]
+  const T* b;           // dgrad: the weights, expert e at [N, K]; wgrad:
                         // the rows [R, N]
-  const float* s;       // the first dgrad product: s [R, N]
-  float* out;           // dgrad: [R, N]; wgrad: dw [E, M, N]
-  float* aux;           // the first dgrad product: u = gelu(s) [R, N]
+  const float* s;       // the first dgrad product: s [R, N] (f32 always)
+  T* out;               // dgrad: [R, N]; wgrad: dw [E, M, N]
+  T* aux;               // the first dgrad product: u = gelu(s) [R, N]
   float* scratch;       // wgrad: split experts' parts [slots, M, N]
   int* plan;
   int M, N, K;          // dgrad: N columns over K entries; wgrad: M x N
@@ -691,9 +713,11 @@ struct Bw {
   long long pstride;    // the dgrad's weights: expert e at (e / epp) *
                         // pstride + (e % epp) * N * K
 };
+using Bw = BwT<float>;
 
 // walks one wgrad part: the expert's rows [r0, r1) in tile order, a stage
-// of at most kBK rows at a time, a stage never crossing a run's end
+// of at most kStage rows at a time, a stage never crossing a run's end
+template <int kStage>
 struct RowCursor {
   const int* eruns;
   int j, o, pos, end, first, len;
@@ -714,7 +738,7 @@ struct RowCursor {
   }
   __device__ bool more() const { return pos < end; }
   __device__ void next(int& row, int& cnt) {
-    cnt = min(min(kBK, len - o), end - pos);
+    cnt = min(min(kStage, len - o), end - pos);
     row = first + o;
     o += cnt;
     pos += cnt;
@@ -781,7 +805,7 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
       return;
     }
     int m0 = 0, n0, e, rows0 = 0, nrows = kBM, slot_out = -1;
-    RowCursor cur;
+    RowCursor<kBK> cur;
     if constexpr (kW) {
       const int* q = p.plan + L.parts + 4 * (item / tiles);
       e = q[0];
@@ -999,12 +1023,218 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// dw[e] for the experts the plan lists: the sum of e's parts in part
-// order, or exact zeros for an expert without rows (mn = M * N, a
-// multiple of 4)
+// -- the backward's GEMMs in bf16 ------------------------------------------
+
+constexpr int kHK = 64;               // bf16 reduction entries a stage
+constexpr int kHS = 6;                // stages in the bf16 ring
+constexpr int kHOp = kBM * kHK * 2;   // bytes of one operand's stage, 16 KB
+constexpr size_t kHRawBytes = (size_t)kHS * 2 * kHOp;   // 192 KB
+constexpr size_t kHSmem = 1024 + kHRawBytes + 8 * kHS + 4 * kHS + 16;
+static_assert(kBM == 128 && kHK * 2 == 128 && kHSmem <= 232448,
+              "bf16 backward GEMM geometry");
+
+// The bf16 twin of backward_gemm: the same persistent grid, items and
+// plan, with a stage of kHK entries staged as TMA writes it and consumed
+// in place by wgmma (see the header).  Warpgroup w multiplies rows 64w ..
+// 64w + 63 of the item's tile by its 128 columns as two m64n64 halves.
+// The dgrad's A and B are K-major (boxes of kHK entries x 128 rows); the
+// wgrad's are MN-major (two boxes of 64 columns x kHK rows each), and a
+// stage holding fewer than kHK rows (a run's or a part's end) has its
+// other lines zeroed before its products.  Rows past a dgrad row block's
+// end only reach output rows that are never written.
+template <int kMode>
+__global__ void __launch_bounds__(kBT, 1)
+backward_gemm16(const BwT<__nv_bfloat16> p,
+                const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b) {
+  constexpr bool kW = kMode == BW_WGRAD;
+  extern __shared__ __align__(16) unsigned char smem_in[];
+  unsigned char* smem =
+      smem_in + ((1024u - (smem_addr(smem_in) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kHRawBytes);
+  int* rows_sh = reinterpret_cast<int*>(full + kHS);   // a stage's rows
+  int* item_sh = rows_sh + kHS;
+  const PlanLayout L(p.G, p.E, p.rb_max, p.p_max);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  // this thread's first output row of the tile
+  const int arow = wg * 64 + (warp & 3) * 16 + g;
+  const int tiles_n = ceil_div(p.N, kBN);
+  const int tiles = kW ? ceil_div(p.M, kBM) * tiles_n : tiles_n;
+  if (p.plan[H_FAULT]) __trap();       // the plan outgrew its room
+  const int n_items = (kW ? p.plan[H_PARTS] : p.plan[H_ROWBLK]) * tiles;
+  const void* ma = &map_a;
+  const void* mb = &map_b;
+  if (tid == 0) {
+    for (int i = 0; i < kHS; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  int base = 0;                        // stages issued for earlier items
+  for (;;) {
+    if (tid == 0) *item_sh = atomicAdd(p.plan + H_NEXT, 1);
+    __syncthreads();
+    const int item = *item_sh;
+    if (item >= n_items) {
+      if (tid == 0 && item == n_items + (int)gridDim.x - 1)
+        p.plan[H_NEXT] = 0;            // the last block out resets it
+      return;
+    }
+    int m0 = 0, n0, e, rows0 = 0, nrows = kBM, slot_out = -1;
+    RowCursor<kHK> cur;
+    if constexpr (kW) {
+      const int* q = p.plan + L.parts + 4 * (item / tiles);
+      e = q[0];
+      slot_out = q[3];
+      m0 = (item % tiles) / tiles_n * kBM;
+      n0 = (item % tiles) % tiles_n * kBN;
+      cur.init(p.plan + L.eruns, p.plan[L.eptr + e], q[1], q[2]);
+    } else {
+      const int* q = p.plan + L.rowblk + 3 * (item / tiles_n);
+      rows0 = q[0];
+      nrows = q[1];
+      e = q[2];
+      n0 = (item % tiles_n) * kBN;
+    }
+
+    // -- stage `issued` into its ring slot: thread 0 asks for the boxes --
+    int issued = 0;
+    auto issue = [&]() {
+      const int slot = (base + issued) % kHS;
+      unsigned char* ra = smem + slot * 2 * kHOp;
+      unsigned char* rb = ra + kHOp;
+      if constexpr (kW) {
+        if (!cur.more()) return;
+        int row, cnt;
+        cur.next(row, cnt);
+        if (tid == 0) {
+          rows_sh[slot] = cnt;
+          mbar_expect_tx(full + slot, 2 * kHOp);
+          for (int b = 0; b < 2; ++b) {
+            tma_load_2d(ra + b * kHK * 128, ma, full + slot, m0 + 64 * b,
+                        row);
+            tma_load_2d(rb + b * kHK * 128, mb, full + slot, n0 + 64 * b,
+                        row);
+          }
+        }
+      } else {
+        if (issued * kHK >= p.K) return;
+        if (tid == 0) {
+          mbar_expect_tx(full + slot, 2 * kHOp);
+          tma_load_2d(ra, ma, full + slot, issued * kHK, rows0);
+          tma_load_4d(rb, mb, full + slot, issued * kHK, n0, e % p.epp,
+                      e / p.epp);
+        }
+      }
+      ++issued;
+    };
+
+    float acc[2][32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < kHS; ++i) issue();
+    for (int ks = 0; ks < issued; ++ks) {
+      const int q = base + ks, slot = q % kHS;
+      unsigned char* ra = smem + slot * 2 * kHOp;
+      unsigned char* rb = ra + kHOp;
+      mbar_wait(full + slot, (q / kHS) & 1);
+      if constexpr (kW) {
+        const int cnt = rows_sh[slot];
+        if (cnt < kHK) {               // the same for every thread
+          // lines cnt .. kHK - 1 of the four boxes (A's two, then B's)
+          const int per = kHK - cnt;
+          for (int i = tid; i < 4 * per * 8; i += kBT) {
+            const int chunk = i & 7, l = i >> 3;
+            uint4* line = reinterpret_cast<uint4*>(
+                ra + (l / per) * kHK * 128 + (cnt + l % per) * 128);
+            line[chunk] = make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();         // visible to wgmma's reads
+          __syncthreads();
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kHK / 16; ++j) {
+        uint64_t a, b0, b1;
+        if constexpr (kW) {            // MN-major: k step j = lines 16j ..
+          a = wgmma_desc_sw128(ra + wg * kHK * 128 + j * 2048, 1024, 1024);
+          b0 = wgmma_desc_sw128(rb + j * 2048, 1024, 1024);
+          b1 = wgmma_desc_sw128(rb + kHK * 128 + j * 2048, 1024, 1024);
+        } else {                       // K-major: 32 bytes along the lines
+          a = wgmma_desc_sw128(ra + wg * 64 * 128 + j * 32, 16, 1024);
+          b0 = wgmma_desc_sw128(rb + j * 32, 16, 1024);
+          b1 = wgmma_desc_sw128(rb + 64 * 128 + j * 32, 16, 1024);
+        }
+        wgmma_bf16_m64n64<kW, kW>(acc[0], a, b0, 1);
+        wgmma_bf16_m64n64<kW, kW>(acc[1], a, b1, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncthreads();                 // the slot is free again
+      issue();                         // into it
+    }
+    base += issued;
+
+    // -- the epilogue: rows arow and arow + 8, columns 64h + 8j + 2t, + 1 -
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = arow + 8 * hr, c = n0 + 64 * h + 8 * j + 2 * t;
+          const float v0 = acc[h][4 * j + 2 * hr],
+                      v1 = acc[h][4 * j + 2 * hr + 1];
+          if constexpr (kW) {
+            if (m0 + r < p.M && c < p.N) {
+              if (slot_out >= 0) {     // a split expert's f32 part
+                float* dst = p.scratch + (size_t)slot_out * p.M * p.N;
+                *reinterpret_cast<float2*>(dst + (size_t)(m0 + r) * p.N +
+                                           c) = make_float2(v0, v1);
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(
+                    p.out + (size_t)e * p.M * p.N + (size_t)(m0 + r) * p.N +
+                    c) = __floats2bfloat162_rn(v0, v1);
+              }
+            }
+          } else if (r < nrows && c < p.N) {
+            const size_t o = (size_t)(rows0 + r) * p.N + c;
+            if constexpr (kMode == BW_DGELU) {
+              const float2 sv = *reinterpret_cast<const float2*>(p.s + o);
+              *reinterpret_cast<__nv_bfloat162*>(p.out + o) =
+                  __floats2bfloat162_rn(v0 * gelu_tanh_grad(sv.x),
+                                        v1 * gelu_tanh_grad(sv.y));
+              *reinterpret_cast<__nv_bfloat162*>(p.aux + o) =
+                  __floats2bfloat162_rn(gelu_tanh(sv.x), gelu_tanh(sv.y));
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(p.out + o) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// dw[e] for the experts the plan lists: the sum of e's f32 parts in part
+// order (rounded once to Tout), or exact zeros for an expert without rows
+// (mn = M * N, a multiple of 4)
+template <typename Tout>
 __global__ void wgrad_parts_sum(const int* __restrict__ plan,
                                 const float* __restrict__ scratch,
-                                float* __restrict__ out, int G, int E,
+                                Tout* __restrict__ out, int G, int E,
                                 int rb_max, int p_max, long long mn) {
   const PlanLayout L(G, E, rb_max, p_max);
   if (plan[H_FAULT]) __trap();
@@ -1022,7 +1252,7 @@ __global__ void wgrad_parts_sum(const int* __restrict__ plan,
       v.z += x.z;
       v.w += x.w;
     }
-    reinterpret_cast<float4*>(out + q[0] * mn)[j] = v;
+    store4(out + q[0] * mn + 4 * j, v);
   }
 }
 
@@ -1143,17 +1373,24 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// an f32 tensor map of `rank` dims (innermost first; strides in bytes of
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a tensor map of `rank` dims of T (innermost first; strides in bytes of
 // dims 1 ..) with boxes `box`, 128-byte swizzle, zeros out of bounds;
 // 0 or -3 when the driver refuses it
-int tensor_map(CUtensorMap* m, const float* base, int rank,
+template <typename T>
+int tensor_map(CUtensorMap* m, const T* base, int rank,
                const cuuint64_t* dims, const cuuint64_t* strides,
                const cuuint32_t* box) {
   const EncodeTiled enc = encoder();
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   if (enc == nullptr ||
-      enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-          const_cast<float*>(base), dims, strides, box, ones,
+      enc(m, map_type<T>(), rank, const_cast<T*>(base), dims, strides, box,
+          ones,
           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -1161,72 +1398,158 @@ int tensor_map(CUtensorMap* m, const float* base, int rank,
   return 0;
 }
 
-// rows [rows, width] f32, boxes of bw columns x bh rows
-int rows_map(CUtensorMap* m, const float* base, long long rows, int width,
+// rows [rows, width] of T, boxes of bw columns x bh rows
+template <typename T>
+int rows_map(CUtensorMap* m, const T* base, long long rows, int width,
              int bw, int bh) {
   const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)width * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)bh};
   return tensor_map(m, base, 2, dims, strides, box);
 }
 
 // one backward GEMM over the plan's items: a persistent grid of one block
-// per SM (fewer when the items can never fill it)
-template <int kMode>
-int gemm(const Bw& p, const CUtensorMap& ma, const CUtensorMap& mb,
+// per SM (fewer when the items can never fill it); backward_gemm for f32
+// operands, backward_gemm16 for bf16
+template <typename T, int kMode>
+int gemm(const BwT<T>& p, const CUtensorMap& ma, const CUtensorMap& mb,
          long long items_max, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr size_t smem = kF32 ? kBwSmem : kHSmem;
+  const auto kern = [] {
+    if constexpr (kF32) return backward_gemm<kMode>;
+    else return backward_gemm16<kMode>;
+  }();
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        backward_gemm<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kBwSmem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   const int sms = sm_count();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   const int grid = (int)std::min<long long>(std::max(items_max, 1LL), sms);
-  backward_gemm<kMode><<<grid, kBT, kBwSmem, st>>>(p, ma, mb);
+  kern<<<grid, kBT, smem, st>>>(p, ma, mb);
   return (int)cudaGetLastError();
+}
+
+// reduction entries a stage of T: kBK f32, kHK bf16 (one 128-byte line)
+template <typename T>
+constexpr int stage_k() {
+  return std::is_same<T, float>::value ? kBK : kHK;
 }
 
 // a dgrad product: rows p.a [R, K] times expert e's weights p.b, [N, K]
 // at (e / epp) * pstride + (e % epp) * N * K
-template <int kMode>
-int dgrad(const Bw& p, cudaStream_t st) {
+template <typename T, int kMode>
+int dgrad(const BwT<T>& p, cudaStream_t st) {
+  constexpr int kk = stage_k<T>();
+  constexpr cuuint64_t it = sizeof(T);
   CUtensorMap ma, mb;
-  int err = rows_map(&ma, p.a, (long long)p.G * p.tile, p.K, kBK, kBM);
+  int err = rows_map(&ma, p.a, (long long)p.G * p.tile, p.K, kk, kBM);
   if (err != 0) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)p.K, (cuuint64_t)p.N,
                               (cuuint64_t)p.epp,
                               (cuuint64_t)(p.E / p.epp)};
-  const cuuint64_t strides[3] = {(cuuint64_t)p.K * 4,
-                                 (cuuint64_t)p.N * p.K * 4,
-                                 (cuuint64_t)p.pstride * 4};
-  const cuuint32_t box[4] = {kBK, kBN, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)p.K * it,
+                                 (cuuint64_t)p.N * p.K * it,
+                                 (cuuint64_t)p.pstride * it};
+  const cuuint32_t box[4] = {(cuuint32_t)kk, kBN, 1, 1};
   err = tensor_map(&mb, p.b, 4, dims, strides, box);
   if (err != 0) return err;
-  return gemm<kMode>(p, ma, mb, (long long)p.rb_max * ceil_div(p.N, kBN),
-                     st);
+  return gemm<T, kMode>(p, ma, mb,
+                        (long long)p.rb_max * ceil_div(p.N, kBN), st);
 }
 
 // a wgrad product: dw [E, M, N] from rows p.a [R, M] and p.b [R, N] by
-// the plan's parts, then the part sum
-int wgrad(const Bw& p, cudaStream_t st) {
+// the plan's parts, then the part sum; the f32 kernel stages boxes of 32
+// columns x kBK rows, the bf16 one boxes of 64 columns x kHK rows
+template <typename T>
+int wgrad(const BwT<T>& p, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int bw = kF32 ? 32 : 64, bh = stage_k<T>();
   CUtensorMap ma, mb;
   const long long R = (long long)p.G * p.tile;
-  int err = rows_map(&ma, p.a, R, p.M, 32, kBK);
-  if (err == 0) err = rows_map(&mb, p.b, R, p.N, 32, kBK);
+  int err = rows_map(&ma, p.a, R, p.M, bw, bh);
+  if (err == 0) err = rows_map(&mb, p.b, R, p.N, bw, bh);
   if (err == 0)
-    err = gemm<BW_WGRAD>(p, ma, mb,
-                         (long long)p.p_max * ceil_div(p.M, kBM) *
-                             ceil_div(p.N, kBN),
-                         st);
+    err = gemm<T, BW_WGRAD>(p, ma, mb,
+                            (long long)p.p_max * ceil_div(p.M, kBM) *
+                                ceil_div(p.N, kBN),
+                            st);
   if (err != 0) return err;
-  wgrad_parts_sum<<<4 * sm_count(), 256, 0, st>>>(
+  wgrad_parts_sum<T><<<4 * sm_count(), 256, 0, st>>>(
       p.plan, p.scratch, p.out, p.G, p.E, p.rb_max, p.p_max,
       (long long)p.M * p.N);
   return (int)cudaGetLastError();
+}
+
+// the dgrad's two products on T operands (see bf_grouped_ffn_dgrad)
+template <typename T>
+int run_dgrad(const void* g, const int* eid, const void* w1, const void* w2,
+              const float* s, void* ds, void* u, void* dxt, int* plan,
+              int G, int tile, int E, int epp, long long p1, long long p2,
+              int D, int F, int rb_max, int p_max, cudaStream_t st) {
+  BwT<T> a{};
+  a.a = static_cast<const T*>(g);
+  a.b = static_cast<const T*>(w2);
+  a.s = s;
+  a.out = static_cast<T*>(ds);
+  a.aux = static_cast<T*>(u);
+  a.plan = plan;
+  a.N = F;
+  a.K = D;
+  a.G = G;
+  a.tile = tile;
+  a.E = E;
+  a.rb_max = rb_max;
+  a.p_max = p_max;
+  a.epp = epp;
+  a.pstride = p2;
+  const int e = dgrad<T, BW_DGELU>(a, st);
+  if (e != 0) return e;
+  BwT<T> b = a;
+  b.a = static_cast<const T*>(ds);
+  b.b = static_cast<const T*>(w1);
+  b.s = nullptr;
+  b.out = static_cast<T*>(dxt);
+  b.aux = nullptr;
+  b.N = D;
+  b.K = F;
+  b.pstride = p1;
+  const int e2 = dgrad<T, BW_DGRAD>(b, st);
+  if (e2 != 0) return e2;
+  return zero_marked(eid, dxt, G, (long long)tile * D * sizeof(T), st);
+}
+
+// the wgrad's two products on T operands (see bf_grouped_ffn_wgrad)
+template <typename T>
+int run_wgrad(const void* xt, const void* ds, const void* u, const void* g,
+              int* plan, void* dw1, void* dw2, float* scratch, int G,
+              int tile, int E, int D, int F, int rb_max, int p_max,
+              cudaStream_t st) {
+  BwT<T> a{};
+  a.a = static_cast<const T*>(xt);
+  a.b = static_cast<const T*>(ds);
+  a.out = static_cast<T*>(dw1);
+  a.scratch = scratch;
+  a.plan = plan;
+  a.M = D;
+  a.N = F;
+  a.G = G;
+  a.tile = tile;
+  a.E = E;
+  a.rb_max = rb_max;
+  a.p_max = p_max;
+  const int e = wgrad<T>(a, st);
+  if (e != 0) return e;
+  a.a = static_cast<const T*>(u);
+  a.b = static_cast<const T*>(g);
+  a.out = static_cast<T*>(dw2);
+  a.M = F;
+  a.N = D;
+  return wgrad<T>(a, st);
 }
 
 }  // namespace
@@ -1304,87 +1627,58 @@ int bf_grouped_ffn_backward_plan(const void* tile_eid, void* plan, int G,
   return (int)cudaGetLastError();
 }
 
-// The dgrad, f32: g [G, tile, D] the output's cotangent, s [G, tile, F]
-// the forward's pre-activation; writes ds [G, tile, F] = (g @ w2^T) *
+// The dgrad: g [G, tile, D] the output's cotangent, s [G, tile, F] the
+// forward's pre-activation (f32); writes ds [G, tile, F] = (g @ w2^T) *
 // gelu'(s), u [G, tile, F] = gelu(s) and dxt [G, tile, D] = ds @ w1^T, by
 // the plan's row blocks (built from tile_eid), and zero rows of dxt on the
 // marked tiles (ds and u are left unwritten there).  Weights and strides
-// as bf_grouped_ffn's.
+// as bf_grouped_ffn's; dtype 0 = f32, 1 = bf16 (g, the weights, ds, u and
+// dxt alike).
 int bf_grouped_ffn_dgrad(const void* g, const void* tile_eid, const void* w1,
                          const void* w2, const void* s, void* ds, void* u,
                          void* dxt, void* plan, int G, int tile, int E,
                          int epp, long long p1, long long p2, int D, int F,
-                         int rb_max, int p_max, void* stream) {
+                         int rb_max, int p_max, int dtype, void* stream) {
   if (G < 1 || tile < 1 || E < 1 || epp < 1 || E % epp || D < 8 || F < 8 ||
       D % 8 || F % 8 || p1 % 8 || p2 % 8 || rb_max < 1 || p_max < 1)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Bw a{};
-  a.a = static_cast<const float*>(g);
-  a.b = static_cast<const float*>(w2);
-  a.s = static_cast<const float*>(s);
-  a.out = static_cast<float*>(ds);
-  a.aux = static_cast<float*>(u);
-  a.plan = static_cast<int*>(plan);
-  a.N = F;
-  a.K = D;
-  a.G = G;
-  a.tile = tile;
-  a.E = E;
-  a.rb_max = rb_max;
-  a.p_max = p_max;
-  a.epp = epp;
-  a.pstride = p2;
-  const int e = dgrad<BW_DGELU>(a, st);
-  if (e != 0) return e;
-  Bw b = a;
-  b.a = static_cast<const float*>(ds);
-  b.b = static_cast<const float*>(w1);
-  b.s = nullptr;
-  b.out = static_cast<float*>(dxt);
-  b.aux = nullptr;
-  b.N = D;
-  b.K = F;
-  b.pstride = p1;
-  const int e2 = dgrad<BW_DGRAD>(b, st);
-  if (e2 != 0) return e2;
-  return zero_marked(static_cast<const int*>(tile_eid), dxt, G,
-                     (long long)tile * D * 4, st);
+  const int* eid = static_cast<const int*>(tile_eid);
+  const float* sf = static_cast<const float*>(s);
+  int* pl = static_cast<int*>(plan);
+  if (dtype == 0)
+    return run_dgrad<float>(g, eid, w1, w2, sf, ds, u, dxt, pl, G, tile, E,
+                            epp, p1, p2, D, F, rb_max, p_max, st);
+  if (dtype == 1)
+    return run_dgrad<__nv_bfloat16>(g, eid, w1, w2, sf, ds, u, dxt, pl, G,
+                                    tile, E, epp, p1, p2, D, F, rb_max,
+                                    p_max, st);
+  return -2;
 }
 
-// The wgrad, f32: dw1 [E, D, F] = per expert xt^T ds, dw2 [E, F, D] = u^T
-// g, over the rows of xt, ds, u, g ([G, tile, *]) by the plan's parts;
+// The wgrad: dw1 [E, D, F] = per expert xt^T ds, dw2 [E, F, D] = u^T g,
+// over the rows of xt, ds, u, g ([G, tile, *]) by the plan's parts;
 // scratch [slots, D * F] f32 holds the parts of split experts (null when
-// the plan can split none).
+// the plan can split none).  dtype 0 = f32 (D, F multiples of 4), 1 =
+// bf16 (multiples of 8): the operands and dw1, dw2 alike.
 int bf_grouped_ffn_wgrad(const void* xt, const void* ds, const void* u,
                          const void* g, void* plan, void* dw1, void* dw2,
                          void* scratch, int G, int tile, int E, int D, int F,
-                         int rb_max, int p_max, void* stream) {
-  if (G < 1 || tile < 1 || E < 1 || D < 4 || F < 4 || D % 4 || F % 4 ||
-      rb_max < 1 || p_max < 1)
+                         int rb_max, int p_max, int dtype, void* stream) {
+  const int width = dtype == 1 ? 8 : 4;
+  if (G < 1 || tile < 1 || E < 1 || D < width || F < width || D % width ||
+      F % width || rb_max < 1 || p_max < 1)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Bw a{};
-  a.a = static_cast<const float*>(xt);
-  a.b = static_cast<const float*>(ds);
-  a.out = static_cast<float*>(dw1);
-  a.scratch = static_cast<float*>(scratch);
-  a.plan = static_cast<int*>(plan);
-  a.M = D;
-  a.N = F;
-  a.G = G;
-  a.tile = tile;
-  a.E = E;
-  a.rb_max = rb_max;
-  a.p_max = p_max;
-  const int e = wgrad(a, st);
-  if (e != 0) return e;
-  a.a = static_cast<const float*>(u);
-  a.b = static_cast<const float*>(g);
-  a.out = static_cast<float*>(dw2);
-  a.M = F;
-  a.N = D;
-  return wgrad(a, st);
+  int* pl = static_cast<int*>(plan);
+  float* sc = static_cast<float*>(scratch);
+  if (dtype == 0)
+    return run_wgrad<float>(xt, ds, u, g, pl, dw1, dw2, sc, G, tile, E, D,
+                            F, rb_max, p_max, st);
+  if (dtype == 1)
+    return run_wgrad<__nv_bfloat16>(xt, ds, u, g, pl, dw1, dw2, sc, G, tile,
+                                    E, D, F, rb_max, p_max, st);
+  return -2;
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Helpers shared by the port's Hopper kernels (K1/K2 flash_attention.cu,
 // K3 flash_decode.cu, K4 grouped_ffn.cu): cp.async staging, the 3xTF32
 // tensor-core products, and the mbarrier, TMA and wgmma pieces of K4's
-// backward.  Included inside each source's own translation unit;
+// backward (tf32 with A in registers, bf16 with both operands in shared
+// memory).  Included inside each source's own translation unit;
 // everything here is in an anonymous namespace.
 //
 // 3xTF32: an f32 operand x splits into big = cvt.rna.tf32(x) and small =
@@ -233,6 +234,55 @@ __device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
         "r"(scale_d));
+}
+
+// -- wgmma (sm_90a): bf16 m64n64k16, both operands in shared memory --------
+//
+// A (64 x 16) and B (16 x 64) are read through descriptors of tiles that
+// TMA wrote with the 128-byte swizzle: 128-byte lines, line l's 16-byte
+// chunk c at chunk c ^ (l % 8), 8 lines (1 KB, 1 KB aligned) an atom.
+// K-major (trans 0): a line is one row of 64 reduction entries; a k step
+// of 16 entries starts 32 bytes further along the line; the 8-line atoms
+// along M / N are `sbo` bytes apart.  MN-major (trans 1): a line is one
+// reduction entry's 64 rows (or columns); the 8-line atoms along the
+// reduction are `sbo` bytes apart, a k step starts two atoms further, and
+// 64 rows are one atom wide, so the atom stride along M / N (`lbo`) is
+// never crossed.  The accumulator d[32] holds, per 8-column block j,
+// d[4j] .. d[4j + 3] as the tf32 product's d[64] does.
+
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  // layout type 1 (128-byte swizzle) in bits 62-63, base offset 0 (atoms
+  // 1 KB aligned)
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_bf16_m64n64(float (&d)[32],
+                                                  uint64_t a_desc,
+                                                  uint64_t b_desc,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d), "n"(kTransA),
+        "n"(kTransB));
 }
 
 }  // namespace

@@ -342,9 +342,12 @@ def moe_params_from_jax(tree: Mapping[str, Any], cfg: MoELMConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0, *,
-                          dense_equiv: bool = False) -> dict:
-    """The JAX ``init_moe_params(cfg, m, seed, dense_equiv=...)`` tree,
-    bit for bit, every leaf stacked ``[n, ...]`` on ``m.device``:
+                          dense_equiv: bool = False,
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """The JAX ``init_moe_params(cfg, m, seed, dtype, dense_equiv=...)``
+    tree, bit for bit, every leaf stacked ``[n, ...]`` on ``m.device`` in
+    ``dtype`` (JAX's numpy cast of the float64 draws rounds through f32,
+    as this does):
     ``blocks`` (``wqkv``, ``wo``: owner ``(s, t)``'s tp shard of ``[pp,
     tp, layers / pp, ...]``), ``router`` (``wr``, stage s's ``[layers /
     pp, D, E]``), ``experts`` (``w1`` / ``w2``: the experts drawn at the
@@ -375,7 +378,8 @@ def init_moe_train_params(cfg: MoELMConfig, m: Mesh3D, seed: int = 0, *,
     _, s, t, _, e = _compose._coords(m)
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(m.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(m.device).to(
+            dtype)
 
     def per_peer(cut):
         return torch.stack([dev(cut(si, ti)[:, ei * El:(ei + 1) * El])

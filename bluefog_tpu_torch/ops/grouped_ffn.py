@@ -35,7 +35,12 @@ then :func:`grouped_ffn_dgrad_cuda` (``dxt``, with ``u = gelu(s)``
 rebuilt in its epilogue) and :func:`grouped_ffn_wgrad_cuda` (``dw1``,
 ``dw2`` per expert, no atomics) run on it; on the CPU the backward is
 :func:`grouped_ffn_backward_plain`, the same formulas in plain PyTorch.
-The backward takes f32 only.
+The backward takes f32 or bf16 (the trainer's types).  In bf16 ``s``
+stays f32 (the exact pre-activation the forward computed), and the
+backward rounds only where JAX's ``_grouped_bwd`` rounds too (JAX also
+rounds ``s``, ``du`` and each tile's weight gradient): ``ds`` and ``u``
+(the operands of the next products), ``dxt``, and each expert's ``dw1``
+/ ``dw2`` once after its f32 sum.
 
 The forward runs expert-major blocks by the host-side plan
 :func:`ffn_plan`, picked from the shapes alone.  The backward follows
@@ -51,10 +56,11 @@ per call; each call is two CUDA launches, up- and down-projection),
 ``backward_plan_cuda.launches``, ``grouped_ffn_dgrad_cuda.launches`` and
 ``grouped_ffn_wgrad_cuda.launches`` the backward's, so a run can show
 that its expert FFNs went through them.
-:func:`grouped_ffn_plain_by_expert` is a second plain version, for the
-card: it reads the tile layout on the host and runs one product per run
-of an expert's tiles, with no weight gather, so it holds the kernels to
-account at training shapes.
+:func:`grouped_ffn_plain_by_expert` and
+:func:`grouped_ffn_backward_plain_by_expert` are second plain versions,
+for the card: they read the tile layout on the host and run one product
+per run of an expert's tiles, with no weight gather, so they hold the
+kernels to account at training shapes.
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ from .flash_attention import _aligned
 
 __all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda",
            "grouped_ffn_plain_by_expert", "grouped_ffn_backward_plain",
+           "grouped_ffn_backward_plain_by_expert",
            "grouped_ffn_dgrad_cuda", "grouped_ffn_wgrad_cuda", "GroupedFFN",
            "ffn_plan", "plan_sizes", "BackwardPlan", "backward_plan_cuda",
            "backward_plan_plain", "unpack_plan", "build"]
@@ -100,8 +107,8 @@ def build() -> ctypes.CDLL:
     lib.bf_grouped_ffn_backward_plan.argtypes = [p] * 2 + [i] * 11 + [p]
     lib.bf_grouped_ffn_backward_layout.argtypes = [i] * 4 + [p]
     lib.bf_grouped_ffn_dgrad.argtypes = [p] * 9 + [i] * 4 + [ll] * 2 \
-        + [i] * 4 + [p]
-    lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 7 + [p]
+        + [i] * 5 + [p]
+    lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 8 + [p]
     for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_backward_plan,
                lib.bf_grouped_ffn_backward_layout, lib.bf_grouped_ffn_dgrad,
                lib.bf_grouped_ffn_wgrad):
@@ -425,6 +432,16 @@ def grouped_ffn_plain_by_expert(xt: torch.Tensor, tile_eid: torch.Tensor,
     return torch.cat(parts).reshape(G, tile, -1).to(xt.dtype)
 
 
+def _dgelu(du: torch.Tensor, s: torch.Tensor, dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ds, u)``: ``du * gelu'(s)`` and ``gelu(s)`` in ``du``'s type,
+    each rounded once to ``dtype`` (the operands' type) and widened back:
+    the backward's first rounding points (no-ops for f32 and f64)."""
+    ct = du.dtype
+    ds = torch.ops.aten.gelu_backward(du, s, approximate="tanh")
+    return ds.to(dtype).to(ct), _gelu(s).to(dtype).to(ct)
+
+
 def grouped_ffn_backward_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
                                w1: torch.Tensor, w2: torch.Tensor,
                                s: torch.Tensor, g: torch.Tensor
@@ -435,20 +452,60 @@ def grouped_ffn_backward_plain(xt: torch.Tensor, tile_eid: torch.Tensor,
     of the JAX ``_grouped_bwd``): ``ds = (g @ w2^T) * gelu'(s)``, ``dxt =
     ds @ w1^T``, ``dw1[e]`` / ``dw2[e]`` the sums of ``xt^T ds`` / ``gelu(
     s)^T g`` over e's tiles (``index_add_`` in tile order).  Trash tiles
-    add nothing and get zero rows of ``dxt``."""
+    add nothing and get zero rows of ``dxt``.  Computed in f32 (f64 for
+    f64); bf16 operands round ``ds`` and ``gelu(s)`` to bf16 once, then
+    ``dxt`` and each expert's summed ``dw1`` / ``dw2`` (the kernels'
+    rounding points)."""
     ct = _compute_dtype(xt.dtype)
     idx, live = _live(tile_eid)
     W1, W2 = _flat(w1), _flat(w2)
     w1g, w2g = W1[idx].to(ct), W2[idx].to(ct)
     g, s = torch.where(live, g.to(ct), 0), s.to(ct)
     du = torch.einsum("gtd,gfd->gtf", g, w2g)
-    ds = torch.ops.aten.gelu_backward(du, s, approximate="tanh")
+    ds, u = _dgelu(du, s, xt.dtype)
     dxt = torch.einsum("gtf,gdf->gtd", ds, w1g)
     dw1 = torch.zeros(W1.shape, dtype=ct).index_add_(
         0, idx, torch.einsum("gtd,gtf->gdf", xt.to(ct), ds))
     dw2 = torch.zeros(W2.shape, dtype=ct).index_add_(
-        0, idx, torch.einsum("gtf,gtd->gfd", _gelu(s), g))
+        0, idx, torch.einsum("gtf,gtd->gfd", u, g))
     return (dxt.to(xt.dtype), dw1.reshape(w1.shape).to(w1.dtype),
+            dw2.reshape(w2.shape).to(w2.dtype))
+
+
+def grouped_ffn_backward_plain_by_expert(
+        xt: torch.Tensor, tile_eid: torch.Tensor, w1: torch.Tensor,
+        w2: torch.Tensor, s: torch.Tensor, g: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`grouped_ffn_backward_plain` as ``torch.matmul`` per run of
+    one expert's tiles, the weights read in place (no gather): the same
+    formulas and rounding points, for the card's checks at training
+    shapes.  It reads ``tile_eid`` on the host (never on the main
+    path)."""
+    G, tile, D = xt.shape
+    ct = _compute_dtype(xt.dtype)
+    W1, W2 = _flat(w1), _flat(w2)
+    ids = tile_eid.cpu().tolist()
+    x2, g2, s2 = (t.reshape(G * tile, -1) for t in (xt, g, s))
+    dxt = torch.zeros((G * tile, D), dtype=ct, device=xt.device)
+    dw1 = torch.zeros(W1.shape, dtype=ct, device=xt.device)
+    dw2 = torch.zeros(W2.shape, dtype=ct, device=xt.device)
+    g0 = 0
+    while g0 < G:
+        g1 = g0 + 1
+        while g1 < G and ids[g1] == ids[g0]:
+            g1 += 1
+        e, r0, r1 = ids[g0], g0 * tile, g1 * tile
+        g0 = g1
+        if e < 0:                               # trash tiles: zero rows
+            continue
+        gs, xs = g2[r0:r1].to(ct), x2[r0:r1].to(ct)
+        ds, u = _dgelu(torch.matmul(gs, W2[e].to(ct).t()), s2[r0:r1].to(ct),
+                       xt.dtype)
+        dxt[r0:r1] = torch.matmul(ds, W1[e].to(ct).t())
+        dw1[e] += torch.matmul(xs.t(), ds)
+        dw2[e] += torch.matmul(u.t(), gs)
+    return (dxt.reshape(xt.shape).to(xt.dtype),
+            dw1.reshape(w1.shape).to(w1.dtype),
             dw2.reshape(w2.shape).to(w2.dtype))
 
 
@@ -561,13 +618,6 @@ def _padded(xt, tile_eid, w1, w2):
     return xt, tile_eid, w1, w2
 
 
-def _f32_only(t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"grouped_ffn backward: the kernels take f32 only "
-                        f"(the trainer's type), got {t.dtype}; bf16 "
-                        f"training through K4 is not ported")
-
-
 def _plan_for(plan: Optional[BackwardPlan], tile_eid: torch.Tensor,
               tile: int, E: int, D: int, F: int,
               splits: int = 0) -> BackwardPlan:
@@ -590,15 +640,16 @@ def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
                            plan: Optional[BackwardPlan] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """``(dxt, ds, u)``: the dgrad launches on padded f32 operands (D, F
-    multiples of 8): ``ds = (g @ w2^T) * gelu'(s)``, ``u = gelu(s)``,
-    ``dxt = ds @ w1^T``, over the row blocks of ``plan`` (built here when
-    none is given); ``dxt`` is zero on trash tiles, where ``ds`` and ``u``
-    are left unwritten (no expert's rows lie there)."""
+    """``(dxt, ds, u)``: the dgrad launches on padded f32 or bf16 operands
+    (D, F multiples of 8; ``s`` f32 either way): ``ds = (g @ w2^T) *
+    gelu'(s)``, ``u = gelu(s)``, ``dxt = ds @ w1^T`` in g's type, over
+    the row blocks of ``plan`` (built here when none is given); ``dxt`` is
+    zero on trash tiles, where ``ds`` and ``u`` are left unwritten (no
+    expert's rows lie there)."""
     dev = g.device
     g, w1, w2 = _aligned(g), _aligned(w1), _aligned(w2)
     G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(g, tile_eid, w1, w2,
-                                                    (torch.float32,))
+                                                    _DTYPES)
     if s.shape != (G, tile, Fd) or s.dtype != torch.float32 \
             or not s.is_contiguous():
         raise ValueError(f"grouped_ffn dgrad: s must be contiguous f32 "
@@ -606,13 +657,14 @@ def grouped_ffn_dgrad_cuda(g: torch.Tensor, tile_eid: torch.Tensor,
     s = _aligned(s)
     plan = _plan_for(plan, tile_eid, tile, E, D, Fd)
     lib = build()
-    ds, u = torch.empty_like(s), torch.empty_like(s)
+    ds = torch.empty(s.shape, dtype=g.dtype, device=dev)
+    u = torch.empty_like(ds)
     dxt = torch.empty_like(g)
     err = lib.bf_grouped_ffn_dgrad(
         g.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         s.data_ptr(), ds.data_ptr(), u.data_ptr(), dxt.data_ptr(),
         plan.buf.data_ptr(), G, tile, E, epp, p1, p2, D, Fd, plan.rb_max,
-        plan.p_max,
+        plan.p_max, _DTYPES[g.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn dgrad launch failed: CUDA error "
@@ -630,12 +682,13 @@ def grouped_ffn_wgrad_cuda(xt: torch.Tensor, ds: torch.Tensor,
                            splits: Optional[int] = None,
                            plan: Optional[BackwardPlan] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dw1 [E, D, F], dw2 [E, F, D])``, f32: per expert, the sums over
-    its rows of ``xt^T ds`` and ``u^T g``, in tile order, with no
-    atomics, over the parts of ``plan`` (built here when none is given;
-    ``splits`` then forces that many parts on every expert with rows).
-    A split expert's parts go to a scratch that a second launch adds in
-    part order; it also writes exact zeros for experts without rows."""
+    """``(dw1 [E, D, F], dw2 [E, F, D])`` in the operands' type (f32 or
+    bf16): per expert, the sums over its rows of ``xt^T ds`` and ``u^T
+    g``, in tile order, with no atomics, over the parts of ``plan`` (built
+    here when none is given; ``splits`` then forces that many parts on
+    every expert with rows).  A split expert's parts go to an f32 scratch
+    that a second launch adds in part order (then rounds once); it also
+    writes exact zeros for experts without rows."""
     dev = xt.device
     if dev.type != "cuda":
         raise RuntimeError(f"grouped_ffn_wgrad_cuda needs CUDA tensors, "
@@ -643,35 +696,41 @@ def grouped_ffn_wgrad_cuda(xt: torch.Tensor, ds: torch.Tensor,
     G, tile, D = xt.shape
     Fd = ds.shape[2]
     E = num_experts
+    if xt.dtype not in _DTYPES:
+        raise TypeError(f"grouped_ffn wgrad takes f32 or bf16, got "
+                        f"{xt.dtype}")
     for t, shape in ((xt, (G, tile, D)), (ds, (G, tile, Fd)),
                      (u, (G, tile, Fd)), (g, (G, tile, D))):
-        _f32_only(t)
-        if t.shape != shape or t.device != dev or not t.is_contiguous():
+        if t.shape != shape or t.device != dev or not t.is_contiguous() \
+                or t.dtype != xt.dtype:
             raise ValueError(f"grouped_ffn wgrad operands must be "
-                             f"contiguous f32 on {dev}; want {shape}, got "
-                             f"{tuple(t.shape)} on {t.device}")
+                             f"contiguous {xt.dtype} on {dev}; want {shape}"
+                             f", got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
     if tile_eid.dtype != torch.int32 or tile_eid.shape != (G,):
         raise TypeError(f"tile_eid must be int32 [{G}], got "
                         f"{tile_eid.dtype} {tuple(tile_eid.shape)}")
-    if D % 4 or Fd % 4 or not 1 <= E <= _MAX_EXPERTS:
-        raise ValueError(f"grouped_ffn wgrad takes D, F multiples of 4 and "
-                         f"1 .. {_MAX_EXPERTS} experts, got D={D} F={Fd} "
-                         f"E={E}")
+    width = 16 // xt.element_size()          # TMA rows: 16-byte strides
+    if D % width or Fd % width or not 1 <= E <= _MAX_EXPERTS:
+        raise ValueError(f"grouped_ffn wgrad takes D, F multiples of "
+                         f"{width} and 1 .. {_MAX_EXPERTS} experts, got "
+                         f"D={D} F={Fd} E={E}")
     if plan is not None and splits is not None:
         raise ValueError("grouped_ffn wgrad: give splits or a plan, not "
                          "both")
     plan = _plan_for(plan, tile_eid, tile, E, D, Fd, splits or 0)
     xt, ds, u, g = (_aligned(t) for t in (xt, ds, u, g))
     lib = build()
-    dw1 = torch.empty((E, D, Fd), dtype=torch.float32, device=dev)
-    dw2 = torch.empty((E, Fd, D), dtype=torch.float32, device=dev)
+    dw1 = torch.empty((E, D, Fd), dtype=xt.dtype, device=dev)
+    dw2 = torch.empty((E, Fd, D), dtype=xt.dtype, device=dev)
     scratch = torch.empty((plan.slots, D * Fd), dtype=torch.float32,
                           device=dev) if plan.slots else None
     err = lib.bf_grouped_ffn_wgrad(
         xt.data_ptr(), ds.data_ptr(), u.data_ptr(), g.data_ptr(),
         plan.buf.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
         None if scratch is None else scratch.data_ptr(), G, tile, E, D, Fd,
-        plan.rb_max, plan.p_max, torch.cuda.current_stream(dev).cuda_stream)
+        plan.rb_max, plan.p_max, _DTYPES[xt.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped ffn wgrad launch failed: CUDA error "
                            f"{err} (G={G} tile={tile} E={E} D={D} F={Fd} "
@@ -694,7 +753,6 @@ class GroupedFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xt, tile_eid, w1, w2, rows=None):
         if xt.device.type == "cuda":
-            _f32_only(xt)
             out, s = _forward_cuda(xt, tile_eid, w1, w2, keep_s=True,
                                    live_rows=rows)
         else:

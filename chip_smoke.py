@@ -207,7 +207,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``torch.matmul`` over each expert's rows, bounds read beforehand),
    with the dgrad, the wgrad and the plan timed apart and the plan's item
    counts.  The build (phase 1) prints ptxas's registers and spills for
-   the backward's kernels and fails on any spill in them;
+   the backward's kernels (the plan, the f32 and bf16 GEMMs in their
+   three modes, the part sum for f32 and bf16: 9) and fails on any
+   spill in them.  Then the bf16 cases (``grouped_ffn_backward_bf16_
+   phase``: the bf16 GEMM on bf16 operands and the forward's f32 ``s``):
+   the steady tick, hostile routing, Zipf-skewed routing, two
+   expert-parallel owners' buffers half trash tiles, and forced wgrad
+   splits, each against the bf16 plain version with the kernels'
+   rounding points (per expert, on the same ``s``) and against an f64
+   evaluation on the card: dxt, dw1, dw2 within one bf16 ulp of their
+   max |plain| and no farther from f64 than the plain version plus half
+   such an ulp; two runs bit-identical; experts without rows and trash
+   rows of dxt exactly 0.  Timed cold and warm beside the bound at the
+   bf16 rate, the plain version and the per-expert cuBLAS bf16
+   yardstick; at the steady tick also the trainer's bf16 forward (``s``
+   kept) beside its plain version, bound and yardstick;
 12b. MoE training at full width: ``MoELMConfig(vocab=32768,
    d_model=1024, heads=16, layers=4, seq_len=2048, micro=4, batch=4,
    num_experts=8, top_k=2, dispatch="dropless", group_tile=8)`` at dp 2
@@ -260,6 +274,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flips only at near ties by 12c's rule, then the routing forced); capacity: dropped_fraction in [0,
    1); expert choice: usage exactly 1/E, aux 0, coverage in (0, 1].
    s/step, tokens/s and peak memory;
+12e. MoE training in bf16: phase 12b's model, carving and optimizer with
+   every parameter, gradient and Adam moment in bf16 (``init_moe_train_
+   params(dtype=torch.bfloat16)``), at lm_bench's micro 8 (12b's f32 cut
+   to 4 is not needed: bf16 halves the activations), 1 warm-up and 2
+   timed steps.  Launches by 12b's formula, every leaf still bf16, the
+   loss falls, the probe drops none (usage sums to 1 within 2^-6).  Step
+   1 replayed through the plain versions: flips only at near ties by
+   12c's rule against the probabilities' change under a one-bf16-ulp
+   move of the embedding (then the routing forced), the loss within 2
+   bf16 ulps of the kernel run's, each gradient leaf within one bf16 ulp
+   of its max |g| or twice that move's change.  s/step, tokens/s, model
+   FLOP/s against 989 TFLOP/s, peak memory, and one more step under
+   torch.profiler for the kernels' device ms and the busy share (a
+   ``moe_train_bf16`` line);
 14. the ResNet-50 gossip benchmark (``tools/bench.py``, bench.py's path;
    no K1-K4 on it: their launch counts stay 0 over the phase).  14a: the
    step-1 loss, logits and gradients of bench.py's loss for ResNet-50 at
@@ -334,7 +362,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    One ``serve_estate`` / ``serve_estate_moe`` line each (tokens/s while
    training, per-token p50/p99, TTFT p50/p99, decode MFU, staleness,
    pulls, s per train step, peak memory, launches, the trace row, the
-   MoE dense-twin tokens/s, the card and its power limit).
+   MoE dense-twin tokens/s, the card and its power limit);
+17. the MoE examples (``bluefog_tpu_torch/examples``): ``llm_3d`` at its
+   defaults (dp 2 x pp 2 x tp 2, 100 steps) and with ``--tp 1 --ep 2
+   --experts 4 --steps 40``, ``moe`` and ``moe --top2``, ``moe_lm`` (8
+   stacked ranks, ring attention through K1/K2 at head dim 16), each
+   through its ``main``, which asserts its own end condition: K1/K2
+   launches equal the path's count (llm_3d dp x (micro + pp - 1) x
+   layers / pp x steps, moe_lm 36 visible ring blocks a step, moe none)
+   and K4 none (an ``examples_moe`` line).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2066,13 +2102,21 @@ def profile_long_context(step, toks, tgts, tag):
 
 # -- phases 7-8: the grouped expert FFN and MoE serving -------------------
 
+def _randn(rng, *shape, scale=1.0):
+    """N(0, scale^2) f32 drawn on the device by a generator seeded from
+    ``rng`` (on the host, numpy took ~2 s for each 64M values)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    return torch.randn(shape, generator=gen, device=DEV) * scale
+
+
 def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile, ids=None):
     """K4's operands as the dropless dispatch lays them out: ``rows``
     random rows routed at random (or all to the last expert, or by
     ``ids``), sorted and padded into tiles, plus expert weights at the
     model's init scale."""
     from bluefog_tpu_torch.parallel.expert import dropless_dispatch
-    x = torch.from_numpy(rng.normal(size=(rows, D)).astype(np.float32))
+    x = _randn(rng, rows, D)
     if ids is None:
         ids = np.full(rows, E - 1) if hostile else rng.integers(0, E, rows)
     seen = {}
@@ -2081,12 +2125,11 @@ def _k4_inputs(rng, rows, E, D, F, tile, dtype, hostile, ids=None):
         seen["xt"], seen["eid"] = xt, tile_eid
         return xt
 
-    dropless_dispatch(x.to(DEV), torch.tensor(ids, device=DEV), capture,
-                      None, E, tile)
+    dropless_dispatch(x, torch.tensor(ids, device=DEV), capture, None, E,
+                      tile)
 
     def w(*shape):
-        return torch.from_numpy((rng.normal(size=shape) * 0.1).astype(
-            np.float32)).to(DEV, dtype)
+        return _randn(rng, *shape, scale=0.1).to(dtype)
 
     return (seen["xt"].to(dtype).contiguous(), seen["eid"], w(E, D, F),
             w(E, F, D))
@@ -2307,20 +2350,13 @@ def _k4_bwd_bound(rows, E, D, F):
 def _by_expert_yardstick(xt, eid, w1, w2, s, g):
     """The per-expert cuBLAS yardstick of K4's backward: ``torch.matmul``
     over each expert's contiguous rows (the run bounds read on the host
-    beforehand, as a per-expert loop must), gelu' and gelu between;
-    trash tiles (id -1) get zero rows of dxt and no product."""
+    beforehand, as a per-expert loop must), gelu' and gelu between (on
+    the f32 ``s``, rounded back to the operands' type); trash tiles (id
+    -1) get zero rows of dxt and no product."""
     import torch.nn.functional as F
-    ids = eid.tolist()
-    tile, D = xt.shape[1], xt.shape[2]
+    tile = xt.shape[1]
     x2, g2, s2 = (t.reshape(-1, t.shape[-1]) for t in (xt, g, s))
-    runs, g0 = [], 0
-    while g0 < len(ids):
-        g1 = g0
-        while g1 < len(ids) and ids[g1] == ids[g0]:
-            g1 += 1
-        if ids[g0] >= 0:
-            runs.append((ids[g0], g0 * tile, g1 * tile))
-        g0 = g1
+    runs = [(e, g0 * tile, g1 * tile) for e, g0, g1 in _runs(eid)]
 
     def run():
         dxt = torch.zeros_like(x2)
@@ -2328,10 +2364,12 @@ def _by_expert_yardstick(xt, eid, w1, w2, s, g):
         for e, r0, r1 in runs:
             gs, ss, xs = g2[r0:r1], s2[r0:r1], x2[r0:r1]
             ds = torch.ops.aten.gelu_backward(
-                torch.matmul(gs, w2[e].t()), ss, approximate="tanh")
+                torch.matmul(gs, w2[e].t()).to(ss.dtype), ss,
+                approximate="tanh").to(xs.dtype)
             dxt[r0:r1] = torch.matmul(ds, w1[e].t())
             dw1[e] += torch.matmul(xs.t(), ds)
-            dw2[e] += torch.matmul(F.gelu(ss, approximate="tanh").t(), gs)
+            dw2[e] += torch.matmul(
+                F.gelu(ss, approximate="tanh").to(gs.dtype).t(), gs)
         return dxt, dw1, dw2
 
     return run
@@ -2381,8 +2419,7 @@ def grouped_ffn_backward_phase(gf):
     for name, rows, E, D, Fd, ids in cases:
         xt, eid, w1, w2 = _k4_inputs(rng, rows, E, D, Fd, 8, torch.float32,
                                      False, ids)
-        g = torch.from_numpy(rng.normal(size=tuple(xt.shape)).astype(
-            np.float32)).to(DEV)
+        g = _randn(rng, *xt.shape)
 
         def grads(fn):
             x, a, b = (t.detach().requires_grad_() for t in (xt, w1, w2))
@@ -2500,6 +2537,222 @@ def grouped_ffn_backward_phase(gf):
         print("kernel_case " + json.dumps(row), flush=True)
         rows_out[name] = row
         del xt, w1, w2, g, s, ref_out, x, a, b, dxt, ds, u, plan
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def _k4_bwd_bound_bf16(rows, E, D, F):
+    """Least time of K4's bf16 backward on ``rows`` routed rows: 8 rows D
+    F operations at the bf16 rate, or the bytes (xt and g in bf16 and the
+    f32 ``s`` read once, the bf16 weights read once; dxt and the bf16
+    weight gradients written once)."""
+    flops = 8.0 * rows * D * F
+    nbytes = 2 * 3 * rows * D + 4 * rows * F + 2 * 4 * E * D * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def _runs(eid):
+    """``(expert, first row tile, end tile)`` of each run of one live
+    expert's tiles (read on the host)."""
+    ids, out, g0 = eid.tolist(), [], 0
+    while g0 < len(ids):
+        g1 = g0
+        while g1 < len(ids) and ids[g1] == ids[g0]:
+            g1 += 1
+        if ids[g0] >= 0:
+            out.append((ids[g0], g0, g1))
+        g0 = g1
+    return out
+
+
+def _s_by_expert(xt, eid, w1, dtype):
+    """The pre-activation ``xt @ w1[e]`` in ``dtype`` by run of one
+    expert's tiles (zeros on trash tiles)."""
+    G, tile, D = xt.shape
+    s = torch.zeros((G, tile, w1.shape[-1]), dtype=dtype, device=xt.device)
+    for e, g0, g1 in _runs(eid):
+        s[g0:g1] = torch.matmul(xt[g0:g1].to(dtype), w1[e].to(dtype))
+    return s
+
+
+def _k4_forward_yardstick(xt, eid, w1, w2):
+    """K4's forward as cuBLAS products per run of one expert's tiles (the
+    runs read beforehand), gelu between, in the operands' type."""
+    import torch.nn.functional as F
+    runs = _runs(eid)
+
+    def run():
+        out = torch.zeros_like(xt)
+        for e, g0, g1 in runs:
+            out[g0:g1] = torch.matmul(F.gelu(torch.matmul(
+                xt[g0:g1], w1[e]), approximate="tanh"), w2[e])
+        return out
+
+    return run
+
+
+def _ulp_bf16(x):
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def grouped_ffn_backward_bf16_phase(gf):
+    """Phase 12a, bf16: K4's bf16 backward (the plan, then the dgrad and
+    wgrad on backward_gemm16) at the MoE trainer's steady tick (65,536
+    rows, 32 folded experts, F 2048), hostile routing, Zipf-skewed
+    routing, two expert-parallel owners' trash tiles and forced wgrad
+    splits, each against the bf16 plain version with the same rounding
+    points (per expert, on the same f32 ``s``) and an f64 evaluation on
+    the card: dxt, dw1, dw2 within one bf16 ulp of their max |plain|
+    (the f32 sums run in other orders before the same roundings), and no
+    farther from f64 than the plain version plus half such an ulp; two
+    runs bit-identical, experts without rows exactly 0, trash rows of dxt
+    0.  Times (cold and warm) beside the bound at the bf16 rate, the
+    plain version and the per-expert cuBLAS bf16 yardstick.  At the
+    steady tick the trainer's forward (``s`` kept) is timed too.  Returns
+    the rows by case."""
+    rng = np.random.default_rng(1216)
+    bf = torch.bfloat16
+    hostile = np.full(4096, 5)
+    hostile[:3] = 2
+    trash = np.concatenate([np.sort(rng.integers(0, 16, 2048)),
+                            np.full(2048, -1),
+                            np.sort(rng.integers(16, 32, 2048)),
+                            np.full(2048, -1)])
+    cases = [("steady_tick", 65536, 32, 1024, 2048, None, 0),
+             ("hostile", 4096, 8, 1024, 4096, hostile, 0),
+             ("skewed", 65536, 32, 1024, 2048,
+              _zipf_ids(np.random.default_rng(1212), 65536, 32), 0),
+             ("trash_tiles", 32768, 32, 1024, 2048, trash, 0),
+             ("forced_splits", 16384, 8, 1024, 2048, None, 3)]
+    rows_out = {}
+    for name, rows, E, D, Fd, ids, splits in cases:
+        if name == "trash_tiles":        # two owners' buffers, as folded
+            eid = torch.tensor(ids, dtype=torch.int32, device=DEV)
+            xt = (_randn(rng, len(ids), 8, D)
+                  * (eid >= 0)[:, None, None]).to(bf)
+            w1, w2 = (_randn(rng, *shape, scale=0.1).to(bf)
+                      for shape in ((E, D, Fd), (E, Fd, D)))
+        else:
+            xt, eid, w1, w2 = _k4_inputs(rng, rows, E, D, Fd, 8, bf, False,
+                                         ids)
+        live = eid >= 0
+        g = (_randn(rng, *xt.shape) * live[:, None, None]).to(bf)
+        _, s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+
+        def kern():
+            pl = gf.backward_plan_cuda(eid, 8, E, D, Fd, splits)
+            dx, d_s, uu = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, pl)
+            return (dx,) + gf.grouped_ffn_wgrad_cuda(xt, d_s, uu, g, eid, E,
+                                                     plan=pl)
+
+        counters = (gf.backward_plan_cuda, gf.grouped_ffn_dgrad_cuda,
+                    gf.grouped_ffn_wgrad_cuda)
+        before = [c.launches for c in counters]
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if [c.launches - b for c, b in zip(counters, before)] != [2] * 3:
+            raise AssertionError(f"grouped_ffn backward bf16 {name}: the "
+                                 "plan/dgrad/wgrad kernels did not launch "
+                                 "once a backward")
+        identical = all(torch.equal(p, q) for p, q in zip(got, again))
+        del again
+        s_plain = _s_by_expert(xt, eid, w1, torch.float32)
+        want = gf.grouped_ffn_backward_plain_by_expert(xt, eid, w1, w2,
+                                                       s_plain, g)
+        x64, g64, a64, b64 = (t.double() for t in (xt, g, w1, w2))
+        f64 = gf.grouped_ffn_backward_plain_by_expert(
+            x64, eid, a64, b64, _s_by_expert(x64, eid, a64, torch.float64),
+            g64)
+        del x64, g64, a64, b64, s_plain
+        errs, bad = {}, []
+        for key, a, b, c in zip(("dxt", "dw1", "dw2"), got, want, f64):
+            top = float(b.float().abs().max())
+            one = _ulp_bf16(top)
+            e_plain = float((a.double() - b.double()).abs().max())
+            k64 = float((a.double() - c).abs().max())
+            p64 = float((b.double() - c).abs().max())
+            errs[key] = {"max_abs_plain": top, "bf16_ulp": one,
+                         "vs_plain": e_plain, "kernel_vs_f64": k64,
+                         "plain_vs_f64": p64}
+            if not (e_plain <= one and k64 <= p64 + one / 2
+                    and a.dtype == bf and bool(torch.isfinite(a).all())):
+                bad.append((key, errs[key]))
+        if bad or not identical:
+            raise AssertionError(f"grouped_ffn backward bf16 {name}: "
+                                 f"{bad}; bit-identical reruns "
+                                 f"{identical}")
+        named = set(eid[live].tolist())
+        empty = [e for e in range(E) if e not in named]
+        if empty and (bool(got[1][empty].any())
+                      or bool(got[2][empty].any())):
+            raise AssertionError(f"grouped_ffn backward bf16 {name}: an "
+                                 "expert without rows got a gradient")
+        if bool(got[0][~live].any()):
+            raise AssertionError(f"grouped_ffn backward bf16 {name}: a "
+                                 "trash tile got nonzero dxt rows")
+        del got, want, f64
+        plan = gf.backward_plan_cuda(eid, 8, E, D, Fd, splits)
+        dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, plan)
+        ms, warm_ms = _device_ms(kern, True, iters=5, warmup=1), \
+            _device_ms(kern, False, iters=5, warmup=1)
+        dgrad_ms = _device_ms(
+            lambda: gf.grouped_ffn_dgrad_cuda(g, eid, w1, w2, s, plan), True,
+            iters=5, warmup=1)
+        wgrad_ms = _device_ms(
+            lambda: gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid, E,
+                                              plan=plan), True, iters=5,
+            warmup=1)
+        plain_ms = _device_ms(
+            lambda: gf.grouped_ffn_backward_plain_by_expert(
+                xt, eid, w1, w2, s, g), True, iters=3, warmup=1)
+        lib = _by_expert_yardstick(xt, eid, w1, w2, s, g)
+        lib_ms, lib_warm_ms = _device_ms(lib, True, iters=5, warmup=1), \
+            _device_ms(lib, False, iters=5, warmup=1)
+        bound, bound_by = _k4_bwd_bound_bf16(rows, E, D, Fd)
+        row = dict(case=name, dtype="bfloat16", rows=rows,
+                   G=xt.shape[0], tile=8, E=E, D=D, F=Fd, splits=splits,
+                   experts_named=len(named),
+                   max_abs_err=max(v["vs_plain"] for v in errs.values()),
+                   errors=errs, ms=ms, warm_ms=warm_ms, dgrad_ms=dgrad_ms,
+                   wgrad_ms=wgrad_ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by, library_ms=lib_ms,
+                   library_warm_ms=lib_warm_ms,
+                   library="cuBLAS bf16 torch.matmul per expert over its "
+                           "contiguous rows (bounds read beforehand), "
+                           "gelu' and gelu between on the f32 s",
+                   plain="grouped_ffn_backward_plain_by_expert (bf16 "
+                         "rounding points, f32 products)")
+        if name == "steady_tick":        # the trainer's forward, s kept
+            def fwd():
+                return gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+            out = fwd()[0]
+            ref = gf.grouped_ffn_plain_by_expert(xt, eid, w1, w2)
+            diff = (out.float() - ref.float()).abs()
+            top = float(ref.float().abs().max())
+            if not bool((diff <= 1e-4 * top + 8e-3 * ref.float().abs())
+                        .all()):
+                raise AssertionError("grouped_ffn bf16 trainer forward "
+                                     "disagrees with its plain version: "
+                                     f"{float(diff.max())}")
+            flib = _k4_forward_yardstick(xt, eid, w1, w2)
+            fbound, fby = _k4_bound(xt, eid, w1)
+            row["forward"] = dict(
+                max_abs_err=float(diff.max()),
+                ms=_device_ms(fwd, True, iters=5, warmup=1),
+                warm_ms=_device_ms(fwd, False, iters=5, warmup=1),
+                plain_ms=_device_ms(lambda: gf.grouped_ffn_plain_by_expert(
+                    xt, eid, w1, w2), True, iters=3, warmup=1),
+                library_ms=_device_ms(flib, True, iters=5, warmup=1),
+                bound_ms=fbound, bound_by=fby,
+                library="cuBLAS bf16 torch.matmul per expert, gelu between",
+                tol="1e-4 x max|plain| + 8e-3 x |plain|")
+            del out, ref, diff
+        print("kernel_case " + json.dumps(row), flush=True)
+        rows_out[name] = row
+        del xt, w1, w2, g, s, dxt, ds, u, plan
         torch.cuda.empty_cache()
     return rows_out
 
@@ -2903,7 +3156,8 @@ class _MoERun:
     :meth:`grads` gives step-1 losses and gradients from the same init
     under other kernels, a forced routing or a moved embedding."""
 
-    def __init__(self, fa, gf, layers_mod, cfg, m, steps, hooks=()):
+    def __init__(self, fa, gf, layers_mod, cfg, m, steps, hooks=(),
+                 dtype=torch.float32):
         from bluefog_tpu_torch import optimizers as bfopt
         from bluefog_tpu_torch.fusion import tree_flatten
         from bluefog_tpu_torch.moe import model as moe_model
@@ -2923,7 +3177,8 @@ class _MoERun:
         step, self.strategy = compose.make_train_step(
             m, recording, bfopt.adam(5e-3), delayed=True)
         self.step = step
-        self.init = moe_model.init_moe_train_params(cfg, m, seed=0)
+        self.init = moe_model.init_moe_train_params(cfg, m, seed=0,
+                                                    dtype=dtype)
         self.toks = moe_model.make_moe_batch(cfg, m, seed=0)
         self.names = [f"{g}/{k}" for g in sorted(self.init)
                       for k in sorted(self.init[g])]
@@ -2952,6 +3207,8 @@ class _MoERun:
         self.per_step = (time.monotonic() - t0) / (steps - 1)
         self.launches = _launch_counts(fa, gf)
         self.peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.dtypes = sorted({str(x.dtype) for x in tree_flatten(params)[0]}
+                             | {str(x.dtype) for x in recorded[0]})
         self.losses = losses
         self.mean = [float(np.mean(x)) for x in losses]
         self.health = moe_model.make_moe_probe(cfg, m)(params, self.toks)
@@ -2971,15 +3228,16 @@ class _MoERun:
     def grads(self, router=None, plain=False, ulp=0):
         """Step 1 from the init: ``(losses [n], leaves per replica on the
         host)``; ``plain`` through plain K1/K2 and the per-expert K4,
-        ``ulp`` (+1 or -1) with the embedding moved by one ulp up or
-        down."""
+        ``ulp`` (+1 or -1) with the embedding moved by one ulp of its type
+        up or down."""
         from bluefog_tpu_torch import optimizers as bfopt
         from bluefog_tpu_torch.fusion import tree_flatten
         fa, gf = self.fa, self.gf
         p0 = {g: {k: v.clone() for k, v in d.items()}
               for g, d in self.init.items()}
         if ulp:
-            p0["shared"]["embed"].mul_(1 + ulp * 2 ** -23)
+            embed = p0["shared"]["embed"]
+            embed.mul_(1 + ulp * torch.finfo(embed.dtype).eps)
         patches = [self._route(router or self._router())]
         if plain:
             patches += [mock.patch.object(fa, "attention_block_partial",
@@ -3013,8 +3271,8 @@ class _MoERun:
             self.m.dp, -1)[:, 0]]
 
 
-def _grad_gate(tag, names, got, want, floor_of, join=None):
-    """Every leaf of ``got`` (per replica) within the larger of 1e-4 x
+def _grad_gate(tag, names, got, want, floor_of, join=None, rel=1e-4):
+    """Every leaf of ``got`` (per replica) within the larger of ``rel`` x
     max|want| and twice its one-ulp floor ``floor_of(r, i)``; ``join``
     maps a leaf to ``want``'s layout.  Returns the relative errors and
     floors by leaf."""
@@ -3023,13 +3281,13 @@ def _grad_gate(tag, names, got, want, floor_of, join=None):
         for i, (name, a, b) in enumerate(zip(names, gr, wr)):
             if join is not None:
                 a = join(name, a)
-            a, b = a.reshape(b.shape), b
+            a, b = a.reshape(b.shape).float(), b.float()
             err = float((a - b).abs().max())
             top = max(float(b.abs().max()), 1e-30)
             floor = floor_of(r, i)
             leaf_err[name] = max(leaf_err.get(name, 0.0), err / top)
             leaf_floor[name] = max(leaf_floor.get(name, 0.0), floor / top)
-            if not (err <= 1e-4 * top + 1e-6 or err <= 2 * floor):
+            if not (err <= rel * top + 1e-6 or err <= 2 * floor):
                 bad.append((r, name, err, floor, top))
     if bad:
         raise AssertionError(f"{tag}: step-1 gradients differ (replica, "
@@ -3333,6 +3591,132 @@ def moe_route_phase(fa, gf, layers_mod, smi, tag, **kw):
     torch.cuda.empty_cache()
     return summ["launches"], summ
 
+
+
+def moe_train_bf16_phase(fa, gf, layers_mod, smi):
+    """Phase 12e: phase 12b's model and carving in bf16 (lm_bench's
+    widths, 8 experts top-2, dropless, tile 8, dp 2 x pp 2 x tp 2, Adam
+    5e-3, params, gradients and Adam's moments in bf16) at lm_bench's
+    micro 8 (it fits: 12b's f32 cut to 4 is not needed): K1/K2/K4/dgrad/wgrad/plan launches by 12b's formula,
+    every leaf still bf16, a falling loss, the probe, tokens/s, model
+    FLOP/s against the bf16 rate, peak memory; step 1 replayed through
+    the plain versions (plain K1/K2, the per-expert K4 under autograd):
+    routing flips only at near ties (against the probabilities' change
+    under a one-bf16-ulp move of the embedding), the loss within 2 bf16
+    ulps, each gradient leaf within one bf16 ulp of its max |g| or twice
+    that one-ulp move's change; one profiled step for the kernels' device
+    ms."""
+    from bluefog_tpu_torch.parallel import compose
+    tag = "moe_train_bf16"
+    cfg = _moe_cfg(micro=8)
+    m = compose.compose_parallelism(2, 2, 2, 1, device=DEV,
+                                    num_experts=cfg.num_experts,
+                                    capacity_factor=cfg.capacity_factor)
+    steps = 3
+    run = _MoERun(fa, gf, layers_mod, cfg, m, steps, dtype=torch.bfloat16)
+    want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
+    if set(run.launches.values()) != {want}:
+        raise AssertionError(f"{tag}: launches {run.launches}, want dp x "
+                             f"(micro + pp - 1) x layers / pp x steps = "
+                             f"{want} each")
+    if run.dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"{tag}: params or gradients left bf16: "
+                             f"{run.dtypes}")
+    if not (np.isfinite(run.mean).all() and run.mean[-1] < run.mean[0]):
+        raise AssertionError(f"{tag}: loss did not fall {run.mean}")
+    h = run.health
+    if not (h["dropped_fraction"] == 0.0
+            and abs(sum(h["usage"]) - 1.0) < 2 ** -6
+            and all(np.isfinite(v).all() for v in h.values())):
+        raise AssertionError(f"{tag}: probe {h}")
+    kernel_calls = run.routing.calls
+    forced = _Routing(layers_mod)
+    forced.force = [i for i, _ in kernel_calls]
+    ulp_loss, noise = run.grads(forced, ulp=1)
+    floor = [[float((a.float() - b.float()).abs().max())
+              for a, b in zip(k, z)] for k, z in zip(run.step1, noise)]
+    p_noise = _prob_noise(run.routing.probs, forced.probs)
+    del noise
+    replay_router = _Routing(layers_mod)
+    replay_loss, replay = run.grads(replay_router, plain=True)
+    flips, gaps = _flips(kernel_calls, replay_router.calls, m.dp,
+                         tag + " replay", p_noise)
+    if flips:                         # the replay on the kernel's routing
+        forced.i = 0
+        replay_loss, replay = run.grads(forced, plain=True)
+    top = max(abs(x) for x in run.losses[0])
+    if not np.allclose(replay_loss, run.losses[0], rtol=0,
+                       atol=2 * _ulp_bf16(top)):
+        raise AssertionError(f"{tag}: plain replay loss {replay_loss} != "
+                             f"{run.losses[0]} within 2 bf16 ulps")
+    rep_err, rep_floor = _grad_gate(tag + " replay", run.names, replay,
+                                    run.step1, lambda r, i: floor[r][i],
+                                    rel=2 ** -7)
+    del replay
+    k_ms = _profile_k4(run)
+    tokens = m.dp * cfg.micro * cfg.batch * cfg.seq_len
+    flops = tokens / run.per_step * cfg.flops_per_token()
+    summ = {
+        "mesh": m.describe(), "dtype": "bfloat16",
+        "n_params": cfg.n_params, "n_active_params": cfg.n_active_params,
+        "config": {"layers": cfg.layers, "micro": cfg.micro,
+                   "batch": cfg.batch, "seq": cfg.seq_len,
+                   "num_experts": cfg.num_experts, "top_k": cfg.top_k,
+                   "group_tile": cfg.group_tile, "remat": False},
+        "timed_steps": steps - 1, "per_step_s": run.per_step,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / run.per_step,
+        "model_flops_per_s": flops, "mfu_bf16": flops / BF16_FLOPS,
+        "peak_mem_gb": run.peak, "losses_mean": run.mean,
+        "replay_loss": replay_loss, "one_ulp_embed_loss": ulp_loss,
+        "routing_flips": flips, "first_flip_tie_gaps": gaps,
+        "replay_forced_routing": bool(flips),
+        "one_ulp_prob_noise_max": max(p_noise),
+        "step1_grad_rel_err_by_leaf": rep_err,
+        "step1_grad_one_ulp_floor_by_leaf": rep_floor,
+        "probe": h, "launches": run.launches,
+        "launch_formula": "dp x (micro + pp - 1) x layers / pp x steps",
+        "device_ms_one_step": k_ms,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print(tag + " " + json.dumps(summ), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return summ["launches"], summ
+
+
+def examples_phase(fa, gf, smi):
+    """Phase 17: the MoE examples on the card at their defaults, and
+    ``llm_3d --tp 1 --ep 2 --experts 4 --steps 40``, through their
+    ``main``s (each asserts its own end condition): K1/K2 launches equal
+    each path's count (llm_3d: dp x (micro + pp - 1) x layers / pp x
+    steps; moe_lm's causal ring over 8 ranks: its 36 visible blocks a
+    step; moe: none) and no K4 (llm_3d's MoE runs capacity dispatch,
+    as in JAX)."""
+    from bluefog_tpu_torch.examples import llm_3d, moe, moe_lm
+    runs = [("llm_3d", llm_3d, [], 2 * (4 + 2 - 1) * 2 * 100),
+            ("llm_3d_ep2", llm_3d, ["--tp", "1", "--ep", "2", "--experts",
+                                    "4", "--steps", "40"],
+             2 * (4 + 2 - 1) * 2 * 40),
+            ("moe", moe, [], 0), ("moe_top2", moe, ["--top2"], 0),
+            ("moe_lm", moe_lm, [], 8 * 9 // 2 * 80)]
+    out = {}
+    for name, mod, argv, want in runs:
+        _launch_counts(fa, gf, reset=True)
+        t0 = time.monotonic()
+        if mod.main(argv) != 0:
+            raise AssertionError(f"examples_moe: {name} failed")
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        n = _launch_counts(fa, gf)
+        k4 = [v for k, v in n.items() if k.startswith("grouped")]
+        if (n["flash_fwd"], n["flash_bwd"]) != (want, want) or any(k4):
+            raise AssertionError(f"examples_moe: {name} launches {n}, want "
+                                 f"K1/K2 {want} each and no K4")
+        out[name] = {"argv": argv, "seconds": secs, "launches": n,
+                     "k1_k2_want": want}
+    print("examples_moe " + json.dumps({
+        "runs": out, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi}), flush=True)
+    return out
 
 # -- phase 14: the ResNet-50 gossip benchmark --------------------------
 
@@ -4162,8 +4546,10 @@ def main(argv=None) -> int:
                            ("backward_gemm", "backward_plan",
                             "wgrad_parts_sum"))
     print("ptxas_k4_backward " + json.dumps(bwd), flush=True)
-    if len(bwd) != 5 or any(f["spill_bytes"] for f in bwd.values()):
-        raise AssertionError(f"K4's backward kernels: want 5 built without "
+    # the plan, backward_gemm (f32) and backward_gemm16 (bf16) in three
+    # modes each, wgrad_parts_sum for f32 and bf16 outputs
+    if len(bwd) != 9 or any(f["spill_bytes"] for f in bwd.values()):
+        raise AssertionError(f"K4's backward kernels: want 9 built without "
                              f"spills, got {bwd}")
     print("env " + json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4314,10 +4700,20 @@ def main(argv=None) -> int:
     k4_bwd = grouped_ffn_backward_phase(gf)
     phase_s["grouped_ffn_backward_cases"] = time.monotonic() - t0
 
+    # -- phase 12a, bf16: K4's bf16 backward against its plain version --
+    t0 = time.monotonic()
+    k4_bwd16 = grouped_ffn_backward_bf16_phase(gf)
+    phase_s["grouped_ffn_backward_bf16_cases"] = time.monotonic() - t0
+
     # -- phase 12b: MoE training at full width (dp 2 x pp 2 x tp 2) -----
     t0 = time.monotonic()
     moe_launches, _ = moe_train_phase(fa, gf, moe_layers, smi, args.profile)
     phase_s["moe_train"] = time.monotonic() - t0
+
+    # -- phase 12e: the same MoE training in bf16 -------------------------
+    t0 = time.monotonic()
+    bf16_launches, _ = moe_train_bf16_phase(fa, gf, moe_layers, smi)
+    phase_s["moe_train_bf16"] = time.monotonic() - t0
 
     # -- phase 12c: MoE training at ep 2 (dp 2 x ep 2) and its ep-1 twin --
     t0 = time.monotonic()
@@ -4350,6 +4746,11 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         estate[tag] = estate_phase(fa, fd, gf, moe_layers, smi, moe)[1]
         phase_s[tag] = time.monotonic() - t0
+
+    # -- phase 17: the MoE examples (llm_3d, moe, moe_lm) -----------------
+    t0 = time.monotonic()
+    ex_runs = examples_phase(fa, gf, smi)
+    phase_s["examples_moe"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -4386,8 +4787,14 @@ def main(argv=None) -> int:
                 for tag, n in estate.items()},
              **lc_launches, **{tag: (n["flash_fwd"], n["flash_bwd"]) for
                                tag, n in (("moe_train", moe_launches),
+                                          ("moe_train_bf16", bf16_launches),
                                           *ep_launches.items(),
-                                          *route_launches.items())}}
+                                          *route_launches.items())},
+             **{"example_" + tag: (r["launches"]["flash_fwd"],
+                                   r["launches"]["flash_bwd"])
+                for tag, r in ex_runs.items()}}
+    bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
+                             "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
                    "backward_launches": n["grouped_ffn_dgrad"],
                    **ep_summ[tag]["k4_device_ms_per_step"]}
@@ -4419,7 +4826,14 @@ def main(argv=None) -> int:
                          k4_decode),
              bound_ms_simt=k4_decode["bound_ms_simt"],
              launches_moe_train=moe_launches["grouped_ffn"],
+             bf16_trainer_forward=dict(
+                 k4_bwd16["steady_tick"]["forward"],
+                 launches=bf16_launches["grouped_ffn"],
+                 shape="phase 12a's bf16 steady tick (65,536 rows, 32 "
+                       "folded experts, D 1024, F 2048), s kept"),
              launches_by_path={"moe_serve": k4_launches,
+                               "moe_train_bf16": bf16_launches[
+                                   "grouped_ffn"],
                                "moe_serve_fast": moe_fast["k4_launches"],
                                "moe_serve_carved": moe_carved["k4_launches"],
                                "moe_train": moe_launches["grouped_ffn"],
@@ -4441,7 +4855,12 @@ def main(argv=None) -> int:
              kernels="backward_plan, then backward_gemm (wgmma: dgrad x 2, "
                      "wgrad x 2) + wgrad_parts_sum",
              wgrad_launches=moe_launches["grouped_ffn_wgrad"],
+             bf16={case: dict({key: row[key] for key in bf16_keys},
+                              launches=bf16_launches["grouped_ffn_dgrad"])
+                   for case, row in k4_bwd16.items()},
              launches_by_path={"moe_train": moe_launches["grouped_ffn_dgrad"],
+                               "moe_train_bf16":
+                                   bf16_launches["grouped_ffn_dgrad"],
                                "serve_estate_moe": estate[
                                    "serve_estate_moe"]["grouped_ffn_dgrad"],
                                **{tag: n["grouped_ffn_dgrad"] for tag, n in
@@ -4458,6 +4877,7 @@ def main(argv=None) -> int:
          "launches": moe_launches["grouped_ffn_backward_plan"],
          "launches_by_path": {
              "moe_train": moe_launches["grouped_ffn_backward_plan"],
+             "moe_train_bf16": bf16_launches["grouped_ffn_backward_plan"],
              "serve_estate_moe":
                  estate["serve_estate_moe"]["grouped_ffn_backward_plan"],
              **{tag: n["grouped_ffn_backward_plan"] for tag, n in

@@ -39,6 +39,10 @@ expert than a chunk holds, and rerun bit-identically.  Trash tiles (id
 plan, the dgrad and the wgrad skip them and write zeros there, and
 every other value equals the same layout's with the trash tiles on a
 real expert; the expert-parallel MoE trainer on the card equals the CPU.
+K4's bf16 backward (bf16 x bf16 wgmma, exact products, f32 sums) against
+its bf16 plain version with the same rounding points: each gradient
+within one bf16 ulp of its max |value| (the sums run in other orders
+before the same roundings); two runs bit-identical.
 """
 import numpy as np
 import pytest
@@ -875,15 +879,145 @@ def test_backward_plan_stays_in_its_room(cuda):
         gf.unpack_plan(plan)
 
 
+def _ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _k4_bf16_case(cuda, eid, tile, D, F, E, peers=None, splits=None,
+                  seed=16):
+    """K4 under autograd on bf16 operands (forward kernel, plan, dgrad,
+    wgrad) against the bf16 plain version with the same rounding points,
+    :func:`grouped_ffn_backward_plain_by_expert`, on the same ``s`` (the
+    f32 pre-activation, recomputed by expert): each gradient within one
+    bf16 ulp of its max |value| (both sum in f32, in other orders, and
+    round at the same points), the output within the forward's bf16
+    tolerance.  ``splits`` runs the wgrad alone with that many parts an
+    expert.  Returns the kernel's ``(out, dxt, dw1, dw2)`` and inputs."""
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda).to(bf)
+
+    G = len(eid)
+    xt, g = t(G, tile, D), t(G, tile, D)
+    if peers is None:
+        w1, w2 = t(E, D, F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+        v1, v2 = w1, w2
+    else:
+        e = E // peers
+        w1 = t(peers, 2, e, D, F, scale=D ** -0.5)
+        w2 = t(peers, 2, e, F, D, scale=F ** -0.5)
+        v1, v2 = w1[:, 1], w2[:, 1]
+    eid_t = torch.tensor(eid, dtype=torch.int32, device=cuda)
+    x, a, b = (z.detach().requires_grad_() for z in (xt, v1, v2))
+    out = gf.grouped_ffn(x, eid_t, a, b)
+    got = (out.detach(),) + torch.autograd.grad(out, (x, a, b), g)
+    W1 = v1.reshape(-1, D, F)
+    s = torch.zeros((G, tile, F), dtype=torch.float32, device=cuda)
+    for gi, e_ in enumerate(eid):
+        if e_ >= 0:
+            s[gi] = xt[gi].float() @ W1[e_].float()
+    if splits is not None:
+        dxt, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid_t, v1, v2, s)
+        dw1, dw2 = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, E,
+                                             splits=splits)
+        got = got[:2] + (dw1.view(v1.shape), dw2.view(v2.shape))
+    want = (gf.grouped_ffn_plain_by_expert(xt, eid_t, v1, v2),) + \
+        gf.grouped_ffn_backward_plain_by_expert(xt, eid_t, v1, v2, s, g)
+    torch.cuda.synchronize()
+    for name, p, q in zip(("out", "dxt", "dw1", "dw2"), got, want):
+        assert p.shape == q.shape and p.dtype == bf, name
+        p, q = p.float(), q.float()
+        top = float(q.abs().max())
+        if name == "out":
+            assert bool(((p - q).abs() <= 8e-3 * q.abs() + 1e-4 * top)
+                        .all()), name
+        else:
+            err = float((p - q).abs().max())
+            assert err <= _ulp(top), (name, err, top)
+        assert bool(torch.isfinite(p).all()), name
+    return got, (xt, eid_t, v1, v2, g, s)
+
+
 @pytest.mark.gpu
-def test_grouped_ffn_backward_refuses_bf16(cuda):
-    xt = torch.zeros(2, 2, 8, device=cuda, dtype=torch.bfloat16,
-                     requires_grad=True)
-    eid = torch.zeros(2, dtype=torch.int32, device=cuda)
-    w1 = torch.zeros(2, 8, 16, device=cuda, dtype=torch.bfloat16)
-    w2 = torch.zeros(2, 16, 8, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="f32 only"):
-        gf.grouped_ffn(xt, eid, w1, w2)
+@pytest.mark.parametrize("case", [
+    "steady", "hostile", "skewed", "trash_tiles", "peers", "splits",
+    "padded_widths", "tile1"])
+def test_grouped_ffn_backward_bf16_matches_plain(cuda, case):
+    """The bf16 backward (backward_gemm16) against the bf16 plain
+    version: steady sorted routing at D 1024 x F 2048, a hostile routing
+    (one tile on one expert, the rest on another, the others empty: exact
+    zeros), Zipf-skewed expert sizes, two expert-parallel owners' trash
+    tiles (zero rows of dxt, no rows in any expert), stacked-peer weights
+    read in place, forced wgrad splits, widths that are not multiples of
+    64 (and of 8: padded by the wrapper), one-row tiles out of order."""
+    rng = np.random.default_rng(10)
+    kw = {}
+    if case == "steady":
+        eid, tile, D, F, E = np.sort(rng.integers(0, 8, 256)), 8, 1024, \
+            2048, 8
+    elif case == "hostile":
+        eid, tile, D, F, E = np.array([1] + [6] * 300), 2, 128, 256, 8
+    elif case == "skewed":
+        w = 1.0 / np.arange(1, 17) ** 1.2
+        eid, tile, D, F, E = np.sort(rng.choice(16, 192, p=w / w.sum())), \
+            8, 256, 512, 16
+    elif case == "trash_tiles":
+        ids, tile, E, D, F, _ = routings.routing("trash_tiles")
+        eid = ids.numpy()
+    elif case == "peers":
+        eid, tile, D, F, E = np.sort(rng.integers(0, 16, 60)), 8, 256, \
+            512, 16
+        kw = {"peers": 4}
+    elif case == "splits":
+        eid, tile, D, F, E = [0] * 3 + [2] * 200 + [3] * 5, 4, 64, 128, 4
+        kw = {"splits": 3}
+    elif case == "padded_widths":
+        eid, tile, D, F, E = np.sort(rng.integers(0, 4, 30)), 4, 36, 100, 4
+    else:
+        eid, tile, D, F, E = rng.integers(0, 6, 90), 1, 72, 136, 6
+    eid = [int(e) for e in eid]
+    got, _ = _k4_bf16_case(cuda, eid, tile, D, F, E, **kw)
+    named = set(eid)
+    empty = [e for e in range(E) if e not in named]
+    if empty and "peers" not in kw:
+        assert not bool(got[2][empty].any()) and \
+            not bool(got[3][empty].any())
+    if case == "trash_tiles":
+        dead = [i for i, e in enumerate(eid) if e < 0]
+        assert not bool(got[0][dead].any()) and not bool(got[1][dead].any())
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_backward_bf16_is_deterministic_and_counted(cuda):
+    """Two bf16 autograd round trips are bit-identical; each launches the
+    forward once and the plan, dgrad and wgrad once; forced splits rerun
+    bit-identically too."""
+    eid = [0, 0, 1, 2, 2, 2, 3, 5, 6, 6, 7, 7] * 8
+    got, (xt, eid_t, w1, w2, g, s) = _k4_bf16_case(cuda, eid, 8, 256, 512,
+                                                   8)
+    before = (gf.grouped_ffn_cuda.launches,
+              gf.backward_plan_cuda.launches,
+              gf.grouped_ffn_dgrad_cuda.launches,
+              gf.grouped_ffn_wgrad_cuda.launches)
+    for _ in range(2):
+        x, a, b = (z.detach().requires_grad_() for z in (xt, w1, w2))
+        out = gf.grouped_ffn(x, eid_t, a, b)
+        again = (out.detach(),) + torch.autograd.grad(out, (x, a, b), g)
+        for p, q in zip(got, again):
+            assert p.dtype == torch.bfloat16 and torch.equal(p, q)
+    after = (gf.grouped_ffn_cuda.launches,
+             gf.backward_plan_cuda.launches,
+             gf.grouped_ffn_dgrad_cuda.launches,
+             gf.grouped_ffn_wgrad_cuda.launches)
+    assert tuple(q - p for p, q in zip(before, after)) == (2, 2, 2, 2)
+    _, ds, u = gf.grouped_ffn_dgrad_cuda(g, eid_t, w1, w2, s)
+    first = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8, splits=5)
+    second = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8, splits=5)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
 
 
 # -- every even head dim up to 128 ---------------------------------------

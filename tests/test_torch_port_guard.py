@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
               "ops.windows", "examples.benchmark", "utils.config",
               "utils.flight", "utils.metrics", "utils.timeseries",
               "utils.tracing", "diagnostics", "run.launcher",
-              "serve.refresh", "tools.trace_report", "tools.serve_bench"):
+              "serve.refresh", "tools.trace_report", "tools.serve_bench",
+              "examples.llm_3d", "examples.moe", "examples.moe_lm"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -115,9 +116,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lm_bench.main([])
     from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
                                                       init_decode_cache)
-    from bluefog_tpu_torch.examples import benchmark
+    from bluefog_tpu_torch.examples import benchmark, llm_3d, moe, moe_lm
     from bluefog_tpu_torch.tools import long_context, serve_bench, sp_bench
-    for tool in (long_context, sp_bench, benchmark, serve_bench):
+    for tool in (long_context, sp_bench, benchmark, serve_bench, llm_3d,
+                 moe, moe_lm):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main([])
     lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,

@@ -14,15 +14,20 @@ hand-written flash forward and backward kernels
 (``ops.flash_attention``); the model zoo (``models``: ResNet, VGG, the
 MNIST CNN, the MLP) and the ResNet-50 gossip benchmark
 (``tools.bench``); the single-process context and op API below
-(``init(size=n)`` stacks n ranks on the device); and the strategy layer
+(``init(size=n)`` stacks n ranks on the device, or, launched by
+torchrun, each process's block of them over ``torch.distributed``);
+the pipeline schedules (``parallel.pipeline``: GPipe, 1F1B, interleaved,
+stage lists); and the strategy layer
 of the reference's benchmark (``optimizers``: dynamic and hierarchical
 gossip, wire codecs, window mailboxes, push-sum, CHOCO, ZeRO-1,
 PowerSGD; ``ops.windows``; ``examples.benchmark``).  The kernels are CUDA
 C++ under ``csrc/``.
 """
-from .api import (barrier, hard_sync, hierarchical_neighbor_allreduce,
-                  neighbor_allreduce, resolve_schedule, shard_distributed,
-                  synchronize)
+from .api import (allgather, allreduce, barrier, broadcast, hard_sync,
+                  hierarchical_neighbor_allreduce, neighbor_allgather,
+                  neighbor_allreduce, pair_gossip, poll, ragged_allgather,
+                  ragged_neighbor_allgather, resolve_schedule,
+                  shard_distributed, synchronize)
 from .device import resolve_device
 from .parallel.context import (
     clear_dynamic_topology, dcn_wire, dynamic_schedules, get_context,
@@ -30,8 +35,9 @@ from .parallel.context import (
     is_machine_topology_weighted, is_topology_weighted, load_machine_topology,
     load_topology, local_rank, local_size, machine_rank, machine_schedule,
     machine_size, out_neighbor_machine_ranks, out_neighbor_ranks,
-    set_dcn_wire, set_dynamic_topology, set_machine_topology, set_topology,
-    shutdown, size, static_schedule)
+    resume, round_parallel, set_dcn_wire, set_dynamic_topology,
+    set_machine_topology, set_round_parallel, set_topology, shutdown, size, static_schedule,
+    suspend)
 
 __all__ = ["resolve_device",
            "init", "shutdown", "is_initialized", "get_context", "size",
@@ -43,6 +49,9 @@ __all__ = ["resolve_device",
            "out_neighbor_machine_ranks", "machine_schedule",
            "set_dynamic_topology", "clear_dynamic_topology",
            "dynamic_schedules", "set_dcn_wire", "dcn_wire",
+           "suspend", "resume", "set_round_parallel", "round_parallel",
            "neighbor_allreduce", "hierarchical_neighbor_allreduce",
-           "barrier", "synchronize", "hard_sync", "resolve_schedule",
-           "shard_distributed"]
+           "neighbor_allgather", "ragged_neighbor_allgather", "pair_gossip",
+           "allreduce", "allgather", "ragged_allgather", "broadcast",
+           "barrier", "synchronize", "poll", "hard_sync",
+           "resolve_schedule", "shard_distributed"]

@@ -1,14 +1,18 @@
-"""Blocking op API over stacked distributed tensors (the part of
-``bluefog_tpu/api.py`` the single-process context serves).
+"""Blocking op API over stacked distributed tensors (counterpart of
+``bluefog_tpu/api.py``).
 
-A *distributed tensor* is ``[size, ...]``: ``x[i]`` is rank i's value,
-all of them on the context's device.  CUDA work is asynchronous, so
-:func:`synchronize` and :func:`hard_sync` give the reference's handle
-semantics without a handle table.
+A *distributed tensor* is ``[size, ...]``: ``x[i]`` is rank i's value.
+In one process every row is on the context's device.  Across processes
+(torchrun) each process passes its block of the rows, ``[size / world,
+...]`` (:func:`shard_distributed` cuts it from a global tensor), and gets
+its block of the result, as each JAX process holds its addressable
+shards.  CUDA work is asynchronous, so :func:`synchronize`,
+:func:`hard_sync` and :func:`poll` give the reference's handle semantics
+without a handle table.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,25 +22,35 @@ from .ops import collectives as _coll
 from .parallel import context as _ctx
 from .schedule import CommSchedule, compile_from_weights
 
-__all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
-           "barrier", "synchronize", "hard_sync", "resolve_schedule",
-           "shard_distributed"]
+__all__ = ["allreduce", "allgather", "ragged_allgather", "broadcast",
+           "neighbor_allreduce", "neighbor_allgather",
+           "ragged_neighbor_allgather", "pair_gossip",
+           "hierarchical_neighbor_allreduce", "barrier", "synchronize",
+           "poll", "hard_sync", "resolve_schedule", "shard_distributed"]
 
 
 def _check_distributed(x: torch.Tensor, n: int) -> None:
-    if x.shape[0] != n:
+    """``x`` holds this process's rows of ``n`` ranks (all of them in one
+    process)."""
+    ctx = _ctx._context
+    rows = ctx.rows if ctx is not None and ctx.size == n else n
+    if x.shape[0] != rows:
         raise ValueError(
-            f"distributed tensor must have leading rank axis of size {n}, "
+            f"distributed tensor must have leading rank axis of size {rows}, "
             f"got shape {tuple(x.shape)}")
 
 
 def shard_distributed(x) -> torch.Tensor:
-    """Place a distributed tensor (``[size, ...]``) on the context's
-    device."""
+    """Place a distributed tensor (``[size, ...]``, every rank's row) on
+    the context's device: the whole of it in one process, this process's
+    block of rows across processes."""
     ctx = _ctx.get_context()
     x = torch.as_tensor(x)
-    _check_distributed(x, ctx.size)
-    return x.to(ctx.device)
+    if x.shape[0] != ctx.size:
+        raise ValueError(
+            f"distributed tensor must have leading rank axis of size "
+            f"{ctx.size}, got shape {tuple(x.shape)}")
+    return x[ctx.first_rank:ctx.first_rank + ctx.rows].to(ctx.device)
 
 
 def resolve_schedule(
@@ -128,6 +142,104 @@ def neighbor_allreduce(
                                     concurrent=concurrent)
 
 
+def neighbor_allgather(
+    x: torch.Tensor,
+    *,
+    self_weight=None,
+    src_weights=None,
+    dst_weights=None,
+    schedule: Optional[CommSchedule] = None,
+) -> torch.Tensor:
+    """Concatenate in-neighbor slices along each rank's first value dim.
+
+    Output shape ``[n, max_in_degree * d0, ...]``; slots beyond a rank's
+    in-degree are zero (regular topologies fill every slot).  Reference:
+    ``bf.neighbor_allgather`` (``mpi_ops.py:396-476``).
+    """
+    ctx = _ctx.get_context()
+    _check_distributed(x, ctx.size)
+    if x.ndim < 2:
+        raise ValueError("neighbor_allgather needs a per-rank first dimension")
+    sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
+    return _coll.neighbor_allgather(x, sched)
+
+
+def ragged_neighbor_allgather(
+    x: torch.Tensor,
+    lengths,
+    *,
+    self_weight=None,
+    src_weights=None,
+    dst_weights=None,
+    schedule: Optional[CommSchedule] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Neighbor allgather of per-rank slices with different valid first
+    dims: ``x`` is ``[n, max_d0, ...]`` with rank r's valid rows in
+    ``x[r, :lengths[r]]``.  Returns ``(gathered [n, max_in_degree *
+    max_d0, ...], lengths [n, max_in_degree])``: slot k of rank r holds
+    the padded slice and valid length of its k-th sorted in-neighbor.
+    The length rides in the same buffer as the data (one collective
+    chain)."""
+    ctx = _ctx.get_context()
+    _check_distributed(x, ctx.size)
+    if x.ndim < 2:
+        raise ValueError("ragged_neighbor_allgather needs a per-rank first "
+                         "dimension")
+    lengths = torch.as_tensor(lengths, dtype=torch.int32).reshape(
+        x.shape[0]).to(x.device)
+    sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
+    return _coll.ragged_neighbor_allgather(x, lengths, sched)
+
+
+def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
+    """Global (weighted-uniform) allreduce. Reference: ``bf.allreduce``."""
+    _check_distributed(x, _ctx.get_context().size)
+    return _coll.allreduce(x, average=average)
+
+
+def allgather(x: torch.Tensor) -> torch.Tensor:
+    """All ranks receive the concatenation of all slices: ``[n, n*d0, ...]``."""
+    _check_distributed(x, _ctx.get_context().size)
+    if x.ndim < 2:
+        raise ValueError("allgather needs a per-rank first dimension")
+    return _coll.allgather(x)
+
+
+def ragged_allgather(x: torch.Tensor, lengths
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allgather of per-rank slices with *different* valid first dims:
+    ``x`` is ``[n, max_d0, ...]`` with rank r's valid data in ``x[r,
+    :lengths[r]]``.  Returns ``(gathered, lengths)``: ``gathered[r]`` is
+    ``[n * max_d0, ...]`` (every rank's padded slice, in rank order) and
+    ``lengths`` every rank's ``[n]`` lengths, so each rank can slice out
+    the valid prefixes."""
+    _check_distributed(x, _ctx.get_context().size)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32).reshape(
+        x.shape[0], 1).to(x.device)
+    return allgather(x), allgather(lengths)
+
+
+def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
+    """Every rank's slice becomes root's slice. Reference: ``bf.broadcast``."""
+    _check_distributed(x, _ctx.get_context().size)
+    return _coll.broadcast(x, root_rank)
+
+
+def pair_gossip(
+    x: torch.Tensor,
+    partners: Sequence[int],
+    *,
+    self_weight: float = 0.5,
+    pair_weight: float = 0.5,
+) -> torch.Tensor:
+    """Paired exchange-and-average. Reference: ``bf.pair_gossip``.
+    ``partners`` must be an involution; self-paired ranks keep their
+    value."""
+    _check_distributed(x, _ctx.get_context().size)
+    return _coll.pair_gossip(x, partners, self_weight=self_weight,
+                             pair_weight=pair_weight)
+
+
 def hierarchical_neighbor_allreduce(
     x: torch.Tensor,
     *,
@@ -151,6 +263,19 @@ def hierarchical_neighbor_allreduce(
         size=ctx.machine_size, default_schedule=_ctx.machine_schedule)
     return _coll.hierarchical_neighbor_allreduce(x, sched, wire=wire,
                                                  concurrent=concurrent)
+
+
+def poll(x) -> bool:
+    """True if the device work producing ``x`` has completed (reference:
+    ``bf.poll``): an event recorded on the current stream, queried.  CPU
+    work is done when the call returns, so there it is True."""
+    leaves = [t for t in tree_flatten(x)[0]
+              if isinstance(t, torch.Tensor) and t.is_cuda]
+    if not leaves:
+        return True
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(leaves[0].device))
+    return event.query()
 
 
 def synchronize(x):
@@ -177,7 +302,15 @@ def hard_sync(x):
 
 
 def barrier() -> None:
-    """Wait for all pending work on the context's device (reference:
-    ``bf.barrier``)."""
-    if _ctx.get_context().device.type == "cuda":
+    """Wait for all pending work on the context's device, and across
+    processes for every process to reach the barrier (reference:
+    ``bf.barrier``).  The JAX function only drains its host queue: every
+    compiled program there is already a global synchronization point.
+    Several processes run no such single program, so here the process
+    group's ``barrier`` does that part."""
+    ctx = _ctx.get_context()
+    if ctx.device.type == "cuda":
         torch.cuda.synchronize()
+    if ctx.world > 1:
+        import torch.distributed as dist
+        dist.barrier()

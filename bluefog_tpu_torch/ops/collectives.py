@@ -20,11 +20,29 @@ autograd gives its transpose: ``psum``'s is the same sum of the
 cotangents (the JAX transpose under ``check_vma=False``), ``ppermute``'s
 the permutation back, ``all_to_all``'s the all-to-all with split and
 concat swapped.
+
+Across processes (:mod:`bluefog_tpu_torch.parallel.context` launched by
+torchrun) each process holds a contiguous block of the global rank axis,
+and every row that moves between ranks goes through :func:`_permute`:
+the rows whose source is in the same process are gathered locally, and
+the rows that cross go through ``torch.distributed.batch_isend_irecv``,
+one message per process pair and round carrying every row that crosses
+(one a pair for all the rounds of a gossip step under ``concurrent=True``
+/ :func:`~bluefog_tpu_torch.parallel.context.set_round_parallel`).
+That move is an autograd function whose backward is the reverse move,
+so gradients cross the boundary as ``jax.grad`` through ``ppermute``
+does.  The per-rank tables of a schedule stay global; each process reads
+its block of them (:func:`_local`).  The reductions over the rank axis
+(:func:`allreduce`, :func:`allgather`, :func:`broadcast`,
+:func:`rank_sum`) go through the process group.  The peer-dim
+collectives of a composed carving stay inside one process: a replica's
+peers never straddle a process boundary (``compose_parallelism`` refuses
+such a carving).
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,10 +50,12 @@ import torch
 from ..schedule import CommSchedule
 
 __all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
-           "allreduce", "allgather", "broadcast", "psum", "peer_sum",
+           "neighbor_allgather", "ragged_neighbor_allgather", "pair_gossip",
+           "allreduce", "allgather", "broadcast", "rank_sum", "psum",
+           "peer_sum",
            "pmean", "ppermute", "all_to_all", "WIRE_CODECS",
            "_amax_scale", "_parse_wire", "_check_wire", "_wire_encode",
-           "_wire_decode", "_default_dcn_wire"]
+           "_wire_decode", "_default_dcn_wire", "_default_concurrent"]
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -170,23 +190,184 @@ def _default_dcn_wire() -> Optional[str]:
     return None
 
 
+def _default_concurrent() -> bool:
+    """Round-parallel default of :func:`neighbor_allreduce`: the context's
+    knob, else ``BLUEFOG_ROUND_PARALLEL``."""
+    from ..parallel import context as _ctx
+    from ..utils.config import env_flag
+    c = _ctx._context
+    if c is not None and c.round_parallel is not None:
+        return bool(c.round_parallel)
+    return env_flag("BLUEFOG_ROUND_PARALLEL", False)
+
+
+def _procs() -> Tuple[int, int]:
+    """``(world, process)`` of the live context; ``(1, 0)`` without one."""
+    from ..parallel import context as _ctx
+    c = _ctx._context
+    return (c.world, c.process) if c is not None else (1, 0)
+
+
+def _local(table, rows: int) -> np.ndarray:
+    """This process's entries of a global table with one entry a rank (or
+    a machine): the whole table when it has one entry a row of the local
+    tensor, else the process's block of a table over every process's
+    rows."""
+    table = np.asarray(table)
+    if len(table) == rows:
+        return table
+    world, process = _procs()
+    if len(table) != world * rows:
+        raise ValueError(f"a table of {len(table)} entries does not fit "
+                         f"{rows} rows on each of {world} processes")
+    return table[process * rows:(process + 1) * rows]
+
+
 def _table(row: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    """Per-rank table entries as a ``[n, 1, ...]`` column in x's dtype."""
-    t = torch.as_tensor(np.asarray(row), device=x.device).to(x.dtype)
+    """Per-rank table entries as a ``[n, 1, ...]`` column in x's dtype
+    (this process's ``n`` of them)."""
+    t = torch.as_tensor(_local(row, x.shape[0]),
+                        device=x.device).to(x.dtype)
     return t.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _p2p(sends, recvs, dtype, device) -> List[torch.Tensor]:
+    """One ``batch_isend_irecv``: ``sends`` ``[(process, tensor)]`` and
+    ``recvs`` ``[(process, shape)]``; the messages travel as raw bytes
+    (every dtype, fp8 and bool too).  Returns the received tensors."""
+    import torch.distributed as dist
+    item = torch.empty((), dtype=dtype).element_size()
+    bufs = [torch.empty(int(np.prod(shape, dtype=np.int64)) * item,
+                        dtype=torch.uint8, device=device)
+            for _, shape in recvs]
+    ops = [dist.P2POp(dist.irecv, b, q) for b, (q, _) in zip(bufs, recvs)]
+    ops += [dist.P2POp(dist.isend, _as_bytes(t), q) for q, t in sends]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [b.view(dtype).reshape(shape) for b, (_, shape) in
+            zip(bufs, recvs)]
+
+
+class _Cross(torch.autograd.Function):
+    """The rows of one or more rounds that cross processes.  ``plan`` is
+    ``(outs, ins)``: ``outs`` ``[(process, [(round, rows)])]``, the rows
+    of each round's send that go to a process, and ``ins`` ``[(process,
+    [(round, count)])]``, how many rows of each round come from one.
+    Forward: one message a process pair carrying every round's rows; the
+    outputs are the received blocks in ``ins`` order.  Backward: the
+    reverse move, the received rows' cotangents back to their senders,
+    the sent rows' added into each round's ``send``.  The last output is
+    an empty row block, so that every process holds a node of every move
+    in its graph, and its backward runs (in the same order on every
+    process) even where it received nothing."""
+
+    @staticmethod
+    def forward(ctx, plan, *sends):
+        outs, ins = plan
+        ctx.plan, ctx.shape = plan, sends[0].shape
+        ctx.rounds = len(sends)
+        row = tuple(sends[0].shape[1:])
+        got = _p2p([(q, torch.cat([sends[r].index_select(0, idx)
+                                   for r, idx in parts]))
+                    for q, parts in outs],
+                   [(q, (sum(k for _, k in parts),) + row)
+                    for q, parts in ins], sends[0].dtype, sends[0].device)
+        blocks = [b for g, (_, parts) in zip(got, ins)
+                  for b in g.split([k for _, k in parts])]
+        return tuple(blocks) + (sends[0].new_zeros((0,) + row),)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        outs, ins = ctx.plan
+        g0 = grads[-1]
+        row = tuple(ctx.shape[1:])
+        it = iter(grads[:-1])
+        back = _p2p([(q, torch.cat([next(it) for _ in parts]))
+                     for q, parts in ins],
+                    [(q, (sum(len(idx) for _, idx in parts),) + row)
+                     for q, parts in outs], g0.dtype, g0.device)
+        dsends = [g0.new_zeros(ctx.shape) for _ in range(ctx.rounds)]
+        for (_, parts), g in zip(outs, back):
+            for (r, idx), gr in zip(parts, g.split(
+                    [len(idx) for _, idx in parts])):
+                dsends[r].index_add_(0, idx, gr)
+        return (None,) + tuple(dsends)
 
 
 def _permute(send: torch.Tensor, src: np.ndarray) -> torch.Tensor:
     """One round: rank d receives ``send[src[d]]``; ``src[d] < 0`` receives
-    zeros."""
-    idx = torch.as_tensor(np.clip(src, 0, None), dtype=torch.long,
-                          device=send.device)
-    recv = send.index_select(0, idx)
-    if (src < 0).any():
-        got = torch.as_tensor(src >= 0, device=send.device)
-        recv = recv * got.reshape((-1,) + (1,) * (send.ndim - 1)).to(
-            recv.dtype)
-    return recv
+    zeros.  ``src`` is over every process's rows when ``send`` is this
+    process's block of them: the rows that cross processes then travel
+    through :class:`_Cross`."""
+    return _permute_rounds([send], [src])[0]
+
+
+def _permute_rounds(sends: Sequence[torch.Tensor],
+                    srcs: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    """:func:`_permute` of each ``sends[r]`` by ``srcs[r]`` (the sends
+    share their row shape and dtype).  Across processes every round's
+    crossing rows travel together, one message a process pair."""
+    rows = sends[0].shape[0]
+    dev = sends[0].device
+    srcs = [np.asarray(src) for src in srcs]
+    if all(len(src) == rows for src in srcs):
+        got = []
+        for send, src in zip(sends, srcs):
+            recv = send.index_select(0, torch.as_tensor(
+                np.clip(src, 0, None), dtype=torch.long, device=dev))
+            if (src < 0).any():
+                keep = torch.as_tensor(src >= 0, device=dev)
+                recv = recv * keep.reshape(
+                    (-1,) + (1,) * (send.ndim - 1)).to(recv.dtype)
+            got.append(recv)
+        return got
+    world, p = _procs()
+    if any(len(src) != world * rows for src in srcs):
+        raise ValueError(f"a round over {len(srcs[0])} ranks does not fit "
+                         f"{rows} rows on each of {world} processes")
+    peers = [q for q in range(world) if q != p]
+    outs = {q: [] for q in peers}
+    ins = {q: [] for q in peers}
+    takes = []
+    for r, src in enumerate(srcs):
+        mine = src[p * rows:(p + 1) * rows]
+        owner = np.where(mine >= 0, mine // rows, -1)
+        take = np.full(rows, -1, dtype=np.int64)
+        take[owner == p] = mine[owner == p] - p * rows
+        at = rows
+        for q in peers:
+            qsrc = src[q * rows:(q + 1) * rows]
+            out = qsrc[(qsrc >= 0) & (qsrc // rows == p)] - p * rows
+            if out.size:
+                outs[q].append((r, torch.as_tensor(out, device=dev)))
+            into = np.flatnonzero(owner == q)
+            if into.size:
+                ins[q].append((r, int(into.size)))
+                take[into] = at + np.arange(into.size)
+                at += into.size
+        takes.append((take, at))
+    outs = [(q, parts) for q, parts in outs.items() if parts]
+    ins = [(q, parts) for q, parts in ins.items() if parts]
+    pools = [[send] for send in sends]
+    if outs or ins:
+        blocks = iter(_Cross.apply((outs, ins), *sends))
+        for _, parts in ins:
+            for r, _ in parts:
+                pools[r].append(next(blocks))
+        pools[0].append(next(blocks))       # the empty block, into the graph
+    got = []
+    for send, pool, (take, at) in zip(sends, pools, takes):
+        if (take < 0).any():
+            pool.append(send.new_zeros((1,) + tuple(send.shape[1:])))
+            take[take < 0] = at
+        pool = torch.cat(pool) if len(pool) > 1 else send
+        got.append(pool.index_select(0, torch.as_tensor(take, device=dev)))
+    return got
 
 
 def _wire_permute(wire: Optional[str], send: torch.Tensor, src: np.ndarray,
@@ -196,27 +377,53 @@ def _wire_permute(wire: Optional[str], send: torch.Tensor, src: np.ndarray,
     the codes and scales travel (zero-filled where nothing arrives, so a
     rank receiving nothing decodes zeros), and the receiver decodes.
     ``parts`` passes ``send``'s encoding when the caller has it."""
+    return _wire_permute_rounds(wire, [send], [src], lead, parts)[0]
+
+
+def _wire_permute_rounds(wire: Optional[str], sends, srcs, lead: int = 1,
+                         parts=None) -> List[torch.Tensor]:
+    """:func:`_wire_permute` of each ``sends[r]`` by ``srcs[r]``, moved by
+    one :func:`_permute_rounds`; ``parts`` is the encoding every send
+    shares when the caller has it."""
     if wire is None:
-        return _permute(send, src)
-    if not send.is_floating_point():
+        return _permute_rounds(sends, srcs)
+    if not sends[0].is_floating_point():
         # complex would silently lose its imaginary part in the codecs
         raise ValueError(
-            f"wire compression needs a real float input, got {send.dtype}")
-    if parts is None:
-        parts = _wire_encode(wire, send, lead)
-    moved = []
-    for p in parts:
-        if p.dtype == torch.float8_e4m3fn:     # permuted as raw bytes
-            moved.append(_permute(p.view(torch.uint8), src).view(p.dtype))
-        else:
-            moved.append(_permute(p, src))
-    return _wire_decode(wire, moved, send.dtype, shape=send.shape, lead=lead)
+            f"wire compression needs a real float input, got "
+            f"{sends[0].dtype}")
+    encoded = [parts if parts is not None else _wire_encode(wire, s, lead)
+               for s in sends]
+    # the codes and scales travel together, as one row of raw bytes a
+    # rank (one message a process pair across processes)
+    n = sends[0].shape[0]
+    raws = [[q.contiguous().view(n, -1).view(torch.uint8) for q in e]
+            for e in encoded]
+    moved = _permute_rounds([torch.cat(raw, dim=1) if len(raw) > 1
+                             else raw[0] for raw in raws], srcs)
+    out = []
+    for send, e, raw, m in zip(sends, encoded, raws, moved):
+        got, at = [], 0
+        for q, r in zip(e, raw):
+            # a fresh copy: a view's byte offset need not align to q's
+            # dtype
+            got.append(m[:, at:at + r.shape[1]].clone(
+                memory_format=torch.contiguous_format).view(q.dtype)
+                       .reshape(q.shape))
+            at += r.shape[1]
+        out.append(_wire_decode(wire, got, send.dtype, shape=send.shape,
+                                lead=lead))
+    return out
 
 
 def _check_ranks(x: torch.Tensor, n: int, what: str) -> None:
-    if x.ndim < 1 or x.shape[0] != n:
-        raise ValueError(f"{what} wants a stacked [n={n}, ...] tensor, got "
-                         f"shape {tuple(x.shape)}")
+    """``x`` stacks this process's ranks of ``n``: all of them in one
+    process, its block of them across processes."""
+    world, _ = _procs()
+    want = n // world if world > 1 and n % world == 0 else n
+    if x.ndim < 1 or x.shape[0] != want:
+        raise ValueError(f"{what} wants a stacked [n={want}, ...] tensor, "
+                         f"got shape {tuple(x.shape)}")
 
 
 def neighbor_allreduce(x: torch.Tensor, sched: CommSchedule, *,
@@ -231,20 +438,29 @@ def neighbor_allreduce(x: torch.Tensor, sched: CommSchedule, *,
     quantizers); the self term stays full precision.  ``lead`` is the
     number of leading dims that index devices, each encoding its own
     buffer: the rank, and in a composed carving the replica's peers
-    (``x`` then ``[n, slice, ...]``).  ``concurrent`` is accepted: the
-    rounds always combine in round order, so the result is the same
-    either way."""
+    (``x`` then ``[n, slice, ...]``).  ``concurrent`` (default
+    :func:`_default_concurrent`) moves every round at once: across
+    processes, one message a process pair for all the rounds instead of
+    one a round.  The rounds combine in round order either way, so the
+    result is the same."""
     _check_ranks(x, sched.size, "neighbor_allreduce")
+    if concurrent is None:
+        concurrent = _default_concurrent()
     acc = x * _table(sched.self_weight, x)
     # without dst-weighting every round sends x: encode it once
     parts = (_wire_encode(wire, x, lead) if wire is not None
              and x.is_floating_point() and sched.num_rounds
              and not sched.uses_dst_weighting else None)
-    for r in range(sched.num_rounds):
-        send = x
-        if sched.uses_dst_weighting:
-            send = x * _table(sched.send_scale[r], x)
-        recv = _wire_permute(wire, send, sched.recv_src[r], lead, parts)
+    sends = [x * _table(sched.send_scale[r], x)
+             if sched.uses_dst_weighting else x
+             for r in range(sched.num_rounds)]
+    if concurrent and sends:
+        recvs = _wire_permute_rounds(wire, sends, sched.recv_src, lead,
+                                     parts)
+    else:
+        recvs = [_wire_permute(wire, send, src, lead, parts)
+                 for send, src in zip(sends, sched.recv_src)]
+    for r, recv in enumerate(recvs):
         acc = acc + recv * _table(sched.recv_weight[r], x)
     return acc
 
@@ -265,40 +481,154 @@ def hierarchical_neighbor_allreduce(
         wire = _default_dcn_wire()
     elif wire == "off":
         wire = None
+    world, _ = _procs()
     M = machine_sched.size
-    n = x.shape[0]
+    n = x.shape[0] * world
     if x.ndim < 1 or n % M:
         raise ValueError(f"hierarchical_neighbor_allreduce: {n} stacked "
                          f"ranks are not {M} machines of equal size")
-    grouped = x.reshape((M, n // M) + tuple(x.shape[1:]))
-    machine_avg = grouped.sum(dim=1) / (n // M)
+    L = n // M
+    if x.shape[0] % L:
+        raise ValueError(
+            f"hierarchical_neighbor_allreduce: a machine of {L} ranks spans "
+            f"processes of {x.shape[0]} ranks; a machine's mean stays inside "
+            "one process (ROADMAP queue 1, item 12)")
+    grouped = x.reshape((x.shape[0] // L, L) + tuple(x.shape[1:]))
+    machine_avg = grouped.sum(dim=1) / L
     out = neighbor_allreduce(machine_avg, machine_sched, wire=wire,
                              concurrent=concurrent)
     return out.unsqueeze(1).expand_as(grouped).reshape(x.shape)
 
 
+def neighbor_allgather(x: torch.Tensor, sched: CommSchedule) -> torch.Tensor:
+    """Every rank's in-neighbors' blocks concatenated along the block's
+    first dim, sorted by source rank: ``[n, d0, ...] -> [n, max_in_degree
+    * d0, ...]``; a rank with a smaller in-degree leaves its trailing
+    slots zero (reference: ``MPI_Neighbor_allgatherv``)."""
+    _check_ranks(x, sched.size, "neighbor_allgather")
+    rows, d0 = x.shape[0], x.shape[1]
+    slots = max(sched.max_in_degree, 1)
+    out = x.new_zeros((rows, slots, d0) + tuple(x.shape[2:]))
+    for r in range(sched.num_rounds):
+        recv = _permute(x, sched.recv_src[r])
+        got = np.flatnonzero(_local(sched.recv_src[r], rows) >= 0)
+        if got.size:
+            gi = torch.as_tensor(got, device=x.device)
+            si = torch.as_tensor(_local(sched.recv_slot[r], rows)[got]
+                                 .astype(np.int64), device=x.device)
+            out[gi, si] = recv.index_select(0, gi)
+    return out.reshape((rows, slots * d0) + tuple(x.shape[2:]))
+
+
+def ragged_neighbor_allgather(x: torch.Tensor, length: torch.Tensor,
+                              sched: CommSchedule
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Neighbor allgather of padded ragged blocks in one collective chain:
+    ``x [n, max_d0, ...]`` holds rank r's valid rows in ``x[r,
+    :length[r]]``, and the 4-byte length rides as one extra row of the
+    same byte buffer (everything travels as raw bytes).  Returns
+    ``(gathered [n, max_in_degree * max_d0, ...], lengths [n,
+    max_in_degree])`` sorted by source rank, zero where a rank has fewer
+    in-neighbors."""
+    orig = x.dtype
+    if orig == torch.bool:
+        x = x.to(torch.uint8)           # a 0/1 byte round-trips exactly
+    elif orig.is_complex:
+        x = torch.view_as_real(x)
+    n, d0 = x.shape[0], x.shape[1]
+    row = int(np.prod(x.shape[2:], dtype=np.int64))
+    item = x.element_size()
+    row_b = max(row * item, 1)
+    W = max(row_b, 4)
+    xb = x.contiguous().reshape(n, d0, -1).view(torch.uint8) \
+        .reshape(n, d0, row_b)
+    lb = torch.as_tensor(length, dtype=torch.int32, device=x.device) \
+        .reshape(n, 1, 1).view(torch.uint8).reshape(n, 1, 4)
+    buf = torch.cat([torch.nn.functional.pad(xb, (0, W - row_b)),
+                     torch.nn.functional.pad(lb, (0, W - 4))], dim=1)
+    g = neighbor_allgather(buf, sched)
+    slots = max(sched.max_in_degree, 1)
+    g = g.reshape(n, slots, d0 + 1, W)
+    data = g[:, :, :d0, :row_b].contiguous().view(x.dtype) \
+        .reshape((n, slots * d0) + tuple(x.shape[2:]))
+    if orig == torch.bool:
+        data = data.to(torch.bool)
+    elif orig.is_complex:
+        data = torch.view_as_complex(data.contiguous())
+    lens = g[:, :, d0, :4].contiguous().view(torch.int32).reshape(n, slots)
+    return data, lens
+
+
+def pair_gossip(x: torch.Tensor, partners: Sequence[int], *,
+                self_weight: float = 0.5,
+                pair_weight: float = 0.5) -> torch.Tensor:
+    """Exchange with a paired partner and weighted-average (reference:
+    ``MPI_Sendrecv`` pair gossip): ``partners[i]`` is rank i's partner,
+    the pairing an involution; a self-paired rank keeps its value."""
+    partners = [int(q) for q in partners]
+    n = len(partners)
+    for i, q in enumerate(partners):
+        if partners[q] != i:
+            raise ValueError("partners must be a pairing (involution)")
+    _check_ranks(x, n, "pair_gossip")
+    src = np.array([q if q != i else -1 for i, q in enumerate(partners)])
+    if (src < 0).all():
+        return x
+    recv = _permute(x, src)
+    paired = torch.as_tensor(_local(src >= 0, x.shape[0]), device=x.device)
+    paired = paired.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(paired, x * self_weight + recv * pair_weight, x)
+
+
+def rank_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the global rank axis (dim 0, kept as a dim of 1) on
+    every process: the local rows' sum, then the process group's."""
+    total = x.sum(dim=0, keepdim=True)
+    if _procs()[0] > 1:
+        import torch.distributed as dist
+        total = total.contiguous()
+        dist.all_reduce(total)
+    return total
+
+
 def allreduce(x: torch.Tensor, *, average: bool = True) -> torch.Tensor:
     """Every rank gets the sum (or mean) over the ranks."""
-    total = x.sum(dim=0, keepdim=True)
+    total = rank_sum(x)
     if average:
-        total = total / x.shape[0]
+        total = total / (x.shape[0] * _procs()[0])
     return total.expand_as(x).clone()
 
 
 def allgather(x: torch.Tensor) -> torch.Tensor:
     """Every rank gets all ranks' blocks concatenated along their dim 0:
     ``[n, d0, ...] -> [n, n * d0, ...]``."""
+    rows = x.shape[0]
+    world, _ = _procs()
+    if world > 1:
+        import torch.distributed as dist
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous())
+        x = torch.cat(parts)
     n = x.shape[0]
     flat = x.reshape((n * x.shape[1],) + tuple(x.shape[2:]))
-    return flat.unsqueeze(0).expand((n,) + tuple(flat.shape)).clone()
+    return flat.unsqueeze(0).expand((rows,) + tuple(flat.shape)).clone()
 
 
 def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
     """Every rank gets root's block."""
-    if not 0 <= root_rank < x.shape[0]:
+    rows = x.shape[0]
+    world, p = _procs()
+    if not 0 <= root_rank < rows * world:
         raise ValueError(f"root_rank {root_rank} out of range for "
-                         f"{x.shape[0]} ranks")
-    return x[root_rank:root_rank + 1].expand_as(x).clone()
+                         f"{rows * world} ranks")
+    owner, r = divmod(root_rank, rows)
+    if world == 1:
+        return x[r:r + 1].expand_as(x).clone()
+    import torch.distributed as dist
+    block = x[r:r + 1].contiguous() if owner == p else \
+        torch.empty_like(x[:1])
+    dist.broadcast(block, src=owner)
+    return block.expand_as(x).clone()
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ JAX window stacked: ``value [n, ...]`` and ``recv [n, K, ...]``
 (``K = max(max_in_degree, 1)``), and a delivery round is the stacked
 gather of :mod:`bluefog_tpu_torch.ops.collectives`, optionally through
 a wire codec.  The ops are functional: they return a new window and
-leave their inputs alone.
+leave their inputs alone.  Across processes each process holds its
+block of the ranks (its rows of ``value`` and ``recv``), and the
+deliveries cross through :func:`~bluefog_tpu_torch.ops.collectives._permute`.
 
 Not ported yet (ROADMAP queue 1, item 7): the step stamps,
 ``staleness_depth`` and ``async_mixing_matrices``, which only
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..schedule import CommSchedule
-from .collectives import _check_ranks, _table, _wire_permute
+from .collectives import _check_ranks, _local, _table, _wire_permute
 
 __all__ = ["Window", "win_create", "win_put", "win_accumulate", "win_get",
            "win_update", "win_update_then_collect", "win_pull"]
@@ -68,12 +70,12 @@ def _deliver(win: Window, x: torch.Tensor, sched: CommSchedule,
         if apply_dst_scale and sched.uses_dst_weighting:
             send = x * _table(sched.send_scale[r], x)
         incoming = _wire_permute(wire, send, sched.recv_src[r])
-        rows = np.flatnonzero(sched.recv_src[r] >= 0)
+        rows = np.flatnonzero(_local(sched.recv_src[r], x.shape[0]) >= 0)
         if not rows.size:
             continue
         ri = torch.as_tensor(rows, device=x.device)
-        si = torch.as_tensor(sched.recv_slot[r][rows].astype(np.int64),
-                             device=x.device)
+        si = torch.as_tensor(_local(sched.recv_slot[r], x.shape[0])[rows]
+                             .astype(np.int64), device=x.device)
         got = incoming.index_select(0, ri)
         if accumulate:
             recv[ri, si] += got

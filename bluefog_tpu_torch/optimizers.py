@@ -151,8 +151,8 @@ def neighbor_communicator(
         # non-float leaves (int counters, complex) travel uncompressed
         w = wire if x.is_floating_point() else None
         # replica r's peers are rows r * slice_size ...: one row a replica
-        view = (x.reshape(s.size, -1) if slice_size == 1
-                else x.reshape(s.size, slice_size, -1))
+        view = (x.reshape(x.shape[0], -1) if slice_size == 1
+                else x.reshape(x.shape[0] // slice_size, slice_size, -1))
         return _coll.neighbor_allreduce(
             view, s, wire=w, concurrent=concurrent,
             lead=1 if slice_size == 1 else 2).reshape(x.shape)
@@ -596,24 +596,6 @@ def _zero_axis_size(axis: str) -> int:
     raise ValueError(f"unknown mesh axis {axis!r}")
 
 
-def _zero_groups(x: torch.Tensor, axis: str, L: int) -> torch.Tensor:
-    """``[n, ...]`` -> ``[groups, members, ...]``: the ranks that shard
-    together along ``axis`` (all of them; a machine's local ranks; the
-    ranks of one local index across machines)."""
-    if axis == "rank":
-        return x.unsqueeze(0)
-    y = x.reshape((x.shape[0] // L, L) + tuple(x.shape[1:]))
-    return y if axis == "local" else y.transpose(0, 1)
-
-
-def _zero_ungroup(y: torch.Tensor, axis: str) -> torch.Tensor:
-    if axis == "rank":
-        return y[0]
-    if axis == "machine":
-        y = y.transpose(0, 1)
-    return y.reshape((-1,) + tuple(y.shape[2:]))
-
-
 def _zero_shard_templates(params, n: int):
     """Zero-filled ``[ranks, shard]`` templates, one per dtype bucket: the
     optimizer's slots (each rank's row is its 1/n shard)."""
@@ -625,35 +607,79 @@ def _zero_shard_templates(params, n: int):
     return out
 
 
+def _zero_rounds(axis: str, n: int, L: int) -> Tuple[np.ndarray, list]:
+    """Each rank's member index in its group along ``axis`` (all the
+    ranks; a machine's local ranks; the ranks of one local index across
+    machines), and the ``n`` rounds of a rotation inside every group
+    (round ``k``: each member receives from the member ``k`` after it),
+    as global ``_permute`` tables.  The reduce-scatter and the all-gather
+    of ZeRO-1 are these rounds: every row that moves between ranks goes
+    through ``_permute_rounds``."""
+    N = _ctx.size()
+    ranks = np.arange(N)
+    members = ranks[None] if axis == "rank" else ranks.reshape(N // L, L)
+    if axis == "machine":
+        members = members.T                            # [groups, n]
+    member = np.empty(N, dtype=np.int64)
+    group = np.empty(N, dtype=np.int64)
+    for g, row in enumerate(members):
+        member[row] = np.arange(n)
+        group[row] = g
+    rounds = [members[group, (member + k) % n] for k in range(n)]
+    return member, rounds
+
+
 def _zero_apply(optimizer, grads, params, axis: str, n: int, L: int):
     """ZeRO-1 sharded adapt over stacked ranks: the reduce-scatter (the
-    group's mean gradient, member j keeping shard j), the step of each
-    rank's shard of its params with its shard of the optimizer state, and
-    the all-gather of the updated shards."""
+    group's mean gradient, member j keeping shard j, the members' shards
+    added in member order), the step of each rank's shard of its params
+    with its shard of the optimizer state, and the all-gather of the
+    updated shards.  Each move is the rotation rounds of
+    :func:`_zero_rounds` at once (across processes, one message a
+    process pair)."""
     grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
     fg = fusion.fuse_tree(grads)
     fp = fusion.fuse_tree(params)
+    if not fg.buffers:
+        return fp.unfuse()
+    rows = fg.buffers[0].shape[0]
+    if _coll._procs()[0] > 1 and axis == "local" and rows % L:
+        raise ValueError(
+            f"zero_gradient_allreduce(axis='local'): a machine of {L} ranks "
+            "spans processes; its group stays inside one process (ROADMAP "
+            "queue 1, item 12)")
+    member, rounds = _zero_rounds(axis, n, L)
+    mine = _coll._local(member, rows)
+    dev = fg.buffers[0].device
+    ar = torch.arange(rows, device=dev)
+
+    def by_member(got, m):
+        """Each row's piece from member ``m`` of the rounds' ``got``."""
+        return got[torch.as_tensor((m - mine) % n, device=dev), ar]
+
     g_shards, p_shards, pads = [], [], []
     for gbuf, pbuf in zip(fg.buffers, fp.buffers):
         pad = (-gbuf.shape[1]) % n
-        gp = torch.nn.functional.pad(gbuf, (0, pad))
-        pp = torch.nn.functional.pad(pbuf, (0, pad))
-        G = _zero_groups(gp, axis, L)                  # [groups, n, Tp]
-        shard = G.shape[2] // n
-        total = G.sum(dim=1)
+        gv = torch.nn.functional.pad(gbuf, (0, pad)).view(rows, n, -1)
+        pv = torch.nn.functional.pad(pbuf, (0, pad)).view(rows, n, -1)
+        # round k: member m gets member m + k's shard m
+        got = torch.stack(_coll._permute_rounds(
+            [gv[ar, torch.as_tensor((mine - k) % n, device=dev)]
+             for k in range(n)], rounds))
+        total = by_member(got, 0)
+        for m in range(1, n):
+            total = total + by_member(got, m)
         if total.is_floating_point():
-            total = total / n             # the mean, as pmean
-        g_shards.append(_zero_ungroup(total.reshape(-1, n, shard), axis))
-        own = _zero_groups(pp, axis, L).reshape(-1, n, n, shard)
-        j = torch.arange(n, device=pbuf.device)
-        p_shards.append(_zero_ungroup(own[:, j, j], axis))
+            total = total / n                 # the mean, as pmean
+        g_shards.append(total)
+        p_shards.append(pv[ar, torch.as_tensor(mine, device=dev)])
         pads.append(pad)
     new_shards = _apply(optimizer, g_shards, p_shards)
     bufs = []
     for sh, pad in zip(new_shards, pads):
-        S = _zero_groups(sh, axis, L)                  # [groups, n, shard]
-        full = S.reshape(S.shape[0], 1, -1).expand(-1, n, -1)
-        full = _zero_ungroup(full, axis)
+        got = torch.stack(_coll._permute_rounds([sh] * n, rounds))
+        full = torch.stack([by_member(got, m) for m in range(n)],
+                           dim=1).reshape(rows, -1)
         bufs.append((full[:, :full.shape[1] - pad] if pad else full)
                     .contiguous())
     fp.buffers = bufs
@@ -839,9 +865,12 @@ def powersgd_allreduce(opt: OptimizerFactory, *, compression_rank: int = 2,
                 continue
             n = g.shape[0]
             M = _matrix(g).to(torch.float32) + errs[ci]
-            P = torch.matmul(M, qs[ci]).sum(dim=0) / n          # [m, r]
+            # the means over every rank (the process group's sum
+            # across processes)
+            N = n * _coll._procs()[0]
+            P = _coll.rank_sum(torch.matmul(M, qs[ci]))[0] / N  # [m, r]
             P = torch.linalg.qr(P, mode="reduced")[0]
-            Qn = torch.matmul(M.transpose(1, 2), P).sum(dim=0) / n  # [k, r]
+            Qn = _coll.rank_sum(torch.matmul(M.transpose(1, 2), P))[0] / N
             Mhat = P @ Qn.T
             new_errs.append(M - Mhat)
             new_qs.append(Qn.unsqueeze(0).expand((n,) + tuple(Qn.shape)))

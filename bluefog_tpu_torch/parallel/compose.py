@@ -187,6 +187,15 @@ def compose_parallelism(
             raise ValueError(
                 "wire codec applies to gossip permutes only; a dp=1 "
                 "carving has no gossip edges to compress")
+    from . import context as _ctx
+    live = _ctx._context
+    if live is not None and live.world > 1 and \
+            live.rows % (pp * tp * sp * ep):
+        raise ValueError(
+            f"a replica's {pp * tp * sp * ep} peers (pp x tp x sp x ep) "
+            f"would straddle processes of {live.rows} ranks; a carving "
+            "keeps each replica's peers inside one process (ROADMAP queue "
+            "1, item 12)")
     dev = resolve_device(device)
     if topology is None:
         topo = topo_util.ExponentialTwoGraph(dp) if dp > 1 \

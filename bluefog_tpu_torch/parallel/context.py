@@ -1,22 +1,32 @@
-"""The process context: stacked ranks on one device and their virtual
-topology (the single-process part of ``bluefog_tpu/parallel/context.py``).
+"""The process context: the ranks, their virtual topology, and the
+process group that carries them (counterpart of
+``bluefog_tpu/parallel/context.py``).
 
 The JAX context builds a mesh over the devices, one rank each.  Here the
-ranks are stacked on dim 0 of every tensor on one device (the layout of
-:mod:`bluefog_tpu_torch.ops.collectives`), so ``init`` takes their number
-as ``size``.  The topology, its weights and its compiled schedule live in
-one process-level context, as in JAX, and the accessors take the rank as
-an argument (host code sees every rank).
+ranks are stacked on dim 0 of every tensor (the layout of
+:mod:`bluefog_tpu_torch.ops.collectives`).  In one process every rank is
+a row on the context's device.  Launched as several processes (torchrun's
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``), each process holds a contiguous block of ``rows`` ranks
+of the global rank axis, process-major: process ``p`` holds ranks ``p *
+rows .. (p + 1) * rows - 1``, the counterpart of each JAX process owning
+its local devices of one global mesh.  The process group is NCCL on a
+CUDA device (``cuda:LOCAL_RANK``) and gloo only when the caller asks for
+the CPU; one rank a process on one card a process is the GPU deployment.
+``init(size=n)`` takes the global rank count in either case, and
+:func:`size` returns it.
 
-The machine level (``nodes_per_machine`` ranks a machine, machine-major
-on dim 0) carries the machine topology hierarchical gossip runs over, and
-an installed dynamic topology (:func:`set_dynamic_topology`) is the
-schedule list the ``communication_type`` factories pick up.
+The topology, its weights and its compiled schedule live in one
+process-level context, as in JAX, and the accessors take the rank as an
+argument (host code sees every rank's tables).  The machine level
+(``nodes_per_machine`` ranks a machine, machine-major on dim 0; by
+default a process's block when there are several) carries the machine
+topology hierarchical gossip runs over, and an installed dynamic
+topology (:func:`set_dynamic_topology`) is the schedule list the
+``communication_type`` factories pick up.
 
-Not ported yet (ROADMAP queue 1, item 5): the ``torch.distributed``
-backend (one process per rank), the automatic hierarchy, and the
-``round_parallel`` / ``async_gossip`` knobs.  ``init`` refuses a launch
-with ``WORLD_SIZE`` > 1.
+Not ported (ROADMAP queue 1, item 10): ``reinit`` and the elastic
+re-bootstrap, ``apply_plan`` (autotune), and the XLA program cache.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from ..utils import tracing as _tracing
 
 __all__ = ["BlueFogTorchContext", "init", "shutdown", "is_initialized",
            "get_context", "size", "load_topology", "is_topology_weighted",
+           "suspend", "resume", "set_round_parallel", "round_parallel",
            "set_topology", "in_neighbor_ranks", "out_neighbor_ranks",
            "static_schedule", "local_size", "machine_size",
            "load_machine_topology", "is_machine_topology_weighted",
@@ -51,7 +62,7 @@ _context: Optional["BlueFogTorchContext"] = None
 
 @dataclass
 class BlueFogTorchContext:
-    size: int                                 # stacked ranks
+    size: int                                 # global ranks
     device: torch.device
     topology: nx.DiGraph
     topology_weighted: bool = False
@@ -59,15 +70,35 @@ class BlueFogTorchContext:
     machine_topology: Optional[nx.DiGraph] = None
     machine_topology_weighted: bool = False
     dynamic_schedules: Optional[List[CommSchedule]] = None
+    # process default for round-parallel gossip emission (None = defer to
+    # BLUEFOG_ROUND_PARALLEL; per-call concurrent= overrides both)
+    round_parallel: Optional[bool] = None
     # process default for the machine hop's wire codec of hierarchical
     # gossip (None = defer to BLUEFOG_DCN_WIRE; "off" forces full width)
     dcn_wire: Optional[str] = None
+    # how the machine grouping was derived ("auto" = from the process
+    # layout at init; None = manual nodes_per_machine / set_machine_topology)
+    hierarchical: Optional[str] = None
+    # the processes: this one's index and their count; it holds global
+    # ranks process * rows .. (process + 1) * rows - 1
+    process: int = 0
+    world: int = 1
+    owns_group: bool = False                  # init made the process group
     _sched: Optional[CommSchedule] = None
     _machine_sched: Optional[CommSchedule] = None
 
     @property
     def machine_size(self) -> int:
         return self.size // self.nodes_per_machine
+
+    @property
+    def rows(self) -> int:
+        """The ranks this process holds (dim 0 of its tensors)."""
+        return self.size // self.world
+
+    @property
+    def first_rank(self) -> int:
+        return self.process * self.rows
 
     def static_schedule(self) -> CommSchedule:
         if self._sched is None:
@@ -89,7 +120,8 @@ class BlueFogTorchContext:
 def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
          is_weighted: bool = False, *, size: Optional[int] = None,
          device: Optional[Union[str, torch.device]] = None,
-         nodes_per_machine: Optional[int] = None) -> BlueFogTorchContext:
+         nodes_per_machine: Optional[int] = None,
+         hierarchical: Optional[str] = None) -> BlueFogTorchContext:
     """Initialize the context (reference: ``bf.init``).
 
     Args:
@@ -97,30 +129,56 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
         defaults to ``ExponentialGraph(size)`` like the reference.
       is_weighted: use the topology's mixing weights for neighbor averaging
         instead of the uniform ``1/(in_degree+1)`` default.
-      size: the number of ranks stacked on the device (default 1).
+      size: the global number of ranks (default: one a process).  Each
+        of the ``WORLD_SIZE`` processes holds ``size / WORLD_SIZE`` of
+        them, stacked on dim 0.
       device: where the ranks live; CUDA unless the caller asks for another
-        device (a missing card raises).
+        device (a missing card raises).  Launched as several processes,
+        CUDA is ``cuda:LOCAL_RANK`` over NCCL, and the CPU runs gloo.
       nodes_per_machine: ranks a "machine" for hierarchical ops (default
-        ``BLUEFOG_NODES_PER_MACHINE``, else every rank on one machine, as
-        the JAX context in one process); ``size`` must divide by it.
+        ``BLUEFOG_NODES_PER_MACHINE``, else a process's ranks when there
+        are several processes, else every rank on one machine, as the JAX
+        context does with ``jax.local_device_count()``); ``size`` must
+        divide by it.
+      hierarchical: ``"auto"`` derives the machines from the process
+        layout (a machine a process when there are several; else
+        ``nodes_per_machine``; else a rank a machine, where hierarchical
+        gossip is flat gossip) and installs the weighted
+        ``ExponentialTwoGraph`` over them as the machine topology.  CUDA
+        has no counterpart of the TPU's ``slice_index``.  ``None`` defers
+        to ``BLUEFOG_HIERARCHICAL``; ``"off"`` disables.
     """
     global _context
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise ValueError(
-            f"WORLD_SIZE={world}: bluefog_tpu_torch stacks every rank on "
-            "one device in one process; the torch.distributed backend (one "
-            "process per rank) is not ported yet (ROADMAP queue 1, item 5)")
-    n = 1 if size is None else int(size)
+    from ..utils.config import env_flag
+    world, process = _process_group_from_env(device)
+    n = world if size is None else int(size)
     if n < 1:
         raise ValueError(f"size must be at least 1, got {n}")
+    if n % world:
+        raise ValueError(f"size {n} is not a whole number of ranks for each "
+                         f"of the {world} processes")
+    if hierarchical is None:
+        hierarchical = "auto" if env_flag("BLUEFOG_HIERARCHICAL",
+                                          False) else None
+    elif hierarchical in ("off", False):
+        hierarchical = None
+    elif hierarchical is True:
+        hierarchical = "auto"
+    if hierarchical not in (None, "auto"):
+        raise ValueError(
+            f"hierarchical must be 'auto' or 'off', got {hierarchical!r}")
     if nodes_per_machine is None:
         env = os.environ.get("BLUEFOG_NODES_PER_MACHINE", "").strip()
-        nodes_per_machine = int(env) if env else n
+        nodes_per_machine = int(env) if env else None
+    if hierarchical == "auto":
+        nodes_per_machine = _auto_hierarchy(n // world, world,
+                                            nodes_per_machine)
+    if nodes_per_machine is None:
+        nodes_per_machine = n // world if world > 1 else n
     if n % nodes_per_machine != 0:
         raise ValueError(f"device count {n} not divisible by "
                          f"nodes_per_machine {nodes_per_machine}")
-    dev = resolve_device(device)
+    dev = _process_device(device, world)
     # the registries' exporters, as JAX's init arms them: BLUEFOG_METRICS /
     # BLUEFOG_METRICS_PORT, BLUEFOG_FLIGHT_DIR / BLUEFOG_FLIGHT_EVENTS and
     # BLUEFOG_TRACE
@@ -130,10 +188,105 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
     _flight.record("lifecycle", name="init", devices=n)
     topo = topology_fn() if topology_fn is not None \
         else topo_util.ExponentialGraph(n)
+    owns = False
+    if world > 1 or _launched():
+        owns = _init_process_group(dev, world, process)
     _context = BlueFogTorchContext(n, dev, _check_topology(topo, n),
                                    is_weighted,
-                                   nodes_per_machine=int(nodes_per_machine))
+                                   nodes_per_machine=int(nodes_per_machine),
+                                   hierarchical=hierarchical,
+                                   process=process, world=world,
+                                   owns_group=owns)
+    if hierarchical == "auto" and _context.machine_size > 1:
+        _context.machine_topology = topo_util.ExponentialTwoGraph(
+            _context.machine_size)
+        _context.machine_topology_weighted = True
     return _context
+
+
+_LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def _launched() -> bool:
+    """torchrun's variables are set (a launch of one process counts)."""
+    return bool(os.environ.get("MASTER_ADDR", "").strip()
+                and os.environ.get("WORLD_SIZE", "").strip())
+
+
+def _process_group_from_env(device) -> "tuple[int, int]":
+    """``(world, process)`` from torchrun's variables; ``(1, 0)`` when the
+    process was not launched as one of several.  A multi-process launch
+    with a variable missing raises: it never falls back to one process."""
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world < 1:
+        raise ValueError(f"WORLD_SIZE must be at least 1, got {world}")
+    if world == 1 and not _launched():
+        return 1, 0
+    missing = [v for v in _LAUNCH_VARS if not os.environ.get(v, "").strip()]
+    if missing:
+        raise RuntimeError(
+            f"WORLD_SIZE={world}: a multi-process launch needs torchrun's "
+            f"variables {list(_LAUNCH_VARS)}; missing {missing}")
+    process = int(os.environ["RANK"])
+    if not 0 <= process < world:
+        raise ValueError(f"RANK {process} out of range for WORLD_SIZE "
+                         f"{world}")
+    return world, process
+
+
+def _process_device(device, world: int) -> torch.device:
+    """The context's device: ``cuda:LOCAL_RANK`` for a CUDA launch of
+    several processes, else :func:`resolve_device`'s."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and _launched():
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _init_process_group(dev: torch.device, world: int,
+                        process: int) -> bool:
+    """Join the process group torchrun describes: NCCL on a CUDA device,
+    gloo on the CPU.  An existing group is used as it is.  Returns
+    whether this call made the group (:func:`shutdown` then destroys
+    it).  A failed init raises; nothing falls back to gloo."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_world_size() != world or dist.get_rank() != process:
+            raise RuntimeError(
+                f"the existing process group is rank {dist.get_rank()} of "
+                f"{dist.get_world_size()}, not {process} of {world}")
+        return False
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("a CUDA context across processes needs NCCL, "
+                           "which this torch build lacks")
+    addr = (f"tcp://{os.environ['MASTER_ADDR']}:"
+            f"{os.environ['MASTER_PORT']}")
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=addr, world_size=world,
+                            rank=process, **kw)
+    return True
+
+
+def _auto_hierarchy(rows: int, world: int,
+                    nodes_per_machine: Optional[int]) -> int:
+    """``nodes_per_machine`` of ``hierarchical="auto"``: a process's ranks
+    when there are several processes (the boundary the JAX context finds
+    by process locality), else an explicit ``nodes_per_machine``, else 1
+    (every rank its own machine: hierarchical gossip degenerates to flat
+    gossip instead of a silent wrong grouping)."""
+    if world > 1:
+        if nodes_per_machine is not None and nodes_per_machine != rows:
+            raise ValueError(
+                f"nodes_per_machine={nodes_per_machine} contradicts the "
+                f"process layout ({rows} ranks per process)")
+        return rows
+    if nodes_per_machine is not None:
+        return nodes_per_machine
+    return 1
 
 
 def _check_topology(topo: nx.DiGraph, size: int) -> nx.DiGraph:
@@ -152,9 +305,14 @@ def get_context() -> BlueFogTorchContext:
 
 
 def shutdown() -> None:
-    """Drop the context (reference: ``bf.shutdown``)."""
+    """Drop the context (reference: ``bf.shutdown``), and destroy the
+    process group :func:`init` made."""
     global _context
-    _context = None
+    ctx, _context = _context, None
+    if ctx is not None and ctx.owns_group:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def is_initialized() -> bool:
@@ -162,6 +320,7 @@ def is_initialized() -> bool:
 
 
 def size() -> int:
+    """The global rank count (over every process)."""
     return get_context().size
 
 
@@ -193,6 +352,16 @@ def set_topology(topology: Optional[nx.DiGraph] = None,
     ctx.topology_weighted = is_weighted
     ctx._sched = None
     return True
+
+
+def suspend() -> None:
+    """No-op (reference: ``bf.suspend``, which parks the MPI background
+    thread for Jupyter cell boundaries; there is no background thread
+    here)."""
+
+
+def resume() -> None:
+    """No-op counterpart of :func:`suspend`."""
 
 
 def in_neighbor_ranks(rank: int) -> List[int]:
@@ -277,6 +446,22 @@ def clear_dynamic_topology() -> None:
 
 def dynamic_schedules() -> Optional[List[CommSchedule]]:
     return get_context().dynamic_schedules
+
+
+def set_round_parallel(value: Optional[bool]) -> None:
+    """Set the process default for round-parallel gossip emission
+    (``concurrent=`` of ``neighbor_allreduce``): ``True`` moves the
+    edge-colored rounds as one group (across processes, one message a
+    process pair for all of them), ``False`` one round after another,
+    ``None`` defers to the ``BLUEFOG_ROUND_PARALLEL`` env flag.  A
+    per-call ``concurrent=`` always wins.  The rounds combine in round
+    order either way, so the result does not change."""
+    get_context().round_parallel = value
+
+
+def round_parallel() -> Optional[bool]:
+    """The context's round-parallel default (see :func:`set_round_parallel`)."""
+    return get_context().round_parallel
 
 
 def set_dcn_wire(value: Optional[str]) -> None:

@@ -246,7 +246,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    experts; every tp/ep peer of a tick in one dispatch and one K4 call,
    each owner's buffer sized for 16,384 rows of which ~8,192 are real,
    the rest trash tiles that K4 skips) and its ep-1 twin at dp 2, seed 0,
-   Exp2 gossip, delayed AWC, Adam 5e-3; 1 warm-up and 3 timed steps each.
+   Exp2 gossip, delayed AWC, Adam 5e-3; 1 warm-up and 2 timed steps each
+   (3 timed before phases 18-19 came: the cut keeps the script's time).
    K1, K2, K4's forward, plan, dgrad and wgrad must each launch dp x
    micro x layers = 32 times a step in both runs; the loss must fall and
    the probe drop none; step 1's loss must equal the twin's (rtol 1e-5),
@@ -370,7 +371,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through its ``main``, which asserts its own end condition: K1/K2
    launches equal the path's count (llm_3d dp x (micro + pp - 1) x
    layers / pp x steps, moe_lm 36 visible ring blocks a step, moe none)
-   and K4 none (an ``examples_moe`` line).
+   and K4 none (an ``examples_moe`` line);
+18. the pipeline schedules (``parallel/pipeline.py``, no K1-K4): (a)
+   ``examples/pipeline_lm`` at the JAX example's defaults in each mode
+   (GPipe, ``--remat``, ``--interleaved 2 --micro 4``, ``--hetero``),
+   each through its ``main``, which asserts that the loss fell (first and
+   last loss, seconds); (b) the example's decoder block at lm_bench's
+   widths (d_model 1024, 16 heads, seq 2048, batch 2, 4 stages, 8
+   microbatches, f32, weights from seed 0): one step each of GPipe,
+   GPipe + remat, 1F1B on the same weights and batch, and the interleaved
+   schedule (V 2, micro 4, its own 8 blocks), with s a step and the peak
+   of ``torch.cuda.max_memory_allocated`` (reset before each).  Gates:
+   1F1B's gradients equal GPipe's and the interleaved ones the
+   sequential composition's within 1e-4 x max|g| a leaf, and 1F1B's peak
+   memory lies below GPipe's without remat (a ``pipelines`` line).
+   (b) runs first and alone, each schedule warmed by one untimed step;
+   (a) runs after it, beside phase 19's processes;
+19. the multi-process world (``tools/world_check.py``, no K1-K4): (a) a
+   child process with torchrun's variables at WORLD_SIZE=1 runs every op
+   of the check (gossip under bf16 / fp8 / int8@4 / fp8@4, Exp2 gossip,
+   neighbor_allgather, ragged_neighbor_allgather, pair_gossip, allreduce,
+   allgather, ragged_allgather, broadcast, hierarchical gossip, windows,
+   5 ZeRO-1 steps, GPipe with gradients, 1F1B, interleaved, a stage
+   list) on CUDA tensors over NCCL, 8 stacked rows, every result equal
+   bit for bit to the same calls in the one-process context on the card;
+   (b) two gloo processes x 4 rows on the machine's CPU run the same
+   checks, equal bit for bit to one CPU process (the sums through the
+   group within 1e-6), and the gossip step under ``set_round_parallel``
+   and the ZeRO-1 steps move their rows in the counted number of
+   ``batch_isend_irecv`` calls.  NCCL refuses two ranks on one device,
+   so no NCCL move between two processes runs here: (a) is a bootstrap
+   check (NCCL init on ``cuda:LOCAL_RANK`` and the in-process paths),
+   and the crossing rows are shown by (b) (a ``world`` line).  K1-K4
+   launch counts read over phases 18-19 must be 0.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3378,7 +3411,7 @@ def moe_ep_phase(fa, gf, layers_mod, smi):
     replay, the probe, K4's device ms per step and the trash tiles."""
     from bluefog_tpu_torch.parallel import compose
     cfg = _moe_cfg()
-    steps = 4
+    steps = 3
     out = {}
     cap = {}
     orig = gf.grouped_ffn
@@ -3717,6 +3750,223 @@ def examples_phase(fa, gf, smi):
         "runs": out, "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi}), flush=True)
     return out
+
+# -- phases 18-19: the pipeline schedules and the world ----------------
+
+PIPE_WIDE = dict(S=4, M=8, B=2, T=2048, D=1024, H=16)
+
+
+def _example_losses(mod, argv):
+    """Run an example's ``main`` (its own end assertion included); its
+    printed ``step i: loss x`` lines by step, and its last line."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if mod.main(argv) != 0:
+            raise AssertionError(f"pipelines: {argv} failed")
+    text = buf.getvalue()
+    steps = {}
+    for line in text.splitlines():
+        if line.startswith("step "):
+            head, loss = line.split(": loss ")
+            steps[int(head[5:])] = float(loss.split()[0])
+    return steps, text.strip().splitlines()[-1]
+
+
+def _grad_gap(got, want):
+    """max |got - want| over max |want|, per leaf."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp(min=1e-30))
+            for k in want}
+
+
+def pipeline_examples():
+    """Phase 18a: ``pipeline_lm`` in each mode through its ``main``."""
+    from bluefog_tpu_torch.examples import pipeline_lm as plm
+    examples = {}
+    for tag, argv in (("gpipe", []), ("remat", ["--remat"]),
+                      ("interleaved", ["--interleaved", "2", "--micro",
+                                       "4"]),
+                      ("hetero", ["--hetero"])):
+        t0 = time.monotonic()
+        steps, last = _example_losses(plm, argv + ["--device", DEV])
+        torch.cuda.synchronize()
+        first, final = steps[min(steps)], steps[max(steps)]
+        if not final < first:
+            raise AssertionError(f"pipelines: {tag} loss {first} -> {final}")
+        examples[tag] = {"argv": argv, "first_loss": first,
+                         "last_loss": final, "seconds":
+                         time.monotonic() - t0, "last_line": last}
+    return examples
+
+
+def pipeline_wide():
+    """Phase 18b: the example's block at lm_bench's widths, one timed
+    step a schedule after one untimed step of each, and the gates."""
+    from bluefog_tpu_torch.examples import pipeline_lm as plm
+    from bluefog_tpu_torch.parallel import pipeline as pipe
+    dev = torch.device(DEV)
+    c = PIPE_WIDE
+    S, M, B, T, D, H = c["S"], c["M"], c["B"], c["T"], c["D"], c["H"]
+    gen = torch.Generator(device=dev).manual_seed(0)   # drawn on the card
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def blocks(n):
+        return {"wqkv": randn(n, D, 3 * D, scale=0.02),
+                "wo": randn(n, D, D, scale=0.02),
+                "w1": randn(n, D, 4 * D, scale=0.02),
+                "w2": randn(n, 4 * D, D, scale=0.02)}
+
+    params = blocks(S)
+    x, tgt = randn(M, B, T, D), randn(M, B, T, D)
+
+    def block(p, h):
+        return plm.block_fn(p, h, H)
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+
+    def autograd_step(run, p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        out = run(leaves)
+        sum(mse(out[i], tgt[i]) for i in range(out.shape[0])).backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    def f1b_step(p):
+        return pipe.pipeline_1f1b_grad(block, mse, p, x, tgt)[1]
+
+    runs = {
+        "gpipe": lambda: autograd_step(
+            lambda q: pipe.pipeline_apply(block, q, x), params),
+        "gpipe_remat": lambda: autograd_step(
+            lambda q: pipe.pipeline_apply(block, q, x, remat=True), params),
+        "1f1b": lambda: f1b_step(params)}
+    wide = {}
+    grads = {}
+    for run in runs.values():        # warm-up: one untimed step each
+        run()
+    for tag, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        grads[tag] = run()
+        torch.cuda.synchronize()
+        wide[tag] = {"s_per_step": time.monotonic() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "base_bytes": base}
+    wide["1f1b"]["grad_gap"] = _grad_gap(grads["1f1b"], grads["gpipe"])
+    wide["gpipe_remat"]["grad_gap"] = _grad_gap(grads["gpipe_remat"],
+                                                grads["gpipe"])
+    del grads
+    # interleaved: 8 blocks, chunk k of stage d = block k * S + d
+    V, Mi = 2, 4
+    full = blocks(V * S)
+    chunked = {k: v.view((V, S) + tuple(v.shape[1:])).transpose(0, 1)
+               for k, v in full.items()}
+    xi, ti = x[:Mi], tgt[:Mi]
+
+    def seq(p):
+        h = xi
+        for v in range(V * S):
+            h = block({k: w[v:v + 1].expand((Mi,) + tuple(w.shape[1:]))
+                       for k, w in p.items()}, h)
+        return h
+
+    def il_step(p):
+        leaves = {k: w.detach().requires_grad_() for k, w in p.items()}
+        out = pipe.pipeline_interleaved_apply(block, leaves, xi)
+        sum(mse(out[i], ti[i]) for i in range(Mi)).backward()
+        return {k: w.grad for k, w in leaves.items()}
+
+    il_step(chunked)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    g_il = il_step(chunked)
+    torch.cuda.synchronize()
+    wide["interleaved"] = {"s_per_step": time.monotonic() - t0,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+    leaves = {k: w.detach().requires_grad_() for k, w in full.items()}
+    out = seq(leaves)
+    sum(mse(out[i], ti[i]) for i in range(Mi)).backward()
+    g_seq = {k: w.grad.view((V, S) + tuple(w.shape[1:])).transpose(0, 1)
+             for k, w in leaves.items()}
+    wide["interleaved"]["grad_gap"] = _grad_gap(g_il, g_seq)
+    del g_il, g_seq, leaves, out
+    for tag in ("1f1b", "interleaved", "gpipe_remat"):
+        if max(wide[tag]["grad_gap"].values()) > 1e-4:
+            raise AssertionError(f"pipelines: {tag} gradients "
+                                 f"{wide[tag]['grad_gap']}")
+    if not wide["1f1b"]["peak_bytes"] < wide["gpipe"]["peak_bytes"]:
+        raise AssertionError(f"pipelines: 1F1B's peak {wide['1f1b']} is not "
+                             f"below GPipe's {wide['gpipe']}")
+    torch.cuda.empty_cache()
+    return wide
+
+
+def world_launch(pool, scratch):
+    """Phase 19's processes, started in ``pool``'s threads: the NCCL
+    child (WORLD_SIZE=1, 8 rows on the card) and the gloo pair (2 x 4
+    rows on the CPU).  They run while phase 18a runs in this process."""
+    from bluefog_tpu_torch.tools import world_check as wc
+    return (time.monotonic(),
+            pool.submit(wc.spawn, 1, 8, os.path.join(scratch, "nccl1"),
+                        device="cuda", timeout=240),
+            pool.submit(wc.spawn, 2, 8, os.path.join(scratch, "gloo2"),
+                        device="cpu", timeout=240))
+
+
+def world_phase(smi, launched):
+    """Phase 19: the world under the stacked ranks (no K1-K4): the
+    processes :func:`world_launch` started, joined and held to the same
+    calls in one process."""
+    from bluefog_tpu_torch.tools import world_check as wc
+    t0, nccl_f, gloo_f = launched
+    ref = wc.reference(8, 8, device="cuda")
+    cpu_ref = wc.reference(8, 4, device="cpu")
+    nccl, gloo = nccl_f.result(), gloo_f.result()
+    spawn_s = time.monotonic() - t0
+    differ = sorted(k for k in ref if not torch.equal(nccl[k], ref[k]))
+    if differ or set(nccl) != set(ref):
+        raise AssertionError(f"world: NCCL world 1 differs from the "
+                             f"one-process context on {differ}")
+    through = ("allreduce", "allreduce_sum", "zero_loss_mean", "layout",
+               "p2p_calls")
+    differ = sorted(k for k in cpu_ref if k not in through
+                    and not torch.equal(gloo[k], cpu_ref[k]))
+    gaps = {k: float((gloo[k] - cpu_ref[k]).abs().max())
+            for k in through[:3]}
+    if differ or max(gaps.values()) > 1e-6:
+        raise AssertionError(f"world: gloo 2 x 4 differs from one process "
+                             f"on {differ} {gaps}")
+    # batch_isend_irecv calls: the ring round by round, every round at
+    # once (plain, int8@4), 5 ZeRO-1 steps (one reduce-scatter and one
+    # all-gather each)
+    from bluefog_tpu_torch import schedule, topology
+    rounds = schedule.compile_topology(topology.RingGraph(8),
+                                       True).num_rounds
+    calls = gloo["p2p_calls"].tolist()
+    if calls != [rounds, 1, 1, 10]:
+        raise AssertionError(f"world: gloo p2p calls {calls}, want "
+                             f"{[rounds, 1, 1, 10]}")
+    doc = {"nccl_world1_bootstrap": {
+               "checks": "NCCL init on cuda:LOCAL_RANK and the in-process "
+                         "paths; no row crosses a process",
+               "results": len(ref), "bit_equal": True, "rows": 8,
+               "layout": nccl["layout"].tolist()},
+           "gloo_cpu_2x4": {"results": len(cpu_ref),
+                            "bit_equal": len(cpu_ref) - len(through),
+                            "group_sum_gap": gaps, "p2p_calls": calls,
+                            "device": "cpu"},
+           "seconds_since_launch": spawn_s,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("world " + json.dumps(doc), flush=True)
+    return doc
 
 # -- phase 14: the ResNet-50 gossip benchmark --------------------------
 
@@ -4751,6 +5001,34 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     ex_runs = examples_phase(fa, gf, smi)
     phase_s["examples_moe"] = time.monotonic() - t0
+
+    # -- phases 18-19: the pipeline schedules and the world (no K1-K4) ---
+    _launch_counts(fa, gf, reset=True)
+    fd.flash_decode_cuda.launches = 0
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    with tempfile.TemporaryDirectory() as scratch, \
+            ThreadPoolExecutor(2) as pool:
+        t0 = time.monotonic()
+        wide = pipeline_wide()                   # 18b, alone
+        phase_s["pipelines_wide"] = time.monotonic() - t0
+        launched = world_launch(pool, scratch)   # 19's processes start
+        t0 = time.monotonic()
+        examples = pipeline_examples()           # 18a, beside them
+        phase_s["pipelines_examples"] = time.monotonic() - t0
+        print("pipelines " + json.dumps({
+            "examples": examples, "examples_beside_world": True,
+            "wide": wide, "shape": PIPE_WIDE,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+            flush=True)
+        t0 = time.monotonic()
+        world_phase(smi, launched)
+        phase_s["world_join"] = time.monotonic() - t0
+    quiet = dict(_launch_counts(fa, gf),
+                 flash_decode=fd.flash_decode_cuda.launches)
+    print("phases_18_19_launches " + json.dumps(quiet), flush=True)
+    if any(quiet.values()):
+        raise AssertionError(f"phases 18-19 launched a kernel: {quiet}")
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -4766,7 +5044,8 @@ def main(argv=None) -> int:
         "serve_fast": fast["k3_launches"], "moe_serve": k3_moe,
         "moe_serve_fast": moe_fast["k3_launches"],
         "serve_carved": carved["k3_launches"],
-        "moe_serve_carved": moe_carved["k3_launches"]}
+        "moe_serve_carved": moe_carved["k3_launches"],
+        "pipelines_and_world": quiet["flash_decode"]}
     decode["carved_decode"] = {
         tag: {key: row[key] for key in _ROW_KEYS + (
             "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
@@ -4792,7 +5071,8 @@ def main(argv=None) -> int:
                                           *route_launches.items())},
              **{"example_" + tag: (r["launches"]["flash_fwd"],
                                    r["launches"]["flash_bwd"])
-                for tag, r in ex_runs.items()}}
+                for tag, r in ex_runs.items()},
+             "pipelines_and_world": (quiet["flash_fwd"], quiet["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -4840,7 +5120,8 @@ def main(argv=None) -> int:
                                "serve_estate_moe":
                                    estate["serve_estate_moe"]["grouped_ffn"],
                                **{tag: n["grouped_ffn"] for tag, n in
-                                  ep_launches.items()}},
+                                  ep_launches.items()},
+                               "pipelines_and_world": quiet["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -4864,7 +5145,9 @@ def main(argv=None) -> int:
                                "serve_estate_moe": estate[
                                    "serve_estate_moe"]["grouped_ffn_dgrad"],
                                **{tag: n["grouped_ffn_dgrad"] for tag, n in
-                                  ep_launches.items()}},
+                                  ep_launches.items()},
+                               "pipelines_and_world":
+                                   quiet["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -4881,7 +5164,8 @@ def main(argv=None) -> int:
              "serve_estate_moe":
                  estate["serve_estate_moe"]["grouped_ffn_backward_plan"],
              **{tag: n["grouped_ffn_backward_plan"] for tag, n in
-                ep_launches.items()}},
+                ep_launches.items()},
+             "pipelines_and_world": quiet["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

@@ -121,6 +121,107 @@ def test_allreduce_allgather_broadcast_match_jax(cpu_devices, average):
         np.asarray(bcast(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("gen", TOPOS)
+def test_neighbor_allgather_and_ragged_match_jax(cpu_devices, gen):
+    """``max_in_degree`` slots sorted by source rank, zero trailing slots
+    where a rank has fewer in-neighbors (StarGraph); the ragged form's
+    lengths ride in the same byte buffer, for f32, int32, bool and
+    complex blocks."""
+    jsched = jsch.compile_topology(getattr(jtopo, gen)(N), False)
+    tsched = tsch.compile_topology(getattr(ttopo, gen)(N), False)
+    mesh = Mesh(np.array(cpu_devices[:N]), ("rank",))
+    x = _x(5, (N, 2, 3))
+    want = _jax_op(cpu_devices, lambda b: jcoll.neighbor_allgather(
+        b[0], jsched, axis="rank")[None])(jnp.asarray(x))
+    got = tcoll.neighbor_allgather(torch.from_numpy(x), tsched)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    lengths = (np.arange(N) % 3).astype(np.int32)
+    rng = np.random.default_rng(6)
+    for data in (x, rng.integers(-9, 9, size=(N, 4, 2)).astype(np.int32),
+                 rng.random((N, 3, 5)) > 0.5,
+                 (rng.normal(size=(N, 2, 3)) + 1j * rng.normal(
+                     size=(N, 2, 3))).astype(np.complex64)):
+        fn = jax.jit(jax.shard_map(
+            lambda b, ln: tuple(v[None] for v in
+                                jcoll.ragged_neighbor_allgather(
+                                    b[0], ln[0], jsched, axis="rank")),
+            mesh=mesh, in_specs=(P("rank"), P("rank")),
+            out_specs=(P("rank"), P("rank"))))
+        wd, wl = fn(jnp.asarray(data), jnp.asarray(lengths))
+        td, tl = tcoll.ragged_neighbor_allgather(
+            torch.from_numpy(data), torch.from_numpy(lengths), tsched)
+        assert td.dtype == torch.from_numpy(data).dtype
+        np.testing.assert_array_equal(td.numpy(), np.asarray(wd))
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(wl))
+
+
+@pytest.mark.parametrize("partners", [[1, 0, 3, 2, 5, 4, 7, 6],
+                                      [7, 2, 1, 4, 3, 5, 6, 0],
+                                      list(range(N))])
+def test_pair_gossip_matches_jax(cpu_devices, partners):
+    x = _x(7)
+    want = _jax_op(cpu_devices, lambda b: jcoll.pair_gossip(
+        b, partners, self_weight=0.3, pair_weight=0.7, axis="rank"))(
+        jnp.asarray(x))
+    got = tcoll.pair_gossip(torch.from_numpy(x), partners, self_weight=0.3,
+                            pair_weight=0.7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    bad = [1, 2, 0, 3, 4, 5, 6, 7]
+    with pytest.raises(ValueError) as j:
+        jcoll.pair_gossip(jnp.zeros(3), bad)
+    with pytest.raises(ValueError) as t:
+        tcoll.pair_gossip(torch.zeros(N, 3), bad)
+    assert str(j.value) == str(t.value)
+
+
+def test_api_collectives_match_jax(cpu_devices):
+    """The op API's new entries on the stacked context against the JAX
+    API's on the 8-device mesh: neighbor_allgather, the ragged forms,
+    pair_gossip, allreduce, allgather, broadcast, poll and their rank-axis
+    checks."""
+    import bluefog_tpu as jbf
+    import bluefog_tpu_torch as tbf
+    jbf.init(devices=cpu_devices[:N])
+    tbf.init(size=N, device="cpu")
+    try:
+        x = _x(8, (N, 2, 3))
+        lengths = np.arange(N) % 2
+        jx, tx = jbf.shard_distributed(jnp.asarray(x)), \
+            tbf.shard_distributed(x)
+        pairs = [
+            (jbf.neighbor_allgather(jx), tbf.neighbor_allgather(tx)),
+            *zip(jbf.ragged_neighbor_allgather(jx, lengths),
+                 tbf.ragged_neighbor_allgather(tx, lengths)),
+            *zip(jbf.ragged_allgather(jx, lengths),
+                 tbf.ragged_allgather(tx, lengths)),
+            (jbf.pair_gossip(jx, [1, 0, 2, 3, 4, 5, 7, 6]),
+             tbf.pair_gossip(tx, [1, 0, 2, 3, 4, 5, 7, 6])),
+            (jbf.allreduce(jx), tbf.allreduce(tx)),
+            (jbf.allreduce(jx, average=False), tbf.allreduce(tx, False)),
+            (jbf.allgather(jx), tbf.allgather(tx)),
+            (jbf.broadcast(jx, 3), tbf.broadcast(tx, 3))]
+        for i, (j, t) in enumerate(pairs):
+            assert t.shape == j.shape, i
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                       atol=1e-6, err_msg=str(i))
+        assert tbf.poll(tx) is True and jbf.poll(jx) is True
+        for fn in ("neighbor_allgather", "allgather"):
+            with pytest.raises(ValueError) as j:
+                getattr(jbf, fn)(jbf.shard_distributed(jnp.zeros(N)))
+            with pytest.raises(ValueError) as t:
+                getattr(tbf, fn)(tbf.shard_distributed(np.zeros(N)))
+            assert str(j.value) == str(t.value)
+        with pytest.raises(ValueError) as j:
+            jbf.allreduce(jnp.zeros((3, 2)))
+        with pytest.raises(ValueError) as t:
+            tbf.allreduce(torch.zeros(3, 2))
+        assert str(j.value) == str(t.value)
+    finally:
+        jbf.shutdown()
+        tbf.shutdown()
+
+
 def test_fused_tree_keeps_ranks_apart():
     tree = {"b": torch.from_numpy(_x(4, (N, 2, 3))),
             "a": [torch.from_numpy(_x(5, (N, 7))),

@@ -106,13 +106,106 @@ def test_error_texts_are_jax_texts(cpu_devices):
     jbf.shutdown()
 
 
+LAUNCH = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
 def test_init_refuses_a_multiprocess_launch(monkeypatch):
+    """A launch of several processes without torchrun's variables raises
+    a named error (it never falls back to one process); WORLD_SIZE=1
+    alone is one process."""
+    for v in LAUNCH:
+        monkeypatch.delenv(v, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 5"):
+    with pytest.raises(RuntimeError, match=r"missing \['RANK', "
+                       r"'LOCAL_RANK', 'MASTER_ADDR', 'MASTER_PORT'\]"):
         tbf.init(size=2, device="cpu")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match=r"missing \['MASTER_ADDR'\]"):
+        tbf.init(size=2, device="cpu")
+    assert not tbf.is_initialized()
+    for v in LAUNCH:
+        monkeypatch.delenv(v, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "1")
-    assert tbf.init(size=2, device="cpu").size == 2
+    ctx = tbf.init(size=2, device="cpu")
+    assert (ctx.size, ctx.world, ctx.rows, ctx.owns_group) == (2, 1, 2, False)
     tbf.shutdown()
+
+
+def test_init_checks_the_process_layout(monkeypatch):
+    """RANK must lie in the world, and the ranks must split evenly over
+    the processes (checked before any process group is made)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    monkeypatch.setenv("RANK", "2")
+    with pytest.raises(ValueError, match="RANK 2 out of range"):
+        tbf.init(size=4, device="cpu")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="not a whole number of ranks"):
+        tbf.init(size=3, device="cpu")
+    assert not tbf.is_initialized()
+
+
+def test_round_parallel_and_async_knobs_match_jax(both, monkeypatch):
+    from bluefog_tpu.ops import collectives as jcoll
+    from bluefog_tpu_torch.ops import collectives as tcoll
+    for mod in (jbf.parallel.context, tbf.parallel.context):
+        assert mod.round_parallel() is None
+    monkeypatch.setenv("BLUEFOG_ROUND_PARALLEL", "1")
+    assert jcoll._default_concurrent() is tcoll._default_concurrent() is True
+    for value in (False, True, None):
+        jbf.parallel.context.set_round_parallel(value)
+        tbf.set_round_parallel(value)
+        assert jbf.parallel.context.round_parallel() is \
+            tbf.round_parallel() is value
+        assert jcoll._default_concurrent() == tcoll._default_concurrent()
+    # the async staleness knob (set_async_gossip, BLUEFOG_ASYNC) lands
+    # with async window gossip, its only reader (ROADMAP queue 1, item 7)
+    assert not hasattr(tbf, "set_async_gossip")
+    jctx = jbf.parallel.context
+    assert tbf.suspend() is None and tbf.resume() is None
+    assert jctx.suspend() is None and jctx.resume() is None
+
+
+@pytest.mark.parametrize("npm", [None, 2, 4])
+def test_hierarchical_auto_matches_jax_in_one_process(cpu_devices, npm):
+    """One process: ``hierarchical="auto"`` groups by nodes_per_machine,
+    else a rank a machine, and installs the weighted ExponentialTwoGraph
+    over the machines, as JAX's init does without slices."""
+    jctx = jbf.init(devices=cpu_devices[:N], hierarchical="auto",
+                    nodes_per_machine=npm)
+    tctx = tbf.init(size=N, device="cpu", hierarchical="auto",
+                    nodes_per_machine=npm)
+    try:
+        assert tctx.hierarchical == jctx.hierarchical == "auto"
+        assert tbf.local_size() == jbf.local_size()
+        assert tbf.machine_size() == jbf.machine_size()
+        assert tbf.is_machine_topology_weighted() is \
+            jbf.is_machine_topology_weighted() is True
+        assert np.array_equal(
+            _weights(jtopo, jbf.load_machine_topology()),
+            _weights(ttopo, tbf.load_machine_topology()))
+    finally:
+        jbf.shutdown()
+        tbf.shutdown()
+
+
+def test_hierarchical_auto_groups_by_process():
+    """Across processes a machine is a process's block of ranks, as JAX's
+    init groups by process locality; an explicit nodes_per_machine that
+    contradicts it raises.  (The 2-process run of
+    tests/test_torch_world.py checks the grouping end to end.)"""
+    from bluefog_tpu_torch.parallel.context import _auto_hierarchy
+    assert _auto_hierarchy(4, 2, None) == 4
+    assert _auto_hierarchy(4, 2, 4) == 4
+    assert _auto_hierarchy(1, 8, None) == 1
+    with pytest.raises(ValueError, match="contradicts the process layout"):
+        _auto_hierarchy(4, 2, 2)
+    assert _auto_hierarchy(8, 1, None) == 1
+    assert _auto_hierarchy(8, 1, 2) == 2
 
 
 def _policies(n):

@@ -51,7 +51,8 @@ def test_port_imports_no_jax():
               "utils.flight", "utils.metrics", "utils.timeseries",
               "utils.tracing", "diagnostics", "run.launcher",
               "serve.refresh", "tools.trace_report", "tools.serve_bench",
-              "examples.llm_3d", "examples.moe", "examples.moe_lm"):
+              "examples.llm_3d", "examples.moe", "examples.moe_lm",
+              "examples.pipeline_lm", "tools.world_check"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of

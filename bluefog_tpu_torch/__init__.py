@@ -20,7 +20,12 @@ the pipeline schedules (``parallel.pipeline``: GPipe, 1F1B, interleaved,
 stage lists); and the strategy layer
 of the reference's benchmark (``optimizers``: dynamic and hierarchical
 gossip, wire codecs, window mailboxes, push-sum, CHOCO, ZeRO-1,
-PowerSGD; ``ops.windows``; ``examples.benchmark``).  The kernels are CUDA
+PowerSGD; ``ops.windows``; ``examples.benchmark``); the optimizer
+core's rest (exact diffusion, gradient tracking, push-DIGing, async
+window gossip with its staleness knob, ZeRO with gossip, the strategy
+registry, the stateful train step, the named windows below, the
+consensus probes of ``diagnostics``; ``examples.decentralized_optimization``,
+``tools.gossip_bench``, ``tools.strategy_bench``).  The kernels are CUDA
 C++ under ``csrc/``.
 """
 from .api import (allgather, allreduce, barrier, broadcast, hard_sync,
@@ -29,13 +34,19 @@ from .api import (allgather, allreduce, barrier, broadcast, hard_sync,
                   ragged_neighbor_allgather, resolve_schedule,
                   shard_distributed, synchronize)
 from .device import resolve_device
+from .parallel.windows import (
+    get_win_stamps, get_win_version, turn_off_win_ops_with_associated_p,
+    turn_on_win_ops_with_associated_p, win_accumulate, win_associated_p,
+    win_create, win_free, win_get, win_mutex, win_put, win_staleness,
+    win_update, win_update_then_collect)
 from .parallel.context import (
     clear_dynamic_topology, dcn_wire, dynamic_schedules, get_context,
     in_neighbor_machine_ranks, in_neighbor_ranks, init, is_initialized,
     is_machine_topology_weighted, is_topology_weighted, load_machine_topology,
     load_topology, local_rank, local_size, machine_rank, machine_schedule,
     machine_size, out_neighbor_machine_ranks, out_neighbor_ranks,
-    resume, round_parallel, set_dcn_wire, set_dynamic_topology,
+    resume, round_parallel, set_async_gossip, async_gossip_bound,
+    set_dcn_wire, set_dynamic_topology,
     set_machine_topology, set_round_parallel, set_topology, shutdown, size, static_schedule,
     suspend)
 
@@ -50,8 +61,14 @@ __all__ = ["resolve_device",
            "set_dynamic_topology", "clear_dynamic_topology",
            "dynamic_schedules", "set_dcn_wire", "dcn_wire",
            "suspend", "resume", "set_round_parallel", "round_parallel",
+           "set_async_gossip", "async_gossip_bound",
            "neighbor_allreduce", "hierarchical_neighbor_allreduce",
            "neighbor_allgather", "ragged_neighbor_allgather", "pair_gossip",
            "allreduce", "allgather", "ragged_allgather", "broadcast",
            "barrier", "synchronize", "poll", "hard_sync",
-           "resolve_schedule", "shard_distributed"]
+           "resolve_schedule", "shard_distributed",
+           "win_create", "win_free", "win_put", "win_accumulate", "win_get",
+           "win_update", "win_update_then_collect", "win_mutex",
+           "get_win_version", "get_win_stamps", "win_staleness",
+           "win_associated_p", "turn_on_win_ops_with_associated_p",
+           "turn_off_win_ops_with_associated_p"]

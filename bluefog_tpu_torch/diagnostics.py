@@ -1,23 +1,318 @@
-"""SLO burn rates and anomaly tripwires (the port's own copy of
-:class:`SLOEngine` from ``bluefog_tpu/diagnostics.py``; it imports no JAX
-and nothing of the JAX package).
+"""Consensus-health probes and SLO burn rates (the port's own copy of
+``bluefog_tpu/diagnostics.py``'s probes and :class:`SLOEngine`; it
+imports no JAX and nothing of the JAX package).
 
-Only the SLO engine is ported: it reads the time-series store and never
-touches a device.  Its fleet-view leg scores nothing here, because the
-port has no gossiped fleet view yet; that is what the JAX engine does
-when no fleet view is armed.  The rest of the JAX module (the consensus
-probes, peer health) waits for ROADMAP queue 1, item 8.
+The probes read stacked params (``[n, ...]`` leaves, this process's rows):
+
+* **consensus distance** ``||x_i - mean(x)||`` per rank over the float
+  leaves, flattened to one f32 vector a rank (the mean through the
+  process group's sum, as JAX's ``psum``),
+* **max neighbor disagreement** ``max_j ||x_i - x_j||`` over each rank's
+  live in-neighbors, through the port's ``neighbor_allgather`` (trailing
+  slots of low-degree ranks are zero-filled, so they are masked by
+  in-degree and liveness),
+* **window staleness**: per named window, the deliveries not yet
+  consumed by a ``win_update``,
+* the async strategy's **staleness depth** (:func:`observe_async_staleness`)
+  and the per-rank **step-time** table with its straggler verdict.
+
+``diagnose_consensus(params)`` is the one-shot probe; the train step's
+``metrics_every_k`` runs it on the step's output params.  Two parts of
+the JAX probe have no counterpart here yet: the gossiped fleet-view
+carrier (ROADMAP queue 1, item 10) and the chaos delay ledger (item 8),
+so :func:`observe_step_time` gives every rank the host's wall time.
+Peer health (the non-finite guard) is item 8's.
+
+The SLO engine reads the time-series store and never touches a device.
+Its fleet-view leg scores nothing here, because the port has no gossiped
+fleet view yet; that is what the JAX engine does when no fleet view is
+armed.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from .fusion import tree_flatten
+from .ops import collectives as _coll
+from .parallel import context as _ctx
+from .schedule import CommSchedule
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils import timeseries as _ts
 from .utils.config import logger
 
-__all__ = ["SLOEngine", "DEFAULT_SLO_WINDOWS"]
+__all__ = ["diagnose_consensus", "consensus_distance", "window_staleness",
+           "observe_step_time", "last_step_times", "detect_stragglers",
+           "observe_async_staleness", "SLOEngine", "DEFAULT_SLO_WINDOWS"]
+
+
+# ---------------------------------------------------------------------------
+# Consensus probes
+# ---------------------------------------------------------------------------
+
+def _flat_f32(tree) -> torch.Tensor:
+    """Each rank's float leaves as one f32 row, ``[rows, total]``
+    (``[rows, 1]`` zeros when there are none)."""
+    leaves = tree_flatten(tree)[0]
+    rows = leaves[0].shape[0]
+    parts = [x.reshape(rows, -1).to(torch.float32) for x in leaves
+             if x.is_floating_point()]
+    if not parts:
+        return torch.zeros((rows, 1), dtype=torch.float32,
+                           device=leaves[0].device)
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _all_rows(t: torch.Tensor) -> np.ndarray:
+    """A per-rank ``[rows]`` result over every process's rows, on the
+    host (the JAX probe reads its distributed output whole)."""
+    if _coll._procs()[0] > 1:
+        t = _coll.allgather(t.reshape(-1, 1).contiguous())[0]
+    return t.detach().cpu().numpy()
+
+
+def _probe(params, sched: Optional[CommSchedule], n: int, dead: tuple,
+           tvec: Optional[np.ndarray]):
+    """(distance, disagreement[, own time, max in-neighbor time]) as
+    ``[rows]`` tensors: the JAX probe program, rank by rank."""
+    v = _flat_f32(params)
+    rows, dev = v.shape[0], v.device
+    alive = np.ones(n, np.float32)
+    alive[list(dead)] = 0.0
+    n_alive = float(alive.sum())
+    me_alive = torch.as_tensor(_coll._local(alive, rows), device=dev)
+    vbar = _coll.rank_sum(v * me_alive[:, None]) / n_alive
+    dist = torch.sqrt(((v - vbar) ** 2).sum(dim=1)) * me_alive
+    t_me = None
+    payload = v
+    if tvec is not None:
+        t_me = torch.as_tensor(_coll._local(tvec, rows), device=dev)
+        payload = torch.cat([v, t_me[:, None]], dim=1)
+    nbr_tmax = t_me
+    if sched is not None and sched.max_in_degree > 0:
+        slots = max(sched.max_in_degree, 1)
+        g = _coll.neighbor_allgather(payload[:, None], sched)
+        g = g.reshape(rows, slots, payload.shape[1])
+        if t_me is not None:
+            g, gt = g[..., :-1], g[..., -1]
+        diffs = torch.sqrt(((g - v[:, None, :]) ** 2).sum(dim=2))
+        # slot k of rank d counts iff it is real and its source is alive
+        slot_alive = np.zeros((n, slots), np.float32)
+        for d in range(n):
+            for k, src in enumerate(sched.in_neighbors[d]):
+                slot_alive[d, k] = alive[src]
+        valid = torch.as_tensor(_coll._local(slot_alive > 0, rows),
+                                device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        disagree = torch.where(valid, diffs, zero).amax(dim=1) * me_alive
+        if t_me is not None:
+            nbr_tmax = torch.where(valid, gt, zero).amax(dim=1)
+    else:
+        disagree = torch.zeros(rows, dtype=torch.float32, device=dev)
+    return dist, disagree, t_me, nbr_tmax
+
+
+def consensus_distance(params: Any,
+                       schedule: Optional[CommSchedule] = None) -> np.ndarray:
+    """Per-rank ``||x_i - mean(x)||`` over the float leaves of stacked
+    ``params``."""
+    return diagnose_consensus(params, schedule=schedule,
+                              record=False)["consensus_distance"]
+
+
+def window_staleness() -> Dict[str, int]:
+    """Unconsumed deliveries per named window (puts / accumulates since
+    the last ``win_update``): ``{window_name: max_mailbox_depth}``."""
+    from .parallel import windows as _win
+    out = {}
+    for name, entry in _win._registry.items():
+        out[name] = int(entry.version.max()) if entry.version.size else 0
+    return out
+
+
+def diagnose_consensus(params: Any, *,
+                       schedule: Optional[CommSchedule] = None,
+                       dead_ranks: Sequence[int] = (),
+                       record: bool = True,
+                       step_times: Optional[Sequence[float]] = None,
+                       ) -> Dict[str, Any]:
+    """One health sample over stacked ``params``.
+
+    Returns the consensus distance (per-rank array + max/mean), the max
+    neighbor disagreement under ``schedule`` (default: the context's
+    static schedule) and the window staleness.  ``dead_ranks`` restricts
+    the probe to the survivors (the network mean excludes them; they
+    report distance 0).  ``record=True`` publishes the scalars as gauges
+    and a ``consensus`` flight event.  ``step_times`` (an ``[n]`` per-rank
+    last-step wall-time vector) rides the same neighbor gather as one
+    extra element a rank and adds ``step_time_s``, ``step_time_skew_s``,
+    ``neighbor_step_time_max`` and ``straggler_ranks`` (and their gauges
+    when recording)."""
+    ctx = _ctx.get_context()
+    if schedule is None:
+        try:
+            schedule = ctx.static_schedule()
+        except RuntimeError:
+            schedule = None
+    dead = tuple(sorted(set(int(r) for r in dead_ranks)))
+    if dead and len(dead) >= ctx.size:
+        raise ValueError(f"all {ctx.size} ranks marked dead")
+    with_time = step_times is not None
+    t_host = None
+    if with_time:
+        t_host = np.asarray(step_times, np.float32).reshape(-1)
+        if t_host.size != ctx.size:
+            raise ValueError(
+                f"step_times has {t_host.size} entries for {ctx.size} ranks")
+    with torch.no_grad():
+        d_t, g_t, te_t, nb_t = _probe(params, schedule, ctx.size, dead,
+                                      t_host)
+    dist = _all_rows(d_t)
+    disagree = _all_rows(g_t)
+    alive = [r for r in range(ctx.size) if r not in dead]
+    staleness = window_staleness()
+    out = {
+        "consensus_distance": dist,
+        "consensus_distance_max": float(dist.max()),
+        "consensus_distance_mean": float(dist[alive].mean()),
+        "neighbor_disagreement": disagree,
+        "neighbor_disagreement_max": float(disagree.max()),
+        "window_staleness": staleness,
+    }
+    if with_time:
+        global _last_step_times
+        t = _all_rows(te_t).reshape(-1)
+        _last_step_times = t
+        stragglers = detect_stragglers(t, dead_ranks=dead)
+        out["step_time_s"] = t
+        out["step_time_skew_s"] = float(t[alive].max() - t[alive].min())
+        out["neighbor_step_time_max"] = _all_rows(nb_t).reshape(-1)
+        out["straggler_ranks"] = stragglers
+    if record:
+        _metrics.gauge("bluefog_consensus_distance_max",
+                       "max over ranks of ||x_i - mean(x)||"
+                       ).set(out["consensus_distance_max"])
+        _metrics.gauge("bluefog_consensus_distance_mean",
+                       "mean over ranks of ||x_i - mean(x)||"
+                       ).set(out["consensus_distance_mean"])
+        _metrics.gauge("bluefog_neighbor_disagreement_max",
+                       "max over ranks/edges of ||x_i - x_j||"
+                       ).set(out["neighbor_disagreement_max"])
+        if staleness:
+            _metrics.gauge("bluefog_window_staleness_max",
+                           "max unconsumed mailbox deliveries"
+                           ).set(max(staleness.values()))
+        if with_time:
+            _metrics.gauge(
+                "bluefog_step_time_skew",
+                "max - min of per-rank last-step wall time (s)"
+                ).set(out["step_time_skew_s"])
+            _metrics.gauge(
+                "bluefog_straggler_rank",
+                "slowest rank when it qualifies as a straggler, else -1"
+                ).set(float(out["straggler_ranks"][0])
+                      if out["straggler_ranks"] else -1.0)
+        ev = {"max": out["consensus_distance_max"],
+              "mean": out["consensus_distance_mean"],
+              "disagree": out["neighbor_disagreement_max"]}
+        if with_time:
+            ev["step_times"] = [round(float(x), 6) for x in t]
+            ev["skew_s"] = out["step_time_skew_s"]
+            ev["stragglers"] = list(out["straggler_ranks"])
+        _flight.record("consensus", **ev)
+    return out
+
+
+def observe_async_staleness(state: Any,
+                            record: bool = True) -> Optional[Dict[str, Any]]:
+    """Staleness-depth sample from an async-gossip training state: when
+    ``state.comm_state`` is an
+    :class:`bluefog_tpu_torch.optimizers.AsyncGossipState`, its per-rank
+    staleness depth (how many ticks stale the oldest neighbor
+    contribution was at the last tick), local step counters and pending
+    forced-sync flag.  A read of the step's output: no collective.
+    Publishes the ``bluefog_async_staleness_steps`` /
+    ``bluefog_async_forced_sync`` gauges.  None for any other state."""
+    from .optimizers import AsyncGossipState
+    cs = getattr(state, "comm_state", None)
+    if not isinstance(cs, AsyncGossipState):
+        return None
+    depth = _all_rows(cs.depth).reshape(-1)
+    local = _all_rows(cs.local_steps).reshape(-1)
+    forced = bool(_all_rows(cs.force).reshape(-1).any())
+    out = {
+        "staleness_depth": depth,
+        "staleness_depth_max": int(depth.max()) if depth.size else 0,
+        "local_steps": local,
+        "forced_sync_pending": forced,
+    }
+    if record:
+        _metrics.gauge(
+            "bluefog_async_staleness_steps",
+            "max over ranks of async-gossip staleness depth (ticks)"
+            ).set(out["staleness_depth_max"])
+        _metrics.gauge(
+            "bluefog_async_forced_sync",
+            "1 when the staleness bound forces a fleet sync-up next tick"
+            ).set(1.0 if forced else 0.0)
+        _flight.record(
+            "async_staleness", max=out["staleness_depth_max"],
+            forced=forced, local_steps=[int(x) for x in local])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Straggler detection (per-rank step times)
+# ---------------------------------------------------------------------------
+
+_last_step_times: Optional[np.ndarray] = None
+
+
+def observe_step_time(duration_s: float,
+                      size: Optional[int] = None) -> Optional[np.ndarray]:
+    """Fold one host-measured step wall time into the per-rank table:
+    every rank gets ``duration_s`` (the host's wall time; JAX's chaos
+    delay ledger, which moves injected sleeps onto their target rank,
+    comes with ``utils/chaos.py``, ROADMAP queue 1, item 8).  Returns the
+    ``[n]`` table (kept for :func:`detect_stragglers`), or None when the
+    context is not initialized."""
+    global _last_step_times
+    if size is None:
+        if not _ctx.is_initialized():
+            return None
+        size = _ctx.get_context().size
+    t = np.full(size, max(float(duration_s), 0.0), np.float32)
+    _last_step_times = t
+    return t
+
+
+def last_step_times() -> Optional[np.ndarray]:
+    """The most recent per-rank step-time table (observe/diagnose feed it)."""
+    return _last_step_times
+
+
+def detect_stragglers(step_times: Optional[Sequence[float]] = None, *,
+                      factor: float = 2.0, min_skew_s: float = 0.0,
+                      dead_ranks: Sequence[int] = ()) -> Tuple[int, ...]:
+    """Ranks whose last step took ``> factor x`` the alive-rank median
+    (and at least ``min_skew_s`` over it), slowest first; ``step_times``
+    when given, else the last observed table."""
+    t = (np.asarray(step_times, np.float64).reshape(-1)
+         if step_times is not None else _last_step_times)
+    if t is None or t.size == 0:
+        return ()
+    t = np.asarray(t, np.float64).reshape(-1)
+    dead = {int(r) for r in dead_ranks}
+    alive = [r for r in range(t.size) if r not in dead]
+    if not alive:
+        return ()
+    med = float(np.median(t[alive]))
+    out = [r for r in alive
+           if t[r] > factor * med and t[r] - med > min_skew_s]
+    return tuple(sorted(out, key=lambda r: -t[r]))
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ so gradients cross the boundary as ``jax.grad`` through ``ppermute``
 does.  The per-rank tables of a schedule stay global; each process reads
 its block of them (:func:`_local`).  The reductions over the rank axis
 (:func:`allreduce`, :func:`allgather`, :func:`broadcast`,
-:func:`rank_sum`) go through the process group.  The peer-dim
+:func:`rank_sum`, :func:`rank_max`) go through the process group.  The peer-dim
 collectives of a composed carving stay inside one process: a replica's
 peers never straddle a process boundary (``compose_parallelism`` refuses
 such a carving).
@@ -51,7 +51,8 @@ from ..schedule import CommSchedule
 
 __all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
            "neighbor_allgather", "ragged_neighbor_allgather", "pair_gossip",
-           "allreduce", "allgather", "broadcast", "rank_sum", "psum",
+           "allreduce", "allgather", "broadcast", "rank_sum", "rank_max",
+           "psum",
            "peer_sum",
            "pmean", "ppermute", "all_to_all", "WIRE_CODECS",
            "_amax_scale", "_parse_wire", "_check_wire", "_wire_encode",
@@ -589,6 +590,18 @@ def rank_sum(x: torch.Tensor) -> torch.Tensor:
         total = total.contiguous()
         dist.all_reduce(total)
     return total
+
+
+def rank_max(x: torch.Tensor) -> torch.Tensor:
+    """The max over the global rank axis (dim 0, kept as a dim of 1) on
+    every process (``lax.pmax``): the local rows' max, then a MAX
+    reduction through the process group."""
+    top = x.amax(dim=0, keepdim=True)
+    if _procs()[0] > 1:
+        import torch.distributed as dist
+        top = top.contiguous()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    return top
 
 
 def allreduce(x: torch.Tensor, *, average: bool = True) -> torch.Tensor:

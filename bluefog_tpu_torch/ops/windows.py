@@ -15,9 +15,13 @@ leave their inputs alone.  Across processes each process holds its
 block of the ranks (its rows of ``value`` and ``recv``), and the
 deliveries cross through :func:`~bluefog_tpu_torch.ops.collectives._permute`.
 
-Not ported yet (ROADMAP queue 1, item 7): the step stamps,
-``staleness_depth`` and ``async_mixing_matrices``, which only
-``async_window_gossip`` reads.
+The bounded-staleness bookkeeping of ``async_window_gossip`` lives here
+too (``bluefog_tpu/ops/windows.py:192-292``): each mailbox slot carries
+an int32 step stamp, the sender's tick at its most recent delivery
+(:func:`stamp_create`, :func:`stamp_push`, moved along the schedule's
+edges through the same stacked gather as a delivery), and
+:func:`staleness_depth` reads each rank's oldest real slot.
+:func:`async_mixing_matrices` is the host model of one async tick.
 """
 from __future__ import annotations
 
@@ -27,10 +31,13 @@ import numpy as np
 import torch
 
 from ..schedule import CommSchedule
-from .collectives import _check_ranks, _local, _table, _wire_permute
+from .collectives import (_check_ranks, _local, _permute, _table,
+                          _wire_permute)
 
 __all__ = ["Window", "win_create", "win_put", "win_accumulate", "win_get",
-           "win_update", "win_update_then_collect", "win_pull"]
+           "win_update", "win_update_then_collect", "win_pull",
+           "stamp_create", "stamp_push", "staleness_depth",
+           "async_mixing_matrices"]
 
 
 class Window(NamedTuple):
@@ -165,3 +172,106 @@ def win_pull(x: torch.Tensor, sched: CommSchedule, *,
         incoming = _wire_permute(wire, x, sched.recv_src[r])
         acc = acc + incoming * _table(sched.recv_weight[r], x)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Staleness stamps: the bookkeeping half of asynchronous window gossip.
+# Stamps are [n, K] int32 (each rank's slots), ticks plain ints.
+# ---------------------------------------------------------------------------
+
+def _real_slots(sched: CommSchedule, rows: int) -> np.ndarray:
+    """``[rows, K]`` bool: slot k of rank d is real (k < in_degree[d]),
+    this process's rows."""
+    K = _slots(sched)
+    real = np.arange(K)[None, :] < np.asarray(sched.in_degree)[:, None]
+    return _local(real, rows)
+
+
+def stamp_create(sched: CommSchedule, rows: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """Fresh per-slot step stamps, ``[rows, K]`` int32 zeros (everything
+    delivered "now", at tick 0); ``rows`` defaults to every rank."""
+    n = sched.size if rows is None else rows
+    return torch.zeros((n, _slots(sched)), dtype=torch.int32, device=device)
+
+
+def stamp_push(stamps: torch.Tensor, tick: int, active: torch.Tensor,
+               sched: CommSchedule) -> torch.Tensor:
+    """Deliver ``tick`` into out-neighbors' slot stamps where the sender
+    is ``active`` (``[n]`` bool): an inactive sender ships ``-1`` so the
+    receiver's ``max`` keeps its stamp.  Each round is the stacked gather
+    of :func:`_deliver`."""
+    rows = stamps.shape[0]
+    send = torch.where(active, torch.full_like(active, tick,
+                                               dtype=torch.int32),
+                       torch.full_like(active, -1, dtype=torch.int32))
+    stamps = stamps.clone()
+    for r in range(sched.num_rounds):
+        incoming = _permute(send, sched.recv_src[r])
+        got = np.flatnonzero(_local(sched.recv_src[r], rows) >= 0)
+        if not got.size:
+            continue
+        ri = torch.as_tensor(got, device=stamps.device)
+        si = torch.as_tensor(_local(sched.recv_slot[r], rows)[got]
+                             .astype(np.int64), device=stamps.device)
+        stamps[ri, si] = torch.maximum(stamps[ri, si],
+                                       incoming.index_select(0, ri))
+    return stamps
+
+
+def staleness_depth(stamps: torch.Tensor, tick: int,
+                    sched: CommSchedule) -> torch.Tensor:
+    """Each rank's staleness over its *real* slots, ``tick - min(stamp)``
+    (``[n]`` int32); ranks with no in-edges report 0."""
+    rows = stamps.shape[0]
+    mask = torch.as_tensor(_real_slots(sched, rows), device=stamps.device)
+    t = torch.full_like(stamps, tick)
+    oldest = torch.where(mask, stamps, t).amin(dim=1)
+    has_in = torch.as_tensor(_local(np.asarray(sched.in_degree) > 0, rows),
+                             device=stamps.device)
+    return torch.where(has_in, tick - oldest,
+                       torch.zeros_like(oldest)).to(torch.int32)
+
+
+def async_mixing_matrices(sched: CommSchedule,
+                          active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side model of one async gossip tick over the *extended* state
+    (a copy of ``bluefog_tpu/ops/windows.py::async_mixing_matrices``).
+
+    The extended state stacks every rank's value with every mailbox slot:
+    index ``i`` (< n) is rank i's value, index ``n + i*K + k`` is rank i's
+    slot-k mailbox.  One tick factors into a push matrix ``P`` (active
+    ranks split their value between themselves and out-neighbor mailboxes
+    with weight ``1/(out_degree+1)``) and a collect matrix ``C`` (active
+    ranks fold all their mailboxes back into their value).  ``C @ P`` is
+    column-stochastic for every activity pattern: the invariant that keeps
+    the de-biased mixing correct under any per-rank staleness."""
+    n = sched.size
+    K = _slots(sched)
+    m = n + n * K
+    active = np.asarray(active, dtype=bool)
+    if active.shape != (n,):
+        raise ValueError(f"active must have shape ({n},), got {active.shape}")
+
+    P = np.eye(m, dtype=np.float64)
+    for j in range(n):
+        if not active[j]:
+            continue
+        out_edges = []          # (dst_rank, dst_slot) for rank j's pushes
+        for r in range(sched.num_rounds):
+            for dst in range(n):
+                if sched.recv_src[r][dst] == j:
+                    out_edges.append((dst, int(sched.recv_slot[r][dst])))
+        w = 1.0 / (len(out_edges) + 1.0)
+        P[j, j] = w
+        for dst, slot in out_edges:
+            P[n + dst * K + slot, j] += w   # accumulate into the mailbox
+
+    C = np.eye(m, dtype=np.float64)
+    for i in range(n):
+        if not active[i]:
+            continue
+        for k in range(K):
+            C[i, n + i * K + k] = 1.0       # fold mailbox into value...
+            C[n + i * K + k, n + i * K + k] = 0.0   # ...and clear it
+    return P, C

@@ -33,7 +33,22 @@ strategy                        update
                                 optimizer state a 1/n shard (ZeRO-1)
 ``powersgd_allreduce``          ``gradient_allreduce`` of rank-r factors
                                 with error feedback
+``exact_diffusion``             psi = A(x, g); x+ = Comb(psi + x - psi_prev)
+``gradient_tracking``           y+ = Comb(y) + g+ - g; x+ = Comb(A(x, y))
+``push_diging``                 gradient tracking over push-sum weights
+``async_window_gossip``         bounded-staleness push-sum window gossip
+                                under a per-rank ``pace`` table
+``zero_adapt_with_combine``     CTA gossip, then a ZeRO-1 adapt over an
+                                orthogonal axis
 ==============================  ===========================================
+
+:data:`STRATEGIES` names the strategies with their contract flags, and
+:func:`strategy_constraint_violation` gives the reason a knob combination
+breaks one.  :func:`make_train_step` and :func:`make_stateful_train_step`
+return the step inside :class:`_InstrumentedStep`, which records every
+call (flight events, metrics, a span when tracing is armed, the per-rank
+step-time table) and, with ``metrics_every_k``, samples the consensus
+probes of :mod:`bluefog_tpu_torch.diagnostics` on the step's output.
 
 ``Comb`` is a communicator: :func:`neighbor_communicator` (static, or
 dynamic: schedule ``step % period``), :func:`hierarchical_communicator`,
@@ -67,6 +82,9 @@ from .ops import collectives as _coll
 from .ops import windows as wops
 from .parallel import context as _ctx
 from .schedule import CommSchedule, compile_from_weights
+from .utils import flight as _flight
+from .utils import metrics as _metrics
+from .utils import tracing as _tracing
 
 __all__ = ["neighbor_communicator", "hierarchical_communicator",
            "allreduce_communicator", "empty_communicator",
@@ -82,7 +100,12 @@ __all__ = ["neighbor_communicator", "hierarchical_communicator",
            "DistributedWinPutOptimizer", "DistributedPullGetOptimizer",
            "DistributedPushSumOptimizer", "init_distributed",
            "make_train_step", "stacked_grads", "adam", "sgd",
-           "replicate", "state_from_jax"]
+           "replicate", "state_from_jax", "StackedAdam",
+           "exact_diffusion", "gradient_tracking", "push_diging",
+           "AsyncGossipState", "async_window_gossip",
+           "AdaptiveStalenessController", "zero_adapt_with_combine",
+           "StrategySpec", "STRATEGIES", "strategy_constraint_violation",
+           "make_stateful_train_step"]
 
 Communicator = Callable[[Any, int], Any]       # (params tree, step) -> tree
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
@@ -92,11 +115,59 @@ OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 # Optimizer factories (the optax names and defaults)
 # ---------------------------------------------------------------------------
 
+class StackedAdam(torch.optim.Optimizer):
+    """Adam over rank-stacked tensors with one step count per row (dim 0)
+    of each tensor: optax's per-rank ``count``.  ``torch.optim.Adam``
+    keeps one count a tensor, so a strategy that freezes some ranks'
+    optimizer state (``async_window_gossip`` under a ``pace`` table) needs
+    this one: each row's bias correction follows its own count.  The
+    arithmetic is ``torch.optim.Adam``'s (``lerp`` of the first moment,
+    ``sqrt(v) / sqrt(1 - b2^t) + eps``, the step ``lr / (1 - b1^t)``),
+    with the corrections as per-row columns; half-precision tensors do
+    it in float32 and store the result.  A 0-dim tensor is one row."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros(p.shape[:1], dtype=torch.float32,
+                                             device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                t, m, v = st["step"], st["exp_avg"], st["exp_avg_sq"]
+                t += 1
+                m.lerp_(g, 1 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                opm = (torch.float32 if p.dtype in (torch.bfloat16,
+                                                    torch.float16)
+                       else p.dtype)
+                t64 = t.to(torch.float64)
+                col = (t.shape[0],) + (1,) * (p.ndim - 1) if p.ndim else ()
+                step_size = (lr / (1 - torch.pow(b1, t64))).reshape(col)
+                bc2_sqrt = (1 - torch.pow(b2, t64)).sqrt().reshape(col)
+                denom = (v.sqrt().to(opm) / bc2_sqrt.to(opm)).to(
+                    p.dtype).add_(eps)
+                p.copy_(p.to(opm) - m.to(opm) / denom.to(opm)
+                        * step_size.to(opm))
+        return None
+
+
 def adam(learning_rate: float) -> OptimizerFactory:
     """``optax.adam(learning_rate)`` (b1 0.9, b2 0.999, eps 1e-8) as a
-    ``torch.optim.Adam`` factory."""
-    return lambda params: torch.optim.Adam(params, lr=learning_rate,
-                                           betas=(0.9, 0.999), eps=1e-8)
+    :class:`StackedAdam` factory (a step count per rank, as optax's
+    per-rank ``count``)."""
+    return lambda params: StackedAdam(params, lr=learning_rate,
+                                      betas=(0.9, 0.999), eps=1e-8)
 
 
 def sgd(learning_rate: float, momentum: Optional[float] = None,
@@ -235,10 +306,15 @@ class DecentralizedState(NamedTuple):
 class DecentralizedOptimizer(NamedTuple):
     """init(params) -> state;  update(grads, state, params) -> (params,
     state).  As in the JAX package, update returns the new parameters:
-    gossip averaging is multiplicative in the parameters."""
+    gossip averaging is multiplicative in the parameters.  ``axes`` names
+    the JAX mesh axes the update runs under: ``("rank",)``, or
+    ``("machine", "local")`` for the hierarchical strategies (the stacked
+    ranks are machine-major either way; the train step's probe reads
+    it)."""
     init: Callable[[Any], DecentralizedState]
     update: Callable[[Any, DecentralizedState, Any],
                      Tuple[Any, DecentralizedState]]
+    axes: Tuple[str, ...] = ("rank",)
     # True when comm_state carries the one-step-delayed mixed params
     pipelined: bool = False
 
@@ -288,7 +364,9 @@ def gradient_allreduce(opt: OptimizerFactory, *,
 
 def adapt_with_combine(opt: OptimizerFactory, comm: Communicator, *,
                        num_steps_per_communication: int = 1,
-                       delayed: bool = False) -> DecentralizedOptimizer:
+                       delayed: bool = False,
+                       axes: Tuple[str, ...] = ("rank",)
+                       ) -> DecentralizedOptimizer:
     """Combine-then-adapt (CTA): x_{t+1} = A(Comb(x_t), g_t), the gradient
     taken at x_t applied to the combined point.  ``delayed=True`` is the
     pipelined variant x_{t+1} = A(Comb(x_{t-1}), g(x_t)): the gossip of
@@ -316,12 +394,14 @@ def adapt_with_combine(opt: OptimizerFactory, comm: Communicator, *,
         return new_params, DecentralizedState(state.step + 1,
                                               state.opt_state)
 
-    return DecentralizedOptimizer(init, update, pipelined=delayed)
+    return DecentralizedOptimizer(init, update, axes, pipelined=delayed)
 
 
 def adapt_then_combine(opt: OptimizerFactory, comm: Communicator, *,
                        num_steps_per_communication: int = 1,
-                       delayed: bool = False) -> DecentralizedOptimizer:
+                       delayed: bool = False,
+                       axes: Tuple[str, ...] = ("rank",)
+                       ) -> DecentralizedOptimizer:
     """Adapt-then-combine (ATC): x_{t+1} = Comb(A(x_t, g_t))."""
     if delayed:
         raise ValueError(
@@ -339,7 +419,7 @@ def adapt_then_combine(opt: OptimizerFactory, comm: Communicator, *,
         return new_params, DecentralizedState(state.step + 1,
                                               state.opt_state)
 
-    return DecentralizedOptimizer(init, update)
+    return DecentralizedOptimizer(init, update, axes)
 
 
 def _col(v, x: torch.Tensor) -> torch.Tensor:
@@ -582,6 +662,402 @@ def push_schedule(topo=None, size: Optional[int] = None) -> CommSchedule:
 
 
 # ---------------------------------------------------------------------------
+# Gradient tracking family
+# ---------------------------------------------------------------------------
+
+def _update_only(optimizer: torch.optim.Optimizer, grads, like):
+    """The optimizer's update for ``grads`` (optax's ``updates``), as a
+    tree like ``like``: one step on a zero point.  SGD, momentum and Adam
+    step ``0 + u``, which is ``u`` exactly."""
+    return _apply(optimizer, grads, tree_map(torch.zeros_like, like))
+
+
+def exact_diffusion(opt: OptimizerFactory, comm: Communicator, *,
+                    axes: Tuple[str, ...] = ("rank",)
+                    ) -> DecentralizedOptimizer:
+    """Exact diffusion: bias-corrected CTA gossip (Yuan et al.)::
+
+        psi_t   = A(x_t, g_t)
+        x_{t+1} = Comb(psi_t + x_t - psi_{t-1})
+
+    ``comm_state`` carries psi_{t-1} (from x_0)."""
+    def init(params):
+        return DecentralizedState(0, _make_optimizer(opt, params),
+                                  tree_map(torch.clone, params))
+
+    def update(grads, state, params):
+        psi_prev = state.comm_state
+        # the adapt steps its point in place: psi on a copy of x_t
+        psi = _apply(state.opt_state, grads, tree_map(torch.clone, params))
+        phi = tree_map(lambda a, b, c: a + b - c, psi, params, psi_prev)
+        new_params = comm(phi, state.step)
+        return new_params, DecentralizedState(state.step + 1,
+                                              state.opt_state, psi)
+
+    return DecentralizedOptimizer(init, update, axes)
+
+
+def gradient_tracking(opt: OptimizerFactory, comm: Communicator, *,
+                      axes: Tuple[str, ...] = ("rank",)
+                      ) -> DecentralizedOptimizer:
+    """Gradient tracking: every rank tracks the global mean gradient::
+
+        y_{t+1} = Comb(y_t) + g_{t+1} - g_t
+        x_{t+1} = Comb(A(x_t, y_t))
+
+    so ``sum_r y_r == sum_r g_r`` at every step.  ``comm_state`` carries
+    ``(y, g_prev)``, both from zeros (``y_0 = g_0`` on the first
+    update)."""
+    def init(params):
+        zeros = tree_map(torch.zeros_like, params)
+        return DecentralizedState(0, _make_optimizer(opt, params),
+                                  (zeros, zeros))
+
+    def update(grads, state, params):
+        y, g_prev = state.comm_state
+        y = comm(y, state.step)
+        y = tree_map(lambda a, g, gp: a + g - gp, y, grads, g_prev)
+        adapted = _apply(state.opt_state, y, params)
+        new_params = comm(adapted, state.step)
+        return new_params, DecentralizedState(
+            state.step + 1, state.opt_state, (y, grads))
+
+    return DecentralizedOptimizer(init, update, axes)
+
+
+def push_diging(opt: OptimizerFactory, sched: Optional[CommSchedule] = None,
+                *, axes: Tuple[str, ...] = ("rank",),
+                fuse: bool = True) -> DecentralizedOptimizer:
+    """Push-DIGing: gradient tracking on directed graphs through push-sum
+    (Nedic et al.).  Over column-stochastic push weights ``C``
+    (:func:`push_schedule` by default)::
+
+        y_t     = C(y_{t-1}) + g(z_t) - g(z_{t-1})     (tracker)
+        u_{t+1} = C(u_t + A(y_t))                      (push mixing)
+        p_{t+1} = C(p_t)
+        z_{t+1} = u_{t+1} / p_{t+1}                    (the params)
+
+    ``A(y)`` is the optimizer's update (:func:`_update_only`).
+    ``comm_state`` holds ``(u, p, y, g_prev)``; with ``fuse`` ``u`` is the
+    per-dtype buffers and ``p`` one ``[n]`` mass a buffer."""
+    def _sched():
+        return sched if sched is not None else push_schedule()
+
+    def _bufs(tree):
+        return fusion.fuse_tree(tree).buffers if fuse else tree
+
+    def init(params):
+        u0 = _bufs(tree_map(torch.clone, params))
+        p0 = tree_map(lambda x: torch.ones(x.shape[0], dtype=x.dtype,
+                                           device=x.device), u0)
+        zeros = tree_map(torch.zeros_like, params)
+        return DecentralizedState(0, _make_optimizer(opt, params),
+                                  (u0, p0, zeros, zeros))
+
+    def update(grads, state, params):
+        s = _sched()
+        u, p, y, g_prev = state.comm_state
+
+        def nar(t):
+            return tree_map(lambda x: _coll.neighbor_allreduce(x, s), t)
+
+        y = nar(y)
+        y = tree_map(lambda a, g, gp: a + g - gp, y, grads, g_prev)
+        step_tree = _bufs(_update_only(state.opt_state, y, params))
+        u = nar(tree_map(torch.add, u, step_tree))
+        p = nar(p)
+        z = tree_map(lambda a, b: a / _col(b, a), u, p)
+        if fuse:
+            recipe = fusion.fuse_tree(params)
+            recipe.buffers = z
+            z = recipe.unfuse()
+        return z, DecentralizedState(state.step + 1, state.opt_state,
+                                     (u, p, y, grads))
+
+    return DecentralizedOptimizer(init, update, axes)
+
+
+# ---------------------------------------------------------------------------
+# Bounded-staleness asynchronous window gossip
+# ---------------------------------------------------------------------------
+
+class AsyncGossipState(NamedTuple):
+    """Carry of :func:`async_window_gossip`, each field stacked over the
+    ranks: ``recv`` one ``[n, K, ...]`` mailbox block a gossiped buffer;
+    ``p`` / ``p_recv`` the push-sum mass lane (``[n]`` f32, one mass for
+    the whole model, and its ``[n, K]`` mailboxes); ``stamps`` ``[n, K]``
+    int32 per-slot step stamps; ``local_steps`` ``[n]`` the ticks each
+    rank worked; ``force`` ``[n]`` bool, the fleet-wide sync-up flag for
+    the next tick; ``depth`` ``[n]`` int32, last tick's staleness depth
+    (what :func:`bluefog_tpu_torch.diagnostics.observe_async_staleness`
+    reads)."""
+    recv: Any
+    p: torch.Tensor
+    p_recv: torch.Tensor
+    stamps: torch.Tensor
+    local_steps: torch.Tensor
+    force: torch.Tensor
+    depth: torch.Tensor
+
+
+def _opt_snapshot(optimizer: torch.optim.Optimizer):
+    """Copies of every tensor of the optimizer's per-slot state."""
+    return {id(p): {k: v.clone() for k, v in optimizer.state[p].items()
+                    if torch.is_tensor(v)}
+            for p in optimizer.param_groups[0]["params"]}
+
+
+def _freeze_rows(optimizer: torch.optim.Optimizer, before, keep_new):
+    """Put back the rows (dim 0) where ``keep_new`` is False in every state
+    tensor of the optimizer: an inactive rank's state is its state before
+    the step, zeros where the step created it (optax's state starts at
+    zeros; torch's optimizers create theirs at the first step)."""
+    for p in optimizer.param_groups[0]["params"]:
+        old = before[id(p)]
+        st = optimizer.state[p]
+        for k, v in list(st.items()):
+            if not torch.is_tensor(v) or v.ndim < 1 or \
+                    v.shape[0] != keep_new.shape[0]:
+                continue
+            prev = old.get(k)
+            if prev is None:
+                prev = torch.zeros_like(v)
+            st[k] = torch.where(_col(keep_new, v), v, prev)
+
+
+def async_window_gossip(opt: OptimizerFactory,
+                        sched: Optional[CommSchedule] = None, *,
+                        staleness_bound: Optional[int] = None,
+                        pace: Optional[Sequence[int]] = None,
+                        fuse: bool = True, wire: Optional[str] = None
+                        ) -> DecentralizedOptimizer:
+    """Bounded-staleness asynchronous window gossip (JAX
+    ``optimizers.py:715``): every rank pushes ``1/(outdeg+1)`` of its mass
+    into its out-neighbors' mailboxes (``win_accumulate``, through
+    ``wire``) and folds in whatever has arrived.  A static per-rank
+    ``pace`` table marks rank r *active* on ticks where ``tick % pace[r]
+    == 0``; an inactive rank neither pushes, collects nor adapts (its
+    mailboxes keep accumulating), and its params and optimizer state
+    stay bit-identical (:func:`_freeze_rows`; Adam needs
+    :class:`StackedAdam`'s per-row counts for that).
+
+    The push-sum mass ``p`` travels through the same mailboxes with the
+    same activity (and no wire codec: a quantized ``p`` would bias the
+    correction it exists for), so every tick's mixing over the extended
+    state is column-stochastic for any activity
+    (:func:`bluefog_tpu_torch.ops.windows.async_mixing_matrices`), and
+    the params carry the de-biased ``z = x / p``.
+
+    The staleness bound K (``staleness_bound``, else
+    :func:`bluefog_tpu_torch.parallel.context.async_gossip_bound`): each
+    slot's step stamp tracks its in-neighbor's latest delivery; when any
+    rank's staleness depth exceeds K (a MAX over every rank, through the
+    process group across processes) the whole fleet is forced active on
+    the next tick.  ``K = 0`` makes every tick active: synchronous
+    combine-then-adapt on the push weights."""
+    def _sched():
+        s = sched if sched is not None else _ctx.static_schedule()
+        if s.uses_dst_weighting:
+            raise ValueError(
+                "async_window_gossip requires column-stochastic push "
+                "weights (push_schedule), not a dst-weighted schedule")
+        return s
+
+    def _bound() -> int:
+        if staleness_bound is not None:
+            b = int(staleness_bound)
+        else:
+            b = _ctx.async_gossip_bound()
+        if b < 0:
+            raise ValueError(f"staleness_bound must be >= 0, got {b}")
+        return b
+
+    def _pace(n: int) -> np.ndarray:
+        if pace is None:
+            return np.ones(n, np.int32)
+        tab = np.asarray(pace, np.int32)
+        if tab.shape != (n,) or (tab < 1).any():
+            raise ValueError(
+                f"pace must be {n} ints >= 1, got {np.asarray(pace)!r}")
+        return tab
+
+    def init(params):
+        s = _sched()
+        _bound()                         # fail fast on a bad knob
+        K = max(s.max_in_degree, 1)
+        vals = _values(params, fuse)[0]
+        rows, dev = vals[0].shape[0], vals[0].device
+        recv = [torch.zeros((rows, K) + tuple(x.shape[1:]), dtype=x.dtype,
+                            device=dev) for x in vals]
+        return DecentralizedState(0, _make_optimizer(opt, params),
+                                  AsyncGossipState(
+            recv=recv,
+            p=torch.ones(rows, dtype=torch.float32, device=dev),
+            p_recv=torch.zeros((rows, K), dtype=torch.float32, device=dev),
+            stamps=wops.stamp_create(s, rows, dev),
+            local_steps=torch.zeros(rows, dtype=torch.int32, device=dev),
+            force=torch.zeros(rows, dtype=torch.bool, device=dev),
+            depth=torch.zeros(rows, dtype=torch.int32, device=dev)))
+
+    def update(grads, state, params):
+        s = _sched()
+        bound = _bound()
+        cs: AsyncGossipState = state.comm_state
+        tick = state.step
+        z_vals, recipe = _values(params, fuse)
+        rows, dev = z_vals[0].shape[0], z_vals[0].device
+        deg = _coll._local(s.out_degree, rows).astype(np.float32)
+        sw = torch.as_tensor(np.float32(1.0) / (deg + np.float32(1.0)),
+                             device=dev)                     # f32, as JAX
+        if bound == 0:
+            active = torch.ones(rows, dtype=torch.bool, device=dev)
+        else:
+            scheduled = torch.as_tensor(
+                _coll._local(tick % _pace(s.size) == 0, rows), device=dev)
+            active = scheduled | cs.force
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        send_w = torch.where(active, sw, zero)
+        keep_w = torch.where(active, sw, torch.ones_like(sw))
+        p = cs.p
+
+        def slot_sum(recv):
+            total = recv[:, 0]
+            for k in range(1, recv.shape[1]):
+                total = total + recv[:, k]
+            return total
+
+        def gossip(z, recv):
+            # rebias z -> x = z p, push 1/(outdeg+1) of x along the
+            # out-edges; if active, keep the same share and fold in every
+            # mailbox (the slots past in_degree never receive: zeros)
+            dt = z.dtype
+            x = z * _col(p.to(dt), z)
+            w = wops.win_accumulate(wops.Window(value=x, recv=recv),
+                                    x * _col(send_w.to(dt), x), s, wire=wire)
+            mailbox = slot_sum(w.recv.to(dt))
+            act = _col(active, x)
+            mixed = (_col(keep_w.to(dt), x) * x
+                     + torch.where(act, mailbox, torch.zeros_like(mailbox)))
+            new_recv = torch.where(_col(active, w.recv),
+                                   torch.zeros_like(w.recv), w.recv)
+            return mixed, new_recv
+
+        moved = [gossip(z, r) for z, r in zip(z_vals, cs.recv)]
+        mixed_vals = [m for m, _ in moved]
+        new_recv = [r for _, r in moved]
+        pwin = wops.win_accumulate(wops.Window(value=p, recv=cs.p_recv),
+                                   p * send_w, s)
+        p_mixed = torch.where(active, sw * p + slot_sum(pwin.recv), p)
+        new_p_recv = torch.where(active[:, None],
+                                 torch.zeros_like(pwin.recv), pwin.recv)
+        stamps = wops.stamp_push(cs.stamps, tick, active, s)
+        depth = wops.staleness_depth(stamps, tick, s)
+        if bound == 0:
+            force_next = torch.zeros(rows, dtype=torch.bool, device=dev)
+        else:
+            force_next = (_coll.rank_max(depth) > bound).expand(rows)
+        z_tree = _rebuild(recipe, [m / _col(p_mixed.to(m.dtype), m)
+                                   for m in mixed_vals])
+        before = _opt_snapshot(state.opt_state)
+        adapted = _apply(state.opt_state, grads, z_tree)
+        # an inactive rank is mid-local-compute: no adapt lands, its
+        # params and optimizer state stay as they were
+        _freeze_rows(state.opt_state, before, active)
+        new_params = tree_map(lambda a, o: torch.where(_col(active, a), a, o),
+                              adapted, params)
+        return new_params, DecentralizedState(
+            state.step + 1, state.opt_state,
+            AsyncGossipState(
+                recv=new_recv, p=p_mixed, p_recv=new_p_recv, stamps=stamps,
+                local_steps=cs.local_steps + active.to(torch.int32),
+                force=force_next.contiguous(), depth=depth))
+
+    return DecentralizedOptimizer(init, update)
+
+
+class AdaptiveStalenessController:
+    """Learn the async staleness bound K online from the per-rank
+    step-time table (:func:`bluefog_tpu_torch.diagnostics.
+    observe_step_time` / ``last_step_times``).
+
+    A rank running at ``r x`` the alive-median pace needs its neighbors to
+    tolerate ``ceil(r) - 1`` missed ticks before a forced sync-up, so
+    ``K = clamp(ceil(max_alive / median) - 1, k_min, k_max)``.  A change
+    is applied (:func:`bluefog_tpu_torch.parallel.context.
+    set_async_gossip`) only after the same recommendation holds
+    ``patience`` observations in a row; :meth:`observe` then returns it
+    and the caller rebuilds its strategy and step.  The change sets the
+    ``bluefog_async_staleness_bound`` gauge and records an
+    ``async_bound`` flight event."""
+
+    def __init__(self, *, k_min: int = 0, k_max: int = 16,
+                 patience: int = 3, dead_ranks: Sequence[int] = ()):
+        if not (0 <= k_min <= k_max):
+            raise ValueError(
+                f"need 0 <= k_min <= k_max, got {k_min}..{k_max}")
+        if patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        self.k_min = int(k_min)
+        self.k_max = int(k_max)
+        self.patience = int(patience)
+        self.dead_ranks = frozenset(int(r) for r in dead_ranks)
+        self._candidate: Optional[int] = None
+        self._streak = 0
+        self.applied: Optional[int] = None
+
+    @property
+    def current_bound(self) -> int:
+        return _ctx.async_gossip_bound()
+
+    def recommend(self, step_times: Optional[Sequence[float]] = None
+                  ) -> Optional[int]:
+        """The bound the current pace spread calls for (no side effects);
+        None when no step-time table has been observed yet."""
+        from . import diagnostics as _diag
+        t = (np.asarray(step_times, np.float64).reshape(-1)
+             if step_times is not None else _diag.last_step_times())
+        if t is None or np.size(t) == 0:
+            return None
+        t = np.asarray(t, np.float64).reshape(-1)
+        alive = [r for r in range(t.size)
+                 if r not in self.dead_ranks and np.isfinite(t[r])]
+        if not alive:
+            return None
+        med = float(np.median(t[alive]))
+        if med <= 0:
+            return None
+        spread = float(np.max(t[alive])) / med
+        k = int(np.ceil(spread)) - 1
+        return max(self.k_min, min(self.k_max, k))
+
+    def observe(self, step_times: Optional[Sequence[float]] = None
+                ) -> Optional[int]:
+        """Fold one pace observation in; the newly applied bound when the
+        hysteresis window agrees on a change, else None."""
+        rec = self.recommend(step_times)
+        if rec is None or rec == self.current_bound:
+            self._candidate, self._streak = None, 0
+            return None
+        if rec == self._candidate:
+            self._streak += 1
+        else:
+            self._candidate, self._streak = rec, 1
+        if self._streak < self.patience:
+            return None
+        old = self.current_bound
+        self._candidate, self._streak = None, 0
+        _ctx.set_async_gossip(rec)
+        _metrics.mark_steady_state(False)
+        self.applied = rec
+        _metrics.gauge(
+            "bluefog_async_staleness_bound",
+            "async gossip staleness bound K (pace-adaptive)").set(rec)
+        _flight.record("async_bound", old=old, new=rec,
+                       reason="pace_adaptive")
+        return rec
+
+
+# ---------------------------------------------------------------------------
 # ZeRO-1
 # ---------------------------------------------------------------------------
 
@@ -770,6 +1246,7 @@ def zero_gradient_allreduce(opt: OptimizerFactory, *, axis: str = "rank",
         _check_elementwise_chain(opt)
     n = axis_size or _zero_axis_size(axis)
     L = _ctx.local_size() if axis != "rank" else 1
+    axes = ("rank",) if axis == "rank" else ("machine", "local")
 
     def init(params):
         return DecentralizedState(
@@ -780,7 +1257,44 @@ def zero_gradient_allreduce(opt: OptimizerFactory, *, axis: str = "rank",
         return new_params, DecentralizedState(state.step + 1,
                                               state.opt_state)
 
-    return DecentralizedOptimizer(init, update)
+    return DecentralizedOptimizer(init, update, axes)
+
+
+def zero_adapt_with_combine(opt: OptimizerFactory, comm: Communicator, *,
+                            shard_axis: str = "local",
+                            axes: Tuple[str, ...] = ("machine", "local"),
+                            shard_axis_size: Optional[int] = None,
+                            check_elementwise: bool = True
+                            ) -> DecentralizedOptimizer:
+    """Gossip with ZeRO-1 sharding on an orthogonal axis::
+
+        x_{t+1} = ZeROAdapt_shard(Comb(x_t), mean_shard(g_t))
+
+    ``comm`` gossips the params (machine to machine with
+    :func:`hierarchical_communicator`), and the adapt is ZeRO-sharded
+    over ``shard_axis`` (``"local"``: within each machine; ``"rank"``:
+    over every rank) by the rotation rounds of :func:`_zero_apply`.  Every
+    rank of a shard group ends the step with the same parameters.  The
+    optimizer must be elementwise, as for
+    :func:`zero_gradient_allreduce` (the same probe;
+    ``check_elementwise=False`` skips it)."""
+    if check_elementwise:
+        _check_elementwise_chain(opt)
+    n = shard_axis_size or _zero_axis_size(shard_axis)
+    L = _ctx.local_size() if shard_axis != "rank" else 1
+
+    def init(params):
+        return DecentralizedState(
+            0, _make_optimizer(opt, _zero_shard_templates(params, n)))
+
+    def update(grads, state, params):
+        combined = comm(params, state.step)
+        new_params = _zero_apply(state.opt_state, grads, combined,
+                                 shard_axis, n, L)
+        return new_params, DecentralizedState(state.step + 1,
+                                              state.opt_state)
+
+    return DecentralizedOptimizer(init, update, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1407,165 @@ def powersgd_allreduce(opt: OptimizerFactory, *, compression_rank: int = 2,
 
 
 # ---------------------------------------------------------------------------
+# Strategy registry
+# ---------------------------------------------------------------------------
+
+class StrategySpec(NamedTuple):
+    """Constructor + contract metadata for one named strategy.
+
+    ``build(opt, *, schedule, wire, concurrent, delayed,
+    num_steps_per_communication)`` returns the configured strategy.  The
+    flags say which knobs the algorithm responds to, and ``weights`` the
+    schedule weightings its contract admits: ``"recv"`` (recv-side
+    combine weights, ``compile_topology``), ``"push"`` (column-stochastic
+    push weights, :func:`push_schedule`), ``"dst"`` (sender-side
+    dst-weighting)."""
+    build: Callable[..., DecentralizedOptimizer]
+    uses_schedule: bool       # gossip: wire bytes depend on the topology
+    wire_aware: bool          # accepts a wire= codec on its gossip rounds
+    concurrent_aware: bool    # accepts concurrent= round-parallel emission
+    pipelined_ok: bool        # supports delayed=True (hence overlap=True)
+    weights: Tuple[str, ...]
+
+
+def _reg_comm(schedule, wire, concurrent):
+    return neighbor_communicator(
+        schedule if schedule is not None else _ctx.static_schedule(),
+        wire=wire, concurrent=concurrent)
+
+
+def _reg_allreduce(opt, *, schedule=None, wire=None, concurrent=None,
+                   delayed=False, num_steps_per_communication=1):
+    return gradient_allreduce(opt)
+
+
+def _reg_neighbor_cta(opt, *, schedule=None, wire=None, concurrent=None,
+                      delayed=False, num_steps_per_communication=1):
+    return adapt_with_combine(
+        opt, _reg_comm(schedule, wire, concurrent), delayed=delayed,
+        num_steps_per_communication=num_steps_per_communication)
+
+
+def _reg_neighbor_atc(opt, *, schedule=None, wire=None, concurrent=None,
+                      delayed=False, num_steps_per_communication=1):
+    return adapt_then_combine(
+        opt, _reg_comm(schedule, wire, concurrent), delayed=delayed,
+        num_steps_per_communication=num_steps_per_communication)
+
+
+def _reg_exact_diffusion(opt, *, schedule=None, wire=None, concurrent=None,
+                         delayed=False, num_steps_per_communication=1):
+    return exact_diffusion(opt, _reg_comm(schedule, wire, concurrent))
+
+
+def _reg_gradient_tracking(opt, *, schedule=None, wire=None, concurrent=None,
+                           delayed=False, num_steps_per_communication=1):
+    return gradient_tracking(opt, _reg_comm(schedule, wire, concurrent))
+
+
+def _reg_push_sum(opt, *, schedule=None, wire=None, concurrent=None,
+                  delayed=False, num_steps_per_communication=1):
+    return push_sum(opt, schedule)
+
+
+def _reg_push_diging(opt, *, schedule=None, wire=None, concurrent=None,
+                     delayed=False, num_steps_per_communication=1):
+    return push_diging(opt, schedule)
+
+
+def _reg_choco(opt, *, schedule=None, wire=None, concurrent=None,
+               delayed=False, num_steps_per_communication=1):
+    return choco_gossip(opt, schedule, wire=wire if wire else "int8")
+
+
+def _reg_async_window_gossip(opt, *, schedule=None, wire=None,
+                             concurrent=None, delayed=False,
+                             num_steps_per_communication=1):
+    # pace and the bound come from the context's knob (BLUEFOG_ASYNC /
+    # set_async_gossip), not from these knobs
+    return async_window_gossip(opt, schedule, wire=wire)
+
+
+#: Name -> :class:`StrategySpec` for every strategy the autotuner can pick.
+STRATEGIES = {
+    "allreduce": StrategySpec(
+        _reg_allreduce, uses_schedule=False, wire_aware=False,
+        concurrent_aware=False, pipelined_ok=False, weights=()),
+    "neighbor_cta": StrategySpec(
+        _reg_neighbor_cta, uses_schedule=True, wire_aware=True,
+        concurrent_aware=True, pipelined_ok=True, weights=("recv",)),
+    "neighbor_atc": StrategySpec(
+        _reg_neighbor_atc, uses_schedule=True, wire_aware=True,
+        concurrent_aware=True, pipelined_ok=False, weights=("recv",)),
+    "exact_diffusion": StrategySpec(
+        _reg_exact_diffusion, uses_schedule=True, wire_aware=True,
+        concurrent_aware=True, pipelined_ok=False, weights=("recv",)),
+    "gradient_tracking": StrategySpec(
+        _reg_gradient_tracking, uses_schedule=True, wire_aware=True,
+        concurrent_aware=True, pipelined_ok=False, weights=("recv",)),
+    "push_sum": StrategySpec(
+        _reg_push_sum, uses_schedule=True, wire_aware=False,
+        concurrent_aware=False, pipelined_ok=False, weights=("push",)),
+    "push_diging": StrategySpec(
+        _reg_push_diging, uses_schedule=True, wire_aware=False,
+        concurrent_aware=False, pipelined_ok=False, weights=("push",)),
+    "choco": StrategySpec(
+        _reg_choco, uses_schedule=True, wire_aware=True,
+        concurrent_aware=False, pipelined_ok=False,
+        weights=("recv", "dst")),
+    "async_window_gossip": StrategySpec(
+        _reg_async_window_gossip, uses_schedule=True, wire_aware=True,
+        concurrent_aware=False, pipelined_ok=False, weights=("push",)),
+}
+
+
+def strategy_constraint_violation(
+    name: str,
+    *,
+    schedule: Optional[CommSchedule] = None,
+    wire: Optional[str] = None,
+    delayed: bool = False,
+    num_steps_per_communication: int = 1,
+    overlap: bool = False,
+) -> Optional[str]:
+    """The reason a knob combination violates ``name``'s contract, or
+    None; the texts are the constructors' and the train step's."""
+    spec = STRATEGIES[name]
+    if delayed and not spec.pipelined_ok:
+        if name == "neighbor_atc":
+            return ("adapt_then_combine cannot be pipelined: its gossip "
+                    "input IS the update output. Use adapt_with_combine"
+                    "(..., delayed=True) for one-step-delayed mixing")
+        return (f"{name} has no pipelined variant: delayed=True only "
+                "applies to adapt_with_combine")
+    if delayed and num_steps_per_communication != 1:
+        return ("delayed=True requires num_steps_per_communication == 1: "
+                "the carried mixed params would be poisoned by raw params "
+                "on non-communicating steps")
+    if overlap and not (spec.pipelined_ok and delayed):
+        return ("overlap=True requires a pipelined strategy whose "
+                "comm_state carries one-step-delayed mixed params — build "
+                "one with adapt_with_combine(..., delayed=True)")
+    dst = schedule is not None and schedule.uses_dst_weighting
+    if name in ("push_sum", "push_diging") and dst:
+        return ("push_sum requires a schedule without dst-weighting "
+                "(uses_dst_weighting=False); pass dst_weight= instead"
+                if name == "push_sum" else
+                "push_diging requires column-stochastic push weights "
+                "(push_schedule), not a dst-weighted schedule")
+    if name == "async_window_gossip" and dst:
+        return ("async_window_gossip requires column-stochastic push "
+                "weights (push_schedule), not a dst-weighted schedule")
+    if name == "choco" and dst:
+        w = wire if wire else "int8"
+        if _coll._parse_wire(w)[0] not in ("int8", "fp8"):
+            return ("choco_gossip with a dst-weighted schedule "
+                    "(uses_dst_weighting=True) requires wire='int8' or "
+                    f"'fp8'; wire={w!r} does not commute with send scaling")
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Reference-named factories
 # ---------------------------------------------------------------------------
 
@@ -938,9 +1611,8 @@ def _comm_from_type(communication_type: str, kw):
     """Resolve a reference ``communication_type`` to (communicator,
     strategy kw).  An installed dynamic topology
     (``set_dynamic_topology``) takes precedence over the static schedule.
-    ``axes`` is accepted as in JAX, where it picks the 2-D mesh of the
-    hierarchical type; the stacked ranks have one layout (machine-major),
-    so it is dropped."""
+    The hierarchical type sets ``axes=("machine", "local")``, as in JAX
+    (the stacked ranks are machine-major either way)."""
     kw = dict(kw)
     sched = kw.pop("schedule", None)
     scheds = kw.pop("schedules", None)
@@ -958,6 +1630,7 @@ def _comm_from_type(communication_type: str, kw):
             sched = _ctx.machine_schedule()
         comm = hierarchical_communicator(sched, scheds, wire=wire,
                                          concurrent=concurrent)
+        kw.setdefault("axes", ("machine", "local"))
     elif communication_type in ("allreduce", "empty"):
         if sched is not None or scheds is not None:
             raise TypeError(
@@ -975,7 +1648,6 @@ def _comm_from_type(communication_type: str, kw):
     unknown = set(kw) - set(allowed)
     if unknown:
         raise TypeError(f"unexpected arguments: {sorted(unknown)}")
-    kw.pop("axes", None)
     return comm, kw
 
 
@@ -1041,10 +1713,119 @@ def stacked_grads(grad_fn: Callable[[Any, Any], Tuple[Any, Any]], params,
     return torch.cat(losses), tree_unflatten(treedef, bufs)
 
 
+class _InstrumentedStep:
+    """Telemetry around a train step (JAX ``optimizers.py:1780``).
+
+    Every call records flight ``step_begin`` / ``step_end`` events (and
+    ``note_failure`` on an exception), a ``train_step`` span when tracing
+    is armed, :func:`~bluefog_tpu_torch.utils.metrics.record_step`, the
+    per-rank step-time table (:func:`~bluefog_tpu_torch.diagnostics.
+    observe_step_time`) and a metrics :func:`sample`.  With
+    ``metrics_every_k`` it runs :func:`~bluefog_tpu_torch.diagnostics.
+    diagnose_consensus` on the step's *output* params on the first call
+    and every k-th call after it, and :func:`~bluefog_tpu_torch.
+    diagnostics.observe_async_staleness` on its output strategy state
+    (``state_index`` into the outputs).  The wall time is the host's
+    around the call: on the card, the dispatch.
+
+    Left out of the JAX wrapper: the jit-cache retrace sentinel (the port
+    compiles no programs) and the chaos hooks (``utils/chaos.py``, ROADMAP
+    queue 1, item 8).  The port's step updates its params and state in
+    place, so ``donated`` reads 1 as JAX's default donation does."""
+
+    def __init__(self, fn, *, steps_per_call: int, overlap: bool = False,
+                 metrics_every_k: Optional[int] = None, warmup: int = 2,
+                 state_index: int = 1):
+        self._fn = fn
+        self._steps_per_call = steps_per_call
+        self._overlap = overlap
+        self._metrics_every_k = metrics_every_k
+        self._warmup = max(int(warmup), 1)
+        self._state_index = state_index
+        self._calls = 0
+        self._trace = ""                 # minted lazily when tracing is armed
+
+    def __call__(self, *args, **kwargs):
+        import time as _time
+        call = self._calls + 1
+        _flight.record("step_begin", name="train_step", step=call)
+        traced = _tracing.enabled()
+        if traced and not self._trace:
+            self._trace = _tracing.new_trace("train")
+        tm0 = _time.monotonic() if traced else 0.0
+        t0 = _time.perf_counter()
+        try:
+            out = self._fn(*args, **kwargs)
+        except BaseException as e:
+            _flight.note_failure(
+                "exception", detail=f"{type(e).__name__}: {e}", step=call)
+            raise
+        dt = _time.perf_counter() - t0
+        self._calls += 1
+        _metrics.record_step(dt, steps=self._steps_per_call, donated=True,
+                             fused_k=self._steps_per_call,
+                             overlap=self._overlap)
+        _flight.record("step_end", name="train_step", step=self._calls,
+                       dur_s=round(dt, 6), fused_k=self._steps_per_call,
+                       overlap=self._overlap, donated=True)
+        if traced:
+            _tracing.add_span(self._trace, "train_step", tm0,
+                              _time.monotonic(), cat="train",
+                              step=self._calls, fused_k=self._steps_per_call,
+                              overlap=self._overlap)
+        from . import diagnostics as _diag
+        step_times = _diag.observe_step_time(dt)
+        k = self._metrics_every_k
+        if k and (self._calls == 1 or self._calls % k == 0):
+            tp0 = _time.monotonic() if traced else 0.0
+            _diag.diagnose_consensus(out[0], step_times=step_times)
+            if len(out) > self._state_index:
+                _diag.observe_async_staleness(out[self._state_index])
+            if traced:
+                _tracing.add_span(self._trace, "consensus_probe", tp0,
+                                  _time.monotonic(), cat="train",
+                                  step=self._calls)
+        if self._calls >= self._warmup:
+            _metrics.mark_steady_state(True)
+        _metrics.sample(step=self._calls)
+        return out
+
+
+def _check_metrics_every_k(metrics_every_k, strategy):
+    if metrics_every_k is None:
+        return
+    if metrics_every_k < 1:
+        raise ValueError("metrics_every_k must be >= 1")
+    if strategy.axes[:1] != ("rank",):
+        raise ValueError(
+            "metrics_every_k requires a strategy that gossips over the "
+            "rank axis (axes[0] == 'rank'); the consensus probe runs over "
+            "the 1-D mesh — call diagnose_consensus manually for "
+            "hierarchical strategies")
+
+
+def _check_overlap(overlap, strategy):
+    if overlap and not strategy.pipelined:
+        raise ValueError(
+            "overlap=True requires a pipelined strategy whose comm_state "
+            "carries one-step-delayed mixed params — build one with "
+            "adapt_with_combine(..., delayed=True) (or "
+            "DistributedAdaptWithCombineOptimizer(..., delayed=True)). "
+            "With a bulk-synchronous strategy the adapt waits on the "
+            "gossip, so there is nothing for the scheduler to overlap.")
+
+
+def _batch_at(batch, t: int, steps_per_call: int, reuse_batch: bool):
+    return batch if steps_per_call == 1 or reuse_batch else \
+        tree_map(lambda x: x[:, t], batch)
+
+
 def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     strategy: DecentralizedOptimizer, *,
                     steps_per_call: int = 1, reuse_batch: bool = False,
-                    slice_size: int = 1):
+                    slice_size: int = 1, overlap: bool = False,
+                    metrics_every_k: Optional[int] = None,
+                    metrics_warmup: int = 2):
     """The training step over stacked ranks.
 
     ``grad_fn(params, batch) -> (loss, grads)`` is per rank, or per DP
@@ -1055,7 +1836,18 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     host loop: batch leaves then carry a steps axis after the rank axis
     (``[n, steps, ...]``) and the loss is ``[n, steps]``; ``reuse_batch``
     feeds the same ``[n, ...]`` batch to every step instead.
+
+    The step is an :class:`_InstrumentedStep`: ``metrics_every_k=k``
+    samples the consensus probes on the step's output every k-th call
+    (and on the first), ``metrics_warmup`` is the call count after which
+    the process is marked steady, and ``overlap=True`` declares the
+    pipelined mode, which needs a strategy built with ``delayed=True``
+    (JAX's texts for both refusals).  The port has no compiled programs,
+    so there is no donation flag: the step updates params and state in
+    place.
     """
+    _check_metrics_every_k(metrics_every_k, strategy)
+    _check_overlap(overlap, strategy)
     if reuse_batch and steps_per_call == 1:
         raise ValueError("reuse_batch requires steps_per_call > 1 (a single "
                          "step has no steps axis to elide)")
@@ -1063,8 +1855,7 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     def step(params, state, batch):
         losses = []
         for t in range(steps_per_call):
-            b = batch if steps_per_call == 1 or reuse_batch else \
-                tree_map(lambda x: x[:, t], batch)
+            b = _batch_at(batch, t, steps_per_call, reuse_batch)
             loss, grads = stacked_grads(grad_fn, params, b, slice_size)
             with torch.no_grad():
                 params, state = strategy.update(grads, state, params)
@@ -1073,7 +1864,117 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
         loss = losses[0] if steps_per_call == 1 else torch.stack(losses, 1)
         return params, state, loss
 
-    return step
+    return _InstrumentedStep(step, steps_per_call=steps_per_call,
+                             overlap=overlap,
+                             metrics_every_k=metrics_every_k,
+                             warmup=metrics_warmup)
+
+
+def _stacked_state_grads(grad_fn, params, net_state, batch):
+    """``grad_fn(params_r, net_state_r, batch_r) -> (loss, grads,
+    new_net_state)`` once per rank: ``(losses [n], grads, new net
+    state)`` stacked like ``params`` and ``net_state``."""
+    leaves, treedef = tree_flatten(params)
+    nleaves, ndef = tree_flatten(net_state)
+    bleaves, bdef = tree_flatten(batch)
+    n = leaves[0].shape[0]
+    gbufs = nbufs = None
+    losses = []
+    for r in range(n):
+        loss, grads, ns = grad_fn(
+            tree_unflatten(treedef, [x[r] for x in leaves]),
+            tree_unflatten(ndef, [x[r] for x in nleaves]),
+            tree_unflatten(bdef, [b[r] for b in bleaves]))
+        gl, nl = tree_flatten(grads)[0], tree_flatten(ns)[0]
+        if gbufs is None:
+            gbufs = [torch.empty((n,) + tuple(g.shape), dtype=g.dtype,
+                                 device=g.device) for g in gl]
+            nbufs = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                                 device=x.device) for x in nl]
+        for buf, g in zip(gbufs, gl):
+            buf[r].copy_(g)
+        for buf, x in zip(nbufs, nl):
+            buf[r].copy_(x)
+        losses.append(torch.as_tensor(loss).detach().reshape(()))
+    return (torch.stack(losses), tree_unflatten(treedef, gbufs),
+            tree_unflatten(ndef, nbufs))
+
+
+def make_stateful_train_step(
+    grad_fn: Callable[[Any, Any, Any], Tuple[Any, Any, Any]],
+    strategy: DecentralizedOptimizer,
+    *,
+    steps_per_call: int = 1,
+    reuse_batch: bool = False,
+    overlap: bool = False,
+    state_sync: Optional[str] = None,
+    state_sync_schedule: Optional[CommSchedule] = None,
+    metrics_every_k: Optional[int] = None,
+    metrics_warmup: int = 2,
+):
+    """:func:`make_train_step` for networks with non-parameter state
+    (BatchNorm statistics, EMA shadows; flax's ``batch_stats``).
+
+    ``grad_fn(params, net_state, batch) -> (loss, grads, new_net_state)``
+    per rank; the step maps ``(params, net_state, dstate, batch) ->
+    (new_params, new_net_state, new_dstate, loss)``, every leaf stacked.
+    Each step runs the gradient, then ``state_sync`` on the new net state,
+    then the strategy's update.  ``state_sync``: ``None`` keeps the state
+    rank-local, ``"neighbor"`` gossips it over the topology each step
+    (``state_sync_schedule`` overrides the context's schedule),
+    ``"allreduce"`` averages it over every rank; integer leaves (counters)
+    are never averaged.  Syncing requires a rank-axis strategy.
+    ``steps_per_call``, ``reuse_batch``, ``overlap``, ``metrics_every_k``
+    and ``metrics_warmup`` behave as in :func:`make_train_step`; the
+    probe's async sample reads the output strategy state."""
+    _check_metrics_every_k(metrics_every_k, strategy)
+    _check_overlap(overlap, strategy)
+    if state_sync not in (None, "neighbor", "allreduce"):
+        raise ValueError(f"unknown state_sync {state_sync!r}")
+    if state_sync_schedule is not None and state_sync != "neighbor":
+        raise ValueError(
+            "state_sync_schedule only applies to state_sync='neighbor'")
+    if state_sync is not None and strategy.axes != ("rank",):
+        raise ValueError(
+            "state_sync requires a rank-axis strategy; sync net state "
+            "manually for hierarchical (2-D mesh) strategies")
+    if reuse_batch and steps_per_call == 1:
+        raise ValueError("reuse_batch requires steps_per_call > 1 (a single "
+                         "step has no steps axis to elide)")
+
+    def sync(ns):
+        if state_sync is None:
+            return ns
+        s = (state_sync_schedule if state_sync_schedule is not None
+             else _ctx.static_schedule())
+
+        def leaf(x):
+            if not x.is_floating_point():
+                return x
+            if state_sync == "neighbor":
+                return _coll.neighbor_allreduce(x, s)
+            return _coll.allreduce(x)
+
+        return tree_map(leaf, ns)
+
+    def step(params, net_state, dstate, batch):
+        losses = []
+        for t in range(steps_per_call):
+            b = _batch_at(batch, t, steps_per_call, reuse_batch)
+            loss, grads, net_state = _stacked_state_grads(
+                grad_fn, params, net_state, b)
+            with torch.no_grad():
+                net_state = sync(net_state)
+                params, dstate = strategy.update(grads, dstate, params)
+            del grads
+            losses.append(loss)
+        loss = losses[0] if steps_per_call == 1 else torch.stack(losses, 1)
+        return params, net_state, dstate, loss
+
+    return _InstrumentedStep(step, steps_per_call=steps_per_call,
+                             overlap=overlap,
+                             metrics_every_k=metrics_every_k,
+                             warmup=metrics_warmup, state_index=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1100,24 +2001,33 @@ def state_from_jax(jstate, strategy: DecentralizedOptimizer, params
     """Map a JAX ``DecentralizedState`` (rank-stacked leaves, as
     ``init_distributed`` and the train step leave it) onto ``params``, the
     port's stacked params: ``step`` -> step; optax adam ``count``/``mu``/
-    ``nu`` -> the ``torch.optim.Adam`` state ``step``/``exp_avg``/
-    ``exp_avg_sq``; the optax momentum ``trace`` -> the
-    ``torch.optim.SGD`` ``momentum_buffer``; the ``comm_state`` (the
-    delayed carry, the window mailboxes, push-sum's weights, CHOCO's
-    public copies, PowerSGD's errors and Qs) -> the port's.  ZeRO's
-    optimizer state sits on the shard buffers, the port's slots.  Leaves
-    pair up in sorted-key order, as ``jax.tree.flatten`` visits them, so
-    the two sides' leaves must share their layout."""
+    ``nu`` -> :class:`StackedAdam`'s ``step`` (each rank's count; one
+    count for a ``torch.optim.Adam``) / ``exp_avg`` / ``exp_avg_sq``; the
+    optax momentum ``trace`` -> the ``torch.optim.SGD``
+    ``momentum_buffer``; the ``comm_state`` (the delayed carry, the window
+    mailboxes, push-sum's weights, CHOCO's public copies, PowerSGD's
+    errors and Qs, exact diffusion's psi, gradient tracking's ``(y,
+    g_prev)``, push-DIGing's ``(u, p, y, g_prev)``, the async strategy's
+    :class:`AsyncGossipState`) -> the port's.  ZeRO's optimizer state
+    sits on the shard buffers, the port's slots.  Leaves pair up in
+    sorted-key order, as ``jax.tree.flatten`` visits them, so the two
+    sides' leaves must share their layout."""
     state = strategy.init(params)
     opt = state.opt_state
     slots = opt.param_groups[0]["params"]
     adam_state = _find(jstate.opt_state, lambda s: {"count", "mu", "nu"}
                        <= set(getattr(s, "_fields", ())))
     if adam_state is not None:
-        count = float(np.asarray(adam_state.count).reshape(-1)[0])
+        counts = np.asarray(adam_state.count).reshape(-1)
         for p, mu, nu in zip(slots, tree_flatten(adam_state.mu)[0],
                              tree_flatten(adam_state.nu)[0]):
-            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+            if isinstance(opt, StackedAdam):
+                step = torch.as_tensor(
+                    _coll._local(counts, p.shape[0]).astype(np.float32),
+                    device=p.device)
+            else:
+                step = torch.tensor(float(counts[0]), dtype=torch.float32)
+            opt.state[p] = {"step": step,
                             "exp_avg": _tensor_like(mu, p),
                             "exp_avg_sq": _tensor_like(nu, p)}
     trace = _find(jstate.opt_state, lambda s: "trace"
@@ -1132,12 +2042,17 @@ def state_from_jax(jstate, strategy: DecentralizedOptimizer, params
 
 def _carry_from_jax(x, ref: torch.Tensor):
     """A JAX ``comm_state`` as the port's: windows -> :class:`Window`,
-    dicts / lists / tuples kept, arrays -> tensors on ``ref``'s device."""
+    async states -> :class:`AsyncGossipState`, dicts / lists / tuples
+    kept, arrays -> tensors on ``ref``'s device."""
     if x is None:
         return None
-    if set(getattr(x, "_fields", ())) == {"value", "recv"}:
+    fields = tuple(getattr(x, "_fields", ()))
+    if set(fields) == {"value", "recv"}:
         return wops.Window(value=_tensor_like(x.value, ref),
                            recv=_tensor_like(x.recv, ref))
+    if fields == AsyncGossipState._fields:
+        return AsyncGossipState(*(_carry_from_jax(getattr(x, f), ref)
+                                  for f in fields))
     if isinstance(x, dict):
         return {k: _carry_from_jax(v, ref) for k, v in x.items()}
     if isinstance(x, (list, tuple)):

@@ -55,7 +55,7 @@ __all__ = ["BlueFogTorchContext", "init", "shutdown", "is_initialized",
            "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
            "machine_schedule", "set_dynamic_topology",
            "clear_dynamic_topology", "dynamic_schedules", "set_dcn_wire",
-           "dcn_wire"]
+           "dcn_wire", "set_async_gossip", "async_gossip_bound"]
 
 _context: Optional["BlueFogTorchContext"] = None
 
@@ -76,6 +76,9 @@ class BlueFogTorchContext:
     # process default for the machine hop's wire codec of hierarchical
     # gossip (None = defer to BLUEFOG_DCN_WIRE; "off" forces full width)
     dcn_wire: Optional[str] = None
+    # process default staleness bound K of async window gossip (None =
+    # defer to BLUEFOG_ASYNC, then _DEFAULT_ASYNC_BOUND)
+    async_staleness: Optional[int] = None
     # how the machine grouping was derived ("auto" = from the process
     # layout at init; None = manual nodes_per_machine / set_machine_topology)
     hierarchical: Optional[str] = None
@@ -478,3 +481,41 @@ def set_dcn_wire(value: Optional[str]) -> None:
 def dcn_wire() -> Optional[str]:
     """The context's machine-hop wire default (see :func:`set_dcn_wire`)."""
     return get_context().dcn_wire
+
+
+#: Default staleness bound when neither the knob nor BLUEFOG_ASYNC is set:
+#: deep enough to absorb a ~5x pace spread on the fleet's slowest rank
+#: before the first forced sync-up, shallow enough that a stuck rank is
+#: dragged back within a handful of ticks.
+_DEFAULT_ASYNC_BOUND = 4
+
+
+def set_async_gossip(bound: Optional[int]) -> None:
+    """Set the process default staleness bound K of
+    :func:`bluefog_tpu_torch.optimizers.async_window_gossip`: ``K=0``
+    forces synchronous lockstep (every tick active), ``K>0`` lets ranks
+    run free until some neighbor contribution is more than K ticks stale,
+    and then the whole fleet syncs up on the next tick.  ``None`` defers
+    to ``BLUEFOG_ASYNC`` (and its default).  A per-strategy
+    ``staleness_bound=`` always wins.  The strategy reads the bound when
+    it is built and at each update."""
+    if bound is not None and int(bound) < 0:
+        raise ValueError(f"staleness bound must be >= 0, got {bound}")
+    get_context().async_staleness = None if bound is None else int(bound)
+
+
+def async_gossip_bound() -> int:
+    """The resolved async staleness bound: the context's knob, else the
+    ``BLUEFOG_ASYNC`` variable, else ``_DEFAULT_ASYNC_BOUND`` (see
+    :func:`set_async_gossip`)."""
+    ctx = get_context()
+    if ctx.async_staleness is not None:
+        return ctx.async_staleness
+    env = os.environ.get("BLUEFOG_ASYNC", "").strip()
+    if env:
+        bound = int(env)
+        if bound < 0:
+            raise ValueError(
+                f"BLUEFOG_ASYNC must be >= 0, got {env!r}")
+        return bound
+    return _DEFAULT_ASYNC_BOUND

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` phases 15a-15b and the card tests of
 ``tests/test_torch_gpu_strategies.py`` run :func:`codec_parity` and
 :func:`strategy_parity`, then :func:`check_codecs` and
-:func:`check_strategies`.
+:func:`check_strategies`; phase 20a runs :func:`rest_parity` /
+:func:`check_rest` and :func:`window_parity`.
 
 * Codecs (15a): seeded f32 buffers ``[8, 2^20]`` (rows from 1e-3 to 1e4
   in magnitude, an all-zero row, a row of subnormals) encoded for every
@@ -24,6 +25,17 @@
   ``gradient_allreduce`` within 1e-6 x max|param|; and the
   gradient-averaging strategies (``gradient_allreduce``,
   ``zero_allreduce``, ``powersgd``) leave every rank bit-equal.
+* The optimizer core's rest (20a): :data:`REST_VARIANTS` (exact
+  diffusion, gradient tracking, push-DIGing, async window gossip at K 0
+  and at K 2 with rank 3 at pace 3, ZeRO with hierarchical gossip, the
+  stateful step with neighbor and allreduce sync of a running-mean net
+  state and an int counter) on strategy_bench's MLP at the JAX tool's
+  width (512 -> 1024 -> 512 -> 10), 8 ranks, 5 steps of
+  ``sgd(0.05, momentum=0.9)``: each leaf of the card's run within 1e-5 x
+  max|leaf| of a CPU float64 run, or within twice the CPU f32 run's
+  distance from it; the async mass (values and mailboxes) sums to n
+  within 1e-6 x n.  The named-window calls on the card equal the CPU's
+  bit for bit.
 """
 from __future__ import annotations
 
@@ -247,3 +259,179 @@ def flat_summary(summary: Dict) -> Dict:
     return {**summary, "variants": {
         tag: {k: v for k, v in row.items() if k != "worst_leaf"}
         for tag, row in summary["variants"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# 20a: the optimizer core's rest, card against CPU
+# ---------------------------------------------------------------------------
+
+#: (id, strategy, state_sync of make_stateful_train_step or None)
+REST_VARIANTS = (
+    ("exact_diffusion", "exact_diffusion", None),
+    ("gradient_tracking", "gradient_tracking", None),
+    ("push_diging", "push_diging", None),
+    ("async_k0", "async_k0", None),
+    ("async_k2_pace3", "async_k2_pace3", None),
+    ("zero_adapt_with_combine", "zero_awc", None),
+    ("stateful_neighbor", "cta", "neighbor"),
+    ("stateful_allreduce", "cta", "allreduce"),
+)
+REST_DIM = 512                # strategy_bench's MLP: 512 -> 1024 -> 512 -> 10
+REST_BATCH = 16
+
+
+def _rest_strategy(name: str):
+    from .. import optimizers as bfopt
+    opt = bfopt.sgd(0.05, momentum=0.9)
+    topo = ctx.load_topology()
+    n = ctx.size()
+    if name == "exact_diffusion":
+        return bfopt.exact_diffusion(
+            opt, bfopt.neighbor_communicator(ctx.static_schedule()))
+    if name == "gradient_tracking":
+        return bfopt.gradient_tracking(
+            opt, bfopt.neighbor_communicator(ctx.static_schedule()))
+    if name == "push_diging":
+        return bfopt.push_diging(opt, bfopt.push_schedule(topo, n))
+    if name.startswith("async"):
+        k2 = name == "async_k2_pace3"
+        return bfopt.async_window_gossip(
+            opt, bfopt.push_schedule(topo, n),
+            staleness_bound=2 if k2 else 0,
+            pace=[3 if r == 3 else 1 for r in range(n)] if k2 else None)
+    if name == "zero_awc":
+        return bfopt.zero_adapt_with_combine(
+            opt, bfopt.hierarchical_communicator(ctx.machine_schedule()))
+    return bfopt.adapt_with_combine(
+        opt, bfopt.neighbor_communicator(ctx.static_schedule()))
+
+
+def run_rest_variant(variant, device, dtype=torch.float32, steps: int = 5,
+                     n: int = 8, seed: int = 0) -> Dict:
+    """``steps`` steps of ``variant`` on strategy_bench's MLP (the JAX
+    tool's width) with rank-varying data; the final params (and net
+    state), float64 on the host, the losses, and the async mass."""
+    from .. import optimizers as bfopt
+    from .. import topology as tu
+    from ..fusion import tree_map
+    from . import strategy_bench as sb
+    _, name, sync = variant
+    ctx.init(size=n, device=device, nodes_per_machine=4)
+    try:
+        ctx.set_topology(tu.ExponentialTwoGraph(n), is_weighted=True)
+        ctx.set_machine_topology(tu.RingGraph(ctx.machine_size()),
+                                 is_weighted=True)
+        p0, grad_fn = sb._model(REST_DIM, "cpu")
+        p0 = tree_map(lambda t: t.to(device=device, dtype=dtype), p0)
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.normal(size=(n, REST_BATCH, REST_DIM)))
+        y = torch.from_numpy(rng.integers(0, 10, size=(n, REST_BATCH)))
+        batch = (x.to(device=device, dtype=dtype), y.to(device))
+        strat = _rest_strategy(name)
+        params = bfopt.replicate(p0, n)
+        state = bfopt.init_distributed(strat, params)
+        losses = []
+        if sync is None:
+            step = bfopt.make_train_step(grad_fn, strat)
+            for _ in range(steps):
+                params, state, loss = step(params, state, batch)
+                losses.append(loss.detach().double().cpu())
+            ns = None
+        else:
+            def grad3(p, s, b):
+                loss, g = grad_fn(p, b)
+                # a BatchNorm-like running mean of the inputs' features
+                return loss, g, {"mean": 0.9 * s["mean"]
+                                 + 0.1 * b[0].mean(0),
+                                 "count": s["count"] + 1}
+
+            ns = {"mean": torch.from_numpy(rng.normal(size=(n, REST_DIM)))
+                  .to(device=device, dtype=dtype),
+                  "count": torch.zeros(n, dtype=torch.int32, device=device)}
+            step = bfopt.make_stateful_train_step(grad3, strat,
+                                                  state_sync=sync)
+            for _ in range(steps):
+                params, ns, state, loss = step(params, ns, state, batch)
+                losses.append(loss.detach().double().cpu())
+        leaves = tree_flatten(params)[0]
+        if ns is not None:
+            leaves.append(ns["mean"])
+            if not (ns["count"] == steps).all():
+                raise AssertionError(f"{variant[0]}: the int leaf moved")
+        out = {"params": [p.detach().double().cpu() for p in leaves],
+               "losses": torch.stack(losses)}
+        cs = state.comm_state
+        if isinstance(cs, bfopt.AsyncGossipState):
+            out["mass"] = float(cs.p.double().sum() + cs.p_recv.double()
+                                .sum())
+            out["local_steps"] = cs.local_steps.cpu().tolist()
+        return out
+    finally:
+        ctx.shutdown()
+
+
+def rest_parity(device, variants: Sequence = REST_VARIANTS,
+                steps: int = 5) -> Dict:
+    """Each variant on ``device`` (f32), on the CPU in f32 and in f64:
+    per variant the worst leaf distance from the f64 run over its bound
+    (``max(1e-5 x max|leaf|, 2 x the CPU f32 run's distance)``)."""
+    rows = {}
+    for v in variants:
+        card = run_rest_variant(v, device, steps=steps)
+        cpu = run_rest_variant(v, "cpu", steps=steps)
+        ref = run_rest_variant(v, "cpu", torch.float64, steps=steps)
+        worst, worst_leaf = 0.0, None
+        for i, (a, b, r) in enumerate(zip(card["params"], cpu["params"],
+                                          ref["params"])):
+            err = float((a - r).abs().max())
+            floor = float((b - r).abs().max())
+            bound = max(LEAF_TOL * float(r.abs().max()), 2 * floor)
+            ratio = err / bound if bound else (0.0 if err == 0 else np.inf)
+            if ratio >= worst:
+                worst, worst_leaf = ratio, {"leaf": i, "err": err,
+                                            "floor": floor, "bound": bound}
+        row = {"worst_err_over_bound": worst, "worst_leaf": worst_leaf,
+               "loss_first": float(card["losses"][0].mean()),
+               "loss_last": float(card["losses"][-1].mean())}
+        if "mass" in card:
+            row["mass_minus_n"] = card["mass"] - 8
+            row["local_steps"] = card["local_steps"]
+        rows[v[0]] = row
+    return {"device": str(device), "steps": steps, "dim": REST_DIM,
+            "variants": rows}
+
+
+def check_rest(summary: Dict, n: int = 8) -> None:
+    for tag, row in summary["variants"].items():
+        if not row["worst_err_over_bound"] <= 1.0:
+            raise AssertionError(f"{tag}: a leaf differs between the card "
+                                 f"and the float64 run past its bound: "
+                                 f"{row['worst_leaf']}")
+        if not np.isfinite(row["loss_last"]):
+            raise AssertionError(f"{tag}: the loss is not finite")
+        if "mass_minus_n" in row and not \
+                abs(row["mass_minus_n"]) <= PUSH_SUM_TOL * n:
+            raise AssertionError(f"{tag}: the async mass sums to n + "
+                                 f"{row['mass_minus_n']}")
+
+
+def window_parity(device) -> Dict:
+    """The named-window calls of ``tools/world_check.py`` on ``device``
+    and on the CPU: every result, bit for bit."""
+    from . import world_check as wc
+
+    def run(where):
+        ctx.init(size=8, device=where)
+        try:
+            data = wc.inputs(8)
+
+            def dist(key):
+                return torch.from_numpy(np.array(data[key])).to(where)
+            return {k: v.detach().cpu()
+                    for k, v in wc.named_window_checks(dist).items()}
+        finally:
+            ctx.shutdown()
+
+    card, cpu = run(device), run("cpu")
+    differ = sorted(k for k in cpu if not torch.equal(card[k], cpu[k]))
+    return {"results": len(cpu), "differ": differ}

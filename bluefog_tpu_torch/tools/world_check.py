@@ -8,8 +8,12 @@ collectives
 (``neighbor_allgather``, ``ragged_neighbor_allgather``, ``pair_gossip``),
 ``allreduce`` / ``allgather`` / ``ragged_allgather`` / ``broadcast``,
 hierarchical gossip over a ring of machines, a sequence of window ops,
-ZeRO-1 over 5 steps of ``make_train_step``, and the pipelines across the
-rank axis (GPipe with its gradients, interleaved, 1F1B).  It counts
+the named windows (:func:`named_window_checks`) and async window gossip
+(:func:`async_checks`: its forced sync-ups take a MAX through the process
+group), ZeRO-1 over 5
+steps of ``make_train_step``, and the pipelines across the rank axis
+(GPipe with its gradients, interleaved, 1F1B).  ``--only windows`` runs
+the named-window checks alone.  It counts
 the ``batch_isend_irecv`` calls of the gossip and ZeRO steps
 (``p2p_calls``).  Launched as
 several processes each returns its block of every per-rank result (and
@@ -49,7 +53,8 @@ from bluefog_tpu_torch.parallel import pipeline as pipe
 
 #: results every process holds whole (the others are per-rank blocks)
 REPLICATED = ("pp_out", "pp_loss", "il_out", "st_out", "zero_loss_mean",
-              "layout", "p2p_calls")
+              "layout", "p2p_calls", "nw_version", "nw_stamps",
+              "nw_staleness", "async_local_steps")
 WIRES = ("bf16", "fp8", "int8@4", "fp8@4")
 PARTNERS = [7, 2, 1, 4, 3, 5, 6, 0]       # pairs across and inside blocks
 ROOT = 5
@@ -121,9 +126,78 @@ def inputs(n: int) -> Dict[str, np.ndarray]:
     }
 
 
-def run_checks(device) -> Dict[str, torch.Tensor]:
-    """Every check on the live context; returns this process's results
-    (its block of every per-rank one, :data:`REPLICATED` whole)."""
+def named_window_checks(dist) -> Dict[str, torch.Tensor]:
+    """The named-window API on Exp2: puts with and without dst weights
+    and a codec, accumulate with the associated p, get, the combines,
+    versions, stamps and staleness."""
+    from bluefog_tpu_torch.parallel import windows as nw
+    n = bf.size()
+    bf.set_topology(tu.ExponentialTwoGraph(n))
+    x = dist("window")
+    out = {}
+    bf.win_create(x, "wc")
+    bf.win_create(x, "wa", zero_init=True)
+    bf.win_put(2 * x, "wc", wire="int8")
+    sched = nw._registry["wc"].sched
+    # each rank puts to its first out-neighbor only, scaled
+    first = [min(q for q in range(n) if r in sched.in_neighbors[q])
+             for r in range(n)]
+    dst = [{d: 0.5 + 0.1 * (d % 3)} for d in first]
+    bf.win_put(x + 1, "wc", dst_weights=dst)
+    out["nw_put_recv"] = nw._registry["wc"].window.recv
+    out["nw_update"] = bf.win_update("wc")
+    bf.turn_on_win_ops_with_associated_p()
+    try:
+        bf.win_accumulate(x, "wa", dst_weights=dst)
+        bf.win_accumulate(x, "wa")
+        out["nw_collect"] = bf.win_update_then_collect("wa")
+        out["nw_p"] = bf.win_associated_p("wa")
+    finally:
+        bf.turn_off_win_ops_with_associated_p()
+    bf.win_get("wc")
+    out["nw_get_recv"] = nw._registry["wc"].window.recv
+    out["nw_version"] = torch.from_numpy(bf.get_win_version("wc"))
+    out["nw_stamps"] = torch.from_numpy(bf.get_win_stamps("wc"))
+    out["nw_staleness"] = torch.from_numpy(bf.win_staleness("wc"))
+    bf.win_free()
+    return out
+
+
+def async_checks(dist) -> Dict[str, torch.Tensor]:
+    """6 ticks of async window gossip on Exp2 with rank 3 at pace 3 and
+    bound 1: its forced sync-ups take a MAX through the process group."""
+    n = bf.size()
+    bf.set_topology(tu.ExponentialTwoGraph(n))
+    x = dist("window")
+    strat = bfopt.async_window_gossip(
+        bfopt.sgd(0.1), bfopt.push_schedule(bf.load_topology(), n),
+        staleness_bound=1, pace=[3 if r == 3 else 1 for r in range(n)])
+    target = x[:, :1] * 2
+
+    def grad_fn(params, batch):
+        p = params["w"].detach().requires_grad_()
+        loss = torch.mean((p - batch) ** 2)
+        loss.backward()
+        return loss.detach(), {"w": p.grad}
+
+    params = {"w": x.clone()}
+    state = bfopt.init_distributed(strat, params)
+    step = bfopt.make_train_step(grad_fn, strat)
+    for _ in range(6):
+        params, state, _ = step(params, state, target)
+    cs = state.comm_state
+    return {"async_w": params["w"], "async_p": cs.p,
+            "async_depth": cs.depth, "async_force": cs.force,
+            "async_stamps": cs.stamps,
+            "async_local_steps": bf.allgather(
+                cs.local_steps[:, None].contiguous())[0]}
+
+
+def run_checks(device, only: Optional[str] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Every check on the live context (``only="windows"``: the named
+    windows alone); returns this process's results (its block of every
+    per-rank one, :data:`REPLICATED` whole)."""
     n = bf.size()
     ctx = bf.get_context()
     data = inputs(n)
@@ -133,6 +207,11 @@ def run_checks(device) -> Dict[str, torch.Tensor]:
 
     def whole(key):
         return torch.from_numpy(np.array(data[key])).to(device)
+
+    if only == "windows":
+        out = {**named_window_checks(dist), **async_checks(dist)}
+        bf.barrier()
+        return {k: v.detach().cpu() for k, v in out.items()}
 
     # the process layout: world, rows, machines, and how they were found
     out = {"layout": torch.tensor([
@@ -182,6 +261,8 @@ def run_checks(device) -> Dict[str, torch.Tensor]:
             out[f"win_{kind}_{i}"] = v
         out[f"pull_{kind}"] = wops.win_pull(dist("window"), sched,
                                             wire=wire)
+    out.update(named_window_checks(dist))
+    out.update(async_checks(dist))
     # ZeRO-1 over 5 train steps (tests/test_multihost.py's)
     def grad_fn(params, batch):
         p = params["w"].detach().requires_grad_()
@@ -259,13 +340,13 @@ def join(blocks) -> Dict[str, torch.Tensor]:
     return got
 
 
-def reference(size: int, nodes_per_machine: int,
-              device="cpu") -> Dict[str, torch.Tensor]:
+def reference(size: int, nodes_per_machine: int, device="cpu",
+              only: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The checks in one process (``nodes_per_machine`` as the
     multi-process run's machines)."""
     bf.init(size=size, device=device, nodes_per_machine=nodes_per_machine)
     try:
-        return run_checks(torch.device(device))
+        return run_checks(torch.device(device), only)
     finally:
         bf.shutdown()
 
@@ -278,7 +359,8 @@ def _free_port() -> int:
 
 def spawn(nproc: int, size: int, out_dir, device: str = "cpu",
           timeout: float = 120.0, threads: int = 1,
-          env: Optional[Dict[str, str]] = None) -> Dict[str, torch.Tensor]:
+          env: Optional[Dict[str, str]] = None,
+          only: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Run :func:`run_checks` in ``nproc`` processes (torchrun's
     variables; gloo on the CPU, NCCL on ``cuda``) and join their results.
     Each process has ``timeout`` seconds: a hung rendezvous fails the
@@ -300,7 +382,8 @@ def spawn(nproc: int, size: int, out_dir, device: str = "cpu",
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "bluefog_tpu_torch.tools.world_check",
              "--out", str(out_dir), "--size", str(size), "--device", device,
-             "--threads", str(threads), "--timeout", str(timeout)],
+             "--threads", str(threads), "--timeout", str(timeout)]
+            + (["--only", only] if only else []),
             cwd=root, env=penv, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     deadline = time.monotonic() + timeout
@@ -337,6 +420,8 @@ def main(argv=None) -> int:
                     help="torch threads (default: torch's)")
     ap.add_argument("--timeout", type=float, default=None,
                     help="dump the stacks and exit after this many seconds")
+    ap.add_argument("--only", default=None, choices=["windows"],
+                    help="run only the named-window checks")
     args = ap.parse_args(argv)
     if args.timeout:
         import faulthandler
@@ -346,7 +431,7 @@ def main(argv=None) -> int:
         torch.set_num_threads(args.threads)
     ctx = bf.init(size=args.size, device=args.device)
     try:
-        got = run_checks(ctx.device)
+        got = run_checks(ctx.device, args.only)
         torch.save(got, Path(args.out) / f"proc{ctx.process}.pt")
         print(f"process {ctx.process} of {ctx.world} ({ctx.rows} ranks, "
               f"{ctx.device}): {len(got)} results", flush=True)

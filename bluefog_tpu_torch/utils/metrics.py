@@ -6,9 +6,11 @@ Counter/Gauge/Histogram primitives in one global registry, updated from
 the hot paths of the serving estate: the scheduler's request, token and
 latency metrics, the KV-cache slot and prefix gauges, the engine's
 speculative-decoding counters, the refresher's staleness gauge and the
-autoscaler's events.  JAX's retrace sentinel and its per-op and
-per-step recorders have no caller in the port (its engine compiles no
-programs; its trainer does not record steps) and are not copied.
+autoscaler's events; the train step's wrapper records each call
+(:func:`record_step`, with its EWMA gauge) and the named windows each
+move (:func:`record_op`).  JAX's retrace sentinel and its cache events
+(``note_retrace``, ``note_cache_event``) are XLA notions: the port
+compiles no programs, and they are not copied.
 
 Exporters, both optional and zero-cost when off; ``bf.init`` honors
 their variables (:func:`maybe_start_from_env`), as JAX's does:
@@ -37,7 +39,8 @@ from .config import logger
 
 __all__ = [
     "Counter", "Gauge", "Histogram",
-    "counter", "gauge", "histogram", "get_metric",
+    "Gauge_EWMA", "counter", "gauge", "ewma", "histogram", "get_metric",
+    "record_op", "record_step",
     "snapshot", "reset_metrics", "metrics_summary",
     "start_metrics", "stop_metrics", "metrics_active", "sample",
     "render_prometheus", "start_http_server", "stop_http_server",
@@ -131,6 +134,26 @@ class Gauge(_Metric):
                     "values": dict(self._values)}
 
 
+class Gauge_EWMA(Gauge):
+    """Gauge fed by ``observe``: exponentially-weighted moving average."""
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str = "", alpha: float = 0.2):
+        super().__init__(name, help)
+        self.alpha = alpha
+
+    def observe(self, value: float, **labels) -> None:
+        key = _label_key(labels)
+        with _lock:
+            prev = self._values.get(key)
+            self._values[key] = v = (float(value) if prev is None
+                                     else self.alpha * float(value)
+                                     + (1 - self.alpha) * prev)
+        ts = self._ts
+        if ts is not None:
+            ts.append(v)
+
+
 class Histogram(_Metric):
     """Cumulative-bucket histogram plus a bounded raw reservoir.
 
@@ -215,6 +238,10 @@ def gauge(name: str, help: str = "") -> Gauge:
     return _get_or_create(Gauge, name, help)
 
 
+def ewma(name: str, help: str = "", alpha: float = 0.2) -> Gauge_EWMA:
+    return _get_or_create(Gauge_EWMA, name, help, alpha=alpha)
+
+
 def histogram(name: str, help: str = "",
               buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
     return _get_or_create(Histogram, name, help, buckets=buckets)
@@ -262,6 +289,45 @@ def mark_steady_state(value: bool = True) -> None:
 
 def in_steady_state() -> bool:
     return _steady
+
+
+# ---------------------------------------------------------------------------
+# Hot-path recorders
+# ---------------------------------------------------------------------------
+
+def record_op(op_name: str, args: Tuple = ()) -> None:
+    """One eager-op dispatch: count it and its payload bytes."""
+    counter("bluefog_ops_total", "eager op dispatches").inc(op=op_name)
+    nbytes = 0
+    for a in args:
+        nb = getattr(a, "nbytes", None)
+        if isinstance(nb, (int, float)):
+            nbytes += int(nb)
+    if nbytes:
+        counter("bluefog_op_bytes_total",
+                "payload bytes entering eager ops").inc(nbytes, op=op_name)
+
+
+def record_step(duration_s: float, *, steps: int = 1,
+                donated: Optional[bool] = None,
+                fused_k: Optional[int] = None,
+                overlap: Optional[bool] = None) -> None:
+    """One train-step call (host wall time around the dispatch)."""
+    counter("bluefog_train_steps_total", "optimizer steps executed").inc(steps)
+    histogram("bluefog_step_time_s", "per-call step wall time").observe(
+        duration_s)
+    ewma("bluefog_step_time_ewma_s", "EWMA of per-call step wall time"
+         ).observe(duration_s)
+    if donated is not None:
+        gauge("bluefog_step_donated", "1 when the step donates buffers"
+              ).set(1.0 if donated else 0.0)
+    if fused_k is not None:
+        gauge("bluefog_step_fused_k", "steps fused per call (lax.scan)"
+              ).set(fused_k)
+    if overlap is not None:
+        gauge("bluefog_step_overlap",
+              "1 when the step runs pipelined (one-step-delayed) gossip"
+              ).set(1.0 if overlap else 0.0)
 
 
 # ---------------------------------------------------------------------------

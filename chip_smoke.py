@@ -402,8 +402,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``batch_isend_irecv`` calls.  NCCL refuses two ranks on one device,
    so no NCCL move between two processes runs here: (a) is a bootstrap
    check (NCCL init on ``cuda:LOCAL_RANK`` and the in-process paths),
-   and the crossing rows are shown by (b) (a ``world`` line).  K1-K4
-   launch counts read over phases 18-19 must be 0.
+   and the crossing rows are shown by (b) (a ``world`` line); the checks
+   include the named windows and async window gossip.  K1-K4 launch
+   counts read over phases 18-19 must be 0.
+20. the optimizer core's rest (no K1-K4), TF32 off, 8 stacked ranks:
+   (a) exact diffusion, gradient tracking, push-DIGing, async window
+   gossip at K 0 and at K 2 with rank 3 at pace 3, ZeRO with
+   hierarchical gossip, and the stateful step with neighbor and
+   allreduce state sync, 5 steps each on strategy_bench's MLP (512 ->
+   1024 -> 512 -> 10) with rank-varying data: each leaf within 1e-5 x
+   max|leaf| of a CPU float64 run or twice the CPU f32 run's distance
+   from it, the async mass summing to n within 1e-6 x n, and the named
+   windows on the card equal to the CPU bit for bit (a
+   ``strategy_parity_rest`` line); (b) ``tools/strategy_bench.py`` at its
+   defaults (``strategy_bench``); (c) ``tools/gossip_bench.py`` at its
+   defaults and ``--train-step`` (``gossip_bench``); (d)
+   ``decentralized_optimization`` at its defaults, which asserts that
+   every method converges; (e) ResNet-50 (224 x 224, 1000 classes, 8
+   ranks x 16) with its BatchNorm statistics as ``net_state`` of
+   ``make_stateful_train_step`` under async gossip (K 2, rank 3 at pace
+   3), neighbor state sync and the probe every call, 1 warm-up and 3
+   timed steps: finite loss and statistics, the mass n (a
+   ``stateful_resnet`` line).  K1-K4 launch counts over phase 20 must be
+   0.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3968,6 +3989,184 @@ def world_phase(smi, launched):
     print("world " + json.dumps(doc), flush=True)
     return doc
 
+# -- phase 20: the optimizer core's rest (no K1-K4) ----------------------
+
+RESNET_RANKS = 8              # 20e: ResNet-50 224 x 224, 1000 classes,
+RESNET_BATCH = 16             # batch 16 a rank, 8 stacked ranks
+RESNET_IMAGE = 224
+
+
+def stateful_resnet_phase(smi):
+    """20e: ResNet-50's BatchNorm statistics as ``net_state`` through
+    ``make_stateful_train_step``: async window gossip (K 2, rank 3 at pace
+    3), ``state_sync="neighbor"``, the probe every call; 1 warm-up and 3
+    timed steps.  Gates: finite loss and statistics, the mass sums to
+    n."""
+    import torch.nn.functional as F
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch import topology as tu
+    from bluefog_tpu_torch.fusion import tree_flatten, tree_map, \
+        tree_unflatten
+    from bluefog_tpu_torch.models import ResNet50
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.utils import metrics
+    n, B = RESNET_RANKS, RESNET_BATCH
+    context.init(size=n, device=DEV)
+    try:
+        topo = tu.ExponentialTwoGraph(n)
+        context.set_topology(topo, is_weighted=True)
+        model = ResNet50(num_classes=1000,
+                         generator=torch.Generator().manual_seed(0))
+        variables = tree_map(lambda t: t.to(DEV), model.variables())
+        params = bfopt.replicate(variables["params"], n)
+        stats = bfopt.replicate(variables["batch_stats"], n)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        images = torch.randn((n, B, RESNET_IMAGE, RESNET_IMAGE, 3),
+                             generator=gen, device=DEV)
+        labels = torch.randint(0, 1000, (n, B), generator=gen, device=DEV)
+        strat = bfopt.async_window_gossip(
+            bfopt.sgd(0.1, momentum=0.9), bfopt.push_schedule(topo, n),
+            staleness_bound=2, pace=[3 if r == 3 else 1 for r in range(n)])
+
+        def grad3(p, bs, batch):
+            x, y = batch
+            leaves, treedef = tree_flatten(p)
+            ps = [t.detach().requires_grad_() for t in leaves]
+            logits, upd = model.apply(
+                {"params": tree_unflatten(treedef, ps), "batch_stats": bs},
+                x, train=True)
+            loss = F.cross_entropy(logits, y)
+            grads = torch.autograd.grad(loss, ps)
+            return (loss.detach(), tree_unflatten(treedef, list(grads)),
+                    upd["batch_stats"])
+
+        step = bfopt.make_stateful_train_step(
+            grad3, strat, state_sync="neighbor", metrics_every_k=1)
+        dstate = bfopt.init_distributed(strat, params)
+        metrics.reset_metrics()
+        params, stats, dstate, loss = step(params, stats, dstate,
+                                           (images, labels))     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], [float(loss.mean())]
+        depths = [int(dstate.comm_state.depth.max())]
+        for _ in range(3):
+            t0 = time.monotonic()
+            params, stats, dstate, loss = step(params, stats, dstate,
+                                               (images, labels))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            losses.append(float(loss.mean()))
+            depths.append(int(dstate.comm_state.depth.max()))
+        cs = dstate.comm_state
+        mass = float(cs.p.double().sum() + cs.p_recv.double().sum())
+        stats_finite = all(bool(torch.isfinite(t).all())
+                           for t in tree_flatten(stats)[0])
+        doc = {"model": "ResNet-50", "image_size": RESNET_IMAGE,
+               "num_classes": 1000,
+               "ranks": n, "batch_per_rank": B, "warmup": 1, "timed": 3,
+               "strategy": "async_window_gossip K 2, rank 3 at pace 3, "
+                           "sgd(0.1, momentum 0.9)",
+               "state_sync": "neighbor", "metrics_every_k": 1,
+               "s_per_step": times, "losses": losses,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "consensus_distance_max": metrics.gauge(
+                   "bluefog_consensus_distance_max").value(),
+               "consensus_distance_mean": metrics.gauge(
+                   "bluefog_consensus_distance_mean").value(),
+               "neighbor_disagreement_max": metrics.gauge(
+                   "bluefog_neighbor_disagreement_max").value(),
+               "staleness_depth_max": metrics.gauge(
+                   "bluefog_async_staleness_steps").value(),
+               "staleness_depth": cs.depth.cpu().tolist(),
+               "staleness_depth_max_by_step": depths,
+               "local_steps": cs.local_steps.cpu().tolist(),
+               "mass_minus_n": mass - n, "bn_stats_finite": stats_finite,
+               "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+        print("stateful_resnet " + json.dumps(doc), flush=True)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"stateful_resnet: losses {losses}")
+        if not stats_finite:
+            raise AssertionError("stateful_resnet: a BatchNorm statistic "
+                                 "is not finite")
+        if not abs(mass - n) <= 1e-6 * n:
+            raise AssertionError(f"stateful_resnet: the mass sums to {mass}")
+        if doc["consensus_distance_max"] is None:
+            raise AssertionError("stateful_resnet: the probe did not run")
+        return doc
+    finally:
+        context.shutdown()
+        torch.cuda.empty_cache()
+
+
+def core_rest_phase(fa, gf, fd, smi):
+    """Phase 20 (no K1-K4): 20a the new strategies, the stateful step and
+    the named windows on the card against the CPU; 20b
+    ``tools/strategy_bench.py`` and 20c ``tools/gossip_bench.py`` at their
+    defaults (20c then ``--train-step``); 20d ``decentralized_optimization``
+    at its defaults through its ``main``; 20e ResNet-50's BatchNorm state
+    through the stateful step.  TF32 off."""
+    import io
+    from bluefog_tpu_torch.examples import decentralized_optimization as dopt
+    from bluefog_tpu_torch.tools import gossip_bench as gb
+    from bluefog_tpu_torch.tools import strategy_bench as sb
+    from bluefog_tpu_torch.tools import strategy_parity as sp
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    try:
+        _launch_counts(fa, gf, reset=True)
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.monotonic()
+        parity = sp.rest_parity(DEV)
+        windows = sp.window_parity(DEV)
+        parity.update(windows=windows, nvidia_smi=smi)
+        print("strategy_parity_rest " + json.dumps(sp.flat_summary(parity)),
+              flush=True)
+        sp.check_rest(parity)
+        if windows["differ"]:
+            raise AssertionError(f"named windows: the card differs from the "
+                                 f"CPU on {windows['differ']}")
+        seconds["parity"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench = sb.run(sb.parse([]))
+        bench.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        print("strategy_bench " + json.dumps(bench), flush=True)
+        seconds["strategy_bench"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            gossip = gb.run(gb.parse(["--train-step"]))
+        gossip.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        print("gossip_bench " + json.dumps(gossip), flush=True)
+        seconds["gossip_bench"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if dopt.main([]) != 0:
+                raise AssertionError("decentralized_optimization failed")
+        lines = buf.getvalue().strip().splitlines()
+        print("decentralized_optimization " + json.dumps({
+            "lines": lines, "seconds": time.monotonic() - t0,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+            flush=True)
+        seconds["decentralized_optimization"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        resnet = stateful_resnet_phase(smi)
+        seconds["stateful_resnet"] = time.monotonic() - t0
+        launches = dict(_launch_counts(fa, gf),
+                        flash_decode=fd.flash_decode_cuda.launches)
+        print("phase_20_launches " + json.dumps(launches), flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"phase 20 launched a kernel: {launches}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return launches, seconds, resnet
+
+
 # -- phase 14: the ResNet-50 gossip benchmark --------------------------
 
 RESNET_IMAGES = 4             # 14a's batch
@@ -5029,6 +5228,11 @@ def main(argv=None) -> int:
     print("phases_18_19_launches " + json.dumps(quiet), flush=True)
     if any(quiet.values()):
         raise AssertionError(f"phases 18-19 launched a kernel: {quiet}")
+    # -- phase 20: the optimizer core's rest (no K1-K4) -----------------
+    t0 = time.monotonic()
+    rest_quiet, rest_s, _ = core_rest_phase(fa, gf, fd, smi)
+    phase_s.update({"core_rest_" + k: v for k, v in rest_s.items()})
+    phase_s["core_rest"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -5045,7 +5249,8 @@ def main(argv=None) -> int:
         "moe_serve_fast": moe_fast["k3_launches"],
         "serve_carved": carved["k3_launches"],
         "moe_serve_carved": moe_carved["k3_launches"],
-        "pipelines_and_world": quiet["flash_decode"]}
+        "pipelines_and_world": quiet["flash_decode"],
+        "optimizer_core_rest": rest_quiet["flash_decode"]}
     decode["carved_decode"] = {
         tag: {key: row[key] for key in _ROW_KEYS + (
             "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
@@ -5072,7 +5277,9 @@ def main(argv=None) -> int:
              **{"example_" + tag: (r["launches"]["flash_fwd"],
                                    r["launches"]["flash_bwd"])
                 for tag, r in ex_runs.items()},
-             "pipelines_and_world": (quiet["flash_fwd"], quiet["flash_bwd"])}
+             "pipelines_and_world": (quiet["flash_fwd"], quiet["flash_bwd"]),
+             "optimizer_core_rest": (rest_quiet["flash_fwd"],
+                                     rest_quiet["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -5121,7 +5328,9 @@ def main(argv=None) -> int:
                                    estate["serve_estate_moe"]["grouped_ffn"],
                                **{tag: n["grouped_ffn"] for tag, n in
                                   ep_launches.items()},
-                               "pipelines_and_world": quiet["grouped_ffn"]},
+                               "pipelines_and_world": quiet["grouped_ffn"],
+                               "optimizer_core_rest":
+                                   rest_quiet["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -5147,7 +5356,9 @@ def main(argv=None) -> int:
                                **{tag: n["grouped_ffn_dgrad"] for tag, n in
                                   ep_launches.items()},
                                "pipelines_and_world":
-                                   quiet["grouped_ffn_dgrad"]},
+                                   quiet["grouped_ffn_dgrad"],
+                               "optimizer_core_rest":
+                                   rest_quiet["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -5165,7 +5376,9 @@ def main(argv=None) -> int:
                  estate["serve_estate_moe"]["grouped_ffn_backward_plan"],
              **{tag: n["grouped_ffn_backward_plan"] for tag, n in
                 ep_launches.items()},
-             "pipelines_and_world": quiet["grouped_ffn_backward_plan"]},
+             "pipelines_and_world": quiet["grouped_ffn_backward_plan"],
+             "optimizer_core_rest":
+                 rest_quiet["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

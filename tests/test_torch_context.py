@@ -162,10 +162,18 @@ def test_round_parallel_and_async_knobs_match_jax(both, monkeypatch):
         assert jbf.parallel.context.round_parallel() is \
             tbf.round_parallel() is value
         assert jcoll._default_concurrent() == tcoll._default_concurrent()
-    # the async staleness knob (set_async_gossip, BLUEFOG_ASYNC) lands
-    # with async window gossip, its only reader (ROADMAP queue 1, item 7)
-    assert not hasattr(tbf, "set_async_gossip")
+    # the async staleness knob: the context's value, else BLUEFOG_ASYNC,
+    # else the default 4, as JAX resolves it (async_window_gossip reads it)
     jctx = jbf.parallel.context
+    monkeypatch.delenv("BLUEFOG_ASYNC", raising=False)
+    assert jctx.async_gossip_bound() == tbf.async_gossip_bound() == \
+        tbf.parallel.context._DEFAULT_ASYNC_BOUND == 4
+    monkeypatch.setenv("BLUEFOG_ASYNC", "6")
+    for value in (3, 0, None):
+        jctx.set_async_gossip(value)
+        tbf.set_async_gossip(value)
+        assert jctx.async_gossip_bound() == tbf.async_gossip_bound() == \
+            (6 if value is None else value)
     assert tbf.suspend() is None and tbf.resume() is None
     assert jctx.suspend() is None and jctx.resume() is None
 

@@ -52,7 +52,9 @@ def test_port_imports_no_jax():
               "utils.tracing", "diagnostics", "run.launcher",
               "serve.refresh", "tools.trace_report", "tools.serve_bench",
               "examples.llm_3d", "examples.moe", "examples.moe_lm",
-              "examples.pipeline_lm", "tools.world_check"):
+              "examples.pipeline_lm", "tools.world_check",
+              "parallel.windows", "examples.decentralized_optimization",
+              "tools.gossip_bench", "tools.strategy_bench"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -117,10 +119,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         lm_bench.main([])
     from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
                                                       init_decode_cache)
-    from bluefog_tpu_torch.examples import benchmark, llm_3d, moe, moe_lm
-    from bluefog_tpu_torch.tools import long_context, serve_bench, sp_bench
+    from bluefog_tpu_torch.examples import (benchmark,
+                                            decentralized_optimization,
+                                            llm_3d, moe, moe_lm)
+    from bluefog_tpu_torch.tools import (gossip_bench, long_context,
+                                         serve_bench, sp_bench,
+                                         strategy_bench)
     for tool in (long_context, sp_bench, benchmark, serve_bench, llm_3d,
-                 moe, moe_lm):
+                 moe, moe_lm, decentralized_optimization, gossip_bench,
+                 strategy_bench):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main([])
     lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,

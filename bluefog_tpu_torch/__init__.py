@@ -25,8 +25,13 @@ core's rest (exact diffusion, gradient tracking, push-DIGing, async
 window gossip with its staleness knob, ZeRO with gossip, the strategy
 registry, the stateful train step, the named windows below, the
 consensus probes of ``diagnostics``; ``examples.decentralized_optimization``,
-``tools.gossip_bench``, ``tools.strategy_bench``).  The kernels are CUDA
-C++ under ``csrc/``.
+``tools.gossip_bench``, ``tools.strategy_bench``); and the host
+runtime's rest (fault injection, ``utils.chaos``; healing, membership
+and the rollback guard, ``resilience``; ``checkpoint``; the input
+pipeline, ``data``; ``utils.timeline`` and ``utils.watchdog``; the host
+C++ helpers, ``_native``; ``examples.mnist``, ``examples.resnet``,
+``examples.elastic_restart``).  The kernels are CUDA C++ under
+``csrc/``.
 """
 from .api import (allgather, allreduce, barrier, broadcast, hard_sync,
                   hierarchical_neighbor_allreduce, neighbor_allgather,

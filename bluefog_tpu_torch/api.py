@@ -21,12 +21,31 @@ from .fusion import tree_flatten
 from .ops import collectives as _coll
 from .parallel import context as _ctx
 from .schedule import CommSchedule, compile_from_weights
+from .utils import chaos as _chaos
+from .utils import flight as _flight
+from .utils import metrics as _metrics
+from .utils import timeline as _tl
 
 __all__ = ["allreduce", "allgather", "ragged_allgather", "broadcast",
            "neighbor_allreduce", "neighbor_allgather",
            "ragged_neighbor_allgather", "pair_gossip",
            "hierarchical_neighbor_allreduce", "barrier", "synchronize",
            "poll", "hard_sync", "resolve_schedule", "shard_distributed"]
+
+
+def _dispatch(op_name, fn, *args):
+    """Run one eager op under a host timeline span (a no-op when the
+    timeline is off), counting the call and its payload bytes in the
+    metrics registry and the flight recorder (JAX ``api.py:43-56``)."""
+    _metrics.record_op(op_name, args)
+    _flight.record_op(op_name)
+    with _tl.op_span(op_name):
+        out = fn(*args)
+    # fault injection (zero-cost gate: one attribute load when no plan is
+    # installed): chaos may kill this rank, stall it, or NaN its row
+    if _chaos._plan is not None:
+        out = _chaos.on_eager_op(op_name, out)
+    return out
 
 
 def _check_distributed(x: torch.Tensor, n: int) -> None:
@@ -138,8 +157,9 @@ def neighbor_allreduce(
                 "counter) so the period's schedule can be selected")
         schedule = dyn[int(step) % len(dyn)]
     sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
-    return _coll.neighbor_allreduce(x, sched, wire=wire,
-                                    concurrent=concurrent)
+    return _dispatch("neighbor_allreduce",
+                     lambda v: _coll.neighbor_allreduce(
+                         v, sched, wire=wire, concurrent=concurrent), x)
 
 
 def neighbor_allgather(
@@ -161,7 +181,8 @@ def neighbor_allgather(
     if x.ndim < 2:
         raise ValueError("neighbor_allgather needs a per-rank first dimension")
     sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
-    return _coll.neighbor_allgather(x, sched)
+    return _dispatch("neighbor_allgather",
+                     lambda v: _coll.neighbor_allgather(v, sched), x)
 
 
 def ragged_neighbor_allgather(
@@ -188,13 +209,16 @@ def ragged_neighbor_allgather(
     lengths = torch.as_tensor(lengths, dtype=torch.int32).reshape(
         x.shape[0]).to(x.device)
     sched = resolve_schedule(self_weight, src_weights, dst_weights, schedule)
-    return _coll.ragged_neighbor_allgather(x, lengths, sched)
+    return _dispatch("ragged_neighbor_allgather",
+                     lambda v, ln: _coll.ragged_neighbor_allgather(
+                         v, ln, sched), x, lengths)
 
 
 def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
     """Global (weighted-uniform) allreduce. Reference: ``bf.allreduce``."""
     _check_distributed(x, _ctx.get_context().size)
-    return _coll.allreduce(x, average=average)
+    return _dispatch("allreduce",
+                     lambda v: _coll.allreduce(v, average=average), x)
 
 
 def allgather(x: torch.Tensor) -> torch.Tensor:
@@ -202,7 +226,7 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
     _check_distributed(x, _ctx.get_context().size)
     if x.ndim < 2:
         raise ValueError("allgather needs a per-rank first dimension")
-    return _coll.allgather(x)
+    return _dispatch("allgather", _coll.allgather, x)
 
 
 def ragged_allgather(x: torch.Tensor, lengths
@@ -222,7 +246,8 @@ def ragged_allgather(x: torch.Tensor, lengths
 def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
     """Every rank's slice becomes root's slice. Reference: ``bf.broadcast``."""
     _check_distributed(x, _ctx.get_context().size)
-    return _coll.broadcast(x, root_rank)
+    return _dispatch("broadcast",
+                     lambda v: _coll.broadcast(v, root_rank), x)
 
 
 def pair_gossip(
@@ -236,8 +261,10 @@ def pair_gossip(
     ``partners`` must be an involution; self-paired ranks keep their
     value."""
     _check_distributed(x, _ctx.get_context().size)
-    return _coll.pair_gossip(x, partners, self_weight=self_weight,
-                             pair_weight=pair_weight)
+    return _dispatch("pair_gossip",
+                     lambda v: _coll.pair_gossip(
+                         v, partners, self_weight=self_weight,
+                         pair_weight=pair_weight), x)
 
 
 def hierarchical_neighbor_allreduce(
@@ -261,8 +288,9 @@ def hierarchical_neighbor_allreduce(
     sched = resolve_schedule(
         self_weight, src_machine_weights, dst_machine_weights, schedule,
         size=ctx.machine_size, default_schedule=_ctx.machine_schedule)
-    return _coll.hierarchical_neighbor_allreduce(x, sched, wire=wire,
-                                                 concurrent=concurrent)
+    return _dispatch("hierarchical_neighbor_allreduce",
+                     lambda v: _coll.hierarchical_neighbor_allreduce(
+                         v, sched, wire=wire, concurrent=concurrent), x)
 
 
 def poll(x) -> bool:

@@ -17,11 +17,14 @@ The probes read stacked params (``[n, ...]`` leaves, this process's rows):
   and the per-rank **step-time** table with its straggler verdict.
 
 ``diagnose_consensus(params)`` is the one-shot probe; the train step's
-``metrics_every_k`` runs it on the step's output params.  Two parts of
-the JAX probe have no counterpart here yet: the gossiped fleet-view
-carrier (ROADMAP queue 1, item 10) and the chaos delay ledger (item 8),
-so :func:`observe_step_time` gives every rank the host's wall time.
-Peer health (the non-finite guard) is item 8's.
+``metrics_every_k`` runs it on the step's output params.  The gossiped
+fleet-view carrier of the JAX probe has no counterpart here yet (ROADMAP
+queue 1, item 10).  :func:`observe_step_time` moves the sleeps chaos
+injected onto their target rank (the delay ledger of ``utils/chaos.py``).
+
+Peer health (:func:`check_finite` and the table behind
+:func:`unhealthy_ranks`) is the detection half of the resilience layer:
+``resilience.py`` owns the response.
 
 The SLO engine reads the time-series store and never touches a device.
 Its fleet-view leg scores nothing here, because the port has no gossiped
@@ -30,7 +33,8 @@ armed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import threading
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,14 +43,19 @@ from .fusion import tree_flatten
 from .ops import collectives as _coll
 from .parallel import context as _ctx
 from .schedule import CommSchedule
+from .utils import chaos as _chaos
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils import timeseries as _ts
 from .utils.config import logger
+from .utils.snapshot import live_tensors
 
 __all__ = ["diagnose_consensus", "consensus_distance", "window_staleness",
            "observe_step_time", "last_step_times", "detect_stragglers",
-           "observe_async_staleness", "SLOEngine", "DEFAULT_SLO_WINDOWS"]
+           "observe_async_staleness", "check_finite",
+           "observe_peer_finiteness", "record_peer_failure",
+           "clear_peer_failures", "unhealthy_ranks", "peer_health",
+           "reset_peer_health", "SLOEngine", "DEFAULT_SLO_WINDOWS"]
 
 
 # ---------------------------------------------------------------------------
@@ -273,18 +282,26 @@ _last_step_times: Optional[np.ndarray] = None
 
 def observe_step_time(duration_s: float,
                       size: Optional[int] = None) -> Optional[np.ndarray]:
-    """Fold one host-measured step wall time into the per-rank table:
-    every rank gets ``duration_s`` (the host's wall time; JAX's chaos
-    delay ledger, which moves injected sleeps onto their target rank,
-    comes with ``utils/chaos.py``, ROADMAP queue 1, item 8).  Returns the
-    ``[n]`` table (kept for :func:`detect_stragglers`), or None when the
-    context is not initialized."""
+    """Fold one host-measured step wall time into the per-rank table.
+
+    The stacked ranks share one host clock, so per-rank attribution comes
+    from the chaos ledger: sleep seconds injected by rank-targeted
+    ``hang`` / ``throttle`` faults are subtracted from the shared baseline
+    and re-added to their target rank, so an injected straggler looks
+    like a real one to the detector.  Returns the ``[n]`` table (kept for
+    :func:`detect_stragglers`), or None when neither ``size`` nor an
+    initialized context gives the rank count."""
     global _last_step_times
     if size is None:
         if not _ctx.is_initialized():
             return None
         size = _ctx.get_context().size
-    t = np.full(size, max(float(duration_s), 0.0), np.float32)
+    delays = _chaos.consume_step_delays()
+    base = max(float(duration_s) - sum(delays.values()), 0.0)
+    t = np.full(size, base, np.float32)
+    for r, d in delays.items():
+        if 0 <= r < size:
+            t[r] += d
     _last_step_times = t
     return t
 
@@ -313,6 +330,115 @@ def detect_stragglers(step_times: Optional[Sequence[float]] = None, *,
     out = [r for r in alive
            if t[r] > factor * med and t[r] - med > min_skew_s]
     return tuple(sorted(out, key=lambda r: -t[r]))
+
+
+# ---------------------------------------------------------------------------
+# Non-finite guard + peer-health tracking (the detection half of the
+# resilience story: resilience.py owns the response)
+# ---------------------------------------------------------------------------
+
+def check_finite(tree: Any) -> np.ndarray:
+    """Per-rank all-finite flag over the float leaves of a distributed
+    tree (``[rows, ...]`` tensors; the optimizer state a step returns
+    included): ``out[r]`` is False iff any float element of rank r's row
+    is NaN or Inf.  One reduction a leaf on the device, folded into one
+    ``[rows]`` vector, and one host read (every process's rows across
+    processes)."""
+    leaves = [x for x in live_tensors(tree)
+              if x.ndim >= 1 and x.is_floating_point()]
+    if not leaves:
+        n = _ctx.get_context().size if _ctx.is_initialized() else 0
+        return np.ones(n, bool)
+    rows = leaves[0].shape[0]
+    ok = torch.ones(rows, dtype=torch.bool, device=leaves[0].device)
+    with torch.no_grad():
+        for x in leaves:
+            if x.shape[0] != rows:
+                continue
+            ok &= torch.isfinite(x.reshape(rows, -1)).all(dim=1).to(
+                ok.device)
+    return _all_rows(ok.to(torch.uint8)).reshape(-1).astype(bool)
+
+
+# Host-side peer-health table: which ranks have produced non-finite output
+# (and how persistently), plus explicitly reported failures (a RankKilled
+# caught by the training loop, a watchdog timeout attributed to a peer).
+_peer_lock = threading.Lock()
+_peer_nonfinite_streak: Dict[int, int] = {}
+_peer_last_bad_step: Dict[int, int] = {}
+_peer_failed: set = set()
+
+
+def observe_peer_finiteness(finite: np.ndarray,
+                            step: Optional[int] = None) -> None:
+    """Feed one :func:`check_finite` sample into the peer-health table."""
+    with _peer_lock:
+        for r, ok in enumerate(np.asarray(finite)):
+            if bool(ok):
+                _peer_nonfinite_streak[r] = 0
+            else:
+                _peer_nonfinite_streak[r] = _peer_nonfinite_streak.get(r, 0) + 1
+                if step is not None:
+                    _peer_last_bad_step[r] = int(step)
+        bad = sum(1 for v in _peer_nonfinite_streak.values() if v > 0)
+    _metrics.gauge("bluefog_peers_nonfinite",
+                   "ranks whose latest sampled output was non-finite"
+                   ).set(bad)
+
+
+def record_peer_failure(rank: int) -> None:
+    """Mark a rank as failed (killed, restarted, or timed out)."""
+    with _peer_lock:
+        _peer_failed.add(int(rank))
+    _metrics.gauge("bluefog_peers_failed",
+                   "ranks explicitly reported failed").set(len(_peer_failed))
+
+
+def clear_peer_failures(ranks: Optional[Iterable[int]] = None) -> None:
+    """Drop peer-failure records for ``ranks`` (all of them when None):
+    the explicit failure mark, the non-finite streak and the last bad
+    step, so a re-admitted rank (or a ``resilience.reset()``) does not
+    keep :func:`unhealthy_ranks` reporting it."""
+    with _peer_lock:
+        if ranks is None:
+            _peer_failed.clear()
+            _peer_nonfinite_streak.clear()
+            _peer_last_bad_step.clear()
+        else:
+            for r in ranks:
+                _peer_failed.discard(int(r))
+                _peer_nonfinite_streak.pop(int(r), None)
+                _peer_last_bad_step.pop(int(r), None)
+        n_failed = len(_peer_failed)
+    _metrics.gauge("bluefog_peers_failed",
+                   "ranks explicitly reported failed").set(n_failed)
+
+
+def unhealthy_ranks(streak: int = 1) -> Tuple[int, ...]:
+    """Ranks currently considered unhealthy: explicitly failed, or with at
+    least ``streak`` consecutive non-finite samples."""
+    with _peer_lock:
+        bad = set(_peer_failed)
+        bad.update(r for r, v in _peer_nonfinite_streak.items()
+                   if v >= streak)
+    return tuple(sorted(bad))
+
+
+def peer_health() -> Dict[str, Any]:
+    """Snapshot of the peer-health table (for dashboards and tests)."""
+    with _peer_lock:
+        return {
+            "failed": tuple(sorted(_peer_failed)),
+            "nonfinite_streak": dict(_peer_nonfinite_streak),
+            "last_bad_step": dict(_peer_last_bad_step),
+        }
+
+
+def reset_peer_health() -> None:
+    with _peer_lock:
+        _peer_failed.clear()
+        _peer_nonfinite_streak.clear()
+        _peer_last_bad_step.clear()
 
 
 # ---------------------------------------------------------------------------

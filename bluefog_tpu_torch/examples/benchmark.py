@@ -14,8 +14,11 @@ lines and asserts the loss is finite.
 
 Differences from the JAX example: ``--ranks`` (default 8, the JAX
 example's virtual-CPU size) stacks the ranks on one device; ``--device``
-defaults to the card (a missing card raises) and ``cpu`` is for tests;
-``--profile`` (the JAX timeline) is not ported.  The zoo keeps torch's
+defaults to the card (a missing card raises) and ``cpu`` is for tests.
+``--profile PREFIX`` writes the timeline (``utils/timeline.py``:
+``PREFIX.activities.json`` with the ``TRAIN`` span around the timed
+iterations and the step's phases, and on the card the device trace
+beside it).  The zoo keeps torch's
 kernel layouts (Dense ``[out, in]``, Conv ``[O, I, kH, kW]``), so the
 fused buffers hold the same values as the JAX example's in another
 order: ``@B``-blocked codecs cut other blocks, and PowerSGD runs with
@@ -46,6 +49,7 @@ from ..fusion import fuse_tree, tree_flatten, tree_map, tree_unflatten
 from ..ops.collectives import _parse_wire
 from ..parallel import context as bf
 from ..tools.bench import make_grad_fn
+from ..utils import timeline
 
 STRATEGIES = ("neighbor_allreduce", "gradient_allreduce", "zero_allreduce",
               "choco", "allreduce", "hierarchical_neighbor_allreduce",
@@ -75,7 +79,7 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps-per-call", type=int, default=1,
                     help="optimizer steps a call of the train step")
     ap.add_argument("--profile", default=None,
-                    help="write a timeline to this path prefix (not ported)")
+                    help="write a timeline to this path prefix")
     ap.add_argument("--ranks", type=int, default=8,
                     help="ranks stacked on the device")
     ap.add_argument("--device", default=None,
@@ -209,10 +213,6 @@ def build(args: argparse.Namespace, batch=None,
     """Context, model, strategy and train step; ``batch`` (rank-stacked
     ``(images, labels)``) replaces the synthetic one, ``dtype`` casts the
     model's variables."""
-    if args.profile:
-        raise ValueError(
-            "--profile writes the JAX timeline, which is not ported yet "
-            "(ROADMAP queue 1, item 8: the host runtime)")
     name = args.dist_optimizer
     check_wire(name, args.wire)
     dev = resolve_device(args.device)
@@ -315,16 +315,21 @@ def run(args: argparse.Namespace, batch=None) -> dict:
 def _timed(args: argparse.Namespace, batch) -> dict:
     b = build(args, batch)
     params, state = b.params, b.state
+    if args.profile:
+        timeline.start_timeline(args.profile)
     loss = None
     for _ in range(args.num_warmup):
         params, state, loss = b.step(params, state, b.batch)
     hard_sync(loss if loss is not None else params)
     first = None if loss is None else loss.detach().clone()
     t0 = time.perf_counter()
-    for _ in range(args.num_iters):
-        params, state, loss = b.step(params, state, b.batch)
-    hard_sync(loss)
+    with timeline.timeline_context("benchmark", "TRAIN"):
+        for _ in range(args.num_iters):
+            params, state, loss = b.step(params, state, b.batch)
+        hard_sync(loss)
     dt = time.perf_counter() - t0
+    if args.profile:
+        timeline.stop_timeline()
     spc, B, n = args.steps_per_call, args.batch_size, b.n
     total = args.num_iters * spc * B * n
     print(f"Model: {args.model}, optimizer: {label(args)}")

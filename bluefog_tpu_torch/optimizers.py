@@ -82,9 +82,11 @@ from .ops import collectives as _coll
 from .ops import windows as wops
 from .parallel import context as _ctx
 from .schedule import CommSchedule, compile_from_weights
+from .utils import chaos as _chaos
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils import tracing as _tracing
+from .utils.timeline import named_span
 
 __all__ = ["neighbor_communicator", "hierarchical_communicator",
            "allreduce_communicator", "empty_communicator",
@@ -229,9 +231,10 @@ def neighbor_communicator(
             lead=1 if slice_size == 1 else 2).reshape(x.shape)
 
     def comm(params, step):
-        if fuse:
-            return fusion.fused_leaf_op(lambda x: leaf(x, step))(params)
-        return tree_map(lambda x: leaf(x, step), params)
+        with named_span("COMMUNICATE"):
+            if fuse:
+                return fusion.fused_leaf_op(lambda x: leaf(x, step))(params)
+            return tree_map(lambda x: leaf(x, step), params)
 
     return comm
 
@@ -266,16 +269,20 @@ def hierarchical_communicator(
             x, s, wire=w if w is not None else "off", concurrent=concurrent)
 
     def comm(params, step):
-        if fuse:
-            return fusion.fused_leaf_op(lambda x: leaf(x, step))(params)
-        return tree_map(lambda x: leaf(x, step), params)
+        with named_span("COMMUNICATE"):
+            if fuse:
+                return fusion.fused_leaf_op(lambda x: leaf(x, step))(params)
+            return tree_map(lambda x: leaf(x, step), params)
 
     return comm
 
 
 def allreduce_communicator() -> Communicator:
     """Global parameter averaging."""
-    return lambda params, step: tree_map(_coll.allreduce, params)
+    def comm(params, step):
+        with named_span("COMMUNICATE"):
+            return tree_map(_coll.allreduce, params)
+    return comm
 
 
 def empty_communicator() -> Communicator:
@@ -330,13 +337,14 @@ def _apply(optimizer: torch.optim.Optimizer, grads, point):
     slots = optimizer.param_groups[0]["params"]
     xs, treedef = tree_flatten(point)
     gs = tree_flatten(grads)[0]
-    for p, x, g in zip(slots, xs, gs):
-        p.data = x
-        p.grad = g
-    optimizer.step()
-    out = [p.data for p in slots]
-    for p in slots:
-        p.grad = None
+    with named_span("ADAPT"):
+        for p, x, g in zip(slots, xs, gs):
+            p.data = x
+            p.grad = g
+        optimizer.step()
+        out = [p.data for p in slots]
+        for p in slots:
+            p.grad = None
     return tree_unflatten(treedef, out)
 
 
@@ -353,8 +361,9 @@ def gradient_allreduce(opt: OptimizerFactory, *,
 
     def update(grads, state, params):
         reduce_ = _coll.allreduce
-        grads = (fusion.fused_leaf_op(reduce_)(grads) if fuse
-                 else tree_map(reduce_, grads))
+        with named_span("COMMUNICATE"):
+            grads = (fusion.fused_leaf_op(reduce_)(grads) if fuse
+                     else tree_map(reduce_, grads))
         new_params = _apply(state.opt_state, grads, params)
         return new_params, DecentralizedState(state.step + 1,
                                               state.opt_state)
@@ -472,12 +481,13 @@ def _mailbox_optimizer(opt: OptimizerFactory, sched: Optional[CommSchedule],
         values, recipe = _values(params, fuse)
         windows = state.comm_state
         if k <= 1 or (state.step + 1) % k == 0:
-            if carry_windows:
-                new_windows = [leaf_comm(s, w, x)
-                               for w, x in zip(windows, values)]
-            else:
-                new_windows = [leaf_comm(s, wops.win_create(x, s), x)
-                               for x in values]
+            with named_span("COMMUNICATE"):
+                if carry_windows:
+                    new_windows = [leaf_comm(s, w, x)
+                                   for w, x in zip(windows, values)]
+                else:
+                    new_windows = [leaf_comm(s, wops.win_create(x, s), x)
+                                   for x in values]
             values = [w.value for w in new_windows]
             windows = new_windows if carry_windows else None
         new_params = _apply(state.opt_state, grads, _rebuild(recipe, values))
@@ -1728,10 +1738,13 @@ class _InstrumentedStep:
     (``state_index`` into the outputs).  The wall time is the host's
     around the call: on the card, the dispatch.
 
+    The chaos hooks run as in JAX (zero cost when no plan is installed):
+    a kill / hang / throttle fault before the call, a ``nan`` fault on the
+    outputs after it (the live params and state, which the step updates
+    in place) and a ``join`` fault through ``resilience.chaos_join``.
     Left out of the JAX wrapper: the jit-cache retrace sentinel (the port
-    compiles no programs) and the chaos hooks (``utils/chaos.py``, ROADMAP
-    queue 1, item 8).  The port's step updates its params and state in
-    place, so ``donated`` reads 1 as JAX's default donation does."""
+    compiles no programs).  The port's step updates its params and state
+    in place, so ``donated`` reads 1 as JAX's default donation does."""
 
     def __init__(self, fn, *, steps_per_call: int, overlap: bool = False,
                  metrics_every_k: Optional[int] = None, warmup: int = 2,
@@ -1755,6 +1768,11 @@ class _InstrumentedStep:
         tm0 = _time.monotonic() if traced else 0.0
         t0 = _time.perf_counter()
         try:
+            # fault injection (zero-cost gate when no plan is installed): a
+            # kill / hang / throttle fault fires BEFORE dispatch, so the
+            # sleep lands in the step-time metrics as a real straggler's
+            if _chaos._plan is not None:
+                _chaos.on_train_step(call)
             out = self._fn(*args, **kwargs)
         except BaseException as e:
             _flight.note_failure(
@@ -1762,6 +1780,11 @@ class _InstrumentedStep:
             raise
         dt = _time.perf_counter() - t0
         self._calls += 1
+        if _chaos._plan is not None:
+            # NaN a rank's row of the outputs (the live state), then enact
+            # seeded membership churn (`join`) on them
+            out = _chaos.corrupt_train_output(out, self._calls)
+            out = _chaos.apply_membership(out, self._calls)
         _metrics.record_step(dt, steps=self._steps_per_call, donated=True,
                              fused_k=self._steps_per_call,
                              overlap=self._overlap)
@@ -1856,7 +1879,8 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
         losses = []
         for t in range(steps_per_call):
             b = _batch_at(batch, t, steps_per_call, reuse_batch)
-            loss, grads = stacked_grads(grad_fn, params, b, slice_size)
+            with named_span("GRADIENT"):
+                loss, grads = stacked_grads(grad_fn, params, b, slice_size)
             with torch.no_grad():
                 params, state = strategy.update(grads, state, params)
             del grads
@@ -1955,14 +1979,16 @@ def make_stateful_train_step(
                 return _coll.neighbor_allreduce(x, s)
             return _coll.allreduce(x)
 
-        return tree_map(leaf, ns)
+        with named_span("STATE_SYNC"):
+            return tree_map(leaf, ns)
 
     def step(params, net_state, dstate, batch):
         losses = []
         for t in range(steps_per_call):
             b = _batch_at(batch, t, steps_per_call, reuse_batch)
-            loss, grads, net_state = _stacked_state_grads(
-                grad_fn, params, net_state, b)
+            with named_span("GRADIENT"):
+                loss, grads, net_state = _stacked_state_grads(
+                    grad_fn, params, net_state, b)
             with torch.no_grad():
                 net_state = sync(net_state)
                 params, dstate = strategy.update(grads, dstate, params)

@@ -222,7 +222,9 @@ def compose_parallelism(
 def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
                     opt, *, delayed: bool = True, steps_per_call: int = 1,
                     reuse_batch: bool = False, fuse: bool = True,
-                    concurrent: Optional[bool] = None):
+                    concurrent: Optional[bool] = None,
+                    metrics_every_k: Optional[int] = None,
+                    metrics_warmup: int = 2):
     """Wire the carving through the step machinery: a
     ``neighbor_communicator`` that gossips over the ``dp`` replicas for
     every (stage, tp, sp, expert) coordinate (through ``m.wire``), ``opt`` (a ``torch.optim`` factory
@@ -230,8 +232,11 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     ``adapt_with_combine(delayed=...)``, and
     :func:`bluefog_tpu_torch.optimizers.make_train_step`, which calls
     ``grad_fn`` once per replica on that replica's ``slice_size`` peers
-    (see :func:`make_lm_grad_fn`).  Returns ``(step, strategy)``; the
-    strategy is needed for ``init_distributed(strategy, params)``."""
+    (see :func:`make_lm_grad_fn`).  ``metrics_every_k`` /
+    ``metrics_warmup`` go to the step wrapper (its consensus probe runs
+    over the context's ranks, so it needs ``init(size=...)`` with every
+    peer).  Returns ``(step, strategy)``; the strategy is needed for
+    ``init_distributed(strategy, params)``."""
     from .. import optimizers as bfopt
     comm = bfopt.neighbor_communicator(m.schedule, fuse=fuse, wire=m.wire,
                                        concurrent=concurrent,
@@ -240,7 +245,9 @@ def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     step = bfopt.make_train_step(grad_fn, strategy,
                                  steps_per_call=steps_per_call,
                                  reuse_batch=reuse_batch,
-                                 slice_size=m.slice_size)
+                                 slice_size=m.slice_size,
+                                 metrics_every_k=metrics_every_k,
+                                 metrics_warmup=metrics_warmup)
     return step, strategy
 
 

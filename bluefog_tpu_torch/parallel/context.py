@@ -182,10 +182,14 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
         raise ValueError(f"device count {n} not divisible by "
                          f"nodes_per_machine {nodes_per_machine}")
     dev = _process_device(device, world)
-    # the registries' exporters, as JAX's init arms them: BLUEFOG_METRICS /
-    # BLUEFOG_METRICS_PORT, BLUEFOG_FLIGHT_DIR / BLUEFOG_FLIGHT_EVENTS and
-    # BLUEFOG_TRACE
+    # the registries' exporters, as JAX's init arms them: BLUEFOG_TIMELINE,
+    # BLUEFOG_METRICS / BLUEFOG_METRICS_PORT, BLUEFOG_CHAOS,
+    # BLUEFOG_FLIGHT_DIR / BLUEFOG_FLIGHT_EVENTS and BLUEFOG_TRACE
+    from ..utils import chaos as _chaos
+    from ..utils import timeline as _tl
+    _tl.maybe_start_from_env()
     _metrics.maybe_start_from_env()
+    _chaos.maybe_install_from_env()
     _flight.maybe_enable_from_env()
     _tracing.maybe_enable_from_env()
     _flight.record("lifecycle", name="init", devices=n)
@@ -308,9 +312,16 @@ def get_context() -> BlueFogTorchContext:
 
 
 def shutdown() -> None:
-    """Drop the context (reference: ``bf.shutdown``), and destroy the
-    process group :func:`init` made."""
+    """Drop the context (reference: ``bf.shutdown``), flushing an active
+    timeline first as the reference's shutdown drains its writer thread,
+    disarming chaos, and destroying the process group :func:`init`
+    made."""
     global _context
+    from ..utils import chaos as _chaos
+    from ..utils import timeline as _tl
+    _flight.record("lifecycle", name="shutdown")
+    _tl.stop_timeline()
+    _chaos.uninstall()
     ctx, _context = _context, None
     if ctx is not None and ctx.owns_group:
         import torch.distributed as dist

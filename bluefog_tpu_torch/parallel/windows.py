@@ -15,8 +15,9 @@ delivery).  ``win_mutex`` is a no-op, as in JAX: a delivery lands at a
 fixed point of the call that issues it, so there is nothing to lock.
 The associated-p channel gossips one scalar a rank through the same
 mailboxes when it is turned on.  Each move is counted by the metrics
-registry (``record_op``) and the flight ring.  JAX's chaos hook on the
-window moves comes with ``utils/chaos.py`` (ROADMAP queue 1, item 8).
+registry (``record_op``) and the flight ring, and passes the chaos hook
+(``utils/chaos.py``: a plan may stall the move or NaN a rank's row of the
+window).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from ..ops import windows as wops
 from ..schedule import CommSchedule, compile_from_weights
+from ..utils import chaos as _chaos
 from ..utils import flight as _flight
 from ..utils import metrics as _metrics
 from . import context as _ctx
@@ -194,6 +196,10 @@ def _move(kind: str, tensor, name: str, dst_weights, wire=None) -> None:
         # de-biases a directed exchange
         pwin = _assoc_p[name]
         _assoc_p[name] = op(pwin, pwin.value, sched)
+    # fault injection on the async-gossip path: same zero-cost gate as the
+    # eager op API; chaos may stall this op or NaN the window payload
+    if _chaos._plan is not None:
+        entry.window = _chaos.on_eager_op("win_" + kind, entry.window)
     mask = _delivered_mask(sched, slots)
     entry.version += mask
     entry.tick += 1

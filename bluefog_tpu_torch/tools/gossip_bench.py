@@ -14,9 +14,14 @@ empty, allreduce; an MLP of 256 x 256 x 2, batch 32, 4 steps a call).
 only (flat Exp2 against the two-level hierarchical schedule on spectral
 gap per cross-slice byte); its JSON report is the JAX tool's.
 
-``--async-frontier`` is refused: its synchronous arm charges the
-straggler's delay through ``utils/chaos.py``'s ``throttle`` fault, which
-comes with ROADMAP queue 1, item 8.
+``--async-frontier`` grades wall-clock-to-consensus of synchronous
+against bounded-staleness asynchronous gossip under a throttled rank, as
+the JAX tool does: both arms run ``async_window_gossip`` on the push
+schedule of Exp2 (lr 0, pure gossip); the synchronous arm (bound 0) pays
+the straggler's delay every tick through a chaos ``throttle`` fault
+(``utils/chaos.py``), the asynchronous arm models it with a pace table
+and sleeps only before a forced sync-up.  Its JSON report is the JAX
+tool's (``bluefog-gossip-async-1``).
 
 Differences from the JAX tool: ``--ranks`` (default 8, the JAX tool's
 virtual-CPU size) stacks the ranks on one device; ``--device`` defaults
@@ -60,7 +65,18 @@ def parse(argv=None) -> argparse.Namespace:
                     help="write the --frontier report as JSON here")
     ap.add_argument("--async-frontier", action="store_true",
                     help="grade sync vs bounded-staleness async gossip "
-                         "(not ported: needs utils/chaos.py)")
+                         "wall-clock-to-consensus under a throttled rank")
+    ap.add_argument("--throttle-rank", type=int, default=3,
+                    help="rank the async frontier throttles")
+    ap.add_argument("--throttle-factor", type=int, default=10,
+                    help="slowdown factor of the throttled rank")
+    ap.add_argument("--staleness-bound", type=int, default=4,
+                    help="async staleness bound K for --async-frontier")
+    ap.add_argument("--target-ratio", type=float, default=0.05,
+                    help="stop when max consensus distance falls to this "
+                         "fraction of its initial value")
+    ap.add_argument("--max-ticks", type=int, default=400,
+                    help="per-arm tick budget for --async-frontier")
     ap.add_argument("--ranks", type=int, default=8,
                     help="ranks stacked on the device")
     ap.add_argument("--device", default=None,
@@ -265,13 +281,154 @@ def train_step_rows(args) -> List[dict]:
     return rows
 
 
+def async_frontier(args) -> dict:
+    """Wall-clock-to-consensus, sync vs bounded-staleness async gossip
+    (the JAX tool's ``_async_frontier``).  Wall clock counts the step and
+    the injected sleeps; the consensus probe between ticks is excluded
+    (both arms pay it)."""
+    from .. import diagnostics as bfdiag
+    from .. import optimizers as bfopt
+    from .. import topology as tu
+    from ..api import hard_sync
+    from ..device import resolve_device
+    from ..parallel import context as bf
+    from ..utils import chaos
+
+    dev = resolve_device(args.device)
+    bf.init(size=args.ranks, device=dev)
+    try:
+        n = bf.size()
+        bf.set_topology(tu.ExponentialTwoGraph(n))
+        sched = bfopt.push_schedule(bf.load_topology(), n)
+        rank = args.throttle_rank % n
+        factor = args.throttle_factor
+        bound = args.staleness_bound
+        opt = bfopt.sgd(0.0)          # pure gossip: grade mixing, not descent
+
+        rng = np.random.RandomState(7)
+        params0 = {"w": torch.from_numpy(
+            rng.randn(n, args.params).astype(np.float32)).to(dev)}
+        batch = torch.zeros((n, 1), device=dev)
+
+        def grad_fn(p, _):
+            return torch.zeros((), device=dev), {
+                k: torch.zeros_like(v) for k, v in p.items()}
+
+        def fresh(strat):
+            params = {k: v.clone() for k, v in params0.items()}
+            return params, bfopt.init_distributed(strat, params)
+
+        def build(strat):
+            # one untimed warm-up call, then the start state again (the
+            # step updates its params and state in place)
+            step = bfopt.make_train_step(grad_fn, strat)
+            step(*fresh(strat), batch)
+            return (step, *fresh(strat))
+
+        def consensus_max(p):
+            return float(bfdiag.consensus_distance(p).max())
+
+        # unthrottled tick time on this device -> the injected delay
+        step, params, state = build(
+            bfopt.async_window_gossip(opt, sched, staleness_bound=0))
+        initial = consensus_max(params)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            hard_sync(params)
+            times.append(time.perf_counter() - t0)
+        base = float(np.median(times))
+        throttle_s = max((factor - 1) * base, 0.02)
+        target = args.target_ratio * initial
+
+        def run_arm(strat, straggler_sleeps: bool):
+            step, params, state = build(strat)
+            wall, ticks, forced, stale_max = 0.0, 0, 0, 0
+            stall_next = False
+            while ticks < args.max_ticks:
+                t0 = time.perf_counter()
+                if straggler_sleeps and stall_next:
+                    # the fleet blocks on the straggler finishing its step
+                    # before the forced sync-up tick can run
+                    time.sleep(throttle_s)
+                    forced += 1
+                params, state, _ = step(params, state, batch)
+                hard_sync(params)
+                wall += time.perf_counter() - t0
+                ticks += 1
+                if straggler_sleeps:
+                    cs = state.comm_state
+                    stall_next = bool(cs.force.any())
+                    stale_max = max(stale_max, int(cs.depth.max()))
+                if consensus_max(params) <= target:
+                    break
+            return {"ticks": ticks, "wall_s": round(wall, 6),
+                    "reached_target": consensus_max(params) <= target,
+                    **({"forced_syncs": forced, "staleness_max": stale_max}
+                       if straggler_sleeps else {})}
+
+        # sync arm: lockstep, the chaos throttle charges the straggler's
+        # delay to every tick (the whole fleet waits at the barrier)
+        chaos.install(f"throttle:from=1,t={throttle_s},rank={rank}")
+        try:
+            sync_row = run_arm(
+                bfopt.async_window_gossip(opt, sched, staleness_bound=0),
+                straggler_sleeps=False)
+        finally:
+            chaos.uninstall()
+
+        # async arm: the straggler completes a step every `factor` ticks
+        # (pace table); the fleet sleeps only before forced sync-ups
+        pace = [factor if r == rank else 1 for r in range(n)]
+        async_row = run_arm(
+            bfopt.async_window_gossip(opt, sched, staleness_bound=bound,
+                                      pace=pace),
+            straggler_sleeps=True)
+    finally:
+        bf.shutdown()
+
+    speedup = sync_row["wall_s"] / max(async_row["wall_s"], 1e-9)
+    report = {
+        "schema": "bluefog-gossip-async-1",
+        "n": n, "topology": f"expo2({n})", "params": args.params,
+        "staleness_bound": bound, "target_ratio": args.target_ratio,
+        "base_tick_s": round(base, 6),
+        "throttle": {"rank": rank, "factor": factor,
+                     "t_s": round(throttle_s, 6)},
+        "sync": sync_row, "async": async_row,
+        "speedup": round(speedup, 3),
+        "won": bool(async_row["wall_s"] < sync_row["wall_s"]
+                    and async_row["reached_target"]
+                    and sync_row["reached_target"]),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else str(dev)),
+    }
+    print(f"async frontier: expo2({n}), {args.params} f32/rank, rank {rank} "
+          f"throttled {factor}x ({throttle_s * 1e3:.0f} ms/tick), "
+          f"staleness bound {bound}, target {args.target_ratio:.2f}x initial "
+          f"consensus:")
+    print(f"{'arm':>8} {'ticks':>6} {'wall s':>8} {'forced':>7} "
+          f"{'max stale':>10}")
+    print(f"{'sync':>8} {sync_row['ticks']:>6} {sync_row['wall_s']:>8.3f} "
+          f"{'-':>7} {'-':>10}")
+    print(f"{'async':>8} {async_row['ticks']:>6} "
+          f"{async_row['wall_s']:>8.3f} {async_row['forced_syncs']:>7} "
+          f"{async_row['staleness_max']:>10}")
+    print(f"async-to-consensus is {speedup:.2f}x "
+          f"{'faster' if report['won'] else 'SLOWER'} than sync under a "
+          f"{factor}x straggler")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"wrote {args.out}")
+    return report
+
+
 def run(args) -> dict:
     """The chosen mode; returns its rows (or the frontier report)."""
     if args.async_frontier:
-        raise SystemExit(
-            "--async-frontier charges the straggler's delay to the "
-            "synchronous arm through utils/chaos.py's throttle fault, which "
-            "is not ported yet (ROADMAP queue 1, item 8: the host runtime)")
+        return async_frontier(args)
     if args.frontier:
         return frontier(args)
     from ..device import resolve_device

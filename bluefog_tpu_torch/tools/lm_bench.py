@@ -40,21 +40,36 @@ Run:    python -m bluefog_tpu_torch.tools.lm_bench [--pp 2 --tp 2 | --sp 2]
 Smoke:  python -m bluefog_tpu_torch.tools.lm_bench --device cpu [--moe
         [--dropless [--router expert_choice]] [--ep 2]]
 
+``--chaos 'throttle:from=2,until=99,t=0.05,rank=5'`` installs a chaos
+plan (``utils/chaos.py``) for the live run and ``--flight-dir DIR``
+dumps the flight bundle there after it (``flight_rank0.json``, the
+``flight_bundle`` key), as in the JAX tool: ``tools/postmortem.py`` must
+blame the throttled rank.  With either one the tool initializes the
+context over every stacked peer (``dp x pp x tp x sp x ep`` ranks) and
+runs the step wrapper's consensus probe every 2 calls (JAX's
+``metrics_every_k=2``), which carries the per-rank step-time table into
+the flight ring; ``--chaos`` adds the ``straggler`` block
+(``detected_ranks``, ``step_times_s``).  Without them no probe runs (the
+JAX tool probes always; here the probe's flat copy of every peer's
+params would not fit beside the MoE trainer at its full width).
+
 Left out of the JAX tool (XLA features or later slices): the StableHLO
-wire sweep, the profiler-trace overlap grading, chaos, the flight
-recorder, the retrace sentinel, and in the ``moe`` block ``dot_flops``'s
-StableHLO dot counts (its analytic rows are kept as ``rows_per_device``)
-and ``per_step_s_capacity`` (the timed capacity twin): both stay null.
+wire sweep, the profiler-trace overlap grading, the retrace sentinel,
+and in the ``moe`` block ``dot_flops``'s StableHLO dot counts (its
+analytic rows are kept as ``rows_per_device``) and
+``per_step_s_capacity`` (the timed capacity twin): both stay null.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import torch
 
+from .. import diagnostics as bfdiag
 from .. import optimizers as bfopt
 from ..device import resolve_device
 from ..moe import model as moe_model
@@ -115,6 +130,11 @@ def _parse(argv=None):
     ap.add_argument("--pallas", action="store_true",
                     help="flash attention on the CPU too (the kernels' "
                          "plain versions); on CUDA it always runs")
+    ap.add_argument("--chaos", default=None,
+                    help="BLUEFOG_CHAOS plan for the live run, e.g. "
+                         "'throttle:from=2,until=99,t=0.05,rank=5'")
+    ap.add_argument("--flight-dir", default=None,
+                    help="dump the flight bundle here after the run")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda); 'cpu' implies the "
                          "smoke shape")
@@ -198,10 +218,19 @@ def main(argv=None) -> dict:
         grad_fn = compose.make_lm_grad_fn(cfg, m, use_pallas=args.pallas)
         params = compose.init_lm_train_params(cfg, m)
         toks = compose.make_lm_batch(cfg, m)
+    probe = bool(args.chaos or args.flight_dir)
+    if probe:
+        # the probe and the step-time table run over every stacked peer
+        from ..parallel import context as _ctx
+        _ctx.init(size=m.dp * m.slice_size, device=dev)
     step, strategy = compose.make_train_step(
         m, grad_fn, bfopt.adam(5e-3), delayed=not args.no_delayed,
-        steps_per_call=steps_per_call, reuse_batch=steps_per_call > 1)
+        steps_per_call=steps_per_call, reuse_batch=steps_per_call > 1,
+        metrics_every_k=2 if probe else None, metrics_warmup=2)
     state = bfopt.init_distributed(strategy, params)
+    if args.chaos:
+        from ..utils import chaos as bfchaos
+        bfchaos.install(args.chaos)
 
     def sync():
         if m.device.type == "cuda":
@@ -258,6 +287,9 @@ def main(argv=None) -> dict:
                         if on_card else None)},
         "losses": [losses[0], losses[-1]],
         "loss_decreased": losses[-1] < losses[0],
+        "chaos": args.chaos,
+        "straggler": None,
+        "flight_bundle": None,
         "moe": None,
     }
     doc["ok"] = bool(doc["loss_decreased"])
@@ -288,6 +320,24 @@ def main(argv=None) -> dict:
             # drop-free by construction: a nonzero value is a bug
             doc["ok"] = bool(doc["ok"]
                              and health["dropped_fraction"] == 0.0)
+    if args.chaos:
+        from ..utils import chaos as bfchaos
+        bfchaos.uninstall()
+        table = bfdiag.last_step_times()
+        doc["straggler"] = {
+            "detected_ranks": [int(r) for r in bfdiag.detect_stragglers()],
+            "step_times_s": ([round(float(t), 4) for t in table]
+                             if table is not None else None),
+        }
+    if args.flight_dir:
+        from ..utils import flight as bfflight
+        os.makedirs(args.flight_dir, exist_ok=True)
+        doc["flight_bundle"] = bfflight.dump(
+            os.path.join(args.flight_dir, "flight_rank0.json"),
+            reason="lm_bench")
+    if probe:
+        from ..parallel import context as _ctx
+        _ctx.shutdown()
     print(json.dumps(doc), flush=True)
     return doc
 

@@ -186,9 +186,8 @@ def _rank() -> int:
 
 
 def _topology_block() -> Optional[dict]:
-    """Topology state, when the context is initialized.  Guarded on the
-    context module already being loaded.  The port has no resilience
-    layer yet, so no rank is dead or retired and nothing is healed."""
+    """Topology and healed-schedule state, when the context is
+    initialized.  Guarded on the modules already being loaded."""
     ctx_mod = sys.modules.get("bluefog_tpu_torch.parallel.context")
     if ctx_mod is None or not ctx_mod.is_initialized():
         return None
@@ -202,8 +201,13 @@ def _topology_block() -> Optional[dict]:
                                    for s in sched.in_neighbors]
         except RuntimeError:
             out["in_neighbors"] = None
-        out["dead_ranks"] = []
-        out["healed"] = False
+        res = sys.modules.get("bluefog_tpu_torch.resilience")
+        dead = tuple(res.dead_ranks()) if res is not None else ()
+        retired = tuple(res.retired_ranks()) if res is not None else ()
+        out["dead_ranks"] = list(dead)
+        if retired:
+            out["retired_ranks"] = list(retired)
+        out["healed"] = bool(dead or retired)
     except Exception as e:                                # pragma: no cover
         return {"error": f"{type(e).__name__}: {e}"[:200]}
     return out

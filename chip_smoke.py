@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. environment: the card's name and power limit, torch and CUDA
    versions, and the builds of ``csrc/flash_decode.cu``,
    ``csrc/flash_attention.cu`` and ``csrc/grouped_ffn.cu`` by nvcc (one
-   process each, in parallel);
+   process each, in parallel), while phases 14, 15 and 20, which launch
+   none of these kernels, run on the card;
 2. flash decode (K3) against its plain PyTorch version on the card at
    full-width shapes (S in {1, 8}, 16 q heads over 16 or 4 kv heads,
    head_dim 64, max_len 1024, block_k 128, T in {1, 4}; f32, bf16, int8
@@ -246,8 +247,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    experts; every tp/ep peer of a tick in one dispatch and one K4 call,
    each owner's buffer sized for 16,384 rows of which ~8,192 are real,
    the rest trash tiles that K4 skips) and its ep-1 twin at dp 2, seed 0,
-   Exp2 gossip, delayed AWC, Adam 5e-3; 1 warm-up and 2 timed steps each
-   (3 timed before phases 18-19 came: the cut keeps the script's time).
+   Exp2 gossip, delayed AWC, Adam 5e-3; 1 warm-up and 1 timed step each
+   (3 timed before phases 18-19 came, 2 before phase 21: the cuts keep
+   the script's time).
    K1, K2, K4's forward, plan, dgrad and wgrad must each launch dp x
    micro x layers = 32 times a step in both runs; the loss must fall and
    the probe drop none; step 1's loss must equal the twin's (rtol 1e-5),
@@ -269,7 +271,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    that call timed cold with them marked against clamped onto a real
    expert (the evidence that K4 spends no time on them);
 12d. capacity dispatch (capacity factor 1.25) and expert choice at dp 2
-   x ep 2, phase 12b's widths, 1 warm-up and 2 timed steps each: K1/K2
+   x ep 2, phase 12b's widths, 1 warm-up and 1 timed step each (2 timed
+   before phase 21 came): K1/K2
    launch dp x micro x layers times a step and K4 never; the loss falls;
    step 1 replayed through plain K1/K2 has the same loss (rtol 1e-5;
    flips only at near ties by 12c's rule, then the routing forced); capacity: dropped_fraction in [0,
@@ -305,7 +308,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    few (the gates of ``bluefog_tpu_torch/tools/resnet_parity.py``; a
    ``resnet_parity`` line).
    14b: the bench's card defaults at 1
-   rank (batch 64, 5 steps a call, 1 warm-up and 10 timed calls): the
+   rank (batch 64, 5 steps a call, 1 warm-up and 2 timed calls, the
+   tool's 10 cut to make room for phase 21): the
    loss finite and falling (a ``bench`` line; ``--profile`` adds
    ``profile_resnet`` lines: one call's device time by operator class and
    the busy share, with the port's BatchNorm and with PyTorch's fused
@@ -322,7 +326,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the CPU: payloads, scales and decodes bit-identical, the subnormal
    row's scale alone free, the quantizers storing zeros for it (a
    ``codec_parity`` line).  15b: the example's ``--model mlp`` at 8
-   ranks, seeded rank-varying data, 5 steps of each of 15 variants
+   ranks, seeded rank-varying data, 3 steps (5 before phase 21) of each of
+   15 variants
    (neighbor_allreduce AWC / ATC / dynamic / bf16 / int8 wire,
    gradient_allreduce, allreduce, empty, hierarchical, win_put,
    pull_get, push_sum, choco, zero_allreduce, powersgd) on the card
@@ -334,7 +339,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``bluefog_tpu_torch/tools/strategy_parity.py``).  15c: the example at
    its defaults (ResNet-50, 224 x 224, 1000 classes, batch 32 a rank,
    SGD 0.01 momentum 0.9, 8 stacked ranks on weighted Exp2), 1 warm-up
-   and 10 timed steps for the default variant and 3 for the 14 others:
+   and 3 timed steps for the default variant and 1 for the 14 others
+   (10 and 3 before phase 21):
    the loss finite and falling, every rank's parameters equal within
    1e-5 x max|param| (same start, same data); one
    ``benchmark_strategy`` line a variant (img/s, s/step, peak memory,
@@ -373,8 +379,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    layers / pp x steps, moe_lm 36 visible ring blocks a step, moe none)
    and K4 none (an ``examples_moe`` line);
 18. the pipeline schedules (``parallel/pipeline.py``, no K1-K4): (a)
-   ``examples/pipeline_lm`` at the JAX example's defaults in each mode
-   (GPipe, ``--remat``, ``--interleaved 2 --micro 4``, ``--hetero``),
+   ``examples/pipeline_lm`` at the JAX example's defaults but 50 steps
+   (100 before phase 21) in each mode (GPipe, ``--remat``, ``--interleaved
+   2 --micro 4``, ``--hetero``),
    each through its ``main``, which asserts that the loss fell (first and
    last loss, seconds); (b) the example's decoder block at lm_bench's
    widths (d_model 1024, 16 heads, seq 2048, batch 2, 4 stages, 8
@@ -409,7 +416,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (a) exact diffusion, gradient tracking, push-DIGing, async window
    gossip at K 0 and at K 2 with rank 3 at pace 3, ZeRO with
    hierarchical gossip, and the stateful step with neighbor and
-   allreduce state sync, 5 steps each on strategy_bench's MLP (512 ->
+   allreduce state sync, 2 steps each (5 before phase 21) on
+   strategy_bench's MLP (512 ->
    1024 -> 512 -> 10) with rank-varying data: each leaf within 1e-5 x
    max|leaf| of a CPU float64 run or twice the CPU f32 run's distance
    from it, the async mass summing to n within 1e-6 x n, and the named
@@ -425,6 +433,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    timed steps: finite loss and statistics, the mass n (a
    ``stateful_resnet`` line).  K1-K4 launch counts over phase 20 must be
    0.
+21. the host runtime (a ``host_runtime`` line a leg), through lm_bench's
+   dense trainer at its full width (vocab 32768, d_model 1024, 16 heads,
+   2 layers, seq 2048, micro 4, batch 4, f32, dp 4, Exp2 gossip, delayed
+   AWC, Adam): the native helpers loaded, the loader's batches through
+   pinned buffers equal to its host batches, and the native row gather
+   timed against numpy's at the examples' batches; (a) ``tools/lm_bench``
+   under ``throttle:from=2,until=99,t=0.2,rank=2`` and under a throttle
+   of twice the step (``--flight-dir``; 6 and 3 timed steps; the
+   unthrottled step from the other ranks' entries): rank 2 the slowest,
+   tools/postmortem.py's skew
+   within 25 % of the throttle from step 2, the second throttle blamed,
+   K1/K2 on one captured launch against their plain versions; (b)
+   ``nan:step=3,rank=1`` under ``guard_step``: rolled back in place, the
+   state after 5 calls equal to 4 unfaulted steps; (c) gossip_bench's
+   [8, 2^20] buffer: a chaos kill, ``mark_rank_dead``, monotone
+   contraction, a chaos join with a warmup ramp (no kernel); (d)
+   ``checkpoint.save`` resumed into a fresh trainer, which saves again
+   through ``AsyncSaver`` during its next steps, that checkpoint resumed
+   into a third: each equal to the uninterrupted run bit for bit; (e)
+   ``BLUEFOG_TIMELINE``
+   (native writer, device trace, tools/timeline_merge.py) and the
+   watchdog's timeout naming the last flight event; (f) the mnist,
+   resnet (resumed once) and elastic_restart examples at their defaults.
+   K1/K2 launch counts are each run's formula, and the kernels line sums
+   the counts read after each run; no K3/K4.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3432,7 +3465,7 @@ def moe_ep_phase(fa, gf, layers_mod, smi):
     replay, the probe, K4's device ms per step and the trash tiles."""
     from bluefog_tpu_torch.parallel import compose
     cfg = _moe_cfg()
-    steps = 3
+    steps = 2                 # 1 warm-up + 1 timed (see the docstring)
     out = {}
     cap = {}
     orig = gf.grouped_ffn
@@ -3592,7 +3625,7 @@ def moe_route_phase(fa, gf, layers_mod, smi, tag, **kw):
     m = compose.compose_parallelism(2, 1, 1, 1, 2, device=DEV,
                                     num_experts=cfg.num_experts,
                                     capacity_factor=cfg.capacity_factor)
-    steps = 3
+    steps = 2                 # 1 warm-up + 1 timed (2 before phase 21)
     run = _MoERun(fa, gf, layers_mod, cfg, m, steps)
     want = m.dp * cfg.micro * cfg.layers * steps
     k1k2 = (run.launches["flash_fwd"], run.launches["flash_bwd"])
@@ -3801,6 +3834,10 @@ def _grad_gap(got, want):
             for k in want}
 
 
+# 18a's steps a mode (the example's 100, cut to make room for phase 21)
+PIPE_EXAMPLE_STEPS = ["--steps", "50"]
+
+
 def pipeline_examples():
     """Phase 18a: ``pipeline_lm`` in each mode through its ``main``."""
     from bluefog_tpu_torch.examples import pipeline_lm as plm
@@ -3809,6 +3846,7 @@ def pipeline_examples():
                       ("interleaved", ["--interleaved", "2", "--micro",
                                        "4"]),
                       ("hetero", ["--hetero"])):
+        argv = argv + PIPE_EXAMPLE_STEPS
         t0 = time.monotonic()
         steps, last = _example_losses(plm, argv + ["--device", DEV])
         torch.cuda.synchronize()
@@ -4099,6 +4137,9 @@ def stateful_resnet_phase(smi):
         torch.cuda.empty_cache()
 
 
+REST_PARITY_STEPS = 2         # 20a's steps (5 before phase 21 came)
+
+
 def core_rest_phase(fa, gf, fd, smi):
     """Phase 20 (no K1-K4): 20a the new strategies, the stateful step and
     the named windows on the card against the CPU; 20b
@@ -4120,7 +4161,7 @@ def core_rest_phase(fa, gf, fd, smi):
         _launch_counts(fa, gf, reset=True)
         fd.flash_decode_cuda.launches = 0
         t0 = time.monotonic()
-        parity = sp.rest_parity(DEV)
+        parity = sp.rest_parity(DEV, steps=REST_PARITY_STEPS)
         windows = sp.window_parity(DEV)
         parity.update(windows=windows, nvidia_smi=smi)
         print("strategy_parity_rest " + json.dumps(sp.flat_summary(parity)),
@@ -4167,9 +4208,669 @@ def core_rest_phase(fa, gf, fd, smi):
     return launches, seconds, resnet
 
 
+# -- phase 21: the host runtime ---------------------------------------------
+
+HR_DP = 4                     # lm_bench's dense trainer over 4 replicas
+HR_T = 0.2                    # the throttle of 21a's first run (s a step)
+
+
+def _hr_trainer(seed=0):
+    """lm_bench's dense trainer at its full width (vocab 32768, d_model
+    1024, 16 heads, 2 layers, seq 2048, micro 4, batch 4, f32) over dp 4
+    stacked replicas: Exp2 gossip, delayed AWC, Adam at 5e-3, attention
+    through K1/K2.  Returns (per-step K1 launches, step, params, state,
+    tokens)."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.parallel import compose
+    cfg = compose.LMConfig(vocab=32768, d_model=1024, heads=16, layers=2,
+                           seq_len=2048, micro=4, batch=4)
+    m = compose.compose_parallelism(HR_DP, device=DEV)
+    step, strategy = compose.make_train_step(
+        m, compose.make_lm_grad_fn(cfg, m, use_pallas=True),
+        bfopt.adam(5e-3), delayed=True)
+    params = compose.init_lm_train_params(cfg, m, seed=seed)
+    state = bfopt.init_distributed(strategy, params)
+    toks = compose.make_lm_batch(cfg, m, seed=seed)
+    return m.dp * cfg.micro * cfg.layers, step, params, state, toks
+
+
+def _hr_counts(fa, gf, tag, want):
+    """The K1-K4 counts since the last reset: K1 and K2 ``want`` each,
+    K4 and its backward none."""
+    n = _launch_counts(fa, gf)
+    if (n["flash_fwd"], n["flash_bwd"]) != (want, want) or any(
+            v for k, v in n.items() if k not in ("flash_fwd", "flash_bwd")):
+        raise AssertionError(f"{tag}: kernel launches {n}, want flash_fwd "
+                             f"and flash_bwd {want} each and no K4")
+    return n
+
+
+def _hr_same(tag, got, want):
+    """Every tensor of two trainers' outputs (params, optimizer state,
+    delayed carry, loss): the count, and the largest difference."""
+    from bluefog_tpu_torch.utils.snapshot import live_tensors
+    a, b = live_tensors(got), live_tensors(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} tensors against {len(b)}")
+    return len(a), max(float((x.double() - y.double()).abs().max())
+                       for x, y in zip(a, b))
+
+
+def _hr_straggler(fa, gf, smi, scratch, seen):
+    """21a: tools/lm_bench at its full width (dp 4, 2 warm-up steps, then
+    6 timed steps under ``throttle:from=2,until=99,t=0.2,rank=2``, and 3
+    under a throttle of twice the others' step in that run, rounded up to
+    0.1 s): the detector's rule (a rank over 2x the median) calls a rank
+    a straggler only when its delay exceeds the others' whole step, which
+    0.2 s does not at this width.  The unthrottled step is the other
+    ranks' entry of each run's table (the host's wall time less the
+    ledger's sleep).  Each run's K1/K2 counts are the formula's; rank 2's
+    time is the table's largest; tools/postmortem.py, run as a subprocess
+    on the flight bundle, finds the skew within 25 % of the throttle and
+    the first chaos event at step 2 on rank 2; the second throttle is
+    also blamed (``detected_ranks`` [2], postmortem's ``straggler_rank``
+    2)."""
+    import io
+    from bluefog_tpu_torch.tools import lm_bench
+    from bluefog_tpu_torch.utils import flight
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--dp", str(HR_DP), "--pp", "1", "--tp", "1", "--layers", "2",
+            "--micro", "4", "--steps-per-call", "1"]
+    per_step = HR_DP * 4 * 2
+    rows = {}
+
+    def run(tag, t, iters):
+        extra = ["--iters", str(iters),
+                 "--chaos", f"throttle:from=2,until=99,t={t},rank=2",
+                 "--flight-dir", os.path.join(scratch, tag)]
+        flight.reset()
+        _launch_counts(fa, gf, reset=True)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            doc = lm_bench.main(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        n = _hr_counts(fa, gf, f"21a {tag}", per_step * (2 + iters))
+        if not doc["ok"]:
+            raise AssertionError(f"21a {tag}: lm_bench not ok: "
+                                 f"{doc['losses']}")
+        table = doc["straggler"]["step_times_s"]
+        row = {"per_step_s": doc["per_step_s"],
+               "unthrottled_step_s": float(np.median(
+                   [x for r, x in enumerate(table) if r != 2])),
+               "losses": doc["losses"], "peak_mem_gb": doc["peak_mem_gb"],
+               "seconds": seconds, "timed_steps": iters,
+               "flash_launches": n["flash_fwd"]}
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "postmortem.py"),
+             doc["flight_bundle"]], capture_output=True, text=True,
+            timeout=300, cwd=root)
+        if proc.returncode != 0:
+            raise AssertionError(f"21a {tag}: postmortem failed: "
+                                 f"{proc.stderr[-2000:]}")
+        pm = json.loads(proc.stdout)
+        with open(doc["flight_bundle"]) as f:
+            chaos_ev = [e for e in json.load(f)["events"]
+                        if e.get("kind") == "chaos"]
+        row.update(throttle_s=t, step_times_s=table,
+                   detected_ranks=doc["straggler"]["detected_ranks"],
+                   postmortem_step_time=pm["step_time"],
+                   chaos_onset_step=min(e["step"] for e in chaos_ev),
+                   chaos_ranks=sorted({e["rank"] for e in chaos_ev}))
+        if not (len(table) == HR_DP and max(table) == table[2]
+                and sorted(table)[-2] < table[2]):
+            raise AssertionError(f"21a {tag}: rank 2 is not the slowest: "
+                                 f"{table}")
+        skew = pm["step_time"]["skew_s"]
+        if abs(skew - t) > 0.25 * t:
+            raise AssertionError(f"21a {tag}: postmortem skew {skew} s is "
+                                 f"not within 25 % of the throttle {t} s")
+        if row["chaos_onset_step"] != 2 or row["chaos_ranks"] != [2]:
+            raise AssertionError(f"21a {tag}: chaos events from step "
+                                 f"{row['chaos_onset_step']} on ranks "
+                                 f"{row['chaos_ranks']}, want 2 and [2]")
+        return row
+
+    with mock.patch.object(
+            fa, "attention_block_partial",
+            _capture_copy(seen, "k1", fa.attention_block_partial)), \
+            mock.patch.object(
+                fa, "attention_block_backward",
+                _capture_copy(seen, "k2", fa.attention_block_backward)):
+        rows["throttle_0.2"] = run("throttle_0.2", HR_T, 6)
+        base = rows["throttle_0.2"]["unthrottled_step_s"]
+        big = float(np.ceil(20 * base) / 10)
+        rows["throttle_2x"] = run("throttle_2x", big, 3)
+    blamed = rows["throttle_2x"]
+    if blamed["detected_ranks"] != [2] or \
+            blamed["postmortem_step_time"]["straggler_rank"] != 2:
+        raise AssertionError(
+            f"21a: a {big} s throttle on rank 2 (its step {base} s) was "
+            f"not blamed: detected {blamed['detected_ranks']}, postmortem "
+            f"{blamed['postmortem_step_time']}; {rows}")
+    rows["kernels"] = _k12_checks("host_runtime", fa, seen)
+    return rows
+
+
+def _hr_guard(fa, gf, smi):
+    """21b: ``nan:step=3,rank=1`` on the same trainer under
+    ``guard_step(check_every_k=1, depth=2)``, 5 calls: call 3 is skipped
+    and rolled back in place (one non-finite step, one rollback, rank 1's
+    last bad step 3), every loss finite, and the state after the 5 calls
+    equal to an unfaulted run of 4 steps from the same init (lm_bench
+    feeds one batch every step): bit for bit, or, if it is not, within
+    twice the distance between two unfaulted runs.  Also the guard's cost
+    a step on this state: the finite check and the snapshot copy."""
+    from bluefog_tpu_torch import diagnostics, resilience
+    from bluefog_tpu_torch.parallel import context as bf
+    from bluefog_tpu_torch.utils import chaos
+    from bluefog_tpu_torch.utils.snapshot import live_tensors
+    bf.init(size=HR_DP, device=DEV)
+    try:
+        per_step, step, params, state, toks = _hr_trainer()
+        guard = resilience.guard_step(step, check_every_k=1, depth=2)
+        chaos.install("nan:step=3,rank=1")
+        _launch_counts(fa, gf, reset=True)
+        losses = []
+        t0 = time.monotonic()
+        try:
+            for _ in range(5):
+                params, state, loss = guard(params, state, toks)
+                losses.append(loss.tolist())
+        finally:
+            chaos.uninstall()
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = _hr_counts(fa, gf, "21b guarded", 5 * per_step)[
+            "flash_fwd"]
+        health = diagnostics.peer_health()
+        if (guard.calls, guard.nonfinite_steps, guard.rollbacks) != (5, 1, 1) \
+                or health["last_bad_step"] != {1: 3}:
+            raise AssertionError(
+                f"21b: calls {guard.calls}, non-finite steps "
+                f"{guard.nonfinite_steps}, rollbacks {guard.rollbacks}, "
+                f"health {health}; want 5, 1, 1 and rank 1 bad at call 3")
+        if not np.isfinite(np.array(losses)).all():
+            raise AssertionError(f"21b: a non-finite loss: {losses}")
+        out = (params, state, loss)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        diagnostics.check_finite(out)
+        check_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        guard._snapshot(out)
+        snapshot_s = time.monotonic() - t0
+        snap_bytes = sum(t.numel() * t.element_size()
+                         for t in live_tensors(out))
+
+        def unfaulted():
+            _, stp, p, s, tk = _hr_trainer()
+            for _ in range(4):
+                p, s, ls = stp(p, s, tk)
+            return p, s, ls
+
+        _launch_counts(fa, gf, reset=True)
+        ref = unfaulted()
+        torch.cuda.synchronize()
+        launches += _hr_counts(fa, gf, "21b unfaulted", 4 * per_step)[
+            "flash_fwd"]
+        n_t, diff = _hr_same("21b", out, ref)
+        floor = None
+        if diff:
+            _launch_counts(fa, gf, reset=True)
+            again = unfaulted()
+            torch.cuda.synchronize()
+            launches += _hr_counts(fa, gf, "21b floor", 4 * per_step)[
+                "flash_fwd"]
+            floor = _hr_same("21b floor", again, ref)[1]
+            del again
+            if diff > 2 * floor:
+                raise AssertionError(
+                    f"21b: the rolled-back run differs from the unfaulted "
+                    f"one by {diff}, over twice two unfaulted runs' {floor}")
+        del ref, out, params, state, guard
+    finally:
+        bf.shutdown()
+    return {"losses_mean": [float(np.mean(x)) for x in losses],
+            "nonfinite_steps": 1, "rollbacks": 1, "tensors": n_t,
+            "max_abs_diff_vs_unfaulted": diff,
+            "bit_for_bit": diff == 0.0, "reproducibility_floor": floor,
+            "guard_check_ms": check_s * 1e3,
+            "guard_snapshot_ms": snapshot_s * 1e3,
+            "snapshot_bytes": snap_bytes, "seconds_5_calls": seconds,
+            "flash_launches": launches}
+
+
+def _hr_heal(smi):
+    """21c (no kernel): gossip_bench's [8, 2^20] f32 buffer over weighted
+    Exp2, pure gossip (SGD at lr 0 under AWC): a chaos ``kill`` of rank 3
+    at step 2, ``mark_rank_dead(3)``; then 8 steps on the healed schedule,
+    the survivors' consensus distance falling monotonically to under 5 %;
+    then a chaos ``join:step=1,rank=3,warmup=2`` (the neighbor-pull
+    bootstrap from >= 2 live donors, admission at 1/3 of its weight), and
+    6 steps with ``advance_membership`` each, all 8 contracting
+    monotonically through the ramp (1/3 -> 2/3 -> 1)."""
+    from bluefog_tpu_torch import diagnostics, resilience
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch import topology as tu
+    from bluefog_tpu_torch.parallel import context as bf
+    from bluefog_tpu_torch.utils import chaos, flight
+    n = 8
+    bf.init(size=n, device=DEV)
+    resilience.reset()
+    try:
+        bf.set_topology(tu.ExponentialTwoGraph(n), is_weighted=True)
+        g = torch.Generator().manual_seed(0)
+        params = {"w": torch.randn(n, 1 << 20, generator=g).to(DEV)}
+        batch = torch.zeros((n, 1), device=DEV)
+
+        def zero_grad(p, b):
+            return torch.zeros((), device=DEV), {"w": torch.zeros_like(
+                p["w"])}
+
+        def setup():
+            strat = bfopt.adapt_with_combine(
+                bfopt.sgd(0.0),
+                bfopt.neighbor_communicator(bf.static_schedule()))
+            return (bfopt.make_train_step(zero_grad, strat),
+                    bfopt.init_distributed(strat, params))
+
+        def dist(dead=()):
+            return diagnostics.diagnose_consensus(
+                params, dead_ranks=dead)["consensus_distance_max"]
+
+        chaos.install("kill:step=2,rank=3")
+        step, state = setup()
+        try:
+            params, state, _ = step(params, state, batch)
+            step(params, state, batch)
+            raise AssertionError("21c: the chaos kill of rank 3 did not fire")
+        except chaos.RankKilled as e:
+            killed = e.rank
+        finally:
+            chaos.uninstall()
+        resilience.mark_rank_dead(killed)
+        step, state = setup()
+        t0 = time.monotonic()
+        healed = [dist((3,))]
+        for _ in range(8):
+            params, state, _ = step(params, state, batch)
+            healed.append(dist((3,)))
+        heal_s = time.monotonic() - t0
+        if not (all(b <= a * (1 + 1e-6) for a, b in zip(healed,
+                                                         healed[1:]))
+                and healed[-1] < 0.05 * healed[0]):
+            raise AssertionError(f"21c: the survivors did not contract "
+                                 f"monotonically: {healed}")
+        chaos.install("join:step=1,rank=3,warmup=2")
+        step, state = setup()
+        try:
+            params, state, _ = step(params, state, batch)
+        finally:
+            chaos.uninstall()
+        boots = [e for e in flight.events()
+                 if e["kind"] == "join" and e.get("name") == "bootstrap"]
+        if (resilience.live_ranks() != tuple(range(n))
+                or not boots or boots[-1]["rank"] != 3
+                or len(boots[-1]["donors"]) < 2):
+            raise AssertionError(f"21c: the join did not run: live "
+                                 f"{resilience.live_ranks()}, {boots}")
+        step, state = setup()
+        joined, ramp = [dist()], []
+        for _ in range(6):
+            params, state, _ = step(params, state, batch)
+            info = resilience.advance_membership()
+            ramp.append(info["warming"].get(3, 1.0))
+            if info["changed"]:
+                step, state = setup()
+            joined.append(dist())
+        if not (all(b <= a * (1 + 1e-6) for a, b in zip(joined,
+                                                         joined[1:]))
+                and joined[-1] < joined[0]):
+            raise AssertionError(f"21c: the joined ranks did not contract "
+                                 f"monotonically: {joined}")
+    finally:
+        resilience.reset()
+        bf.shutdown()
+    return {"killed": killed, "healed_distance": healed,
+            "heal_8_steps_s": heal_s, "joined_distance": joined,
+            "warmup_ramp": ramp, "donors": boots[-1]["donors"]}
+
+
+def _hr_checkpoint(fa, gf, smi):
+    """21d: the trainer at full width, 2 steps, ``checkpoint.save``
+    (``keep=1``), 2 more (the uninterrupted run).  A fresh trainer (seed
+    1) restored from the checkpoint saves its state again through
+    ``AsyncSaver``, whose write overlaps its next 2 steps: they equal the
+    uninterrupted run; a third trainer restored from the asynchronous
+    checkpoint and run 2 steps equals it too.  Equality: every tensor bit
+    for bit.  The directories live under a temporary directory and are
+    deleted (one at a time on disk)."""
+    import shutil
+    import tempfile
+    from bluefog_tpu_torch import checkpoint as ckpt
+    from bluefog_tpu_torch.parallel import context as bf
+    tmp = tempfile.mkdtemp(prefix="bf_ckpt_")
+    out = {}
+    bf.init(size=HR_DP, device=DEV)
+    try:
+        _launch_counts(fa, gf, reset=True)
+        per_step, step, params, state, toks = _hr_trainer()
+        for _ in range(2):
+            params, state, loss = step(params, state, toks)
+        torch.cuda.synchronize()
+        d = os.path.join(tmp, "sync")
+        t0 = time.monotonic()
+        path = ckpt.save(d, {"params": params, "state": state}, step=2,
+                         keep=1)
+        out["save_s"] = time.monotonic() - t0
+        out["bytes_on_disk"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        for _ in range(2):
+            params, state, loss = step(params, state, toks)
+        want = (params, state, loss)
+
+        def restored(directory, tag):
+            _, stp, p, s, _ = _hr_trainer(seed=1)     # a fresh trainer
+            t0 = time.monotonic()
+            tree, at = ckpt.restore_latest(
+                directory, template={"params": p, "state": s})
+            if at != 2:
+                raise AssertionError(f"21d {tag}: restored step {at}")
+            return stp, tree["params"], tree["state"], \
+                time.monotonic() - t0
+
+        def same(tag, got):
+            n_t, diff = _hr_same(f"21d {tag}", got, want)
+            if diff:
+                raise AssertionError(f"21d {tag}: the resumed run differs "
+                                     f"from the uninterrupted one by {diff}")
+            return n_t
+
+        stp, p, s, out["restore_s"] = restored(d, "sync")
+        shutil.rmtree(d)
+        d = os.path.join(tmp, "async")
+        with ckpt.AsyncSaver() as saver:
+            t0 = time.monotonic()
+            saver.save(d, {"params": p, "state": s}, step=2)
+            out["async_save_blocking_s"] = time.monotonic() - t0
+            for _ in range(2):                  # overlaps the write
+                p, s, ls = stp(p, s, toks)
+            torch.cuda.synchronize()
+            out["async_steps_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            saver.wait()
+            out["async_wait_s"] = time.monotonic() - t0
+        out["tensors"] = same("sync", (p, s, ls))
+        del stp, p, s, ls
+        stp, p, s, out["async_restore_s"] = restored(d, "async")
+        for _ in range(2):
+            p, s, ls = stp(p, s, toks)
+        same("async", (p, s, ls))
+        torch.cuda.synchronize()
+        out["flash_launches"] = _hr_counts(fa, gf, "21d", 8 * per_step)[
+            "flash_fwd"]
+    finally:
+        bf.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _hr_timeline(fa, gf, smi, scratch):
+    """21e: ``BLUEFOG_TIMELINE`` armed at ``init`` over 2 steps of the
+    trainer and three eager ops: the activities file (through the native
+    writer) holds COMMUNICATE, ADAPT and GRADIENT spans and a span a
+    neighbor_allreduce / allreduce / broadcast call, a ``torch.profiler``
+    device trace with the kernels sits beside it, and
+    tools/timeline_merge.py reads the file.  Then a ``hang`` fault on an
+    eager op and a device spin of ~3 s behind it: the watchdog with a
+    1 s timeout raises a TimeoutError naming the last flight event (the
+    fault)."""
+    from bluefog_tpu_torch import api
+    from bluefog_tpu_torch.parallel import context as bf
+    from bluefog_tpu_torch.utils import chaos
+    from bluefog_tpu_torch.utils import metrics
+    from bluefog_tpu_torch.utils import timeline as tl
+    from bluefog_tpu_torch.utils import watchdog as wd
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(scratch, "timeline", "host_runtime")
+    os.environ[tl.ENV_VAR] = prefix
+    try:
+        bf.init(size=HR_DP, device=DEV)
+    finally:
+        del os.environ[tl.ENV_VAR]
+    out = {}
+    try:
+        if not (tl.active() and tl.native_active()):
+            raise AssertionError("21e: BLUEFOG_TIMELINE did not start the "
+                                 "native timeline writer")
+        _launch_counts(fa, gf, reset=True)
+        per_step, step, params, state, toks = _hr_trainer()
+        t0 = time.monotonic()
+        for _ in range(2):
+            params, state, loss = step(params, state, toks)
+        x = torch.randn(HR_DP, 1 << 20, device=DEV)
+        api.neighbor_allreduce(x)
+        api.allreduce(x)
+        api.broadcast(x, 0)
+        torch.cuda.synchronize()
+        out["traced_s"] = time.monotonic() - t0
+        out["flash_launches"] = _hr_counts(fa, gf, "21e", 2 * per_step)[
+            "flash_fwd"]
+        del params, state, loss, step
+    finally:
+        bf.shutdown()
+    path = prefix + ".activities.json"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    cats = {e["cat"] for e in events}
+    if not ({"COMMUNICATE", "ADAPT", "GRADIENT"} <= names
+            and {"neighbor_allreduce", "allreduce", "broadcast"} <= cats
+            and all(e["ph"] == "X" and e["dur"] >= 0 for e in events)):
+        raise AssertionError(f"21e: timeline spans {sorted(names)}, "
+                             f"categories {sorted(cats)}")
+    dev_path = tl.device_trace_path()
+    with open(dev_path) as f:
+        dev_events = json.load(f)["traceEvents"]
+    kernels = [e for e in dev_events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash" in e.get("name", "")]
+    if not flash:
+        raise AssertionError(f"21e: the device trace {dev_path} holds no "
+                             f"K1/K2 kernel ({len(kernels)} kernels)")
+    merged = os.path.join(scratch, "timeline", "merged.json")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "timeline_merge.py"),
+         merged, path], capture_output=True, text=True, timeout=120)
+    with open(merged) as f:
+        n_merged = len(json.load(f)["traceEvents"])
+    if proc.returncode != 0 or n_merged != len(events) + 1:
+        raise AssertionError(f"21e: timeline_merge: rc {proc.returncode}, "
+                             f"{n_merged} events of {len(events)} + 1: "
+                             f"{proc.stderr[-1000:]}")
+    out.update(spans=len(events), span_names=sorted(names),
+               device_trace_kernels=len(kernels),
+               device_trace_flash_kernels=len(flash),
+               device_trace_mb=os.path.getsize(dev_path) / 2 ** 20)
+
+    bf.init(size=HR_DP, device=DEV)
+    try:
+        x = torch.randn(HR_DP, 1 << 20, device=DEV)
+        chaos.install("hang:op=neighbor_allreduce,call=1,t=0.5")
+        try:
+            y = api.neighbor_allreduce(x)
+        finally:
+            chaos.uninstall()
+        torch.cuda._sleep(6_000_000_000)        # ~3 s of a wedged kernel
+        t0 = time.monotonic()
+        try:
+            wd.synchronize_with_watchdog(y, interval=0.25,
+                                         name="host_runtime_wait",
+                                         timeout=1.0)
+            raise AssertionError("21e: the watchdog did not time out")
+        except TimeoutError as e:
+            msg = str(e)
+        out["watchdog_raised_after_s"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        if "last event: hang:neighbor_allreduce" not in msg:
+            raise AssertionError(f"21e: the watchdog's error does not name "
+                                 f"the last flight event: {msg}")
+        out["watchdog_message"] = msg
+        out["watchdog_timeouts"] = metrics.counter(
+            "bluefog_watchdog_timeouts_total").value(
+                name="host_runtime_wait")
+    finally:
+        bf.shutdown()
+    return out
+
+
+def _hr_examples(fa, gf, smi, scratch):
+    """21f (no kernel): examples/mnist at its defaults (3 epochs, 8 ranks,
+    neighbor_allreduce; it asserts the last steps' loss below the
+    first's), examples/resnet at its defaults (ResNet-18, 5 epochs) in two
+    runs over one ``--checkpoint-dir``, 3 epochs then the resumed 2 (no
+    epoch cut; it asserts finite losses), and examples/elastic_restart at
+    its defaults (it asserts the 4-rank resume within 0.35 of the optimum
+    and the re-seeded rank)."""
+    import io
+    from bluefog_tpu_torch.examples import elastic_restart, mnist, resnet
+    ck = os.path.join(scratch, "resnet_ck")
+    runs = {}
+    for tag, mod, argv in (
+            ("mnist", mnist, []),
+            ("resnet18_epochs_0_3", resnet, ["--checkpoint-dir", ck,
+                                             "--epochs", "3"]),
+            ("resnet18_resumed_3_5", resnet, ["--checkpoint-dir", ck]),
+            ("elastic_restart", elastic_restart, [])):
+        _launch_counts(fa, gf, reset=True)
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        lines = buf.getvalue().strip().splitlines()
+        runs[tag] = {"argv": argv, "seconds": time.monotonic() - t0,
+                     "lines": lines}
+        if rc != 0:
+            raise AssertionError(f"21f {tag}: exit {rc}")
+        _hr_counts(fa, gf, f"21f {tag}", 0)
+    if runs["resnet18_resumed_3_5"]["lines"][0] != "resumed from epoch 3":
+        raise AssertionError(f"21f: resnet did not resume: "
+                             f"{runs['resnet18_resumed_3_5']['lines']}")
+    return runs
+
+
+def _hr_gather(native, reps=200):
+    """The row gather at the examples' batches (8 ranks x 32 rows of
+    mnist's 28x28x1 and resnet's 32x32x3 f32 images, and their int32
+    labels): ``_native.gather_rows_native`` equal to numpy's ``a[idx]``,
+    each timed on the host as the median of ``reps`` calls (us)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for tag, shape in (("mnist_x", (6000, 28, 28, 1)),
+                       ("mnist_y", (6000,)),
+                       ("resnet_x", (2048, 32, 32, 3)),
+                       ("resnet_y", (2048,))):
+        a = (rng.normal(size=shape).astype(np.float32) if len(shape) > 1
+             else rng.integers(0, 10, shape).astype(np.int32))
+        idx = rng.permutation(shape[0])[:8 * 32].reshape(8, 32)
+        if not np.array_equal(native.gather_rows_native(a, idx), a[idx]):
+            raise AssertionError(f"phase 21: the native gather of {tag} "
+                                 f"differs from numpy's")
+        row = {}
+        for name, fn in (("numpy", lambda: a[idx]),
+                         ("native", lambda: native.gather_rows_native(
+                             a, idx))):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            row[name] = float(np.median(ts)) * 1e6
+        out[tag] = row
+    return out
+
+
+def host_runtime_phase(fa, gf, fd, smi):
+    """Phase 21: the host runtime (chaos, healing and rollback,
+    checkpoints, the data pipeline, the timeline and the watchdog, the
+    mnist / resnet / elastic_restart examples) through the dense trainer
+    at lm_bench's full width; a ``host_runtime`` line a leg.  Returns the
+    K1/K2 launches of the phase's runs and each leg's seconds."""
+    import shutil
+    import tempfile
+    from bluefog_tpu_torch import _native
+    from bluefog_tpu_torch.data import ShardedLoader
+    from bluefog_tpu_torch.parallel import context as bf
+    scratch = tempfile.mkdtemp(prefix="bf_host_runtime_")
+    seconds, seen = {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.monotonic()
+        row = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        print("host_runtime " + json.dumps(dict(
+            leg=name, result=row, seconds=seconds[name],
+            device=torch.cuda.get_device_name(0), nvidia_smi=smi)),
+            flush=True)
+        return row
+
+    try:
+        fd.flash_decode_cuda.launches = 0
+        # the native helpers load here; the loader's batches through pinned
+        # buffers and the side stream equal its host batches
+        if not _native.available():
+            raise AssertionError(f"phase 21: the native helpers did not "
+                                 f"load: {_native.build_error()}")
+        bf.init(size=HR_DP, device=DEV)
+        try:
+            rng = np.random.default_rng(0)
+            arrays = [rng.normal(size=(4096, 28, 28, 1)).astype(np.float32),
+                      rng.integers(0, 10, 4096).astype(np.int32)]
+            loader = ShardedLoader(arrays, 32, seed=1)
+            twin = ShardedLoader(arrays, 32, seed=1)
+            t0 = time.monotonic()
+            got = [tuple(t.clone() for t in b) for b in loader]
+            torch.cuda.synchronize()
+            loader_s = time.monotonic() - t0
+            for b, h in zip(got, twin._host_batches()):
+                if not all(t.is_cuda and np.array_equal(t.cpu().numpy(), a)
+                           for t, a in zip(b, h)):
+                    raise AssertionError("phase 21: a prefetched batch "
+                                         "differs from its host batch")
+        finally:
+            bf.shutdown()
+        native = {"library": _native.library_path(),
+                  "loader_batches": len(got), "loader_epoch_s": loader_s,
+                  "gather_us": _hr_gather(_native)}
+        straggler = leg("21a_straggler", _hr_straggler, fa, gf, smi,
+                        scratch, seen)
+        guard = leg("21b_guard", _hr_guard, fa, gf, smi)
+        leg("21c_heal", _hr_heal, smi)
+        ckpt_row = leg("21d_checkpoint", _hr_checkpoint, fa, gf, smi)
+        timeline = leg("21e_timeline_watchdog", _hr_timeline, fa, gf, smi,
+                       scratch)
+        leg("21f_examples", _hr_examples, fa, gf, smi, scratch)
+        native["timeline_native"] = True        # 21e asserted it
+        if fd.flash_decode_cuda.launches:
+            raise AssertionError("phase 21 launched flash_decode")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    flash = (sum(straggler[k]["flash_launches"] for k in (
+        "throttle_0.2", "throttle_2x"))
+        + guard["flash_launches"] + ckpt_row["flash_launches"]
+        + timeline["flash_launches"])
+    print("host_runtime_native " + json.dumps(native), flush=True)
+    return {"flash_fwd": flash, "flash_bwd": flash, "grouped_ffn": 0,
+            "grouped_ffn_dgrad": 0, "grouped_ffn_backward_plan": 0,
+            "flash_decode": 0}, seconds
+
+
 # -- phase 14: the ResNet-50 gossip benchmark --------------------------
 
 RESNET_IMAGES = 4             # 14a's batch
+# 14b / 14c's timed calls (the tool's 10, cut to make room for phase 21)
+RESNET_BENCH_ITERS = ["--iters", "2"]
 
 
 def resnet_parity_phase(smi):
@@ -4399,9 +5100,10 @@ def resnet_phase(fa, gf, fd, smi, profile):
         _launch_counts(fa, gf, reset=True)
         fd.flash_decode_cuda.launches = 0
         parity = resnet_parity_phase(smi)
-        bench1 = resnet_bench_phase(smi, "bench", [])
+        bench1 = resnet_bench_phase(smi, "bench", RESNET_BENCH_ITERS)
         bench4 = resnet_bench_phase(smi, "bench_ranks4",
-                                    ["--ranks", "4", "--batch", "16"])
+                                    ["--ranks", "4", "--batch", "16"]
+                                    + RESNET_BENCH_ITERS)
         launches = dict(_launch_counts(fa, gf),
                         flash_decode=fd.flash_decode_cuda.launches)
         print("resnet_kernel_launches " + json.dumps(launches), flush=True)
@@ -4460,7 +5162,12 @@ def strategy_bench_phase(smi, variant, iters):
     return doc
 
 
-def strategy_phase(fa, gf, fd, smi, default_iters=10, other_iters=3):
+# the depth of phase 15 (cut to make room for phase 21: parity
+# 5 -> 3 steps, the example's timed iterations 10 / 3 -> 3 / 1)
+STRATEGY_PARITY_STEPS = 3
+
+
+def strategy_phase(fa, gf, fd, smi, default_iters=3, other_iters=1):
     """Phase 15: 15a codecs and 15b every strategy (card against CPU),
     15c the example at full width; K1-K4 launch nothing."""
     from bluefog_tpu_torch.tools import strategy_parity as sp
@@ -4474,7 +5181,7 @@ def strategy_phase(fa, gf, fd, smi, default_iters=10, other_iters=3):
         codecs = sp.codec_parity(DEV)
         print("codec_parity " + json.dumps(codecs), flush=True)
         sp.check_codecs(codecs)
-        parity = sp.strategy_parity(DEV)
+        parity = sp.strategy_parity(DEV, steps=STRATEGY_PARITY_STEPS)
         parity["nvidia_smi"] = smi
         print("strategy_parity " + json.dumps(sp.flat_summary(parity)),
               flush=True)
@@ -4554,16 +5261,13 @@ def _partial_f64(fa, q, k, v, q_offset=0, k_offset=0, *, causal=False,
     return o / p.sum(dim=-1)[..., None], m
 
 
-def _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe):
-    """Each kernel of the estate held against its plain version on one
-    launch's captured inputs, at the shapes this path gives it: K1 and K2
-    from the trainer (phase 4's tolerances, K1's atols scaled by the
-    trained inputs' magnitudes), K3 from the replay's widest
-    decode call (atol 1e-4), and in 16b K4 from the engine (1e-4 x
-    max|plain|) and K4 with its backward from the trainer, on the
-    gradient that reached that call (out, dxt, dw1, dw2 within 1e-4 x
-    max|plain|, the per-expert plain version under autograd).  Returns
-    the errors and shapes by kernel."""
+def _k12_checks(tag, fa, seen):
+    """K1 and K2 held against their plain versions on one launch's
+    captured inputs from a trainer (``seen["k1"]``, ``seen["k2"]``):
+    phase 4's tolerances, K1's atols scaled by the trained inputs'
+    magnitudes, both versions' distance from an f64 evaluation of K1
+    printed beside (``<tag>_k1_accuracy``).  Returns the errors and
+    shapes by kernel."""
     out = {}
     a, kw = seen["k1"]
     got = fa.attention_block_partial(*a, **kw)
@@ -4601,6 +5305,20 @@ def _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe):
                                  f"disagrees with its plain version: {err}")
     out["flash_bwd"] = {"q": list(a[0].shape), "max_abs_err": worst,
                         "tol": "1e-4 x max|plain| + 1e-6"}
+    return out
+
+
+def _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe):
+    """Each kernel of the estate held against its plain version on one
+    launch's captured inputs, at the shapes this path gives it: K1 and K2
+    from the trainer (phase 4's tolerances, K1's atols scaled by the
+    trained inputs' magnitudes), K3 from the replay's widest
+    decode call (atol 1e-4), and in 16b K4 from the engine (1e-4 x
+    max|plain|) and K4 with its backward from the trainer, on the
+    gradient that reached that call (out, dxt, dw1, dw2 within 1e-4 x
+    max|plain|, the per-expert plain version under autograd).  Returns
+    the errors and shapes by kernel."""
+    out = _k12_checks(tag, fa, seen)
     a, kw = seen["k3"]
     q, kl, vl, slots, lens = a
     pre = {k: kw[k] for k in ("prefix_slots", "prefix_lens", "k_scale",
@@ -4951,6 +5669,29 @@ def _kernel_row(name, source, replaces, launches, case):
     return row
 
 
+def _kernel_free_phases(fa, gf, fd, smi, profile):
+    """Phases 14, 15 and 20, which launch no K1-K4 (each asserts it), run
+    while the kernels build: their seconds, and phase 20's launch counts
+    under ``rest_quiet``."""
+    phase_s = {}
+    # -- phase 14: the ResNet-50 gossip benchmark (no K1-K4) ------------
+    t0 = time.monotonic()
+    resnet_phase(fa, gf, fd, smi, profile)
+    phase_s["resnet_bench"] = time.monotonic() - t0
+
+    # -- phase 15: the strategy benchmark (no K1-K4) --------------------
+    t0 = time.monotonic()
+    _, _, _, phase_s["strategy_parity"] = strategy_phase(fa, gf, fd, smi)
+    phase_s["strategy_bench"] = time.monotonic() - t0
+
+    # -- phase 20: the optimizer core's rest (no K1-K4) -----------------
+    t0 = time.monotonic()
+    phase_s["rest_quiet"], rest_s, _ = core_rest_phase(fa, gf, fd, smi)
+    phase_s.update({"core_rest_" + k: v for k, v in rest_s.items()})
+    phase_s["core_rest"] = time.monotonic() - t0
+    return phase_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4984,9 +5725,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
-    build_s, lib_s = _build_all({"flash_decode": fd.build,
-                                 "flash_attention": fa.build,
-                                 "grouped_ffn": gf.build})
+    # the kernels build (one nvcc a library, all started together) while
+    # the phases that launch none of them (14, 15, 20) run on the card
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as build_pool:
+        building = build_pool.submit(_build_all, {
+            "flash_decode": fd.build, "flash_attention": fa.build,
+            "grouped_ffn": gf.build})
+        phase_s = _kernel_free_phases(fa, gf, fd, smi, args.profile)
+        rest_quiet = phase_s.pop("rest_quiet")
+        t0 = time.monotonic()
+        build_s, lib_s = building.result()
+        phase_s["build_wait"] = time.monotonic() - t0
     for lib in ("flash_decode", "flash_attention", "grouped_ffn"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -5006,7 +5756,7 @@ def main(argv=None) -> int:
         "count": torch.cuda.device_count(), "kernel_build_s": build_s,
         "library_build_s": lib_s}),
         flush=True)
-    phase_s = {"build": build_s}
+    phase_s["build"] = build_s
 
     # -- phase 2: flash decode against its plain version ----------------
     t0 = time.monotonic()
@@ -5179,16 +5929,6 @@ def main(argv=None) -> int:
                                                  tag, **kw)
         phase_s[tag] = time.monotonic() - t0
 
-    # -- phase 14: the ResNet-50 gossip benchmark (no K1-K4) ------------
-    t0 = time.monotonic()
-    resnet_phase(fa, gf, fd, smi, args.profile)
-    phase_s["resnet_bench"] = time.monotonic() - t0
-
-    # -- phase 15: the strategy benchmark (no K1-K4) --------------------
-    t0 = time.monotonic()
-    _, _, _, phase_s["strategy_parity"] = strategy_phase(fa, gf, fd, smi)
-    phase_s["strategy_bench"] = time.monotonic() - t0
-
     # -- phase 16: the train->serve estate (16a dense, 16b MoE) ----------
     estate = {}
     for tag, moe in (("serve_estate", False), ("serve_estate_moe", True)):
@@ -5228,11 +5968,11 @@ def main(argv=None) -> int:
     print("phases_18_19_launches " + json.dumps(quiet), flush=True)
     if any(quiet.values()):
         raise AssertionError(f"phases 18-19 launched a kernel: {quiet}")
-    # -- phase 20: the optimizer core's rest (no K1-K4) -----------------
+    # -- phase 21: the host runtime (K1/K2 through the dense trainer) ----
     t0 = time.monotonic()
-    rest_quiet, rest_s, _ = core_rest_phase(fa, gf, fd, smi)
-    phase_s.update({"core_rest_" + k: v for k, v in rest_s.items()})
-    phase_s["core_rest"] = time.monotonic() - t0
+    hr_launches, hr_s = host_runtime_phase(fa, gf, fd, smi)
+    phase_s.update({"host_runtime_" + k: v for k, v in hr_s.items()})
+    phase_s["host_runtime"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -5250,7 +5990,8 @@ def main(argv=None) -> int:
         "serve_carved": carved["k3_launches"],
         "moe_serve_carved": moe_carved["k3_launches"],
         "pipelines_and_world": quiet["flash_decode"],
-        "optimizer_core_rest": rest_quiet["flash_decode"]}
+        "optimizer_core_rest": rest_quiet["flash_decode"],
+        "host_runtime": hr_launches["flash_decode"]}
     decode["carved_decode"] = {
         tag: {key: row[key] for key in _ROW_KEYS + (
             "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
@@ -5279,7 +6020,9 @@ def main(argv=None) -> int:
                 for tag, r in ex_runs.items()},
              "pipelines_and_world": (quiet["flash_fwd"], quiet["flash_bwd"]),
              "optimizer_core_rest": (rest_quiet["flash_fwd"],
-                                     rest_quiet["flash_bwd"])}
+                                     rest_quiet["flash_bwd"]),
+             "host_runtime": (hr_launches["flash_fwd"],
+                              hr_launches["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -5330,7 +6073,8 @@ def main(argv=None) -> int:
                                   ep_launches.items()},
                                "pipelines_and_world": quiet["grouped_ffn"],
                                "optimizer_core_rest":
-                                   rest_quiet["grouped_ffn"]},
+                                   rest_quiet["grouped_ffn"],
+                               "host_runtime": hr_launches["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -5358,7 +6102,9 @@ def main(argv=None) -> int:
                                "pipelines_and_world":
                                    quiet["grouped_ffn_dgrad"],
                                "optimizer_core_rest":
-                                   rest_quiet["grouped_ffn_dgrad"]},
+                                   rest_quiet["grouped_ffn_dgrad"],
+                               "host_runtime":
+                                   hr_launches["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -5378,7 +6124,8 @@ def main(argv=None) -> int:
                 ep_launches.items()},
              "pipelines_and_world": quiet["grouped_ffn_backward_plan"],
              "optimizer_core_rest":
-                 rest_quiet["grouped_ffn_backward_plan"]},
+                 rest_quiet["grouped_ffn_backward_plan"],
+             "host_runtime": hr_launches["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

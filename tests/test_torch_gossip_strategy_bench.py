@@ -7,7 +7,8 @@ the CPU, against the JAX tools and the schedule tables:
   tables' (rounds, mean out-degree; ``2 (n - 1) / n`` for the allreduce),
   equal to the JAX package's tables, with a finite ms a step; its
   ``--train-step`` comparison runs each communicator;
-* ``--async-frontier`` refuses and names ROADMAP queue 1, item 8;
+* ``--async-frontier`` runs both arms (the synchronous one through a
+  chaos ``throttle`` fault) to the target and writes the JAX report;
 * strategy_bench runs the JAX tool's 10 strategies, and its bytes are
   the tables' and the codecs': an allreduce (and ZeRO-1) ``2 (n - 1) / n``
   of the model, gossip the busiest rank's out-degree in copies, bf16 2
@@ -90,11 +91,22 @@ def test_gossip_rows_are_the_schedule_tables(capsys):
     assert "x model sent/step" in out and "global allreduce" in out
 
 
-def test_async_frontier_refuses_and_names_item_8():
-    with pytest.raises(SystemExit) as e:
-        gb.run(gb.parse(["--async-frontier", "--device", "cpu"]))
-    assert "ROADMAP queue 1, item 8" in str(e.value)
-    assert "throttle" in str(e.value)
+def test_async_frontier_refuses_and_names_item_8(tmp_path):
+    # the name is kept from when the mode was refused; it now runs
+    from bluefog_tpu_torch.utils import chaos
+    out = tmp_path / "af.json"
+    rep = gb.run(gb.parse(["--async-frontier", "--device", "cpu",
+                           "--params", "1024", "--out", str(out)]))
+    assert rep == json.loads(out.read_text())
+    assert rep["schema"] == "bluefog-gossip-async-1"
+    assert rep["throttle"]["rank"] == 3 and rep["throttle"]["factor"] == 10
+    assert rep["throttle"]["t_s"] >= 0.02
+    assert rep["sync"]["reached_target"] and rep["async"]["reached_target"]
+    # the sync arm slept the throttle on every tick it ran
+    assert rep["sync"]["wall_s"] >= rep["sync"]["ticks"] * \
+        rep["throttle"]["t_s"]
+    assert rep["async"]["staleness_max"] <= 4 + 1
+    assert not chaos.active()
 
 
 def test_strategy_bench_bytes(capsys):

@@ -8,7 +8,9 @@
 * entry points run on CUDA unless told otherwise: without a card and
   without ``device="cpu"`` they raise instead of dropping to the CPU;
 * the CUDA kernel wrappers refuse CPU tensors, and a missing ``nvcc``
-  raises rather than falling back to the plain version.
+  raises rather than falling back to the plain version;
+* the host C++ helpers (``_native``) are the port's own copies, built
+  into the port's ``_build/``.
 """
 import os
 import re
@@ -54,7 +56,11 @@ def test_port_imports_no_jax():
               "examples.llm_3d", "examples.moe", "examples.moe_lm",
               "examples.pipeline_lm", "tools.world_check",
               "parallel.windows", "examples.decentralized_optimization",
-              "tools.gossip_bench", "tools.strategy_bench"):
+              "tools.gossip_bench", "tools.strategy_bench", "_native",
+              "utils.chaos", "utils.timeline", "utils.watchdog",
+              "utils.utility", "resilience", "checkpoint", "data",
+              "examples.mnist", "examples.resnet",
+              "examples.elastic_restart"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -121,15 +127,20 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
                                                       init_decode_cache)
     from bluefog_tpu_torch.examples import (benchmark,
                                             decentralized_optimization,
-                                            llm_3d, moe, moe_lm)
+                                            elastic_restart, llm_3d, mnist,
+                                            moe, moe_lm, resnet)
     from bluefog_tpu_torch.tools import (gossip_bench, long_context,
                                          serve_bench, sp_bench,
                                          strategy_bench)
     for tool in (long_context, sp_bench, benchmark, serve_bench, llm_3d,
                  moe, moe_lm, decentralized_optimization, gossip_bench,
-                 strategy_bench):
+                 strategy_bench, mnist, resnet, elastic_restart):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tool.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gossip_bench.main(["--async-frontier"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_bench.main(["--chaos", "throttle:from=2,t=0.1,rank=1"])
     lm = RingTransformerLM(vocab_size=8, num_layers=1, num_heads=2,
                            d_model=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -276,3 +287,33 @@ def test_bench_context_and_consensus_refuse_a_missing_card(monkeypatch):
         average_consensus.main(["--data-size", "8"])
     assert bf.init(size=2, device="cpu").device.type == "cpu"
     bf.shutdown()
+
+
+def test_native_helpers_are_the_ports_own():
+    """``bluefog_tpu_torch/_native`` builds its own sources into the
+    port's ``_build/``: no string of its code names a path into
+    ``bluefog_tpu`` (docstrings may cite the JAX counterpart), the C++
+    sources include only system headers, and the library loads from the
+    port's build directory."""
+    import ast
+    from bluefog_tpu_torch import _native
+    nat = PORT / "_native"
+    assert sorted(p.name for p in nat.glob("*.cc")) == \
+        ["loader.cc", "schedule.cc", "timeline.cc"]
+    for f in sorted(nat.glob("*.cc")):
+        includes = re.findall(r'^#include\s+(\S+)', f.read_text(), re.M)
+        assert includes and all(i.startswith("<") for i in includes), f
+    tree = ast.parse((nat / "__init__.py").read_text())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and id(n) not in docs]
+    assert strings and not [v for v in strings
+                            if re.search(r"bluefog_tpu\b(?!_torch)", v)]
+    assert Path(_native._BUILD) == PORT / "_build"
+    assert _native.available(), _native.build_error()
+    lib = Path(_native.library_path())
+    assert lib.parent == PORT / "_build" and lib.name.startswith(
+        "libbft_native-")

@@ -30,9 +30,16 @@ runtime's rest (fault injection, ``utils.chaos``; healing, membership
 and the rollback guard, ``resilience``; ``checkpoint``; the input
 pipeline, ``data``; ``utils.timeline`` and ``utils.watchdog``; the host
 C++ helpers, ``_native``; ``examples.mnist``, ``examples.resnet``,
-``examples.elastic_restart``).  The kernels are CUDA C++ under
-``csrc/``.
+``examples.elastic_restart``); and the launcher, the elastic world and
+the fleet view (``run.launcher``, ``bfrun-torch``, with its supervisor,
+preemption traces and ``run.interactive``; ``parallel.context.reinit``
+and ``resilience.regrow_world``; ``utils.fleetview`` on the consensus
+probe; ``tools.regrow_drill``, ``tools.preempt_trace``,
+``tools.preempt_bench``, ``tools.fleet_top``).  The kernels are CUDA C++
+under ``csrc/``.
 """
+__version__ = "0.1.0"
+
 from .api import (allgather, allreduce, barrier, broadcast, hard_sync,
                   hierarchical_neighbor_allreduce, neighbor_allgather,
                   neighbor_allreduce, pair_gossip, poll, ragged_allgather,

@@ -17,19 +17,19 @@ The probes read stacked params (``[n, ...]`` leaves, this process's rows):
   and the per-rank **step-time** table with its straggler verdict.
 
 ``diagnose_consensus(params)`` is the one-shot probe; the train step's
-``metrics_every_k`` runs it on the step's output params.  The gossiped
-fleet-view carrier of the JAX probe has no counterpart here yet (ROADMAP
-queue 1, item 10).  :func:`observe_step_time` moves the sleeps chaos
+``metrics_every_k`` runs it on the step's output params.  While a fleet
+view is armed (``utils/fleetview.py``) each rank's fleet table rides the
+same neighbor gather and is merged by per-row stamp argmax, as in JAX; no
+collective is added.  :func:`observe_step_time` moves the sleeps chaos
 injected onto their target rank (the delay ledger of ``utils/chaos.py``).
 
 Peer health (:func:`check_finite` and the table behind
 :func:`unhealthy_ranks`) is the detection half of the resilience layer:
 ``resilience.py`` owns the response.
 
-The SLO engine reads the time-series store and never touches a device.
-Its fleet-view leg scores nothing here, because the port has no gossiped
-fleet view yet; that is what the JAX engine does when no fleet view is
-armed.
+The SLO engine reads the time-series store and never touches a device;
+its fleet leg scores the gossiped worst-of-fleet burn rate when a fleet
+view is armed.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from .ops import collectives as _coll
 from .parallel import context as _ctx
 from .schedule import CommSchedule
 from .utils import chaos as _chaos
+from .utils import fleetview as _fleetview
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils import timeseries as _ts
@@ -76,17 +77,25 @@ def _flat_f32(tree) -> torch.Tensor:
 
 
 def _all_rows(t: torch.Tensor) -> np.ndarray:
-    """A per-rank ``[rows]`` result over every process's rows, on the
-    host (the JAX probe reads its distributed output whole)."""
+    """A per-rank ``[rows]`` (or ``[rows, L]``) result over every
+    process's rows, on the host (the JAX probe reads its distributed
+    output whole)."""
     if _coll._procs()[0] > 1:
-        t = _coll.allgather(t.reshape(-1, 1).contiguous())[0]
+        width = int(np.prod(t.shape[1:])) if t.ndim > 1 else 1
+        whole = _coll.allgather(t.reshape(-1, 1, width).contiguous())[0]
+        t = whole.reshape((-1,) + tuple(t.shape[1:]))
     return t.detach().cpu().numpy()
 
 
 def _probe(params, sched: Optional[CommSchedule], n: int, dead: tuple,
-           tvec: Optional[np.ndarray]):
-    """(distance, disagreement[, own time, max in-neighbor time]) as
-    ``[rows]`` tensors: the JAX probe program, rank by rank."""
+           tvec: Optional[np.ndarray], cvec: Optional[np.ndarray] = None):
+    """(distance, disagreement, own time, max in-neighbor time, merged
+    fleet carrier) as ``[rows]`` tensors (None where not asked): the JAX
+    probe program, rank by rank.  ``cvec`` is the ``[n, L]`` fleet
+    carrier (each rank's whole ``[n, row_w]`` table): it rides the same
+    gather, and each rank keeps, row by row, the freshest copy among its
+    own table and its live in-neighbors' (stamp argmax, ties to the local
+    copy, invalid slots at stamp -inf)."""
     v = _flat_f32(params)
     rows, dev = v.shape[0], v.device
     alive = np.ones(n, np.float32)
@@ -95,16 +104,30 @@ def _probe(params, sched: Optional[CommSchedule], n: int, dead: tuple,
     me_alive = torch.as_tensor(_coll._local(alive, rows), device=dev)
     vbar = _coll.rank_sum(v * me_alive[:, None]) / n_alive
     dist = torch.sqrt(((v - vbar) ** 2).sum(dim=1)) * me_alive
-    t_me = None
-    payload = v
+    t_me = c_me = None
+    parts = [v]
     if tvec is not None:
         t_me = torch.as_tensor(_coll._local(tvec, rows), device=dev)
-        payload = torch.cat([v, t_me[:, None]], dim=1)
+        parts.append(t_me[:, None])
+    if cvec is not None:
+        c_me = torch.as_tensor(_coll._local(cvec, rows), device=dev,
+                               dtype=torch.float32)
+        fleet_len = c_me.shape[1]
+        if fleet_len % n:
+            raise ValueError(
+                f"fleet carrier length {fleet_len} not divisible by "
+                f"world size {n}")
+        row_w = fleet_len // n
+        parts.append(c_me)
+    payload = torch.cat(parts, dim=1) if len(parts) > 1 else v
     nbr_tmax = t_me
+    c_out = c_me
     if sched is not None and sched.max_in_degree > 0:
         slots = max(sched.max_in_degree, 1)
         g = _coll.neighbor_allgather(payload[:, None], sched)
         g = g.reshape(rows, slots, payload.shape[1])
+        if c_me is not None:
+            g, gc = g[..., :-fleet_len], g[..., -fleet_len:]
         if t_me is not None:
             g, gt = g[..., :-1], g[..., -1]
         diffs = torch.sqrt(((g - v[:, None, :]) ** 2).sum(dim=2))
@@ -119,9 +142,20 @@ def _probe(params, sched: Optional[CommSchedule], n: int, dead: tuple,
         disagree = torch.where(valid, diffs, zero).amax(dim=1) * me_alive
         if t_me is not None:
             nbr_tmax = torch.where(valid, gt, zero).amax(dim=1)
+        if c_me is not None:
+            tabs = torch.cat([c_me.reshape(rows, 1, n, row_w),
+                              gc.reshape(rows, slots, n, row_w)], dim=1)
+            ok = torch.cat([torch.ones((rows, 1), dtype=torch.bool,
+                                       device=dev), valid], dim=1)
+            stamps = torch.where(ok[:, :, None], tabs[..., 0],
+                                 torch.full((), -float("inf"), device=dev))
+            best = torch.argmax(stamps, dim=1)        # first max: local
+            c_out = torch.take_along_dim(
+                tabs, best[:, None, :, None].expand(rows, 1, n, row_w),
+                dim=1)[:, 0].reshape(rows, fleet_len)
     else:
         disagree = torch.zeros(rows, dtype=torch.float32, device=dev)
-    return dist, disagree, t_me, nbr_tmax
+    return dist, disagree, t_me, nbr_tmax, c_out
 
 
 def consensus_distance(params: Any,
@@ -176,9 +210,17 @@ def diagnose_consensus(params: Any, *,
         if t_host.size != ctx.size:
             raise ValueError(
                 f"step_times has {t_host.size} entries for {ctx.size} ranks")
+    # the fleet-view carrier rides every probe while armed; a view armed
+    # for another size is skipped, not fatal (reinit re-arms it)
+    fv = _fleetview.active()
+    if fv is not None and fv.n != ctx.size:
+        fv = None
+    carrier = fv.pre_probe(dead) if fv is not None else None
     with torch.no_grad():
-        d_t, g_t, te_t, nb_t = _probe(params, schedule, ctx.size, dead,
-                                      t_host)
+        d_t, g_t, te_t, nb_t, c_t = _probe(params, schedule, ctx.size, dead,
+                                           t_host, carrier)
+    if carrier is not None:
+        fv.post_probe(_all_rows(c_t), dead=dead, schedule=schedule)
     dist = _all_rows(d_t)
     disagree = _all_rows(g_t)
     alive = [r for r in range(ctx.size) if r not in dead]
@@ -191,6 +233,8 @@ def diagnose_consensus(params: Any, *,
         "neighbor_disagreement_max": float(disagree.max()),
         "window_staleness": staleness,
     }
+    if carrier is not None:
+        out["fleet"] = fv.fleet()
     if with_time:
         global _last_step_times
         t = _all_rows(te_t).reshape(-1)
@@ -664,9 +708,13 @@ class SLOEngine:
         same page-now threshold the local signals use and fire the
         existing tripwire path with the origin rank attached — rank 0
         need not be the rank that saw the breach."""
-        # the port has no fleet view (ROADMAP queue 1, item 10): this is
-        # the JAX engine's behavior with none armed
-        return
+        fv = _fleetview.active()
+        if fv is None:
+            return
+        burn, origin = fv.fleet_max("bluefog_slo_burn_rate")
+        if burn is not None and burn > self.burn_alert_threshold:
+            self._fire("slo_fast_burn", slo="fleet", window="fleet",
+                       burn=round(burn, 3), origin_rank=origin)
 
     def _check_queue_idle(self, sched) -> None:
         if sched.pending > 0 and sched.in_flight == 0:

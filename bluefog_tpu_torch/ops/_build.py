@@ -8,6 +8,13 @@ interface (no PyTorch headers, so a build takes seconds) into
 path (``-I csrc``) and in the hash, so an edit to a shared header rebuilds
 each library that may include it.  Nothing is compiled at import: the first
 call that needs a library builds it.
+
+:func:`build_counts` counts the ``nvcc`` builds and the library loads of
+this process.  A library is built and loaded once a process, keyed by its
+sources and never by the world it runs in, so a world re-formed at a new
+rank count (``parallel.context.reinit``) builds and loads nothing: these
+counts are what the preemption bench and the chip smoke read where the JAX
+package reads its compile counter.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "headers", "load_library",
-           "build_log"]
+           "build_log", "build_counts"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, Path] = {}   # nvcc's output, beside each library
+_COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -70,9 +78,17 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         log = so.with_suffix(".log")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)                 # atomic: concurrent builders
+        _COUNTS["builds"] += 1
     _LOGS[name] = so.with_suffix(".log")
     _LIBS[name] = ctypes.CDLL(str(so))
+    _COUNTS["loads"] += 1
     return _LIBS[name]
+
+
+def build_counts() -> Dict[str, int]:
+    """``{"builds": nvcc runs, "loads": libraries loaded}`` in this
+    process so far."""
+    return dict(_COUNTS)
 
 
 def build_log(name: str) -> str:

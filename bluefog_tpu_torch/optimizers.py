@@ -1814,6 +1814,21 @@ class _InstrumentedStep:
         return out
 
 
+def _default_metrics_every_k(metrics_every_k, strategy):
+    """An armed fleet view (``BLUEFOG_FLEET_EVERY`` / ``fleetview.arm``)
+    declares a probe cadence; a step built without an explicit
+    ``metrics_every_k`` inherits it so the metric carrier actually
+    gossips — only for rank-axis strategies, the ones the probe can run
+    on."""
+    if metrics_every_k is not None:
+        return metrics_every_k
+    from .utils import fleetview as _fleetview
+    every = _fleetview.fleet_every()
+    if every is not None and strategy.axes[:1] == ("rank",):
+        return every
+    return None
+
+
 def _check_metrics_every_k(metrics_every_k, strategy):
     if metrics_every_k is None:
         return
@@ -1869,6 +1884,7 @@ def make_train_step(grad_fn: Callable[[Any, Any], Tuple[Any, Any]],
     so there is no donation flag: the step updates params and state in
     place.
     """
+    metrics_every_k = _default_metrics_every_k(metrics_every_k, strategy)
     _check_metrics_every_k(metrics_every_k, strategy)
     _check_overlap(overlap, strategy)
     if reuse_batch and steps_per_call == 1:
@@ -1951,6 +1967,7 @@ def make_stateful_train_step(
     ``steps_per_call``, ``reuse_batch``, ``overlap``, ``metrics_every_k``
     and ``metrics_warmup`` behave as in :func:`make_train_step`; the
     probe's async sample reads the output strategy state."""
+    metrics_every_k = _default_metrics_every_k(metrics_every_k, strategy)
     _check_metrics_every_k(metrics_every_k, strategy)
     _check_overlap(overlap, strategy)
     if state_sync not in (None, "neighbor", "allreduce"):

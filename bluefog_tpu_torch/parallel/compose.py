@@ -210,13 +210,16 @@ def compose_parallelism(
             f"DP axis has {dp} leaders; the gossip graph lives over DP "
             "replicas only (PP/TP/SP peers hold different shards and must "
             "not be mixed)")
-    return Mesh3D(dp=int(dp), topology=topo, is_weighted=weighted,
-                  schedule=compile_topology(topo, weighted), device=dev,
-                  pp=int(pp), tp=int(tp), sp=int(sp), ep=int(ep),
-                  num_experts=num_experts,
-                  capacity_factor=(None if capacity_factor is None
-                                   else float(capacity_factor)),
-                  wire=wire)
+    m = Mesh3D(dp=int(dp), topology=topo, is_weighted=weighted,
+               schedule=compile_topology(topo, weighted), device=dev,
+               pp=int(pp), tp=int(tp), sp=int(sp), ep=int(ep),
+               num_experts=num_experts,
+               capacity_factor=(None if capacity_factor is None
+                                else float(capacity_factor)),
+               wire=wire)
+    if _ctx.is_initialized():
+        _ctx.set_compose(m)
+    return m
 
 
 def make_train_step(m: Mesh3D, grad_fn: Callable[[Any, Any], Tuple[Any, Any]],

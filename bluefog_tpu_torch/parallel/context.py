@@ -25,8 +25,18 @@ topology hierarchical gossip runs over, and an installed dynamic
 topology (:func:`set_dynamic_topology`) is the schedule list the
 ``communication_type`` factories pick up.
 
-Not ported (ROADMAP queue 1, item 10): ``reinit`` and the elastic
-re-bootstrap, ``apply_plan`` (autotune), and the XLA program cache.
+The active compose carving (:func:`set_compose` / :func:`get_compose`)
+is recorded here as in JAX.  :func:`reinit` re-forms the world at a new
+rank count (mesh regrowth, under
+:func:`bluefog_tpu_torch.resilience.regrow_world`): in the stacked backend
+that means more or fewer rows on dim 0, and across processes a new
+process group when the process count changes.  JAX's
+``parallel/exec_cache.py`` (a pool of compiled XLA executables a world
+shape) has no counterpart: the port compiles no program for a world (no
+XLA executables, no CUDA graphs, no ``torch.compile``), and its kernels
+are built once a process by ``ops/_build.py``, keyed by a source hash.
+
+Not ported (ROADMAP queue 1, item 10): ``apply_plan`` (autotune).
 """
 from __future__ import annotations
 
@@ -55,7 +65,8 @@ __all__ = ["BlueFogTorchContext", "init", "shutdown", "is_initialized",
            "in_neighbor_machine_ranks", "out_neighbor_machine_ranks",
            "machine_schedule", "set_dynamic_topology",
            "clear_dynamic_topology", "dynamic_schedules", "set_dcn_wire",
-           "dcn_wire", "set_async_gossip", "async_gossip_bound"]
+           "dcn_wire", "set_async_gossip", "async_gossip_bound",
+           "set_compose", "get_compose", "reinit"]
 
 _context: Optional["BlueFogTorchContext"] = None
 
@@ -151,7 +162,8 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
         has no counterpart of the TPU's ``slice_index``.  ``None`` defers
         to ``BLUEFOG_HIERARCHICAL``; ``"off"`` disables.
     """
-    global _context
+    global _context, _active_compose
+    _active_compose = None    # a new context invalidates any prior carving
     from ..utils.config import env_flag
     world, process = _process_group_from_env(device)
     n = world if size is None else int(size)
@@ -192,6 +204,9 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
     _chaos.maybe_install_from_env()
     _flight.maybe_enable_from_env()
     _tracing.maybe_enable_from_env()
+    from ..utils import fleetview as _fleetview
+    _fleetview.maybe_arm_from_env(n, local_ranks=_block(process, n // world)
+                                  if world > 1 else None)
     _flight.record("lifecycle", name="init", devices=n)
     topo = topology_fn() if topology_fn is not None \
         else topo_util.ExponentialGraph(n)
@@ -213,6 +228,11 @@ def init(topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
 
 _LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
+
+
+def _block(process: int, rows: int) -> range:
+    """The global ranks process ``process`` holds at ``rows`` a process."""
+    return range(process * rows, (process + 1) * rows)
 
 
 def _launched() -> bool:
@@ -316,7 +336,8 @@ def shutdown() -> None:
     timeline first as the reference's shutdown drains its writer thread,
     disarming chaos, and destroying the process group :func:`init`
     made."""
-    global _context
+    global _context, _active_compose
+    _active_compose = None
     from ..utils import chaos as _chaos
     from ..utils import timeline as _tl
     _flight.record("lifecycle", name="shutdown")
@@ -331,6 +352,216 @@ def shutdown() -> None:
 
 def is_initialized() -> bool:
     return _context is not None
+
+
+# The active composed-parallelism carving (a parallel.compose.Mesh3D), set
+# by compose_parallelism() so tools (and reinit) can read the axis split
+# without threading it through every call.  Cleared on init/shutdown: a
+# carving is only meaningful against the world it divided.
+_active_compose = None
+
+
+def set_compose(m) -> None:
+    global _active_compose
+    _active_compose = m
+
+
+def get_compose():
+    return _active_compose
+
+
+def reinit(world_size: int, *,
+           topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
+           is_weighted: bool = False,
+           processes: Optional[int] = None) -> BlueFogTorchContext:
+    """Tear down and re-form the world at a new rank count (mesh
+    regrowth; JAX ``parallel/context.py::reinit``).
+
+    The primitive behind :func:`bluefog_tpu_torch.resilience.regrow_world`.
+    In the stacked backend a world change means more or fewer rows on dim
+    0: every rank stays a row on the context's device, and survivors keep
+    their rank ids.  ``processes`` (default: the current count) is the
+    process count of the new world; each process then holds
+    ``world_size / processes`` rows, process-major.  A new count re-forms
+    the process group (:func:`_rebootstrap_distributed`): the supervisor
+    has already spawned the joiner processes with torchrun's variables.
+
+    Every precondition is checked before anything is torn down, with
+    JAX's texts where JAX has the check: the size is at least 1 and a
+    multiple of the active carving's slice size; across processes it
+    divides over them and keeps a replica inside one process; no named
+    window is open (their mailboxes are shaped for the old rank count).
+    Then the topology (Exp2 by default) and its schedule are rebuilt, the
+    machine level by JAX's rule (``nodes_per_machine == size`` or no
+    longer divisible means one machine), the compose carving at
+    ``world_size // slice_size`` with the same pp/tp/sp/ep/wire, the
+    resilience registry is re-baselined, an armed fleet view is re-armed
+    at the new size (JAX leaves a stale view that its probe skips), and a
+    ``lifecycle``/``reinit`` flight event is recorded.  Nothing is
+    recompiled: the kernels are keyed by their sources, not by a world.
+
+    Returns the new context.
+    """
+    global _context, _active_compose
+    ctx = get_context()
+    world_size = int(world_size)
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    procs = ctx.world if processes is None else int(processes)
+    if procs < 1:
+        raise ValueError(f"processes must be at least 1, got {procs}")
+    if procs != ctx.world and not _launched():
+        raise ValueError(
+            f"a world of {procs} processes needs a launched process group "
+            "(torchrun's variables); this process runs alone")
+    if world_size % procs:
+        raise ValueError(f"size {world_size} is not a whole number of ranks "
+                         f"for each of the {procs} processes")
+    # validate EVERY precondition before anything is torn down: raising
+    # past this point would leave a half-torn world
+    old_compose = _active_compose
+    if old_compose is not None and world_size % old_compose.slice_size:
+        raise ValueError(
+            f"world size {world_size} is not a multiple of the active "
+            f"carving's slice size {old_compose.slice_size} "
+            f"(pp={old_compose.pp} tp={old_compose.tp} "
+            f"sp={old_compose.sp} ep={old_compose.ep})")
+    rows = world_size // procs
+    if old_compose is not None and procs > 1 and \
+            rows % old_compose.slice_size:
+        raise ValueError(
+            f"a replica's {old_compose.slice_size} peers (pp x tp x sp x "
+            f"ep) would straddle processes of {rows} ranks; a carving "
+            "keeps each replica's peers inside one process (ROADMAP queue "
+            "1, item 12)")
+    from . import windows as _win
+    if _win._registry:
+        raise ValueError(
+            f"named windows {sorted(_win._registry)} hold a mailbox a rank "
+            f"for {ctx.size} ranks; free them (win_free) before re-forming "
+            f"the world at {world_size}")
+    old_n = ctx.size
+    if procs != ctx.world:
+        _rebootstrap_distributed(procs, ctx.process, ctx.device)
+
+    npm = ctx.nodes_per_machine
+    if procs > 1 and npm == ctx.rows:
+        npm = rows                   # a machine a process, as init derives
+    elif npm == ctx.size or world_size % npm != 0:
+        npm = world_size             # single machine (or no longer divisible)
+    topo = (topology_fn() if topology_fn is not None
+            else topo_util.ExponentialGraph(world_size))
+    new_ctx = BlueFogTorchContext(
+        world_size, ctx.device, _check_topology(topo, world_size),
+        is_weighted, nodes_per_machine=npm,
+        round_parallel=ctx.round_parallel, dcn_wire=ctx.dcn_wire,
+        async_staleness=ctx.async_staleness, process=ctx.process,
+        world=procs, owns_group=ctx.owns_group or procs != ctx.world)
+    _context = new_ctx
+    _active_compose = None
+    if old_compose is not None:
+        from . import compose as _compose
+        _compose.compose_parallelism(
+            world_size // old_compose.slice_size, old_compose.pp,
+            old_compose.tp, old_compose.sp, old_compose.ep,
+            num_experts=old_compose.num_experts,
+            capacity_factor=old_compose.capacity_factor,
+            device=old_compose.device, wire=old_compose.wire)
+    # the old world's membership registry (and its pristine baseline) is
+    # meaningless against the new world: re-baseline from scratch
+    from .. import resilience as _rz
+    _rz.reset()
+    _rearm_fleet(new_ctx)
+    _flight.record("lifecycle", name="reinit", devices=world_size,
+                   old_devices=old_n)
+    return new_ctx
+
+
+def _rearm_fleet(ctx: BlueFogTorchContext) -> None:
+    """An armed fleet view keeps a row a rank: re-arm it (same spec and
+    cadence, fresh tables) when the installed world has another size."""
+    from ..utils import fleetview as _fleetview
+    fv = _fleetview.active()
+    if fv is None or (fv.n == ctx.size and tuple(fv.local_ranks) ==
+                      tuple(_block(ctx.process, ctx.rows))):
+        return
+    _fleetview.arm(fv.spec, n=ctx.size, every=fv.every,
+                   local_ranks=(_block(ctx.process, ctx.rows)
+                                if ctx.world > 1 else None))
+
+
+#: the file an elastic supervisor publishes each grown process count's
+#: ``MASTER_PORT`` in (``run/launcher.py::_publish_port``)
+PORT_FILE_ENV = "BLUEFOG_PORT_FILE"
+
+
+def _next_master_port(processes: int, timeout: float = 60.0) -> str:
+    """The port of the process group re-formed at ``processes``: the one
+    the supervisor published for that count in ``$BLUEFOG_PORT_FILE``
+    (a TCP store is not always re-formed on the port it was just torn
+    down from, and a line for another count is never taken), else
+    ``MASTER_PORT + 1`` when no file is named."""
+    import time as _time
+    cur = os.environ.get("MASTER_PORT", "")
+    path = os.environ.get(PORT_FILE_ENV, "").strip()
+    if not path:
+        return str(int(cur) + 1)
+    from ..run.launcher import _published_port
+    t_end = _time.monotonic() + timeout
+    while True:
+        port = _published_port(path, processes)
+        if port is not None and port != cur:
+            return port
+        if _time.monotonic() > t_end:
+            raise RuntimeError(
+                f"no MASTER_PORT for {processes} processes was published "
+                f"in {path} within {timeout:g} s")
+        _time.sleep(0.05)
+
+
+def _rebootstrap_distributed(processes: int, process: int,
+                             dev: torch.device) -> bool:
+    """Tear down and re-form the process group at ``processes``
+    processes: ``destroy_process_group``, then a fresh
+    ``init_process_group`` at the new ``WORLD_SIZE`` on the next
+    published port.  Only a launched process does this; one process
+    never dials a store.  Returns whether a group was re-formed."""
+    if not _launched():
+        return False
+    live = int(os.environ.get("WORLD_SIZE") or 1)
+    if os.environ.get(PORT_FILE_ENV, "").strip() and 1 < processes < live:
+        raise RuntimeError(
+            f"cannot re-form the process group from {live} at {processes} "
+            "processes: the supervisor publishes a port only for an "
+            "elastic join (a grown count), not for a shrink or for a "
+            "rollback after a grown group formed")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if processes <= 1 and process == 0:
+        os.environ["WORLD_SIZE"] = "1"
+        return False
+    os.environ["MASTER_PORT"] = _next_master_port(processes)
+    os.environ["WORLD_SIZE"] = str(int(processes))
+    return _init_process_group(dev, int(processes), process)
+
+
+def _install(ctx: BlueFogTorchContext, compose=None) -> None:
+    """Reinstall a previously captured context (the regrow rollback path:
+    a failed :func:`reinit` must leave the process on the old world).  A
+    process group re-formed at another size is re-formed at the captured
+    one."""
+    global _context, _active_compose
+    if ctx.world > 1 and _launched():
+        import torch.distributed as dist
+        live = dist.get_world_size() if dist.is_initialized() else None
+        if live != ctx.world:
+            _rebootstrap_distributed(ctx.world, ctx.process, ctx.device)
+    if _launched():
+        os.environ["WORLD_SIZE"] = str(ctx.world)
+    _context = ctx
+    _active_compose = compose
+    _rearm_fleet(ctx)
 
 
 def size() -> int:

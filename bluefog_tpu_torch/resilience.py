@@ -39,9 +39,12 @@ tables.  JAX also calls ``mark_steady_state(False)`` there, a note to its
 retrace sentinel (a changed schedule is a new XLA program); the port
 compiles no programs and has no sentinel, so that note does not apply.
 
-Mesh regrowth (``regrow_world``, ``commit_regrow``, ``RegrowHandle``,
-``RegrowAborted``) needs the context's ``reinit`` and raises until ROADMAP
-queue 1, item 10 ports it.
+* **Mesh regrowth** (:func:`regrow_world` / :func:`commit_regrow`):
+  re-form the world at a new rank count over the context's ``reinit``,
+  carry the survivors' rows through host memory and pull the joiners'
+  from their neighbors, each phase under a deadline with bounded
+  retries; a failed phase rolls back to the retained old world
+  (:class:`RegrowAborted`).
 """
 from __future__ import annotations
 
@@ -62,8 +65,8 @@ from .utils import chaos as _chaos
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils.config import logger
-from .utils.snapshot import (live_tensors, restore_into, snapshot,
-                             snapshot_tensors)
+from .utils.snapshot import (live_tensors, map_tensors, restore_into,
+                             snapshot, snapshot_tensors, unfold)
 
 __all__ = [
     "heal_topology", "heal_schedule", "heal_dynamic_schedules",
@@ -73,7 +76,7 @@ __all__ = [
     "dead_ranks", "retired_ranks", "live_ranks", "reset",
     "GuardedStep", "guard_step",
     "RegrowAborted", "RegrowHandle", "regrow_world", "commit_regrow",
-    "regrow_pending", "REGROW_PHASES",
+    "regrow_pending", "regrow_join", "REGROW_PHASES",
 ]
 
 _DEAD_HELP = "ranks currently marked dead and healed around"
@@ -625,7 +628,7 @@ def reset() -> None:
     records this module created via :func:`mark_rank_dead` are cleared
     too, so ``diagnostics.unhealthy_ranks()`` does not stay poisoned
     across a reset."""
-    global _pristine, _warned_send_scales
+    global _pristine, _warned_send_scales, _regrow_pending
     with _lock:
         forgotten = tuple(sorted(_dead))
         _dead.clear()
@@ -634,6 +637,8 @@ def reset() -> None:
         _warmup.clear()
         _pristine = None
         _warned_send_scales = False
+        _regrow_pending = None
+        _regrow_status.clear()
     if forgotten:
         _diag.clear_peer_failures(forgotten)
     _metrics.gauge("bluefog_dead_ranks", _DEAD_HELP).set(0)
@@ -765,22 +770,38 @@ def guard_step(fn: Callable, *, check_every_k: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# Mesh regrowth: needs the context's reinit (ROADMAP queue 1, item 10)
+# Mesh regrowth: checkpoint-free world re-bootstrap
 # ---------------------------------------------------------------------------
+# Elastic membership (admit/retire above) works inside the world formed at
+# init: its rank count is fixed there.  regrow_world is the jump across that
+# boundary — quiesce, re-form the world at N+K ranks (context.reinit), carry
+# the survivors' state across in host memory, and neighbor-pull-bootstrap
+# the joiners on the NEW world.  No checkpoint round-trip anywhere.  Every
+# phase gets a deadline + bounded retry with exponential backoff, and a
+# failed phase rolls the process back to the old world (which is retained
+# until the new world's first step commits).
 
-#: regrow protocol phases, in execution order (JAX's)
+#: regrow protocol phases, in execution order
 REGROW_PHASES = ("quiesce", "handshake", "snapshot", "reinit", "carry",
                  "joiner_pull")
 
-_REGROW_REFUSAL = (
-    "mesh regrowth re-forms the context at a new rank count, which needs "
-    "the context's reinit; neither is ported yet (ROADMAP queue 1, item "
-    "10: launcher, autotune, elastic, fleet)")
+_DEFAULT_REGROW_TIMEOUT = 30.0
+_DEFAULT_REGROW_RETRIES = 2
+
+_regrow_pending: Optional[Dict[str, Any]] = None
+_regrow_status: Dict[str, Any] = {}
 
 
 class RegrowAborted(RuntimeError):
-    """A mesh regrowth failed and was rolled back to the old world (JAX's
-    exception; nothing raises it until ``regrow_world`` is ported)."""
+    """A mesh regrowth failed and was rolled back to the old world.
+
+    ``phase`` names the protocol phase that exhausted its deadline/retry
+    budget (or was killed), ``rank`` the blamed rank when a chaos kill
+    named one.  The process is back on the pre-regrowth context, carving,
+    schedules and membership registry: training and serving continue on
+    the old world — catching this exception IS the degraded-but-alive
+    path.
+    """
 
     def __init__(self, phase: str, reason: str,
                  rank: Optional[int] = None):
@@ -793,26 +814,518 @@ class RegrowAborted(RuntimeError):
 
 
 class RegrowHandle:
-    """A regrowth that succeeded but is not yet committed (refused until
-    ROADMAP queue 1, item 10)."""
+    """A regrowth that succeeded but is not yet committed.
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError(_REGROW_REFUSAL)
+    The old world (context, compose carving and membership registry)
+    stays retained until :meth:`commit` — call it after the new world's
+    *first* train/serve step completes, so a blow-up on the very first
+    post-regrowth step still has a world to fall back to.
+    ``bytes_carried`` counts the tensor bytes the carry phase moved onto
+    the new world.
+    """
+
+    def __init__(self, *, world_before: int, world_after: int,
+                 coordinator: int, joiners: Tuple[int, ...],
+                 duration_s: float, bytes_carried: int = 0):
+        self.world_before = world_before
+        self.world_after = world_after
+        self.coordinator = coordinator
+        self.joiners = joiners
+        self.duration_s = duration_s
+        self.bytes_carried = bytes_carried
+
+    @property
+    def committed(self) -> bool:
+        return not regrow_pending()
+
+    def commit(self) -> bool:
+        return commit_regrow()
+
+    def __repr__(self) -> str:            # pragma: no cover - debug aid
+        state = "committed" if self.committed else "pending"
+        return (f"RegrowHandle({self.world_before}->{self.world_after}, "
+                f"coordinator={self.coordinator}, {state})")
 
 
-def regrow_world(target: int, params: Any = None, **kwargs):
-    """Re-form the world at ``target`` ranks: refused until the context's
-    ``reinit`` is ported (ROADMAP queue 1, item 10)."""
-    raise ValueError(_REGROW_REFUSAL)
+def _regrow_flight_block() -> Dict[str, Any]:
+    """The ``regrow`` bundle block ``tools/postmortem.py`` surfaces in the
+    verdict timeline (world sizes, coordinator, duration, aborts)."""
+    return dict(_regrow_status)
+
+
+def _publish_regrow(status: Dict[str, Any]) -> None:
+    _regrow_status.clear()
+    _regrow_status.update(status)
+
+
+def _regrow_timeout() -> float:
+    import os
+    env = os.environ.get("BLUEFOG_REGROW_TIMEOUT", "").strip()
+    if env:
+        t = float(env)
+        if t <= 0:
+            raise ValueError(
+                f"BLUEFOG_REGROW_TIMEOUT must be > 0, got {env!r}")
+        return t
+    return _DEFAULT_REGROW_TIMEOUT
+
+
+class _PhaseRunner:
+    """Deadline + bounded-retry executor for one regrow protocol phase.
+
+    Every attempt first gives the chaos plan its shot
+    (:func:`bluefog_tpu_torch.utils.chaos.on_regrow_phase` — may kill the
+    coordinator/joiner or wedge the phase), then runs the phase body and
+    checks the elapsed time against the deadline.  A ``RankKilled`` is
+    never retried (the victim is gone; the caller aborts and rolls back);
+    any other failure — including a blown deadline — retries after
+    ``backoff * 2**(attempt-1)`` seconds up to ``retries`` times.
+    """
+
+    def __init__(self, *, status: Dict[str, Any], timeout: float,
+                 retries: int, backoff: float, coordinator: int,
+                 joiners: Tuple[int, ...]):
+        self.status = status
+        self.timeout = float(timeout)
+        self.retries = max(0, int(retries))
+        self.backoff = float(backoff)
+        self.coordinator = coordinator
+        self.joiners = joiners
+        self.phase = REGROW_PHASES[0]
+
+    def run(self, phase: str, fn: Callable[[], Any]) -> Any:
+        import time as _time
+        self.phase = phase
+        attempts = self.retries + 1
+        for attempt in range(1, attempts + 1):
+            t0 = _time.monotonic()
+            try:
+                _chaos.on_regrow_phase(
+                    phase, attempt, coordinator=self.coordinator,
+                    joiners=self.joiners)
+                out = fn()
+                elapsed = _time.monotonic() - t0
+                if elapsed > self.timeout:
+                    raise TimeoutError(
+                        f"phase {phase!r} attempt {attempt} took "
+                        f"{elapsed:.3f} s (deadline {self.timeout:.3f} s)")
+            except _chaos.RankKilled:
+                raise              # the victim is gone: abort, don't retry
+            except Exception as e:
+                elapsed = _time.monotonic() - t0
+                self.status["failed_attempts"] += 1
+                _flight.record(
+                    "regrow", name="phase_retry", phase=phase,
+                    attempt=attempt, elapsed_s=round(elapsed, 6),
+                    error=f"{type(e).__name__}: {e}")
+                _publish_regrow(self.status)
+                if attempt >= attempts:
+                    raise
+                _time.sleep(self.backoff * (2 ** (attempt - 1)))
+                continue
+            self.status["phases"].append(
+                {"phase": phase, "attempt": attempt,
+                 "elapsed_s": round(elapsed, 6)})
+            _publish_regrow(self.status)
+            _flight.record("regrow", name="phase", phase=phase,
+                           attempt=attempt, elapsed_s=round(elapsed, 6))
+            return out
+        raise AssertionError("unreachable")     # pragma: no cover
+
+
+def _snapshot_registry() -> Dict[str, Any]:
+    # the pristine baseline is copied (its keys are rebound in place by
+    # _refresh_pristine/_apply_membership) so an aborted regrow that
+    # touched it cannot poison the rollback capsule
+    with _lock:
+        return {"dead": set(_dead), "retired": set(_retired),
+                "draining": set(_draining),
+                "warmup": {r: list(v) for r, v in _warmup.items()},
+                "pristine": dict(_pristine) if _pristine is not None
+                else None}
+
+
+def _restore_registry(snap: Dict[str, Any]) -> None:
+    # every value is re-copied out of the snapshot so the snapshot itself
+    # stays pristine: a second abort restoring from the same capsule gets
+    # exactly the same state as the first
+    global _pristine
+    with _lock:
+        _dead.clear()
+        _dead.update(snap["dead"])
+        _retired.clear()
+        _retired.update(snap["retired"])
+        _draining.clear()
+        _draining.update(snap["draining"])
+        _warmup.clear()
+        _warmup.update({r: list(v) for r, v in snap["warmup"].items()})
+        _pristine = (dict(snap["pristine"])
+                     if snap["pristine"] is not None else None)
+
+
+def _host_snapshot(tree: Any, ctx) -> Tuple[Any, List[torch.device]]:
+    """A host copy of ``tree`` that references no device tensor
+    (:func:`bluefog_tpu_torch.utils.snapshot.snapshot`: containers
+    rebuilt, an optimizer as its per-parameter state list, pinned copies
+    from a card), with each tensor's device in the copy's order.  Across
+    processes every leaf with this process's ``rows`` on dim 0 is
+    gathered whole, ``[size, ...]``, so the carry can lay the survivors'
+    rows out over any new process layout."""
+    unfolded = unfold(tree)
+    devices: List[torch.device] = []
+    map_tensors(lambda t: devices.append(t.device), unfolded)
+    if ctx.world > 1:
+        import torch.distributed as dist
+
+        def whole(t):
+            if t.ndim >= 1 and t.shape[0] == ctx.rows:
+                parts = [torch.empty_like(t) for _ in range(ctx.world)]
+                dist.all_gather(parts, t.contiguous())
+                return torch.cat(parts)
+            return t
+
+        unfolded = map_tensors(whole, unfolded)
+    snap = snapshot(unfolded, pin=ctx.device.type == "cuda")
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    return snap, devices
+
+
+def _carry_state(snap: Tuple[Any, List[torch.device]], old_n: int,
+                 new_n: int, new_ctx, old_world: int = 1
+                 ) -> Tuple[Any, int]:
+    """Lay a host snapshot out on the regrown world.
+
+    Tensors with a leading rank axis (``shape[0] == old_n``) are extended
+    (grow) or truncated (shrink) to ``new_n`` rows — survivor rows byte
+    for byte the snapshot's, joiner rows seeded from rank 0's row as a
+    finite placeholder the neighbor-pull bootstrap then overwrites — and
+    this process's block of them lands on the context's device.  Every
+    other tensor is copied back to the device it came from; plain values
+    pass through.  Every process that holds the snapshot lays its own
+    block out from it; a new world with more processes than
+    ``old_world`` has joiner processes that hold none, and process 0
+    sends each of them its block (:func:`regrow_join` receives it).
+    Returns ``(tree, bytes moved onto the devices)``."""
+    host, devices = snap
+    dev = new_ctx.device
+    rows, first = new_ctx.rows, new_ctx.first_rank
+    joiner_procs = range(old_world, new_ctx.world)
+    at = iter(devices)
+    moved = [0]
+
+    def block(t, start, keep):
+        # rows [start, start + rows) of the laid-out tensor straight from
+        # the (pinned) host copy: survivor rows, then joiner rows seeded
+        # from row 0
+        out = torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=dev)
+        hi = min(start + rows, keep)
+        if hi > start:
+            out[:hi - start].copy_(t[start:hi], non_blocking=True)
+        lo = max(start, keep)
+        if start + rows > lo:
+            out[lo - start:].copy_(t[0].expand_as(out[lo - start:]),
+                                   non_blocking=True)
+        return out
+
+    def carry(t):
+        home = next(at)
+        if t.ndim >= 1 and t.shape[0] == old_n:
+            keep = min(old_n, new_n)
+            out = block(t, first, keep)
+            if joiner_procs and new_ctx.process == 0:
+                import torch.distributed as dist
+                for p in joiner_procs:
+                    dist.send(block(t, p * rows, keep), dst=p)
+        else:
+            out = t.to(home, copy=True)
+        moved[0] += out.numel() * out.element_size()
+        return out
+
+    tree = map_tensors(carry, host)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return tree, moved[0]
+
+
+def _abort_rollback(capsule: Dict[str, Any], attempts: int = 3) -> None:
+    """Reinstall the retained old world from the abort capsule.
+
+    The rollback window is itself preemptible: a second spot reclaim (or
+    any async exception) can land between re-installing the old context
+    and restoring the membership registry, splitting the pair.  Each
+    attempt therefore re-runs BOTH halves from the capsule — which no
+    restore ever mutates — so a retry after a mid-rollback failure
+    converges on exactly the pre-regrow world instead of a hybrid.
+    """
+    last: Optional[Exception] = None
+    for attempt in range(1, attempts + 1):
+        try:
+            _mesh._install(capsule["ctx"], capsule["compose"])
+            _restore_registry(capsule["registry"])
+            return
+        except Exception as exc:     # second preemption mid-rollback
+            last = exc
+            _flight.record("regrow", name="rollback_retry", attempt=attempt,
+                           error=f"{type(exc).__name__}: {exc}")
+    raise RuntimeError(
+        f"regrow rollback failed {attempts} times; the retained world "
+        "may be inconsistent") from last
+
+
+def _pull_joiners(out: Any, joiners: Sequence[int], min_neighbors: int,
+                  warmup_steps: int, new_ctx) -> Any:
+    """The joiner-pull phase's body: bootstrap each joiner by live
+    neighbor gossip on the new world, then open its out-edges (optionally
+    ramped)."""
+    if out is not None:
+        for j in joiners:
+            out = bootstrap_params(out, j, min_neighbors=min_neighbors)
+    if warmup_steps:
+        _refresh_pristine(new_ctx)
+        with _lock:
+            for j in joiners:
+                _warmup[j] = [1, warmup_steps + 1]
+        _apply_membership(new_ctx)
+    return out
+
+
+def regrow_world(target: int, params: Any = None, *,
+                 coordinator: Optional[int] = None,
+                 timeout: Optional[float] = None,
+                 retries: int = _DEFAULT_REGROW_RETRIES,
+                 backoff: float = 0.05,
+                 min_neighbors: int = 2,
+                 warmup_steps: int = 0,
+                 topology_fn: Optional[Callable[[], nx.DiGraph]] = None,
+                 processes: Optional[int] = None,
+                 ) -> Tuple[Any, RegrowHandle]:
+    """Re-bootstrap the world at ``target`` ranks — no checkpoint files.
+
+    The coordinator (lowest live rank by default) drives the protocol::
+
+        quiesce ──► handshake ──► snapshot ──► reinit ──► carry ──► joiner_pull
+        (device      (coordinator  (state to    (new world  (rows onto (bootstrap_
+         drained)     election +    host mem)    + carving   the new    params per
+                      validation)                + registry) world)     joiner)
+
+    Each phase runs under a deadline (``timeout``, default the
+    ``BLUEFOG_REGROW_TIMEOUT`` env var or 30 s) with ``retries`` bounded
+    retries and exponential backoff.  Any exhausted phase — or a chaos
+    ``kill_coordinator`` / ``kill_joiner`` — rolls the process back to the
+    old world (context, carving, membership registry) and raises
+    :class:`RegrowAborted`; survivors keep training/serving on the old
+    world.  On success the old world is *retained* until
+    :func:`commit_regrow` (call it after the new world's first step), and
+    ``(new_params, handle)`` is returned: survivor rows of ``params`` are
+    carried losslessly through host memory, joiner rows are seeded by the
+    neighbor pull (:func:`bootstrap_params`) running on the new world.
+    Previously-dead ranks stay healed around in the new world.
+
+    ``params`` may hold a whole train state: the carried tree has the
+    host snapshot's form (an optimizer becomes its per-parameter state
+    list, a dataclass a dict; see ``utils/snapshot.py``), every tensor on
+    the new world's device, and a trainer built at the new size takes it
+    through ``restore_into``.  The caller's tensors are not touched, so
+    the old world's state stays usable after an abort.
+
+    ``warmup_steps > 0`` opens the joiners' out-edges at reduced weight
+    that ramps to nominal over :func:`advance_membership` ticks, exactly
+    like an elastic re-admission.  ``processes`` re-forms the process
+    group at that many processes (see ``context.reinit``); joiner
+    processes enter through :func:`regrow_join`.
+    """
+    global _regrow_pending
+    import time as _time
+
+    ctx = _mesh.get_context()
+    if _regrow_pending is not None:
+        raise RuntimeError(
+            "a regrowth is already pending; call commit_regrow() after "
+            "the new world's first step before regrowing again")
+    target = int(target)
+    old_n = ctx.size
+    if target < 2:
+        raise ValueError(f"regrow target must be >= 2, got {target}")
+    if target == old_n:
+        raise ValueError(
+            f"regrow target {target} equals the current world size")
+    if warmup_steps < 0:
+        raise ValueError("warmup_steps must be >= 0")
+    if timeout is None:
+        timeout = _regrow_timeout()
+    joiners = tuple(range(old_n, target)) if target > old_n else ()
+    if coordinator is None:
+        coordinator = min(live_ranks())
+    coordinator = int(coordinator)
+    if not (0 <= coordinator < old_n):
+        raise ValueError(
+            f"coordinator rank {coordinator} out of range for "
+            f"world size {old_n}")
+    procs = ctx.world if processes is None else int(processes)
+
+    capsule = {"ctx": ctx, "compose": _mesh.get_compose(),
+               "registry": _snapshot_registry()}
+    status: Dict[str, Any] = {
+        "world_before": old_n, "world_after": target,
+        "coordinator": coordinator, "joiners": list(joiners),
+        "committed": False, "failed_attempts": 0, "aborts": 0,
+        "phases": [], "duration_s": None,
+    }
+    _flight.register_block("regrow", _regrow_flight_block)
+    _publish_regrow(status)
+    _flight.record("regrow", name="begin", world_before=old_n,
+                   world_after=target, coordinator=coordinator,
+                   joiners=list(joiners))
+    runner = _PhaseRunner(status=status, timeout=timeout, retries=retries,
+                          backoff=backoff, coordinator=coordinator,
+                          joiners=joiners)
+    carried = [0]
+    t_start = _time.monotonic()
+    try:
+        # 1. quiesce: the step barrier — the device's queued work drains
+        # before the world is torn down under it
+        def _quiesce():
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize(ctx.device)
+        runner.run("quiesce", _quiesce)
+
+        # 2. handshake: the elected coordinator validates the target
+        # against the new process layout before anything is torn down
+        def _handshake():
+            if target % procs:
+                raise ValueError(
+                    f"regrow target {target} is not a whole number of "
+                    f"ranks for each of the {procs} processes")
+            return coordinator
+        runner.run("handshake", _handshake)
+
+        # 3. snapshot: the carried state to host memory (no device tensor
+        # referenced past this point)
+        snap = runner.run(
+            "snapshot",
+            (lambda: _host_snapshot(params, ctx)) if params is not None
+            else (lambda: None))
+
+        # 4. reinit: tear down + re-form world/carving/registry at target
+        new_ctx = runner.run(
+            "reinit",
+            lambda: _mesh.reinit(target, topology_fn=topology_fn,
+                                 processes=procs))
+
+        # previously-dead ranks stay healed around in the new world
+        carried_dead = sorted(r for r in capsule["registry"]["dead"]
+                              if r < target)
+        if carried_dead:
+            mark_rank_dead(*carried_dead)
+
+        # 5. carry: survivors' rows onto the new world
+        new_params = None
+        if params is not None:
+            def _carry():
+                tree, nbytes = _carry_state(snap, old_n, target, new_ctx,
+                                            old_world=ctx.world)
+                carried[0] = nbytes
+                return tree
+            new_params = runner.run("carry", _carry)
+
+        # 6. joiner pull: bootstrap each joiner by live neighbor gossip
+        # on the NEW world, then open its out-edges (optionally ramped)
+        if joiners:
+            new_params = runner.run(
+                "joiner_pull",
+                lambda: _pull_joiners(new_params, joiners, min_neighbors,
+                                      warmup_steps, new_ctx))
+    except Exception as exc:
+        status["aborts"] += 1
+        rank = getattr(exc, "rank", None)
+        try:
+            _abort_rollback(capsule)
+        finally:
+            # bookkeeping runs even if the rollback itself blew up, so
+            # the abort is never invisible to the flight recorder
+            _publish_regrow(status)
+            _flight.record("regrow", name="abort", phase=runner.phase,
+                           world_before=old_n, world_after=target,
+                           coordinator=coordinator, rank=rank,
+                           error=f"{type(exc).__name__}: {exc}")
+            _fault_span(f"resilience:regrow_abort:{runner.phase}")
+        raise RegrowAborted(
+            runner.phase, f"{type(exc).__name__}: {exc}",
+            rank=rank) from exc
+
+    duration = _time.monotonic() - t_start
+    status["duration_s"] = round(duration, 6)
+    _regrow_pending = {"capsule": capsule, "status": status}
+    _publish_regrow(status)
+    _update_membership_gauges(target)
+    _count_membership("regrow")
+    _flight.record("regrow", name="regrown", world_before=old_n,
+                   world_after=target, coordinator=coordinator,
+                   joiners=list(joiners), duration_s=round(duration, 6))
+    handle = RegrowHandle(
+        world_before=old_n, world_after=target, coordinator=coordinator,
+        joiners=joiners, duration_s=duration, bytes_carried=carried[0])
+    return new_params, handle
+
+
+def regrow_join(template: Any, world_before: int, *,
+                min_neighbors: int = 2) -> Any:
+    """The joiner process's side of a regrowth that adds processes: run
+    in a process the supervisor spawned into the new world (its
+    ``context.init`` already formed the new process group), while the
+    survivors run :func:`regrow_world`.  ``template`` is a tree of the
+    carried state's form with this process's rows (a freshly initialized
+    state; ``utils/snapshot.py::unfold`` gives a live state that form);
+    its row tensors are replaced by the block of carried rows process 0
+    sends, then the joiner pull runs with the survivors.  Returns the
+    joiner's state."""
+    ctx = _mesh.get_context()
+    old_n, new_n = int(world_before), ctx.size
+    if not old_n < new_n:
+        raise ValueError(f"a joiner enters a world that grows, not "
+                         f"{old_n} -> {new_n} ranks")
+    import torch.distributed as dist
+    rows = ctx.rows
+
+    def receive(t):
+        if t.ndim >= 1 and t.shape[0] == rows:
+            out = torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=ctx.device)
+            dist.recv(out, src=0)
+            return out
+        return t
+
+    tree = map_tensors(receive, unfold(template))
+    return _pull_joiners(tree, tuple(range(old_n, new_n)), min_neighbors,
+                         0, ctx)
 
 
 def commit_regrow() -> bool:
-    """Commit a pending regrowth: refused until ``regrow_world`` is ported
-    (ROADMAP queue 1, item 10)."""
-    raise ValueError(_REGROW_REFUSAL)
+    """Release the old world after a successful regrowth.
+
+    Call after the new world's first train/serve step completes: until
+    then the pre-regrowth context, carving and registry snapshot are
+    retained so a first-step blow-up can still roll back by hand.
+    Returns True if a pending regrowth was committed, False when none was
+    pending.  Idempotent.
+    """
+    global _regrow_pending
+    if _regrow_pending is None:
+        return False
+    status = _regrow_pending["status"]
+    _regrow_pending = None
+    status["committed"] = True
+    _publish_regrow(status)
+    _flight.record("regrow", name="commit",
+                   world_before=status["world_before"],
+                   world_after=status["world_after"],
+                   coordinator=status["coordinator"],
+                   duration_s=status["duration_s"])
+    return True
 
 
 def regrow_pending() -> bool:
-    """Whether a regrowth awaits its commit: refused until
-    ``regrow_world`` is ported (ROADMAP queue 1, item 10)."""
-    raise ValueError(_REGROW_REFUSAL)
+    """True while a regrowth awaits :func:`commit_regrow`."""
+    return _regrow_pending is not None

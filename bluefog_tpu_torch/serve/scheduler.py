@@ -671,7 +671,8 @@ class AutoScaler:
         if p99 is not None:
             self.ewma_p99 = p99
             _ts.append("bluefog_serve_p99_s", p99)
-            # also a registry gauge (the JAX fleet view gossips it)
+            # also a registry gauge: the fleet-view carrier gossips it,
+            # so every rank's scaler scores the fleet's worst p99
             _metrics.gauge(
                 "bluefog_serve_p99_s",
                 "trailing-window p99 of per-token serve latency (s)"
@@ -679,11 +680,19 @@ class AutoScaler:
         if self._step - self._last_action_step < self.cooldown_steps:
             return None
         sched = self.sched
-        # the JAX scaler re-bases on a gossiped fleet view when one is
-        # armed; the port has none (ROADMAP queue 1, item 10), so the
-        # signals are this scheduler's own, as in JAX with none armed
-        eff_pending = sched.pending
-        eff_p99 = self.ewma_p99
+        # fleet re-basing: with a gossiped fleet view armed, a queue or
+        # p99 breach anywhere in the fleet is scored here too — the rank
+        # holding the parked replica acts even when its local signals are
+        # calm (the retire path stays strictly local)
+        fleet_pending = fleet_p99 = None
+        from ..utils import fleetview as _fleetview
+        fv = _fleetview.active()
+        if fv is not None:
+            fleet_pending, _ = fv.fleet_max("bluefog_serve_queue_depth")
+            fleet_p99, _ = fv.fleet_max("bluefog_serve_p99_s")
+        eff_pending = max(sched.pending, int(fleet_pending or 0))
+        eff_p99 = max((x for x in (self.ewma_p99, fleet_p99)
+                       if x is not None), default=None)
         breach = (eff_pending > self.queue_high
                   or (eff_p99 is not None and eff_p99 > self.slo_p99_s))
         if breach and sched._parked:

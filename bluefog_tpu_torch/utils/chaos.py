@@ -163,8 +163,8 @@ class RankPreempted(RankKilled):
     ``grace`` is the advance-notice window in seconds the victims got to
     drain, ``regrant`` how long the capacity stays reclaimed before the
     provider re-grants it.  Training loops catch this and shrink via
-    :func:`bluefog_tpu_torch.resilience.regrow_world` (ROADMAP queue 1,
-    item 10), then regrow when the re-grant lands.
+    :func:`bluefog_tpu_torch.resilience.regrow_world`, then regrow when
+    the re-grant lands.
     """
 
     def __init__(self, ranks: Tuple[int, ...], step: int, *,
@@ -660,8 +660,8 @@ def on_regrow_phase(phase: str, attempt: int, *,
                     coordinator: Optional[int] = None,
                     joiners: Tuple[int, ...] = ()) -> None:
     """Mesh-regrowth protocol hook, for ``resilience.regrow_world`` at
-    the top of every phase attempt (ROADMAP queue 1, item 10: nothing calls
-    it until the context's ``reinit`` is ported).  May raise :class:`RankKilled` (``kill_coordinator`` /
+    the top of every phase attempt.  May raise :class:`RankKilled`
+    (``kill_coordinator`` /
     ``kill_joiner`` — the regrowth aborts and rolls back to the old world)
     or sleep (``hang_reinit`` — the phase deadline is the detector).
 

@@ -18,8 +18,9 @@ their variables (:func:`maybe_start_from_env`), as JAX's does:
 * JSONL log -- ``BLUEFOG_METRICS=<prefix>`` writes
   ``<prefix>.metrics.jsonl``, one snapshot line per :func:`sample` call.
 * Prometheus text exposition -- ``start_http_server(port)`` (or
-  ``BLUEFOG_METRICS_PORT``) serves ``/metrics`` and ``/healthz`` from a
-  daemon thread (JAX's ``/fleet`` waits for a port of the fleet view).
+  ``BLUEFOG_METRICS_PORT``) serves ``/metrics``, ``/healthz`` and, while
+  a fleet view is armed, ``/fleet`` (503 otherwise) from a daemon
+  thread.
 
 Hot-path cost discipline: an update is a dict lookup + float add under one
 lock; snapshots/serialization happen only in :func:`sample` or on scrape.
@@ -438,6 +439,7 @@ class _MetricsHandler(http.server.BaseHTTPRequestHandler):
                         "text/plain; version=0.0.4; charset=utf-8")
             return
         if path == "/healthz":
+            fv_mod = sys.modules.get("bluefog_tpu_torch.utils.fleetview")
             with _lock:
                 n_metrics = len(_registry)
             body = json.dumps({
@@ -445,8 +447,23 @@ class _MetricsHandler(http.server.BaseHTTPRequestHandler):
                 "ts": time.time(),
                 "pid": os.getpid(),
                 "metrics": n_metrics,
+                "fleet_armed": bool(fv_mod is not None
+                                    and fv_mod.active() is not None),
             }).encode()
             self._reply(200, body, "application/json")
+            return
+        if path == "/fleet":
+            # guarded on the module already being loaded: a process that
+            # never armed a fleet view must not import it from a scrape
+            fv_mod = sys.modules.get("bluefog_tpu_torch.utils.fleetview")
+            fv = fv_mod.active() if fv_mod is not None else None
+            if fv is None:
+                self._reply(503, json.dumps(
+                    {"error": "fleet view not armed"}).encode(),
+                    "application/json")
+                return
+            self._reply(200, json.dumps(fv.fleet()).encode(),
+                        "application/json")
             return
         self.send_response(404)
         self.end_headers()

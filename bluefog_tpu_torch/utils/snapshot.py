@@ -18,7 +18,8 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-__all__ = ["live_tensors", "snapshot", "snapshot_tensors", "restore_into"]
+__all__ = ["live_tensors", "unfold", "map_tensors", "snapshot",
+           "snapshot_tensors", "restore_into"]
 
 
 def _fields(x):
@@ -57,44 +58,65 @@ def live_tensors(tree: Any) -> List[torch.Tensor]:
     return out
 
 
-def snapshot(tree: Any, pin: bool = False,
-             spare: Optional[List[torch.Tensor]] = None) -> Any:
-    """A host copy of ``tree``: each tensor copied to a CPU tensor (pinned
-    and asynchronous from a card with ``pin``: synchronize before reading
-    it; into ``spare``'s buffers, consumed in order, where shape and dtype
-    match), numpy arrays as tensors, containers rebuilt (a NamedTuple as
-    a tuple, a dataclass as a dict of its fields), an optimizer as the
-    list of its per-parameter state dicts (None where a slot has none),
-    other leaves as they are."""
-    spare = [] if spare is None else spare
-
-    def cap(x):
+def unfold(tree: Any) -> Any:
+    """``tree`` in a snapshot's containers with its tensors left where
+    they are: numpy arrays as tensors, a NamedTuple as a tuple, a
+    dataclass as a dict of its fields, an optimizer as the list of its
+    per-parameter state dicts (None where a slot has none), other leaves
+    as they are."""
+    def walk(x):
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            return torch.from_numpy(np.ascontiguousarray(x))
         if isinstance(x, torch.Tensor):
-            t = x.detach()
-            host = spare.pop(0) if spare else None
-            if host is None or host.shape != t.shape or \
-                    host.dtype != t.dtype:
-                host = torch.empty(t.shape, dtype=t.dtype,
-                                   pin_memory=pin and t.is_cuda)
-            host.copy_(t, non_blocking=t.is_cuda)
-            return host
+            return x.detach()
         if isinstance(x, dict):
-            return {k: cap(v) for k, v in x.items()}
+            return {k: walk(v) for k, v in x.items()}
         if isinstance(x, list):
-            return [cap(v) for v in x]
+            return [walk(v) for v in x]
         if isinstance(x, tuple):
-            return tuple(cap(v) for v in x)
+            return tuple(walk(v) for v in x)
         if isinstance(x, torch.optim.Optimizer):
             return [None if not x.state.get(p) else
-                    {k: cap(v) for k, v in x.state[p].items()}
+                    {k: walk(v) for k, v in x.state[p].items()}
                     for group in x.param_groups for p in group["params"]]
         if _fields(x) is not None:
-            return {f.name: cap(getattr(x, f.name)) for f in _fields(x)}
+            return {f.name: walk(getattr(x, f.name)) for f in _fields(x)}
         return x
 
-    return cap(tree)
+    return walk(tree)
+
+
+def map_tensors(fn, tree: Any) -> Any:
+    """A tree of :func:`unfold`'s containers with ``fn`` applied to every
+    tensor, in :func:`snapshot_tensors`' order."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tensors(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def snapshot(tree: Any, pin: bool = False,
+             spare: Optional[List[torch.Tensor]] = None) -> Any:
+    """A host copy of ``tree`` in :func:`unfold`'s containers: each tensor
+    copied to a CPU tensor (pinned and asynchronous from a card with
+    ``pin``: synchronize before reading it; into ``spare``'s buffers,
+    consumed in order, where shape and dtype match)."""
+    spare = [] if spare is None else spare
+
+    def cap(t):
+        host = spare.pop(0) if spare else None
+        if host is None or host.shape != t.shape or host.dtype != t.dtype:
+            host = torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=pin and t.is_cuda)
+        host.copy_(t, non_blocking=t.is_cuda)
+        return host
+
+    return map_tensors(cap, unfold(tree))
 
 
 def snapshot_tensors(snap: Any) -> List[torch.Tensor]:

@@ -281,8 +281,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 12e. MoE training in bf16: phase 12b's model, carving and optimizer with
    every parameter, gradient and Adam moment in bf16 (``init_moe_train_
    params(dtype=torch.bfloat16)``), at lm_bench's micro 8 (12b's f32 cut
-   to 4 is not needed: bf16 halves the activations), 1 warm-up and 2
-   timed steps.  Launches by 12b's formula, every leaf still bf16, the
+   to 4 is not needed: bf16 halves the activations), 1 warm-up and 1
+   timed step (2 before phase 22).  Launches by 12b's formula, every leaf still bf16, the
    loss falls, the probe drops none (usage sums to 1 within 2^-6).  Step
    1 replayed through the plain versions: flips only at near ties by
    12c's rule against the probabilities' change under a one-bf16-ulp
@@ -440,7 +440,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    pinned buffers equal to its host batches, and the native row gather
    timed against numpy's at the examples' batches; (a) ``tools/lm_bench``
    under ``throttle:from=2,until=99,t=0.2,rank=2`` and under a throttle
-   of twice the step (``--flight-dir``; 6 and 3 timed steps; the
+   of twice the step (``--flight-dir``; 3 and 3 timed steps, 6 and 3
+   before phase 22; the
    unthrottled step from the other ranks' entries): rank 2 the slowest,
    tools/postmortem.py's skew
    within 25 % of the throttle from step 2, the second throttle blamed,
@@ -458,6 +459,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    resnet (resumed once) and elastic_restart examples at their defaults.
    K1/K2 launch counts are each run's formula, and the kernels line sums
    the counts read after each run; no K3/K4.
+
+22. the launcher, the elastic world and the fleet view (an ``elastic``
+   line a leg): (a) the dense trainer at lm_bench's full width (phase
+   21's config) at dp 4 with ``BLUEFOG_FLEET_EVERY=1`` (the probe every
+   step) and ``/fleet`` served on an ephemeral port, 2 steps, then
+   ``resilience.regrow_world(6, state)`` with the whole train state as
+   one tree (params, both Adam moments, the delayed carry), 1 step on a
+   dp-6 trainer written from the carried state, ``commit_regrow``, a
+   regrowth back to 4 (a size already seen), 1 step and a commit: the
+   survivors' rows of every tensor bit for bit with the old world's
+   state, the joiners' rows within 1e-6 of their donors' mean, the first
+   dp-6 step bit for bit with a fresh dp-6 trainer's from the carried
+   state, no kernel built or loaded during either regrowth
+   (``ops/_build.py``'s counts), the port's ``fleet_top --once --url``
+   as a subprocess after a dp-4 and after the dp-6 step (every rank's
+   row, 4 then 6, flooded by diameter probes; the fleet's mean step time
+   the per-rank mean), the probe's ms armed and disarmed, each protocol
+   phase's seconds, the bytes carried and the peak memory, K1/K2 on a
+   captured launch against their plain versions; (b) at (a)'s final
+   state, ``kill_coordinator`` then a 3 s ``hang_reinit`` (under
+   ``BLUEFOG_REGROW_TIMEOUT=2.0``) each abort and reinstall the old
+   world, and the next step equals bit for bit a step from the state
+   before them; (c) ``regrow_drill`` (with and without ``--chaos``) and
+   ``preempt_bench`` on ``preempt_trace``'s ``mass`` trace at their
+   defaults on CUDA tensors (0 fresh builds); (d) ``bfrun-torch`` (``python
+   -m bluefog_tpu_torch.run.launcher``): ``-np 1 --flight-dir`` over
+   lm_bench at full width (a one-process NCCL world, K1/K2 counted in
+   the child by the formula), ``-np 1 --restart-limit 1`` over
+   ``examples/elastic_restart`` with a planted chaos kill (respawned
+   with ``BLUEFOG_RESTART_COUNT=1``, exit 0), and ``--interactive -np
+   1`` (one worker on the card runs a cell that forms the world and
+   prints the card's name); all three start before phase 17 and run
+   beside phases 17-21 (the ``elastic_children_overlap`` line names the
+   phases each ran beside).  K1/K2
+   launch counts are each run's formula; no K3/K4.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3699,7 +3735,7 @@ def moe_train_bf16_phase(fa, gf, layers_mod, smi):
     m = compose.compose_parallelism(2, 2, 2, 1, device=DEV,
                                     num_experts=cfg.num_experts,
                                     capacity_factor=cfg.capacity_factor)
-    steps = 3
+    steps = 2                 # 1 warm-up + 1 timed (2 before phase 22)
     run = _MoERun(fa, gf, layers_mod, cfg, m, steps, dtype=torch.bfloat16)
     want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
     if set(run.launches.values()) != {want}:
@@ -4258,7 +4294,8 @@ def _hr_same(tag, got, want):
 
 def _hr_straggler(fa, gf, smi, scratch, seen):
     """21a: tools/lm_bench at its full width (dp 4, 2 warm-up steps, then
-    6 timed steps under ``throttle:from=2,until=99,t=0.2,rank=2``, and 3
+    3 timed steps (6 before phase 22) under
+    ``throttle:from=2,until=99,t=0.2,rank=2``, and 3
     under a throttle of twice the others' step in that run, rounded up to
     0.1 s): the detector's rule (a rank over 2x the median) calls a rank
     a straggler only when its delay exceeds the others' whole step, which
@@ -4337,7 +4374,7 @@ def _hr_straggler(fa, gf, smi, scratch, seen):
             mock.patch.object(
                 fa, "attention_block_backward",
                 _capture_copy(seen, "k2", fa.attention_block_backward)):
-        rows["throttle_0.2"] = run("throttle_0.2", HR_T, 6)
+        rows["throttle_0.2"] = run("throttle_0.2", HR_T, 3)
         base = rows["throttle_0.2"]["unthrottled_step_s"]
         big = float(np.ceil(20 * base) / 10)
         rows["throttle_2x"] = run("throttle_2x", big, 3)
@@ -4862,6 +4899,617 @@ def host_runtime_phase(fa, gf, fd, smi):
         + timeline["flash_launches"])
     print("host_runtime_native " + json.dumps(native), flush=True)
     return {"flash_fwd": flash, "flash_bwd": flash, "grouped_ffn": 0,
+            "grouped_ffn_dgrad": 0, "grouped_ffn_backward_plan": 0,
+            "flash_decode": 0}, seconds
+
+
+# -- phase 22: the launcher, the elastic world and the fleet view --------
+
+EL_DP, EL_GROWN = 4, 6        # 22a: dp 4 -> 6 -> 4
+EL_TIMEOUT = "2.0"            # 22b: BLUEFOG_REGROW_TIMEOUT of the hang
+EL_HANG = 3.0                 # 22b: hang_reinit's seconds (> the timeout)
+
+
+def _el_cfg():
+    from bluefog_tpu_torch.parallel import compose
+    return compose.LMConfig(vocab=32768, d_model=1024, heads=16, layers=2,
+                            seq_len=2048, micro=4, batch=4)
+
+
+def _el_trainer(cfg, m, tree=None, seed=0):
+    """lm_bench's dense trainer on carving ``m`` (delayed AWC, Adam at
+    5e-3, K1/K2, the probe every step): ``(step, tree, tokens)``.  With
+    ``tree`` (a carried state in the snapshot's form) the params are its
+    params and the whole state is written from it; else drawn from
+    ``seed``."""
+    from bluefog_tpu_torch import optimizers as bfopt
+    from bluefog_tpu_torch.parallel import compose
+    from bluefog_tpu_torch.utils.snapshot import restore_into
+    step, strategy = compose.make_train_step(
+        m, compose.make_lm_grad_fn(cfg, m, use_pallas=True),
+        bfopt.adam(5e-3), delayed=True, metrics_every_k=1)
+    if tree is None:
+        params = compose.init_lm_train_params(cfg, m, seed=seed)
+    else:
+        params = _el_to(tree["params"], m.device)
+    state = bfopt.init_distributed(strategy, params)
+    live = {"params": params, "state": state}
+    if tree is not None:
+        live = restore_into(live, tree)
+    return step, live, compose.make_lm_batch(cfg, m, seed=seed)
+
+
+def _el_step(step, live, toks):
+    p, s, loss = step(live["params"], live["state"], toks)
+    return {"params": p, "state": s}, loss
+
+
+def _el_tensors(tree):
+    """A tree's tensors (optimizers as their per-parameter state lists,
+    dataclasses as dicts of their fields) with dict keys in sorted order,
+    so a live state and its carried snapshot line up (the joiner pull
+    rebuilds dicts in key order)."""
+    from bluefog_tpu_torch.utils.snapshot import live_tensors, unfold
+    return live_tensors(unfold(tree))
+
+
+def _el_rows(tag, got, want, old_n, new_n):
+    """The survivors' rows of every tensor of ``got`` (a carried tree)
+    equal, bit for bit, those of ``want`` (the old world's state the
+    regrowth's host snapshot copied, untouched by it); the other tensors
+    whole.  Returns the row tensors held."""
+    a, b = _el_tensors(got), _el_tensors(want)
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} carried tensors against "
+                             f"{len(b)}")
+    keep, rows = min(old_n, new_n), 0
+    for x, y in zip(a, b):
+        if y.ndim and y.shape[0] == old_n:
+            ok = x.shape[0] == new_n and torch.equal(x[:keep], y[:keep])
+            rows += 1
+        else:
+            ok = torch.equal(x, y.to(x.device))
+        if not ok:
+            raise AssertionError(f"{tag}: a carried tensor {tuple(x.shape)}"
+                                 f" differs from the old world's")
+    return rows
+
+
+def _el_same(tag, a, b):
+    """Two trees' tensors (either may be a snapshot) bit for bit; returns
+    their count."""
+    x, y = _el_tensors(a), _el_tensors(b)
+    if len(x) != len(y):
+        raise AssertionError(f"{tag}: {len(x)} tensors against {len(y)}")
+    for u, v in zip(x, y):
+        if not torch.equal(u, v.to(u.device)):
+            d = float((u.double() - v.to(u.device).double()).abs().max())
+            raise AssertionError(f"{tag}: a tensor {tuple(u.shape)} "
+                                 f"differs by {d}")
+    return len(x)
+
+
+def _el_to(tree, dev):
+    """``tree``'s tensors copied onto ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _el_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _el_fleet(port, n):
+    """One ``fleet_top --once --json`` frame over HTTP (the port's tool as
+    a subprocess): every one of the ``n`` ranks' rows seen, and the
+    fleet's mean step time the mean of its per-rank table."""
+    # the tool's file run as a script: it needs nothing of the package
+    # (standard library only), so the frame costs no torch import
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bluefog_tpu_torch", "tools", "fleet_top.py")
+    proc = subprocess.run(
+        [sys.executable, tool, "--url", f"http://127.0.0.1:{port}/fleet",
+         "--once", "--json"], capture_output=True, text=True, timeout=60)
+    if proc.returncode:
+        raise AssertionError(f"fleet_top failed: {proc.stderr[-1500:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    st = doc["metrics"]["bluefog_step_time_ewma_s"]
+    per = [st["per_rank"].get(str(r)) for r in range(n)]
+    if doc["n"] != n or doc["seen_ranks"] != list(range(n)) or \
+            None in per:
+        raise AssertionError(f"fleet frame: n {doc['n']}, seen "
+                             f"{doc['seen_ranks']}, step times {per}; "
+                             f"want every one of {n} ranks")
+    if not np.isclose(st["global"], float(np.mean(per)), rtol=1e-6):
+        raise AssertionError(f"fleet mean step time {st['global']} != "
+                             f"the per-rank mean {np.mean(per)}")
+    return {"n": doc["n"], "round": doc["round"],
+            "step_time_s": st["global"], "per_rank_step_time_s": per,
+            "staleness_rounds_max": doc["staleness"]["rounds_max"]}
+
+
+def _el_flood(diag, params):
+    """Probes until every rank's row has flooded the armed view (the
+    live graph's diameter)."""
+    from bluefog_tpu_torch.parallel import context as bf
+    from bluefog_tpu_torch.utils import fleetview
+    for _ in range(fleetview._graph_diameter(bf.static_schedule(),
+                                             frozenset())):
+        diag.diagnose_consensus(params)
+
+
+def _el_regrow(fa, gf, smi):
+    """22a and 22b.  Returns their rows and the K1/K2 launches."""
+    from bluefog_tpu_torch import diagnostics as diag
+    from bluefog_tpu_torch import resilience as rz
+    from bluefog_tpu_torch.ops import _build
+    from bluefog_tpu_torch.parallel import context as bf
+    from bluefog_tpu_torch.parallel import compose
+    from bluefog_tpu_torch.utils import chaos, fleetview
+    from bluefog_tpu_torch.utils import metrics as bfm
+    from bluefog_tpu_torch.utils.snapshot import restore_into, snapshot
+    cfg = _el_cfg()
+    per_step = {n: n * cfg.micro * cfg.layers for n in (EL_DP, EL_GROWN)}
+    out, seen, launches = {}, {}, 0
+    laps, t_lap = {}, [time.monotonic()]
+
+    def lap(name):                      # seconds of each stretch of 22a-b
+        now = time.monotonic()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    os.environ["BLUEFOG_FLEET_EVERY"] = "1"
+    bf.init(size=EL_DP, device=DEV)
+    try:
+        port = bfm.start_http_server(0)
+        if fleetview.fleet_every() != 1:
+            raise AssertionError("22a: BLUEFOG_FLEET_EVERY did not arm "
+                                 "the fleet view at init")
+        torch.cuda.reset_peak_memory_stats()
+        _launch_counts(fa, gf, reset=True)
+        with mock.patch.object(
+                fa, "attention_block_partial",
+                _capture_copy(seen, "k1", fa.attention_block_partial)), \
+                mock.patch.object(
+                    fa, "attention_block_backward",
+                    _capture_copy(seen, "k2", fa.attention_block_backward)):
+            m4 = compose.compose_parallelism(EL_DP, device=DEV)
+            step4, live4, toks4 = _el_trainer(cfg, m4)
+            lap("dp4_trainer")
+            t0 = time.monotonic()
+            for _ in range(2):
+                live4, _ = _el_step(step4, live4, toks4)
+            torch.cuda.synchronize()
+            out["dp4_first_2_steps_s"] = time.monotonic() - t0
+            _el_flood(diag, live4["params"])
+            lap("dp4_steps")
+            out["fleet_dp4"] = _el_fleet(port, EL_DP)
+            lap("dp4_flood_and_fleet_top")
+            # the probe's cost on this state, the fleet view armed and not
+            probe = {}
+            for arm in (True, False):
+                if not arm:
+                    fleetview.disarm()
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                for _ in range(3):
+                    diag.diagnose_consensus(live4["params"])
+                torch.cuda.synchronize()
+                probe["armed" if arm else "disarmed"] = \
+                    (time.monotonic() - t0) / 3 * 1e3
+            fleetview.arm(every=1)          # armed again for the regrowth
+            out["probe_ms"] = probe
+            lap("probe_timing")
+            state_bytes = sum(t.numel() * t.element_size()
+                              for t in _el_tensors(live4))
+            # -- regrow 4 -> 6 ------------------------------------------
+            b0 = _build.build_counts()
+            t0 = time.monotonic()
+            grown, handle = rz.regrow_world(EL_GROWN, live4)
+            out["regrow_4_6_s"] = time.monotonic() - t0
+            builds = {"regrow_4_6": _delta(b0, _build.build_counts())}
+            out["regrow_4_6_phases_s"] = {
+                p["phase"]: p["elapsed_s"] for p in
+                rz._regrow_flight_block()["phases"]}
+            out["bytes_carried_4_6"] = handle.bytes_carried
+            out["state_bytes_dp4"] = state_bytes
+            if (bf.size(), handle.joiners) != (EL_GROWN, (4, 5)):
+                raise AssertionError(f"22a: world {bf.size()}, joiners "
+                                     f"{handle.joiners}")
+            lap("regrow_4_6")
+            out["survivor_tensors"] = _el_rows("22a survivors", grown,
+                                               live4, EL_DP, EL_GROWN)
+            out["joiner_pull_max_rel_err"] = _el_joiners(grown)
+            lap("carry_checks")
+            m6 = bf.get_compose()
+            if (m6.dp, m6.slice_size) != (EL_GROWN, 1):
+                raise AssertionError(f"22a: the carving after reinit is "
+                                     f"{m6.describe()}")
+            # the first step on the new world ...
+            step6, live6, toks6 = _el_trainer(cfg, m6, tree=grown)
+            lap("dp6_trainer")
+            host_grown = snapshot(grown, pin=True)
+            del grown
+            lap("host_copy_of_carry")
+            t0 = time.monotonic()
+            live6, loss6 = _el_step(step6, live6, toks6)
+            torch.cuda.synchronize()
+            out["dp6_step_s"] = time.monotonic() - t0
+            out["dp6_loss_mean"] = float(loss6.float().mean())
+            _el_flood(diag, live6["params"])
+            lap("dp6_step")
+            out["fleet_dp6"] = _el_fleet(port, EL_GROWN)
+            lap("dp6_flood_and_fleet_top")
+            if not handle.commit():
+                raise AssertionError("22a: nothing to commit")
+            del step4, live4
+            # ... equals a fresh dp-6 world's started from the carried state
+            stepb, liveb, _ = _el_trainer(cfg, m6, tree=host_grown)
+            del host_grown
+            liveb, lossb = _el_step(stepb, liveb, toks6)
+            torch.cuda.synchronize()
+            out["fresh_world_tensors"] = _el_same(
+                "22a first dp-6 step vs a fresh dp-6 world",
+                (live6, loss6), (liveb, lossb))
+            del stepb, liveb, lossb
+            lap("fresh_dp6_world")
+            # -- regrow 6 -> 4, a size already seen ----------------------
+            b0 = _build.build_counts()
+            t0 = time.monotonic()
+            shrunk, handle = rz.regrow_world(EL_DP, live6)
+            out["regrow_6_4_s"] = time.monotonic() - t0
+            builds["regrow_6_4"] = _delta(b0, _build.build_counts())
+            out["regrow_6_4_phases_s"] = {
+                p["phase"]: p["elapsed_s"] for p in
+                rz._regrow_flight_block()["phases"]}
+            out["bytes_carried_6_4"] = handle.bytes_carried
+            _el_rows("22a 6 -> 4 survivors", shrunk, live6, EL_GROWN, EL_DP)
+            del step6, live6
+            lap("regrow_6_4")
+            m4 = bf.get_compose()
+            step4, live4, toks4 = _el_trainer(cfg, m4, tree=shrunk)
+            del shrunk
+            live4, _ = _el_step(step4, live4, toks4)
+            torch.cuda.synchronize()
+            handle.commit()
+            lap("dp4_again")
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            launches = _hr_counts(fa, gf, "22a", 2 * per_step[EL_DP]
+                                  + 2 * per_step[EL_GROWN]
+                                  + per_step[EL_DP])["flash_fwd"]
+        out["builds"] = builds
+        if any(v for d in builds.values() for v in d.values()):
+            raise AssertionError(f"22a: kernels built or loaded during a "
+                                 f"regrow: {builds}")
+        out["kernels"] = _k12_checks("elastic", fa, seen)
+        lap("k1_k2_checks")
+        # -- 22b: the abort path at this state --------------------------
+        _launch_counts(fa, gf, reset=True)
+        before = snapshot(live4, pin=True)
+        torch.cuda.synchronize()
+        lap("abort_snapshot")
+        aborts = {}
+        for plan, env, phase in (
+                ("kill_coordinator:step=1", None, "quiesce"),
+                (f"hang_reinit:t={EL_HANG},p=1", EL_TIMEOUT, "reinit")):
+            old = bf.get_context()
+            chaos.install(plan)
+            if env:
+                os.environ["BLUEFOG_REGROW_TIMEOUT"] = env
+            t0 = time.monotonic()
+            try:
+                rz.regrow_world(EL_GROWN, live4, retries=0)
+                raise AssertionError(f"22b: {plan} did not abort")
+            except rz.RegrowAborted as e:
+                aborts[plan] = {"phase": e.phase, "rank": e.rank,
+                                "seconds": time.monotonic() - t0}
+                if e.phase != phase:
+                    raise AssertionError(f"22b: {plan} aborted in phase "
+                                         f"{e.phase}, want {phase}")
+            finally:
+                chaos.uninstall()
+                os.environ.pop("BLUEFOG_REGROW_TIMEOUT", None)
+            if bf.get_context() is not old or rz.regrow_pending() or \
+                    bf.get_compose().dp != EL_DP:
+                raise AssertionError(f"22b: {plan} left world "
+                                     f"{bf.size()}")
+        lap("aborts")
+        live4, loss_a = _el_step(step4, live4, toks4)
+        after = snapshot((live4, loss_a), pin=True)
+        live4 = restore_into(live4, before)
+        live4, loss_b = _el_step(step4, live4, toks4)
+        torch.cuda.synchronize()
+        out["abort_step_tensors"] = _el_same(
+            "22b the step after two aborts vs a step with none",
+            (live4, loss_b), after)
+        out["aborts"] = aborts
+        lap("abort_steps")
+        out["seconds_by_stretch"] = laps
+        launches += _hr_counts(fa, gf, "22b", 2 * per_step[EL_DP])[
+            "flash_fwd"]
+        del step4, live4, before, after
+    finally:
+        os.environ.pop("BLUEFOG_FLEET_EVERY", None)
+        bfm.stop_http_server()
+        fleetview.reset()
+        rz.reset()
+        bf.shutdown()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+def _el_joiners(tree):
+    """Each joiner's row of every pulled tensor against the plain mean of
+    its donors' rows in f64 (joiner 5's donors include joiner 4, pulled
+    first); the largest error relative to the row's scale."""
+    from bluefog_tpu_torch import resilience as rz
+    sched = rz._pristine["sched"]
+    worst = 0.0
+    for t in _el_tensors(tree):
+        if not (t.is_floating_point() and t.ndim and
+                t.shape[0] == EL_GROWN):
+            continue
+        for j in (4, 5):
+            donors = [int(d) for d in sched.in_neighbors[j]]
+            want = sum(t[d].double() for d in donors) / len(donors)
+            scale = max(float(want.abs().max()), 1e-30)
+            worst = max(worst, float((t[j].double() - want).abs().max())
+                        / scale)
+    if worst > 1e-6:
+        raise AssertionError(f"22a: a joiner's row is {worst} (relative) "
+                             "from its donors' mean")
+    return worst
+
+
+def _el_tools(smi, scratch):
+    """22c: the tools at their JAX defaults on CUDA tensors (host bound,
+    nothing cut): ``regrow_drill`` (4 -> 6) with and without
+    ``--chaos kill_coordinator:step=1``, and ``preempt_bench`` replaying
+    the ``mass`` trace ``preempt_trace`` writes at its defaults (8 ranks,
+    4 zones).  Returns their lines' numbers."""
+    import io
+    from bluefog_tpu_torch.tools import (preempt_bench, preempt_trace,
+                                         regrow_drill)
+    out = {}
+    for tag, argv in (("drill", []),
+                      ("drill_chaos", ["--chaos",
+                                       "kill_coordinator:step=1"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = regrow_drill.main(argv + ["--flight-dir",
+                                           os.path.join(scratch, tag)])
+        doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc or not doc["ok"] or doc["aborted"] != (tag == "drill_chaos"):
+            raise AssertionError(f"22c {tag}: {doc}")
+        out[tag] = {k: doc.get(k) for k in (
+            "world_before", "world_after", "committed", "aborted",
+            "abort_phase", "duration_s", "carry_lossless",
+            "kernel_builds_during_regrow", "kernel_loads_during_regrow")}
+    trace = os.path.join(scratch, "mass.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if preempt_trace.main(["--pattern", "mass", "--out", trace]):
+            raise AssertionError("22c: preempt_trace failed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = preempt_bench.main(["--trace", trace, "--flight-dir",
+                                 os.path.join(scratch, "preempt")])
+    doc = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc or not doc["ok"] or doc["warm_fresh_builds"] or \
+            not doc["device"].startswith("cuda"):
+        raise AssertionError(f"22c preempt_bench: {doc}")
+    out["preempt_bench"] = {k: doc[k] for k in (
+        "pattern", "world", "zones", "events", "goodput_fraction",
+        "continuity_ok", "cold_regrow_s", "warm_regrow_s",
+        "warm_fresh_builds", "victims_total", "preempt_events")}
+    out["preempt_bench"]["fresh_builds_by_cycle"] = [
+        (c["shrink_fresh_builds"], c["regrow_fresh_builds"])
+        for c in doc["cycles"]]
+    return out
+
+
+_EL_LAUNCHER = [sys.executable, "-m", "bluefog_tpu_torch.run.launcher"]
+
+# the lm_bench child: its K1/K2 counts and its process group, after the run
+_EL_LM_CHILD = (
+    "import json, sys\n"
+    "import torch.distributed as dist\n"
+    "from bluefog_tpu_torch.ops import flash_attention as fa\n"
+    "from bluefog_tpu_torch.parallel import context as bf\n"
+    "from bluefog_tpu_torch.tools import lm_bench\n"
+    "bf.init(size=4)\n"
+    "backend, world = dist.get_backend(), dist.get_world_size()\n"
+    "doc = lm_bench.main(sys.argv[1:])\n"
+    "print('lm_bench_child ' + json.dumps(dict(ok=doc['ok'], "
+    "fwd=fa.fwd_launches, bwd=fa.bwd_launches, backend=backend, "
+    "world=world, per_step_s=doc['per_step_s'], "
+    "bundle=doc['flight_bundle'])))\n")
+
+
+def _el_start_children(scratch):
+    """22d's children that launch no K1-K4 (their output to files under
+    ``scratch``): the interactive session
+    (one worker on the card; its cell forms the world and prints the
+    card's name) and ``examples/elastic_restart`` under
+    ``--restart-limit 1`` with a planted kill in its first run
+    (``BLUEFOG_CHAOS`` only while ``BLUEFOG_RESTART_COUNT`` is unset)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cell = os.path.join(scratch, "cell.py")
+    with open(cell, "w") as f:
+        f.write("print(torch.cuda.get_device_name(), bf.size(), "
+                "bf.get_context().world, bf.get_context().device)\n")
+    wrapper = ("[ -n \"$BLUEFOG_RESTART_COUNT\" ] || "
+               "export BLUEFOG_CHAOS=kill:step=40,rank=3; "
+               f"exec {sys.executable} -m "
+               "bluefog_tpu_torch.examples.elastic_restart")
+    procs = {}
+    for tag, argv, stdin in (
+            ("interactive", ["--interactive", "-np", "1"], cell),
+            ("restart", ["-np", "1", "--restart-limit", "1",
+                         "--restart-backoff", "0.1", "--", "sh", "-c",
+                         wrapper], None)):
+        with open(os.path.join(scratch, tag + ".out"), "w") as out, \
+                open(os.path.join(scratch, tag + ".err"), "w") as err, \
+                open(stdin or os.devnull) as inp:
+            procs[tag] = subprocess.Popen(
+                _EL_LAUNCHER + argv, cwd=root, env=env, stdin=inp,
+                stdout=out, stderr=err, text=True)
+    return procs
+
+
+def _el_join_children(procs, scratch):
+    """Wait for 22d's background children and hold their results."""
+    def read(tag):
+        procs[tag].wait(timeout=300)
+        with open(os.path.join(scratch, tag + ".out")) as a, \
+                open(os.path.join(scratch, tag + ".err")) as b:
+            return procs[tag].returncode, a.read(), b.read()
+
+    out = {}
+    rc, so, se = read("interactive")
+    name = torch.cuda.get_device_name(0)
+    if rc or "workers ready: ranks [0]" not in so or \
+            f"{name} 1 1 cuda:0" not in so:
+        raise AssertionError(f"22d interactive: rc {rc}, {so[-1500:]} "
+                             f"{se[-1500:]}")
+    out["interactive"] = [ln for ln in so.splitlines() if name in ln][0]
+    rc, so, se = read("restart")
+    if rc or "restarting rank 0 (attempt 1/1)" not in se or \
+            "rank 0 exited with code" not in se or "all OK" not in so:
+        raise AssertionError(f"22d restart: rc {rc}, {so[-1500:]} "
+                             f"{se[-2000:]}")
+    out["restart"] = {"rc": rc, "supervisor": [
+        ln for ln in se.splitlines() if ln.startswith("bfrun-torch:")],
+        "last_line": so.strip().splitlines()[-1]}
+    return out
+
+
+def _el_launch_lm(scratch):
+    """22d: ``bfrun-torch -np 1 --flight-dir D`` over the port's lm_bench
+    at full width (dp 4, pp 1, tp 1, 2 layers, micro 4; 2 warm-up steps
+    and 1 timed, lm_bench's least), a one-process NCCL world, started in
+    the background (~20 GB of the card)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    flight = os.path.join(scratch, "bfrun_flight")
+    with open(os.path.join(scratch, "lm.out"), "w") as out, \
+            open(os.path.join(scratch, "lm.err"), "w") as err:
+        return subprocess.Popen(
+            _EL_LAUNCHER + ["-np", "1", "--flight-dir", flight, "--",
+                            sys.executable, "-c", _EL_LM_CHILD, "--dp", "4",
+                            "--pp", "1", "--tp", "1", "--layers", "2",
+                            "--micro", "4", "--iters", "1",
+                            "--steps-per-call", "1", "--flight-dir", flight],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdin=subprocess.DEVNULL, stdout=out, stderr=err, text=True)
+
+
+def _el_join_lm(proc, scratch):
+    """The lm_bench child's result: its K1/K2 counts are the formula's,
+    over NCCL at world 1, its bundle in the flight directory."""
+    proc.wait(timeout=600)
+    with open(os.path.join(scratch, "lm.out")) as a, \
+            open(os.path.join(scratch, "lm.err")) as b:
+        so, se = a.read(), b.read()
+    lines = [ln for ln in so.splitlines() if ln.startswith("lm_bench_child ")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"22d lm_bench: rc {proc.returncode}: "
+                             f"{so[-1500:]} {se[-2500:]}")
+    doc = json.loads(lines[-1][len("lm_bench_child "):])
+    want = 3 * 4 * 4 * 2          # 3 steps x dp 4 x micro 4 x 2 layers
+    if not doc["ok"] or (doc["fwd"], doc["bwd"]) != (want, want) or \
+            (doc["backend"], doc["world"]) != ("nccl", 1) or \
+            not os.path.exists(doc["bundle"]):
+        raise AssertionError(f"22d lm_bench child: {doc}, want {want} "
+                             "K1/K2 launches each over NCCL at world 1")
+    return doc
+
+
+def elastic_start():
+    """22d's children, started before phase 17 so that they run beside
+    phases 17-21 (none launches K1-K4 in this process; the lm_bench child
+    needs ~20 GB of the card): the interactive session, the restart over
+    ``examples/elastic_restart`` and the lm_bench child.  Returns them,
+    their scratch directory and their clock (the start, and a thread a
+    child that notes its end); any still running at exit is killed."""
+    import atexit
+    import tempfile
+    import threading
+    scratch = tempfile.mkdtemp(prefix="bf_elastic_")
+    t_on = time.monotonic()
+    procs = _el_start_children(scratch)
+    procs["lm_bench"] = _el_launch_lm(scratch)
+    ends = {}
+
+    def note_end(tag, proc):
+        proc.wait()
+        ends[tag] = time.monotonic()
+
+    waiters = [threading.Thread(target=note_end, args=item, daemon=True)
+               for item in procs.items()]
+    for w in waiters:
+        w.start()
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return procs, scratch, (t_on, ends, waiters)
+
+
+def _el_overlap(started, windows, t_start):
+    """Which phases each of 22d's children ran beside: its start and end
+    (seconds since the script's start) and the phases whose window
+    ``(start, end)`` in ``windows`` meets them."""
+    t_on, ends, waiters = started[2]
+    for w in waiters:
+        w.join(timeout=10)
+    out = {}
+    for tag, t_end in sorted(ends.items()):
+        a, b = t_on - t_start, t_end - t_start
+        out[tag] = {"start_s": a, "end_s": b, "beside": [
+            name for name, (s, e) in windows.items() if s < b and e > a]}
+    return out
+
+
+def elastic_phase(fa, gf, fd, smi, started):
+    """Phase 22: the launcher, the elastic world and the fleet view (an
+    ``elastic`` line a leg), with 22d's children from
+    :func:`elastic_start`.  Returns the K1/K2 launches of the phase's own
+    runs (22a, 22b) and each leg's seconds."""
+    import shutil
+    procs, scratch, _ = started
+    seconds = {}
+
+    def leg(name, fn, *args):
+        t0 = time.monotonic()
+        row = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        print("elastic " + json.dumps(dict(
+            leg=name, result=row, seconds=seconds[name],
+            device=torch.cuda.get_device_name(0), nvidia_smi=smi)),
+            flush=True)
+        return row
+
+    try:
+        fd.flash_decode_cuda.launches = 0
+        row, launches = leg("22a_22b_regrow", _el_regrow, fa, gf, smi)
+        _launch_counts(fa, gf, reset=True)
+        leg("22c_tools", _el_tools, smi, scratch)
+        _hr_counts(fa, gf, "22c", 0)
+        leg("22d_children", _el_join_children, procs, scratch)
+        leg("22d_lm_bench", _el_join_lm, procs["lm_bench"], scratch)
+        if fd.flash_decode_cuda.launches:
+            raise AssertionError("phase 22 launched flash_decode")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(scratch, ignore_errors=True)
+    return {"flash_fwd": launches, "flash_bwd": launches, "grouped_ffn": 0,
             "grouped_ffn_dgrad": 0, "grouped_ffn_backward_plan": 0,
             "flash_decode": 0}, seconds
 
@@ -5936,10 +6584,19 @@ def main(argv=None) -> int:
         estate[tag] = estate_phase(fa, fd, gf, moe_layers, smi, moe)[1]
         phase_s[tag] = time.monotonic() - t0
 
+    # 22d's children (the launcher's runs, no K1-K4 in this process)
+    # start here and run beside phases 17-21
+    started = elastic_start()
+    windows = {}                 # phases 17-21: (start, end) since t_start
+
+    def window(name, t0):
+        windows[name] = (t0 - t_start, time.monotonic() - t_start)
+
     # -- phase 17: the MoE examples (llm_3d, moe, moe_lm) -----------------
     t0 = time.monotonic()
     ex_runs = examples_phase(fa, gf, smi)
     phase_s["examples_moe"] = time.monotonic() - t0
+    window("examples_moe", t0)
 
     # -- phases 18-19: the pipeline schedules and the world (no K1-K4) ---
     _launch_counts(fa, gf, reset=True)
@@ -5951,10 +6608,13 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         wide = pipeline_wide()                   # 18b, alone
         phase_s["pipelines_wide"] = time.monotonic() - t0
+        window("pipelines_wide", t0)
+        t19 = time.monotonic()
         launched = world_launch(pool, scratch)   # 19's processes start
         t0 = time.monotonic()
         examples = pipeline_examples()           # 18a, beside them
         phase_s["pipelines_examples"] = time.monotonic() - t0
+        window("pipelines_examples", t0)
         print("pipelines " + json.dumps({
             "examples": examples, "examples_beside_world": True,
             "wide": wide, "shape": PIPE_WIDE,
@@ -5963,6 +6623,7 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         world_phase(smi, launched)
         phase_s["world_join"] = time.monotonic() - t0
+        window("world", t19)
     quiet = dict(_launch_counts(fa, gf),
                  flash_decode=fd.flash_decode_cuda.launches)
     print("phases_18_19_launches " + json.dumps(quiet), flush=True)
@@ -5973,6 +6634,14 @@ def main(argv=None) -> int:
     hr_launches, hr_s = host_runtime_phase(fa, gf, fd, smi)
     phase_s.update({"host_runtime_" + k: v for k, v in hr_s.items()})
     phase_s["host_runtime"] = time.monotonic() - t0
+    window("host_runtime", t0)
+    # -- phase 22: the launcher, the elastic world and the fleet view ----
+    t0 = time.monotonic()
+    el_launches, el_s = elastic_phase(fa, gf, fd, smi, started)
+    phase_s.update({"elastic_" + k: v for k, v in el_s.items()})
+    phase_s["elastic"] = time.monotonic() - t0
+    print("elastic_children_overlap " + json.dumps(
+        _el_overlap(started, windows, t_start)), flush=True)
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -5991,7 +6660,8 @@ def main(argv=None) -> int:
         "moe_serve_carved": moe_carved["k3_launches"],
         "pipelines_and_world": quiet["flash_decode"],
         "optimizer_core_rest": rest_quiet["flash_decode"],
-        "host_runtime": hr_launches["flash_decode"]}
+        "host_runtime": hr_launches["flash_decode"],
+        "elastic": el_launches["flash_decode"]}
     decode["carved_decode"] = {
         tag: {key: row[key] for key in _ROW_KEYS + (
             "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
@@ -6022,7 +6692,8 @@ def main(argv=None) -> int:
              "optimizer_core_rest": (rest_quiet["flash_fwd"],
                                      rest_quiet["flash_bwd"]),
              "host_runtime": (hr_launches["flash_fwd"],
-                              hr_launches["flash_bwd"])}
+                              hr_launches["flash_bwd"]),
+             "elastic": (el_launches["flash_fwd"], el_launches["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -6074,7 +6745,8 @@ def main(argv=None) -> int:
                                "pipelines_and_world": quiet["grouped_ffn"],
                                "optimizer_core_rest":
                                    rest_quiet["grouped_ffn"],
-                               "host_runtime": hr_launches["grouped_ffn"]},
+                               "host_runtime": hr_launches["grouped_ffn"],
+                               "elastic": el_launches["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -6104,7 +6776,8 @@ def main(argv=None) -> int:
                                "optimizer_core_rest":
                                    rest_quiet["grouped_ffn_dgrad"],
                                "host_runtime":
-                                   hr_launches["grouped_ffn_dgrad"]},
+                                   hr_launches["grouped_ffn_dgrad"],
+                               "elastic": el_launches["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -6125,7 +6798,8 @@ def main(argv=None) -> int:
              "pipelines_and_world": quiet["grouped_ffn_backward_plan"],
              "optimizer_core_rest":
                  rest_quiet["grouped_ffn_backward_plan"],
-             "host_runtime": hr_launches["grouped_ffn_backward_plan"]},
+             "host_runtime": hr_launches["grouped_ffn_backward_plan"],
+             "elastic": el_launches["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

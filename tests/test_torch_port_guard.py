@@ -60,7 +60,10 @@ def test_port_imports_no_jax():
               "utils.chaos", "utils.timeline", "utils.watchdog",
               "utils.utility", "resilience", "checkpoint", "data",
               "examples.mnist", "examples.resnet",
-              "examples.elastic_restart"):
+              "examples.elastic_restart", "run.interactive",
+              "utils.fleetview", "tools.regrow_drill",
+              "tools.preempt_trace", "tools.preempt_bench",
+              "tools.fleet_top"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -87,6 +90,18 @@ _BAD_IMPORT = re.compile(
     r"|from\s+\.\.\.)", re.M)
 
 
+def test_ported_parts_no_longer_name_item_10():
+    """The launcher, the elastic world and the fleet view are ported: no
+    refusal text names ROADMAP queue 1, item 10 for them, and what is
+    left naming it is autotune's ``apply_plan``."""
+    hits = [(f.relative_to(REPO), line.strip())
+            for f in sorted(PORT.rglob("*.py"))
+            for line in f.read_text().splitlines() if "item 10" in line]
+    assert hits == [(Path("bluefog_tpu_torch/parallel/context.py"),
+                     "Not ported (ROADMAP queue 1, item 10): "
+                     "``apply_plan`` (autotune).")], hits
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert (REPO / "chip_smoke.py").exists()
@@ -95,7 +110,7 @@ def test_source_scan_finds_no_jax_import():
     assert not offenders, offenders
 
 
-def test_entry_points_refuse_a_missing_card(monkeypatch):
+def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     from bluefog_tpu_torch import resolve_device
     from bluefog_tpu_torch.parallel.compose import LMConfig, init_lm_params
     from bluefog_tpu_torch.parallel.compose import compose_parallelism
@@ -152,6 +167,20 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(mcfg, init_moe_params(mcfg, device="cpu"),
                     ServeConfig())
+    from bluefog_tpu_torch.run import interactive
+    from bluefog_tpu_torch.tools import (preempt_bench, preempt_trace,
+                                         regrow_drill)
+    trace = tmp_path / "trace.json"
+    assert preempt_trace.main(["--pattern", "mass", "--out",
+                               str(trace)]) == 0
+    monkeypatch.delenv("BLUEFOG_DEVICE", raising=False)
+    for call in (lambda: regrow_drill.main([]),
+                 lambda: regrow_drill.main(["--chaos",
+                                            "kill_coordinator:step=1"]),
+                 lambda: preempt_bench.main(["--trace", str(trace)]),
+                 lambda: interactive.worker_main("127.0.0.1:1")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_missing_nvcc(

@@ -18,7 +18,8 @@
   every call within 1e-12 x max|param|, the ring walk and its exhausted
   error in JAX's words, and the rollback writes into the caller's own
   tensors;
-* ``regrow_world`` and its kin raise, naming ROADMAP queue 1, item 10.
+* ``commit_regrow`` / ``regrow_pending`` / ``RegrowHandle`` with no
+  regrowth pending, as JAX's (the protocol is ``test_torch_regrow.py``'s).
 """
 import jax
 import jax.numpy as jnp
@@ -470,10 +471,15 @@ def test_guard_without_snapshot_and_dead_mask(ctx):
 
 
 def test_regrow_is_refused_naming_item_10():
-    for fn, args in ((trz.regrow_world, (16,)), (trz.commit_regrow, ()),
-                     (trz.regrow_pending, ()), (trz.RegrowHandle, ())):
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 10"):
-            fn(*args)
+    """Mesh regrowth is ported now (``tests/test_torch_regrow.py`` holds
+    it to JAX): nothing names ROADMAP queue 1, item 10 any more; with no
+    regrowth pending the commit is a no-op as in JAX, and the phases and
+    the abort's text are JAX's."""
+    assert trz.commit_regrow() is jrz.commit_regrow() is False
+    assert trz.regrow_pending() is jrz.regrow_pending() is False
+    h = trz.RegrowHandle(world_before=4, world_after=6, coordinator=0,
+                         joiners=(4, 5), duration_s=0.5)
+    assert h.committed and h.commit() is False
     assert trz.REGROW_PHASES == jrz.REGROW_PHASES
     e = trz.RegrowAborted("reinit", "deadline", rank=3)
     assert str(e) == str(jrz.RegrowAborted("reinit", "deadline", rank=3))

@@ -35,8 +35,10 @@ the fleet view (``run.launcher``, ``bfrun-torch``, with its supervisor,
 preemption traces and ``run.interactive``; ``parallel.context.reinit``
 and ``resilience.regrow_world``; ``utils.fleetview`` on the consensus
 probe; ``tools.regrow_drill``, ``tools.preempt_trace``,
-``tools.preempt_bench``, ``tools.fleet_top``).  The kernels are CUDA C++
-under ``csrc/``.
+``tools.preempt_bench``, ``tools.fleet_top``); and the autotuner
+(``autotune``, ``Plan``, ``load_plan``, ``apply_plan``; its byte counts
+from the wire-byte ledger of the port's own collectives,
+``utils.wire_bytes``).  The kernels are CUDA C++ under ``csrc/``.
 """
 __version__ = "0.1.0"
 
@@ -60,7 +62,9 @@ from .parallel.context import (
     resume, round_parallel, set_async_gossip, async_gossip_bound,
     set_dcn_wire, set_dynamic_topology,
     set_machine_topology, set_round_parallel, set_topology, shutdown, size, static_schedule,
-    suspend)
+    suspend, apply_plan)
+from . import autotune as autotune_lib
+from .autotune import autotune, Plan, load_plan
 
 __all__ = ["resolve_device",
            "init", "shutdown", "is_initialized", "get_context", "size",
@@ -83,4 +87,5 @@ __all__ = ["resolve_device",
            "win_update", "win_update_then_collect", "win_mutex",
            "get_win_version", "get_win_stamps", "win_staleness",
            "win_associated_p", "turn_on_win_ops_with_associated_p",
-           "turn_off_win_ops_with_associated_p"]
+           "turn_off_win_ops_with_associated_p",
+           "apply_plan", "autotune", "Plan", "load_plan", "autotune_lib"]

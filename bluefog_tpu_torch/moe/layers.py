@@ -52,8 +52,9 @@ def _ep(x: torch.Tensor, ep_dim: Optional[int], lead: int) -> int:
     return x.shape[ep_dim]
 
 
-def _psum(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-    return x if dim is None else psum(x, dim)
+def _psum(x: torch.Tensor, dim: Optional[int],
+          lead: Optional[int] = None) -> torch.Tensor:
+    return x if dim is None else psum(x, dim, lead)
 
 
 def router_topk(x: torch.Tensor, wr: torch.Tensor, *, top_k: int):
@@ -105,7 +106,7 @@ def _expert_einsum(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     w1, row-split w2, one psum over tp (the Megatron split inside every
     expert, so tp and ep compose)."""
     u = F.gelu(torch.matmul(h, w1), approximate="tanh")
-    return _psum(torch.matmul(u, w2), tp_dim)
+    return _psum(torch.matmul(u, w2), tp_dim, h.ndim - 3)
 
 
 def _groups(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -154,7 +155,8 @@ def moe_dropless_combine(
                             [..., 0], grouped, wk, num_experts, tile)
     out = out.reshape(lead + (k * T, D))
     if tp_dim is not None:
-        out = peer_sum(out, tp_dim).unsqueeze(tp_dim).expand_as(out)
+        out = peer_sum(out, tp_dim, len(lead)).unsqueeze(tp_dim) \
+            .expand_as(out)
     return gate_sum(out, gate)
 
 

@@ -38,6 +38,14 @@ its block of them (:func:`_local`).  The reductions over the rank axis
 collectives of a composed carving stay inside one process: a replica's
 peers never straddle a process boundary (``compose_parallelism`` refuses
 such a carving).
+
+Each collective records itself in an armed wire-byte ledger
+(:mod:`bluefog_tpu_torch.utils.wire_bytes`, the autotuner's byte count):
+the moved rows of every round (the codec's own arrays under a wire, not
+the raw bytes they travel as), the sums, gathers and all-to-alls, as the
+JAX op each stands for.  The peer-dim ops take ``lead``, the dims of
+their tensor that stack chips, so each chip is charged its share.
+Disarmed, a collective reads one module flag.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from ..schedule import CommSchedule
+from ..utils import wire_bytes as _wb
 
 __all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
            "neighbor_allgather", "ragged_neighbor_allgather", "pair_gossip",
@@ -300,22 +309,50 @@ class _Cross(torch.autograd.Function):
         return (None,) + tuple(dsends)
 
 
-def _permute(send: torch.Tensor, src: np.ndarray) -> torch.Tensor:
+def _permute(send: torch.Tensor, src: np.ndarray, lead: int = 1
+             ) -> torch.Tensor:
     """One round: rank d receives ``send[src[d]]``; ``src[d] < 0`` receives
     zeros.  ``src`` is over every process's rows when ``send`` is this
     process's block of them: the rows that cross processes then travel
-    through :class:`_Cross`."""
-    return _permute_rounds([send], [src])[0]
+    through :class:`_Cross`.  ``lead``: the dims of ``send`` that stack
+    chips (a row holds ``prod(shape[1:lead])`` of them), for the wire-byte
+    ledger."""
+    return _permute_rounds([send], [src], lead=lead)[0]
 
 
 def _permute_rounds(sends: Sequence[torch.Tensor],
-                    srcs: Sequence[np.ndarray]) -> List[torch.Tensor]:
+                    srcs: Sequence[np.ndarray], *, lead: int = 1,
+                    record: bool = True) -> List[torch.Tensor]:
     """:func:`_permute` of each ``sends[r]`` by ``srcs[r]`` (the sends
     share their row shape and dtype).  Across processes every round's
-    crossing rows travel together, one message a process pair."""
+    crossing rows travel together, one message a process pair.  An armed
+    wire-byte ledger records each round's moved rows (``record=False``:
+    the caller recorded them itself)."""
+    srcs = [np.asarray(src) for src in srcs]
+    if _wb._armed is None or not record:
+        return _permute_rounds_impl(sends, srcs)
+    row = [(sends[0].dtype, _wb.nbytes(sends[0]) // max(len(sends[0]), 1))]
+    events = _record_moves(sends[0], srcs, lead, [row] * len(srcs))
+    got = _permute_rounds_impl(sends, srcs)
+    return [_wb.transpose_on_backward(g, ev) for g, ev in zip(got, events)]
+
+
+def _record_moves(send: torch.Tensor, srcs, lead: int, parts):
+    """The armed ledger's records of each round's moved rows: ``send``
+    is a round's ``[rows, ...]`` (its first ``lead`` dims stack chips),
+    ``parts[r]`` the arrays a row of round ``r`` carries, ``(dtype,
+    bytes)`` each."""
+    rows = send.shape[0]
+    first = _procs()[1] * rows if any(len(s) != rows for s in srcs) else 0
+    c = _wb.peers(send, lead) // max(rows, 1)
+    return [_wb._armed.moves([src], rows, first, c, part)
+            for src, part in zip(srcs, parts)]
+
+
+def _permute_rounds_impl(sends: Sequence[torch.Tensor],
+                         srcs: Sequence[np.ndarray]) -> List[torch.Tensor]:
     rows = sends[0].shape[0]
     dev = sends[0].device
-    srcs = [np.asarray(src) for src in srcs]
     if all(len(src) == rows for src in srcs):
         got = []
         for send, src in zip(sends, srcs):
@@ -387,7 +424,7 @@ def _wire_permute_rounds(wire: Optional[str], sends, srcs, lead: int = 1,
     one :func:`_permute_rounds`; ``parts`` is the encoding every send
     shares when the caller has it."""
     if wire is None:
-        return _permute_rounds(sends, srcs)
+        return _permute_rounds(sends, srcs, lead=lead)
     if not sends[0].is_floating_point():
         # complex would silently lose its imaginary part in the codecs
         raise ValueError(
@@ -398,10 +435,17 @@ def _wire_permute_rounds(wire: Optional[str], sends, srcs, lead: int = 1,
     # the codes and scales travel together, as one row of raw bytes a
     # rank (one message a process pair across processes)
     n = sends[0].shape[0]
+    if _wb._armed is not None:
+        # the codec's own arrays (codes, scales), not the bytes they
+        # travel as
+        _record_moves(sends[0], [np.asarray(s) for s in srcs], lead,
+                      [[(q.dtype, _wb.nbytes(q) // max(n, 1)) for q in e]
+                       for e in encoded])
     raws = [[q.contiguous().view(n, -1).view(torch.uint8) for q in e]
             for e in encoded]
     moved = _permute_rounds([torch.cat(raw, dim=1) if len(raw) > 1
-                             else raw[0] for raw in raws], srcs)
+                             else raw[0] for raw in raws], srcs,
+                            record=False)
     out = []
     for send, e, raw, m in zip(sends, encoded, raws, moved):
         got, at = [], 0
@@ -495,6 +539,9 @@ def hierarchical_neighbor_allreduce(
             f"processes of {x.shape[0]} ranks; a machine's mean stays inside "
             "one process (ROADMAP queue 1, item 12)")
     grouped = x.reshape((x.shape[0] // L, L) + tuple(x.shape[1:]))
+    if _wb._armed is not None:         # the pmean over the local ranks
+        _wb._armed.rank_reduce("all_reduce", x.dtype, _wb.nbytes(x)
+                               // max(x.shape[0], 1), L)
     machine_avg = grouped.sum(dim=1) / L
     out = neighbor_allreduce(machine_avg, machine_sched, wire=wire,
                              concurrent=concurrent)
@@ -584,6 +631,8 @@ def pair_gossip(x: torch.Tensor, partners: Sequence[int], *,
 def rank_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the global rank axis (dim 0, kept as a dim of 1) on
     every process: the local rows' sum, then the process group's."""
+    if _wb._armed is not None:
+        _rank_record("all_reduce", x)
     total = x.sum(dim=0, keepdim=True)
     if _procs()[0] > 1:
         import torch.distributed as dist
@@ -592,10 +641,25 @@ def rank_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _rank_record(kind: str, x: torch.Tensor, rounds: int = 1,
+                 out_rows: int = 1):
+    """An armed ledger's record of a collective over the rank axis of
+    ``x`` (``[rows, ...]``, a chip a row): ``rounds`` ops of one row's
+    bytes (times ``out_rows`` for an all-gather's result)."""
+    n = x.shape[0] * _procs()[0]
+    row = _wb.nbytes(x) // max(x.shape[0], 1)
+    out = row * out_rows
+    wire = out * (n - 1) // n if kind == "all_gather" else out
+    for _ in range(rounds):
+        _wb._armed.rank_reduce(kind, x.dtype, out, n, wire=wire)
+
+
 def rank_max(x: torch.Tensor) -> torch.Tensor:
     """The max over the global rank axis (dim 0, kept as a dim of 1) on
     every process (``lax.pmax``): the local rows' max, then a MAX
     reduction through the process group."""
+    if _wb._armed is not None:
+        _rank_record("all_reduce", x)
     top = x.amax(dim=0, keepdim=True)
     if _procs()[0] > 1:
         import torch.distributed as dist
@@ -617,6 +681,8 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
     ``[n, d0, ...] -> [n, n * d0, ...]``."""
     rows = x.shape[0]
     world, _ = _procs()
+    if _wb._armed is not None:
+        _rank_record("all_gather", x, out_rows=rows * world)
     if world > 1:
         import torch.distributed as dist
         parts = [torch.empty_like(x) for _ in range(world)]
@@ -635,6 +701,10 @@ def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
         raise ValueError(f"root_rank {root_rank} out of range for "
                          f"{rows * world} ranks")
     owner, r = divmod(root_rank, rows)
+    if _wb._armed is not None:
+        # the JAX op's binomial tree: ceil(log2 n) permute rounds
+        _rank_record("collective_permute", x,
+                     rounds=int(np.ceil(np.log2(max(rows * world, 1)))))
     if world == 1:
         return x[r:r + 1].expand_as(x).clone()
     import torch.distributed as dist
@@ -648,29 +718,58 @@ def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
 # Collectives over one named axis of the stacked carving (a dim)
 # ---------------------------------------------------------------------------
 
-def psum(x: torch.Tensor, axis: int) -> torch.Tensor:
+def _peer_record(kind: str, x: torch.Tensor, axis: int,
+                 lead: Optional[int]):
+    """An armed ledger's record of a collective over the peers stacked
+    along dim ``axis`` of ``x``, whose first ``lead`` dims (default: up
+    to ``axis``) stack the chips: each chip's share of ``x``, inside its
+    replica (ICI).  None when the dim holds one peer (nothing moves)."""
+    axis = int(axis) % x.ndim
+    if x.shape[axis] < 2:
+        return None
+    lead = axis + 1 if lead is None else int(lead)
+    return _wb._armed.uniform(kind, x.dtype,
+                              _wb.nbytes(x) // _wb.peers(x, lead))
+
+
+def _tapped(y: torch.Tensor, ev) -> torch.Tensor:
+    return y if ev is None else _wb.transpose_on_backward(y, [ev])
+
+
+def psum(x: torch.Tensor, axis: int, lead: Optional[int] = None
+         ) -> torch.Tensor:
     """``lax.psum`` over the peers stacked along dim ``axis``: every peer
-    gets the sum (a broadcast view of it)."""
-    return x.sum(dim=axis, keepdim=True).expand_as(x)
+    gets the sum (a broadcast view of it).  ``lead``: the dims of ``x``
+    that stack chips (default: up to ``axis``), for the wire-byte
+    ledger; so for :func:`peer_sum`, :func:`pmean`, :func:`ppermute` and
+    :func:`all_to_all`."""
+    ev = (_peer_record("all_reduce", x, axis, lead)
+          if _wb._armed is not None else None)
+    return _tapped(x.sum(dim=axis, keepdim=True).expand_as(x), ev)
 
 
-def peer_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
+def peer_sum(x: torch.Tensor, axis: int, lead: Optional[int] = None
+             ) -> torch.Tensor:
     """The sum over the peers stacked along dim ``axis``, added in peer
     order (``(x0 + x1) + x2 ...``, the order the JAX reference's ``psum``
     over the tp axis adds them), that dim removed.  One peer: a view."""
+    ev = (_peer_record("all_reduce", x, axis, lead)
+          if _wb._armed is not None else None)
     out = x.select(axis, 0)
     for t in range(1, x.shape[axis]):
         out = out + x.select(axis, t)
-    return out
+    return _tapped(out, ev)
 
 
-def pmean(x: torch.Tensor, axis: int) -> torch.Tensor:
+def pmean(x: torch.Tensor, axis: int, lead: Optional[int] = None
+          ) -> torch.Tensor:
     """``lax.pmean`` over the peers stacked along dim ``axis``."""
-    return psum(x, axis) / x.shape[axis]
+    return psum(x, axis, lead) / x.shape[axis]
 
 
 def ppermute(x: torch.Tensor, axis: int,
-             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+             perm: Sequence[Tuple[int, int]], lead: Optional[int] = None
+             ) -> torch.Tensor:
     """``lax.ppermute`` along dim ``axis``: peer ``dst`` gets peer
     ``src``'s block for each ``(src, dst)`` pair, and a peer that is no
     pair's destination gets zeros."""
@@ -681,16 +780,27 @@ def ppermute(x: torch.Tensor, axis: int,
             raise ValueError(f"ppermute pairs {list(perm)} are not a "
                              f"partial permutation of {n} peers")
         src[d] = s
-    return _permute(x.movedim(axis, 0), src).movedim(0, axis)
+    ev = (_peer_record("collective_permute", x, axis, lead)
+          if _wb._armed is not None else None)
+    y = _permute_rounds([x.movedim(axis, 0)], [src], record=False)[0]
+    return _tapped(y.movedim(0, axis), ev)
 
 
 def all_to_all(x: torch.Tensor, axis: int, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
+               concat_axis: int, lead: Optional[int] = None
+               ) -> torch.Tensor:
     """Tiled ``lax.all_to_all`` over the ``n`` peers stacked along dim
     ``axis``: each peer's block is cut into ``n`` chunks along
     ``split_axis``, chunk ``u`` goes to peer ``u``, and each peer lays the
     chunks it gets along ``concat_axis`` in peer order.  ``split_axis``
     and ``concat_axis`` are dims of ``x`` other than ``axis``."""
+    ev = (_peer_record("all_to_all", x, axis, lead)
+          if _wb._armed is not None else None)
+    return _tapped(_all_to_all(x, axis, split_axis, concat_axis), ev)
+
+
+def _all_to_all(x: torch.Tensor, axis: int, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     nd = x.ndim
     a, s, c = (int(d) % nd for d in (axis, split_axis, concat_axis))
     if a in (s, c):

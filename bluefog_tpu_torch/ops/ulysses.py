@@ -59,14 +59,14 @@ def _scatter_heads(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
     identity without an axis or with one peer)."""
     if axis is None or x.shape[axis] == 1:
         return x
-    return all_to_all(x, axis, -2, -3)
+    return all_to_all(x, axis, -2, -3, lead=x.ndim - 4)
 
 
 def _gather_heads(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
     """Inverse of :func:`_scatter_heads`."""
     if axis is None or x.shape[axis] == 1:
         return x
-    return all_to_all(x, axis, -3, -2)
+    return all_to_all(x, axis, -3, -2, lead=x.ndim - 4)
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:

@@ -86,6 +86,7 @@ from .utils import chaos as _chaos
 from .utils import flight as _flight
 from .utils import metrics as _metrics
 from .utils import tracing as _tracing
+from .utils import wire_bytes as _wb
 from .utils.timeline import named_span
 
 __all__ = ["neighbor_communicator", "hierarchical_communicator",
@@ -1706,9 +1707,14 @@ def stacked_grads(grad_fn: Callable[[Any, Any], Tuple[Any, Any]], params,
     bufs: Optional[List[torch.Tensor]] = None
     losses = []
     for r in range(n // slice_size):
-        loss, grads = grad_fn(
-            tree_unflatten(treedef, [rows(x, r) for x in leaves]),
-            tree_unflatten(bdef, [rows(b, r) for b in bleaves]))
+        args = (tree_unflatten(treedef, [rows(x, r) for x in leaves]),
+                tree_unflatten(bdef, [rows(b, r) for b in bleaves]))
+        if _wb._armed is None:
+            loss, grads = grad_fn(*args)
+        else:                 # the ledger charges replica r's chips
+            lo = _coll._procs()[1] * n + r * slice_size
+            with _wb.replica(lo, lo + slice_size):
+                loss, grads = grad_fn(*args)
         gl = tree_flatten(grads)[0]
         if bufs is None:
             shape = (n,) if slice_size == 1 else (n // slice_size,)
@@ -1801,9 +1807,10 @@ class _InstrumentedStep:
         k = self._metrics_every_k
         if k and (self._calls == 1 or self._calls % k == 0):
             tp0 = _time.monotonic() if traced else 0.0
-            _diag.diagnose_consensus(out[0], step_times=step_times)
-            if len(out) > self._state_index:
-                _diag.observe_async_staleness(out[self._state_index])
+            with _wb.paused():     # the probe is not the step's traffic
+                _diag.diagnose_consensus(out[0], step_times=step_times)
+                if len(out) > self._state_index:
+                    _diag.observe_async_staleness(out[self._state_index])
             if traced:
                 _tracing.add_span(self._trace, "consensus_probe", tp0,
                                   _time.monotonic(), cat="train",

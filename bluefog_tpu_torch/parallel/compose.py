@@ -54,6 +54,7 @@ from ..models.rope import _cos_sin, _rotate, apply_rope
 from ..ops.collectives import psum
 from ..ops.ulysses import dense_attention, ulysses_attention
 from ..schedule import CommSchedule, compile_topology
+from ..utils import wire_bytes as _wb
 from .pipeline import pipeline_apply
 
 __all__ = ["LMConfig", "ComposeLM", "AttnBlock", "DecoderBlock",
@@ -757,7 +758,7 @@ def _attention(cfg: LMConfig, m: Mesh3D, use_pallas: bool):
                                 use_pallas=use_pallas,
                                 pallas_block_q=block_q)
         att = att.reshape(x.shape[:-1] + (D // TP,))
-        return x + psum(torch.matmul(att, lp["wo"]), 1)
+        return x + psum(torch.matmul(att, lp["wo"]), 1, lead=4)
 
     return attn
 
@@ -837,7 +838,8 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
         del x0
         if n_ch:                                  # the carrier rows
             mbs = torch.cat([mbs, mbs.new_zeros((M, TP, SP, EP, Tl, D))], 4)
-        return pipeline_apply(stage_fn, stage_params, mbs, remat=remat), tk
+        return pipeline_apply(stage_fn, stage_params, mbs, remat=remat,
+                              lead=4), tk
 
     def head_loss(p, o, tk, mb):
         """Microbatch ``mb``'s cross-entropy over the sp and ep peers and
@@ -871,6 +873,8 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
             out.backward(out_cut.grad)
             del out, out_cut
         grads = tree_unflatten(treedef, [w.grad for w in ws])
+        if _wb._armed is not None:
+            _record_grad_sums(grads, sums, view)
         # the JAX psums / pmeans outside AD, over the peer view's dims
         grads = {grp: {k: g.view(view + tuple(g.shape[1:])).sum(
             sums[grp], keepdim=True).expand(
@@ -891,6 +895,21 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
         return ce, ch
 
     return grad_fn, probe
+
+
+def _record_grad_sums(grads, sums, view) -> None:
+    """The armed ledger's records of the gradient sums over the peers:
+    JAX's ``psum`` over (stage, tp), then its ``pmean`` over sp, and a
+    sum over the ep peers, each an all-reduce of the group's gradients
+    where that axis holds more than one peer."""
+    for grp, d in grads.items():
+        dims = set(sums[grp])
+        axes = [a for a in ({0, 1} & dims, {2} & dims, {3} & dims)
+                if a and int(np.prod([view[i] for i in a])) > 1]
+        for g in d.values():
+            per_chip = _wb.nbytes(g) // max(int(np.prod(view)), 1)
+            for _ in axes:
+                _wb._armed.uniform("all_reduce", g.dtype, per_chip)
 
 
 def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
@@ -944,7 +963,7 @@ def make_lm_grad_fn(cfg: LMConfig, m: Mesh3D, *, remat: bool = False,
         bp = lp["blocks"]
         x = attn(bp, x, cos, sin)
         h = _gelu(torch.matmul(_ln(x), bp["w1"]))
-        return x + psum(torch.matmul(h, bp["w2"]), 1), None
+        return x + psum(torch.matmul(h, bp["w2"]), 1, lead=4), None
 
     return _replica_fns(cfg, m, layer_fn,
                         sums={"blocks": (2, 3), "shared": (0, 1, 2, 3)},

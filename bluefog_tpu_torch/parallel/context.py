@@ -35,13 +35,13 @@ process group when the process count changes.  JAX's
 shape) has no counterpart: the port compiles no program for a world (no
 XLA executables, no CUDA graphs, no ``torch.compile``), and its kernels
 are built once a process by ``ops/_build.py``, keyed by a source hash.
-
-Not ported (ROADMAP queue 1, item 10): ``apply_plan`` (autotune).
+:func:`apply_plan` applies an autotune plan's context knobs
+(:mod:`bluefog_tpu_torch.autotune`).
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Union
 
 import networkx as nx
@@ -66,7 +66,7 @@ __all__ = ["BlueFogTorchContext", "init", "shutdown", "is_initialized",
            "machine_schedule", "set_dynamic_topology",
            "clear_dynamic_topology", "dynamic_schedules", "set_dcn_wire",
            "dcn_wire", "set_async_gossip", "async_gossip_bound",
-           "set_compose", "get_compose", "reinit"]
+           "set_compose", "get_compose", "reinit", "apply_plan"]
 
 _context: Optional["BlueFogTorchContext"] = None
 
@@ -98,6 +98,9 @@ class BlueFogTorchContext:
     process: int = 0
     world: int = 1
     owns_group: bool = False                  # init made the process group
+    # the autotuner's probe readings, as JAX keeps its compiled probes in
+    # the context's program cache (autotune/cost_model.py)
+    autotune_probes: dict = field(default_factory=dict)
     _sched: Optional[CommSchedule] = None
     _machine_sched: Optional[CommSchedule] = None
 
@@ -761,3 +764,28 @@ def async_gossip_bound() -> int:
                 f"BLUEFOG_ASYNC must be >= 0, got {env!r}")
         return bound
     return _DEFAULT_ASYNC_BOUND
+
+
+def apply_plan(plan) -> bool:
+    """Apply an autotune plan's context knobs to the live process (JAX
+    ``parallel/context.py::apply_plan``).
+
+    Accepts a :class:`bluefog_tpu_torch.autotune.Plan` or its raw ``doc``
+    dict.  Sets the virtual topology from the plan's JSON spec (so a plan
+    applied on another host reconstructs the identical graph and
+    schedule) and the round-parallel emission default; the per-strategy
+    knobs (wire, fused-k, delayed) live in the strategy and train step
+    the plan builds, not in context state.  A plan tuned for another rank
+    count is refused."""
+    doc = plan.doc if hasattr(plan, "doc") else plan
+    cfg = doc["config"]
+    ctx = get_context()
+    if cfg.get("topology") is not None:
+        topo = topo_util.topology_from_spec(cfg["topology"])
+        if topo.number_of_nodes() != ctx.size:
+            raise ValueError(
+                f"plan was tuned for {topo.number_of_nodes()} ranks but "
+                f"this context has {ctx.size}; re-tune on this mesh")
+        set_topology(topo, is_weighted=True)
+    set_round_parallel(cfg.get("concurrent"))
+    return True

@@ -56,12 +56,13 @@ class _Stages:
     0 (``axis="stage"``), or its block of the context's rank axis
     (``axis="rank"``: ``rows`` stages on each of ``world`` processes)."""
 
-    def __init__(self, rows: int, axis: str):
+    def __init__(self, rows: int, axis: str, lead: int = 1):
         if axis not in ("stage", "rank"):
             raise ValueError(f"axis must be 'stage' or 'rank', got {axis!r}")
         world, p = _coll._procs() if axis == "rank" else (1, 0)
         self.rows, self.S, self.r0 = rows, rows * world, p * rows
         self.world, self.spmd = world, world > 1
+        self.lead = lead               # the block's dims that stack chips
 
     def span(self, lo: int, hi: int) -> Tuple[int, int]:
         """The global stages ``[a, b)`` this process computes at a tick
@@ -89,7 +90,7 @@ class _Stages:
     def ship(self, pieces, like, src: np.ndarray) -> torch.Tensor:
         """The tick's outputs moved along ``src`` (a global table: stage
         ``d`` receives stage ``src[d]``'s row)."""
-        return _coll._permute(self.place(pieces, like), src)
+        return _coll._permute(self.place(pieces, like), src, self.lead)
 
     def mask(self, y: torch.Tensor, valid: np.ndarray,
              inbox: torch.Tensor) -> torch.Tensor:
@@ -176,7 +177,8 @@ def _shift(S: int, step: int) -> np.ndarray:
 
 def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                    stage_params: Any, microbatches: torch.Tensor, *,
-                   axis: str = "stage", remat: bool = False) -> torch.Tensor:
+                   axis: str = "stage", remat: bool = False,
+                   lead: int = 1) -> torch.Tensor:
     """Run a stage-partitioned network over microbatches (GPipe).
 
     Args:
@@ -191,6 +193,8 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
       axis: ``"stage"`` (the stages stacked here) or ``"rank"`` (the
         context's rank axis, across processes).
       remat: recompute each tick's stage forward in the backward.
+      lead: the dims of a stage row that stack chips (the stage dim and
+        the microbatch's leading peer dims), for the wire-byte ledger.
 
     Returns:
       ``[num_micro, ...]``: the last stage's outputs, in microbatch order.
@@ -198,7 +202,7 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
       on the others; :func:`last_stage_value` is that per-stage view.)
     """
     leaves, treedef, rows = _stage_leaves(stage_params, "pipeline_apply")
-    st = _Stages(rows, axis)
+    st = _Stages(rows, axis, lead)
     S, M = st.S, microbatches.shape[0]
     fn = _remat(stage_fn, remat)
     fwd = _shift(S, 1)

@@ -10,6 +10,12 @@ ride the train state with zero gradients, so they stay at init, as in
 ``bench.py``.  One warm-up call, then ``--iters`` timed calls of
 ``--steps-per-call`` steps between ``hard_sync``s.
 
+``--plan PATH`` replays an autotune plan (``bluefog_tpu_torch.autotune``)
+in place of the fixed AWC, as ``bench.py --plan`` does: its algorithm,
+topology, wire, fused-k (the steps a call) and overlap, recorded as
+``algorithm``, ``plan_id`` and ``config_source: "plan:<id>"``; a plan
+tuned for another rank count is refused.
+
 Prints ONE JSON line in ``bench.py``'s schema where it applies.  The
 card is one chip: ``value`` is every rank's images a second on it
 (stacked ranks share the card), and ``mfu`` is the model FLOPs
@@ -17,6 +23,7 @@ card is one chip: ``value`` is every rank's images a second on it
 bf16 peak from :data:`PEAK_BF16_FLOPS` (null for a card not listed).
 
 Run:    python -m bluefog_tpu_torch.tools.bench [--ranks 4 --batch 16]
+            [--plan plan.json]
 Smoke:  python -m bluefog_tpu_torch.tools.bench --device cpu \\
             --image-size 32 --classes 10 --batch 2 --steps-per-call 2 \\
             --iters 1 --ranks 2
@@ -83,17 +90,38 @@ class Bench:
     state: Any
     data: Any
     n: int
+    algorithm: str = "neighbor_cta"
+    steps_per_call: int = 1
+    plan_id: Optional[str] = None
+
+
+def load_plan_for(path: str, n: int):
+    """The autotune plan at ``path``, refused unless it was tuned for
+    ``n`` ranks (``bench.py``'s text: plans replay exactly or not at
+    all)."""
+    from ..autotune import load_plan
+    plan = load_plan(path)
+    if int(plan.doc["n_chips"]) != n:
+        raise RuntimeError(
+            f"plan {plan.plan_id} was tuned for "
+            f"{plan.doc['n_chips']} chips but this mesh has {n}; "
+            "re-tune on this mesh (plans replay exactly or not at all)")
+    return plan
 
 
 def build(*, ranks: int, batch: int, steps_per_call: int, image_size: int,
           num_classes: int, device=None, dtype: torch.dtype = torch.bfloat16,
-          variables: Optional[dict] = None) -> Bench:
+          variables: Optional[dict] = None,
+          plan_path: Optional[str] = None) -> Bench:
     """The benchmark's setup (``bench.py:443-505``): the context over
     ``ranks`` stacked ranks, the model (``variables`` in the port's
-    layout, or a fresh init from seed 0), the AWC strategy and the train
-    step over ``replicate``d ``{"params", "bs"}``."""
+    layout, or a fresh init from seed 0), the AWC strategy (or the
+    strategy and step knobs of the plan at ``plan_path``, whose fused-k
+    replaces ``steps_per_call``) and the train step over ``replicate``d
+    ``{"params", "bs"}``."""
     ctx = bf.init(size=ranks, device=device)
     n = ctx.size
+    plan = load_plan_for(plan_path, n) if plan_path else None
     if n > 1:
         bf.set_topology(topology_util.ExponentialTwoGraph(n),
                         is_weighted=True)
@@ -108,15 +136,25 @@ def build(*, ranks: int, batch: int, steps_per_call: int, image_size: int,
                         device=ctx.device).expand(n, -1, -1, -1, -1)
     labels = torch.zeros((1, batch), dtype=torch.long,
                          device=ctx.device).expand(n, -1)
-    strategy = bfopt.adapt_with_combine(
-        bfopt.sgd(0.1, momentum=0.9),
-        bfopt.neighbor_communicator(bf.static_schedule()))
+    opt = bfopt.sgd(0.1, momentum=0.9)
+    if plan is not None:
+        plan.apply()
+        strategy = plan.build_strategy(opt)
+        step_kwargs = plan.train_step_kwargs()
+        algorithm = plan.algorithm
+    else:
+        strategy = bfopt.adapt_with_combine(
+            opt, bfopt.neighbor_communicator(bf.static_schedule()))
+        step_kwargs = {"steps_per_call": steps_per_call,
+                       "reuse_batch": steps_per_call > 1}
+        algorithm = "neighbor_cta"
     params = bfopt.replicate(train_state, n)
     state = bfopt.init_distributed(strategy, params)
     step = bfopt.make_train_step(make_grad_fn(model), strategy,
-                                 steps_per_call=steps_per_call,
-                                 reuse_batch=steps_per_call > 1)
-    return Bench(step, params, state, (images, labels), n)
+                                 **step_kwargs)
+    return Bench(step, params, state, (images, labels), n, algorithm,
+                 step_kwargs["steps_per_call"],
+                 plan.plan_id if plan is not None else None)
 
 
 def power_limit_w() -> Optional[float]:
@@ -141,6 +179,8 @@ def parse(argv=None) -> argparse.Namespace:
                     help="timed calls (card 10, CPU 2)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--classes", type=int, default=1000)
+    ap.add_argument("--plan", default=None,
+                    help="replay this autotune plan's configuration")
     return ap.parse_args(argv)
 
 
@@ -169,7 +209,8 @@ def _timed(args, dev, batch, k, iters):
     on_card = dev.type == "cuda"
     b = build(ranks=args.ranks, batch=batch, steps_per_call=k,
               image_size=args.image_size, num_classes=args.classes,
-              device=dev)
+              device=dev, plan_path=getattr(args, "plan", None))
+    k = b.steps_per_call
     params, state = b.params, b.state
     params, state, loss = b.step(params, state, b.data)
     hard_sync(loss)
@@ -192,7 +233,11 @@ def _timed(args, dev, batch, k, iters):
         "unit": "img/s/chip",
         "vs_baseline": per_card / BASELINE_PER_GPU,
         "ok": True,
-        "strategy": "neighbor_cta",
+        "strategy": b.algorithm,
+        "algorithm": b.algorithm,
+        "plan_id": b.plan_id,
+        "config_source": (f"plan:{b.plan_id}" if b.plan_id is not None
+                          else "default"),
         "on_accelerator": on_card,
         "device": kind,
         "n_chips": 1,

@@ -53,11 +53,22 @@ the flight ring; ``--chaos`` adds the ``straggler`` block
 JAX tool probes always; here the probe's flat copy of every peer's
 params would not fit beside the MoE trainer at its full width).
 
-Left out of the JAX tool (XLA features or later slices): the StableHLO
-wire sweep, the profiler-trace overlap grading, the retrace sentinel,
-and in the ``moe`` block ``dot_flops``'s StableHLO dot counts (its
-analytic rows are kept as ``rows_per_device``) and
-``per_step_s_capacity`` (the timed capacity twin): both stay null.
+The JAX tool's ``wire_bytes`` block (ICI-vs-DCN collective bytes per
+chip, with their dtypes) comes from the wire-byte ledger
+(:mod:`bluefog_tpu_torch.utils.wire_bytes`) over the first warm-up call,
+one step's share of it (the JAX tool counts the lowered program's
+collectives; the ledger counts every call the step makes, so its ICI
+bytes include the pipeline ticks' and layers' trips, and its DCN bytes,
+the gossip, are the JAX tool's).  ``wire_sweep`` repeats that for the
+codecs None, bf16, fp8@64 and ``--wire``, each one step of a fresh
+trainer from the same params (``--no-sweep`` or dp 1 skip it).
+
+Left out of the JAX tool (XLA features or later slices): the
+profiler-trace overlap grading, the retrace sentinel, and in the ``moe``
+block ``dot_flops`` (the JAX tool counts the ``dot_general`` FLOPs of the
+lowered StableHLO; the port lowers no program; its analytic rows are
+kept as ``rows_per_device``) and ``per_step_s_capacity`` (the timed
+capacity twin): both stay null.
 """
 from __future__ import annotations
 
@@ -72,8 +83,10 @@ import torch
 from .. import diagnostics as bfdiag
 from .. import optimizers as bfopt
 from ..device import resolve_device
+from ..fusion import tree_map
 from ..moe import model as moe_model
 from ..parallel import compose
+from ..utils import wire_bytes as _wb
 
 SCHEMA = "bluefog-torch-lm-bench-1"
 # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet, 700 W)
@@ -108,6 +121,8 @@ def _parse(argv=None):
     ap.add_argument("--no-delayed", action="store_true",
                     help="bulk-synchronous gossip instead of the one-step-"
                          "delayed mixing")
+    ap.add_argument("--no-sweep", action="store_true",
+                    help="skip the wire-codec sweep (one step a codec)")
     ap.add_argument("--moe", action="store_true",
                     help="train the routed-MoE LM instead of the dense one")
     ap.add_argument("--experts", type=int, default=None,
@@ -174,6 +189,42 @@ def _grouped_rows(cfg, m, batch: int, seq: int) -> dict:
     rows_cap = cfg.num_experts * cfg.top_k * cfg.capacity(m)
     return {"dropless": rows_drop, "capacity": rows_cap,
             "row_ratio": round(rows_drop / rows_cap, 6)}
+
+
+def _wire_sweep(args, carve_kw, grad_fn, params, toks, dev):
+    """The ledger's ``{"wire", "dcn_bytes", "dcn_dtypes", "ici_bytes"}``
+    of one step of a fresh trainer from a copy of ``params`` at each
+    codec (the JAX tool's sweep); the active carving is restored.  The
+    step is the gradients and the update alone, outside the step wrapper
+    (no metrics, flight events or chaos faults)."""
+    from ..parallel import context as _ctx
+    prior = _ctx.get_compose()
+    codecs = [None, "bf16", "fp8@64"]
+    if args.wire and args.wire not in codecs:
+        codecs.append(args.wire)
+    sweep = []
+    try:
+        for w in codecs:
+            mw = compose.compose_parallelism(
+                args.dp, args.pp, args.tp, args.sp, args.ep, device=dev,
+                wire=w, **carve_kw)
+            _, strategy = compose.make_train_step(
+                mw, grad_fn, bfopt.adam(5e-3), delayed=not args.no_delayed)
+            p = tree_map(torch.clone, params)
+            state = bfopt.init_distributed(strategy, p)
+            with _wb.ledger(mw.slice_size) as led:
+                _, grads = bfopt.stacked_grads(grad_fn, p, toks,
+                                               mw.slice_size)
+                with torch.no_grad():
+                    strategy.update(grads, state, p)
+            st = led.stablehlo_wire_stats()
+            sweep.append({"wire": w, "dcn_bytes": st["dcn_bytes"],
+                          "dcn_dtypes": st["dcn_dtypes"],
+                          "ici_bytes": st["ici_bytes"]})
+            del p, state, grads, strategy
+    finally:
+        _ctx.set_compose(prior)
+    return sweep
 
 
 def main(argv=None) -> dict:
@@ -244,7 +295,15 @@ def main(argv=None) -> dict:
             params, state, loss = step(params, state, toks)
             losses.append(float(loss.float().mean()))
 
-    run(2)                                          # warm-up
+    sweep = []
+    if not args.no_sweep and m.dp > 1:
+        sweep = _wire_sweep(args, carve_kw, grad_fn, params, toks, dev)
+    # warm-up: the first call under the wire-byte ledger, one step's share
+    with _wb.ledger(m.slice_size) as led:
+        run(1)
+    wire_bytes = led.steps(steps_per_call)[0].stablehlo_wire_stats()
+    wire_bytes["slice_size"] = m.slice_size
+    run(1)
     sync()
     if m.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(m.device)
@@ -285,6 +344,8 @@ def main(argv=None) -> dict:
                 "peak_flops_per_chip": PEAK_FLOPS if on_card else None,
                 "mfu": (tok_per_sec * flops_per_token / PEAK_FLOPS
                         if on_card else None)},
+        "wire_bytes": wire_bytes,
+        "wire_sweep": sweep,
         "losses": [losses[0], losses[-1]],
         "loss_decreased": losses[-1] < losses[0],
         "chaos": args.chaos,
@@ -313,6 +374,9 @@ def main(argv=None) -> dict:
                                               cfg.seq_len)
                                 if cfg.dispatch == "dropless" else None),
             "dot_flops": None, "per_step_s_capacity": None,
+            "dot_flops_note": "the JAX tool counts the dot_general FLOPs "
+                              "of the lowered StableHLO step; the port "
+                              "lowers no program",
         }
         doc["ok"] = bool(doc["ok"]
                          and 0.0 <= health["dropped_fraction"] <= 1.0)

@@ -495,6 +495,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    phases each ran beside).  K1/K2
    launch counts are each run's formula; no K3/K4.
 
+23. the autotuner (``autotune``, ``autotune_bench`` and
+   ``carving_tuner`` lines): (a) ``autotune(params=ResNet-50's {"params",
+   "bs"} tree, trials=3)`` over 8 stacked ranks, the full default space,
+   banked into a temporary directory, then twice at ``trials=0`` on it:
+   no probe fails, the trialled keys read ``banked``, the two documents
+   are byte-identical; (b) the plan through ``tools/bench.py --plan`` on
+   ResNet-50 over 8 ranks x 16 (img/s beside ``plan_id``), and a plan for
+   4 ranks refused; (c) ``tune_carving`` at lm_bench's dense widths
+   (micro cut to 4) over every carving with pp, tp, sp <= 2 (plus the
+   dp-1 and 16-chip rejections) and at phase 12b's MoE config over
+   ``tests/test_moe.py``'s list, both dispatch schemes: each carving's
+   one real step with its DCN / ICI bytes, DCN dtypes, seconds and peak
+   memory; K1/K2 (and K4 with its backward on the dropless runs)
+   launched by the formula a carving and held against their plain
+   versions on one captured launch each.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4312,7 +4328,7 @@ def _hr_straggler(fa, gf, smi, scratch, seen):
     from bluefog_tpu_torch.utils import flight
     root = os.path.dirname(os.path.abspath(__file__))
     argv = ["--dp", str(HR_DP), "--pp", "1", "--tp", "1", "--layers", "2",
-            "--micro", "4", "--steps-per-call", "1"]
+            "--micro", "4", "--steps-per-call", "1", "--no-sweep"]
     per_step = HR_DP * 4 * 2
     rows = {}
 
@@ -5399,7 +5415,8 @@ def _el_launch_lm(scratch):
                             sys.executable, "-c", _EL_LM_CHILD, "--dp", "4",
                             "--pp", "1", "--tp", "1", "--layers", "2",
                             "--micro", "4", "--iters", "1",
-                            "--steps-per-call", "1", "--flight-dir", flight],
+                            "--steps-per-call", "1", "--no-sweep",
+                            "--flight-dir", flight],
             cwd=root, env=dict(os.environ, PYTHONPATH=root),
             stdin=subprocess.DEVNULL, stdout=out, stderr=err, text=True)
 
@@ -5994,6 +6011,17 @@ def _estate_kernel_checks(tag, fa, fd, gf, kv, seen, moe):
                              f"max|plain| = {1e-4 * top})")
     out["grouped_ffn_serve"] = {"xt": list(xt.shape), "max_abs_err": err,
                                 "tol": "1e-4 x max|plain|"}
+    out.update(_k4_train_checks(tag, gf, seen))
+    return out
+
+
+def _k4_train_checks(tag, gf, seen):
+    """K4 and its backward from a trainer held against the per-expert
+    plain version under autograd, on the first training call's captured
+    inputs and the gradient that reached its output (``seen["k4_train"]``,
+    ``seen["k4_train_g"]``; out, dxt, dw1, dw2 within 1e-4 x max|plain|);
+    the backward launches its plan, dgrad and wgrad once each."""
+    out = {}
     if "k4_train_g" not in seen:
         raise AssertionError(f"{tag}: no gradient reached the trainer's "
                              "first grouped_ffn call")
@@ -6243,6 +6271,11 @@ def estate_phase(fa, fd, gf, layers_mod, smi, moe):
                                         "decode_mean_s", "gap_mean_s")},
         "device": torch.cuda.get_device_name(0), "smi": smi}
     if moe:
+        wire = doc["moe"]["wire"]
+        if wire["dcn_bytes"] or not wire["ici"].get("all_to_all"):
+            raise AssertionError(f"{tag}: the decode's wire proof {wire}")
+        summary["moe_decode_wire"] = {k: wire[k] for k in (
+            "ici", "dcn", "ici_bytes", "dcn_bytes", "ici_dtypes")}
         summary["tokens_per_s_moe_probe"] = doc["moe"]["tokens_per_sec_moe"]
         summary["tokens_per_s_dense_twin"] = \
             doc["moe"]["tokens_per_sec_dense_twin"]
@@ -6250,6 +6283,382 @@ def estate_phase(fa, fd, gf, layers_mod, smi, moe):
     del st, eng, want, mean_tree, pulled
     torch.cuda.empty_cache()
     return summary, whole
+
+
+AT_RANKS = 8                  # 23a-b: ResNet-50's tree over 8 stacked ranks
+AT_TRIALS = 3                 # 23a: the battery's --trials auto
+AT_BENCH = ["--ranks", "8", "--batch", "16", "--iters", "2"]   # 23b
+AT_MICRO = 4                  # 23c dense: lm_bench's micro 8 cut to 12b's
+
+
+class _StreamRng:
+    """``np.random.default_rng(seed)`` for 23c's inits: ``normal`` hands
+    out the next slice of one f32 standard-normal stream a seed, drawn on
+    the card in chunks as the inits ask for more (numpy's f64 draw takes
+    ~25 ns a sample on the host: ~9 s for each MoE carving at these
+    widths); ``integers`` (the batches) is the real generator's."""
+    streams = {}
+    CHUNK = 1 << 26
+
+    def __init__(self, seed=None):
+        self.real, self.seed, self.at = _REAL_RNG(seed), seed, 0
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        n = int(np.prod(size))
+        stream, gen = self.streams.get(self.seed, (None, None))
+        if gen is None:
+            gen = torch.Generator(device=DEV).manual_seed(int(self.seed or 0))
+            stream = np.empty(0, np.float32)
+        if len(stream) < self.at + n:
+            more = -(-(self.at + n - len(stream)) // self.CHUNK) * self.CHUNK
+            stream = np.concatenate([stream, torch.randn(
+                more, generator=gen, device=DEV).cpu().numpy()])
+            stream.flags.writeable = False     # callers get views of it
+        self.streams[self.seed] = (stream, gen)
+        out = stream[self.at:self.at + n].reshape(size)
+        self.at += n
+        return out if (loc, scale) == (0.0, 1.0) else out * scale + loc
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+_REAL_RNG = np.random.default_rng
+
+
+def _at_tree():
+    """ResNet-50's ``{"params", "bs"}`` tree, the one ``tools/bench.py``
+    trains (224 x 224, 1000 classes, seed 0)."""
+    from bluefog_tpu_torch.models import ResNet50
+    v = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                 generator=torch.Generator().manual_seed(0)).variables()
+    return {"params": v["params"], "bs": v["batch_stats"]}
+
+
+def _at_strategy(smi, scratch):
+    """23a: ``autotune(params=ResNet-50's tree, trials=3)`` over 8 stacked
+    ranks, the full default space, banked into ``scratch``; then twice
+    at ``trials=0`` on that bank.  Gates: no probe failed (every
+    rejection is a contract's); the trialled keys read ``banked`` in
+    both repeats, which are byte-identical; the winner's bytes are its
+    audit row's.  Returns the repeat's plan."""
+    from bluefog_tpu_torch.autotune import autotune
+    from bluefog_tpu_torch.fusion import tree_flatten
+    from bluefog_tpu_torch.parallel import context
+    tree = _at_tree()
+    context.init(size=AT_RANKS, device=DEV)
+    t0 = time.monotonic()
+    first = autotune(params=tree, trials=AT_TRIALS, measured_dir=scratch)
+    torch.cuda.synchronize()
+    t_first = time.monotonic() - t0
+    trialled = [e["key"] for e in first.doc["audit"]["scored"]
+                if e["evidence"] == "trial"]
+    t0 = time.monotonic()
+    again = [autotune(params=tree, trials=0, measured_dir=scratch)
+             for _ in range(2)]
+    t_again = time.monotonic() - t0
+    context.shutdown()
+    doc = again[0].doc
+    audit = doc["audit"]
+    failed = [r for r in first.doc["audit"]["rejected"] + audit["rejected"]
+              if r["reason"].startswith("probe failed")]
+    if failed or len(trialled) != AT_TRIALS:
+        raise AssertionError(f"23a: probes failed {failed[:3]} or trials "
+                             f"{trialled} (want {AT_TRIALS})")
+    ev = {e["key"]: e["evidence"] for e in audit["scored"]}
+    if any(ev[k] != "banked" for k in trialled):
+        raise AssertionError(f"23a: the trialled keys read "
+                             f"{[ev[k] for k in trialled]}, want banked")
+    if again[0].to_json() != again[1].to_json():
+        raise AssertionError("23a: two trials=0 tunes differ")
+    win = audit["scored"][0]
+    if win["wire_bytes_per_step_per_chip"] != \
+            doc["predicted"]["wire_bytes_per_step_per_chip"]:
+        raise AssertionError("23a: the winner's bytes are not its row's")
+    n_params = sum(x.numel() for x in tree_flatten(tree)[0])
+    summary = {
+        "ranks": AT_RANKS, "tree_leaves": len(tree_flatten(tree)[0]),
+        "tree_params": n_params, "trials": AT_TRIALS,
+        "considered": audit["considered"], "scored": len(audit["scored"]),
+        "rejected": len(audit["rejected"]),
+        "groups_probed": len({"|".join(e["key"].split("|")[:4])
+                              for e in audit["scored"]}),
+        "winner": doc["config"], "plan_id": doc["plan_id"],
+        "winner_bytes_per_step_per_chip":
+            doc["predicted"]["wire_bytes_per_step_per_chip"],
+        "winner_step_s": doc["predicted"]["step_time_s"],
+        "winner_evidence": doc["predicted"]["evidence"],
+        "trials_s_per_step": {e["key"]: e["step_time_s"]
+                              for e in first.doc["audit"]["scored"]
+                              if e["evidence"] == "trial"},
+        "trialled_analytic_s": _at_analytic(first, trialled),
+        "repeat_identical": True, "seconds_first": t_first,
+        "seconds_two_repeats": t_again,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("autotune " + json.dumps(summary), flush=True)
+    return again[0], summary
+
+
+def _at_analytic(plan, keys):
+    """The analytic pseudo-seconds of the trialled keys (what the trials
+    replaced), from their audit rows' bytes."""
+    from bluefog_tpu_torch.autotune import cost_model as cm
+    from bluefog_tpu_torch.autotune import enumerate_candidates
+    n = plan.doc["n_chips"]
+    cands = {c.key: c for c in enumerate_candidates(n)[0]}
+    return {e["key"]: cm.predicted_step_time_s(
+        cands[e["key"]], e["wire_bytes_per_step_per_chip"],
+        cm.num_schedule_rounds(cands[e["key"]], n))
+        for e in plan.doc["audit"]["scored"] if e["key"] in keys}
+
+
+def _at_bench(plan, smi, scratch):
+    """23b: ``plan.apply()`` through ``tools/bench.py --plan`` on ResNet-50
+    over 8 ranks (the plan's fused-k steps a call, 2 timed calls): the
+    artifact names the plan, the loss is finite; a plan tuned for 4
+    ranks is refused with bench.py's text."""
+    from bluefog_tpu_torch.autotune.plan import make_plan_doc
+    from bluefog_tpu_torch.parallel import context
+    from bluefog_tpu_torch.tools import bench
+    path = plan.save(os.path.join(scratch, "plan.json"))
+    t0 = time.monotonic()
+    doc, b = bench.run(bench.parse(AT_BENCH + ["--plan", path]))
+    seconds = time.monotonic() - t0
+    context.shutdown()
+    del b
+    torch.cuda.empty_cache()
+    if not (doc["plan_id"] == plan.plan_id
+            and doc["config_source"] == "plan:" + plan.plan_id
+            and doc["algorithm"] == plan.algorithm
+            and doc["steps_per_call"] == plan.config["fused_k"]
+            and np.isfinite(doc["loss_last"])):
+        raise AssertionError(f"23b: the replay's artifact {doc}")
+    four = make_plan_doc(
+        config={"algorithm": "neighbor_cta",
+                "topology": {"family": "exp2", "size": 4}, "wire": None,
+                "weights": "recv", "fused_k": 1, "delayed": False,
+                "concurrent": None},
+        objective="step_time", n_chips=4, device_kind=doc["device"],
+        predicted={}, audit={})
+    p4 = os.path.join(scratch, "plan4.json")
+    with open(p4, "w") as f:
+        json.dump(four, f)
+    try:
+        bench.run(bench.parse(AT_BENCH + ["--plan", p4]))
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("23b: a plan for 4 ranks was not refused")
+    finally:
+        context.shutdown()
+    if "re-tune on this mesh" not in refused:
+        raise AssertionError(f"23b: the refusal reads {refused!r}")
+    summary = {"plan_id": doc["plan_id"], "algorithm": doc["algorithm"],
+               "config": plan.config, "img_per_s": doc["value"],
+               "per_step_s": doc["per_step_s"],
+               "steps_per_call": doc["steps_per_call"],
+               "batch_per_rank": doc["batch_per_rank"],
+               "ranks": doc["n_ranks"], "loss": [doc["loss_first"],
+                                                 doc["loss_last"]],
+               "peak_mem_gb": doc["peak_mem_gb"], "seconds": seconds,
+               "refused_4_rank_plan": refused,
+               "device": doc["device"], "nvidia_smi": smi}
+    print("autotune_bench " + json.dumps(summary), flush=True)
+    return summary
+
+
+def _dense_carvings():
+    """23c's dense list: every 8-chip carving with pp, tp, sp <= 2 and no
+    expert axis, and (2, 2, 1, 1, 4) for the size rejection."""
+    from bluefog_tpu_torch.autotune import enumerate_carvings
+    acc, rej = enumerate_carvings(8, max_pp=2, max_tp=2, max_sp=2,
+                                  max_ep=1)
+    return [tuple(c) for c in acc] + [tuple(r["config"].values())
+                                      for r in rej] + [(2, 2, 1, 1, 4)]
+
+
+MOE_CARVINGS = [(2, 2, 1, 1, 2), (2, 2, 2, 1, 1), (4, 2, 1, 1, 1),
+                (1, 2, 2, 2, 1), (2, 2, 1, 1, 4)]    # tests/test_moe.py:381
+
+
+def _at_carving(fa, gf, smi):
+    """23c: ``tune_carving`` at lm_bench's dense widths (vocab 32768,
+    d_model 1024, 16 heads, 4 layers, seq 2048, batch 4; micro 4, not
+    lm_bench's 8, as 12b's) over :func:`_dense_carvings`, then at phase
+    12b's MoE config (lm_bench ``--moe``'s widths, 8 experts top-2, micro
+    4) over JAX's list, both dispatch schemes.  Each carving's one real
+    step: its DCN / ICI bytes, DCN dtypes, the step's seconds
+    (synchronized), the carving's with its init, and peak memory.  Gates:
+    the
+    audited rejections are the contract's (dp 1, the size, no step
+    failed); every scored carving's DCN bytes are positive and bf16; the
+    winner is a dp-2 carving below every dp-4 one; K1/K2 launch dp x
+    (micro + pp - 1) x layers / pp a carving (K4 and its backward as many
+    on the dropless MoE runs, none on the capacity ones); K1/K2 and K4
+    with its backward held against their plain versions on one captured
+    launch each."""
+    import dataclasses
+    from bluefog_tpu_torch.autotune import cost_model as cm
+    from bluefog_tpu_torch.autotune import tune_carving
+    from bluefog_tpu_torch.fusion import tree_map
+    from bluefog_tpu_torch.moe import model as moe_model
+    from bluefog_tpu_torch.parallel import compose, context
+    real = cm.carving_wire_bytes
+    rows, at = {}, {}
+
+    def timed(carve, cfg, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launch_counts(fa, gf)
+        t0 = time.monotonic()
+        stats = real(carve, cfg, **kw)
+        torch.cuda.synchronize()
+        after = _launch_counts(fa, gf)
+        mode = getattr(cfg, "dispatch", None)
+        rows[at["tag"] + ":" + carve.key + (
+            "" if mode in (None, "capacity") else f"|disp={mode}")] = {
+            "dcn_bytes": stats["dcn_bytes"], "ici_bytes": stats["ici_bytes"],
+            "dcn_dtypes": stats["dcn_dtypes"],
+            "ici": stats["ici"], "dcn": stats["dcn"],
+            "step_s": at.pop("step_s"), "seconds": time.monotonic() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: after[k] - before[k] for k in after}}
+        return stats
+
+    dense = compose.LMConfig(vocab=32768, d_model=1024, heads=16, layers=4,
+                             seq_len=2048, micro=AT_MICRO, batch=4)
+    moe = _moe_cfg()
+    seen, plans, seconds = {}, {}, {}
+    real_moe_init, kept = moe_model.init_moe_train_params, {}
+
+    def moe_init(cfg, m, *a, **kw):
+        """A carving's MoE params once for both dispatch schemes (their
+        weights do not depend on it): a host copy is kept, and the second
+        run gets it back on the card (the step updates its params in
+        place; a copy on the card beside them took ~5.6 GB at dp 4)."""
+        key = (m.dp, m.pp, m.tp, m.sp, m.ep, a, tuple(sorted(kw.items())))
+        if key in kept:
+            return tree_map(lambda t: t.to(m.device), kept[key])
+        kept.clear()
+        params = real_moe_init(cfg, m, *a, **kw)
+        kept[key] = tree_map(lambda t: t.cpu(), params)
+        return params
+
+    real_step = compose.make_train_step
+
+    def make_step(*a, **kw):
+        """The carving's step, timed between synchronizations."""
+        step, strategy = real_step(*a, **kw)
+
+        def timed(*sa):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = step(*sa)
+            torch.cuda.synchronize()
+            at["step_s"] = time.monotonic() - t0
+            return out
+        return timed, strategy
+    context.init(size=8, device=DEV)
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(cm, "carving_wire_bytes",
+                                                  timed))
+            stack.enter_context(mock.patch.object(np.random, "default_rng",
+                                                  _StreamRng))
+            stack.enter_context(mock.patch.object(
+                moe_model, "init_moe_train_params", moe_init))
+            stack.enter_context(mock.patch.object(
+                compose, "make_train_step", make_step))
+            stack.enter_context(mock.patch.object(
+                fa, "attention_block_partial",
+                _capture_copy(seen, "k1", fa.attention_block_partial)))
+            stack.enter_context(mock.patch.object(
+                fa, "attention_block_backward",
+                _capture_copy(seen, "k2", fa.attention_block_backward)))
+            stack.enter_context(mock.patch.object(
+                gf, "grouped_ffn", _capture_k4(seen, gf.grouped_ffn)))
+            for tag, cfg, carvings in (("dense", dense, _dense_carvings()),
+                                       ("moe", moe, MOE_CARVINGS)):
+                t0, at["tag"] = time.monotonic(), tag
+                plans[tag] = tune_carving(cfg, wire="bf16",
+                                          carvings=carvings)
+                seconds[tag] = time.monotonic() - t0
+    finally:
+        context.shutdown()
+        _StreamRng.streams.clear()
+        kept.clear()
+        torch.cuda.empty_cache()
+    checks = _k12_checks("carving_tuner", fa, seen)
+    checks.update(_k4_train_checks("carving_tuner", gf, seen))
+    launches = {k: 0 for k in _launch_counts(fa, gf)}
+    for key, row in rows.items():
+        carve = dict(p.split("=") for p in key.split("|")[1:6])
+        dp, pp = int(carve["dp"]), int(carve["pp"])
+        cfg = moe if key.startswith("moe:") else dense
+        n = dp * (cfg.micro + pp - 1) * (cfg.layers // pp)
+        k4 = n if key.endswith("|disp=dropless") else 0
+        want = {"flash_fwd": n, "flash_bwd": n, "grouped_ffn": k4,
+                "grouped_ffn_dgrad": k4, "grouped_ffn_wgrad": k4,
+                "grouped_ffn_backward_plan": k4}
+        if row["launches"] != want:
+            raise AssertionError(f"23c {key}: launches {row['launches']}, "
+                                 f"want {want}")
+        for k, v in row["launches"].items():
+            launches[k] += v
+    for tag, plan in plans.items():
+        rejected = {r["key"]: r["reason"] for r in plan["audit"]["rejected"]}
+        want_rej = {"carve|dp=1|pp=2|tp=2|sp=2|ep=1":
+                    "carving_no_gossip_axis",
+                    "carve|dp=2|pp=2|tp=1|sp=1|ep=4":
+                    "carving_size_mismatch"}
+        if {k: v.split(":")[0] for k, v in rejected.items()} != want_rej:
+            raise AssertionError(f"23c {tag}: rejections {rejected}")
+        best = plan["best"]
+        dp4 = [e["dcn_bytes"] for e in plan["audit"]["scored"]
+               if "|dp=4|" in e["key"]]
+        if not (best["config"]["dp"] == 2 and best["dcn_dtypes"] == ["bf16"]
+                and all(d > best["dcn_bytes_per_step_per_chip"]
+                        for d in dp4)
+                and all(e["dcn_bytes"] > 0
+                        for e in plan["audit"]["scored"])):
+            raise AssertionError(f"23c {tag}: best {best}, dp-4 {dp4}")
+    for key, row in rows.items():
+        if row["dcn_dtypes"] != ["bf16"]:
+            raise AssertionError(f"23c {key}: DCN dtypes {row['dcn_dtypes']}")
+    summary = {
+        "dense": {"config": dataclasses.asdict(dense),
+                  "best": plans["dense"]["best"]},
+        "moe": {"config": dataclasses.asdict(moe),
+                "best": plans["moe"]["best"]},
+        "rejected": {t: plans[t]["audit"]["rejected"] for t in plans},
+        "carvings": rows, "seconds": seconds, "launches": launches,
+        "kernel_checks": checks,
+        "init": "weights from one f32 normal stream a seed (_StreamRng); "
+                "a MoE carving's params once for both dispatch schemes",
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("carving_tuner " + json.dumps(summary), flush=True)
+    return summary
+
+
+def autotune_phase(fa, gf, smi):
+    """Phase 23: the autotuner (23a strategy plans at ResNet-50's width,
+    23b their replay through tools/bench.py, 23c carving plans at
+    lm_bench's dense and MoE widths).  Returns (the launches by kernel,
+    seconds by leg)."""
+    import tempfile
+    seconds = {}
+    with tempfile.TemporaryDirectory() as scratch:
+        t0 = time.monotonic()
+        plan, _ = _at_strategy(smi, scratch)
+        seconds["strategy"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        _at_bench(plan, smi, scratch)
+        seconds["bench"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    carving = _at_carving(fa, gf, smi)
+    seconds["carving"] = time.monotonic() - t0
+    return carving["launches"], seconds
 
 
 def _ptxas_functions(log, names):
@@ -6642,6 +7051,12 @@ def main(argv=None) -> int:
     phase_s["elastic"] = time.monotonic() - t0
     print("elastic_children_overlap " + json.dumps(
         _el_overlap(started, windows, t_start)), flush=True)
+    # -- phase 23: the autotuner (K1/K2 and K4 in the carving steps) -----
+    t0 = time.monotonic()
+    _launch_counts(fa, gf, reset=True)
+    at_launches, at_s = autotune_phase(fa, gf, smi)
+    phase_s.update({"autotune_" + k: v for k, v in at_s.items()})
+    phase_s["autotune"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -6693,7 +7108,9 @@ def main(argv=None) -> int:
                                      rest_quiet["flash_bwd"]),
              "host_runtime": (hr_launches["flash_fwd"],
                               hr_launches["flash_bwd"]),
-             "elastic": (el_launches["flash_fwd"], el_launches["flash_bwd"])}
+             "elastic": (el_launches["flash_fwd"], el_launches["flash_bwd"]),
+             "carving_tuner": (at_launches["flash_fwd"],
+                               at_launches["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -6746,7 +7163,8 @@ def main(argv=None) -> int:
                                "optimizer_core_rest":
                                    rest_quiet["grouped_ffn"],
                                "host_runtime": hr_launches["grouped_ffn"],
-                               "elastic": el_launches["grouped_ffn"]},
+                               "elastic": el_launches["grouped_ffn"],
+                               "carving_tuner": at_launches["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -6777,7 +7195,9 @@ def main(argv=None) -> int:
                                    rest_quiet["grouped_ffn_dgrad"],
                                "host_runtime":
                                    hr_launches["grouped_ffn_dgrad"],
-                               "elastic": el_launches["grouped_ffn_dgrad"]},
+                               "elastic": el_launches["grouped_ffn_dgrad"],
+                               "carving_tuner":
+                                   at_launches["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -6799,7 +7219,8 @@ def main(argv=None) -> int:
              "optimizer_core_rest":
                  rest_quiet["grouped_ffn_backward_plan"],
              "host_runtime": hr_launches["grouped_ffn_backward_plan"],
-             "elastic": el_launches["grouped_ffn_backward_plan"]},
+             "elastic": el_launches["grouped_ffn_backward_plan"],
+             "carving_tuner": at_launches["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

@@ -63,7 +63,10 @@ def test_port_imports_no_jax():
               "examples.elastic_restart", "run.interactive",
               "utils.fleetview", "tools.regrow_drill",
               "tools.preempt_trace", "tools.preempt_bench",
-              "tools.fleet_top"):
+              "tools.fleet_top", "utils.wire_bytes", "autotune",
+              "autotune.candidates", "autotune.plan", "autotune.bank",
+              "autotune.cost_model", "autotune.trials", "autotune.tuner",
+              "autotune.__main__"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -91,15 +94,13 @@ _BAD_IMPORT = re.compile(
 
 
 def test_ported_parts_no_longer_name_item_10():
-    """The launcher, the elastic world and the fleet view are ported: no
-    refusal text names ROADMAP queue 1, item 10 for them, and what is
-    left naming it is autotune's ``apply_plan``."""
+    """Item 10 (the launcher, the elastic world, the fleet view, and last
+    autotune with ``apply_plan``) is ported: no line of the port names
+    ROADMAP queue 1, item 10."""
     hits = [(f.relative_to(REPO), line.strip())
             for f in sorted(PORT.rglob("*.py"))
             for line in f.read_text().splitlines() if "item 10" in line]
-    assert hits == [(Path("bluefog_tpu_torch/parallel/context.py"),
-                     "Not ported (ROADMAP queue 1, item 10): "
-                     "``apply_plan`` (autotune).")], hits
+    assert hits == [], hits
 
 
 def test_source_scan_finds_no_jax_import():
@@ -138,6 +139,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     assert compose_parallelism(4, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_bench.main([])
+    from bluefog_tpu_torch.autotune import __main__ as autotune_cli
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune_cli.main(["--smoke"])
     from bluefog_tpu_torch.models.transformer import (RingTransformerLM,
                                                       init_decode_cache)
     from bluefog_tpu_torch.examples import (benchmark,

@@ -536,7 +536,11 @@ def test_serve_bench_smoke(extra, tmp_path, capsys, monkeypatch):
         assert tr["scale_file_target"] == tr["expected_world"]
     if "--serve-moe" in extra:
         moe = doc["moe"]
-        assert moe["bit_identity"]["bit_identical"] and moe["wire"] is None
+        assert moe["bit_identity"]["bit_identical"]
+        # the ledger over one decode call: the dispatch's all-to-alls, ICI
+        wire = moe["wire"]
+        assert wire["dcn_bytes"] == 0 and wire["dcn"] == {}
+        assert wire["ici"]["all_to_all"]["count"] > 0
         assert doc["spec"]["bit_identical"] and doc["spec"]["drafted"] > 0
 
 

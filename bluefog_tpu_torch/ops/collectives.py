@@ -46,9 +46,22 @@ the raw bytes they travel as), the sums, gathers and all-to-alls, as the
 JAX op each stands for.  The peer-dim ops take ``lead``, the dims of
 their tensor that stack chips, so each chip is charged its share.
 Disarmed, a collective reads one module flag.
+
+Under a profiler (``torch.profiler``, ``utils.timeline``) each move runs
+inside a ``record_function`` range ``bluefog::<op>``, ``<op>`` the JAX op
+it stands for (``neighbor_allreduce``, ``psum``, ``ppermute``,
+``all_to_all``, ``allreduce``, the window ops, ``cross`` for the rows
+that cross processes), and so does each autograd node of the move when
+the backward runs: :mod:`bluefog_tpu_torch.tools.trace_analyze` counts
+the device work launched inside those ranges as communication.  The
+range covers the moves only (the gathers, zero fills, peer sums and
+process-group calls); the weighted combine and the wire codecs stay
+outside, as JAX's classifier counts them as compute.  With no profiler
+running a move reads one flag and makes no range.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -68,6 +81,68 @@ __all__ = ["neighbor_allreduce", "hierarchical_neighbor_allreduce",
            "_wire_decode", "_default_dcn_wire", "_default_concurrent"]
 
 _TINY = float(np.finfo(np.float32).tiny)
+
+#: the prefix of every communication range in a profiler trace
+COMM_PREFIX = "bluefog::"
+_tracing = torch._C._autograd._profiler_enabled
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(op: str):
+    """The range ``bluefog::<op>`` under a profiler, else a shared no-op
+    context."""
+    if not _tracing():
+        return _NO_RANGE
+    return torch.autograd.profiler.record_function(COMM_PREFIX + op)
+
+
+def _move(op: str, fn, x, *args):
+    """``fn(x, *args)``, a move between ranks or peers (``x`` a tensor or
+    a list of them).  Under a profiler it runs inside ``bluefog::<op>``,
+    and each autograd node between its output and ``x`` opens the same
+    range around its backward (:func:`_range_backward`)."""
+    if not _tracing():
+        return fn(x, *args)
+    with torch.autograd.profiler.record_function(COMM_PREFIX + op):
+        out = fn(x, *args)
+    _range_backward(COMM_PREFIX + op, out, x)
+    return out
+
+
+def _tensors(x) -> list:
+    return [t for t in (x if isinstance(x, (list, tuple)) else [x])
+            if isinstance(t, torch.Tensor)]
+
+
+def _range_backward(name: str, out, ins) -> None:
+    """Hook every autograd node from ``out`` back to ``ins`` (its inputs'
+    nodes and the leaves' accumulators excluded) so that its backward
+    runs inside the range ``name``: the transpose of the move is a move
+    too, and autograd's own backward computes it."""
+    stop = {t.grad_fn for t in _tensors(ins) if t.grad_fn is not None}
+    todo = [t.grad_fn for t in _tensors(out) if t.grad_fn is not None]
+    seen = set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in stop or node in seen or \
+                type(node).__name__ == "AccumulateGrad":
+            continue
+        seen.add(node)
+        opened = []
+
+        def enter(grad_outputs, opened=opened):
+            rf = torch.autograd.profiler.record_function(name)
+            rf.__enter__()
+            opened.append(rf)
+
+        def leave(grad_inputs, grad_outputs, opened=opened):
+            if opened:
+                opened.pop().__exit__(None, None, None)
+
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        todo.extend(nxt for nxt, _ in node.next_functions)
+
 
 WIRE_CODECS = ("bf16", "int8", "fp8")
 
@@ -282,11 +357,13 @@ class _Cross(torch.autograd.Function):
         ctx.plan, ctx.shape = plan, sends[0].shape
         ctx.rounds = len(sends)
         row = tuple(sends[0].shape[1:])
-        got = _p2p([(q, torch.cat([sends[r].index_select(0, idx)
-                                   for r, idx in parts]))
-                    for q, parts in outs],
-                   [(q, (sum(k for _, k in parts),) + row)
-                    for q, parts in ins], sends[0].dtype, sends[0].device)
+        with _range("cross"):
+            got = _p2p([(q, torch.cat([sends[r].index_select(0, idx)
+                                       for r, idx in parts]))
+                        for q, parts in outs],
+                       [(q, (sum(k for _, k in parts),) + row)
+                        for q, parts in ins], sends[0].dtype,
+                       sends[0].device)
         blocks = [b for g, (_, parts) in zip(got, ins)
                   for b in g.split([k for _, k in parts])]
         return tuple(blocks) + (sends[0].new_zeros((0,) + row),)
@@ -297,32 +374,35 @@ class _Cross(torch.autograd.Function):
         g0 = grads[-1]
         row = tuple(ctx.shape[1:])
         it = iter(grads[:-1])
-        back = _p2p([(q, torch.cat([next(it) for _ in parts]))
-                     for q, parts in ins],
-                    [(q, (sum(len(idx) for _, idx in parts),) + row)
-                     for q, parts in outs], g0.dtype, g0.device)
-        dsends = [g0.new_zeros(ctx.shape) for _ in range(ctx.rounds)]
-        for (_, parts), g in zip(outs, back):
-            for (r, idx), gr in zip(parts, g.split(
-                    [len(idx) for _, idx in parts])):
-                dsends[r].index_add_(0, idx, gr)
+        with _range("cross"):
+            back = _p2p([(q, torch.cat([next(it) for _ in parts]))
+                         for q, parts in ins],
+                        [(q, (sum(len(idx) for _, idx in parts),) + row)
+                         for q, parts in outs], g0.dtype, g0.device)
+            dsends = [g0.new_zeros(ctx.shape) for _ in range(ctx.rounds)]
+            for (_, parts), g in zip(outs, back):
+                for (r, idx), gr in zip(parts, g.split(
+                        [len(idx) for _, idx in parts])):
+                    dsends[r].index_add_(0, idx, gr)
         return (None,) + tuple(dsends)
 
 
-def _permute(send: torch.Tensor, src: np.ndarray, lead: int = 1
-             ) -> torch.Tensor:
+def _permute(send: torch.Tensor, src: np.ndarray, lead: int = 1,
+             op: str = "ppermute") -> torch.Tensor:
     """One round: rank d receives ``send[src[d]]``; ``src[d] < 0`` receives
     zeros.  ``src`` is over every process's rows when ``send`` is this
     process's block of them: the rows that cross processes then travel
     through :class:`_Cross`.  ``lead``: the dims of ``send`` that stack
     chips (a row holds ``prod(shape[1:lead])`` of them), for the wire-byte
-    ledger."""
-    return _permute_rounds([send], [src], lead=lead)[0]
+    ledger; ``op``: the JAX op the move stands for (its profiler
+    range)."""
+    return _permute_rounds([send], [src], lead=lead, op=op)[0]
 
 
 def _permute_rounds(sends: Sequence[torch.Tensor],
                     srcs: Sequence[np.ndarray], *, lead: int = 1,
-                    record: bool = True) -> List[torch.Tensor]:
+                    record: bool = True, op: str = "ppermute"
+                    ) -> List[torch.Tensor]:
     """:func:`_permute` of each ``sends[r]`` by ``srcs[r]`` (the sends
     share their row shape and dtype).  Across processes every round's
     crossing rows travel together, one message a process pair.  An armed
@@ -330,10 +410,10 @@ def _permute_rounds(sends: Sequence[torch.Tensor],
     the caller recorded them itself)."""
     srcs = [np.asarray(src) for src in srcs]
     if _wb._armed is None or not record:
-        return _permute_rounds_impl(sends, srcs)
+        return _move(op, _permute_rounds_impl, sends, srcs)
     row = [(sends[0].dtype, _wb.nbytes(sends[0]) // max(len(sends[0]), 1))]
     events = _record_moves(sends[0], srcs, lead, [row] * len(srcs))
-    got = _permute_rounds_impl(sends, srcs)
+    got = _move(op, _permute_rounds_impl, sends, srcs)
     return [_wb.transpose_on_backward(g, ev) for g, ev in zip(got, events)]
 
 
@@ -409,22 +489,24 @@ def _permute_rounds_impl(sends: Sequence[torch.Tensor],
 
 
 def _wire_permute(wire: Optional[str], send: torch.Tensor, src: np.ndarray,
-                  lead: int = 1, parts=None) -> torch.Tensor:
+                  lead: int = 1, parts=None, op: str = "ppermute"
+                  ) -> torch.Tensor:
     """One round, optionally wire-compressed (``_wire_ppermute`` of the
     JAX package): each of the first ``lead`` dims' buffers is encoded,
     the codes and scales travel (zero-filled where nothing arrives, so a
     rank receiving nothing decodes zeros), and the receiver decodes.
     ``parts`` passes ``send``'s encoding when the caller has it."""
-    return _wire_permute_rounds(wire, [send], [src], lead, parts)[0]
+    return _wire_permute_rounds(wire, [send], [src], lead, parts, op)[0]
 
 
 def _wire_permute_rounds(wire: Optional[str], sends, srcs, lead: int = 1,
-                         parts=None) -> List[torch.Tensor]:
+                         parts=None, op: str = "ppermute"
+                         ) -> List[torch.Tensor]:
     """:func:`_wire_permute` of each ``sends[r]`` by ``srcs[r]``, moved by
-    one :func:`_permute_rounds`; ``parts`` is the encoding every send
-    shares when the caller has it."""
+    one :func:`_permute_rounds` (the codecs outside its range); ``parts``
+    is the encoding every send shares when the caller has it."""
     if wire is None:
-        return _permute_rounds(sends, srcs, lead=lead)
+        return _permute_rounds(sends, srcs, lead=lead, op=op)
     if not sends[0].is_floating_point():
         # complex would silently lose its imaginary part in the codecs
         raise ValueError(
@@ -445,7 +527,7 @@ def _wire_permute_rounds(wire: Optional[str], sends, srcs, lead: int = 1,
             for e in encoded]
     moved = _permute_rounds([torch.cat(raw, dim=1) if len(raw) > 1
                              else raw[0] for raw in raws], srcs,
-                            record=False)
+                            record=False, op=op)
     out = []
     for send, e, raw, m in zip(sends, encoded, raws, moved):
         got, at = [], 0
@@ -499,11 +581,12 @@ def neighbor_allreduce(x: torch.Tensor, sched: CommSchedule, *,
     sends = [x * _table(sched.send_scale[r], x)
              if sched.uses_dst_weighting else x
              for r in range(sched.num_rounds)]
+    op = "neighbor_allreduce"
     if concurrent and sends:
         recvs = _wire_permute_rounds(wire, sends, sched.recv_src, lead,
-                                     parts)
+                                     parts, op)
     else:
-        recvs = [_wire_permute(wire, send, src, lead, parts)
+        recvs = [_wire_permute(wire, send, src, lead, parts, op)
                  for send, src in zip(sends, sched.recv_src)]
     for r, recv in enumerate(recvs):
         acc = acc + recv * _table(sched.recv_weight[r], x)
@@ -542,7 +625,7 @@ def hierarchical_neighbor_allreduce(
     if _wb._armed is not None:         # the pmean over the local ranks
         _wb._armed.rank_reduce("all_reduce", x.dtype, _wb.nbytes(x)
                                // max(x.shape[0], 1), L)
-    machine_avg = grouped.sum(dim=1) / L
+    machine_avg = _move("pmean", lambda g: g.sum(dim=1), grouped) / L
     out = neighbor_allreduce(machine_avg, machine_sched, wire=wire,
                              concurrent=concurrent)
     return out.unsqueeze(1).expand_as(grouped).reshape(x.shape)
@@ -558,7 +641,7 @@ def neighbor_allgather(x: torch.Tensor, sched: CommSchedule) -> torch.Tensor:
     slots = max(sched.max_in_degree, 1)
     out = x.new_zeros((rows, slots, d0) + tuple(x.shape[2:]))
     for r in range(sched.num_rounds):
-        recv = _permute(x, sched.recv_src[r])
+        recv = _permute(x, sched.recv_src[r], op="neighbor_allgather")
         got = np.flatnonzero(_local(sched.recv_src[r], rows) >= 0)
         if got.size:
             gi = torch.as_tensor(got, device=x.device)
@@ -622,7 +705,7 @@ def pair_gossip(x: torch.Tensor, partners: Sequence[int], *,
     src = np.array([q if q != i else -1 for i, q in enumerate(partners)])
     if (src < 0).all():
         return x
-    recv = _permute(x, src)
+    recv = _permute(x, src, op="pair_gossip")
     paired = torch.as_tensor(_local(src >= 0, x.shape[0]), device=x.device)
     paired = paired.reshape((-1,) + (1,) * (x.ndim - 1))
     return torch.where(paired, x * self_weight + recv * pair_weight, x)
@@ -633,6 +716,10 @@ def rank_sum(x: torch.Tensor) -> torch.Tensor:
     every process: the local rows' sum, then the process group's."""
     if _wb._armed is not None:
         _rank_record("all_reduce", x)
+    return _move("allreduce", _rank_sum, x)
+
+
+def _rank_sum(x: torch.Tensor) -> torch.Tensor:
     total = x.sum(dim=0, keepdim=True)
     if _procs()[0] > 1:
         import torch.distributed as dist
@@ -660,6 +747,10 @@ def rank_max(x: torch.Tensor) -> torch.Tensor:
     reduction through the process group."""
     if _wb._armed is not None:
         _rank_record("all_reduce", x)
+    return _move("allreduce", _rank_max, x)
+
+
+def _rank_max(x: torch.Tensor) -> torch.Tensor:
     top = x.amax(dim=0, keepdim=True)
     if _procs()[0] > 1:
         import torch.distributed as dist
@@ -673,7 +764,7 @@ def allreduce(x: torch.Tensor, *, average: bool = True) -> torch.Tensor:
     total = rank_sum(x)
     if average:
         total = total / (x.shape[0] * _procs()[0])
-    return total.expand_as(x).clone()
+    return _move("allreduce", lambda t: t.expand_as(x).clone(), total)
 
 
 def allgather(x: torch.Tensor) -> torch.Tensor:
@@ -683,9 +774,14 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
     world, _ = _procs()
     if _wb._armed is not None:
         _rank_record("all_gather", x, out_rows=rows * world)
-    if world > 1:
+    return _move("all_gather", _allgather, x)
+
+
+def _allgather(x: torch.Tensor) -> torch.Tensor:
+    rows = x.shape[0]
+    if _procs()[0] > 1:
         import torch.distributed as dist
-        parts = [torch.empty_like(x) for _ in range(world)]
+        parts = [torch.empty_like(x) for _ in range(_procs()[0])]
         dist.all_gather(parts, x.contiguous())
         x = torch.cat(parts)
     n = x.shape[0]
@@ -696,7 +792,7 @@ def allgather(x: torch.Tensor) -> torch.Tensor:
 def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
     """Every rank gets root's block."""
     rows = x.shape[0]
-    world, p = _procs()
+    world, _ = _procs()
     if not 0 <= root_rank < rows * world:
         raise ValueError(f"root_rank {root_rank} out of range for "
                          f"{rows * world} ranks")
@@ -705,10 +801,14 @@ def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
         # the JAX op's binomial tree: ceil(log2 n) permute rounds
         _rank_record("collective_permute", x,
                      rounds=int(np.ceil(np.log2(max(rows * world, 1)))))
-    if world == 1:
+    return _move("broadcast", _broadcast, x, owner, r)
+
+
+def _broadcast(x: torch.Tensor, owner: int, r: int) -> torch.Tensor:
+    if _procs()[0] == 1:
         return x[r:r + 1].expand_as(x).clone()
     import torch.distributed as dist
-    block = x[r:r + 1].contiguous() if owner == p else \
+    block = x[r:r + 1].contiguous() if owner == _procs()[1] else \
         torch.empty_like(x[:1])
     dist.broadcast(block, src=owner)
     return block.expand_as(x).clone()
@@ -745,7 +845,11 @@ def psum(x: torch.Tensor, axis: int, lead: Optional[int] = None
     :func:`all_to_all`."""
     ev = (_peer_record("all_reduce", x, axis, lead)
           if _wb._armed is not None else None)
-    return _tapped(x.sum(dim=axis, keepdim=True).expand_as(x), ev)
+    return _tapped(_move("psum", _psum, x, axis), ev)
+
+
+def _psum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return x.sum(dim=axis, keepdim=True).expand_as(x)
 
 
 def peer_sum(x: torch.Tensor, axis: int, lead: Optional[int] = None
@@ -755,10 +859,14 @@ def peer_sum(x: torch.Tensor, axis: int, lead: Optional[int] = None
     over the tp axis adds them), that dim removed.  One peer: a view."""
     ev = (_peer_record("all_reduce", x, axis, lead)
           if _wb._armed is not None else None)
+    return _tapped(_move("psum", _peer_sum, x, axis), ev)
+
+
+def _peer_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
     out = x.select(axis, 0)
     for t in range(1, x.shape[axis]):
         out = out + x.select(axis, t)
-    return _tapped(out, ev)
+    return out
 
 
 def pmean(x: torch.Tensor, axis: int, lead: Optional[int] = None
@@ -796,7 +904,8 @@ def all_to_all(x: torch.Tensor, axis: int, split_axis: int,
     and ``concat_axis`` are dims of ``x`` other than ``axis``."""
     ev = (_peer_record("all_to_all", x, axis, lead)
           if _wb._armed is not None else None)
-    return _tapped(_all_to_all(x, axis, split_axis, concat_axis), ev)
+    return _tapped(_move("all_to_all", _all_to_all, x, axis, split_axis,
+                         concat_axis), ev)
 
 
 def _all_to_all(x: torch.Tensor, axis: int, split_axis: int,

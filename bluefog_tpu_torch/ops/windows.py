@@ -66,17 +66,18 @@ def win_create(x: torch.Tensor, sched: CommSchedule, *,
 
 def _deliver(win: Window, x: torch.Tensor, sched: CommSchedule,
              accumulate: bool, apply_dst_scale: bool = True,
-             wire: Optional[str] = None) -> Window:
+             wire: Optional[str] = None, op: str = "win_put") -> Window:
     """Send ``x`` along every out-edge into the receivers' slot mailboxes:
     round ``r`` lands in slot ``recv_slot[r]`` of each rank that receives
-    in it (set, or added with ``accumulate``)."""
+    in it (set, or added with ``accumulate``); ``op`` names the moves'
+    profiler range."""
     _check_ranks(x, sched.size, "window delivery")
     recv = win.recv.clone()
     for r in range(sched.num_rounds):
         send = x
         if apply_dst_scale and sched.uses_dst_weighting:
             send = x * _table(sched.send_scale[r], x)
-        incoming = _wire_permute(wire, send, sched.recv_src[r])
+        incoming = _wire_permute(wire, send, sched.recv_src[r], op=op)
         rows = np.flatnonzero(_local(sched.recv_src[r], x.shape[0]) >= 0)
         if not rows.size:
             continue
@@ -102,7 +103,8 @@ def win_accumulate(win: Window, x: torch.Tensor, sched: CommSchedule, *,
                    wire: Optional[str] = None) -> Window:
     """Add ``x`` into out-neighbors' mailboxes (reference:
     WinAccumulate)."""
-    return _deliver(win, x, sched, accumulate=True, wire=wire)
+    return _deliver(win, x, sched, accumulate=True, wire=wire,
+                    op="win_accumulate")
 
 
 def win_get(win: Window, sched: CommSchedule, *,
@@ -111,7 +113,7 @@ def win_get(win: Window, sched: CommSchedule, *,
     (reference: WinGet): every rank sends its current ``value`` along its
     out-edges, without the dst scaling a put applies."""
     return _deliver(win, win.value, sched, accumulate=False,
-                    apply_dst_scale=False, wire=wire)
+                    apply_dst_scale=False, wire=wire, op="win_get")
 
 
 def _combine(value: torch.Tensor, recv: torch.Tensor, self_weight,
@@ -169,7 +171,7 @@ def win_pull(x: torch.Tensor, sched: CommSchedule, *,
     _check_ranks(x, sched.size, "win_pull")
     acc = x * _table(sched.self_weight, x)
     for r in range(sched.num_rounds):
-        incoming = _wire_permute(wire, x, sched.recv_src[r])
+        incoming = _wire_permute(wire, x, sched.recv_src[r], op="win_pull")
         acc = acc + incoming * _table(sched.recv_weight[r], x)
     return acc
 
@@ -207,7 +209,7 @@ def stamp_push(stamps: torch.Tensor, tick: int, active: torch.Tensor,
                        torch.full_like(active, -1, dtype=torch.int32))
     stamps = stamps.clone()
     for r in range(sched.num_rounds):
-        incoming = _permute(send, sched.recv_src[r])
+        incoming = _permute(send, sched.recv_src[r], op="win_put")
         got = np.flatnonzero(_local(sched.recv_src[r], rows) >= 0)
         if not got.size:
             continue

@@ -1152,7 +1152,7 @@ def _zero_apply(optimizer, grads, params, axis: str, n: int, L: int):
         # round k: member m gets member m + k's shard m
         got = torch.stack(_coll._permute_rounds(
             [gv[ar, torch.as_tensor((mine - k) % n, device=dev)]
-             for k in range(n)], rounds))
+             for k in range(n)], rounds, op="reduce_scatter"))
         total = by_member(got, 0)
         for m in range(1, n):
             total = total + by_member(got, m)
@@ -1164,7 +1164,8 @@ def _zero_apply(optimizer, grads, params, axis: str, n: int, L: int):
     new_shards = _apply(optimizer, g_shards, p_shards)
     bufs = []
     for sh, pad in zip(new_shards, pads):
-        got = torch.stack(_coll._permute_rounds([sh] * n, rounds))
+        got = torch.stack(_coll._permute_rounds([sh] * n, rounds,
+                                                op="all_gather"))
         full = torch.stack([by_member(got, m) for m in range(n)],
                            dim=1).reshape(rows, -1)
         bufs.append((full[:, :full.shape[1] - pad] if pad else full)

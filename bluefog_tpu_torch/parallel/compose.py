@@ -51,6 +51,7 @@ from torch import nn
 from .. import topology as topo_util
 from ..device import resolve_device
 from ..models.rope import _cos_sin, _rotate, apply_rope
+from ..ops import collectives as _coll
 from ..ops.collectives import psum
 from ..ops.ulysses import dense_attention, ulysses_attention
 from ..schedule import CommSchedule, compile_topology
@@ -182,7 +183,6 @@ def compose_parallelism(
         raise ValueError(
             f"capacity_factor={capacity_factor!r} must be a positive number")
     if wire is not None:
-        from ..ops import collectives as _coll
         _coll._check_wire(wire)       # eager: fail at carve, not at step
         if dp == 1:
             raise ValueError(
@@ -876,10 +876,11 @@ def _replica_fns(cfg: LMConfig, m: Mesh3D, layer_fn, *, sums,
         if _wb._armed is not None:
             _record_grad_sums(grads, sums, view)
         # the JAX psums / pmeans outside AD, over the peer view's dims
-        grads = {grp: {k: g.view(view + tuple(g.shape[1:])).sum(
-            sums[grp], keepdim=True).expand(
-            view + tuple(g.shape[1:])).reshape(g.shape)
-            for k, g in d.items()} for grp, d in grads.items()}
+        with _coll._range("psum"):
+            grads = {grp: {k: g.view(view + tuple(g.shape[1:])).sum(
+                sums[grp], keepdim=True).expand(
+                view + tuple(g.shape[1:])).reshape(g.shape)
+                for k, g in d.items()} for grp, d in grads.items()}
         if n == 1:
             return total, tree_map(lambda g: g[0], grads)
         return total.expand(n), grads

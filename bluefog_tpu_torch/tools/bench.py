@@ -184,11 +184,13 @@ def parse(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace):
+def run(args: argparse.Namespace, profiler=None):
     """Build, warm up once, time ``iters`` calls; returns ``(doc, bench)``
     with ``bench`` holding the final params.  On the card cuDNN picks its
     algorithms by timing them (``cudnn.benchmark``) for the run, and the
-    setting is restored after."""
+    setting is restored after.  ``profiler`` (a ``torch.profiler``
+    context) wraps one more call after the timed ones, so that the
+    profiler's host cost stays out of the timed rows."""
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
     pick = {k: (v[0] if on_card else v[1]) for k, v in DEFAULTS.items()}
@@ -200,12 +202,12 @@ def run(args: argparse.Namespace):
         torch.backends.cudnn.benchmark = True
         torch.cuda.reset_peak_memory_stats()
     try:
-        return _timed(args, dev, batch, k, iters)
+        return _timed(args, dev, batch, k, iters, profiler)
     finally:
         torch.backends.cudnn.benchmark = benchmark
 
 
-def _timed(args, dev, batch, k, iters):
+def _timed(args, dev, batch, k, iters, profiler=None):
     on_card = dev.type == "cuda"
     b = build(ranks=args.ranks, batch=batch, steps_per_call=k,
               image_size=args.image_size, num_classes=args.classes,
@@ -220,6 +222,11 @@ def _timed(args, dev, batch, k, iters):
         params, state, loss = b.step(params, state, b.data)
     hard_sync(loss)
     dt = time.perf_counter() - t0
+    last = loss.reshape(b.n, -1)[:, -1].mean().item()
+    if profiler is not None:
+        with profiler:
+            params, state, _ = b.step(params, state, b.data)
+            hard_sync(params)
     b.params, b.state = params, state
     steps = iters * k
     per_card = b.n * batch * steps / dt
@@ -252,7 +259,7 @@ def _timed(args, dev, batch, k, iters):
         "step_flops": step_flops,
         "per_step_s": dt / steps,
         "loss_first": first,
-        "loss_last": loss.reshape(b.n, -1)[:, -1].mean().item(),
+        "loss_last": last,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                         if on_card else None),
         "power_limit_w": power_limit_w() if on_card else None,

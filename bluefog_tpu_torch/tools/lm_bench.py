@@ -63,19 +63,36 @@ the gossip, are the JAX tool's).  ``wire_sweep`` repeats that for the
 codecs None, bf16, fp8@64 and ``--wire``, each one step of a fresh
 trainer from the same params (``--no-sweep`` or dp 1 skip it).
 
-Left out of the JAX tool (XLA features or later slices): the
-profiler-trace overlap grading, the retrace sentinel, and in the ``moe``
-block ``dot_flops`` (the JAX tool counts the ``dot_general`` FLOPs of the
-lowered StableHLO; the port lowers no program; its analytic rows are
-kept as ``rows_per_device``) and ``per_step_s_capacity`` (the timed
-capacity twin): both stay null.
+The timed window runs under ``torch.profiler`` (CPU and, on the card,
+CUDA activity; ``--no-trace`` skips it, as the JAX tool's flag does) and
+:mod:`~bluefog_tpu_torch.tools.trace_analyze` grades the trace: the
+``overlap`` block holds the JAX tool's ``overlap_fraction``, ``comm_ms``
+and ``comm_exposed_ms`` of the moves (the ``bluefog::`` ranges of
+``ops/collectives.py``) under compute, with ``busy_ms``, ``wall_ms``
+and ``top_exposed_comm_ops`` beside.  On the card a failed grading
+fails the tool (``ok`` false, the error in ``overlap_error`` and on
+stderr); a CPU profile has no device track, so there ``overlap`` stays
+null, as the JAX tool's does off the TPU.  The trace goes to a temporary
+directory, removed after the grading.  The
+``invariants`` block replaces the JAX tool's retrace sentinel with the
+kernel build counter (``ops/_build.py::build_counts``): the builds
+during the timed window, ``builds_after_warmup``, must be 0; torch has
+no buffer donation, so ``donated`` / ``donation_intact`` stay null.
+``ok`` needs the loss to fall and no build after the warm-up.
+
+Left out of the JAX tool: in the ``moe`` block ``dot_flops`` (the JAX
+tool counts the ``dot_general`` FLOPs of the lowered StableHLO; the port
+lowers no program; its analytic rows are kept as ``rows_per_device``)
+and ``per_step_s_capacity`` (the timed capacity twin): both stay null.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -85,8 +102,10 @@ from .. import optimizers as bfopt
 from ..device import resolve_device
 from ..fusion import tree_map
 from ..moe import model as moe_model
+from ..ops import _build
 from ..parallel import compose
 from ..utils import wire_bytes as _wb
+from . import trace_analyze
 
 SCHEMA = "bluefog-torch-lm-bench-1"
 # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet, 700 W)
@@ -123,6 +142,8 @@ def _parse(argv=None):
                          "delayed mixing")
     ap.add_argument("--no-sweep", action="store_true",
                     help="skip the wire-codec sweep (one step a codec)")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="skip the profiler trace / overlap grading")
     ap.add_argument("--moe", action="store_true",
                     help="train the routed-MoE LM instead of the dense one")
     ap.add_argument("--experts", type=int, default=None,
@@ -227,6 +248,15 @@ def _wire_sweep(args, carve_kw, grad_fn, params, toks, dev):
     return sweep
 
 
+def _grade(profiler):
+    """The trace analysis of the profiled window (``trace_analyze``'s
+    dict), the trace exported to a temporary directory removed after."""
+    with tempfile.TemporaryDirectory(prefix="lm_bench_trace_") as directory:
+        path = os.path.join(directory, "lm_bench.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        return trace_analyze.analyze_file(path)
+
+
 def main(argv=None) -> dict:
     args = _parse(argv)
     if args.ep > 1 and not args.moe:
@@ -307,10 +337,19 @@ def main(argv=None) -> dict:
     sync()
     if m.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(m.device)
-    t0 = time.perf_counter()
-    run(iters)
-    sync()
-    dt = time.perf_counter() - t0
+    builds0 = _build.build_counts()["builds"]
+    profiler = contextlib.nullcontext()
+    if not args.no_trace:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if m.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+    with profiler:
+        t0 = time.perf_counter()
+        run(iters)
+        sync()
+        dt = time.perf_counter() - t0
+    builds = _build.build_counts()["builds"] - builds0
 
     per_step = dt / (iters * steps_per_call)
     tokens_per_step = m.dp * cfg.micro * cfg.batch * cfg.seq_len
@@ -348,12 +387,30 @@ def main(argv=None) -> dict:
         "wire_sweep": sweep,
         "losses": [losses[0], losses[-1]],
         "loss_decreased": losses[-1] < losses[0],
+        "overlap": None,
+        "invariants": {
+            "donated": None, "donation_intact": None,
+            "donation_note": "torch has no buffer donation",
+            "builds_after_warmup": builds},
         "chaos": args.chaos,
         "straggler": None,
         "flight_bundle": None,
         "moe": None,
     }
-    doc["ok"] = bool(doc["loss_decreased"])
+    doc["ok"] = bool(doc["loss_decreased"] and builds == 0)
+    if not args.no_trace:
+        rep = _grade(profiler)
+        if rep["ok"]:
+            doc["overlap"] = {key: rep[key] for key in (
+                "overlap_fraction", "comm_ms", "comm_exposed_ms", "busy_ms",
+                "wall_ms", "top_exposed_comm_ops")}
+        elif on_card:
+            doc["ok"] = False
+            doc["overlap_error"] = rep["error"]
+            print(f"[lm_bench] overlap grading failed: {rep['error']}",
+                  file=sys.stderr)
+        else:
+            doc["overlap_note"] = rep["error"]
     if args.moe:
         # routing health off the forward-only probe, outside the timed
         # window, on the final params

@@ -511,6 +511,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launched by the formula a carving and held against their plain
    versions on one captured launch each.
 
+24. the trace's compute / comm split, the step sweep and the notebooks
+   (``overlap``, ``step_sweep`` and ``notebooks`` lines, each with the
+   card's name and power limit): (a) ``tools/lm_bench`` at its default
+   carving dp 2 x pp 2 x tp 2 and full width (4 layers, micro 8, batch 4,
+   seq 2048; delayed AWC, Adam) with its trace on, ``--iters 3
+   --steps-per-call 1 --no-sweep``: ``ok``, no kernel build after the
+   warm-up, K1/K2 launched ``dp x (micro + pp - 1) x layers / pp`` = 36
+   times a step (180 over the 5 steps), an ``overlap`` block with comm
+   above 0 whose top exposed ops name ``bluefog::psum`` and the gossip's
+   ``bluefog::neighbor_allreduce``, busy within wall, and K1/K2 held
+   against their plain versions on one captured launch; (b)
+   ``tools/step_sweep`` on ResNet-50 at ``--ranks 4 --batch 16 --sweep
+   1,5 --iters 2 --trace``: both rows, the dispatch amortization, and the
+   trace's analysis with the gossip's comm above 0; no K1-K4; (c) the
+   two notebooks' code cells in order on the card, their asserts
+   included.  The legs of 21a and 22d pass ``--no-trace``.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4328,7 +4345,8 @@ def _hr_straggler(fa, gf, smi, scratch, seen):
     from bluefog_tpu_torch.utils import flight
     root = os.path.dirname(os.path.abspath(__file__))
     argv = ["--dp", str(HR_DP), "--pp", "1", "--tp", "1", "--layers", "2",
-            "--micro", "4", "--steps-per-call", "1", "--no-sweep"]
+            "--micro", "4", "--steps-per-call", "1", "--no-sweep",
+            "--no-trace"]
     per_step = HR_DP * 4 * 2
     rows = {}
 
@@ -5416,7 +5434,7 @@ def _el_launch_lm(scratch):
                             "--pp", "1", "--tp", "1", "--layers", "2",
                             "--micro", "4", "--iters", "1",
                             "--steps-per-call", "1", "--no-sweep",
-                            "--flight-dir", flight],
+                            "--no-trace", "--flight-dir", flight],
             cwd=root, env=dict(os.environ, PYTHONPATH=root),
             stdin=subprocess.DEVNULL, stdout=out, stderr=err, text=True)
 
@@ -6661,6 +6679,152 @@ def autotune_phase(fa, gf, smi):
     return carving["launches"], seconds
 
 
+# -- phase 24: the trace's compute/comm split, step_sweep, the notebooks ---
+
+# 24a: lm_bench at its default carving and width; 2 warm-up steps and 3
+# timed, one step a call; K1/K2 launches dp x (micro + pp - 1) x layers /
+# pp a step
+OV_ARGV = ["--iters", "3", "--steps-per-call", "1", "--no-sweep"]
+OV_LAUNCHES = 5 * 2 * (8 + 2 - 1) * 4 // 2
+# 24b: the ResNet-50 sweep over 4 gossiping ranks
+SW_ARGV = ["--ranks", "4", "--batch", "16", "--sweep", "1,5", "--iters",
+           "2"]
+NOTEBOOKS = ("interactive_helloworld", "resource_allocation")
+
+
+def _ov_lm_bench(fa, gf, smi):
+    """24a: lm_bench with its trace on; its gates, K1/K2 against their
+    plain versions on one captured launch."""
+    import io
+    from bluefog_tpu_torch.tools import lm_bench
+    seen = {}
+    _launch_counts(fa, gf, reset=True)
+    with mock.patch.object(
+            fa, "attention_block_partial",
+            _capture_copy(seen, "k1", fa.attention_block_partial)), \
+            mock.patch.object(
+                fa, "attention_block_backward",
+                _capture_copy(seen, "k2", fa.attention_block_backward)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        doc = lm_bench.main(OV_ARGV)
+    torch.cuda.synchronize()
+    n = _launch_counts(fa, gf)
+    ov = doc["overlap"]
+    if not doc["ok"] or ov is None:
+        raise AssertionError(f"24a: lm_bench not ok: {doc.get('losses')} "
+                             f"{doc['invariants']} "
+                             f"{doc.get('overlap_error')}")
+    if (n["flash_fwd"], n["flash_bwd"]) != (OV_LAUNCHES, OV_LAUNCHES):
+        raise AssertionError(f"24a: K1/K2 launched {n}, want {OV_LAUNCHES} "
+                             "each")
+    names = [r["name"] for r in ov["top_exposed_comm_ops"]]
+    if not (ov["comm_ms"] > 0 and "bluefog::psum" in names
+            and "bluefog::neighbor_allreduce" in names
+            and ov["busy_ms"] <= ov["wall_ms"]):
+        raise AssertionError(f"24a: the overlap block {ov}")
+    kernels = _k12_checks("lm_bench_overlap", fa, seen)
+    row = {"mesh": doc["mesh"], "config": doc["config"],
+           "per_step_s": doc["per_step_s"],
+           "tokens_per_sec": doc["tokens_per_sec"],
+           "peak_mem_gb": doc["peak_mem_gb"], "losses": doc["losses"],
+           "overlap": ov, "invariants": doc["invariants"],
+           "flash_launches": n["flash_fwd"], "kernels": kernels,
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("overlap " + json.dumps(row), flush=True)
+    return n, row
+
+
+def _ov_step_sweep(smi, scratch):
+    """24b: step_sweep on ResNet-50 with the trace of its largest value."""
+    import io
+    from bluefog_tpu_torch.tools import step_sweep
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = step_sweep.main(SW_ARGV + [
+            "--trace", os.path.join(scratch, "sweep_trace"),
+            "--out", os.path.join(scratch, "sweep.json")])
+    rep = summary["trace_analysis"]
+    if len(summary["rows"]) != 2 or "partial" in summary or \
+            not summary["dispatch_amortization"] > 0:
+        raise AssertionError(f"24b: step_sweep {summary}")
+    if not rep["ok"] or not rep["comm_ms"] > 0 or \
+            "bluefog::neighbor_allreduce" not in [
+                r["name"] for r in rep["top_exposed_comm_ops"]]:
+        raise AssertionError(f"24b: the sweep's trace analysis {rep}")
+    row = {"rows": summary["rows"],
+           "dispatch_amortization": summary["dispatch_amortization"],
+           "trace": {k: rep[k] for k in (
+               "wall_ms", "busy_ms", "compute_ms", "comm_ms",
+               "comm_exposed_ms", "overlap_fraction", "idle_ms",
+               "top_exposed_comm_ops", "n_events", "device_tracks")},
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    print("step_sweep " + json.dumps(row), flush=True)
+    return row
+
+
+def _ov_notebooks(smi):
+    """24c: each notebook's code cells in order on the card (its
+    default device), the asserts included."""
+    import io
+    import bluefog_tpu_torch as bf
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name in NOTEBOOKS:
+        path = os.path.join(root, "bluefog_tpu_torch", "examples",
+                            f"{name}.ipynb")
+        with open(path) as f:
+            cells = [c for c in json.load(f)["cells"]
+                     if c["cell_type"] == "code"]
+        ns, text = {}, io.StringIO()
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(text):
+                for i, c in enumerate(cells):
+                    exec(compile("".join(c["source"]), f"{name}[{i}]",
+                                 "exec"), ns)
+        finally:
+            bf.shutdown()
+        if ns["device"] != "cuda":
+            raise AssertionError(f"24c {name} ran on {ns['device']}")
+        out[name] = {"cells": len(cells),
+                     "last": text.getvalue().splitlines()[-3:],
+                     "seconds": time.monotonic() - t0}
+    if "OK: agents agreed" not in out["resource_allocation"]["last"][-1]:
+        raise AssertionError(f"24c: {out}")
+    print("notebooks " + json.dumps(dict(
+        out, device=torch.cuda.get_device_name(0), nvidia_smi=smi)),
+        flush=True)
+    return out
+
+
+def overlap_phase(fa, gf, fd, smi):
+    """Phase 24: (a) lm_bench's overlap grading, (b) step_sweep, (c) the
+    notebooks.  Returns (24a's launches by kernel, 24b-c's, seconds by
+    leg)."""
+    import tempfile
+    seconds = {}
+    fd.flash_decode_cuda.launches = 0
+    t0 = time.monotonic()
+    lm_n, _ = _ov_lm_bench(fa, gf, smi)
+    lm_n["flash_decode"] = fd.flash_decode_cuda.launches
+    seconds["lm_bench"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    _launch_counts(fa, gf, reset=True)
+    fd.flash_decode_cuda.launches = 0
+    with tempfile.TemporaryDirectory() as scratch:
+        t0 = time.monotonic()
+        _ov_step_sweep(smi, scratch)
+        seconds["step_sweep"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _ov_notebooks(smi)
+    seconds["notebooks"] = time.monotonic() - t0
+    rest = dict(_launch_counts(fa, gf),
+                flash_decode=fd.flash_decode_cuda.launches)
+    if any(rest.values()):
+        raise AssertionError(f"24b-c launched a kernel: {rest}")
+    return lm_n, rest, seconds
+
+
 def _ptxas_functions(log, names):
     """ptxas's report (-Xptxas -v) for each entry function whose mangled
     name holds one of ``names``: registers, spill stores + loads, and any
@@ -7057,6 +7221,11 @@ def main(argv=None) -> int:
     at_launches, at_s = autotune_phase(fa, gf, smi)
     phase_s.update({"autotune_" + k: v for k, v in at_s.items()})
     phase_s["autotune"] = time.monotonic() - t0
+    # -- phase 24: the trace's split, step_sweep, the notebooks ---------
+    t0 = time.monotonic()
+    ov_launches, ov_rest, ov_s = overlap_phase(fa, gf, fd, smi)
+    phase_s.update({"overlap_" + k: v for k, v in ov_s.items()})
+    phase_s["overlap"] = time.monotonic() - t0
     phase_s["total"] = time.monotonic() - t_start
     print("phases " + json.dumps(phase_s), flush=True)
 
@@ -7076,7 +7245,9 @@ def main(argv=None) -> int:
         "pipelines_and_world": quiet["flash_decode"],
         "optimizer_core_rest": rest_quiet["flash_decode"],
         "host_runtime": hr_launches["flash_decode"],
-        "elastic": el_launches["flash_decode"]}
+        "elastic": el_launches["flash_decode"],
+        "lm_bench_overlap": ov_launches["flash_decode"],
+        "step_sweep_and_notebooks": ov_rest["flash_decode"]}
     decode["carved_decode"] = {
         tag: {key: row[key] for key in _ROW_KEYS + (
             "warm_ms", "library_warm_ms", "S", "Hkv", "rows", "splits")}
@@ -7110,7 +7281,11 @@ def main(argv=None) -> int:
                               hr_launches["flash_bwd"]),
              "elastic": (el_launches["flash_fwd"], el_launches["flash_bwd"]),
              "carving_tuner": (at_launches["flash_fwd"],
-                               at_launches["flash_bwd"])}
+                               at_launches["flash_bwd"]),
+             "lm_bench_overlap": (ov_launches["flash_fwd"],
+                                  ov_launches["flash_bwd"]),
+             "step_sweep_and_notebooks": (ov_rest["flash_fwd"],
+                                          ov_rest["flash_bwd"])}
     bf16_keys = _ROW_KEYS + ("warm_ms", "dgrad_ms", "wgrad_ms", "rows",
                              "library_warm_ms")
     k4_ep = {tag: {"launches": n["grouped_ffn"],
@@ -7164,7 +7339,11 @@ def main(argv=None) -> int:
                                    rest_quiet["grouped_ffn"],
                                "host_runtime": hr_launches["grouped_ffn"],
                                "elastic": el_launches["grouped_ffn"],
-                               "carving_tuner": at_launches["grouped_ffn"]},
+                               "carving_tuner": at_launches["grouped_ffn"],
+                               "lm_bench_overlap":
+                                   ov_launches["grouped_ffn"],
+                               "step_sweep_and_notebooks":
+                                   ov_rest["grouped_ffn"]},
              moe_train_ep2=k4_ep,
              carved_decode={key: k4_carved[key] for key in _ROW_KEYS + (
                  "warm_ms", "library_warm_ms", "G", "tile", "owners",
@@ -7197,7 +7376,11 @@ def main(argv=None) -> int:
                                    hr_launches["grouped_ffn_dgrad"],
                                "elastic": el_launches["grouped_ffn_dgrad"],
                                "carving_tuner":
-                                   at_launches["grouped_ffn_dgrad"]},
+                                   at_launches["grouped_ffn_dgrad"],
+                               "lm_bench_overlap":
+                                   ov_launches["grouped_ffn_dgrad"],
+                               "step_sweep_and_notebooks":
+                                   ov_rest["grouped_ffn_dgrad"]},
              moe_train_ep2=k4_ep,
              dgrad_ms=k4_bwd["steady_tick"]["dgrad_ms"],
              wgrad_ms=k4_bwd["steady_tick"]["wgrad_ms"],
@@ -7220,7 +7403,10 @@ def main(argv=None) -> int:
                  rest_quiet["grouped_ffn_backward_plan"],
              "host_runtime": hr_launches["grouped_ffn_backward_plan"],
              "elastic": el_launches["grouped_ffn_backward_plan"],
-             "carving_tuner": at_launches["grouped_ffn_backward_plan"]},
+             "carving_tuner": at_launches["grouped_ffn_backward_plan"],
+             "lm_bench_overlap": ov_launches["grouped_ffn_backward_plan"],
+             "step_sweep_and_notebooks":
+                 ov_rest["grouped_ffn_backward_plan"]},
          "max_abs_err": max(row["plan_max_abs_err"]
                             for row in k4_bwd.values()),
          "ms": k4_bwd["steady_tick"]["plan_ms"],

@@ -66,7 +66,8 @@ def test_port_imports_no_jax():
               "tools.fleet_top", "utils.wire_bytes", "autotune",
               "autotune.candidates", "autotune.plan", "autotune.bank",
               "autotune.cost_model", "autotune.trials", "autotune.tuner",
-              "autotune.__main__"):
+              "autotune.__main__", "tools.trace_analyze",
+              "tools.step_sweep", "tools.gen_api_docs", "utils.tf_compat"):
         assert "bluefog_tpu_torch." + m in mods
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     # each module is imported first, into a package state with none of
@@ -101,6 +102,17 @@ def test_ported_parts_no_longer_name_item_10():
             for f in sorted(PORT.rglob("*.py"))
             for line in f.read_text().splitlines() if "item 10" in line]
     assert hits == [], hits
+
+
+def test_port_imports_no_root_tool():
+    """The port keeps its own copies of the repo's ``tools/*.py`` (the
+    JAX package's tools): no port file imports or loads one."""
+    pat = re.compile(r"^\s*(import\s+tools\b|from\s+tools\b)"
+                     r"|spec_from_file_location\(", re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+                 for f in files for m in pat.finditer(f.read_text())]
+    assert not offenders, offenders
 
 
 def test_source_scan_finds_no_jax_import():

@@ -265,3 +265,36 @@ def test_lm_bench_cli_on_cpu():
     assert doc["mfu"]["mfu"] is None and doc["peak_mem_gb"] is None
     assert doc["mfu"]["flops_per_token"] == tcompose.LMConfig(
         vocab=64, d_model=32, heads=4, layers=2).flops_per_token()
+    # the JAX tool's grading blocks: a CPU profile has no device track,
+    # so the overlap stays null with the analyzer's reason beside; the
+    # build counter takes the retrace sentinel's place
+    assert doc["overlap"] is None
+    assert "no CUDA device events" in doc["overlap_note"]
+    assert doc["invariants"] == {
+        "donated": None, "donation_intact": None,
+        "donation_note": "torch has no buffer donation",
+        "builds_after_warmup": 0}
+    assert doc["ok"]
+
+
+def test_lm_bench_no_trace_and_the_graded_trace(monkeypatch):
+    from bluefog_tpu_torch.tools import lm_bench, trace_analyze
+    argv = ["--device", "cpu", "--iters", "2", "--pp", "1", "--tp", "1",
+            "--no-sweep"]
+    graded, analyze = [], trace_analyze.analyze_file
+
+    def analyze_file(path):
+        graded.append(trace_analyze.load_events(path))
+        return analyze(path)
+
+    monkeypatch.setattr(lm_bench.trace_analyze, "analyze_file",
+                        analyze_file)
+    doc = lm_bench.main(argv + ["--no-trace"])
+    assert doc["ok"] and doc["overlap"] is None and not graded
+    assert "overlap_note" not in doc
+    assert doc["invariants"]["builds_after_warmup"] == 0
+    doc = lm_bench.main(argv)
+    assert doc["ok"] and doc["overlap"] is None and len(graded) == 1
+    # the timed window's gossip ran inside its ranges
+    assert any(e.get("name") == "bluefog::neighbor_allreduce"
+               for e in graded[0])

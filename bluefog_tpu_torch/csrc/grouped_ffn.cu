@@ -14,10 +14,19 @@
 // owner's buffer): no block takes it, and zero_marked_tiles writes its
 // output rows as zeros.
 //
-// What bounds it: at decode the bytes (each named expert's w1 + w2,
-// 2 * D * F * itemsize, 33.5 MB at D 1024, F 4096, f32), at a 512-token
-// prefill the operations (4 * G * tile * D * F, at 495 / 3 = 165 TFLOP/s
-// for f32-accurate 3xTF32 products).  The design:
+// Two routes, picked by the wrapper from host integers alone (ffn_route
+// in ops/grouped_ffn.py): expert_rows below an even share of 52 rows an
+// expert (decode, small prefills), forward_gemm from it (prefills of 256
+// tokens and up, training row counts; see "The forward on the plan"
+// below; the card's crossover behind the threshold is in ffn_route's
+// docstring).  Both keep the TPU kernel's
+// rounding points: f32 products, u = gelu(s) kept in f32, the output
+// rounded once to xt's type.
+//
+// expert_rows.  What bounds it: at decode the bytes (each named expert's
+// w1 + w2, 2 * D * F * itemsize, 33.5 MB at D 1024, F 4096, f32), at a
+// 512-token prefill the operations (4 * G * tile * D * F, at 495 / 3 =
+// 165 TFLOP/s for f32-accurate 3xTF32 products).  The design:
 //
 //   * Two launches, no atomics, deterministic: (a) u = gelu(x @ w1) into
 //     an f32 scratch u [G * tile, F], (b) out = u @ w2.  Both run the same
@@ -56,6 +65,36 @@
 //     NC weights, copied by cp.async 16 bytes a thread, two or four stages
 //     deep (see Geo).  D and F must be multiples of 8 (the wrapper pads
 //     other widths).
+//
+// The forward on the plan (forward_gemm route).  At the MoE trainer's
+// steady tick (65,536 rows over 32 folded experts, D 1024, F 2048) the
+// operations bound it: 4 rows D F, 3.3 ms at the 3xTF32 rate, 1.4 ms in
+// bf16 (the up-projection at the bf16 rate, the down-projection at half
+// the TF32 rate).  expert_rows there ran 32,768 blocks of 64 x 64 a
+// product, each block's first warp scanning tile_eid from the start, the
+// operands re-read through L2 once per 64 rows or columns, with
+// mma.sync.  This route takes the backward's engine instead: the wrapper
+// launches backward_plan (its row blocks: up to 128 rows of one run of an
+// expert's tiles) and hands the plan to the backward, which launches
+// none of its own; then two persistent GEMMs over the row blocks, each
+// item a 128 x 128 output tile over its whole reduction, on the TMA ring
+// and wgmma of the backward (see below):
+//
+//   * up: s = xt @ w1[e], the epilogue writing s (f32, when kept) and u =
+//     gelu(s) (f32); down: out = u @ w2[e], summed in f32 and rounded
+//     once to xt's type; zero_marked_tiles then writes the trash tiles'
+//     rows.  The weights w[e] [K, N] hold N innermost (MN-major), so TMA
+//     stages them in 128-byte lines of N, as the wgrad's second operand.
+//   * f32: 3xTF32 (forward_gemm), the split pass transposing the staged
+//     weights into K-major core matrices.  bf16: the up-projection is
+//     bf16 x bf16 wgmma with B through the transpose immediate
+//     (forward_gemm16: exact products, f32 sums); the down-projection
+//     multiplies the f32 u, split into big and small TF32 parts, by the
+//     bf16 w2 widened to TF32 exactly (its small part is zero and skipped:
+//     two wgmmas a product, forward_gemm).  u is never rounded to bf16.
+//   * No atomics on data and no scan of tile_eid in the GEMMs: the plan's
+//     item counter only hands out tiles, so reruns are bit-identical, and
+//     a hot expert gets as many items as its rows need.
 //
 // The backward (replaces the plain-XLA custom_vjp backward
 // bluefog_tpu/ops/pallas_moe.py::_grouped_bwd, which gathers w1[tile_eid]
@@ -667,9 +706,11 @@ backward_plan(const int* __restrict__ eid, int* __restrict__ plan, int G,
   }
 }
 
-// -- the backward's GEMMs on wgmma ----------------------------------------
+// -- the GEMMs on wgmma: the backward's, and the forward's on its plan -----
 
-enum { BW_DGELU = 0, BW_DGRAD = 1, BW_WGRAD = 2 };
+// the backward's three products, then the forward's two (on the plan's
+// row blocks, as the dgrad's; the weights [K, N] are MN-major there)
+enum { BW_DGELU = 0, BW_DGRAD = 1, BW_WGRAD = 2, FW_UP = 3, FW_DOWN = 4 };
 
 // A stage holds each operand as TMA wrote it, 16 KB with the 128-byte
 // swizzle (16-byte chunk c of a 128-byte row r at chunk c ^ (r % 8)): the
@@ -696,24 +737,42 @@ __device__ __forceinline__ int sw_cols(int k, int c) {
   return (c >> 5) * (kBK * 32) + k * 32 + ((((c & 31) >> 2) ^ (k & 7)) << 2) +
          (c & 3);
 }
+// bf16 offset of (stage row k, column c) in a stage of bf16 weights
+// [K, N]: two boxes [kBK rows][64 columns]
+__device__ __forceinline__ int sw_cols16(int k, int c) {
+  return (c >> 6) * (kBK * 64) + k * 64 + ((((c & 63) >> 3) ^ (k & 7)) << 3) +
+         (c & 7);
+}
 
-// the operands of one backward GEMM in T (f32 or bf16)
-template <typename T>
+// the operands of one GEMM: A in TA, B in TB, the outputs in TO (the
+// backward's all f32 or all bf16)
+template <typename TA, typename TB = TA, typename TO = TA>
 struct BwT {
-  const T* a;           // dgrad: the rows [R, K]; wgrad: [R, M]
-  const T* b;           // dgrad: the weights, expert e at [N, K]; wgrad:
-                        // the rows [R, N]
+  const TA* a;          // dgrad, forward: the rows [R, K]; wgrad: [R, M]
+  const TB* b;          // dgrad: the weights, expert e at [N, K]; forward:
+                        // at [K, N]; wgrad: the rows [R, N]
   const float* s;       // the first dgrad product: s [R, N] (f32 always)
-  T* out;               // dgrad: [R, N]; wgrad: dw [E, M, N]
-  T* aux;               // the first dgrad product: u = gelu(s) [R, N]
+  TO* out;              // dgrad, forward: [R, N] (the up-projection: s,
+                        // or null); wgrad: dw [E, M, N]
+  TO* aux;              // the first dgrad product and the up-projection:
+                        // u = gelu(s) [R, N]
   float* scratch;       // wgrad: split experts' parts [slots, M, N]
   int* plan;
-  int M, N, K;          // dgrad: N columns over K entries; wgrad: M x N
+  int M, N, K;          // dgrad, forward: N columns over K entries;
+                        // wgrad: M x N
   int G, tile, E, rb_max, p_max, epp;
-  long long pstride;    // the dgrad's weights: expert e at (e / epp) *
-                        // pstride + (e % epp) * N * K
+  long long pstride;    // the weights: expert e at (e / epp) * pstride +
+                        // (e % epp) * N * K
 };
 using Bw = BwT<float>;
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0,
+                                       float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
 
 // walks one wgrad part: the expert's rows [r0, r1) in tile order, a stage
 // of at most kStage rows at a time, a stage never crossing a run's end
@@ -752,19 +811,24 @@ struct RowCursor {
 };
 
 // One persistent block per SM; an item is a 128 x 128 tile of the output
-// over its whole reduction: dgrad item i is row block i / tiles_n, column
-// tile i % tiles_n; wgrad item i is part i / (tiles_m tiles_n), dw tile
-// i % (tiles_m tiles_n).  map_a / map_b are the operands' TMA maps: the
-// dgrad's rows [R, K] (boxes of kBK x 128) and weights [P, epp, N, K]
-// (kBK x 128 x 1 x 1), the wgrad's rows [R, M] and [R, N] (32 x kBK).
-// Thread 0 issues every stage's boxes; a stage's rows past its run's end
-// (the box may reach into the next expert's rows) are zeroed as they are
-// read, so they add exact zeros.
-template <int kMode>
-__global__ void __launch_bounds__(kBT, 1)
-backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
-              const __grid_constant__ CUtensorMap map_b) {
+// over its whole reduction: dgrad and forward item i is row block i /
+// tiles_n, column tile i % tiles_n; wgrad item i is part i / (tiles_m
+// tiles_n), dw tile i % (tiles_m tiles_n).  ma / mb point at the
+// operands' TMA maps: the dgrad's rows [R, K] (boxes of kBK x 128) and
+// weights [P, epp, N, K] (kBK x 128 x 1 x 1), the wgrad's rows [R, M] and
+// [R, N] (32 x kBK), the forward's rows [R, K] (kBK x 128) and weights
+// [P, epp, K, N] (128-byte lines: 32 f32 or 64 bf16 columns x kBK rows x
+// 1 x 1).  Thread 0 issues every stage's boxes; a stage's rows past its
+// run's end (the box may reach into the next expert's rows) are zeroed as
+// they are read, so they add exact zeros.  B of type bf16 (the bf16
+// forward's down-projection: the weight w2) is exact in TF32: its small
+// part is zero, so a product is two wgmmas, not three.
+template <int kMode, typename TB, typename TO>
+__device__ __forceinline__ void gemm_tf32(const BwT<float, TB, TO> p,
+                                          const void* ma, const void* mb) {
   constexpr bool kW = kMode == BW_WGRAD;
+  constexpr bool kF = kMode == FW_UP || kMode == FW_DOWN;
+  constexpr bool kBExact = sizeof(TB) == 2;
   extern __shared__ __align__(16) unsigned char smem_in[];
   // the swizzle pattern repeats every 1 KB: the tiles start on 1 KB
   unsigned char* smem =
@@ -784,8 +848,6 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
   const int tiles = kW ? ceil_div(p.M, kBM) * tiles_n : tiles_n;
   if (p.plan[H_FAULT]) __trap();       // the plan outgrew its room
   const int n_items = (kW ? p.plan[H_PARTS] : p.plan[H_ROWBLK]) * tiles;
-  const void* ma = &map_a;
-  const void* mb = &map_b;
   if (tid == 0) {
     for (int i = 0; i < kBS; ++i) mbar_init(full + i, 1);
     mbar_init_fence();
@@ -844,10 +906,17 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
       } else {
         if (issued * kBK >= p.K) return;
         if (tid == 0) {
-          mbar_expect_tx(full + slot, 2 * kRawOp * 4);
+          mbar_expect_tx(full + slot, kRawOp * 4 + kBK * kBN * sizeof(TB));
           tma_load_2d(ra, ma, full + slot, issued * kBK, rows0);
-          tma_load_4d(rb, mb, full + slot, issued * kBK, n0, e % p.epp,
-                      e / p.epp);
+          if constexpr (kF) {          // 128-byte lines of kBN columns
+            constexpr int bw = 128 / sizeof(TB);
+            for (int b = 0; b < kBN / bw; ++b)
+              tma_load_4d(rb + b * kBK * 32, mb, full + slot, n0 + bw * b,
+                          issued * kBK, e % p.epp, e / p.epp);
+          } else {
+            tma_load_4d(rb, mb, full + slot, issued * kBK, n0, e % p.epp,
+                        e / p.epp);
+          }
         }
       }
       ++issued;
@@ -868,11 +937,15 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
       for (int i = tid; i < kBN * (kBK / 4); i += kBT) {
         const int n = i % kBN, kc = i / kBN;
         float v[4];
-        if constexpr (kW) {
+        if constexpr (kW || kF) {      // MN-major: transposed here
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int k = kc * 4 + q;
-            v[q] = k < lim ? rb[sw_cols(k, n)] : 0.f;
+            if constexpr (kBExact)
+              v[q] = widen(
+                  reinterpret_cast<const TB*>(rb)[sw_cols16(k, n)]);
+            else
+              v[q] = k < lim ? rb[sw_cols(k, n)] : 0.f;
           }
         } else {
           const float4 x =
@@ -884,12 +957,13 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
         }
         uint32_t hb[4], hs[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split<false>(v[q], hb[q], hs[q]);
+        for (int q = 0; q < 4; ++q) split<kBExact>(v[q], hb[q], hs[q]);
         const int o = (kc * (kBN / 8) + n / 8) * 32 + (n % 8) * 4;
         *reinterpret_cast<uint4*>(big + o) =
             make_uint4(hb[0], hb[1], hb[2], hb[3]);
-        *reinterpret_cast<uint4*>(sml + o) =
-            make_uint4(hs[0], hs[1], hs[2], hs[3]);
+        if constexpr (!kBExact)
+          *reinterpret_cast<uint4*>(sml + o) =
+              make_uint4(hs[0], hs[1], hs[2], hs[3]);
       }
     };
 
@@ -910,14 +984,15 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
         }
     };
 
-    // Stage ks's 12 wgmmas (A in ab / as) go to `part`; stage ks + 1 is
-    // split and its A fragments loaded (into nb / ns) while they run, once
-    // stage ks - 1's wgmmas are done.  `part` takes two stages (an even
-    // stage starts it zeroed, scale-d 0) before it joins the running sum
-    // rounded to nearest, so the tensor pipe drains once every two stages.
-    // Thread 0 asks TMA for a stage only where no wgmma is in flight (the
-    // start of an even step, the end of an odd one): its branch while they
-    // run would make the compiler serialize them.
+    // Stage ks's 12 wgmmas (A in ab / as; 8 with an exact B) go to `part`;
+    // stage ks + 1 is split and its A fragments loaded (into nb / ns)
+    // while they run, once stage ks - 1's wgmmas are done.  `part` takes
+    // two stages (an even stage starts it zeroed, scale-d 0) before it
+    // joins the running sum rounded to nearest, so the tensor pipe drains
+    // once every two stages.  Thread 0 asks TMA for a stage only where no
+    // wgmma is in flight (the start of an even step, the end of an odd
+    // one): its branch while they run would make the compiler serialize
+    // them.
     float acc[64], part[64];
     auto step = [&](auto odd_tag, int ks, uint32_t(&ab)[4][4],
                     uint32_t(&as)[4][4], uint32_t(&nb)[4][4],
@@ -938,7 +1013,8 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
         const uint64_t b_small =
             wgmma_desc(big + kSplitOp + j * 1024, 2048, 128);
         wgmma_tf32_m64n128(part, as[j], b_big, odd || j > 0);
-        wgmma_tf32_m64n128(part, ab[j], b_small, 1);
+        if constexpr (!kBExact)
+          wgmma_tf32_m64n128(part, ab[j], b_small, 1);
         wgmma_tf32_m64n128(part, ab[j], b_big, 1);
       }
       wgmma_commit();
@@ -1015,15 +1091,35 @@ backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
                             v1 * gelu_tanh_grad(sv.y));
             *reinterpret_cast<float2*>(p.aux + o) =
                 make_float2(gelu_tanh(sv.x), gelu_tanh(sv.y));
+          } else if constexpr (kMode == FW_UP) {
+            if (p.out) store2(p.out + o, v0, v1);     // s, when kept
+            store2(p.aux + o, gelu_tanh(v0), gelu_tanh(v1));
           } else {
-            *reinterpret_cast<float2*>(p.out + o) = make_float2(v0, v1);
+            store2(p.out + o, v0, v1);
           }
         }
       }
   }
 }
 
-// -- the backward's GEMMs in bf16 ------------------------------------------
+template <int kMode>
+__global__ void __launch_bounds__(kBT, 1)
+backward_gemm(const Bw p, const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b) {
+  gemm_tf32<kMode>(p, &map_a, &map_b);
+}
+
+// The forward's products on f32 A (the rows xt, or u = gelu(s)): see
+// gemm_tf32; an entry point of its own, so that traces tell it apart
+template <int kMode, typename TB, typename TO>
+__global__ void __launch_bounds__(kBT, 1)
+forward_gemm(const BwT<float, TB, TO> p,
+             const __grid_constant__ CUtensorMap map_a,
+             const __grid_constant__ CUtensorMap map_b) {
+  gemm_tf32<kMode>(p, &map_a, &map_b);
+}
+
+// -- the GEMMs in bf16: the backward's, and the forward's up-projection --
 
 constexpr int kHK = 64;               // bf16 reduction entries a stage
 constexpr int kHS = 6;                // stages in the bf16 ring
@@ -1033,21 +1129,22 @@ constexpr size_t kHSmem = 1024 + kHRawBytes + 8 * kHS + 4 * kHS + 16;
 static_assert(kBM == 128 && kHK * 2 == 128 && kHSmem <= 232448,
               "bf16 backward GEMM geometry");
 
-// The bf16 twin of backward_gemm: the same persistent grid, items and
-// plan, with a stage of kHK entries staged as TMA writes it and consumed
-// in place by wgmma (see the header).  Warpgroup w multiplies rows 64w ..
+// The bf16 twin of gemm_tf32: the same persistent grid, items and plan,
+// with a stage of kHK entries staged as TMA writes it and consumed in
+// place by wgmma (see the header).  Warpgroup w multiplies rows 64w ..
 // 64w + 63 of the item's tile by its 128 columns as two m64n64 halves.
 // The dgrad's A and B are K-major (boxes of kHK entries x 128 rows); the
 // wgrad's are MN-major (two boxes of 64 columns x kHK rows each), and a
 // stage holding fewer than kHK rows (a run's or a part's end) has its
-// other lines zeroed before its products.  Rows past a dgrad row block's
-// end only reach output rows that are never written.
-template <int kMode>
-__global__ void __launch_bounds__(kBT, 1)
-backward_gemm16(const BwT<__nv_bfloat16> p,
-                const __grid_constant__ CUtensorMap map_a,
-                const __grid_constant__ CUtensorMap map_b) {
+// other lines zeroed before its products; the forward's A is K-major and
+// its B (the weights [K, N]) MN-major.  Rows past a row block's end only
+// reach output rows that are never written.
+template <int kMode, typename TO>
+__device__ __forceinline__ void gemm_bf16(
+    const BwT<__nv_bfloat16, __nv_bfloat16, TO> p, const void* ma,
+    const void* mb) {
   constexpr bool kW = kMode == BW_WGRAD;
+  constexpr bool kF = kMode == FW_UP;
   extern __shared__ __align__(16) unsigned char smem_in[];
   unsigned char* smem =
       smem_in + ((1024u - (smem_addr(smem_in) & 1023u)) & 1023u);
@@ -1063,8 +1160,6 @@ backward_gemm16(const BwT<__nv_bfloat16> p,
   const int tiles = kW ? ceil_div(p.M, kBM) * tiles_n : tiles_n;
   if (p.plan[H_FAULT]) __trap();       // the plan outgrew its room
   const int n_items = (kW ? p.plan[H_PARTS] : p.plan[H_ROWBLK]) * tiles;
-  const void* ma = &map_a;
-  const void* mb = &map_b;
   if (tid == 0) {
     for (int i = 0; i < kHS; ++i) mbar_init(full + i, 1);
     mbar_init_fence();
@@ -1123,8 +1218,14 @@ backward_gemm16(const BwT<__nv_bfloat16> p,
         if (tid == 0) {
           mbar_expect_tx(full + slot, 2 * kHOp);
           tma_load_2d(ra, ma, full + slot, issued * kHK, rows0);
-          tma_load_4d(rb, mb, full + slot, issued * kHK, n0, e % p.epp,
-                      e / p.epp);
+          if constexpr (kF) {          // two boxes of 64 columns
+            for (int b = 0; b < 2; ++b)
+              tma_load_4d(rb + b * kHK * 128, mb, full + slot, n0 + 64 * b,
+                          issued * kHK, e % p.epp, e / p.epp);
+          } else {
+            tma_load_4d(rb, mb, full + slot, issued * kHK, n0, e % p.epp,
+                        e / p.epp);
+          }
         }
       }
       ++issued;
@@ -1159,18 +1260,21 @@ backward_gemm16(const BwT<__nv_bfloat16> p,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kHK / 16; ++j) {
-        uint64_t a, b0, b1;
-        if constexpr (kW) {            // MN-major: k step j = lines 16j ..
-          a = wgmma_desc_sw128(ra + wg * kHK * 128 + j * 2048, 1024, 1024);
+        // MN-major: k step j = lines 16j ..; K-major: 32 bytes along
+        // the lines
+        const uint64_t a =
+            kW ? wgmma_desc_sw128(ra + wg * kHK * 128 + j * 2048, 1024, 1024)
+               : wgmma_desc_sw128(ra + wg * 64 * 128 + j * 32, 16, 1024);
+        uint64_t b0, b1;
+        if constexpr (kW || kF) {
           b0 = wgmma_desc_sw128(rb + j * 2048, 1024, 1024);
           b1 = wgmma_desc_sw128(rb + kHK * 128 + j * 2048, 1024, 1024);
-        } else {                       // K-major: 32 bytes along the lines
-          a = wgmma_desc_sw128(ra + wg * 64 * 128 + j * 32, 16, 1024);
+        } else {
           b0 = wgmma_desc_sw128(rb + j * 32, 16, 1024);
           b1 = wgmma_desc_sw128(rb + 64 * 128 + j * 32, 16, 1024);
         }
-        wgmma_bf16_m64n64<kW, kW>(acc[0], a, b0, 1);
-        wgmma_bf16_m64n64<kW, kW>(acc[1], a, b1, 1);
+        wgmma_bf16_m64n64<kW, kW || kF>(acc[0], a, b0, 1);
+        wgmma_bf16_m64n64<kW, kW || kF>(acc[1], a, b1, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1210,6 +1314,9 @@ backward_gemm16(const BwT<__nv_bfloat16> p,
                                         v1 * gelu_tanh_grad(sv.y));
               *reinterpret_cast<__nv_bfloat162*>(p.aux + o) =
                   __floats2bfloat162_rn(gelu_tanh(sv.x), gelu_tanh(sv.y));
+            } else if constexpr (kF) {   // f32 s (when kept) and u
+              if (p.out) store2(p.out + o, v0, v1);
+              store2(p.aux + o, gelu_tanh(v0), gelu_tanh(v1));
             } else {
               *reinterpret_cast<__nv_bfloat162*>(p.out + o) =
                   __floats2bfloat162_rn(v0, v1);
@@ -1217,6 +1324,24 @@ backward_gemm16(const BwT<__nv_bfloat16> p,
           }
         }
   }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kBT, 1)
+backward_gemm16(const BwT<__nv_bfloat16> p,
+                const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b) {
+  gemm_bf16<kMode>(p, &map_a, &map_b);
+}
+
+// The forward's up-projection on bf16 rows and weights (s and u f32): see
+// gemm_bf16; an entry point of its own, so that traces tell it apart
+template <int kMode>
+__global__ void __launch_bounds__(kBT, 1)
+forward_gemm16(const BwT<__nv_bfloat16, __nv_bfloat16, float> p,
+               const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b) {
+  gemm_bf16<kMode>(p, &map_a, &map_b);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
@@ -1408,16 +1533,35 @@ int rows_map(CUtensorMap* m, const T* base, long long rows, int width,
   return tensor_map(m, base, 2, dims, strides, box);
 }
 
-// one backward GEMM over the plan's items: a persistent grid of one block
-// per SM (fewer when the items can never fill it); backward_gemm for f32
-// operands, backward_gemm16 for bf16
-template <typename T, int kMode>
-int gemm(const BwT<T>& p, const CUtensorMap& ma, const CUtensorMap& mb,
-         long long items_max, cudaStream_t st) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
+// weights [P, epp, outer, inner] of T (expert e at (e / epp) * pstride +
+// (e % epp) * outer * inner elements), boxes of bi inner x bo outer
+template <typename T>
+int weights_map(CUtensorMap* m, const T* base, int inner, int outer, int E,
+                int epp, long long pstride, int bi, int bo) {
+  constexpr cuuint64_t it = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)epp, (cuuint64_t)(E / epp)};
+  const cuuint64_t strides[3] = {(cuuint64_t)inner * it,
+                                 (cuuint64_t)outer * inner * it,
+                                 (cuuint64_t)pstride * it};
+  const cuuint32_t box[4] = {(cuuint32_t)bi, (cuuint32_t)bo, 1, 1};
+  return tensor_map(m, base, 4, dims, strides, box);
+}
+
+// one GEMM over the plan's items: a persistent grid of one block per SM
+// (fewer when the items can never fill it); backward_gemm for the f32
+// backward, backward_gemm16 for bf16, forward_gemm for the forward's
+// products on f32 A (f32, or the bf16 down-projection's u), forward_gemm16
+// for its bf16 up-projection
+template <int kMode, typename TA, typename TB, typename TO>
+int gemm(const BwT<TA, TB, TO>& p, const CUtensorMap& ma,
+         const CUtensorMap& mb, long long items_max, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<TA, float>::value;
   constexpr size_t smem = kF32 ? kBwSmem : kHSmem;
   const auto kern = [] {
-    if constexpr (kF32) return backward_gemm<kMode>;
+    if constexpr (kMode >= FW_UP && kF32) return forward_gemm<kMode, TB, TO>;
+    else if constexpr (kMode >= FW_UP) return forward_gemm16<kMode>;
+    else if constexpr (kF32) return backward_gemm<kMode>;
     else return backward_gemm16<kMode>;
   }();
   static bool sized = false;
@@ -1445,21 +1589,29 @@ constexpr int stage_k() {
 template <typename T, int kMode>
 int dgrad(const BwT<T>& p, cudaStream_t st) {
   constexpr int kk = stage_k<T>();
-  constexpr cuuint64_t it = sizeof(T);
   CUtensorMap ma, mb;
   int err = rows_map(&ma, p.a, (long long)p.G * p.tile, p.K, kk, kBM);
+  if (err == 0)
+    err = weights_map(&mb, p.b, p.K, p.N, p.E, p.epp, p.pstride, kk, kBN);
   if (err != 0) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)p.K, (cuuint64_t)p.N,
-                              (cuuint64_t)p.epp,
-                              (cuuint64_t)(p.E / p.epp)};
-  const cuuint64_t strides[3] = {(cuuint64_t)p.K * it,
-                                 (cuuint64_t)p.N * p.K * it,
-                                 (cuuint64_t)p.pstride * it};
-  const cuuint32_t box[4] = {(cuuint32_t)kk, kBN, 1, 1};
-  err = tensor_map(&mb, p.b, 4, dims, strides, box);
+  return gemm<kMode>(p, ma, mb, (long long)p.rb_max * ceil_div(p.N, kBN),
+                     st);
+}
+
+// a forward product: rows p.a [R, K] times expert e's weights p.b, [K, N]
+// at (e / epp) * pstride + (e % epp) * K * N, over the plan's row blocks;
+// the weights are staged in 128-byte lines of N (MN-major)
+template <int kMode, typename TA, typename TB, typename TO>
+int forward(const BwT<TA, TB, TO>& p, cudaStream_t st) {
+  constexpr int kk = stage_k<TA>();
+  CUtensorMap ma, mb;
+  int err = rows_map(&ma, p.a, (long long)p.G * p.tile, p.K, kk, kBM);
+  if (err == 0)
+    err = weights_map(&mb, p.b, p.N, p.K, p.E, p.epp, p.pstride,
+                      128 / (int)sizeof(TB), kk);
   if (err != 0) return err;
-  return gemm<T, kMode>(p, ma, mb,
-                        (long long)p.rb_max * ceil_div(p.N, kBN), st);
+  return gemm<kMode>(p, ma, mb, (long long)p.rb_max * ceil_div(p.N, kBN),
+                     st);
 }
 
 // a wgrad product: dw [E, M, N] from rows p.a [R, M] and p.b [R, N] by
@@ -1474,10 +1626,10 @@ int wgrad(const BwT<T>& p, cudaStream_t st) {
   int err = rows_map(&ma, p.a, R, p.M, bw, bh);
   if (err == 0) err = rows_map(&mb, p.b, R, p.N, bw, bh);
   if (err == 0)
-    err = gemm<T, BW_WGRAD>(p, ma, mb,
-                            (long long)p.p_max * ceil_div(p.M, kBM) *
-                                ceil_div(p.N, kBN),
-                            st);
+    err = gemm<BW_WGRAD>(p, ma, mb,
+                         (long long)p.p_max * ceil_div(p.M, kBM) *
+                             ceil_div(p.N, kBN),
+                         st);
   if (err != 0) return err;
   wgrad_parts_sum<T><<<4 * sm_count(), 256, 0, st>>>(
       p.plan, p.scratch, p.out, p.G, p.E, p.rb_max, p.p_max,
@@ -1521,6 +1673,50 @@ int run_dgrad(const void* g, const int* eid, const void* w1, const void* w2,
   const int e2 = dgrad<T, BW_DGRAD>(b, st);
   if (e2 != 0) return e2;
   return zero_marked(eid, dxt, G, (long long)tile * D * sizeof(T), st);
+}
+
+// the forward's two products on the plan's row blocks, T operands (see
+// bf_grouped_ffn_gemm): up on T x T (forward_gemm16 for bf16), down on the
+// f32 u x T; zero rows of out on the marked tiles
+template <typename T>
+int run_forward(const void* xt, const int* eid, const void* w1,
+                const void* w2, float* u, float* s, void* out, int* plan,
+                int G, int tile, int E, int epp, long long p1, long long p2,
+                int D, int F, int rb_max, int p_max, cudaStream_t st) {
+  BwT<T, T, float> a{};
+  a.a = static_cast<const T*>(xt);
+  a.b = static_cast<const T*>(w1);
+  a.out = s;
+  a.aux = u;
+  a.plan = plan;
+  a.N = F;
+  a.K = D;
+  a.G = G;
+  a.tile = tile;
+  a.E = E;
+  a.rb_max = rb_max;
+  a.p_max = p_max;
+  a.epp = epp;
+  a.pstride = p1;
+  const int e = forward<FW_UP>(a, st);
+  if (e != 0) return e;
+  BwT<float, T, T> b{};
+  b.a = u;
+  b.b = static_cast<const T*>(w2);
+  b.out = static_cast<T*>(out);
+  b.plan = plan;
+  b.N = D;
+  b.K = F;
+  b.G = G;
+  b.tile = tile;
+  b.E = E;
+  b.rb_max = rb_max;
+  b.p_max = p_max;
+  b.epp = epp;
+  b.pstride = p2;
+  const int e2 = forward<FW_DOWN>(b, st);
+  if (e2 != 0) return e2;
+  return zero_marked(eid, out, G, (long long)tile * D * sizeof(T), st);
 }
 
 // the wgrad's two products on T operands (see bf_grouped_ffn_wgrad)
@@ -1588,6 +1784,37 @@ int bf_grouped_ffn(const void* xt, const void* tile_eid, const void* w1,
     return run<__nv_bfloat16>(xt, eid, w1, w2, uf, sf, out, G, tile, E, epp,
                               p1, p2, D, F, rows, slots, up_cols, down_cols,
                               st);
+  return -2;
+}
+
+// The forward on the plan's row blocks (built by
+// bf_grouped_ffn_backward_plan from tile_eid with rb_max and p_max), for
+// the training row counts: operands, u, s and out as bf_grouped_ffn's, two
+// persistent GEMM launches (s = xt @ w1[e] with u = gelu(s) in its
+// epilogue, then out = u @ w2[e]), then zero rows of out on the marked
+// tiles; u and s are left unwritten there.  dtype 0 = f32 (3xTF32
+// products), 1 = bf16 (bf16 x bf16 up-projection, then f32 u x bf16 w2 as
+// 2xTF32: no rounding of u).  -3 when the driver has no TMA encoder.
+int bf_grouped_ffn_gemm(const void* xt, const void* tile_eid, const void* w1,
+                        const void* w2, void* u, void* s, void* out,
+                        void* plan, int G, int tile, int E, int epp,
+                        long long p1, long long p2, int D, int F,
+                        int rb_max, int p_max, int dtype, void* stream) {
+  if (G < 1 || tile < 1 || E < 1 || epp < 1 || E % epp || D < 8 || F < 8 ||
+      D % 8 || F % 8 || p1 % 8 || p2 % 8 || rb_max < 1 || p_max < 1)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* eid = static_cast<const int*>(tile_eid);
+  float* uf = static_cast<float*>(u);
+  float* sf = static_cast<float*>(s);
+  int* pl = static_cast<int*>(plan);
+  if (dtype == 0)
+    return run_forward<float>(xt, eid, w1, w2, uf, sf, out, pl, G, tile, E,
+                              epp, p1, p2, D, F, rb_max, p_max, st);
+  if (dtype == 1)
+    return run_forward<__nv_bfloat16>(xt, eid, w1, w2, uf, sf, out, pl, G,
+                                      tile, E, epp, p1, p2, D, F, rb_max,
+                                      p_max, st);
   return -2;
 }
 

@@ -42,18 +42,27 @@ rounds ``s``, ``du`` and each tile's weight gradient): ``ds`` and ``u``
 (the operands of the next products), ``dxt``, and each expert's ``dw1``
 / ``dw2`` once after its f32 sum.
 
-The forward runs expert-major blocks by the host-side plan
-:func:`ffn_plan`, picked from the shapes alone.  The backward follows
-the routing instead: its plan (:func:`backward_plan_cuda`, with the
-plain version :func:`backward_plan_plain`) lists each expert's runs of
-tiles, the dgrad's row blocks and the wgrad's parts on the device, and
-the host sizes the plan's buffer and the wgrad's scratch from the shapes
+The forward takes one of two routes, which :func:`ffn_route` picks from
+the shapes alone: below an even share of ``ROUTE_ROWS`` (52) rows an
+expert (decode, small prefills), expert-major blocks by the host-side
+plan :func:`ffn_plan` (``expert_rows``); from it
+(prefills of 256 tokens and up, training row counts),
+the backward's routing plan and two persistent wgmma GEMMs over its row
+blocks (``forward_gemm``), whose plan a trained call's backward then
+takes.  The backward follows the routing: its plan
+(:func:`backward_plan_cuda`, with the plain version
+:func:`backward_plan_plain`) lists each expert's runs of tiles, the row
+blocks of up to 128 rows and the wgrad's parts on the device, and the
+host sizes the plan's buffer and the wgrad's scratch from the shapes
 alone (:func:`plan_sizes`).  Nothing on this path reads ``tile_eid`` or
 any other device value back to the host.
 
 ``grouped_ffn_cuda.launches`` counts calls that launched the forward (one
-per call; each call is two CUDA launches, up- and down-projection),
-``backward_plan_cuda.launches``, ``grouped_ffn_dgrad_cuda.launches`` and
+per call, either route; each call is two GEMM launches, up- and
+down-projection), ``grouped_ffn_cuda.gemm_launches`` those on the
+``forward_gemm`` route (each also counted by
+``backward_plan_cuda.launches``), ``backward_plan_cuda.launches``,
+``grouped_ffn_dgrad_cuda.launches`` and
 ``grouped_ffn_wgrad_cuda.launches`` the backward's, so a run can show
 that its expert FFNs went through them.
 :func:`grouped_ffn_plain_by_expert` and
@@ -74,6 +83,7 @@ from . import _build
 from .flash_attention import _aligned
 
 __all__ = ["grouped_ffn", "grouped_ffn_plain", "grouped_ffn_cuda",
+           "ffn_route",
            "grouped_ffn_plain_by_expert", "grouped_ffn_backward_plain",
            "grouped_ffn_backward_plain_by_expert",
            "grouped_ffn_dgrad_cuda", "grouped_ffn_wgrad_cuda", "GroupedFFN",
@@ -91,6 +101,9 @@ _TILE = 128                 # the backward GEMM's output tile is 128 x 128
 _STAGE = 32                 # rows (the wgrad's reduction) a staged slab
 _MIN_PART = 256             # least rows of a wgrad part
 WGRAD_TARGET = 4 * SMS      # wgrad items a launch aims for (see plan_sizes)
+ROUTE_ROWS = 52             # rows an expert from which the forward takes
+#                             the GEMMs on the plan (see ffn_route)
+_ROUTES = ("expert_rows", "forward_gemm")
 # the plan's format as bf_grouped_ffn_backward_layout gives it
 _LAYOUT = ("tile", "stage", "n_runs", "n_row_blocks", "n_parts",
            "n_part_sums", "n_slots", "fault", "expert_rows",
@@ -104,12 +117,15 @@ def build() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bf_grouped_ffn.argtypes = [p] * 7 + [i] * 4 + [ll] * 2 + [i] * 7 \
         + [p]
+    lib.bf_grouped_ffn_gemm.argtypes = [p] * 8 + [i] * 4 + [ll] * 2 \
+        + [i] * 5 + [p]
     lib.bf_grouped_ffn_backward_plan.argtypes = [p] * 2 + [i] * 11 + [p]
     lib.bf_grouped_ffn_backward_layout.argtypes = [i] * 4 + [p]
     lib.bf_grouped_ffn_dgrad.argtypes = [p] * 9 + [i] * 4 + [ll] * 2 \
         + [i] * 5 + [p]
     lib.bf_grouped_ffn_wgrad.argtypes = [p] * 8 + [i] * 8 + [p]
-    for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_backward_plan,
+    for fn in (lib.bf_grouped_ffn, lib.bf_grouped_ffn_gemm,
+               lib.bf_grouped_ffn_backward_plan,
                lib.bf_grouped_ffn_backward_layout, lib.bf_grouped_ffn_dgrad,
                lib.bf_grouped_ffn_wgrad):
         fn.restype = ctypes.c_int
@@ -140,6 +156,33 @@ def ffn_plan(G: int, tile: int, E: int, D: int, F: int,
         return 16
 
     return rows, slots, cols(F), cols(D)
+
+
+def ffn_route(G: int, tile: int, E: int, live_rows: int = 0) -> str:
+    """The forward's route for ``G`` tiles of ``tile`` rows over ``E``
+    experts: ``"forward_gemm"`` (the routing plan, then two persistent
+    wgmma GEMMs over its row blocks of up to 128 rows) when an even share
+    of the rows, ``G * tile / E`` (or ``live_rows / E`` when the caller
+    knows that at most ``live_rows`` > 0 rows lie in live tiles), reaches
+    ``ROUTE_ROWS`` = 52 rows an expert; else ``"expert_rows"``
+    (expert-major blocks by :func:`ffn_plan`), which serves the decode
+    and small prefill shapes.  The threshold is the card's crossover
+    (``chip_smoke.py`` phase 7 in three runs, both routes forced at each
+    shape, cold, ms, ``expert_rows`` / ``forward_gemm``; D 1024, F 4096,
+    8 experts, tile 8; NVIDIA H100 80GB HBM3, 700.00 W).  f32, the last
+    run: 32 rows an expert 0.2437 / 0.4077, 48 0.3740 / 0.4085, 56
+    0.4195 / 0.4086, 64 0.5212 / 0.4076, the same within 4 % in the
+    others: the lines cross at about 52.  bf16: 48 0.2137 / 0.2593, 56
+    0.2316 / 0.2598, 64 0.3277 / 0.2553, 71 (a 256-token prefill) 0.2647
+    / 0.2572; in the first run 64 gave 0.2355 / 0.2593, so bf16's
+    crossover lies between 56 and 71 and moves from run to run, and one
+    threshold serves both types (bf16 loses up to ~11 % between 52 and
+    ~60 rows an expert).  At the MoE trainer's steady tick (2,048 rows
+    an expert, F 2048, ``s`` kept) ``forward_gemm`` takes 8.2639 ms
+    against 27.4740 in f32 and 4.2098 against 15.1671 in bf16.  Host
+    integers only: it never reads ``tile_eid``."""
+    total = min(G * tile, live_rows) if live_rows > 0 else G * tile
+    return "forward_gemm" if total >= ROUTE_ROWS * E else "expert_rows"
 
 
 def plan_sizes(G: int, tile: int, E: int, D: int, F: int,
@@ -571,28 +614,48 @@ def _cuda_operands(xt, tile_eid, w1, w2, dtypes):
 
 
 def _forward_cuda(xt, tile_eid, w1, w2, keep_s: bool,
-                  live_rows: Optional[int] = None):
-    """``(out, s or None)`` on padded operands (D, F multiples of 8)."""
+                  live_rows: Optional[int] = None,
+                  route: Optional[str] = None):
+    """``(out, s or None, plan or None)`` on padded operands (D, F
+    multiples of 8), by the route :func:`ffn_route` picks from the shapes;
+    the ``forward_gemm`` route returns the plan it built, for the
+    backward.  ``route`` forces one (the card's checks compare the two;
+    the main path never passes it)."""
     dev = xt.device
     xt, w1, w2 = _aligned(xt), _aligned(w1), _aligned(w2)
     G, tile, D, Fd, E, epp, p1, p2 = _cuda_operands(xt, tile_eid, w1, w2,
                                                     _DTYPES)
-    rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd,
-                                                live_rows or 0)
+    route = route or ffn_route(G, tile, E, live_rows or 0)
+    if route not in _ROUTES:
+        raise ValueError(f"grouped ffn route {route!r}: one of {_ROUTES}")
     lib = build()
     u = torch.empty((G, tile, Fd), dtype=torch.float32, device=dev)
     s = torch.empty_like(u) if keep_s else None
     out = torch.empty_like(xt)
-    err = lib.bf_grouped_ffn(
-        xt.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        u.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
-        G, tile, E, epp, p1, p2, D, Fd, rows, slots, up_cols, down_cols,
-        _DTYPES[xt.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (xt.data_ptr(), tile_eid.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), u.data_ptr(),
+            None if s is None else s.data_ptr(), out.data_ptr())
+    plan = None
+    if route == "forward_gemm":
+        plan = backward_plan_cuda(tile_eid, tile, E, D, Fd)
+        err = lib.bf_grouped_ffn_gemm(
+            *args, plan.buf.data_ptr(), G, tile, E, epp, p1, p2, D, Fd,
+            plan.rb_max, plan.p_max, _DTYPES[xt.dtype], stream)
+    else:
+        rows, slots, up_cols, down_cols = ffn_plan(G, tile, E, D, Fd,
+                                                    live_rows or 0)
+        err = lib.bf_grouped_ffn(
+            *args, G, tile, E, epp, p1, p2, D, Fd, rows, slots, up_cols,
+            down_cols, _DTYPES[xt.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"grouped ffn kernel launch failed: CUDA error "
-                           f"{err} (G={G} tile={tile} E={E} D={D} F={Fd})")
+        raise RuntimeError(f"grouped ffn kernel launch failed ({route}): "
+                           f"CUDA error {err} (G={G} tile={tile} E={E} "
+                           f"D={D} F={Fd})")
     grouped_ffn_cuda.launches += 1
-    return out, s
+    if route == "forward_gemm":
+        grouped_ffn_cuda.gemm_launches += 1
+    return out, s, plan
 
 
 def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
@@ -605,12 +668,13 @@ def grouped_ffn_cuda(xt: torch.Tensor, tile_eid: torch.Tensor,
         raise RuntimeError(f"grouped_ffn_cuda needs CUDA tensors, got "
                            f"{xt.device}")
     D = xt.shape[-1]
-    out, _ = _forward_cuda(*_padded(xt, tile_eid, w1, w2), keep_s=False,
-                           live_rows=rows)
+    out = _forward_cuda(*_padded(xt, tile_eid, w1, w2), keep_s=False,
+                        live_rows=rows)[0]
     return out if out.shape[2] == D else out[..., :D].contiguous()
 
 
-grouped_ffn_cuda.launches = 0
+grouped_ffn_cuda.launches = 0       # forward calls, either route
+grouped_ffn_cuda.gemm_launches = 0  # of them on the forward_gemm route
 
 
 def _padded(xt, tile_eid, w1, w2):
@@ -744,17 +808,18 @@ grouped_ffn_wgrad_cuda.launches = 0
 
 class GroupedFFN(torch.autograd.Function):
     """K4 with its gradient: on the card the forward keeps ``s`` and the
-    backward is the plan, dgrad and wgrad kernels (one plan for both); on
-    the CPU the plain forward
-    and :func:`grouped_ffn_backward_plain`.  Takes operands whose widths
-    are multiples of 8 on the card (:func:`grouped_ffn` pads them); no
-    gradient for ``tile_eid``."""
+    backward is the plan, dgrad and wgrad kernels (one plan for both, the
+    forward's own on its ``forward_gemm`` route); on the CPU the plain
+    forward and :func:`grouped_ffn_backward_plain`.  Takes operands whose
+    widths are multiples of 8 on the card (:func:`grouped_ffn` pads
+    them); no gradient for ``tile_eid``."""
 
     @staticmethod
     def forward(ctx, xt, tile_eid, w1, w2, rows=None):
+        ctx.plan = None
         if xt.device.type == "cuda":
-            out, s = _forward_cuda(xt, tile_eid, w1, w2, keep_s=True,
-                                   live_rows=rows)
+            out, s, ctx.plan = _forward_cuda(xt, tile_eid, w1, w2,
+                                             keep_s=True, live_rows=rows)
         else:
             out, s = _plain(xt, tile_eid, w1, w2)
         ctx.save_for_backward(xt, tile_eid, w1, w2, s)
@@ -770,7 +835,8 @@ class GroupedFFN(torch.autograd.Function):
         g = g.contiguous()
         G, tile, D = xt.shape
         E = _experts(w1)[0]
-        plan = backward_plan_cuda(tile_eid, tile, E, D, w1.shape[-1])
+        plan = ctx.plan or backward_plan_cuda(tile_eid, tile, E, D,
+                                              w1.shape[-1])
         dxt, ds, u = grouped_ffn_dgrad_cuda(g, tile_eid, w1, w2, s, plan)
         dw1, dw2 = grouped_ffn_wgrad_cuda(xt, ds, u, g, tile_eid, E,
                                           plan=plan)

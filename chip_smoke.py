@@ -145,12 +145,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. the grouped expert FFN K4 (``grouped_ffn``) against its plain version
    (gather + einsum) on inputs laid out by the dropless dispatch itself:
    D 1024, F 4096, 8 experts unless noted; the decode shapes (16 rows at
-   tile 2: 12 tiles; 1 lane: 5 tiles), the prefill shape (1024 rows at
-   tile 8: 135 tiles), tiles 1, 4 and 16, every row on one expert, bf16
-   operands, and D 96 / F 200.  Tolerance: f32 max abs error 1e-4 x
+   tile 2: 12 tiles; 1 lane: 5 tiles), the prefill shapes (1024 rows at
+   tile 8: 135 tiles; 512 rows: 71 tiles), 32, 48, 56 and 64 rows an
+   expert at tile 8 (200, 328, 392 and 456 rows: the routes'
+   crossover),
+   tiles 1, 4 and 16, every row on one expert, bf16 operands, and D 96
+   / F 200.  Tolerance: f32 max abs error 1e-4 x
    max|plain| (both accumulate in f32, only the order differs); bf16 one
-   bf16 ulp of each output (rtol 8e-3) on top of that.  The library
-   yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over the live
+   bf16 ulp of each output (rtol 8e-3) on top of that.  Each case also
+   runs both forward routes forced (``expert_rows`` and
+   ``forward_gemm``), each held to the same tolerance and timed cold
+   beside the route ``ffn_route`` picks (the threshold's evidence).  The
+   library yardstick is cuBLAS: ``torch.bmm``, gelu, ``torch.bmm`` over the live
    tiles and their weights gathered beforehand (the port never calls
    it).  Timed cold and warm as
    in phase 2; the f32 bound is at the 3xTF32 rate (the CUDA-core f32
@@ -162,7 +168,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``Scheduler.drain()`` with phase 3's buckets: 16 greedy requests of
    32-512 prompt tokens and 64 new tokens, raw pages, auto decode tile
    (2).  Every request must complete; K4 must launch layers x (prefills +
-   decode steps) times and K3 layers x decode steps; the first four
+   decode steps) times and K3 layers x decode steps; each K4 forward must
+   take the route its shapes pick (``forward_gemm`` from an even share of
+   52 rows an expert, the prefills of longer prompts), as in 8b, the
+   carved path and the MoE estate (a ``k4_routes`` line each; the
+   trainers: every K4 forward on ``forward_gemm``); the first four
    requests replayed with K4 forced to its plain version must give the
    same tokens, or diverge only at a near tie: a top-2 logit gap below
    1e-3 at the first divergent token, or a router whose k-th and
@@ -221,16 +231,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    such an ulp; two runs bit-identical; experts without rows and trash
    rows of dxt exactly 0.  Timed cold and warm beside the bound at the
    bf16 rate, the plain version and the per-expert cuBLAS bf16
-   yardstick; at the steady tick also the trainer's bf16 forward (``s``
-   kept) beside its plain version, bound and yardstick;
+   yardstick; every bf16 case's forward (the route its shape picks)
+   against the per-expert plain version at phase 7's bf16 tolerance.  At
+   the steady tick, f32 and bf16, the trainer's forward (``s`` kept) on
+   both routes in the same run, each against the per-expert plain
+   version (1e-4 x max|plain|, plus 8e-3 x |plain| in bf16) and rerun for
+   identical bits, timed cold and warm beside the bound (f32 at the
+   3xTF32 rate; bf16 the up-projection at the bf16 rate and the
+   down-projection, f32 u times the bf16 weight, at a third of it: u
+   split into three bf16 parts), the plain version and per-expert cuBLAS
+   on the same function (f32 products, TF32 off; bf16 operands widened,
+   their up-projection with TF32 on, exact for them), with cuBLAS on
+   bf16 operands (u rounded to bf16) as a lower-precision yardstick
+   beside it.  The build (phase 1) also prints ptxas's report of the four
+   forward_gemm kernels and fails on any spill in them;
 12b. MoE training at full width: ``MoELMConfig(vocab=32768,
    d_model=1024, heads=16, layers=4, seq_len=2048, micro=4, batch=4,
    num_experts=8, top_k=2, dispatch="dropless", group_tile=8)`` at dp 2
    x pp 2 x tp 2, Exp2 gossip, delayed AWC, Adam 5e-3, seed 0 (micro 4,
    not lm_bench's 8, is the one cut); 1 warm-up and 3 timed steps.  K1,
    K2, K4's forward, dgrad and wgrad must each launch dp x (micro + pp -
-   1) x layers / pp times a step (and the backward's plan once with
-   each dgrad), the loss must fall, the probe must
+   1) x layers / pp times a step (the plan once with each dgrad: the
+   forward launches it on its ``forward_gemm`` route, which every K4
+   forward of the step must take at 65,536 rows a call, and the backward
+   takes it), the loss must fall, the probe must
    report dropped_fraction 0, usage summing to 1 and finite values.
    Step 1 replayed through the plain versions (plain K1/K2, the
    per-expert K4): the router calls' top-k may flip only at near ties
@@ -282,7 +306,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every parameter, gradient and Adam moment in bf16 (``init_moe_train_
    params(dtype=torch.bfloat16)``), at lm_bench's micro 8 (12b's f32 cut
    to 4 is not needed: bf16 halves the activations), 1 warm-up and 1
-   timed step (2 before phase 22).  Launches by 12b's formula, every leaf still bf16, the
+   timed step (2 before phase 22).  Launches by 12b's formula (every K4
+   forward on ``forward_gemm``), every leaf still bf16, the
    loss falls, the probe drops none (usage sums to 1 within 2^-6).  Step
    1 replayed through the plain versions: flips only at near ties by
    12c's rule against the probabilities' change under a one-bf16-ulp
@@ -552,6 +577,7 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 # three TF32 MMAs per product) at a third of the dense TF32 rate
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 tensor-core rate
 TF32X3_FLOPS = TF32_FLOPS / 3
+K4_ROUTES = ("expert_rows", "forward_gemm")   # K4's forward routes
 
 H, DH, L, BK = 16, 64, 1024, 128
 DEV = "cuda"
@@ -1042,13 +1068,19 @@ def fast_serve_phase(fd, kv, name, model, cfg, smi, *, pp, spec, n_req,
                "bluefog_serve_spec_accepted_total")
     c0 = {n: _metrics.counter(n).total() for n in counted}
     fd.flash_decode_cuda.launches = 0
-    if gf is not None:
-        gf.grouped_ffn_cuda.launches = 0
-    with mock.patch.object(fd, "flash_attend_rows",
-                           counting("rows", fd.flash_attend_rows)), \
-            mock.patch.object(fd, "flash_attend_chunk",
-                              counting("chunk", fd.flash_attend_chunk)):
+    with contextlib.ExitStack() as stack:
+        if gf is not None:
+            gf.grouped_ffn_cuda.launches = 0
+            gf.grouped_ffn_cuda.gemm_launches = 0
+            routed = stack.enter_context(_k4_route_tally(gf))
+        stack.enter_context(mock.patch.object(
+            fd, "flash_attend_rows", counting("rows", fd.flash_attend_rows)))
+        stack.enter_context(mock.patch.object(
+            fd, "flash_attend_chunk",
+            counting("chunk", fd.flash_attend_chunk)))
         sched, wall = drain(engine, prompts)
+    if gf is not None:
+        _gate_k4_routes(name, gf, routed)
     hits, drafted, accepted = (int(_metrics.counter(n).total() - c0[n])
                                for n in counted)
     k3 = fd.flash_decode_cuda.launches
@@ -1303,16 +1335,21 @@ def carved_serve_phase(fd, kv, smi, gf=None, layers_mod=None,
                for n in rng.integers(32, 513, n_req)]
     sched = Scheduler(engine)
     fd.flash_decode_cuda.launches = 0
-    if moe:
-        gf.grouped_ffn_cuda.launches = 0
     t0 = time.monotonic()
-    for p in prompts:
-        sched.submit(p, max_new_tokens=max_new)
-    sched.drain()
+    with contextlib.ExitStack() as stack:
+        if moe:
+            gf.grouped_ffn_cuda.launches = 0
+            gf.grouped_ffn_cuda.gemm_launches = 0
+            routed = stack.enter_context(_k4_route_tally(gf))
+        for p in prompts:
+            sched.submit(p, max_new_tokens=max_new)
+        sched.drain()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     k3 = fd.flash_decode_cuda.launches
     k4 = gf.grouped_ffn_cuda.launches if moe else None
+    if moe:
+        _gate_k4_routes(name, gf, routed)
     reqs = sorted(sched.completed, key=lambda r: r.id)
     if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
         raise AssertionError(f"{name}: {len(reqs)}/{n_req} requests done")
@@ -1353,7 +1390,8 @@ def carved_serve_phase(fd, kv, smi, gf=None, layers_mod=None,
     del seen
     if profile:
         profile_phase(engine, "profile_" + name,
-                      shares=("expert_rows", "flash_decode") if moe
+                      shares=("expert_rows", "forward_gemm",
+                              "flash_decode") if moe
                       else ("flash_decode",))
     # each replica against the carving of size 1 on its joined weights
     models, diverged = [], {}
@@ -2296,36 +2334,58 @@ def _k4_bound(xt, eid, w1, rate=None):
     name read once, their rows of xt read and the whole output written
     once, against 4 G_live tile D F operations (trash tiles, id -1, need
     none) at the rate of f32-accurate products on the tensor cores
-    (3xTF32), or the bf16 tensor-core rate for bf16; ``rate`` overrides
-    it (the CUDA-core f32 bound of earlier versions)."""
+    (3xTF32); for bf16 operands the up-projection at the bf16 rate and
+    the down-projection, the f32 u (kept f32, as the TPU kernel keeps it)
+    times the bf16 weight, at a third of the bf16 rate: the fastest
+    f32-accurate form the card has for it splits u into three bf16
+    parts (24 significant bits) times the exact weight, three exact bf16
+    products (989 / 3 TFLOP/s, above the 495 / 2 of two TF32 products).
+    ``rate`` sets one rate for both (the CUDA-core f32 bound of earlier
+    versions)."""
     G, tile, D = xt.shape
     Fd, item = w1.shape[-1], xt.element_size()
     live = eid[eid >= 0]
     experts, g_live = int(torch.unique(live).numel()), int(live.numel())
     nbytes = experts * 2 * D * Fd * item + (g_live + G) * tile * D * item \
         + 4 * G
-    flops = 4.0 * g_live * tile * D * Fd
-    rate = rate or (BF16_FLOPS if item == 2 else TF32X3_FLOPS)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    half = 2.0 * g_live * tile * D * Fd      # one product's operations
+    if rate:
+        t_ops = 2 * half / rate
+    elif item == 2:
+        t_ops = half / BF16_FLOPS + half / (BF16_FLOPS / 3)
+    else:
+        t_ops = 2 * half / TF32X3_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
 
 def grouped_ffn_phase(gf):
-    """Phase 7: K4 against its plain version; returns the rows of the
-    decode shape (8 lanes, f32) and the prefill shape (f32)."""
+    """Phase 7: K4 against its plain version, both forward routes timed
+    at each shape; returns the rows by case."""
     import torch.nn.functional as F
     rng = np.random.default_rng(7)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("decode_8_lanes", 16, 1024, 4096, 2, f32, False),
              ("decode_1_lane", 2, 1024, 4096, 2, f32, False),
              ("prefill_512", 1024, 1024, 4096, 8, f32, False),
+             ("prefill_256", 512, 1024, 4096, 8, f32, False),
+             # 32-64 rows an expert (the routes' crossover)
+             ("rows_32", 200, 1024, 4096, 8, f32, False),
+             ("rows_48", 328, 1024, 4096, 8, f32, False),
+             ("rows_56", 392, 1024, 4096, 8, f32, False),
+             ("rows_64", 456, 1024, 4096, 8, f32, False),
              ("tile_1", 16, 1024, 4096, 1, f32, False),
              ("tile_4", 16, 1024, 4096, 4, f32, False),
              ("tile_16", 64, 1024, 4096, 16, f32, False),
              ("hostile", 16, 1024, 4096, 2, f32, True),
              ("decode_8_lanes_bf16", 16, 1024, 4096, 2, bf16, False),
              ("prefill_512_bf16", 1024, 1024, 4096, 8, bf16, False),
+             ("prefill_256_bf16", 512, 1024, 4096, 8, bf16, False),
+             ("rows_32_bf16", 200, 1024, 4096, 8, bf16, False),
+             ("rows_48_bf16", 328, 1024, 4096, 8, bf16, False),
+             ("rows_56_bf16", 392, 1024, 4096, 8, bf16, False),
+             ("rows_64_bf16", 456, 1024, 4096, 8, bf16, False),
              ("ragged_D96_F200", 16, 96, 200, 2, f32, False)]
     rows_out = {}
     for name, rows, D, Fd, tile, dt, hostile in cases:
@@ -2350,6 +2410,20 @@ def grouped_ffn_phase(gf):
                 f"G={xt.shape[0]} tile={tile}: max abs err {err} "
                 f"(1e-4 x max|plain| = {1e-4 * top}"
                 f"{' + rtol 8e-3' if dt == bf16 else ''})")
+        # both routes forced at this shape (the threshold's evidence),
+        # each held to the same tolerance
+        routes = {}
+        for route in K4_ROUTES:
+            def forced(route=route):
+                return gf._forward_cuda(*gf._padded(xt, eid, w1, w2),
+                                        keep_s=False, route=route)[0]
+            r_diff = (forced()[..., :D].float() - want.float()).abs()
+            if not bool((r_diff <= lim).all()):
+                raise AssertionError(f"grouped_ffn {name}: the {route} "
+                                     f"route disagrees with the plain "
+                                     f"version: {float(r_diff.max())}")
+            routes[route] = {"max_abs_err": float(r_diff.max()),
+                             "ms": _device_ms(forced, True)}
         live = eid >= 0                   # trash tiles (id -1) need nothing
         idx, xl = eid[live].long(), xt[live]
         w1g, w2g = w1[idx], w2[idx]                       # cuBLAS yardstick
@@ -2372,6 +2446,7 @@ def grouped_ffn_phase(gf):
             if dt == f32 else None
         row = dict(case=name, G=G, tile=tile, D=D, F=Fd, dtype=str(dt)[6:],
                    plan=list(gf.ffn_plan(G, tile, 8, D, Fd)),
+                   route=gf.ffn_route(G, tile, 8), routes=routes,
                    experts_named=int(torch.unique(eid[live]).numel()),
                    max_abs_err=err, max_abs_plain=top, ms=ms,
                    warm_ms=warm_ms, plain_ms=plain_ms, bound_ms=bound,
@@ -2383,7 +2458,7 @@ def grouped_ffn_phase(gf):
         rows_out[name] = row
         del xt, w1, w2, got, want
     torch.cuda.empty_cache()
-    return rows_out["decode_8_lanes"], rows_out["prefill_512"]
+    return rows_out
 
 
 def _router_tie(model, layers_mod, tokens, k):
@@ -2428,13 +2503,16 @@ def moe_serve_phase(fd, gf, layers_mod, smi):
                for n in rng.integers(32, 513, n_req)]
     sched = Scheduler(engine)
     fd.flash_decode_cuda.launches = gf.grouped_ffn_cuda.launches = 0
+    gf.grouped_ffn_cuda.gemm_launches = 0
     t0 = time.monotonic()
-    for p in prompts:
-        sched.submit(p, max_new_tokens=max_new)
-    sched.drain()
+    with _k4_route_tally(gf) as routed:
+        for p in prompts:
+            sched.submit(p, max_new_tokens=max_new)
+        sched.drain()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     k3, k4 = fd.flash_decode_cuda.launches, gf.grouped_ffn_cuda.launches
+    _gate_k4_routes("moe_serve", gf, routed)
     reqs = sorted(sched.completed, key=lambda r: r.id)
     if len(reqs) != n_req or any(len(r.generated) != max_new for r in reqs):
         raise AssertionError(f"moe: {len(reqs)}/{n_req} requests done")
@@ -2580,7 +2658,7 @@ def grouped_ffn_backward_phase(gf):
         def grads(fn):
             x, a, b = (t.detach().requires_grad_() for t in (xt, w1, w2))
             out = fn(x, eid, a, b)
-            return torch.autograd.grad(out, (x, a, b), g)
+            return (out.detach(),) + torch.autograd.grad(out, (x, a, b), g)
 
         before = (gf.grouped_ffn_dgrad_cuda.launches,
                   gf.grouped_ffn_wgrad_cuda.launches,
@@ -2598,7 +2676,7 @@ def grouped_ffn_backward_phase(gf):
         del again
         want = grads(gf.grouped_ffn_plain_by_expert)
         errs = {}
-        for key, a, b in zip(("dxt", "dw1", "dw2"), got, want):
+        for key, a, b in zip(("out", "dxt", "dw1", "dw2"), got, want):
             err, top = float((a - b).abs().max()), float(b.abs().max())
             errs[key] = err / top
             if not (err <= 1e-4 * top and bool(torch.isfinite(a).all())):
@@ -2611,13 +2689,14 @@ def grouped_ffn_backward_phase(gf):
                                  "differ")
         named = set(eid.tolist())
         empty = [e for e in range(E) if e not in named]
-        if empty and (bool(got[1][empty].any())
-                      or bool(got[2][empty].any())):
+        if empty and (bool(got[2][empty].any())
+                      or bool(got[3][empty].any())):
             raise AssertionError(f"grouped_ffn backward {name}: an expert "
                                  "without rows got a nonzero gradient")
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[1:], want[1:]))
         del got, want
-        _, s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+        s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)[1]
         plan = gf.backward_plan_cuda(eid, 8, E, D, Fd)
         plain_plan = gf.backward_plan_plain(eid, 8, E, D, Fd)
         lists = gf.unpack_plan(plan)
@@ -2689,7 +2768,10 @@ def grouped_ffn_backward_phase(gf):
                            "contiguous rows (bounds read beforehand), "
                            "gelu' and gelu between",
                    plain="autograd backward of grouped_ffn_plain_by_expert "
-                         "on a kept graph")
+                         "on a kept graph",
+                   forward_route=gf.ffn_route(G, 8, E))
+        if name == "steady_tick":        # the trainer's forward, s kept
+            row["forward"] = _k4_forward_row(gf, xt, eid, w1, w2)
         print("kernel_case " + json.dumps(row), flush=True)
         rows_out[name] = row
         del xt, w1, w2, g, s, ref_out, x, a, b, dxt, ds, u, plan
@@ -2733,20 +2815,89 @@ def _s_by_expert(xt, eid, w1, dtype):
     return s
 
 
-def _k4_forward_yardstick(xt, eid, w1, w2):
+def _k4_forward_yardstick(xt, eid, w1, w2, tf32_up=False):
     """K4's forward as cuBLAS products per run of one expert's tiles (the
-    runs read beforehand), gelu between, in the operands' type."""
+    runs read beforehand), gelu between, in the operands' type, TF32 off;
+    ``tf32_up`` allows TF32 in the up-projection alone (exact on bf16
+    values widened to f32: products exact, sums f32)."""
     import torch.nn.functional as F
     runs = _runs(eid)
+    flags = torch.backends.cuda.matmul
 
     def run():
         out = torch.zeros_like(xt)
-        for e, g0, g1 in runs:
-            out[g0:g1] = torch.matmul(F.gelu(torch.matmul(
-                xt[g0:g1], w1[e]), approximate="tanh"), w2[e])
+        kept = flags.allow_tf32
+        try:
+            for e, g0, g1 in runs:
+                flags.allow_tf32 = tf32_up
+                s = torch.matmul(xt[g0:g1], w1[e])
+                flags.allow_tf32 = False
+                out[g0:g1] = torch.matmul(F.gelu(s, approximate="tanh"),
+                                          w2[e])
+        finally:
+            flags.allow_tf32 = kept
         return out
 
     return run
+
+
+def _k4_forward_row(gf, xt, eid, w1, w2):
+    """The trainer's forward (``s`` kept) on both routes at one shape:
+    each held against ``grouped_ffn_plain_by_expert`` (1e-4 x max|plain|,
+    plus 8e-3 x |plain| in bf16: one bf16 ulp of the output), rerun for
+    identical bits, timed cold and warm, beside the bound, the plain
+    version and per-expert cuBLAS on the same function (f32 products,
+    TF32 off, u in f32; bf16 operands widened first, their up-projection
+    with TF32 on, which is exact for them); in bf16 also cuBLAS on the
+    bf16 operands, which rounds u to bf16 (a lower-precision yardstick,
+    not the same function).  ``ms`` and the error are the route the
+    shapes pick."""
+    G, tile, D = xt.shape
+    E, Fd = w1.shape[0], w1.shape[-1]
+    bf = xt.dtype == torch.bfloat16
+    ref = gf.grouped_ffn_plain_by_expert(xt, eid, w1, w2).float()
+    lim = 1e-4 * float(ref.abs().max()) + (8e-3 * ref.abs() if bf else 0)
+    row = {"route": gf.ffn_route(G, tile, E),
+           "tol": "1e-4 x max|plain|" + (" + 8e-3 x |plain|" if bf else "")}
+    for route in K4_ROUTES:
+        def fwd(route=route):
+            return gf._forward_cuda(xt, eid, w1, w2, keep_s=True,
+                                    route=route)
+        out, again = fwd()[0], fwd()[0]
+        diff = (out.float() - ref).abs()
+        if not (bool((diff <= lim).all()) and torch.equal(out, again)):
+            raise AssertionError(f"grouped_ffn forward {xt.dtype} route "
+                                 f"{route}: max abs err {float(diff.max())}"
+                                 f", reruns identical "
+                                 f"{torch.equal(out, again)}")
+        del out, again
+        row[route] = {"max_abs_err": float(diff.max()),
+                      "ms": _device_ms(fwd, True, iters=5, warmup=1),
+                      "warm_ms": _device_ms(fwd, False, iters=5, warmup=1)}
+        del diff
+    row.update({k: row[row["route"]][k]
+                for k in ("max_abs_err", "ms", "warm_ms")})
+    wide = [t.float() for t in (xt, w1, w2)] if bf else (xt, w1, w2)
+    row["library_ms"] = _device_ms(_k4_forward_yardstick(
+        wide[0], eid, wide[1], wide[2], tf32_up=bf), True, iters=5,
+        warmup=1)
+    row["library"] = ("cuBLAS f32 torch.matmul per expert, gelu between, "
+                      + ("bf16 operands widened to f32, the up-projection "
+                         "with TF32 on (exact for them), the "
+                         "down-projection on the f32 u with TF32 off"
+                         if bf else "TF32 off"))
+    if bf:
+        row["library_bf16_u_ms"] = _device_ms(_k4_forward_yardstick(
+            xt, eid, w1, w2), True, iters=5, warmup=1)
+        row["library_bf16_u"] = ("cuBLAS bf16 torch.matmul per expert, u "
+                                 "rounded to bf16: a lower-precision "
+                                 "yardstick")
+    del wide, ref
+    row["plain_ms"] = _device_ms(lambda: gf.grouped_ffn_plain_by_expert(
+        xt, eid, w1, w2), True, iters=3, warmup=1)
+    row["bound_ms"], row["bound_by"] = _k4_bound(xt, eid, w1)
+    torch.cuda.empty_cache()
+    return row
 
 
 def _ulp_bf16(x):
@@ -2796,7 +2947,16 @@ def grouped_ffn_backward_bf16_phase(gf):
                                          ids)
         live = eid >= 0
         g = (_randn(rng, *xt.shape) * live[:, None, None]).to(bf)
-        _, s = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+        out, s, _ = gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
+        ref = gf.grouped_ffn_plain_by_expert(xt, eid, w1, w2).float()
+        fwd_err = float((out.float() - ref).abs().max())
+        if not bool(((out.float() - ref).abs() <= 1e-4 * float(
+                ref.abs().max()) + 8e-3 * ref.abs()).all()):
+            raise AssertionError(f"grouped_ffn bf16 forward {name} (route "
+                                 f"{gf.ffn_route(xt.shape[0], 8, E)})"
+                                 f" disagrees with its plain version: "
+                                 f"{fwd_err}")
+        del out, ref
 
         def kern():
             pl = gf.backward_plan_cuda(eid, 8, E, D, Fd, splits)
@@ -2881,31 +3041,10 @@ def grouped_ffn_backward_bf16_phase(gf):
                            "gelu' and gelu between on the f32 s",
                    plain="grouped_ffn_backward_plain_by_expert (bf16 "
                          "rounding points, f32 products)")
+        row.update(forward_route=gf.ffn_route(xt.shape[0], 8, E),
+                   forward_max_abs_err=fwd_err)
         if name == "steady_tick":        # the trainer's forward, s kept
-            def fwd():
-                return gf._forward_cuda(xt, eid, w1, w2, keep_s=True)
-            out = fwd()[0]
-            ref = gf.grouped_ffn_plain_by_expert(xt, eid, w1, w2)
-            diff = (out.float() - ref.float()).abs()
-            top = float(ref.float().abs().max())
-            if not bool((diff <= 1e-4 * top + 8e-3 * ref.float().abs())
-                        .all()):
-                raise AssertionError("grouped_ffn bf16 trainer forward "
-                                     "disagrees with its plain version: "
-                                     f"{float(diff.max())}")
-            flib = _k4_forward_yardstick(xt, eid, w1, w2)
-            fbound, fby = _k4_bound(xt, eid, w1)
-            row["forward"] = dict(
-                max_abs_err=float(diff.max()),
-                ms=_device_ms(fwd, True, iters=5, warmup=1),
-                warm_ms=_device_ms(fwd, False, iters=5, warmup=1),
-                plain_ms=_device_ms(lambda: gf.grouped_ffn_plain_by_expert(
-                    xt, eid, w1, w2), True, iters=3, warmup=1),
-                library_ms=_device_ms(flib, True, iters=5, warmup=1),
-                bound_ms=fbound, bound_by=fby,
-                library="cuBLAS bf16 torch.matmul per expert, gelu between",
-                tol="1e-4 x max|plain| + 8e-3 x |plain|")
-            del out, ref, diff
+            row["forward"] = _k4_forward_row(gf, xt, eid, w1, w2)
         print("kernel_case " + json.dumps(row), flush=True)
         rows_out[name] = row
         del xt, w1, w2, g, s, dxt, ds, u, plan
@@ -3025,6 +3164,8 @@ def moe_train_phase(fa, gf, layers_mod, smi, profile=False):
     # per replica, one launch of each per GPipe tick and layer of a stage:
     # every live stage, tp and sp peer of the tick is folded into it
     want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
+    # every K4 forward on the forward_gemm route (65,536 rows over 32
+    # folded experts a call), whose plan its backward takes: one plan a call
     if set(launches.values()) != {want}:
         raise AssertionError(
             f"moe_train: launches {launches}, want dp x (micro + pp - 1) x "
@@ -3172,12 +3313,13 @@ def profile_moe_train(step, strategy, init, toks):
     state = bfopt.init_distributed(strategy, init)
     params, state, _ = step(init, state, toks)
     torch.cuda.synchronize()
-    t0 = time.monotonic()
+    t0, counts = time.monotonic(), _plan_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         params, state, _ = step(params, state, toks)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.monotonic() - t0)
+    plan_fwd = _plan_fwd(counts)
     rows = [(ev.self_device_time_total, ev.key, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
@@ -3188,22 +3330,17 @@ def profile_moe_train(step, strategy, init, toks):
             "kernel": key[:90], "calls": count, "device_us": dt,
             "share": dt / total_us}))
 
-    def kind(key):
+    def parts(key):
         if "flash_fwd" in key:
-            return "K1"
+            return {"K1": 1.0}
         if "flash_bwd" in key:
-            return "K2"
-        if any(k in key for k in ("backward_gemm", "backward_plan",
-                                  "wgrad_parts_sum")):
-            return "K4_backward"
-        if "expert_rows" in key:
-            return "K4_forward"
-        return None
+            return {"K2": 1.0}
+        return _k4_parts(key, plan_fwd)
 
     ms = {k: 0.0 for k in ("K1", "K2", "K4_forward", "K4_backward")}
     for dt, key, _ in rows:
-        if kind(key):
-            ms[kind(key)] += dt / 1e3
+        for kind, share in parts(key).items():
+            ms[kind] += share * dt / 1e3
     print("profile_moe_train " + json.dumps({
         "step_wall_ms_profiled": wall_ms, "device_busy_ms": total_us / 1e3,
         "busy_share": total_us / 1e3 / wall_ms, "kernel_device_ms": ms,
@@ -3226,9 +3363,12 @@ def _moe_cfg(**kw):
 
 
 def _launch_counts(fa, gf, reset=False):
-    """The kernels' launch counts (set to 0 first with ``reset``)."""
+    """The kernels' launch counts (set to 0 first with ``reset``): with
+    K4's forward calls (``grouped_ffn``, either route) those on its
+    ``forward_gemm`` route apart."""
     pairs = ((fa, "fwd_launches"), (fa, "bwd_launches"),
              (gf.grouped_ffn_cuda, "launches"),
+             (gf.grouped_ffn_cuda, "gemm_launches"),
              (gf.grouped_ffn_dgrad_cuda, "launches"),
              (gf.grouped_ffn_wgrad_cuda, "launches"),
              (gf.backward_plan_cuda, "launches"))
@@ -3236,9 +3376,51 @@ def _launch_counts(fa, gf, reset=False):
         for obj, attr in pairs:
             setattr(obj, attr, 0)
     return dict(zip(("flash_fwd", "flash_bwd", "grouped_ffn",
-                     "grouped_ffn_dgrad", "grouped_ffn_wgrad",
-                     "grouped_ffn_backward_plan"),
+                     "grouped_ffn_forward_gemm", "grouped_ffn_dgrad",
+                     "grouped_ffn_wgrad", "grouped_ffn_backward_plan"),
                     (getattr(obj, attr) for obj, attr in pairs)))
+
+
+K4_FORWARD_GEMM = {}      # serving path -> its K4 forwards on forward_gemm
+
+
+@contextlib.contextmanager
+def _k4_route_tally(gf):
+    """K4's forwards on the card tallied by the route their shapes pick:
+    ``gf.grouped_ffn`` wrapped, each CUDA call counted (``calls``) and,
+    when ``ffn_route`` sends its shapes (G, tile, the experts, the
+    live-row hint) to ``forward_gemm``, counted there too."""
+    tally = {"calls": 0, "forward_gemm": 0}
+    orig = gf.grouped_ffn
+
+    def counting(xt, tile_eid, w1, w2, rows=None):
+        if xt.is_cuda:
+            tally["calls"] += 1
+            tally["forward_gemm"] += gf.ffn_route(
+                xt.shape[0], xt.shape[1], gf._experts(w1)[0],
+                rows or 0) == "forward_gemm"
+        return orig(xt, tile_eid, w1, w2, rows=rows)
+
+    with mock.patch.object(gf, "grouped_ffn", counting):
+        yield tally
+
+
+def _gate_k4_routes(tag, gf, tally):
+    """A serving path's K4 forwards on the routes their shapes pick: the
+    forward calls and ``forward_gemm`` launches counted since the path set
+    them to 0 equal :func:`_k4_route_tally`'s count of the calls and of
+    those whose shapes take ``forward_gemm``; printed, and kept under
+    ``tag`` for the kernels line."""
+    got = {"calls": gf.grouped_ffn_cuda.launches,
+           "forward_gemm": gf.grouped_ffn_cuda.gemm_launches}
+    if got != tally:
+        raise AssertionError(f"{tag}: K4 forwards {got}, want by their "
+                             f"shapes {tally}")
+    K4_FORWARD_GEMM[tag] = got["forward_gemm"]
+    print("k4_routes " + json.dumps({
+        "path": tag, **got,
+        "expert_rows": got["calls"] - got["forward_gemm"]}), flush=True)
+    return got["forward_gemm"]
 
 
 class _ECRouting:
@@ -3452,6 +3634,38 @@ def _grad_gate(tag, names, got, want, floor_of, join=None, rel=1e-4):
     return leaf_err, leaf_floor
 
 
+def _k4_parts(key, plan_fwd):
+    """K4's parts of a profiled kernel by its name, each with its share of
+    the kernel's time: the forward's routes (``expert_rows``,
+    ``forward_gemm`` / ``forward_gemm16``), the backward
+    (``backward_gemm*``, ``wgrad_parts_sum``), and ``backward_plan``
+    split between them: ``plan_fwd`` is the share of the profiled step's
+    plan launches that ``forward_gemm`` calls made (their backward then
+    takes that plan), the rest the backward's own; {} for another
+    kernel."""
+    if "backward_plan" in key:
+        return {"K4_forward": plan_fwd, "K4_backward": 1.0 - plan_fwd}
+    if any(k in key for k in ("expert_rows", "forward_gemm")):
+        return {"K4_forward": 1.0}
+    if any(k in key for k in ("backward_gemm", "wgrad_parts_sum")):
+        return {"K4_backward": 1.0}
+    return {}
+
+
+def _plan_counts():
+    """``(forward_gemm calls, plan launches)`` so far: their changes over
+    a profiled step give :func:`_k4_parts`'s ``plan_fwd``."""
+    from bluefog_tpu_torch.ops import grouped_ffn as gf
+    return gf.grouped_ffn_cuda.gemm_launches, gf.backward_plan_cuda.launches
+
+
+def _plan_fwd(before):
+    """The share of the plan launches since ``before`` (a
+    :func:`_plan_counts`) that ``forward_gemm`` calls made."""
+    gemm, plans = (a - b for a, b in zip(_plan_counts(), before))
+    return gemm / plans if plans else 0.0
+
+
 def _profile_k4(run):
     """One more step from the init under torch.profiler: the device ms of
     K4's forward, its backward and the trash tiles' zero writes, and the
@@ -3464,12 +3678,13 @@ def _profile_k4(run):
     state = bfopt.init_distributed(run.strategy, p0)
     p0, state, _ = run.step(p0, state, run.toks)
     torch.cuda.synchronize()
-    t0 = time.monotonic()
+    t0, counts = time.monotonic(), _plan_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         p0, state, _ = run.step(p0, state, run.toks)
         torch.cuda.synchronize()
     wall = 1e3 * (time.monotonic() - t0)
+    plan_fwd = _plan_fwd(counts)
     ms = {"K4_forward": 0.0, "K4_backward": 0.0, "K4_trash_zeros": 0.0,
           "K1": 0.0, "K2": 0.0}
     busy = 0.0
@@ -3478,14 +3693,12 @@ def _profile_k4(run):
             continue
         dt, key = ev.self_device_time_total / 1e3, ev.key
         busy += dt
-        kind = ("K4_trash_zeros" if "zero_marked_tiles" in key else
-                "K4_forward" if "expert_rows" in key else
-                "K4_backward" if any(k in key for k in (
-                    "backward_gemm", "backward_plan", "wgrad_parts_sum"))
-                else "K1" if "flash_fwd" in key
-                else "K2" if "flash_bwd" in key else None)
-        if kind:
-            ms[kind] += dt
+        parts = ({"K4_trash_zeros": 1.0} if "zero_marked_tiles" in key
+                 else _k4_parts(key, plan_fwd) or (
+                     {"K1": 1.0} if "flash_fwd" in key
+                     else {"K2": 1.0} if "flash_bwd" in key else {}))
+        for kind, share in parts.items():
+            ms[kind] += share * dt
     del p0, state
     torch.cuda.empty_cache()
     return dict(ms, busy_ms=busy, wall_ms=wall, busy_share=busy / wall)
@@ -3771,7 +3984,7 @@ def moe_train_bf16_phase(fa, gf, layers_mod, smi):
     steps = 2                 # 1 warm-up + 1 timed (2 before phase 22)
     run = _MoERun(fa, gf, layers_mod, cfg, m, steps, dtype=torch.bfloat16)
     want = m.dp * (cfg.micro + m.pp - 1) * (cfg.layers // m.pp) * steps
-    if set(run.launches.values()) != {want}:
+    if set(run.launches.values()) != {want}:    # every K4 forward too
         raise AssertionError(f"{tag}: launches {run.launches}, want dp x "
                              f"(micro + pp - 1) x layers / pp x steps = "
                              f"{want} each")
@@ -3829,7 +4042,8 @@ def moe_train_bf16_phase(fa, gf, layers_mod, smi):
         "one_ulp_prob_noise_max": max(p_noise),
         "step1_grad_rel_err_by_leaf": rep_err,
         "step1_grad_one_ulp_floor_by_leaf": rep_floor,
-        "probe": h, "launches": run.launches,
+        "probe": h,
+        "launches": run.launches,
         "launch_formula": "dp x (micro + pp - 1) x layers / pp x steps",
         "device_ms_one_step": k_ms,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
@@ -4933,8 +5147,8 @@ def host_runtime_phase(fa, gf, fd, smi):
         + timeline["flash_launches"])
     print("host_runtime_native " + json.dumps(native), flush=True)
     return {"flash_fwd": flash, "flash_bwd": flash, "grouped_ffn": 0,
-            "grouped_ffn_dgrad": 0, "grouped_ffn_backward_plan": 0,
-            "flash_decode": 0}, seconds
+            "grouped_ffn_forward_gemm": 0, "grouped_ffn_dgrad": 0,
+            "grouped_ffn_backward_plan": 0, "flash_decode": 0}, seconds
 
 
 # -- phase 22: the launcher, the elastic world and the fleet view --------
@@ -5545,8 +5759,8 @@ def elastic_phase(fa, gf, fd, smi, started):
                 proc.kill()
         shutil.rmtree(scratch, ignore_errors=True)
     return {"flash_fwd": launches, "flash_bwd": launches, "grouped_ffn": 0,
-            "grouped_ffn_dgrad": 0, "grouped_ffn_backward_plan": 0,
-            "flash_decode": 0}, seconds
+            "grouped_ffn_forward_gemm": 0, "grouped_ffn_dgrad": 0,
+            "grouped_ffn_backward_plan": 0, "flash_decode": 0}, seconds
 
 
 # -- phase 14: the ResNet-50 gossip benchmark --------------------------
@@ -6138,6 +6352,7 @@ def estate_phase(fa, fd, gf, layers_mod, smi, moe):
             fa, "attention_block_backward",
             _capture_copy(seen, "k2", fa.attention_block_backward)))
         if moe:
+            routed = stack.enter_context(_k4_route_tally(gf))
             stack.enter_context(mock.patch.object(
                 gf, "grouped_ffn", _capture_k4(seen, gf.grouped_ffn)))
         stack.enter_context(contextlib.redirect_stdout(out))
@@ -6145,6 +6360,8 @@ def estate_phase(fa, fd, gf, layers_mod, smi, moe):
     torch.cuda.synchronize()
     whole = dict(_launch_counts(fa, gf),
                  flash_decode=fd.flash_decode_cuda.launches)
+    if moe:                   # the trainer's forwards and the engine's
+        _gate_k4_routes(tag, gf, routed)
     if not doc["ok"]:
         raise AssertionError(f"{tag}: serve_bench not ok: requests "
                              f"{doc['requests']}, trace {doc['trace']}, "
@@ -6212,8 +6429,9 @@ def estate_phase(fa, fd, gf, layers_mod, smi, moe):
                                  f"{bad}, events {ev}")
         gates[part] = {"launches": {k: got[k] for k in want_n},
                        "events": ev}
-    zero = [k for k, v in whole.items()
-            if not v and (moe or not k.startswith("grouped"))]
+    zero = [k for k, v in whole.items()      # forward_gemm: by the shapes
+            if not v and (moe or not k.startswith("grouped"))
+            and k != "grouped_ffn_forward_gemm"]
     if zero:
         raise AssertionError(f"{tag}: kernels never launched: {zero}")
 
@@ -6617,8 +6835,8 @@ def _at_carving(fa, gf, smi):
         n = dp * (cfg.micro + pp - 1) * (cfg.layers // pp)
         k4 = n if key.endswith("|disp=dropless") else 0
         want = {"flash_fwd": n, "flash_bwd": n, "grouped_ffn": k4,
-                "grouped_ffn_dgrad": k4, "grouped_ffn_wgrad": k4,
-                "grouped_ffn_backward_plan": k4}
+                "grouped_ffn_forward_gemm": k4, "grouped_ffn_dgrad": k4,
+                "grouped_ffn_wgrad": k4, "grouped_ffn_backward_plan": k4}
         if row["launches"] != want:
             raise AssertionError(f"23c {key}: launches {row['launches']}, "
                                  f"want {want}")
@@ -6971,6 +7189,14 @@ def main(argv=None) -> int:
     if len(bwd) != 9 or any(f["spill_bytes"] for f in bwd.values()):
         raise AssertionError(f"K4's backward kernels: want 9 built without "
                              f"spills, got {bwd}")
+    # the forward_gemm route: forward_gemm up and down in f32, down on bf16
+    # weights, forward_gemm16 up in bf16
+    fwd = _ptxas_functions(_build.build_log("grouped_ffn"),
+                           ("forward_gemm",))
+    print("ptxas_k4_forward_gemm " + json.dumps(fwd), flush=True)
+    if len(fwd) != 4 or any(f["spill_bytes"] for f in fwd.values()):
+        raise AssertionError(f"K4's forward_gemm kernels: want 4 built "
+                             f"without spills, got {fwd}")
     print("env " + json.dumps({
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
@@ -7086,7 +7312,9 @@ def main(argv=None) -> int:
 
     # -- phase 7: the grouped expert FFN K4 against its plain version ---
     t0 = time.monotonic()
-    k4_decode, k4_prefill = grouped_ffn_phase(gf)
+    k4_cases = grouped_ffn_phase(gf)
+    k4_decode, k4_prefill = k4_cases["decode_8_lanes"], \
+        k4_cases["prefill_512"]
     phase_s["grouped_ffn_cases"] = time.monotonic() - t0
 
     # -- phase 8: MoE serving at full width -----------------------------
@@ -7095,7 +7323,8 @@ def main(argv=None) -> int:
         fd, gf, moe_layers, smi)
     if args.profile:
         profile_phase(engine, "profile_moe",
-                      shares=("expert_rows", "flash_decode"))
+                      shares=("expert_rows", "forward_gemm",
+                              "flash_decode"))
     del engine
     torch.cuda.empty_cache()
     phase_s["moe_serve"] = time.monotonic() - t0
@@ -7319,6 +7548,8 @@ def main(argv=None) -> int:
                          k4_decode),
              bound_ms_simt=k4_decode["bound_ms_simt"],
              launches_moe_train=moe_launches["grouped_ffn"],
+             routes={case: {"route": row["route"], **row["routes"]}
+                     for case, row in k4_cases.items()},
              bf16_trainer_forward=dict(
                  k4_bwd16["steady_tick"]["forward"],
                  launches=bf16_launches["grouped_ffn"],
@@ -7350,6 +7581,40 @@ def main(argv=None) -> int:
                  "trash_tiles")},
              prefill={key: k4_prefill[key] for key in _ROW_KEYS + (
                  "warm_ms", "bound_ms_simt")}),
+        dict(_kernel_row("grouped_ffn_forward_gemm",
+                         "bluefog_tpu_torch/csrc/grouped_ffn.cu",
+                         "bluefog_tpu/ops/pallas_moe.py:78",
+                         moe_launches["grouped_ffn_forward_gemm"],
+                         k4_bwd["steady_tick"]["forward"]),
+             kernels="backward_plan (the routing plan, which the trained "
+                     "call's backward takes), then forward_gemm (f32: up "
+                     "with gelu, down; bf16: the down-projection on the "
+                     "f32 u) / forward_gemm16 (bf16 up) + "
+                     "zero_marked_tiles",
+             shape="phase 12a's steady tick (65,536 rows, 32 folded "
+                   "experts, D 1024, F 2048), s kept; the route for an "
+                   "even share of at least 52 rows an expert",
+             expert_rows_at_this_shape=k4_bwd["steady_tick"]["forward"][
+                 "expert_rows"],
+             bf16=dict(k4_bwd16["steady_tick"]["forward"],
+                       launches=bf16_launches["grouped_ffn_forward_gemm"]),
+             launches_by_path={
+                 "moe_serve": K4_FORWARD_GEMM["moe_serve"],
+                 "moe_train_bf16": bf16_launches["grouped_ffn_forward_gemm"],
+                 "moe_serve_fast": K4_FORWARD_GEMM["moe_serve_fast"],
+                 "moe_serve_carved": K4_FORWARD_GEMM["serve_moe_carved"],
+                 "moe_train": moe_launches["grouped_ffn_forward_gemm"],
+                 "serve_estate_moe": K4_FORWARD_GEMM["serve_estate_moe"],
+                 **{tag: n["grouped_ffn_forward_gemm"] for tag, n in
+                    ep_launches.items()},
+                 **{tag: n["grouped_ffn_forward_gemm"] for tag, n in (
+                     ("pipelines_and_world", quiet),
+                     ("optimizer_core_rest", rest_quiet),
+                     ("host_runtime", hr_launches),
+                     ("elastic", el_launches),
+                     ("carving_tuner", at_launches),
+                     ("lm_bench_overlap", ov_launches),
+                     ("step_sweep_and_notebooks", ov_rest))}}),
         dict(_kernel_row("grouped_ffn_backward",
                          "bluefog_tpu_torch/csrc/grouped_ffn.cu",
                          "bluefog_tpu/ops/pallas_moe.py:99",

@@ -42,7 +42,13 @@ real expert; the expert-parallel MoE trainer on the card equals the CPU.
 K4's bf16 backward (bf16 x bf16 wgmma, exact products, f32 sums) against
 its bf16 plain version with the same rounding points: each gradient
 within one bf16 ulp of its max |value| (the sums run in other orders
-before the same roundings); two runs bit-identical.
+before the same roundings); two runs bit-identical.  K4's forward_gemm
+route (the backward's plan, then two persistent wgmma GEMMs) at the
+forward's tolerances above, with ``s`` within 1e-4 x max|s| of the f32
+pre-activation: steady, trash-tile, stacked-peer, hostile, skewed,
+padded and shuffled routings, both routes at one shape, bit-identical
+reruns, one plan for a forward and its backward, and a refused launch
+raising with nothing run in its place.
 """
 import numpy as np
 import pytest
@@ -1018,6 +1024,178 @@ def test_grouped_ffn_backward_bf16_is_deterministic_and_counted(cuda):
     first = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8, splits=5)
     second = gf.grouped_ffn_wgrad_cuda(xt, ds, u, g, eid_t, 8, splits=5)
     assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+# -- K4's forward on the routing plan (the forward_gemm route) -----------
+
+
+def _k4_route_case(cuda, eid, tile, D, F, E, dtype, peers=None, seed=23,
+                   route="forward_gemm"):
+    """K4's forward on ``route`` (``_forward_cuda``, ``s`` kept) against
+    the per-expert plain version: out within 1e-4 x max|plain| (f32: both
+    f32 accurate, sums in other orders; bf16: plus one bf16 ulp of each
+    output, 8e-3 x |plain|), ``s`` within 1e-4 x max|s| of the f32
+    pre-activation on every live row, trash rows of out exactly 0.  With
+    ``peers`` the weights are a layer slice ``[:, 1]`` of stacked ``[peers,
+    2, E / peers, ...]`` tensors.  Returns ``(out, s, plan)`` and the
+    inputs."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(cuda).to(dtype)
+
+    G = len(eid)
+    xt = t(G, tile, D)
+    if peers is None:
+        v1, v2 = t(E, D, F, scale=D ** -0.5), t(E, F, D, scale=F ** -0.5)
+    else:
+        e = E // peers
+        v1 = t(peers, 2, e, D, F, scale=D ** -0.5)[:, 1]
+        v2 = t(peers, 2, e, F, D, scale=F ** -0.5)[:, 1]
+    eid_t = torch.tensor(eid, dtype=torch.int32, device=cuda)
+    out, s, plan = gf._forward_cuda(*gf._padded(xt, eid_t, v1, v2),
+                                    keep_s=True, route=route)
+    out, s = out[..., :D], s[..., :F]
+    want = gf.grouped_ffn_plain_by_expert(xt, eid_t, v1, v2)
+    s_want = torch.zeros((G, tile, F), dtype=torch.float32, device=cuda)
+    W1 = v1.reshape(-1, D, F)
+    for gi, e_ in enumerate(eid):
+        if e_ >= 0:
+            s_want[gi] = xt[gi].float() @ W1[e_].float()
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == xt.shape
+    diff = (out.float() - want.float()).abs()
+    lim = 1e-4 * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        lim = lim + 8e-3 * want.float().abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+    live = eid_t >= 0
+    assert float((s[live] - s_want[live]).abs().max()) <= 1e-4 * float(
+        s_want.abs().max())
+    assert not bool(out[~live].any())
+    return (out, s, plan), (xt, eid_t, v1, v2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "steady", "trash_tiles", "peers", "hostile", "skewed", "padded_widths",
+    "shuffled", "one_tile"])
+def test_grouped_ffn_forward_gemm_matches_plain(cuda, dtype, case):
+    """The forward_gemm route (the plan, then forward_gemm /
+    forward_gemm16) against the per-expert plain version: the steady
+    tick's proportions scaled down (sorted routing, 256 rows an expert,
+    D 256, F 512: several row blocks an expert, 4 column tiles up), two
+    expert-parallel owners' trash tiles, stacked-peer weights read in
+    place, every row but one tile on one expert (the rest empty),
+    Zipf-skewed expert sizes, widths the wrapper pads (D 36, F 100), a
+    shuffled tile order (many runs an expert), one tile."""
+    rng = np.random.default_rng(11)
+    kw = {}
+    tile, D, F, E = 8, 256, 512, 8
+    if case == "steady":
+        eid = np.sort(rng.integers(0, E, 256))
+    elif case == "trash_tiles":
+        ids, tile, E, D, F, _ = routings.routing("trash_tiles")
+        eid = ids.numpy()
+    elif case == "peers":
+        E, kw = 16, {"peers": 4}
+        eid = np.sort(rng.integers(0, E, 300))
+    elif case == "hostile":
+        eid = np.array([1] + [6] * 200)
+    elif case == "skewed":
+        w = 1.0 / np.arange(1, E + 1) ** 1.2
+        eid = np.sort(rng.choice(E, 300, p=w / w.sum()))
+    elif case == "padded_widths":
+        D, F = 36, 100
+        eid = np.sort(rng.integers(0, E, 160))
+    elif case == "shuffled":
+        eid = rng.integers(0, E, 200)
+    else:
+        eid = np.array([3])
+    _k4_route_case(cuda, [int(e) for e in eid], tile, D, F, E, dtype, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_routes_agree_and_rerun_bit_identical(cuda, dtype):
+    """At one shape (an even share of 160 rows an expert), the shapes'
+    route is forward_gemm; expert_rows forced at the same shape agrees
+    with it within the tolerances; each route reruns bit-identically (no
+    atomics on data: the plan's item counter only hands out tiles)."""
+    eid = [int(e) for e in np.sort(np.random.default_rng(3).integers(
+        0, 8, 160))]
+    assert gf.ffn_route(160, 8, 8) == "forward_gemm"
+    (out, s, plan), args = _k4_route_case(cuda, eid, 8, 256, 512, 8, dtype)
+    assert plan is not None
+    (rows_out, rows_s, no_plan), _ = _k4_route_case(
+        cuda, eid, 8, 256, 512, 8, dtype, route="expert_rows")
+    assert no_plan is None
+    lim = 2e-4 * float(rows_out.float().abs().max())
+    if dtype == torch.bfloat16:
+        lim = lim + 8e-3 * rows_out.float().abs()
+    assert bool(((out.float() - rows_out.float()).abs() <= lim).all())
+    for route, first in (("forward_gemm", out), ("expert_rows", rows_out)):
+        for _ in range(2):
+            again = gf._forward_cuda(*args, keep_s=False, route=route)[0]
+            assert torch.equal(again, first), route
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_forward_gemm_shares_its_plan_under_autograd(cuda):
+    """A trained call at a forward_gemm shape launches one plan for the
+    forward and its backward (the backward takes the forward's), the
+    forward's two GEMMs once, the dgrad and the wgrad once; out, dxt,
+    dw1, dw2 within 1e-4 x max|plain| of the per-expert plain version
+    under autograd."""
+    eid = [int(e) for e in np.sort(np.random.default_rng(4).integers(
+        0, 8, 160))]
+    assert gf.ffn_route(160, 8, 8) == "forward_gemm"
+    counters = ((gf.grouped_ffn_cuda, "launches"),
+                (gf.grouped_ffn_cuda, "gemm_launches"),
+                (gf.backward_plan_cuda, "launches"),
+                (gf.grouped_ffn_dgrad_cuda, "launches"),
+                (gf.grouped_ffn_wgrad_cuda, "launches"))
+    before = [getattr(o, a) for o, a in counters]
+    _k4_grad_case(cuda, eid, 8, 128, 256, 8)
+    after = [getattr(o, a) for o, a in counters]
+    assert [q - p for p, q in zip(before, after)] == [1, 1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_forward_gemm_failure_raises(cuda, monkeypatch):
+    """A refused forward_gemm launch (the library's -3: no TMA encoder)
+    raises; nothing falls back to expert_rows or the plain version, and
+    no launch is counted.  An unknown route is refused by name."""
+    lib = gf.build()
+    calls = []
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "bf_grouped_ffn":
+                calls.append(name)
+            return getattr(lib, name)
+
+        @staticmethod
+        def bf_grouped_ffn_gemm(*args):
+            return -3
+
+    eid = torch.tensor(np.sort(np.random.default_rng(5).integers(
+        0, 8, 160)), dtype=torch.int32, device=cuda)
+    xt = torch.randn(160, 8, 64, device=cuda)
+    w1, w2 = torch.randn(8, 64, 128, device=cuda), torch.randn(
+        8, 128, 64, device=cuda)
+    before = (gf.grouped_ffn_cuda.launches, gf.grouped_ffn_cuda.gemm_launches)
+    monkeypatch.setattr(gf, "build", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="forward_gemm.*error -3"):
+        gf.grouped_ffn(xt, eid, w1, w2)
+    assert not calls
+    assert (gf.grouped_ffn_cuda.launches,
+            gf.grouped_ffn_cuda.gemm_launches) == before
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="route 'xla'"):
+        gf._forward_cuda(xt, eid, w1, w2, keep_s=False, route="xla")
 
 
 # -- every even head dim up to 128 ---------------------------------------

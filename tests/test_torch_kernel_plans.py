@@ -83,12 +83,12 @@ def test_ffn_plan_at_the_engines_shapes():
 
 
 def test_plans_and_wrappers_read_no_device_value():
-    for fn in (fd.split_plan, gf.ffn_plan, fd.flash_decode_cuda,
-               gf.grouped_ffn_cuda, gf._pad_widths):
+    for fn in (fd.split_plan, gf.ffn_plan, gf.ffn_route,
+               fd.flash_decode_cuda, gf.grouped_ffn_cuda, gf._pad_widths):
         src = inspect.getsource(fn)
         assert not _HOST_READS.search(src), (fn.__name__,
                                              _HOST_READS.search(src))
-    for fn in (fd.split_plan, gf.ffn_plan):
+    for fn in (fd.split_plan, gf.ffn_plan, gf.ffn_route):
         assert all(p.annotation in (int, "int") for p in
                    inspect.signature(fn).parameters.values())
 
